@@ -55,6 +55,12 @@ class ServeConfig:
     # Two-level priority dispatch: latency-class work jumps queued
     # throughput work between device calls.  False = one FIFO.
     priority_dispatch: bool = True
+    # Async job lane (:submit): per-model backlog bound (429 past it), done
+    # jobs kept, retained-result heap budget, and the result TTL.
+    job_max_backlog: int = 64
+    job_keep_done: int = 256
+    job_result_ttl_s: float = 900.0
+    job_max_result_mb: float = 64.0
     models: list[ModelConfig] = field(default_factory=list)
 
     def model(self, name: str) -> ModelConfig:

@@ -135,10 +135,72 @@ class CompiledModel:
                   seconds=round(secs, 3))
 
     def warmup(self):
-        """First dispatch of every bucket, ahead of traffic."""
+        """First dispatch of every bucket, ahead of traffic: through the
+        chunked path for a servable that declares one (the path its jobs
+        take), else one forward."""
+        chunked = "chunked" in self.servable.meta
         for b in self.buckets:
             if b not in self._warmed:
-                self._warm_bucket(b)
+                (self._warm_chunked if chunked else self._warm_bucket)(b)
+
+    def _warm_chunked(self, bucket: tuple[int, ...]):
+        """prepare, one chunk per distinct row shape, and finalize, on a
+        batch of zeros that fills ``bucket``."""
+        spec = self.servable.input_spec(bucket)
+        dummy = [{k: np.zeros(shape[1:], torch.empty(0, dtype=dt).numpy().dtype)
+                  for k, (shape, dt) in spec.items()} for _ in range(bucket[0])]
+        _, secs = timed(lambda: self.chunk_finalize(self._warm_chunk_steps(dummy), dummy))
+        self.clock.record(self.servable.name, (*bucket, "chunked"), secs)
+        self._warmed.add(bucket)
+        log_event(log, "warmed chunked", model=self.servable.name, bucket=list(bucket),
+                  chunks=self.servable.meta["chunked"]["num_chunks"],
+                  seconds=round(secs, 3))
+
+    def _warm_chunk_steps(self, dummy):
+        _, state = self.chunk_prepare(dummy)
+        seen = set()
+        for rows in self.servable.meta["chunked"]["chunk_rows"]:
+            shape = tuple(sorted((k, np.shape(v)) for k, v in rows.items()))
+            if shape not in seen:  # one chunk per row shape, not every chunk
+                seen.add(shape)
+                state = self.chunk_step(state, rows)
+        return state
+
+    # -- chunked execution (QoS preemption points; runner.run_chunked) -------
+    def _sync(self):
+        """Wait for the device's stream, so a slice's lane occupancy is its
+        device time (the JAX package's ``block_until_ready``)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def chunk_prepare(self, samples: Sequence[dict]):
+        """Collate + place one batch and run the chunked ``prepare``.
+        Returns (bucket, device state); the state (latents + conditioning
+        for sd15) stays on the device between chunk dispatches."""
+        ch = self.servable.meta["chunked"]
+        bucket = self.bucket_for(len(samples))
+        spec = self.servable.input_spec(bucket)
+        collate = self.servable.meta.get("collate") or default_collate
+        with torch.inference_mode():
+            state = ch["prepare"](self.servable.module.tree(),
+                                  self._place(collate(samples, bucket, spec)))
+        self._sync()
+        return bucket, state
+
+    def chunk_step(self, state, rows):
+        """One chunk of the model's loop."""
+        with torch.inference_mode():
+            state = self.servable.meta["chunked"]["chunk"](
+                self.servable.module.tree(), state, rows)
+        self._sync()
+        return state
+
+    def chunk_finalize(self, state, samples: Sequence[dict]):
+        """Decode + fetch + per-sample postprocess (run_batch's tail)."""
+        with torch.inference_mode():
+            out = self._fetch(self.servable.meta["chunked"]["finalize"](
+                self.servable.module.tree(), state))
+        return [self.servable.postprocess(out, i) for i in range(len(samples))]
 
     @property
     def warmed_buckets(self) -> set[tuple[int, ...]]:

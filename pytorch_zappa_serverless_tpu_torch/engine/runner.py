@@ -132,6 +132,9 @@ class RunStats:
     samples: int = 0
     padded_samples: int = 0
     device_seconds: float = 0.0
+    # Chunked dispatches (run_chunked): how many preemption-point slices the
+    # model's batches were served in.
+    chunks: int = 0
     by_bucket: dict = field(default_factory=dict)
 
 
@@ -147,28 +150,70 @@ class DeviceRunner:
         # Parameter bytes per device-resident model (residency accounting).
         self._resident: dict[str, int] = {}  # guarded-by: _lock
 
+    def _count_batch(self, name: str, n: int, bucket: tuple[int, ...]):
+        with self._lock:
+            st = self.stats.setdefault(name, RunStats())
+            st.batches += 1
+            st.samples += n
+            st.padded_samples += bucket[0] - n
+            bk = st.by_bucket.setdefault(str(bucket), {"batches": 0, "samples": 0,
+                                                       "rows": 0})
+            bk["batches"] += 1
+            bk["samples"] += n
+            bk["rows"] += bucket[0]
+
+    def _add_device_seconds(self, name: str, seconds: float, chunk: bool = False):
+        with self._lock:
+            st = self.stats.setdefault(name, RunStats())
+            st.device_seconds += seconds
+            st.chunks += int(chunk)
+
     def _run(self, model: CompiledModel, samples: Sequence[dict], seq: int | None):
         # On the dispatch thread.
         t0 = time.perf_counter()
         results, bucket = model.run_batch(samples, seq=seq)
-        dt = time.perf_counter() - t0
-        with self._lock:
-            st = self.stats.setdefault(model.servable.name, RunStats())
-            st.batches += 1
-            st.samples += len(samples)
-            st.padded_samples += bucket[0] - len(samples)
-            st.device_seconds += dt
-            bk = st.by_bucket.setdefault(str(bucket), {"batches": 0, "samples": 0,
-                                                       "rows": 0})
-            bk["batches"] += 1
-            bk["samples"] += len(samples)
-            bk["rows"] += bucket[0]
+        self._add_device_seconds(model.servable.name, time.perf_counter() - t0)
+        self._count_batch(model.servable.name, len(samples), bucket)
         return results
 
     async def run(self, model: CompiledModel, samples: Sequence[dict],
                   seq: int | None = None) -> list[Any]:
         return await asyncio.wrap_future(self._pool.submit_lane(
             model.latency_class, self._run, model, samples, seq))
+
+    async def run_chunked(self, model: CompiledModel, samples: Sequence[dict],
+                          seq: int | None = None) -> list[Any]:
+        """Run a chunked servable as short dispatches (QoS preemption points).
+
+        A servable with ``meta['chunked']`` (models/sd15.py) runs prepare →
+        K chunk steps → finalize, each slice its own dispatch on the model's
+        lane, synchronised on the dispatch thread so its occupancy is real,
+        with the lane released between slices: a queued latency dispatch
+        runs after at most one chunk instead of the whole program.  The
+        state stays on the device between chunks.  A model without the
+        contract runs as one :meth:`run`.
+        """
+        ch = model.servable.meta.get("chunked")
+        if ch is None:
+            return await self.run(model, samples, seq)
+        name = model.servable.name
+
+        def timed(fn, *args, chunk=False):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self._add_device_seconds(name, time.perf_counter() - t0, chunk)
+            return out
+
+        async def dispatch(fn, *args, chunk=False):
+            return await asyncio.wrap_future(self._pool.submit_lane(
+                model.latency_class, timed, fn, *args, chunk=chunk))
+
+        bucket, state = await dispatch(model.chunk_prepare, samples)
+        for rows in ch["chunk_rows"]:
+            state = await dispatch(model.chunk_step, state, rows, chunk=True)
+        results = await dispatch(model.chunk_finalize, state, samples)
+        self._count_batch(name, len(samples), bucket)
+        return results
 
     def run_sync(self, model: CompiledModel, samples: Sequence[dict],
                  seq: int | None = None) -> list[Any]:

@@ -16,6 +16,7 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def load_state_dict(path: str | Path) -> dict[str, np.ndarray]:
@@ -106,9 +107,12 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
     - float dense ``kernel [in, out]`` → ``weight [out, in]`` (the inverse
       of :func:`linear_kernel`);
+    - conv ``kernel [kh, kw, in, out]`` (HWIO) → ``weight [out, in, kh, kw]``
+      (OIHW, the inverse of the JAX package's ``conv_kernel``);
     - int8 nodes keep ``kernel_q [K, N]`` and ``scale [N]`` as they are:
       that is the kernel's own layout;
-    - LayerNorm ``scale`` → ``weight``; ``embedding`` tables → ``weight``;
+    - LayerNorm/GroupNorm ``scale`` → ``weight``; ``embedding`` tables →
+      ``weight``;
     - everything else keeps its name.  Submodule paths join with ".".
     """
     sd: dict[str, torch.Tensor] = {}
@@ -121,10 +125,34 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 continue
             arr = np.asarray(value)
             if key == "kernel":
-                key, arr = "weight", arr.T
+                key, arr = "weight", (arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T)
             elif key == "embedding" or (key == "scale" and not quantized):
                 key = "weight"
             sd[prefix + key] = torch.from_numpy(np.array(arr, order="C"))
 
     walk(tree, "")
     return sd
+
+
+class ParamTree(nn.Module):
+    """A ``state_dict`` held as nested modules of buffers, for models written
+    as functions over a param dict (the JAX package's style): ``.to()``
+    places every tensor, and :meth:`tree` hands the functions the nested
+    dict of the tensors as they now lie."""
+
+    def __init__(self, sd: Mapping[str, torch.Tensor]):
+        super().__init__()
+        for key, value in sd.items():
+            *path, leaf = key.split(".")
+            node: nn.Module = self
+            for name in path:
+                if name not in node._modules:
+                    node.add_module(name, nn.Module())
+                node = node._modules[name]
+            node.register_buffer(leaf, value)
+
+    def tree(self) -> dict[str, Any]:
+        def walk(m: nn.Module) -> dict[str, Any]:
+            return {**m._buffers, **{k: walk(c) for k, c in m._modules.items()}}
+
+        return walk(self)

@@ -23,8 +23,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+# One lock per source, so different kernels build in parallel threads and
+# one kernel builds once.
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
+_source_locks: dict[str, threading.Lock] = {}  # guarded-by: _lock
+_loaded: dict[str, ctypes.CDLL] = {}  # guarded-by: the source's lock
 
 
 def _nvcc() -> str:
@@ -51,6 +54,8 @@ def load(source: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
     ``(restype, argtypes)``; every pointer and the stream must be
     ``c_void_p``, or ctypes would pass them as 32-bit ints."""
     with _lock:
+        source_lock = _source_locks.setdefault(source, threading.Lock())
+    with source_lock:
         lib = _loaded.get(source)
         if lib is not None:
             return lib

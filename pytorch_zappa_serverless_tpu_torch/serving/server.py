@@ -1,10 +1,14 @@
 """HTTP serving surface, on asyncio streams from the standard library.
 
-Routes (the JAX package's, for this slice):
+Routes (the JAX package's, for the port's slices):
 
 - ``GET /``, ``/healthz``, ``/v1/models``, ``/metrics`` (JSON);
 - ``POST /v1/models/{name}:predict``, and ``/predict`` / ``/classify`` for
-  the first configured model.
+  the first configured model (405 for an async-only model);
+- ``POST /v1/models/{name}:submit`` → 202 ``{"job": ...}`` (an
+  ``Idempotency-Key`` header dedupes resubmits; a full backlog is 429, a
+  queue shut down 503, both with Retry-After), and ``GET /v1/jobs/{id}`` →
+  200, 404 unknown, 410 expired.
 
 A predict body is JSON: one input (``{"text": ...}`` or
 ``{"input_ids": [...]}``) or ``{"instances": [...]}`` with N inputs that
@@ -33,12 +37,15 @@ from ..config import ServeConfig
 from ..engine.loader import Engine, build_engine
 from ..utils.logging import get_logger, log_event
 from .batcher import DynamicBatcher, Overloaded
+from .jobs import JobQueue
 from .metrics import MetricsHub
 
 log = get_logger("serving.server")
 
 MAX_BODY_BYTES = 64 * 1024 * 1024
 _PREDICT = re.compile(r"^/v1/models/([^:/]+):predict$")
+_SUBMIT = re.compile(r"^/v1/models/([^:/]+):submit$")
+_JOB = re.compile(r"^/v1/jobs/([^/]+)$")
 
 Response = tuple[int, Any, dict[str, str]]
 
@@ -108,6 +115,7 @@ class Server:
         self.engine = engine
         self.metrics = MetricsHub()
         self.batchers: dict[str, DynamicBatcher] = {}  # guarded-by: event-loop
+        self.jobs: JobQueue | None = None  # guarded-by: event-loop
         self.default_model = cfg.models[0].name if cfg.models else None
         self._server: asyncio.Server | None = None
         self._conns: set[asyncio.StreamWriter] = set()  # guarded-by: event-loop
@@ -121,10 +129,18 @@ class Server:
         }
 
     async def start(self, host: str | None = None, port: int | None = None) -> int:
-        """Start the batchers and listen; returns the bound port."""
+        """Start the batchers and the job queue, and listen; returns the
+        bound port.  Async-only models are served by the job queue alone."""
         for name, cm in self.engine.models.items():
-            self.batchers[name] = DynamicBatcher(
-                cm, self.engine.runner, cm.cfg, ring=self.metrics.ring(name)).start()
+            if not cm.servable.meta.get("async_only"):
+                self.batchers[name] = DynamicBatcher(
+                    cm, self.engine.runner, cm.cfg, ring=self.metrics.ring(name)).start()
+        self.jobs = JobQueue(self._run_job, run_jobs=self._run_jobs,
+                             batch_of=self._job_batch_of,
+                             max_backlog=self.cfg.job_max_backlog,
+                             keep_done=self.cfg.job_keep_done,
+                             max_result_mb=self.cfg.job_max_result_mb,
+                             result_ttl_s=self.cfg.job_result_ttl_s).start()
         self._server = await asyncio.start_server(
             self._handle_conn, host or self.cfg.host,
             self.cfg.port if port is None else port)
@@ -139,6 +155,8 @@ class Server:
             self._server = None
         for b in self.batchers.values():
             await b.stop()
+        if self.jobs is not None:
+            await self.jobs.stop()
 
     # -- connection loop ----------------------------------------------------
     async def _handle_conn(self, reader: asyncio.StreamReader,
@@ -155,7 +173,7 @@ class Server:
                 if req is None:
                     break
                 method, path, version, headers, body = req
-                status, obj, extra = await self._dispatch(method, path, body)
+                status, obj, extra = await self._dispatch(method, path, headers, body)
                 keep = (version == "HTTP/1.1"
                         and headers.get("connection", "").lower() != "close")
                 writer.write(_encode(status, obj, extra, keep))
@@ -168,20 +186,24 @@ class Server:
             self._conns.discard(writer)
             writer.close()
 
-    async def _dispatch(self, method: str, path: str, body: bytes) -> Response:
-        m = _PREDICT.match(path)
-        if m is not None:
-            want, handler = "POST", None
+    async def _dispatch(self, method: str, path: str, headers: dict[str, str],
+                        body: bytes) -> Response:
+        for pattern, want, handler in ((_PREDICT, "POST", self._predict),
+                                       (_SUBMIT, "POST", self.handle_submit),
+                                       (_JOB, "GET", self.handle_job)):
+            m = pattern.match(path)
+            if m is not None:
+                args = (m.group(1), body, headers)
+                break
         else:
             want, handler = self._routes.get(path, (None, None))
             if want is None:
                 return _error(404, f"no route {path}")
+            args = (body,)
         if method != want:
             return _error(405, f"{path} takes {want}")
         try:
-            if m is not None:
-                return await self._predict(m.group(1), body)
-            return await handler(body)
+            return await handler(*args)
         except Exception as e:
             log.exception("handler failed for %s %s", method, path)
             return _error(500, f"internal error: {type(e).__name__}")
@@ -196,12 +218,13 @@ class Server:
     async def handle_models(self, body: bytes) -> Response:
         models = {}
         for name, cm in self.engine.models.items():
+            is_async = bool(cm.servable.meta.get("async_only"))
             models[name] = {
                 "buckets": [list(b) for b in cm.buckets],
                 "buckets_compiled": len(cm.warmed_buckets),
                 "dtype": cm.cfg.dtype,
-                "async_only": False,
-                "endpoint": f"/v1/models/{name}:predict",
+                "async_only": is_async,
+                "endpoint": f"/v1/models/{name}:{'submit' if is_async else 'predict'}",
                 "checkpoint": cm.cfg.checkpoint or "random-init",
             }
         return 200, {"models": models}, {}
@@ -215,15 +238,21 @@ class Server:
                               "buckets_total": len(cm.buckets)}
                        for name, cm in self.engine.models.items()},
             "queue_depths": {n: b.queue_depth for n, b in self.batchers.items()},
+            "jobs_backlog": self.jobs.depth if self.jobs else 0,
+            "jobs_backlog_by_model": self.jobs.depths if self.jobs else {},
         }, {}
 
     async def handle_metrics(self, body: bytes) -> Response:
-        return 200, self.metrics.render(self.engine), {}
+        out = self.metrics.render(self.engine)
+        if self.jobs is not None:
+            out["jobs"] = {"backlog": self.jobs.depth, "active": self.jobs.active,
+                           "backlog_by_model": self.jobs.depths}
+        return 200, out, {}
 
     async def handle_predict_default(self, body: bytes) -> Response:
         if self.default_model is None:
             return _error_retry(503, "no models configured", 30.0)
-        return await self._predict(self.default_model, body)
+        return await self._predict(self.default_model, body, {})
 
     def _unknown_model(self, name: str) -> Response:
         served = {n: "active" for n in sorted(self.engine.models)}
@@ -235,7 +264,13 @@ class Server:
                             queue_depth=batcher.queue_depth,
                             in_flight=batcher.in_flight)
 
-    async def _predict(self, name: str, body: bytes) -> Response:
+    async def _predict(self, name: str, body: bytes, headers: dict[str, str]) -> Response:
+        cm = self.engine.models.get(name)
+        if cm is not None and cm.servable.meta.get("async_only"):
+            # Multi-second programs (SD-1.5's denoise loop) must not occupy
+            # the latency-sensitive batcher lane; route them through jobs.
+            return _error(405, f"model {name!r} is async-only; use "
+                               f"POST /v1/models/{name}:submit and poll /v1/jobs/{{id}}")
         batcher = self.batchers.get(name)
         if batcher is None:
             return self._unknown_model(name)
@@ -277,6 +312,99 @@ class Server:
         return 200, {"model": name, "timing": timing, "predictions": result}, {
             "X-Queue-Ms": str(timing["queue_ms"]),
             "X-Device-Ms": str(timing["device_ms"])}
+
+    # -- async job lane -----------------------------------------------------
+    async def handle_submit(self, name: str, body: bytes,
+                            headers: dict[str, str]) -> Response:
+        if name not in self.engine.models:
+            return self._unknown_model(name)
+        # An Idempotency-Key that matches a known job answers it at once: the
+        # work already ran (or is running).
+        idem_key = headers.get("idempotency-key")
+        prior = self.jobs.dedupe(idem_key)
+        if prior is not None:
+            return 200, {"job": prior.public(), "deduped": True}, {}
+        try:
+            payload = json.loads(body)
+        except (ValueError, UnicodeDecodeError) as e:
+            return _error(400, f"bad request body: {type(e).__name__}: {e}")
+        try:
+            job = self.jobs.submit(name, payload, idempotency_key=idem_key)
+        except OverflowError as e:
+            return _error_retry(429, str(e), 1.0, backlog=self.jobs.depths.get(name, 0),
+                                max_backlog=self.jobs.max_backlog)
+        except RuntimeError as e:
+            # Shut down: the client should go elsewhere, with an honest
+            # horizon for probing this process again.
+            return _error_retry(503, str(e), 1.0)
+        return 202, {"job": job.public()}, {}
+
+    async def handle_job(self, job_id: str, body: bytes,
+                         headers: dict[str, str]) -> Response:
+        job = self.jobs.get(job_id)
+        if job is None:
+            return _error(404, "unknown job id")
+        out = {"job": job.public()}
+        if job.status == "expired":
+            # 410 Gone, not a 200 that looks like a live job: the result was
+            # evicted by the retention budget; the client resubmits.
+            out["expired"] = {"finished": job.finished,
+                              "result_ttl_s": self.jobs.result_ttl_s}
+            return 410, out, {}
+        return 200, out, {}
+
+    async def _finalize(self, cm, results: list) -> list:
+        """The servable's host-side ``finalize`` (SD-1.5: PNG + base64) in
+        the loop's executor, never on the dispatch thread nor the loop; a
+        failure lands on its own job."""
+        finalize = cm.servable.meta.get("finalize")
+        if finalize is None:
+            return results
+        loop = asyncio.get_running_loop()
+        return await asyncio.gather(*[loop.run_in_executor(None, finalize, r)
+                                      for r in results], return_exceptions=True)
+
+    async def _run_job(self, job):
+        [result] = await self._run_jobs([job])
+        if isinstance(result, BaseException):
+            raise result
+        return result
+
+    def _job_batch_of(self, model: str) -> int:
+        """Max same-model jobs one device batch may carry (JobQueue
+        coalescing): the largest batch bucket, capped (default 1) when
+        latency-class models share the engine, since a coalesced batch makes
+        every chunk longer, which is the uninterruptible occupancy the
+        chunked path exists to bound.  ``extra.job_batch_mixed_cap`` raises
+        the cap."""
+        cm = self.engine.models.get(model)
+        if cm is None:
+            return 1
+        cap = cm.max_batch
+        if (cm.latency_class == "throughput"
+                and any(m.latency_class == "latency" for m in self.engine.models.values())):
+            cap = min(cap, int(cm.cfg.extra.get("job_batch_mixed_cap", 1)))
+        return max(cap, 1)
+
+    async def _run_jobs(self, jobs):
+        """Batched job lane: N single-sample jobs → ONE engine batch.
+
+        One entry per job, in order; an Exception entry fails that job alone
+        (a bad payload must not take down its batch-mates).  Preprocess and
+        finalize fan out on the executor; only the device batch is one call.
+        """
+        cm = self.engine.model(jobs[0].model)
+        loop = asyncio.get_running_loop()
+        samples = await asyncio.gather(
+            *[loop.run_in_executor(None, cm.servable.preprocess, j.payload) for j in jobs],
+            return_exceptions=True)
+        good = [i for i, s in enumerate(samples) if not isinstance(s, BaseException)]
+        out: list = list(samples)  # failed slots already hold their Exception
+        if good:
+            results = await self.engine.runner.run_chunked(cm, [samples[i] for i in good])
+            for i, r in zip(good, await self._finalize(cm, results), strict=True):
+                out[i] = r
+        return out
 
 
 class BackgroundServer:
