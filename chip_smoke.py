@@ -28,7 +28,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. SD-1.5 parity: one UNet call with every long self-attention through the
    kernel, against the same with it routed through the plain version; and
    the PNG the job lane served for the first job against the same request
-   through the same chunked route with the plain version.
+   through the same chunked route with the plain version;
+8. GPT-2 path: ``build_engine`` with full-width GPT-2 small int8 (seed
+   weights), batch buckets (1, 8), seq bucket 64, 32 new tokens; the server;
+   ``:predict`` with ``text``, ``input_ids``, 8 ragged ``instances``, and one
+   sampled request sent twice (the same answer both times); the GETs; the
+   int8 kernel's launch count must be 49 per position step times 33 steps
+   per generate call; then prefill and teacher-forced step logits against the
+   same model with the int8 product routed to its plain version;
+9. fused decode: the bench's three lanes (``tools/bench_fused_decode``) on
+   8 ragged prompts through the port's prefill; each fused kernel of one step
+   against its plain version, per layer, and a planted fault (the key at
+   pos[s] masked) the tolerance must reject; 32 teacher-forced steps of each
+   fused lane against the unfused step (12 launches of each kernel per step);
+   ms per step of the three lanes and each kernel's per-launch time beside
+   its bound.
 
 Every kernel count is set to 0 just before each path and read just after.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
@@ -101,6 +115,7 @@ def phase_device() -> None:
 
 def phase_build() -> None:
     from pytorch_zappa_serverless_tpu_torch.ops import flash_attention as FA
+    from pytorch_zappa_serverless_tpu_torch.ops import fused_decode as FD
     from pytorch_zappa_serverless_tpu_torch.ops import int8_matmul as I
 
     def build(name, fn):
@@ -109,13 +124,14 @@ def phase_build() -> None:
         return name, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         futs = [pool.submit(build, "int8_matmul.cu", I._kernel_lib),
-                pool.submit(build, "flash_attention.cu", FA._kernel_lib)]
+                pool.submit(build, "flash_attention.cu", FA._kernel_lib),
+                pool.submit(build, "fused_decode.cu", FD._kernel_lib)]
         for f in futs:
             name, secs = f.result()
             log(f"build {name}: {secs:.3f} s")
-    log(f"build, both kernels in parallel: {time.perf_counter() - t0:.3f} s")
+    log(f"build, all three sources in parallel: {time.perf_counter() - t0:.3f} s")
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -330,18 +346,23 @@ def reset_counts() -> None:
     """Every kernel count (and the UNet calls) to 0: just before a path."""
     from pytorch_zappa_serverless_tpu_torch.models.sd_unet import unet_apply
     from pytorch_zappa_serverless_tpu_torch.ops import flash_attention as FA
+    from pytorch_zappa_serverless_tpu_torch.ops import fused_decode as FD
     from pytorch_zappa_serverless_tpu_torch.ops import int8_matmul as I
 
     I.int8_matmul.launches = FA.flash_attention.launches = unet_apply.calls = 0
+    FD.fused_attn_step.launches = FD.fused_mlp_step.launches = 0
 
 
 def read_counts() -> dict:
     from pytorch_zappa_serverless_tpu_torch.models.sd_unet import unet_apply
     from pytorch_zappa_serverless_tpu_torch.ops import flash_attention as FA
+    from pytorch_zappa_serverless_tpu_torch.ops import fused_decode as FD
     from pytorch_zappa_serverless_tpu_torch.ops import int8_matmul as I
 
     return {"int8_matmul": I.int8_matmul.launches,
-            "flash_attention": FA.flash_attention.launches, "unet_calls": unet_apply.calls}
+            "flash_attention": FA.flash_attention.launches, "unet_calls": unet_apply.calls,
+            "fused_attn_step": FD.fused_attn_step.launches,
+            "fused_mlp_step": FD.fused_mlp_step.launches}
 
 def http(port: int, path: str, body=None):
     data = None if body is None else json.dumps(body).encode()
@@ -773,11 +794,499 @@ def run_sd(profile: bool) -> int:
     return launches
 
 
+# -- phase 8: the GPT-2 path -----------------------------------------------------
+
+GPT2 = {"seq": 64, "batch_buckets": (1, 8), "max_new_tokens": 32}
+GPT2_WORDS = ("the quick brown fox jumps over the lazy dog while a server answers "
+              "every request it is sent").split()
+GPT2_SAMPLED = {"text": "a sampled continuation of this prompt", "temperature": 0.8,
+                "top_k": 40, "top_p": 0.95, "seed": 7}
+# Served int8 logits, kernel vs plain route, relative max error (max|Δ| /
+# max|want|): each projection's bf16 output may round one ulp apart (2^-8
+# relative), and twelve layers carry that on.
+GPT2_LOGIT_RTOL = 2e-2
+
+
+def gpt2_config(arch: dict | None = None, seq: int = GPT2["seq"],
+                batch_buckets=GPT2["batch_buckets"],
+                max_new_tokens: int = GPT2["max_new_tokens"], **extra):
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+
+    extra = {"params_dtype": "int8", "max_new_tokens": max_new_tokens,
+             **({"arch": arch} if arch else {}), **extra}
+    return ServeConfig(models=[ModelConfig(
+        name="gpt2", dtype="bfloat16", seq_buckets=(seq,),
+        batch_buckets=tuple(batch_buckets), extra=extra)])
+
+
+def gpt2_instances(n: int = 8) -> list[dict]:
+    """``n`` prompts of ragged lengths (3 to 3 + n - 1 words)."""
+    return [{"text": " ".join(GPT2_WORDS[: 3 + i])} for i in range(n)]
+
+
+def phase_gpt2_path(cfg, device: str = "cuda") -> dict:
+    """Build the GPT-2 engine, serve, and answer ``:predict`` requests (text,
+    input_ids, 8 ragged instances, one sampled request twice), then the GETs;
+    returns the engine, the counts, the generate calls run and the answers."""
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    reset_counts()
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, device)
+    log(f"gpt2 engine ready in {time.perf_counter() - t0:.3f} s on {engine.device}: "
+        f"build {engine.build_seconds}, first dispatch per bucket {engine.clock.entries}")
+    path = "/v1/models/gpt2:predict"
+    requests = [{"text": "the port serves text generation on the card"},
+                {"input_ids": list(range(100, 140))},
+                {"instances": gpt2_instances()}, GPT2_SAMPLED, GPT2_SAMPLED]
+    answers, gets = [], {}
+    with BackgroundServer(cfg, engine) as srv:
+        log(f"serving on 127.0.0.1:{srv.port}")
+        for body in requests:
+            status, out = http(srv.port, path, body)
+            check(status == 200, f"{path}: status {status}: {out}")
+            answers.append((body, out))
+        counts = read_counts()  # just after the path
+        for get in ("/healthz", "/v1/models", "/metrics"):
+            status, out = http(srv.port, get)
+            check(status == 200, f"{get}: status {status}: {out}")
+            gets[get] = out
+    st = engine.runner.stats["gpt2"]
+    calls = len(engine.clock.entries) + st.batches
+    return {"engine": engine, "counts": counts, "generate_calls": calls,
+            "batches": st.batches, "answers": answers, "gets": gets}
+
+
+def check_gpt2(run: dict, vocab: int = 50257, max_new: int = GPT2["max_new_tokens"]) -> None:
+    for body, out in run["answers"]:
+        check(out.get("model") == "gpt2" and {"timing", "predictions"} <= set(out),
+              f"gpt2 response keys {sorted(out)}")
+        preds = out["predictions"] if "instances" in body else [out["predictions"]]
+        check(len(preds) == len(body.get("instances", [body])), f"{len(preds)} predictions")
+        for pred in preds:
+            toks = pred["tokens"]
+            check(isinstance(toks, list) and len(toks) <= max_new
+                  and all(isinstance(t, int) and 0 <= t < vocab for t in toks),
+                  f"gpt2 tokens {toks}")
+        log(f"gpt2 :predict {json.dumps(body)[:60]}...: 200, {[len(p['tokens']) for p in preds]} "
+            f"tokens, timing {out['timing']}")
+    (_, first), (_, second) = run["answers"][-2:]
+    check(first["predictions"] == second["predictions"],
+          f"the sampled request answered twice differently: {first['predictions']} vs "
+          f"{second['predictions']}")
+    log(f"gpt2 sampled request (T=0.8, top_k=40, top_p=0.95, seed=7) twice: the same "
+        f"{len(first['predictions']['tokens'])} tokens")
+    check(run["gets"]["/healthz"]["device_ok"] is True, f"/healthz: {run['gets']['/healthz']}")
+    check("gpt2" in run["gets"]["/v1/models"]["models"], "/v1/models misses gpt2")
+    ring = run["gets"]["/metrics"]["models"]["gpt2"]
+    log(f"gpt2 request latency p50 {ring['total_ms']['p50']} ms, p99 {ring['total_ms']['p99']} "
+        f"ms over {ring['requests']} samples (device p50 {ring['device_ms']['p50']} ms)")
+
+
+def phase_gpt2_parity(engine, instances: list[dict], steps: int = 4) -> dict:
+    """Prefill logits and ``steps`` teacher-forced decode-step logits of the
+    served int8 model, its products through the kernel, against the same
+    model with ``int8_matmul`` routed to its plain version, on the card, on
+    one collated batch of ragged prompts (both fed the kernel route's
+    greedy tokens)."""
+    from pytorch_zappa_serverless_tpu_torch.models import gpt2 as G
+    from pytorch_zappa_serverless_tpu_torch.ops import int8_matmul as I
+
+    cm = engine.model("gpt2")
+    samples = [cm.servable.preprocess(p) for p in instances]
+    bucket = cm.bucket_for(len(samples), max(cm.servable.meta["seq_len_of"](s) for s in samples))
+    batch = cm.servable.meta["collate"](samples, bucket, cm.servable.input_spec(bucket))
+    cfg = cm.servable.meta["config"]
+    fed: list = []  # the tokens both routes are fed: the kernel route's greedy picks
+
+    def logits_chain(matmul):
+        G.int8_mm = matmul
+        try:
+            with torch.inference_mode():
+                tree, x = cm.servable.module.tree(), cm._place(batch)
+                total = bucket[1] + steps
+                out = []
+                logits, ck, cv = G.prefill(tree, x["input_ids"], x["length"], total, cfg)
+                out.append(logits)
+                pos = x["length"].clone()
+                for t in range(steps):
+                    if t == len(fed):
+                        fed.append(logits.argmax(-1).to(torch.int32))
+                    tok = fed[t]
+                    logits = G.decode_step(tree, ck, cv, tok, pos, cfg)
+                    out.append(logits)
+                    pos = pos + 1
+                return [o[: len(samples)].cpu() for o in out]
+        finally:
+            G.int8_mm = I.int8_matmul
+
+    run = engine.runner.run_fn_sync
+    got = run(logits_chain, I.int8_matmul)
+    want = run(logits_chain, I.int8_matmul_reference)
+    errs = []
+    for t, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape == (len(samples), cfg.vocab_size), f"logits {g.shape}")
+        check(bool(torch.isfinite(g).all()), f"step {t}: logits not finite")
+        errs.append(((g - w).abs().max() / w.abs().max()).item())
+    worst = max(errs)
+    check(worst <= GPT2_LOGIT_RTOL, f"gpt2 kernel vs plain logits: rel max err {errs}")
+    log(f"gpt2 parity: prefill + {steps} teacher-forced steps on bucket {bucket}, kernel vs "
+        f"plain int8_matmul: rel max err per step {[round(e, 6) for e in errs]} "
+        f"(<= {GPT2_LOGIT_RTOL})")
+    return {"logit_rel_err": worst}
+
+
+def phase_gpt2_profile(engine, instances: list[dict], top: int = 10) -> None:
+    """``torch.profiler`` over one served generate call (prefill + 32 decode
+    steps) of a collated batch, on the dispatch thread: device time by
+    kernel name and the device's idle share of the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cm = engine.model("gpt2")
+    samples = [cm.servable.preprocess(p) for p in instances]
+    bucket = cm.bucket_for(len(samples), max(cm.servable.meta["seq_len_of"](s) for s in samples))
+    batch = cm.servable.meta["collate"](samples, bucket, cm.servable.input_spec(bucket))
+
+    def window():
+        cm.forward(batch)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cm.forward(batch)  # ends in the device-to-host copy of the tokens
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return prof, wall_ms
+
+    prof, wall_ms = engine.runner.run_fn_sync(window)
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(ms for _, _, ms in rows)
+    steps = 1 + GPT2["max_new_tokens"]
+    log(f"profile gpt2: one generate call at bucket {bucket} ({steps} position steps): wall "
+        f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    for name, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
+        log(f"profile gpt2: {ms / steps:9.4f} ms/step {100 * ms / busy_ms:5.1f}% "
+            f"x{count / steps:<6.4g} {name[:90]}")
+
+
+def run_gpt2(profile: bool) -> int:
+    """The GPT-2 path, its checks and parity; returns int8_matmul's launches."""
+    run = phase_gpt2_path(gpt2_config())
+    engine = run["engine"]
+    try:
+        check_gpt2(run)
+        counts = run["counts"]
+        # Per forward position step: 4 projections x 12 layers + the lm head;
+        # one generate call is a prefill and max_new_tokens decode steps.
+        per_call = (4 * 12 + 1) * (1 + GPT2["max_new_tokens"])
+        launches = counts["int8_matmul"]
+        check(launches > 0, "int8_matmul was not launched on the GPT-2 path")
+        check(launches == per_call * run["generate_calls"],
+              f"int8_matmul launches {launches} != {per_call} x {run['generate_calls']} "
+              f"generate calls")
+        check(counts["fused_attn_step"] == counts["fused_mlp_step"] == 0,
+              f"the fused decode kernels ran on the serving path: {counts}")
+        log(f"gpt2 path: {run['generate_calls']} generate calls "
+            f"({len(engine.clock.entries)} warm-up, {run['batches']} served batches), "
+            f"int8_matmul launched {launches} times ({per_call} per call)")
+        phase_gpt2_parity(engine, gpt2_instances())
+        if profile:
+            phase_gpt2_profile(engine, gpt2_instances())
+    finally:
+        engine.shutdown()
+    return launches
+
+
+# -- phase 9: the fused decode loop ------------------------------------------------
+
+FUSED_STEPS = 32
+# Fused kernel vs plain version, per element |y - want| <= atol + rtol·|want|:
+# rtol = 2^-7 is one bf16 rounding of the output (the two sides round nearly
+# equal f32 sums and may land one ulp apart at the bottom of a binade); atol
+# covers outputs near 0, where an intermediate (h, qkv, ctx, h1) rounded to
+# bf16 the other way moves the f32 sum by ~1e-4 at these widths.  The planted
+# fault reads 7x to 34x this limit at GPT-2 small.
+FUSED_TOL = (1e-3, 2 ** -7)
+
+
+def device_ms(fn, reps: int = 15) -> float:
+    """Median device time of ``fn``'s launches by CUDA events: a spin kernel
+    holds the stream while the host queues them, so the host's time per
+    launch (Python checks, ctypes) leaves no gaps between them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(3 * host_s * 2e9) + 2_000_000  # ~3x the host's time at ~2 GHz
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def attn_bytes(S: int, D: int, T: int, wbytes: int) -> int:
+    """Bytes an attention launch must move: its weights, both caches read
+    once, x read and x_out written, the K/V rows written, norms, biases,
+    scales (int8), the mask and pos."""
+    scales = 4 * 4 * D if wbytes == 1 else 0
+    return (wbytes * 4 * D * D + 2 * T * S * D * 2 + 2 * S * D * 2 + 2 * S * D * 2
+            + 4 * 6 * D + scales + 4 * T * S + 4 * S)
+
+
+def mlp_bytes(S: int, D: int, F: int, wbytes: int) -> int:
+    scales = 4 * (F + D) if wbytes == 1 else 0
+    return wbytes * 2 * D * F + 2 * S * D * 2 + 4 * (3 * D + F) + scales
+
+
+def fused_bound(kind: str, S: int, D: int, T: int, F: int, wbytes: int) -> dict:
+    """Least time of one launch: the bytes at the memory rate against the
+    products (and, for attention, the scores and P·V) at the bf16 peak."""
+    if kind == "attn":
+        nbytes, ops = attn_bytes(S, D, T, wbytes), 2 * S * 4 * D * D + 4 * S * T * D
+    else:
+        nbytes, ops = mlp_bytes(S, D, F, wbytes), 2 * S * 2 * D * F
+    b_ms, o_ms = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * ops / PEAK_BF16_FLOPS
+    return {"bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "bytes": nbytes}
+
+
+def layer_calls(p: dict, cks, cvs, pos, mask, cfg, int8: bool, plain: bool):
+    """(attention, mlp) callables of each layer: the kernel wrappers, or their
+    plain versions on the same operands."""
+    from pytorch_zappa_serverless_tpu_torch.ops import fused_decode as FD
+
+    out = []
+    for i in range(cfg.layers):
+        lp = p[f"layer{i}"]
+        ln1, ln2, qkv, o, fc1, fc2 = (lp[n] for n in ("ln1", "ln2", "qkv", "out", "fc1", "fc2"))
+        kw = {"eps": cfg.ln_eps}
+        if int8:
+            wq, wo, w1, w2 = qkv["kernel_q"], o["kernel_q"], fc1["kernel_q"], fc2["kernel_q"]
+            sc = {"sqkv": qkv["scale"], "sout": o["scale"]}
+            sm = {"s1": fc1["scale"], "s2": fc2["scale"]}
+        else:
+            wq, wo, w1, w2 = qkv["kernel"], o["kernel"], fc1["kernel"], fc2["kernel"]
+            sc, sm = {}, {}
+
+        def attn(x, ck=cks[i], cv=cvs[i], ln1=ln1, qkv=qkv, o=o, wq=wq, wo=wo, sc=sc,
+                 mask=mask):
+            if plain:
+                return FD.fused_attn_step_reference(
+                    x, ln1["scale"], ln1["bias"], wq, qkv["bias"], wo, o["bias"], ck, cv, pos,
+                    mask, heads=cfg.heads, **kw, **sc)
+            if int8:
+                return FD.fused_attn_step_int8(
+                    x, ln1["scale"], ln1["bias"], wq, qkv["bias"], sc["sqkv"], wo, o["bias"],
+                    sc["sout"], ck, cv, pos, mask, heads=cfg.heads, **kw)
+            return FD.fused_attn_step(x, ln1["scale"], ln1["bias"], wq, qkv["bias"], wo,
+                                      o["bias"], ck, cv, pos, mask, heads=cfg.heads, **kw)
+
+        def mlp(x, ln2=ln2, fc1=fc1, fc2=fc2, w1=w1, w2=w2, sm=sm):
+            if plain:
+                return FD.fused_mlp_step_reference(x, ln2["scale"], ln2["bias"], w1,
+                                                   fc1["bias"], w2, fc2["bias"], **kw, **sm)
+            if int8:
+                return FD.fused_mlp_step_int8(x, ln2["scale"], ln2["bias"], w1, fc1["bias"],
+                                              sm["s1"], w2, fc2["bias"], sm["s2"], **kw)
+            return FD.fused_mlp_step(x, ln2["scale"], ln2["bias"], w1, fc1["bias"], w2,
+                                     fc2["bias"], **kw)
+
+        out.append((attn, mlp))
+    return out
+
+
+def phase_fused_kernels(lane, cfg, int8: bool) -> dict:
+    """Each layer's two kernels of one step against their plain versions on
+    the same operands (caches cloned, so the lane's stay as they are), per
+    element within ``FUSED_TOL``; the planted fault (the plain version with
+    key pos[s] itself masked) must read > 5x the limit; per-launch times of
+    the kernels and the plain versions over all twelve layers."""
+    from pytorch_zappa_serverless_tpu_torch.models import gpt2 as G
+    from pytorch_zappa_serverless_tpu_torch.tools import bench_fused_decode as BF
+
+    atol, rtol = FUSED_TOL
+    tag = "int8" if int8 else "bf16"
+    with torch.inference_mode():
+        pos = lane.pos.to(torch.int32)
+        mask = BF.mask_bias(pos, BF.T)
+        bad_mask = mask.clone()
+        bad_mask[pos.long(), torch.arange(BF.S, device=pos.device)] = -1e9
+        x = G._embed(lane.params, lane.tok, pos, cfg, BF.DTYPE).contiguous()
+        ck = [c.clone() for c in lane.ck]
+        cv = [c.clone() for c in lane.cv]
+        kern = layer_calls(lane.params, ck, cv, pos, mask, cfg, int8, plain=False)
+        shares, faults, max_err = [], [], 0.0
+        for i, (attn, mlp) in enumerate(kern):
+            ck_p, cv_p = ck[i].clone(), cv[i].clone()
+            plain = layer_calls(lane.params, [ck_p] * cfg.layers, [cv_p] * cfg.layers, pos,
+                                mask, cfg, int8, plain=True)[i]
+            y, _, _ = attn(x)
+            want, _, _ = plain[0](x)
+            rows = (pos.long(), torch.arange(BF.S, device=pos.device))
+            for got_c, want_c in ((ck[i], ck_p), (cv[i], cv_p)):
+                row_share = tol_share(got_c[rows], want_c[rows], 1e-6, rtol)
+                check(row_share <= 1, f"fused_attn_step {tag} layer {i}: the K/V rows "
+                                      f"written at pos are {row_share:.3g} x the tolerance")
+            fault = layer_calls(lane.params, [ck_p.clone()] * cfg.layers,
+                                [cv_p.clone()] * cfg.layers, pos, bad_mask, cfg, int8,
+                                plain=True)[i][0](x)[0]
+            faults.append(tol_share(y, fault, atol, rtol))
+            x2 = mlp(y)
+            want2 = plain[1](y)
+            for name, g, w in (("fused_attn_step", y, want), ("fused_mlp_step", x2, want2)):
+                check(bool(torch.isfinite(g.float()).all()), f"{name} {tag} layer {i}: "
+                                                              f"non-finite output")
+                share = tol_share(g, w, atol, rtol)
+                check(share <= 1, f"{name} {tag} layer {i}: {share:.3g} x the tolerance "
+                                  f"(atol={atol}, rtol={rtol:.4g})")
+                shares.append(share)
+                max_err = max(max_err, (g.float() - w.float()).abs().max().item())
+            x = x2
+        sync(x.device)
+        # Rejected at every layer, by more than 5x the limit.
+        check(min(faults) > 5,
+              f"fused_attn_step {tag}: the planted fault (key pos[s] masked) reads only "
+              f"{min(faults):.3g} to {max(faults):.3g} x the tolerance")
+        log(f"fused kernels {tag}, {cfg.layers} layers x (attention, mlp) of one step vs plain: "
+            f"max |err| {max_err:.3g}, largest share {max(shares):.3f} of the tolerance "
+            f"(atol={atol}, rtol={rtol:.4g}); planted fault (key pos[s] masked) reads "
+            f"{min(faults):.3g} to {max(faults):.3g} x the tolerance: rejected")
+
+        # Per launch over all twelve layers: ~85 MB (attention) and ~113 MB
+        # (mlp) of bf16 weights and caches per pass stream from HBM, where one
+        # layer's few MB would sit in the 50 MB L2 between repeats.
+        x0 = G._embed(lane.params, lane.tok, pos, cfg, BF.DTYPE).contiguous()
+        plain_calls = layer_calls(lane.params, ck, cv, pos, mask, cfg, int8, plain=True)
+
+        def sweep(calls, which):
+            def fn():
+                for c in calls:
+                    c[which](x0)
+            return fn
+
+        timing = {}
+        for kind, which in (("attn", 0), ("mlp", 1)):
+            row = {"ms": device_ms(sweep(kern, which)) / cfg.layers,
+                   "plain_ms": device_ms(sweep(plain_calls, which), reps=5) / cfg.layers,
+                   **fused_bound(kind, BF.S, cfg.d_model, BF.T, cfg.ffn_dim, 1 if int8 else 2)}
+            timing[kind] = row
+            log(f"time fused_{kind}_step {tag} [S={BF.S}, D={cfg.d_model}, T={BF.T}]: kernel "
+                f"{row['ms']:.5f} ms per launch, plain {row['plain_ms']:.5f} ms, bound "
+                f"{row['bound_ms']:.5f} ms ({row['bytes'] / 1e6:.2f} MB, {row['bound_by']}); "
+                f"device time over the 12 layers' launches, queued behind a spin kernel")
+    return {"max_abs_err": max_err, "timing": timing, "fault_min": min(faults)}
+
+
+def teacher_forced(lane, ref_ck, ref_cv, cfg, int8: bool, steps: int) -> dict:
+    """``steps`` steps of the fused lane, each held against the unfused
+    serving step (``models.gpt2.decode_step``) on the same weights and its
+    own serving caches; both are fed the unfused step's greedy token.  The
+    fused lane's tokens must agree wherever the reference's top-2 margin
+    exceeds twice the step's logit error."""
+    from pytorch_zappa_serverless_tpu_torch.models import gpt2 as G
+    from pytorch_zappa_serverless_tpu_torch.tools import bench_fused_decode as BF
+
+    fn = BF.fused_step_int8 if int8 else BF.fused_step
+    errs, agree, decided = [], 0, 0
+    tok, pos = lane.tok, lane.pos
+    with torch.inference_mode():
+        for _ in range(steps):
+            nxt, got = fn(lane.params, lane.ck, lane.cv, tok, pos, cfg)
+            want = G.decode_step(lane.params, ref_ck, ref_cv, tok, pos, cfg, BF.DTYPE)
+            check(bool(torch.isfinite(got).all()), "fused step logits not finite")
+            err = (got - want).abs().max().item()
+            top2 = want.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            sure = margin > 2 * err
+            same = nxt == want.argmax(-1).to(torch.int32)
+            check(bool(same[sure].all()), f"fused step tokens differ where the margin "
+                                          f"exceeds 2 x {err:.3g}: {nxt} vs {want.argmax(-1)}")
+            errs.append(err / want.abs().max().item())
+            agree += int(same.sum())
+            decided += int(sure.sum())
+            tok, pos = want.argmax(-1).to(torch.int32), (pos + 1).clamp(max=BF.T - 1)
+    lane.tok, lane.pos = tok, pos
+    return {"rel_err": max(errs), "agree": agree, "decided": decided, "rows": steps * BF.S}
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_fused(profile: bool, cfg=None, device: str = "cuda") -> dict:
+    """The fused decode loop at the bench's shapes (S = 8 rows, prompts of 32
+    to 64 tokens through the port's prefill, cache T = 96) on GPT-2 small
+    (``cfg`` narrows it for a rehearsal): the kernels against their plain
+    versions, then 32 teacher-forced steps per fused lane held against the
+    unfused step, then ms per step of the three lanes."""
+    from pytorch_zappa_serverless_tpu_torch.models import gpt2 as G
+    from pytorch_zappa_serverless_tpu_torch.tools import bench_fused_decode as BF
+
+    cfg = cfg or G.SMALL
+    t0 = time.perf_counter()
+    lanes = BF.build_lanes(cfg, device)
+    log(f"fused decode: three lanes built and prefilled in {time.perf_counter() - t0:.3f} s "
+        f"(S={BF.S}, prompts {BF.prompts(cfg)[1].tolist()}, T={BF.T})")
+    kern = {name: phase_fused_kernels(lanes[name], cfg, name == "fused_int8")
+            for name in ("fused", "fused_int8")}
+    # The unfused reference's serving caches: the same prefill, [L, S, T, D].
+    refs = {}
+    with torch.inference_mode():
+        for name in ("fused", "fused_int8"):
+            toks, lengths = (torch.from_numpy(a).to(device) for a in BF.prompts(cfg))
+            _, ck, cv = G.prefill(lanes[name].params, toks, lengths, BF.T, cfg, BF.DTYPE)
+            refs[name] = (ck, cv)
+    sync(device)
+    reset_counts()
+    tf = {name: teacher_forced(lanes[name], *refs[name], cfg, name == "fused_int8",
+                               FUSED_STEPS) for name in ("fused", "fused_int8")}
+    sync(device)
+    counts = read_counts()  # just after the path
+    steps = 2 * FUSED_STEPS
+    check(counts["fused_attn_step"] == counts["fused_mlp_step"] == cfg.layers * steps,
+          f"fused launches {counts} != {cfg.layers} x {steps} steps")
+    for name, r in tf.items():
+        log(f"fused decode {name}: {FUSED_STEPS} teacher-forced steps vs the unfused step: "
+            f"logit rel max err {r['rel_err']:.4g}; tokens agree on {r['agree']} of "
+            f"{r['rows']} rows, on all {r['decided']} whose top-2 margin exceeds 2 x the error")
+    log(f"fused decode: fused_attn_step launched {counts['fused_attn_step']} times, "
+        f"fused_mlp_step {counts['fused_mlp_step']} ({cfg.layers} each per step, "
+        f"{steps} steps)")
+    ms = {name: BF.time_lane(lane, cfg) for name, lane in lanes.items()}
+    log(f"decode step, ms per step (S={BF.S}, T={BF.T}, CUDA events over 60 steps): "
+        + ", ".join(f"{n} {v:.4f}" for n, v in ms.items()))
+    lm = {"fused": 2 * cfg.vocab_size * cfg.d_model, "fused_int8": cfg.vocab_size * cfg.d_model}
+    for name in ("fused", "fused_int8"):
+        t = kern[name]["timing"]
+        bound = cfg.layers * (t["attn"]["bound_ms"] + t["mlp"]["bound_ms"]) \
+            + 1e3 * lm[name] / PEAK_BYTES_PER_S
+        log(f"decode step {name}: {ms[name]:.4f} ms against a bound of {bound:.4f} ms "
+            f"(24 launches + the lm head's weights)")
+    if profile:
+        for name, lane in lanes.items():
+            prof = BF.profile_lane(lane, cfg)
+            log(f"profile {name}: wall {prof['wall_ms_per_step']:.4f} ms/step, device busy "
+                f"{prof['busy_ms_per_step']:.4f} ms/step, idle share {prof['idle_share']:.3f}")
+            for kname, count, kms in prof["top"]:
+                log(f"profile {name}: {kms:9.4f} ms/step x{count:<5g} {kname}")
+    return {"counts": counts, "kernels": kern, "ms": ms, "teacher_forced": tf}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile served BERT forwards at both buckets and one "
-                         "SD-1.5 denoise chunk (torch.profiler)")
+                    help="also profile served BERT forwards at both buckets, one SD-1.5 "
+                         "denoise chunk, one served GPT-2 generate call and the three "
+                         "GPT-2 decode lanes (torch.profiler)")
     args = ap.parse_args(argv)
     phase_device()
     phase_build()
@@ -785,6 +1294,8 @@ def main(argv: list[str] | None = None) -> int:
     flash = phase_flash()
     int8_launches = run_bert(args.profile)
     flash_launches = run_sd(args.profile)
+    gpt2_launches = run_gpt2(args.profile)
+    fused = run_fused(args.profile)
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
         log(f"one forward's int8_matmul at M={m} (72 launches): kernel {fwd['ms']:.4f} ms, "
@@ -803,6 +1314,7 @@ def main(argv: list[str] | None = None) -> int:
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
         "timed_work": "one forward at bucket (8,128): 72 launches, M=1024, bf16",
+        "launches_gpt2_path": gpt2_launches,
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/flash_attention.cu",
@@ -814,6 +1326,23 @@ def main(argv: list[str] | None = None) -> int:
         "timed_work": "one SD-1.5 UNet call at 512x512: 5 launches at [2,4096,8,40] "
                       "+ 5 at [2,1024,8,80], bf16",
     }]
+    for name, kind, line in (("fused_attn_step", "attn", 86), ("fused_mlp_step", "mlp", 216)):
+        rows = {lane: fused["kernels"][lane]["timing"][kind] for lane in ("fused", "fused_int8")}
+        row = rows["fused"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/fused_decode.cu",
+            "replaces": f"pytorch_zappa_serverless_tpu/ops/fused_decode.py:{line}",
+            "launches": fused["counts"][name],
+            "max_abs_err": max(fused["kernels"][lane]["max_abs_err"] for lane in rows),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "int8": {k: rows["fused_int8"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                        "bound_by")},
+            "unfused_step_ms": fused["ms"]["seg1"],
+            "timed_work": "one launch at GPT-2 small [S=8, D=768, T=96, F=3072], bf16 "
+                          "weights (int8: the W8A16 variant), the mean over all 12 layers",
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -97,6 +97,50 @@ def convert_bert(sd: Mapping[str, np.ndarray]) -> dict[str, Any]:
     return params
 
 
+def convert_gpt2(sd: Mapping[str, np.ndarray]) -> dict[str, Any]:
+    """HF-format GPT2LMHeadModel state_dict → param tree for ``models.gpt2``.
+
+    HF GPT-2's Conv1D modules store weights ``[in, out]``, the tree's own
+    orientation, so kernels map without a transpose.  The fused ``c_attn``
+    ``[D, 3D]`` splits into q/k/v.  ``lm_head.weight`` is tied to ``wte``
+    and ``attn.bias`` / ``masked_bias`` are mask buffers: all skipped.
+    """
+    params: dict[str, Any] = {}
+    ln_names = {"weight": "scale", "bias": "bias"}
+    for key, w in sd.items():
+        parts = key.split(".")
+        if parts[0] == "transformer":
+            parts = parts[1:]
+        if parts[0] == "lm_head" or parts[-1] == "masked_bias" or parts[-1] == "bias" \
+                and parts[-2] == "attn":
+            continue
+        if parts[0] in ("wte", "wpe"):
+            _set(params, (parts[0],), w)
+        elif parts[0] == "ln_f":
+            _set(params, ("ln_f", ln_names[parts[1]]), w)
+        elif parts[0] == "h":
+            layer = f"layer{parts[1]}"
+            rest = parts[2:]
+            leaf = "kernel" if rest[-1] == "weight" else "bias"
+            if rest[0] in ("ln_1", "ln_2"):
+                name = "ln1" if rest[0] == "ln_1" else "ln2"
+                _set(params, (layer, name, ln_names[rest[1]]), w)
+            elif rest[0] == "attn" and rest[1] == "c_attn":
+                for sub, piece in zip(("q", "k", "v"), np.split(w, 3, axis=-1)):
+                    _set(params, (layer, sub, leaf), np.ascontiguousarray(piece))
+            elif rest[0] == "attn" and rest[1] == "c_proj":
+                _set(params, (layer, "out", leaf), w)
+            elif rest[0] == "mlp" and rest[1] == "c_fc":
+                _set(params, (layer, "fc1", leaf), w)
+            elif rest[0] == "mlp" and rest[1] == "c_proj":
+                _set(params, (layer, "fc2", leaf), w)
+            else:
+                raise KeyError(f"unrecognized gpt2 key: {key}")
+        else:
+            raise KeyError(f"unrecognized gpt2 key: {key}")
+    return params
+
+
 def import_params(checkpoint: str | Path, converter) -> dict[str, Any]:
     """A checkpoint file → param tree, through a family converter."""
     return converter(load_state_dict(checkpoint))
@@ -129,6 +173,31 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             elif key == "embedding" or (key == "scale" and not quantized):
                 key = "weight"
             sd[prefix + key] = torch.from_numpy(np.array(arr, order="C"))
+
+    walk(tree, "")
+    return sd
+
+
+def gpt2_state_from_jax(tree: Mapping[str, Any], dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """A GPT-2 param tree (numpy, the JAX package's layout) → a ``state_dict``
+    for :class:`ParamTree` that keeps that layout: names as they are, dense
+    kernels ``[in, out]`` and int8 ``kernel_q [K, N]`` row-major and
+    contiguous, the layout ``int8_matmul`` and the fused decode kernels
+    read.  Float leaves of two or more dims are held in ``dtype`` (the JAX
+    package casts them to the compute dtype at every use, or holds them in
+    bf16 on the int8 lane); 1-D leaves (norms, biases, scales) and int8
+    leaves keep their dtype."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping[str, Any], prefix: str):
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, f"{prefix}{key}.")
+                continue
+            t = torch.from_numpy(np.array(value, order="C"))
+            if t.is_floating_point() and t.ndim >= 2:
+                t = t.to(dtype)
+            sd[prefix + key] = t
 
     walk(tree, "")
     return sd

@@ -18,6 +18,9 @@ the special-function unit's, a few ulp from ``torch.exp``, and it sums per
 64-key tile).  At [2, 4096, 8, 40] the bf16 limit is ~2.3e-3 for the
 outputs' typical |y| of ~0.02, tight enough to reject a kernel that takes
 sm_scale from the padded head dim (a test below plants that fault).
+fused_attn_step / fused_mlp_step: per element ``atol = 1e-3, rtol = 2^-7``
+(``FUSED_TOL`` below gives the reasons), the K/V rows written at ``pos``
+within one bf16 ulp and every other cache entry untouched.
 """
 
 import numpy as np
@@ -163,3 +166,146 @@ def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="different devices"):
         FA.flash_attention(q, k.cpu(), v)
     assert FA.flash_attention.launches == before
+
+
+# fused decode steps, kernel vs plain version, per element |y - want| <=
+# atol + rtol·|want|: rtol = 2^-7 is one bf16 ulp at the bottom of a binade
+# (the two sides round nearly equal f32 sums to bf16 and may land one ulp
+# apart); atol = 1e-3 covers outputs near 0, where a bf16 rounding of an
+# intermediate (h, qkv, ctx, h1) that falls the other way moves the f32 sum by
+# ~1e-4.  The cache rows written at pos[s] are bf16 roundings of q/k/v: within
+# one ulp; every other cache entry is untouched, byte for byte.
+FUSED_TOL = (1e-3, 2 ** -7)
+
+
+def _fused_operands(S, D, H, T, F, int8, device, seed=8, pos=None):
+    from pytorch_zappa_serverless_tpu_torch.ops import fused_decode as FD
+
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g) * scale
+
+    def weight(k, n):
+        w = rand(k, n, scale=0.02)
+        if int8:
+            w_q, s = P.quantize_per_channel(w.numpy())
+            return torch.from_numpy(w_q).to(device), torch.from_numpy(s).to(device)
+        return w.to(device, torch.bfloat16), None
+
+    if pos is None:
+        pos = torch.randint(0, T, (S,), generator=g)
+    pos = torch.as_tensor(pos, dtype=torch.int32)
+    mask = (torch.arange(T)[:, None, None] <= pos[None, :, None].long())
+    ops = {"x": rand(S, D).to(device, torch.bfloat16),
+           "ln_scale": (1 + rand(D, scale=0.1)).to(device), "ln_bias": rand(D, scale=0.1).to(device),
+           "bqkv": rand(3 * D, scale=0.01).to(device), "bout": rand(D, scale=0.01).to(device),
+           "b1": rand(F, scale=0.01).to(device), "b2": rand(D, scale=0.01).to(device),
+           "cache_k": rand(T, S, D, scale=0.5).to(device, torch.bfloat16),
+           "cache_v": rand(T, S, D, scale=0.5).to(device, torch.bfloat16),
+           "pos": pos.to(device),
+           "mask_bias": torch.where(mask, 0.0, -1e9).float().to(device)}
+    for name, (k, n) in {"wqkv": (D, 3 * D), "wout": (D, D), "w1": (D, F), "w2": (F, D)}.items():
+        ops[name], ops["s" + name[1:]] = weight(k, n)
+    return FD, ops
+
+
+def _attn_call(FD, o, H, kernel, int8):
+    ck, cv = o["cache_k"].clone(), o["cache_v"].clone()
+    if int8:
+        fn = FD.fused_attn_step_int8 if kernel else FD.fused_attn_step_reference
+        if kernel:
+            return fn(o["x"], o["ln_scale"], o["ln_bias"], o["wqkv"], o["bqkv"], o["sqkv"],
+                      o["wout"], o["bout"], o["sout"], ck, cv, o["pos"], o["mask_bias"],
+                      heads=H)
+        return fn(o["x"], o["ln_scale"], o["ln_bias"], o["wqkv"], o["bqkv"], o["wout"],
+                  o["bout"], ck, cv, o["pos"], o["mask_bias"], heads=H, sqkv=o["sqkv"],
+                  sout=o["sout"])
+    fn = FD.fused_attn_step if kernel else FD.fused_attn_step_reference
+    return fn(o["x"], o["ln_scale"], o["ln_bias"], o["wqkv"], o["bqkv"], o["wout"], o["bout"],
+              ck, cv, o["pos"], o["mask_bias"], heads=H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D,H,T", [(8, 768, 12, 96), (1, 768, 12, 96), (3, 768, 12, 96),
+                                     (8, 768, 12, 1), (64, 768, 12, 96), (8, 128, 4, 32),
+                                     (5, 384, 3, 200)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_attn_step_matches_plain(cuda_device, S, D, H, T, int8):
+    FD, o = _fused_operands(S, D, H, T, 4 * D, int8, cuda_device)
+    before = FD.fused_attn_step.launches
+    x, ck, cv = _attn_call(FD, o, H, True, int8)
+    torch.cuda.synchronize()
+    assert FD.fused_attn_step.launches == before + 1
+    wx, wk, wv = _attn_call(FD, o, H, False, int8)
+    assert x.dtype == torch.bfloat16 and x.shape == (S, D) and torch.isfinite(x.float()).all()
+    atol, rtol = FUSED_TOL
+    torch.testing.assert_close(x.float(), wx.float(), rtol=rtol, atol=atol)
+    rows = torch.arange(S, device=cuda_device)
+    at = o["pos"].long()
+    for got, want, before_c in ((ck, wk, o["cache_k"]), (cv, wv, o["cache_v"])):
+        torch.testing.assert_close(got[at, rows].float(), want[at, rows].float(),
+                                   rtol=2 ** -7, atol=1e-6)
+        got, before_c = got.clone(), before_c.clone()
+        got[at, rows] = 0
+        before_c[at, rows] = 0
+        assert torch.equal(got, before_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_attn_step_edges(cuda_device, int8):
+    """pos = 0 and T-1, and a fully masked row (finite, uniform over keys)."""
+    S, D, H, T = 4, 768, 12, 96
+    FD, o = _fused_operands(S, D, H, T, 4 * D, int8, cuda_device, pos=[0, T - 1, 0, 7])
+    o["mask_bias"][:, 3] = -1e9  # row 3 sees no key
+    x, _, _ = _attn_call(FD, o, H, True, int8)
+    wx, _, _ = _attn_call(FD, o, H, False, int8)
+    assert torch.isfinite(x.float()).all()
+    atol, rtol = FUSED_TOL
+    torch.testing.assert_close(x.float(), wx.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D,F", [(8, 768, 3072), (1, 768, 3072), (3, 768, 3072),
+                                   (64, 768, 3072), (5, 384, 1000)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_mlp_step_matches_plain(cuda_device, S, D, F, int8):
+    FD, o = _fused_operands(S, D, 12 if D % 12 == 0 else 3, 8, F, int8, cuda_device)
+    args = (o["x"], o["ln_scale"], o["ln_bias"], o["w1"], o["b1"])
+    before = FD.fused_mlp_step.launches
+    if int8:
+        x = FD.fused_mlp_step_int8(*args, o["s1"], o["w2"], o["b2"], o["s2"])
+        want = FD.fused_mlp_step_reference(*args, o["w2"], o["b2"], s1=o["s1"], s2=o["s2"])
+    else:
+        x = FD.fused_mlp_step(*args, o["w2"], o["b2"])
+        want = FD.fused_mlp_step_reference(*args, o["w2"], o["b2"])
+    torch.cuda.synchronize()
+    assert FD.fused_mlp_step.launches == before + 1
+    atol, rtol = FUSED_TOL
+    torch.testing.assert_close(x.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_fused_decode_raises_on_what_the_kernel_does_not_take(cuda_device):
+    FD, o = _fused_operands(8, 768, 12, 96, 3072, False, cuda_device)
+    before = FD.fused_attn_step.launches, FD.fused_mlp_step.launches
+    base = dict(o)
+    cases = [({"x": o["x"].float()}, TypeError, "bf16"),
+             ({"wqkv": o["wqkv"].t().contiguous().t()}, ValueError, "contiguous"),
+             ({"bqkv": o["bqkv"].cpu()}, ValueError, "different devices"),
+             ({"pos": o["pos"].long()}, TypeError, "int32")]
+    for change, exc, match in cases:
+        o = {**base, **change}
+        with pytest.raises(exc, match=match):
+            FD.fused_attn_step(o["x"], o["ln_scale"], o["ln_bias"], o["wqkv"], o["bqkv"],
+                               o["wout"], o["bout"], o["cache_k"], o["cache_v"], o["pos"],
+                               o["mask_bias"], heads=12)
+    o = base
+    with pytest.raises(TypeError, match="int8"):
+        FD.fused_mlp_step_int8(o["x"], o["ln_scale"], o["ln_bias"], o["w1"], o["b1"],
+                               o["b1"], o["w2"], o["b2"], o["b2"])
+    with pytest.raises(ValueError, match="rows"):
+        big = torch.zeros(65, 768, dtype=torch.bfloat16, device=cuda_device)
+        FD.fused_mlp_step(big, o["ln_scale"], o["ln_bias"], o["w1"], o["b1"], o["w2"], o["b2"])
+    assert (FD.fused_attn_step.launches, FD.fused_mlp_step.launches) == before
