@@ -9,8 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (and the edge cases each must take), with
-   per-shape times (CUDA events); at flash's 4096-token shape, a planted
-   fault (the scale of the padded head dim) the tolerance must reject;
+   per-shape times (CUDA events; flash and SDPA by ``device_ms``, launches
+   queued behind a spin kernel); at flash's 4096-token shape, a planted
+   fault (the scale of a padded head dim) the tolerance must reject;
 4. BERT path: ``build_engine`` with full-width BERT-base int8 (seed weights),
    the port's HTTP server on a free localhost port, ``:predict`` requests
    (``text``, ``input_ids``, an 8-element ``instances`` body) and
@@ -235,7 +236,11 @@ FLASH_EDGES = [(1, 1024, 1024, 8, 64, torch.bfloat16, False, False),
                (2, 1024, 1024, 8, 40, torch.bfloat16, False, True),    # kv_mask
                (1, 1024, 1024, 8, 40, torch.bfloat16, True, False),    # causal
                (2, 1024, 1024, 8, 160, torch.bfloat16, False, False),  # 1024x1024 images
-               (2, 1000, 1000, 4, 80, torch.float32, False, True)]     # f32, ragged
+               (2, 1000, 1000, 4, 80, torch.float32, False, True),     # f32, ragged
+               (2, 100, 100, 8, 40, torch.bfloat16, False, False),     # Tq < one Q tile
+               (1, 256, 130, 8, 64, torch.bfloat16, False, False),     # 128 keys + 2
+               (1, 256, 256, 8, 64, torch.bfloat16, True, False),      # causal, 128-row tiles
+               (2, 1024, 1024, 8, 20, torch.bfloat16, False, False)]   # D = 20: padded copy
 
 
 # Kernel vs plain version, per element |y - want| <= atol + rtol·|want|.
@@ -243,7 +248,7 @@ FLASH_EDGES = [(1, 1024, 1024, 8, 64, torch.bfloat16, False, False),
 # side rounds its f32 output once); atol = 2e-3 covers outputs near 0, where
 # P rounded to bf16 against a running rather than the final max is what
 # differs.  At [2,4096,8,40] the outputs' typical |y| is ~0.02, so the limit
-# there is ~2.3e-3, and a kernel that took sm_scale from the padded D
+# there is ~2.3e-3, and a kernel that took sm_scale from a padded D
 # (1/sqrt(48)) is off by ~2.4e-3 on average: phase_flash checks that it
 # fails.  f32: the special-function exponential and per-tile sums.
 FLASH_TOL = {torch.bfloat16: (2e-3, 2 ** -6), torch.float32: (1e-4, 1e-4)}
@@ -268,9 +273,16 @@ def flash_bound(b: int, t: int, h: int, d: int) -> dict:
             "bound_by": "bytes" if worst == "bytes" else "operations"}
 
 
+def launch_ms(fn, n: int = 10) -> float:
+    """Device time of one of ``n`` back-to-back launches of ``fn``, queued
+    behind a spin kernel (``device_ms``): at [2,1024,8,80] a launch is
+    shorter than the wrapper's Python, so plain events would time the host."""
+    return device_ms(lambda: [fn() for _ in range(n)]) / n
+
+
 def phase_flash() -> dict:
     """flash_attention against flash_attention_reference on the card, within
-    ``FLASH_TOL``; at [2,4096,8,40] also a planted fault (sm_scale from the
+    ``FLASH_TOL``; at [2,4096,8,40] also a planted fault (sm_scale of a
     padded D) that the tolerance must reject."""
     import torch.nn.functional as F
 
@@ -314,14 +326,15 @@ def phase_flash() -> dict:
             log(f"{tag}: sm_scale from the padded D (1/sqrt(48)) is {bad:.3f} x the "
                 f"tolerance: rejected, as it must be")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        row = {"ms": time_ms(lambda: FA.flash_attention(q, k, v)),
+        row = {"ms": launch_ms(lambda: FA.flash_attention(q, k, v)),
                "plain_ms": time_ms(lambda: FA.flash_attention_reference(q, k, v), reps=5),
-               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+               "library_ms": launch_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
                **flash_bound(b, tq, h, d)}
         timings[b, tq, h, d] = row
         log(f"time flash_attention [{b},{tq},{h},{d}] bf16: kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.5f} ms ({row['bound_detail']})")
+            f"plain {row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms "
+            f"({row['ms'] / row['library_ms']:.3f} x), bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_detail']}; {row['bound_ms'] / row['ms']:.3f} of the kernel's time)")
     return {"max_abs_err": max_err, "timings": timings}
 
 
@@ -1304,8 +1317,9 @@ def main(argv: list[str] | None = None) -> int:
     fwd = per_forward(kern["timings"], 1024)
     unet = per_unet_call(flash["timings"])
     log(f"one UNet call's flash_attention at 512x512 (10 launches): kernel {unet['ms']:.4f} "
-        f"ms, plain {unet['plain_ms']:.4f} ms, SDPA {unet['library_ms']:.4f} ms, bound "
-        f"{unet['bound_ms']:.5f} ms ({unet['bound_detail']})")
+        f"ms, plain {unet['plain_ms']:.4f} ms, SDPA {unet['library_ms']:.4f} ms "
+        f"({unet['ms'] / unet['library_ms']:.3f} x), bound {unet['bound_ms']:.5f} ms "
+        f"({unet['bound_detail']}; {unet['bound_ms'] / unet['ms']:.3f} of the kernel's time)")
     kernels = [{
         "name": "int8_matmul", "route": "cuda",
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/int8_matmul.cu",

@@ -3,8 +3,9 @@
 Each source under ``ops/csrc/`` compiles with ``nvcc`` into a shared library
 with a plain C interface (no PyTorch headers: seconds to build, not minutes).
 The library lands in ``build/torch_kernels/`` at the repository root, named
-after a hash of its source and flags, so an edited source rebuilds and an
-unchanged one is reused within the checkout.  A failed build raises with
+after a hash of its source, the headers beside it (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused within the checkout.  A failed build raises with
 nvcc's own output.
 """
 
@@ -42,9 +43,13 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     """Where ``source``'s library is built: its name carries a hash of the
-    source bytes and the flags."""
-    digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source bytes, every ``csrc/*.cuh`` header (a source may include any of
+    them) and the flags."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 

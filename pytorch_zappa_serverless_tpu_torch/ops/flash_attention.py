@@ -6,7 +6,11 @@ softmax attention that never materialises the ``[B, H, Tq, Tk]`` score
 tensor (at the UNet's 64x64 latents that tensor is 4096 x 4096 per head).
 
 - On a CUDA tensor the wrapper launches the hand-written kernel
-  (``csrc/flash_attention.cu``) on the current stream, or raises.
+  (``csrc/flash_attention.cu``) on the current stream, or raises.  The bf16
+  kernel reads q, k and v by TMA through their own strides; an operand
+  whose base or strides TMA cannot describe (:func:`tma_describable`) is
+  first copied into a padded buffer (:func:`padded_copy`) and goes to the
+  same kernel.
 - On a CPU tensor it computes :func:`flash_attention_reference`, the plain
   PyTorch version of the same function.
 
@@ -74,6 +78,40 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def tma_describable(x: torch.Tensor) -> bool:
+    """Whether a TMA tensor map can read ``x [B, T, H, D]`` in place: a
+    16-byte-aligned base and B, T and H strides that are whole multiples
+    of 16 bytes (the last axis contiguous is checked separately)."""
+    size = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in x.stride()[:3])
+
+
+def padded_copy(x: torch.Tensor) -> torch.Tensor:
+    """``x`` copied into a contiguous buffer whose head dim is rounded up to
+    a multiple of 8 (16 bytes of bf16), returned as the ``[..., :D]`` view:
+    the same values, with strides a tensor map can describe.  The padding
+    columns are never read: the kernel's tensor map stops at D."""
+    B, T, H, D = x.shape
+    buf = torch.empty((B, T, H, -(-D // 8) * 8), dtype=x.dtype, device=x.device)
+    view = buf[..., :D]
+    view.copy_(x)
+    return view
+
+
+# Codes the entry point returns besides cudaError_t values.
+_LAUNCH_ERRORS = {900001: "cuTensorMapEncodeTiled not found in the driver",
+                  900002: "the kernel was built with too few registers for its "
+                          "setmaxnreg split"}
+
+
+def _launch_error(rc: int) -> str:
+    if rc in _LAUNCH_ERRORS:
+        return _LAUNCH_ERRORS[rc]
+    if 910000 <= rc < 920000:
+        return f"a tensor map was refused (CUresult {rc - 910000})"
+    return f"CUDA error {rc}"
+
+
 _SIGNATURES = {"flash_attention_fwd": (
     ctypes.c_int, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
@@ -113,6 +151,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"v {v.device}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention needs the head dim (last axis) contiguous")
+    if q.dtype == torch.bfloat16:
+        q, k, v = (x if tma_describable(x) else padded_copy(x) for x in (q, k, v))
     bias = _mask_bias(kv_mask).contiguous() if kv_mask is not None else None
     out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     scale = 1.0 / math.sqrt(D) if sm_scale is None else sm_scale
@@ -123,7 +163,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale, int(causal), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc} "
+        raise RuntimeError(f"flash_attention kernel launch failed: {_launch_error(rc)} "
                            f"(B={B}, Tq={Tq}, Tk={Tk}, H={H}, D={D})")
     flash_attention.launches += 1
     return out

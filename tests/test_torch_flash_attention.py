@@ -19,7 +19,9 @@ import pytest
 import torch
 
 from pytorch_zappa_serverless_tpu.ops import flash_attention as J
+from pytorch_zappa_serverless_tpu_torch.ops import _build
 from pytorch_zappa_serverless_tpu_torch.ops import flash_attention as P
+from pytorch_zappa_serverless_tpu_torch.tools import flash_ablation as ablation
 
 
 def _qkv(rng, b, tq, tk, h, d):
@@ -143,3 +145,62 @@ def test_wrapper_checks_shapes():
         P.flash_attention(x, torch.zeros(1, 8, 2, 8), torch.zeros(1, 8, 2, 8))
     with pytest.raises(ValueError, match="kv_mask"):
         P.flash_attention(x, x, x, kv_mask=torch.ones(1, 9, dtype=torch.bool))
+
+
+def _fused_views(b=2, t=64, heads=8, d=40):
+    """q, k, v as head-split views of one fused [B, T, 3·C] projection."""
+    qkv = torch.zeros(b, t, 3 * heads * d, dtype=torch.bfloat16)
+    return tuple(x.view(b, t, heads, d) for x in qkv.split(heads * d, dim=-1))
+
+
+def _odd_base(b=2, t=64, heads=8, d=40):
+    """q starting one element into its storage; k and v contiguous."""
+    flat = torch.zeros(1 + b * t * heads * d, dtype=torch.bfloat16)
+    q = flat[1:].view(b, t, heads, d)
+    return q, torch.zeros_like(q), torch.zeros_like(q)
+
+
+def _unet_views(b=2, t=64, heads=8, d=40):
+    """The UNet's [B, T, C] projections reshaped to [B, T, H, D]."""
+    return tuple(torch.zeros(b, t, heads * d, dtype=torch.bfloat16).reshape(b, t, heads, d)
+                 for _ in range(3))
+
+
+@pytest.mark.parametrize("make,want", [
+    (_unet_views, (True, True, True)),                       # strides 80 B, 640 B
+    (_fused_views, (True, True, True)),                      # strides 80 B, 1920 B; +640 B
+    (lambda: _unet_views(d=20), (False, False, False)),      # D = 20: 40-byte head stride
+    (_odd_base, (False, True, True)),                        # base 2 bytes off
+])
+def test_tma_describable_says_which_operands_need_a_copy(make, want):
+    q, k, v = make()
+    assert tuple(P.tma_describable(x) for x in (q, k, v)) == want
+
+
+@pytest.mark.parametrize("make", [lambda: _unet_views(d=20), _odd_base])
+def test_padded_copy_is_describable_and_keeps_the_result(rng, make):
+    q, k, v = make()
+    for x in (q, k, v):  # fill the views in place with seeded values
+        x.copy_(torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(np.float32)))
+    copies = [P.padded_copy(x) for x in (q, k, v)]
+    for x, c in zip((q, k, v), copies):
+        assert P.tma_describable(c) and c.shape == x.shape and c.stride(-1) == 1
+        assert c.stride(2) % 8 == 0 and torch.equal(c, x)
+    want = P.flash_attention_reference(q, k, v)
+    assert torch.equal(P.flash_attention_reference(*copies), want)
+    assert torch.equal(P.flash_attention(*copies), want)  # the CPU route: the plain version
+
+
+def test_padded_copy_rounds_the_head_dim_up_to_16_bytes():
+    x = torch.zeros(1, 4, 2, 20, dtype=torch.bfloat16)
+    c = P.padded_copy(x)
+    assert c.stride() == (4 * 2 * 24, 2 * 24, 24, 1)
+    assert P.padded_copy(torch.zeros(1, 4, 2, 40, dtype=torch.bfloat16)).stride(2) == 40
+
+
+@pytest.mark.parametrize("name", sorted(ablation.VARIANTS))
+def test_ablation_variants_apply_to_the_kernel_source(name):
+    """Each variant of tools/flash_ablation takes out one part of the kernel
+    source as it stands: its substitutions match exactly once."""
+    source = (_build.CSRC / ablation.SOURCE).read_text()
+    assert (ablation.apply_variant(source, name) == source) == (name == "kernel")

@@ -15,9 +15,13 @@ roundings at the bottom of a binade, one on each side; atol covers outputs
 near 0, where P rounded to bf16 against a running rather than the final max
 is what differs); f32 ``atol = rtol = 1e-4`` (the kernel's exponential is
 the special-function unit's, a few ulp from ``torch.exp``, and it sums per
-64-key tile).  At [2, 4096, 8, 40] the bf16 limit is ~2.3e-3 for the
-outputs' typical |y| of ~0.02, tight enough to reject a kernel that takes
-sm_scale from the padded head dim (a test below plants that fault).
+64-key tile).  The bf16 cases include the redesigned kernel's tiling edges:
+a Q tile cut short (Tq = 100), a ragged last K tile (Tk = 130), causal
+128-row tiles, a head dim TMA cannot read in place (D = 20, copied by the
+wrapper) and a fully masked batch row at 4096 tokens.  At [2, 4096, 8, 40]
+the bf16 limit is ~2.3e-3 for the outputs' typical |y| of ~0.02, tight
+enough to reject a kernel that takes sm_scale from a padded head dim (a
+test below plants that fault).
 fused_attn_step / fused_mlp_step: per element ``atol = 1e-3, rtol = 2^-7``
 (``FUSED_TOL`` below gives the reasons), the K/V rows written at ``pos``
 within one bf16 ulp and every other cache entry untouched.
@@ -101,11 +105,19 @@ def _qkv(b, tq, tk, h, d, dtype, device, seed=7):
     (1, 128, 128, 1, 128, torch.float32, False, False),
     (2, 1024, 1024, 8, 160, torch.bfloat16, False, False),  # SD-1.5 32x32 at 1024x1024
     (1, 200, 200, 2, 160, torch.float32, False, True),
+    (2, 100, 100, 2, 40, torch.bfloat16, False, False),    # Tq below one 128-row Q tile
+    (1, 256, 130, 2, 64, torch.bfloat16, False, False),    # Tk: one 128-key tile + a ragged one
+    (1, 256, 256, 2, 64, torch.bfloat16, True, False),     # causal on 128-row tiles
+    (2, 1024, 1024, 8, 20, torch.bfloat16, False, False),  # D = 20: the wrapper's padded copy
+    (2, 4096, 4096, 8, 40, torch.bfloat16, False, "row"),  # batch row 1 fully masked
 ])
 def test_flash_attention_matches_plain(cuda_device, b, tq, tk, h, d, dtype, causal, masked):
     q, k, v = _qkv(b, tq, tk, h, d, dtype, cuda_device)
     mask = None
-    if masked:
+    if masked == "row":
+        mask = torch.ones(b, tk, dtype=torch.bool, device=cuda_device)
+        mask[1] = False
+    elif masked:
         mask = torch.arange(tk, device=cuda_device)[None, :] < torch.tensor(
             [tk - 37 * i for i in range(b)], device=cuda_device)[:, None]
     before = FA.flash_attention.launches
@@ -121,7 +133,7 @@ def test_flash_attention_matches_plain(cuda_device, b, tq, tk, h, d, dtype, caus
 @pytest.mark.cuda
 def test_flash_attention_tolerance_rejects_the_padded_scale(cuda_device):
     """At the 4096-token shape, a kernel that scales by 1/sqrt(48) (D = 40
-    padded to the wmma width) instead of 1/sqrt(40) must fail the check."""
+    padded to 48) instead of 1/sqrt(40) must fail the check."""
     q, k, v = _qkv(2, 4096, 4096, 8, 40, torch.bfloat16, cuda_device)
     want = FA.flash_attention_reference(q, k, v).float()
     bad = FA.flash_attention(q, k, v, sm_scale=48 ** -0.5).float()
