@@ -9,9 +9,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (and the edge cases each must take), with
-   per-shape times (CUDA events; flash and SDPA by ``device_ms``, launches
-   queued behind a spin kernel); at flash's 4096-token shape, a planted
-   fault (the scale of a padded head dim) the tolerance must reject;
+   per-shape times (kernels and their library calls by ``device_ms``,
+   launches queued behind a spin kernel; plain versions by CUDA events);
+   ``int8_matmul`` at the BERT shapes, GPT-2 small's decode (M = 1, 8) and
+   prefill (M = 512) shapes and its f32 lm head, two launches of a split-K
+   shape bitwise equal, and one GPT-2 position step and one BERT forward
+   over distinct weights beside cuBLAS on the dequantised weights; at
+   flash's 4096-token shape, a planted fault (the scale of a padded head
+   dim) the tolerance must reject;
 4. BERT path: ``build_engine`` with full-width BERT-base int8 (seed weights),
    the port's HTTP server on a free localhost port, ``:predict`` requests
    (``text``, ``input_ids``, an 8-element ``instances`` body) and
@@ -84,6 +89,13 @@ BERT = {"layers": 12, "seq": 128, "batch_buckets": (1, 8)}
 LAYER_PROJECTIONS = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
 MAIN_M = (128, 1024)  # the (1, 128) and (8, 128) buckets
 RAGGED = [(3, 100, 50), (1, 768, 768)]
+# GPT-2 small's int8 products: (K, N) of the four layer projections (q|k|v
+# fused, out, fc1, fc2) at decode (M = 1, 8) and prefill (M = 512), and the
+# padded lm head with f32 logits at decode.
+GPT2_KN = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+GPT2_HEAD = (768, 50304)
+GPT2_DECODE_M = (1, 8)
+GPT2_PREFILL_M = 512
 DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
           (torch.float32, torch.float32)]
 
@@ -139,7 +151,9 @@ def phase_build() -> None:
 
 def time_ms(fn, reps: int = 25, inner: int = 10) -> float:
     """Median over ``reps`` of the mean time of ``inner`` back-to-back calls,
-    by CUDA events, after a warm-up.  The operands stay in L2 between calls."""
+    by CUDA events, after a warm-up.  The operands stay in L2 between calls.
+    Where a call is shorter than its host time this times the host: the
+    kernels are timed with ``launch_ms``."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -155,16 +169,38 @@ def time_ms(fn, reps: int = 25, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def matmul_bound(m: int, k: int, n: int, x_dtype, out_dtype) -> tuple[float, float]:
-    """(operations ms, bytes ms) of the W8A16 product: 2·M·K·N operations at
-    the peak rate of the input type (bf16 tensor cores, or f32 CUDA cores),
-    and each input read once and the output written once at the memory
-    rate.  The least time the card could take is the larger of the two."""
+def matmul_bytes_ops(m: int, k: int, n: int, x_dtype, out_dtype) -> tuple[int, int]:
+    """(bytes, operations) of the W8A16 product: each input read once, the
+    output written once; 2·M·K·N operations."""
     xb = torch.empty(0, dtype=x_dtype).element_size()
     ob = torch.empty(0, dtype=out_dtype).element_size()
-    nbytes = m * k * xb + k * n + 4 * n + m * n * ob
+    return m * k * xb + k * n + 4 * n + m * n * ob, 2 * m * k * n
+
+
+def matmul_bound(m: int, k: int, n: int, x_dtype, out_dtype) -> tuple[float, float]:
+    """(operations ms, bytes ms) of the W8A16 product: the operations at the
+    peak rate of the input type (bf16 tensor cores, or f32 CUDA cores), the
+    bytes at the memory rate.  The least time the card could take is the
+    larger of the two."""
+    nbytes, ops = matmul_bytes_ops(m, k, n, x_dtype, out_dtype)
     peak = PEAK_BF16_FLOPS if x_dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    return 1e3 * 2 * m * k * n / peak, 1e3 * nbytes / PEAK_BYTES_PER_S
+    return 1e3 * ops / peak, 1e3 * nbytes / PEAK_BYTES_PER_S
+
+
+def int8_cases() -> list[tuple]:
+    """(M, K, N, x dtype, out dtype, timed) of every kernel check: the BERT
+    shapes and the ragged ones in the three dtype pairs, the GPT-2 shapes in
+    the served ones; the served dtype pair of the BERT buckets and of GPT-2
+    decode at M = 8 is timed."""
+    cases = []
+    for m in MAIN_M:
+        for k, n in sorted(set(LAYER_PROJECTIONS)):
+            cases += [(m, k, n, xd, od, (xd, od) == DTYPES[0]) for xd, od in DTYPES]
+    cases += [(m, k, n, xd, od, False) for m, k, n in RAGGED for xd, od in DTYPES]
+    for m in GPT2_DECODE_M + (GPT2_PREFILL_M,):
+        cases += [(m, k, n, *DTYPES[0], m == 8) for k, n in GPT2_KN]
+    cases += [(m, *GPT2_HEAD, *DTYPES[1], m == 8) for m in GPT2_DECODE_M]
+    return cases
 
 
 def phase_kernels() -> dict:
@@ -173,53 +209,92 @@ def phase_kernels() -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
     max_err, timings = 0.0, {}
-    shapes = [(m, k, n) for m in MAIN_M for k, n in sorted(set(LAYER_PROJECTIONS))]
-    for m, k, n in shapes + RAGGED:
+    for m, k, n, x_dtype, out_dtype, timed in int8_cases():
         x32 = torch.randn(m, k, device=dev, generator=g) * 0.5
         w_q = torch.randint(-127, 128, (k, n), device=dev, generator=g, dtype=torch.int8)
         scale = torch.rand(n, device=dev, generator=g) * 2e-3 + 1e-4
-        for x_dtype, out_dtype in DTYPES:
-            x = x32.to(x_dtype)
-            y = I.int8_matmul(x, w_q, scale, out_dtype=out_dtype)
-            torch.cuda.synchronize()
-            want = I.int8_matmul_reference(x, w_q, scale, out_dtype)
-            check(y.shape == want.shape and y.dtype == want.dtype,
-                  f"int8_matmul {m}x{k}x{n}: {y.shape} {y.dtype} vs {want.shape} {want.dtype}")
-            check(bool(torch.isfinite(y).all()), f"int8_matmul {m}x{k}x{n}: non-finite output")
-            err = (y.float() - want.float()).abs().max().item()
-            if out_dtype == torch.bfloat16:
-                ok = torch.allclose(y.float(), want.float(), rtol=2e-2, atol=2e-2)
-                tol = "rtol=atol=2e-2"
-            else:
-                atol = 1e-3 * want.abs().max().item()
-                ok, tol = err <= atol, f"atol={atol:.3g}"
-            check(ok, f"int8_matmul {m}x{k}x{n} {x_dtype}->{out_dtype}: "
-                      f"max |err| {err} outside {tol}")
-            max_err = max(max_err, err)
-            log(f"int8_matmul {m}x{k}x{n} {str(x_dtype)[6:]}->{str(out_dtype)[6:]}: "
-                f"max |err| {err:.3g} ({tol}) ok")
-            if (m, k, n) not in shapes or (x_dtype, out_dtype) != DTYPES[0]:
-                continue
-            # The main path's dtypes: bf16 in, bf16 out.
-            w_deq = (w_q.float() * scale).to(torch.bfloat16)
-            row = {"ms": time_ms(lambda: I.int8_matmul(x, w_q, scale)),
-                   "plain_ms": time_ms(lambda: I.int8_matmul_reference(x, w_q, scale)),
-                   "library_ms": time_ms(lambda: torch.matmul(x, w_deq))}
-            row["ops_ms"], row["bytes_ms"] = matmul_bound(m, k, n, x_dtype, out_dtype)
-            row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
-            row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
-            timings[m, k, n] = row
-            log(f"time int8_matmul M={m} K={k} N={n}: kernel {row['ms']:.4f} ms, "
-                f"plain {row['plain_ms']:.4f} ms, cuBLAS bf16 on dequantised weights "
-                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
-                f"({row['bound_by']})")
-    return {"max_abs_err": max_err, "timings": timings}
+        x = x32.to(x_dtype)
+        y = I.int8_matmul(x, w_q, scale, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        want = I.int8_matmul_reference(x, w_q, scale, out_dtype)
+        tag = f"int8_matmul {m}x{k}x{n} {str(x_dtype)[6:]}->{str(out_dtype)[6:]}"
+        check(y.shape == want.shape and y.dtype == want.dtype,
+              f"{tag}: {y.shape} {y.dtype} vs {want.shape} {want.dtype}")
+        check(bool(torch.isfinite(y).all()), f"{tag}: non-finite output")
+        err = (y.float() - want.float()).abs().max().item()
+        if out_dtype == torch.bfloat16:
+            ok = torch.allclose(y.float(), want.float(), rtol=2e-2, atol=2e-2)
+            tol = "rtol=atol=2e-2"
+        else:
+            atol = 1e-3 * want.abs().max().item()
+            ok, tol = err <= atol, f"atol={atol:.3g}"
+        check(ok, f"{tag}: max |err| {err} outside {tol}")
+        max_err = max(max_err, err)
+        log(f"{tag} (plan {tuple(I.plan(m, k, n))}): max |err| {err:.3g} ({tol}) ok")
+        if not timed:
+            continue
+        w_deq = (w_q.float() * scale).to(torch.bfloat16)
+        library = (lambda: torch.matmul(x, w_deq)) if out_dtype == torch.bfloat16 else \
+            (lambda: torch.matmul(x, w_deq).float())
+        row = {"ms": launch_ms(lambda: I.int8_matmul(x, w_q, scale, out_dtype=out_dtype)),
+               "plain_ms": time_ms(lambda: I.int8_matmul_reference(x, w_q, scale, out_dtype)),
+               "library_ms": launch_ms(library)}
+        row["ops_ms"], row["bytes_ms"] = matmul_bound(m, k, n, x_dtype, out_dtype)
+        row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+        row["bound_by"] = "operations" if row["ops_ms"] >= row["bytes_ms"] else "bytes"
+        timings[m, k, n] = row
+        log(f"time int8_matmul M={m} K={k} N={n}: kernel {row['ms']:.5f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, cuBLAS bf16 on dequantised weights "
+            f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.3f} of the kernel's time)")
+    # Split-K sums in fixed rank order: two launches agree bit for bit.
+    m, k, n = 8, 768, 768
+    check(I.plan(m, k, n).splits > 1, f"{m}x{k}x{n} is not a split-K shape")
+    x = (torch.randn(m, k, device=dev, generator=g) * 0.5).bfloat16()
+    w_q = torch.randint(-127, 128, (k, n), device=dev, generator=g, dtype=torch.int8)
+    scale = torch.rand(n, device=dev, generator=g) * 2e-3 + 1e-4
+    runs = [I.int8_matmul(x, w_q, scale) for _ in range(2)]
+    check(torch.equal(*runs), f"int8_matmul {m}x{k}x{n}: two split-K launches differ")
+    log(f"int8_matmul {m}x{k}x{n} (plan {tuple(I.plan(m, k, n))}): two launches bitwise equal")
+    return {"max_abs_err": max_err, "timings": timings, "work": phase_int8_work()}
+
+
+def phase_int8_work() -> dict:
+    """Whole pieces of main-path work over distinct weights, so that they
+    stream from device memory as served: one GPT-2 small position step at
+    M = 8 (48 layer projections + the f32 lm head, 123.6 MB of int8) and one
+    BERT-base (8, 128) forward (72 projections at M = 1024).  Kernel and
+    cuBLAS on the dequantised bf16 weights by ``device_ms``; the bound is
+    the step's bytes, or the forward's operations, at the card's peak."""
+    from pytorch_zappa_serverless_tpu_torch.tools import int8_ablation as IA
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for name, m in IA.WORK.items():
+        ops = IA.operands(name, g)
+        nbytes = opcount = 0
+        for k, n, out_dtype in IA.products(name):
+            b, o = matmul_bytes_ops(m, k, n, torch.bfloat16, out_dtype)
+            nbytes, opcount = nbytes + b, opcount + o
+        b_ms, o_ms = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * opcount / PEAK_BF16_FLOPS
+        row = {"ms": device_ms(IA.run_kernel(ops)), "library_ms": device_ms(IA.run_cublas(ops)),
+               "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+               "launches": len(ops), "weight_mb": sum(op[1].numel() for op in ops) / 1e6}
+        out[name] = row
+        log(f"time int8_matmul {name} ({row['launches']} launches at M={m}, "
+            f"{row['weight_mb']:.1f} MB of distinct int8 weights): kernel {row['ms']:.4f} ms, "
+            f"cuBLAS on dequantised bf16 {row['library_ms']:.4f} ms "
+            f"({row['ms'] / row['library_ms']:.3f} x), bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.3f} of the kernel's time)")
+        del ops
+    return out
 
 
 def per_forward(timings: dict, m: int) -> dict:
-    """One forward's worth of int8_matmul at row count ``m``: the layer's six
-    projections times the number of layers.  The bound is the sum of the
-    launches' bounds; it names what bounds most of it."""
+    """One forward's worth of int8_matmul at row count ``m`` from the
+    per-shape rows (operands warm in L2): the layer's six projections times
+    the number of layers.  The bound is the sum of the launches' bounds; it
+    names what bounds most of it."""
     out = {key: BERT["layers"] * sum(timings[m, k, n][key] for k, n in LAYER_PROJECTIONS)
            for key in ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")}
     out["bound_by"] = "operations" if out.pop("ops_ms") >= out.pop("bytes_ms") else "bytes"
@@ -1311,10 +1386,12 @@ def main(argv: list[str] | None = None) -> int:
     fused = run_fused(args.profile)
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
-        log(f"one forward's int8_matmul at M={m} (72 launches): kernel {fwd['ms']:.4f} ms, "
-            f"plain {fwd['plain_ms']:.4f} ms, cuBLAS {fwd['library_ms']:.4f} ms, "
-            f"bound {fwd['bound_ms']:.5f} ms ({fwd['bound_by']})")
+        log(f"one forward's int8_matmul at M={m} (72 launches, the per-shape times summed): "
+            f"kernel {fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, cuBLAS "
+            f"{fwd['library_ms']:.4f} ms ({fwd['ms'] / fwd['library_ms']:.3f} x), bound "
+            f"{fwd['bound_ms']:.5f} ms ({fwd['bound_by']})")
     fwd = per_forward(kern["timings"], 1024)
+    bert, step = kern["work"]["bert_fwd"], kern["work"]["gpt2_step"]
     unet = per_unet_call(flash["timings"])
     log(f"one UNet call's flash_attention at 512x512 (10 launches): kernel {unet['ms']:.4f} "
         f"ms, plain {unet['plain_ms']:.4f} ms, SDPA {unet['library_ms']:.4f} ms "
@@ -1325,9 +1402,16 @@ def main(argv: list[str] | None = None) -> int:
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "pytorch_zappa_serverless_tpu/ops/int8_matmul.py:107",
         "launches": int8_launches, "max_abs_err": kern["max_abs_err"],
-        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
-        "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"],
-        "timed_work": "one forward at bucket (8,128): 72 launches, M=1024, bf16",
+        "ms": bert["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": bert["bound_ms"],
+        "bound_by": bert["bound_by"], "library_ms": bert["library_ms"],
+        "timed_work": "one BERT-base forward at bucket (8,128): 72 launches at M=1024 over "
+                      "12 layers' distinct weights, bf16 (plain: the per-shape times summed)",
+        "per_shape_sum": {k: fwd[k] for k in ("ms", "library_ms", "bound_ms")},
+        "gpt2_step": {**{k: step[k] for k in ("ms", "library_ms", "bound_ms", "bound_by")},
+                      "lm_head_ms": kern["timings"][(8, *GPT2_HEAD)]["ms"],
+                      "timed_work": "one GPT-2 small position step at M=8: 48 layer "
+                                    "projections + the f32 lm head [768, 50304] over 123.6 MB "
+                                    "of distinct int8 weights"},
         "launches_gpt2_path": gpt2_launches,
     }, {
         "name": "flash_attention", "route": "cuda",

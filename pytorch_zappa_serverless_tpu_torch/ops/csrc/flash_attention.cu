@@ -69,10 +69,11 @@ constexpr int BK = 64;         // f32 path: key rows per K/V tile
 constexpr int THREADS = 128;   // f32 path: 4 warps; two threads own each query row
 constexpr float NEG = -1e9f;   // the finite mask of the TPU kernel
 
-// Errors the entry point returns besides cudaError_t values.
-constexpr int ERR_NO_TENSOR_MAP_API = 900001;  // cuTensorMapEncodeTiled not found
-constexpr int ERR_REGISTERS = 900002;          // too few registers for setmaxnreg's split
-constexpr int ERR_TENSOR_MAP = 910000;         // + the CUresult of a refused tensor map
+using hopper::encode_tiled;
+using hopper::EncodeTiled;
+using hopper::ERR_NO_TENSOR_MAP_API;
+using hopper::ERR_REGISTERS;
+using hopper::ERR_TENSOR_MAP;
 
 template <int DP>
 struct F32Smem {
@@ -497,30 +498,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     setmaxnreg_inc<CONSUMER_REGS>();
     consume<T>(smem, q_full, full, empty, a, q0, h, b, n_tiles);
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function; the runtime hands out its
-// address, so the library needs no link against libcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
 }
 
 // A 4-D map (D, H, T, B) over a bf16 operand's own strides (elements), with

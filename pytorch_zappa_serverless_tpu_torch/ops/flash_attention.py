@@ -32,6 +32,8 @@ import math
 
 import torch
 
+from ._tma import launch_error, padded_copy, tma_describable
+
 _NEG_INF = -1e9
 _DTYPES = (torch.bfloat16, torch.float32)
 MAX_HEAD_DIM = 160  # SD-1.5's widest head (1280 / 8)
@@ -76,40 +78,6 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
     out = acc / torch.where(l == 0, 1.0, l)
     return out.transpose(1, 2).to(q.dtype)
-
-
-def tma_describable(x: torch.Tensor) -> bool:
-    """Whether a TMA tensor map can read ``x [B, T, H, D]`` in place: a
-    16-byte-aligned base and B, T and H strides that are whole multiples
-    of 16 bytes (the last axis contiguous is checked separately)."""
-    size = x.element_size()
-    return x.data_ptr() % 16 == 0 and all(s * size % 16 == 0 for s in x.stride()[:3])
-
-
-def padded_copy(x: torch.Tensor) -> torch.Tensor:
-    """``x`` copied into a contiguous buffer whose head dim is rounded up to
-    a multiple of 8 (16 bytes of bf16), returned as the ``[..., :D]`` view:
-    the same values, with strides a tensor map can describe.  The padding
-    columns are never read: the kernel's tensor map stops at D."""
-    B, T, H, D = x.shape
-    buf = torch.empty((B, T, H, -(-D // 8) * 8), dtype=x.dtype, device=x.device)
-    view = buf[..., :D]
-    view.copy_(x)
-    return view
-
-
-# Codes the entry point returns besides cudaError_t values.
-_LAUNCH_ERRORS = {900001: "cuTensorMapEncodeTiled not found in the driver",
-                  900002: "the kernel was built with too few registers for its "
-                          "setmaxnreg split"}
-
-
-def _launch_error(rc: int) -> str:
-    if rc in _LAUNCH_ERRORS:
-        return _LAUNCH_ERRORS[rc]
-    if 910000 <= rc < 920000:
-        return f"a tensor map was refused (CUresult {rc - 910000})"
-    return f"CUDA error {rc}"
 
 
 _SIGNATURES = {"flash_attention_fwd": (
@@ -163,7 +131,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale, int(causal), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: {_launch_error(rc)} "
+        raise RuntimeError(f"flash_attention kernel launch failed: {launch_error(rc)} "
                            f"(B={B}, Tq={Tq}, Tk={Tk}, H={H}, D={D})")
     flash_attention.launches += 1
     return out

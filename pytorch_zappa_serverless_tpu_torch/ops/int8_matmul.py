@@ -8,23 +8,30 @@ reads the int8 weights and then writes and reads a bf16 copy, more bytes than
 serving bf16 weights directly).
 
 - On a CUDA tensor the wrapper launches the hand-written kernel
-  (``csrc/int8_matmul.cu``) on the current stream, or raises.
+  (``csrc/int8_matmul.cu``) on the current stream, or raises.  For bf16
+  activations :func:`plan` picks the kernel's tile and its split of K, and
+  the kernel reads x and w_q by TMA through their row strides; an operand
+  TMA cannot describe (:func:`tma_describable`) is first copied into a
+  padded buffer (:func:`padded_copy`) and goes to the same kernel.
 - On a CPU tensor it computes :func:`int8_matmul_reference`, the plain
   PyTorch version of the same function.
 
 ``quantize_per_channel`` / ``pad_weights`` / ``quantize_tree`` are the host
 side of the lane, numpy copies of the JAX package's functions that give the
 same bytes.  Layouts are the JAX package's: ``w_q`` is ``[K, N]`` (input
-rows, output columns).  The kernel masks ragged M, K and N itself, so
-``pad_weights`` is not needed for correctness.
+rows, output columns).  The kernel handles ragged M, K and N itself (TMA
+zero-fills past them), so ``pad_weights`` is not needed for correctness.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ._tma import launch_error, padded_copy, tma_describable
 
 
 def _round_up(x: int, m: int) -> int:
@@ -99,8 +106,62 @@ def int8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
-_SIGNATURES = {"w8a16_matmul": (ctypes.c_int, [ctypes.c_void_p] * 4
-                                 + [ctypes.c_int] * 5 + [ctypes.c_void_p])}
+# The card the planner fills, and the kernel's tiles.
+SMS = 132
+BK = 64           # K per ring stage
+MAX_CLUSTER = 8   # the portable thread-block cluster size: the most K splits
+SMALL_M = 128     # up to here one consumer warpgroup (64 rows) per block
+DECODE_BLOCKS = 192  # blocks a weight-bound product aims for (~1.5 per SM)
+# The (rows, columns) output tiles the kernel is built for.
+TILES = ((64, 32), (64, 64), (64, 128), (128, 256))
+
+
+class Plan(NamedTuple):
+    """One launch of the bf16 kernel: ``bm x bn`` output tiles, K cut into
+    ``splits`` slices reduced inside a cluster of ``cluster`` blocks along
+    the grid's third axis (``cluster == splits``)."""
+
+    bm: int
+    bn: int
+    splits: int
+    cluster: int
+
+
+def plan(m: int, k: int, n: int) -> Plan:
+    """The tile and K split of one bf16 product ``[m, k] @ [k, n]``, tuned
+    on the H100 with ``tools/int8_ablation.py --sweep``.
+
+    Up to ``SMALL_M`` rows (decode, one BERT sequence) the weight bytes
+    bound the product, and what matters is enough blocks in flight to
+    stream them from every SM: 64-row tiles (two blocks fit on an SM) and
+    about ``DECODE_BLOCKS`` blocks, from 128-column tiles alone where they
+    are that many (the lm head), else 64 or 32 columns with K split over up
+    to ``MAX_CLUSTER`` slices.  Above it the tensor cores bound it: 128 x 256
+    tiles (one block per SM) where they fill half a wave, K split into
+    slices of at least 12 K tiles where it is long, and else 64 x 64 tiles,
+    two blocks per SM, whole K (BERT's 768 x 768 at M = 1024: 192 blocks).
+    """
+    k_tiles = -(-k // BK)
+    if m <= SMALL_M:
+        row_tiles = -(-m // 64)
+        if row_tiles * -(-n // 128) >= DECODE_BLOCKS:
+            return Plan(64, 128, 1, 1)
+        bn = 64 if row_tiles * -(-n // 64) * MAX_CLUSTER >= DECODE_BLOCKS else 32
+        tiles = row_tiles * -(-n // bn)
+        splits = min(MAX_CLUSTER, k_tiles, -(-DECODE_BLOCKS // tiles))
+        return Plan(64, bn, splits, splits)
+    tiles = -(-m // 128) * -(-n // 256)
+    if tiles >= SMS // 2:
+        return Plan(128, 256, 1, 1)
+    if k_tiles >= 24:
+        splits = max(1, min(MAX_CLUSTER, k_tiles // 12, SMS // tiles))
+        return Plan(128, 256, splits, splits)
+    return Plan(64, 64, 1, 1)
+
+
+_SIGNATURES = {"w8a16_matmul": (ctypes.c_int, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                                 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
+                                 + [ctypes.c_void_p])}
 
 
 def _kernel_lib():
@@ -142,13 +203,17 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
     if not (x.is_contiguous() and w_q.is_contiguous() and scale.is_contiguous()):
         raise ValueError("int8_matmul needs contiguous row-major operands")
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    p = plan(M, K, N)
+    if x.dtype == torch.bfloat16:
+        x, w_q = (t if tma_describable(t) else padded_copy(t) for t in (x, w_q))
     rc = _kernel_lib().w8a16_matmul(
         x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), y.data_ptr(), M, K, N,
-        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        x.stride(0), w_q.stride(0), int(x.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), p.bm, p.bn, p.splits,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {rc} "
-                           f"(M={M}, K={K}, N={N})")
+        raise RuntimeError(f"int8_matmul kernel launch failed: {launch_error(rc)} "
+                           f"(M={M}, K={K}, N={N}, plan {tuple(p)})")
     int8_matmul.launches += 1
     return y
 

@@ -51,9 +51,15 @@ def _operands(m, k, n, device, seed=6):
             torch.from_numpy(scale).to(device))
 
 
+# GPT-2 small's int8 layer projections (K, N): q|k|v fused, out, fc1, fc2.
+GPT2_KN = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(1024, 768, 3072), (128, 3072, 768), (3, 100, 50),
-                                   (1, 768, 768)])
+                                   (1, 768, 768), (5, 36, 200),  # padded copies of x, w_q
+                                   (8, 768, 50304)]              # the lm head
+                         + [(m, k, n) for m in (1, 8, 16, 64, 512) for k, n in GPT2_KN])
 @pytest.mark.parametrize("x_dtype,out_dtype", [
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
     (torch.float32, torch.float32)])
@@ -71,6 +77,38 @@ def test_int8_matmul_matches_plain(cuda_device, m, k, n, x_dtype, out_dtype):
     else:
         atol = 1e-3 * want.abs().max().item()
         torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 768, 768), (1, 3072, 768), (16, 768, 2304),
+                                   (128, 3072, 768), (1024, 3072, 768)])
+def test_int8_matmul_split_k_is_deterministic(cuda_device, m, k, n):
+    """The K slices are summed in fixed rank order: two launches agree bit
+    for bit."""
+    assert P.plan(m, k, n).splits > 1
+    x, w_q, scale = _operands(m, k, n, cuda_device)
+    x = x.bfloat16()
+    first = P.int8_matmul(x, w_q, scale)
+    assert all(torch.equal(first, P.int8_matmul(x, w_q, scale)) for _ in range(3))
+
+
+@pytest.mark.cuda
+def test_int8_matmul_refuses_too_few_registers(cuda_device):
+    """A build whose consumers ask setmaxnreg for more registers than the
+    block holds must refuse to launch (error 900002), not wait forever."""
+    from pytorch_zappa_serverless_tpu_torch.tools import int8_ablation
+
+    lib = int8_ablation.build("register_guard")
+    x, w_q, scale = _operands(8, 768, 768, cuda_device)
+    kernel_lib, before = P._kernel_lib, P.int8_matmul.launches
+    P._kernel_lib = lambda: lib
+    try:
+        with pytest.raises(RuntimeError, match="too few registers"):
+            P.int8_matmul(x.bfloat16(), w_q, scale)
+    finally:
+        P._kernel_lib = kernel_lib
+    torch.cuda.synchronize()
+    assert P.int8_matmul.launches == before
 
 
 @pytest.mark.cuda
