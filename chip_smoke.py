@@ -46,9 +46,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    8 ragged prompts through the port's prefill; each fused kernel of one step
    against its plain version, per layer, and a planted fault (the key at
    pos[s] masked) the tolerance must reject; 32 teacher-forced steps of each
-   fused lane against the unfused step (12 launches of each kernel per step);
-   ms per step of the three lanes and each kernel's per-launch time beside
-   its bound.
+   fused lane against the unfused step (12 launches of each of the four
+   entry points per step of its lane); ms per step of the three lanes and
+   each kernel's per-launch time beside its bound; with ``--profile``, the
+   per-phase ``%globaltimer`` stamps of one launch of each fused kernel
+   (``tools/fused_ablation``).
 
 Every kernel count is set to 0 just before each path and read just after.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
@@ -430,6 +432,10 @@ def per_unet_call(timings: dict) -> dict:
 
 # -- phase 4: the BERT path ----------------------------------------------------
 
+FUSED_ENTRY_POINTS = ("fused_attn_step", "fused_attn_step_int8", "fused_mlp_step",
+                      "fused_mlp_step_int8")
+
+
 def reset_counts() -> None:
     """Every kernel count (and the UNet calls) to 0: just before a path."""
     from pytorch_zappa_serverless_tpu_torch.models.sd_unet import unet_apply
@@ -438,7 +444,8 @@ def reset_counts() -> None:
     from pytorch_zappa_serverless_tpu_torch.ops import int8_matmul as I
 
     I.int8_matmul.launches = FA.flash_attention.launches = unet_apply.calls = 0
-    FD.fused_attn_step.launches = FD.fused_mlp_step.launches = 0
+    for fn in FUSED_ENTRY_POINTS:
+        getattr(FD, fn).launches = 0
 
 
 def read_counts() -> dict:
@@ -449,8 +456,7 @@ def read_counts() -> dict:
 
     return {"int8_matmul": I.int8_matmul.launches,
             "flash_attention": FA.flash_attention.launches, "unet_calls": unet_apply.calls,
-            "fused_attn_step": FD.fused_attn_step.launches,
-            "fused_mlp_step": FD.fused_mlp_step.launches}
+            **{fn: getattr(FD, fn).launches for fn in FUSED_ENTRY_POINTS}}
 
 def http(port: int, path: str, body=None):
     data = None if body is None else json.dumps(body).encode()
@@ -1072,7 +1078,7 @@ def run_gpt2(profile: bool) -> int:
         check(launches == per_call * run["generate_calls"],
               f"int8_matmul launches {launches} != {per_call} x {run['generate_calls']} "
               f"generate calls")
-        check(counts["fused_attn_step"] == counts["fused_mlp_step"] == 0,
+        check(all(counts[fn] == 0 for fn in FUSED_ENTRY_POINTS),
               f"the fused decode kernels ran on the serving path: {counts}")
         log(f"gpt2 path: {run['generate_calls']} generate calls "
             f"({len(engine.clock.entries)} warm-up, {run['batches']} served batches), "
@@ -1339,16 +1345,16 @@ def run_fused(profile: bool, cfg=None, device: str = "cuda") -> dict:
                                FUSED_STEPS) for name in ("fused", "fused_int8")}
     sync(device)
     counts = read_counts()  # just after the path
-    steps = 2 * FUSED_STEPS
-    check(counts["fused_attn_step"] == counts["fused_mlp_step"] == cfg.layers * steps,
-          f"fused launches {counts} != {cfg.layers} x {steps} steps")
+    # Each lane takes FUSED_STEPS steps: the bf16 entry points run on "fused",
+    # the int8 ones on "fused_int8", 12 launches of each kernel a step.
+    check(all(counts[fn] == cfg.layers * FUSED_STEPS for fn in FUSED_ENTRY_POINTS),
+          f"fused launches {counts} != {cfg.layers} x {FUSED_STEPS} steps of each lane")
     for name, r in tf.items():
         log(f"fused decode {name}: {FUSED_STEPS} teacher-forced steps vs the unfused step: "
             f"logit rel max err {r['rel_err']:.4g}; tokens agree on {r['agree']} of "
             f"{r['rows']} rows, on all {r['decided']} whose top-2 margin exceeds 2 x the error")
-    log(f"fused decode: fused_attn_step launched {counts['fused_attn_step']} times, "
-        f"fused_mlp_step {counts['fused_mlp_step']} ({cfg.layers} each per step, "
-        f"{steps} steps)")
+    log("fused decode: launches " + ", ".join(f"{fn} {counts[fn]}" for fn in FUSED_ENTRY_POINTS)
+        + f" ({cfg.layers} of each kernel per step, {FUSED_STEPS} steps a lane)")
     ms = {name: BF.time_lane(lane, cfg) for name, lane in lanes.items()}
     log(f"decode step, ms per step (S={BF.S}, T={BF.T}, CUDA events over 60 steps): "
         + ", ".join(f"{n} {v:.4f}" for n, v in ms.items()))
@@ -1366,6 +1372,11 @@ def run_fused(profile: bool, cfg=None, device: str = "cuda") -> dict:
                 f"{prof['busy_ms_per_step']:.4f} ms/step, idle share {prof['idle_share']:.3f}")
             for kname, count, kms in prof["top"]:
                 log(f"profile {name}: {kms:9.4f} ms/step x{count:<5g} {kname}")
+        # Where one launch of each fused kernel spends its time: %globaltimer
+        # stamps at the phase boundaries of every block (a stamped build).
+        from pytorch_zappa_serverless_tpu_torch.tools import fused_ablation as FAB
+
+        check(FAB.main(["--variants", "", "--stamp-reps", "3"]) == 0, "fused phase stamps failed")
     return {"counts": counts, "kernels": kern, "ms": ms, "teacher_forced": tf}
 
 
@@ -1374,7 +1385,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile served BERT forwards at both buckets, one SD-1.5 "
                          "denoise chunk, one served GPT-2 generate call and the three "
-                         "GPT-2 decode lanes (torch.profiler)")
+                         "GPT-2 decode lanes (torch.profiler), and stamp the fused "
+                         "kernels' phases")
     args = ap.parse_args(argv)
     phase_device()
     phase_build()
@@ -1424,22 +1436,23 @@ def main(argv: list[str] | None = None) -> int:
         "timed_work": "one SD-1.5 UNet call at 512x512: 5 launches at [2,4096,8,40] "
                       "+ 5 at [2,1024,8,80], bf16",
     }]
-    for name, kind, line in (("fused_attn_step", "attn", 86), ("fused_mlp_step", "mlp", 216)):
-        rows = {lane: fused["kernels"][lane]["timing"][kind] for lane in ("fused", "fused_int8")}
-        row = rows["fused"]
+    for name, kind, lane, line in (("fused_attn_step", "attn", "fused", 86),
+                                   ("fused_attn_step_int8", "attn", "fused_int8", 97),
+                                   ("fused_mlp_step", "mlp", "fused", 216),
+                                   ("fused_mlp_step_int8", "mlp", "fused_int8", 222)):
+        row = fused["kernels"][lane]["timing"][kind]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/fused_decode.cu",
             "replaces": f"pytorch_zappa_serverless_tpu/ops/fused_decode.py:{line}",
             "launches": fused["counts"][name],
-            "max_abs_err": max(fused["kernels"][lane]["max_abs_err"] for lane in rows),
+            "max_abs_err": fused["kernels"][lane]["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
-            "int8": {k: rows["fused_int8"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                        "bound_by")},
             "unfused_step_ms": fused["ms"]["seg1"],
-            "timed_work": "one launch at GPT-2 small [S=8, D=768, T=96, F=3072], bf16 "
-                          "weights (int8: the W8A16 variant), the mean over all 12 layers",
+            "timed_work": "one launch at GPT-2 small [S=8, D=768, T=96, F=3072], "
+                          + ("int8 (W8A16)" if lane == "fused_int8" else "bf16")
+                          + " weights, the mean over all 12 layers",
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,12 +4,17 @@ The port's own copy of the JAX package's ``ModelConfig`` and ``ServeConfig``,
 cut to the fields this slice of the port reads; names and defaults are the
 same, so a profile written for the JAX package loads here as long as it uses
 only these fields.  A file is JSON, or YAML (``yaml`` is imported only when a
-YAML file is loaded), optionally with named profiles.
+YAML file is loaded), optionally with named profiles.  ``TPUSERVE_<FIELD>``
+environment variables override the top-level fields after the file is read
+(:func:`apply_env_overrides`), and with no file the dev profile
+(:func:`default_config`) serves every model the port has.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
@@ -70,9 +75,42 @@ class ServeConfig:
         raise KeyError(f"model {name!r} not in profile {self.profile!r}")
 
 
+_ENV_PREFIX = "TPUSERVE_"
+
+
+def _coerce(value: str, target_type: Any) -> Any:
+    if target_type is bool:
+        return value.lower() in ("1", "true", "yes", "on")
+    if target_type is int:
+        return int(value)
+    if target_type is float:
+        return float(value)
+    return value
+
+
+def apply_env_overrides(cfg: ServeConfig, environ: dict[str, str] | None = None) -> ServeConfig:
+    """Override top-level ServeConfig fields from ``TPUSERVE_*`` env vars
+    (``TPUSERVE_PORT=9123``), in place, and return ``cfg``.
+
+    Each value is coerced by the type of the field's default, so a float
+    field loaded from a file as an int still takes "7.5".  ``models`` is
+    file-only: structured per-model config does not go in an env var.
+    """
+    environ = os.environ if environ is None else environ
+    for f in dataclasses.fields(ServeConfig):
+        key = _ENV_PREFIX + f.name.upper()
+        if key not in environ or f.name == "models":
+            continue
+        target = (type(f.default) if f.default is not dataclasses.MISSING
+                  else type(getattr(cfg, f.name)))
+        setattr(cfg, f.name, _coerce(environ[key], target))
+    return cfg
+
+
 def load_config(path: str | Path | None = None,
                 profile: str | None = None) -> ServeConfig:
-    """Load a ServeConfig from a JSON or YAML file (defaults without one).
+    """Load a ServeConfig from a JSON or YAML file, or the dev profile
+    without one; ``TPUSERVE_*`` env vars override either.
 
     The file may hold several named profiles::
 
@@ -81,7 +119,7 @@ def load_config(path: str | Path | None = None,
           prod: {port: 80, models: [...]}
     """
     if path is None:
-        return ServeConfig()
+        return apply_env_overrides(default_config())
     raw = Path(path).expanduser().read_text()
     if str(path).endswith(".json"):
         data = json.loads(raw)
@@ -90,7 +128,7 @@ def load_config(path: str | Path | None = None,
 
         data = yaml.safe_load(raw)
     if not data:
-        return ServeConfig()
+        return apply_env_overrides(default_config())
     if "profiles" in data:
         profile = profile or data.get("default_profile",
                                       next(iter(data["profiles"])))
@@ -100,4 +138,36 @@ def load_config(path: str | Path | None = None,
                                                           (1, 4, 8, 16, 32))),
                              "seq_buckets": tuple(m.get("seq_buckets", (128,)))})
               for m in data.pop("models", [])]
-    return ServeConfig(models=models, **data)
+    return apply_env_overrides(ServeConfig(models=models, **data))
+
+
+def default_config() -> ServeConfig:
+    """The dev profile: the JAX package's dev zoo, random-init, cut to the
+    models the port registers (today bert_base, gpt2 and the tiny sd15)."""
+    from . import models as _zoo  # noqa: F401  (populates the registry)
+    from .utils.registry import list_models
+
+    registered = set(list_models())
+    cfg = ServeConfig(
+        profile="dev",
+        # Each bucket's first request pays its first dispatch (kernel builds
+        # included); production profiles set warmup_at_boot: true.
+        warmup_at_boot=False,
+        models=[
+            ModelConfig(name="resnet18", batch_buckets=(1, 4, 8)),
+            ModelConfig(name="resnet50", batch_buckets=(1, 4, 8, 32)),
+            ModelConfig(name="efficientnet_b0", batch_buckets=(1, 4, 8)),
+            ModelConfig(name="vit_b16", batch_buckets=(1, 4, 8)),
+            ModelConfig(name="bert_base", batch_buckets=(1, 4, 8), seq_buckets=(128,)),
+            ModelConfig(name="whisper_tiny", batch_buckets=(1, 4),
+                        extra={"max_new_tokens": 64}),
+            ModelConfig(name="gpt2", batch_buckets=(1, 4), seq_buckets=(64, 128),
+                        extra={"max_new_tokens": 32, "params_dtype": "bfloat16"}),
+            # The tiny variant at 64x64: a smoke of the async job lane.
+            ModelConfig(name="sd15", batch_buckets=(1,),
+                        extra={"variant": "tiny", "num_steps": 4,
+                               "height": 64, "width": 64}),
+        ],
+    )
+    cfg.models = [m for m in cfg.models if (m.builder or m.name) in registered]
+    return cfg

@@ -52,6 +52,20 @@ def _has_q(module: torch.nn.Module) -> bool:
     return any(name.endswith("kernel_q") for name, _ in module.named_buffers())
 
 
+def cast_params_at_rest(module: torch.nn.Module, dtype: torch.dtype) -> None:
+    """The at-rest weight cast of ``extra.params_dtype`` (e.g. "bfloat16"),
+    in place: half the device memory of f32 weights, which the models cast
+    to the compute dtype at every use.  Only f32 tensors of two or more dims
+    convert; norm scales and biases stay f32 for the f32 norm paths."""
+    for m in module.modules():
+        for store in (m._parameters, m._buffers):
+            for key, t in store.items():
+                if t is not None and t.dtype == torch.float32 and t.ndim >= 2:
+                    cast = t.detach().to(dtype)
+                    store[key] = (torch.nn.Parameter(cast, t.requires_grad)
+                                  if isinstance(t, torch.nn.Parameter) else cast)
+
+
 class CompiledModel:
     """One servable, placed on ``device``, with its bucket set."""
 
@@ -78,10 +92,11 @@ class CompiledModel:
                 raise ValueError(
                     f"{cfg.name}: params_dtype=int8 requested but this model "
                     f"family has no int8 lane (no quantized kernels in the "
-                    f"params); use params_dtype=bfloat16")
+                    f"params); use params_dtype=bfloat16 or leave it unset")
         elif params_dtype:
-            raise ValueError(f"{cfg.name}: params_dtype={params_dtype!r} is not "
-                             f"served by the port yet; use int8 or leave it unset")
+            from ..models.bert import resolve_dtype
+
+            cast_params_at_rest(servable.module, resolve_dtype(params_dtype))
         servable.module.to(self.device)
         if servable.bucket_axes == ("batch",):
             self.buckets = sorted((int(b),) for b in cfg.batch_buckets)

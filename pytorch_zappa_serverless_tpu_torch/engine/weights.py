@@ -141,8 +141,62 @@ def convert_gpt2(sd: Mapping[str, np.ndarray]) -> dict[str, Any]:
     return params
 
 
+# A staged checkpoint: the param tree already converted to the JAX package's
+# layout, in one safetensors file with the tree keys joined by "/" (what that
+# package's ``tpuserve stage`` writes), so loading it runs no converter.
+NATIVE_SUFFIX = ".tpu.safetensors"
+
+
+def is_native(path: str | Path) -> bool:
+    return str(path).endswith(NATIVE_SUFFIX)
+
+
+def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
+    flat: dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        if "/" in key:
+            raise ValueError(f"param name {key!r} contains the '/' separator")
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(value, Mapping):
+            flat.update(flatten_tree(value, path))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
+def unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict[str, Any]:
+    tree: dict[str, Any] = {}
+    for path, value in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def save_native(params: Mapping[str, Any], path: str | Path) -> None:
+    """Stage a param tree (JAX layout, numpy leaves) as ``*.tpu.safetensors``."""
+    from safetensors.numpy import save_file
+
+    if not is_native(path):
+        raise ValueError(f"staged params path must end with {NATIVE_SUFFIX}: {path}")
+    save_file({k: np.ascontiguousarray(v) for k, v in flatten_tree(params).items()},
+              str(path))
+
+
+def load_native(path: str | Path) -> dict[str, Any]:
+    from safetensors.numpy import load_file
+
+    return unflatten_tree(load_file(str(Path(path).expanduser())))
+
+
 def import_params(checkpoint: str | Path, converter) -> dict[str, Any]:
-    """A checkpoint file → param tree, through a family converter."""
+    """A checkpoint file → param tree: a staged ``*.tpu.safetensors`` tree as
+    it is, anything else through a family converter.  (``.tpu.ckpt``
+    streams are not read yet.)"""
+    if is_native(checkpoint):
+        return load_native(checkpoint)
     return converter(load_state_dict(checkpoint))
 
 

@@ -128,14 +128,23 @@ def _layer(p: dict, x, mask_bias, cfg: GPT2Config, write_kv):
 def _logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied lm head = wte, f32 logits.  Int8 lane: the padded transposed
     int8 copy (``lm_q`` [D, Vp] + ``lm_scale``) through the int8 product with
-    an f32 output, pad columns sliced off.  Float lane: the product in the
-    weights' dtype (a bf16 product rounds its f32 accumulator once), then f32."""
+    an f32 output, pad columns sliced off.  Float lane: ``x`` cast to the
+    table's dtype, products in that dtype and the f32 accumulator returned,
+    never rounded to a bf16 table's dtype (the JAX package's
+    ``preferred_element_type=f32``).  On the card cuBLAS writes the f32
+    accumulator; on the CPU both operands go to f32, whose products of bf16
+    values are exact, so only the summation order differs."""
     vocab = params["wte"].shape[0]
     if "lm_q" in params:
         return int8_mm(x.to(torch.bfloat16).contiguous(), params["lm_q"], params["lm_scale"],
                        out_dtype=torch.float32)[:, :vocab]
     w = params["wte"]
-    return (x.to(w.dtype) @ w.t()).float()
+    x = x.to(w.dtype)
+    if w.dtype == torch.float32:
+        return x @ w.t()
+    if x.is_cuda:
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+    return x.float() @ w.t().float()
 
 
 def _embed(params: dict, tok, wpos, cfg: GPT2Config, dtype):
@@ -383,10 +392,10 @@ def make_gpt2_servable(name: str, cfg_model):
     arch = {k: int(v) for k, v in dict(cfg_model.extra.get("arch", {})).items()}
     max_seq = max(cfg_model.seq_buckets)
     params_dtype = str(cfg_model.extra.get("params_dtype", ""))
-    if params_dtype not in ("", "int8"):
+    if params_dtype == "auto":
         raise ValueError(f"{name}: params_dtype {params_dtype!r} is not served by the port yet "
                          f"(a later slice ports the 'auto' lane, ROADMAP Queue 1 item 7); use "
-                         f"'int8' or leave it unset")
+                         f"'int8' or 'bfloat16', or leave it unset")
     later = sorted(k for k in cfg_model.extra if k in _LATER)
     if later:
         raise ValueError(f"{name}: {', '.join(_LATER[k] for k in later)} "

@@ -1,5 +1,6 @@
 // Device helpers for Hopper (sm_90a) kernels of the port: shared-memory
-// barriers (mbarrier), TMA tile loads, wgmma descriptors and instructions,
+// barriers (mbarrier), TMA tile loads, the int8 -> bf16
+// conversion, wgmma descriptors and instructions,
 // proxy fences and named barriers, programmatic dependent launch, cluster
 // barriers and distributed shared memory, register reallocation and the
 // special-function exponential; on the host, the tensor-map encoder and the
@@ -94,6 +95,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same for the box at (c0, c1, c2) of a 3-D tensor map.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // The same for the box at (c0, c1) of a 2-D tensor map.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {
@@ -162,6 +173,25 @@ __device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
                : "r"(addr)
                : "memory");
   return v;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// -- int8 -> bf16 ------------------------------------------------------------
+
+// Two bf16 weights from byte `sel & 3` of two words whose bytes are q + 128
+// (q ^ 0x80): the byte goes under the exponent of 2^23 (0x4B000000), the
+// f32 subtraction of 2^23 + 128 leaves q exactly, and the upper halves of
+// the two f32 values are the bf16 pair (lo_word's in the low half).  Exact
+// for |q| <= 127.
+__device__ __forceinline__ uint32_t bf16x2_of(uint32_t lo_word, uint32_t hi_word, uint32_t sel) {
+  const float lo = __uint_as_float(__byte_perm(lo_word, 0x4B000000u, sel)) - 8388736.0f;
+  const float hi = __uint_as_float(__byte_perm(hi_word, 0x4B000000u, sel)) - 8388736.0f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
 }
 
 // -- register reallocation (warp specialisation) ----------------------------

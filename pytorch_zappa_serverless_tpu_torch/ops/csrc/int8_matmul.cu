@@ -66,6 +66,7 @@ constexpr int BM = 64;  // f32 path: output rows per block
 constexpr int BN = 64;  // f32 path: output columns per block
 constexpr int FK = 16;  // f32 path: K step
 
+using hopper::bf16x2_of;
 using hopper::encode_tiled;
 using hopper::EncodeTiled;
 using hopper::ERR_NO_TENSOR_MAP_API;
@@ -175,16 +176,6 @@ struct Tile {
   static_assert(BM * P_LD * 4 <= BAR_OFF, "the partial tile fits in the ring");
   static_assert(SMEM <= 232448, "a block has at most 227 KB of shared memory");
 };
-
-// Two bf16 weights from byte `sel & 3` of two words whose bytes are q + 128
-// (q ^ 0x80): the byte goes under the exponent of 2^23 (0x4B000000), the
-// f32 subtraction of 2^23 + 128 leaves q exactly, and the upper halves of
-// the two f32 values are the bf16 pair.
-__device__ __forceinline__ uint32_t bf16x2_of(uint32_t lo_word, uint32_t hi_word, uint32_t sel) {
-  const float lo = __uint_as_float(__byte_perm(lo_word, 0x4B000000u, sel)) - 8388736.0f;
-  const float hi = __uint_as_float(__byte_perm(hi_word, 0x4B000000u, sel)) - 8388736.0f;
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
-}
 
 // The int8 tile [BK][BN] (rows of BN bytes, as TMA wrote it) to the bf16
 // K-major tile [BN][BK] that wgmma reads as B: 128-byte rows, the 16-byte

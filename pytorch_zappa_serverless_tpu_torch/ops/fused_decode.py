@@ -24,8 +24,8 @@ tensors, as the JAX kernels alias them (``input_output_aliases``).  A write
 position outside ``[0, T)`` is clamped into it.  ``x_out`` is a new tensor.
 
 - On a CUDA tensor each wrapper launches its hand-written kernel
-  (``csrc/fused_decode.cu``, one cooperative launch per call) on the current
-  stream, or raises.
+  (``csrc/fused_decode.cu``, one cooperative launch of thread-block clusters
+  per call, sized by :func:`plan`) on the current stream, or raises.
 - On a CPU tensor it computes the plain PyTorch version
   (:func:`fused_attn_step_reference`, :func:`fused_mlp_step_reference`).
 """
@@ -33,15 +33,18 @@ position outside ``[0, T)`` is clamped into it.  ``x_out`` is a new tensor.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+from ._tma import launch_error
 
 # The kernels' limits (csrc/fused_decode.cu).
 MAX_ROWS = 64
 MAX_HEAD_DIM = 128
 MAX_CACHE = 32768
-_TILE_N, _WARPS, _KS_MAX = 64, 8, 256
 
 
 def _check_head_layout(D: int, heads: int) -> None:
@@ -104,9 +107,9 @@ def fused_mlp_step_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "fused_decode_grid": (_I, [_I] * 4),
-    "fused_attn_step_launch": (_I, [_I] + [_P] * 16 + [_I] * 4 + [_F, _F] + [_I] * 3 + [_P]),
-    "fused_mlp_step_launch": (_I, [_I] + [_P] * 12 + [_I] * 3 + [_F] + [_I] * 4 + [_P]),
+    "fused_decode_clusters": (_I, [_I] * 5),
+    "fused_attn_step_launch": (_I, [_I] + [_P] * 15 + [_I] * 4 + [_F, _F] + [_P, _P]),
+    "fused_mlp_step_launch": (_I, [_I] + [_P] * 11 + [_I] * 3 + [_F, _I] + [_P, _P]),
 }
 
 
@@ -116,34 +119,250 @@ def _kernel_lib():
     return _build.load("fused_decode.cu", _SIGNATURES)
 
 
-_grids: dict[tuple, int] = {}
+# -- the launch plan (csrc/fused_decode.cu: Plan) ------------------------------
+
+CLUSTER = 8  # blocks per cluster: the split-K ranks of an item
+SMEM_LIMIT = 232_448  # shared memory a block can use on an H100
+_WARPS = 8
+SEG = 64  # columns of a segment: one TMA box of 128 (bf16) or 64 (int8) bytes a row
+_MAX_COLS = 256  # columns of a column-tile item
+_FIXED_END = 64 + 2 * MAX_ROWS * 4 + _WARPS * MAX_HEAD_DIM * 4  # mbarriers, LN stats, reductions
+_MLP_CLUSTERS = 16  # 128 of the card's 132 SMs
 
 
-def _grid(mlp: bool, int8: bool, S: int, T: int, device: torch.device) -> int:
-    """Blocks of one cooperative launch (all resident), per kernel and shape."""
-    key = (mlp, int8, S, T, device.index)
-    if key not in _grids:
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@dataclass(frozen=True)
+class ProjPlan:
+    """How one projection ``[K, N]`` is cut: ``kslice`` K rows per rank of a
+    cluster, streamed in chunks of ``kch`` rows (``nch`` per rank; one chunk
+    when the slice fits its ring, at most 256 rows, a TMA box's limit),
+    ``ncols`` output columns per item made of ``nseg`` segments of
+    ``SEG`` columns, each a swizzled ``[kch, SEG]`` tile of ``stride``-byte
+    rows in a ring stage; ``segw`` columns of an item for one head's q (k,
+    v) on attention's QKV; ``items`` items over the clusters; and whether a
+    TMA tensor map can describe the weights (``tma``: 16-byte-aligned base
+    and rows)."""
+
+    kslice: int
+    kch: int
+    nch: int
+    ncols: int
+    segw: int
+    nseg: int
+    stride: int
+    items: int
+    tma: int
+
+    def ring_bytes(self) -> int:
+        return (1 if self.nch == 1 else 2) * self.nseg * self.kch * self.stride
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch: ``ncl`` clusters of ``C`` blocks, projection ``a`` (LN
+    input: QKV or fc1) and ``b`` (out or fc2), the activation and partial
+    tiles' row strides, whether the cached K/V rows of a block's attention
+    rows are prefetched into shared memory, and the shared-memory offsets."""
+
+    C: int
+    ncl: int
+    a: ProjPlan
+    b: ProjPlan
+    hs_stride: int
+    p_stride: int
+    kv_smem: int
+    rows_per_rank: int
+    off_ring_a: int
+    off_ring_b: int
+    off_hs: int
+    off_part: int
+    off_own: int
+    off_sc: int
+    off_kv: int
+    smem: int
+
+    def ints(self) -> list[int]:
+        out = [self.C, self.ncl]
+        for p in (self.a, self.b):
+            out += [getattr(p, f.name) for f in dataclasses.fields(p)]
+        return out + [getattr(self, f.name) for f in dataclasses.fields(self)[4:]]
+
+
+def _hs_stride(nbytes: int) -> int:
+    """Bytes an activation row takes: 16 mod 128, so that the 8 rows of an
+    mma fragment fall in different banks."""
+    stride = _up(nbytes, 16)
+    while stride % 128 != 16:
+        stride += 16
+    return stride
+
+
+def plan(kind: str, S: int, D: int, N: int, T: int, heads: int, wbytes: int, ncl: int,
+         aligned: bool = True, C: int = CLUSTER, limit: int = SMEM_LIMIT) -> Plan | None:
+    """The launch plan of one kernel at ``ncl`` clusters, or None if no
+    chunking fits ``limit`` bytes of shared memory.
+
+    ``kind`` "attn": projection a is the fused QKV ``[D, 3D]`` cut by head
+    (one head's q, k and v columns per item), b the out projection
+    ``[D, D]``; "mlp": a is fc1 ``[D, N]``, b fc2 ``[N, D]``.  ``aligned``:
+    the operands' base addresses are 16-byte aligned (TMA).  Each projection's K
+    rows split over the C ranks of a cluster; its first chunks, and for
+    attention the cached K/V rows of a rank's rows of the head, are
+    prefetched at kernel start where they fit; a slice larger than the
+    budget streams through a ring of two chunks."""
+    attn = kind == "attn"
+    hd = D // heads if attn else 0
+    S8 = 64 if S > 8 else 8  # activation rows of the mma tiles: 8, or 64
+    rows_per_rank = -(-S // C)
+
+    def proj(K, NN, ncols, segw, items):
+        kslice = _up(-(-K // C), 16)
+        kch = _chunk(kslice, 256)
+        return ProjPlan(kslice, kch, kslice // kch, ncols, segw, ncols // SEG, SEG * wbytes,
+                        items, int(aligned and (NN * wbytes) % 16 == 0))
+
+    if attn:
+        segw = _up(hd, SEG)
+        a = proj(D, 3 * D, 3 * segw, segw, heads)
+    else:
+        ncols = min(_MAX_COLS, _up(-(-N // ncl), SEG))
+        a = proj(D, N, ncols, SEG, -(-N // ncols))
+    ncols_b = min(_MAX_COLS, _up(-(-D // ncl), SEG))
+    b = proj(D if attn else N, D, ncols_b, SEG, -(-D // ncols_b))
+    kv_ok = attn and aligned and D % 8 == 0 and hd % 8 == 0
+    tb = min(T, 256)
+    kv_region = _up(-(-T // tb) * tb * hd * 2, 128)
+
+    def layout(a, b, kv, share_sc=False):
+        """Offsets and total.  ``share_sc``: the scores reuse the partial
+        tile, which every rank has read before attention starts."""
+        off = _FIXED_END
+        offs = {}
+        hs_stride = _hs_stride(2 * max(a.kch, b.kch))
+        part = S8 * (max(a.ncols, b.ncols) + 4) * 4
+        sc = _up(T, 4) * 4 if attn else 0
+        for name, size in (("ring_a", a.ring_bytes()), ("ring_b", b.ring_bytes()),
+                           ("hs", S8 * hs_stride),
+                           ("part", max(part, sc) if share_sc else part),
+                           ("own", rows_per_rank * 3 * a.segw * 4 if attn else 0),
+                           ("sc", 0 if share_sc else sc),
+                           ("kv", rows_per_rank * 2 * kv_region if kv else 0)):
+            off = _up(off, 1024 if name.startswith("ring") else 128)  # swizzle atoms
+            offs[name] = off
+            off += size
+        if share_sc:
+            offs["sc"] = offs["part"]
+        return Plan(C, ncl, a, b, hs_stride, max(a.ncols, b.ncols) + 4, int(kv), rows_per_rank,
+                    offs["ring_a"], offs["ring_b"], offs["hs"], offs["part"], offs["own"],
+                    offs["sc"], offs["kv"], off)
+
+    p = layout(a, b, kv_ok)
+    share = False
+    if p.smem > limit:
+        p = layout(a, b, False)
+    if p.smem > limit and attn:
+        share = True
+        p = layout(a, b, False, share)
+    while p.smem > limit:
+        # the larger ring takes the next smaller chunk
+        rings = sorted((q.ring_bytes(), name) for name, q in (("a", p.a), ("b", p.b))
+                       if q.kch > 16)
+        if not rings:
+            return None
+        name = rings[-1][1]
+        q = getattr(p, name)
+        kch = _chunk(q.kslice, q.kch - 16)
+        q = dataclasses.replace(q, kch=kch, nch=q.kslice // kch)
+        p = layout(q if name == "a" else p.a, q if name == "b" else p.b, False, share)
+    return p
+
+
+def _chunk(kslice: int, most: int) -> int:
+    """The largest multiple of 16 that divides ``kslice`` and is at most
+    ``most``: a rank's chunks are then all full."""
+    return max(k for k in range(16, min(most, kslice) + 1, 16) if kslice % k == 0)
+
+
+def _segment_col(q: ProjPlan, D: int, hd: int, head_item: bool, item: int, sg: int) -> int:
+    """The first weight column of segment ``sg`` of an item (csrc
+    ``segment_col``): a head's q, k and v columns take ``nseg / 3``
+    segments each, a column-tile item's segments lie side by side."""
+    if not head_item:
+        return item * q.ncols + sg * SEG
+    per = q.nseg // 3
+    return (sg // per) * D + item * hd + (sg % per) * SEG
+
+
+def _chunk_rows(q: ProjPlan, K: int, rank: int, chunk: int) -> tuple[int, int]:
+    """The K rows ``[k0, k1)`` of a rank's chunk (csrc ``chunk_rows``)."""
+    s0 = rank * q.kslice
+    k0 = s0 + chunk * q.kch
+    return k0, max(k0, min(K, s0 + q.kslice, k0 + q.kch))
+
+
+def assignments(p: Plan, kind: str, D: int, N: int, heads: int):
+    """Every (projection, K rows, weight columns) whose products a block
+    keeps, walked as the kernel walks them: its cluster's items, its rank's
+    chunks, each chunk's segments of ``SEG`` columns, from the plan's own
+    fields through the kernel's ``chunk_rows`` and ``segment_col``.  Of a
+    segment, the columns its epilogue reads: those below N, or a head's
+    first ``head_dim`` of its q (k, v) columns (at head_dim < SEG a box also
+    reads the next head's columns, whose products are dropped).  Tests hold
+    this to every weight byte exactly once."""
+    attn = kind == "attn"
+    hd = D // heads
+    for name, q, K, NN in (("a", p.a, D, 3 * D if attn else N), ("b", p.b, D if attn else N, D)):
+        head_item = attn and name == "a"
+        for cid in range(p.ncl):
+            for item in range(cid, q.items, p.ncl):
+                for rank in range(p.C):
+                    for c in range(q.nch):
+                        k0, k1 = _chunk_rows(q, K, rank, c)
+                        for sg in range(q.nseg):
+                            col0 = _segment_col(q, D, hd, head_item, item, sg)
+                            if head_item:
+                                width = min(SEG, hd - (sg % (q.nseg // 3)) * SEG)
+                            else:
+                                width = min(SEG, NN - col0)
+                            if k1 > k0 and width > 0:
+                                yield name, k0, k1, col0, width
+
+
+_plans: dict[tuple, tuple[Plan, ctypes.Array]] = {}
+
+
+def _plan(kind: str, int8: bool, S: int, D: int, N: int, T: int, heads: int, aligned: bool,
+          device: torch.device) -> tuple[Plan, ctypes.Array]:
+    """The plan of one launch shape (cached), its cluster count checked
+    against what the card can hold resident at that plan's shared memory."""
+    key = (kind, int8, S, D, N, T, heads, aligned, device.index)
+    if key not in _plans:
+        ncl = heads if kind == "attn" else _MLP_CLUSTERS
         with torch.cuda.device(device):
-            grid = _kernel_lib().fused_decode_grid(int(mlp), int(int8), S, T)
-        if grid <= 0:
-            raise RuntimeError(f"fused decode kernel cannot be sized: CUDA error {-grid} "
-                               f"(S={S}, T={T})")
-        _grids[key] = grid
-    return _grids[key]
+            while True:
+                p = plan(kind, S, D, N, T, heads, 1 if int8 else 2, ncl, aligned)
+                if p is None:
+                    raise ValueError(f"fused {kind} step: no shared-memory plan fits (S={S}, "
+                                     f"D={D}, N={N}, T={T})")
+                fits = _kernel_lib().fused_decode_clusters(int(kind == "mlp"), int(int8),
+                                                           int(S > 8), p.C, p.smem)
+                if fits < 0:
+                    raise RuntimeError(f"fused {kind} step cannot be sized: CUDA error {-fits}")
+                if fits >= ncl:
+                    break
+                if fits == 0:
+                    raise RuntimeError(f"fused {kind} step: not one cluster of {p.C} blocks "
+                                       f"with {p.smem} bytes of shared memory fits the card")
+                ncl = fits
+        _plans[key] = (p, (ctypes.c_int * len(p.ints()))(*p.ints()))
+    return _plans[key]
 
 
-def slab_rows(K: int, N: int, grid: int) -> int:
-    """K rows per slab of a ``[K, N]`` projection, so that its (64-column
-    tile, K slab) work items about fill the grid once."""
-    tiles = -(-N // _TILE_N)
-    ks = -(-K // max(1, grid // tiles))
-    return max(_WARPS, min(_KS_MAX, -(-ks // _WARPS) * _WARPS))
-
-
-def _partials(S: int, device, *shapes) -> torch.Tensor:
-    """f32 scratch for the largest projection's partial sums."""
-    numel = max(-(-K // ks) * S * N for K, N, ks in shapes)
-    return torch.empty(numel, dtype=torch.float32, device=device)
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check_cuda(name: str, x: torch.Tensor, operands: dict, int8: bool, weights: tuple) -> None:
@@ -205,9 +424,9 @@ def _attn(x, ln_scale, ln_bias, wqkv, bqkv, sqkv, wout, bout, sout, cache_k, cac
     if D // heads > MAX_HEAD_DIM or not 1 <= T <= MAX_CACHE:
         raise ValueError(f"{name} takes head_dim <= {MAX_HEAD_DIM} and 1 <= T <= {MAX_CACHE}, "
                          f"got head_dim {D // heads}, T {T}")
-    grid = _grid(False, int8, S, T, x.device)
-    ks_qkv, ks_out = slab_rows(D, 3 * D, grid), slab_rows(D, D, grid)
-    part = _partials(S, x.device, (D, 3 * D, ks_qkv), (D, D, ks_out))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    aligned = _aligned(x, wqkv, wout, cache_k, cache_v)
+    p, plan_ints = _plan("attn", int8, S, D, 3 * D, T, heads, aligned, x.device)
     ctx = torch.empty((S, D), dtype=x.dtype, device=x.device)
     x_out = torch.empty_like(x)
     rc = _kernel_lib().fused_attn_step_launch(
@@ -215,12 +434,11 @@ def _attn(x, ln_scale, ln_bias, wqkv, bqkv, sqkv, wout, bout, sout, cache_k, cac
         sqkv.data_ptr() if int8 else None, bqkv.data_ptr(), wout.data_ptr(),
         sout.data_ptr() if int8 else None, bout.data_ptr(), cache_k.data_ptr(),
         cache_v.data_ptr(), pos.data_ptr(), mask_bias.data_ptr(), x_out.data_ptr(),
-        part.data_ptr(), ctx.data_ptr(), S, D, T, heads, eps, (D // heads) ** -0.5,
-        ks_qkv, ks_out, grid, torch.cuda.current_stream(x.device).cuda_stream)
+        ctx.data_ptr(), S, D, T, heads, eps, (D // heads) ** -0.5, plan_ints, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} (S={S}, D={D}, "
-                           f"T={T}, heads={heads}, grid={grid})")
-    fused_attn_step.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: {launch_error(rc)} (S={S}, D={D}, "
+                           f"T={T}, heads={heads}, plan={p})")
+    (fused_attn_step_int8 if int8 else fused_attn_step).launches += 1
     return x_out, cache_k, cache_v
 
 
@@ -238,7 +456,7 @@ def fused_attn_step(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, cache_k, cache
 def fused_attn_step_int8(x, ln_scale, ln_bias, wqkv_q, bqkv, sqkv, wout_q, bout, sout,
                          cache_k, cache_v, pos, mask_bias, *, heads: int, eps: float = 1e-5):
     """W8A16 variant of :func:`fused_attn_step`: int8 ``[K, N]`` weights and
-    f32 per-column scales.  Counts in ``fused_attn_step.launches``."""
+    f32 per-column scales."""
     return _attn(x, ln_scale, ln_bias, wqkv_q, bqkv, sqkv, wout_q, bout, sout, cache_k, cache_v,
                  pos, mask_bias, heads, eps)
 
@@ -264,21 +482,19 @@ def _mlp(x, ln_scale, ln_bias, w1, b1, s1, w2, b2, s2, eps: float, approx_gelu: 
                                         approx_gelu=approx_gelu, s1=s1, s2=s2)
     int8 = s1 is not None
     _check_cuda(name, x, {"x": x, **operands}, int8, ("w1", "w2"))
-    grid = _grid(True, int8, S, 0, x.device)
-    ks1, ks2 = slab_rows(D, Fd, grid), slab_rows(Fd, D, grid)
-    part = _partials(S, x.device, (D, Fd, ks1), (Fd, D, ks2))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    p, plan_ints = _plan("mlp", int8, S, D, Fd, 1, 1, _aligned(x, w1, w2), x.device)
     h1 = torch.empty((S, Fd), dtype=x.dtype, device=x.device)
     x_out = torch.empty_like(x)
     rc = _kernel_lib().fused_mlp_step_launch(
         int(int8), x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(),
         s1.data_ptr() if int8 else None, b1.data_ptr(), w2.data_ptr(),
-        s2.data_ptr() if int8 else None, b2.data_ptr(), x_out.data_ptr(), part.data_ptr(),
-        h1.data_ptr(), S, D, Fd, eps, int(approx_gelu), ks1, ks2, grid,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        s2.data_ptr() if int8 else None, b2.data_ptr(), x_out.data_ptr(), h1.data_ptr(),
+        S, D, Fd, eps, int(approx_gelu), plan_ints, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} (S={S}, D={D}, "
-                           f"F={Fd}, grid={grid})")
-    fused_mlp_step.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: {launch_error(rc)} (S={S}, D={D}, "
+                           f"F={Fd}, plan={p})")
+    (fused_mlp_step_int8 if int8 else fused_mlp_step).launches += 1
     return x_out
 
 
@@ -291,13 +507,12 @@ def fused_mlp_step(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5,
 
 def fused_mlp_step_int8(x, ln_scale, ln_bias, w1_q, b1, s1, w2_q, b2, s2, *,
                         eps: float = 1e-5, approx_gelu: bool = True):
-    """W8A16 variant of :func:`fused_mlp_step`.  Counts in
-    ``fused_mlp_step.launches``."""
+    """W8A16 variant of :func:`fused_mlp_step`."""
     return _mlp(x, ln_scale, ln_bias, w1_q, b1, s1, w2_q, b2, s2, eps, approx_gelu)
 
 
-# Launches of the CUDA kernels in this process, each variant of a wrapper
-# counted on the bf16 one (the plain version on CPU tensors does not count):
-# a run reads them to show the decode loop used the kernels.
-fused_attn_step.launches = 0
-fused_mlp_step.launches = 0
+# Launches of the CUDA kernels in this process, per entry point (the plain
+# version on CPU tensors does not count): a run reads them to show the
+# decode loop used the kernels.
+fused_attn_step.launches = fused_attn_step_int8.launches = 0
+fused_mlp_step.launches = fused_mlp_step_int8.launches = 0

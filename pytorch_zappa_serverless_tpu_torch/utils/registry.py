@@ -37,6 +37,11 @@ def get_model_builder(name: str) -> Callable:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}") from None
 
 
+def list_models() -> list[str]:
+    """Every registered model name, sorted."""
+    return sorted(_REGISTRY)
+
+
 def get_latency_class(name: str) -> str:
     """The registered latency class; "" for unregistered names."""
     return _LATENCY_CLASS.get(name, "")

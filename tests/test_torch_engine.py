@@ -292,3 +292,78 @@ def test_load_config_json(tmp_path):
     assert cfg.profile == "dev" and cfg.port == 9001
     assert cfg.model("bert_base").batch_buckets == (1, 8)
     assert cfg.model("bert_base").seq_buckets == (128,)
+
+
+GPT2_TINY = {"d_model": 32, "layers": 2, "heads": 2, "ffn_dim": 128, "vocab_size": 500,
+             "max_positions": 64}
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [("float32", 0.0, 1e-4),
+                                              ("bfloat16", 0.0, 2e-2)])
+def test_gpt2_params_dtype_bfloat16_at_rest(dtype, rtol, atol):
+    """``extra.params_dtype: bfloat16`` (the JAX dev profile sets it for
+    gpt2) builds on the CPU: matrices held in bf16, norm scales and biases
+    in f32, and prefill logits match the JAX servable after the reference's
+    own at-rest cast.  f32 compute: both sides multiply the same bf16-rounded
+    weights in f32 and the tied lm head returns its f32 accumulator on both,
+    so 1e-4 of the largest logit, the summation orders; bf16 compute:
+    2e-2 of the largest logit, the two frameworks' bf16 roundings
+    (tests/test_torch_gpt2.py)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from pytorch_zappa_serverless_tpu.models import gpt2 as JG
+    from pytorch_zappa_serverless_tpu.models.vision_common import cast_params_at_rest
+    from pytorch_zappa_serverless_tpu_torch.models import gpt2 as PG
+
+    kw = dict(name="gpt2", dtype=dtype, seq_buckets=(16,), batch_buckets=(1,),
+              extra={"max_new_tokens": 8, "arch": GPT2_TINY, "params_dtype": "bfloat16"})
+    eng = build_engine(ServeConfig(models=[ModelConfig(**kw)]), device="cpu")
+    try:
+        sd = eng.model("gpt2").servable.module.state_dict()
+        tree = eng.model("gpt2").servable.module.tree()
+        pcfg = eng.model("gpt2").servable.meta["config"]
+    finally:
+        eng.shutdown()
+    assert sd["layer0.q.kernel"].dtype == sd["wte"].dtype == torch.bfloat16
+    assert sd["layer0.ln1.scale"].dtype == sd["layer0.q.bias"].dtype == torch.float32
+    assert all(t.dtype == (torch.bfloat16 if t.ndim >= 2 else torch.float32)
+               for t in sd.values())
+    jsv = j_builder("gpt2")(JModelConfig(**kw))
+    jparams = cast_params_at_rest(jsv.params, jnp.bfloat16)
+    jcfg = JG.GPT2Config(**dataclasses.asdict(pcfg))
+    rng = np.random.default_rng(5)
+    toks = rng.integers(1, 499, (2, 8)).astype(np.int32)
+    lengths = np.array([8, 5], np.int32)
+    toks[1, 5:] = 0
+    cdt = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+    want, _, _ = jax.jit(lambda p: JG.prefill(p, toks, lengths, 12, jcfg, cdt[dtype][0]))(
+        jparams)
+    with torch.inference_mode():
+        got, _, _ = PG.prefill(tree, torch.from_numpy(toks), torch.from_numpy(lengths), 12,
+                               pcfg, cdt[dtype][1])
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol,
+                               atol=atol * np.abs(want).max())
+
+
+def test_dev_profile_gpt2_entry_boots():
+    """``load_config()`` with no file: the dev profile's gpt2 entry, with
+    ``params_dtype: bfloat16``, builds and answers (narrowed to a tiny arch)."""
+    cfg = load_config()
+    mc = cfg.model("gpt2")
+    assert mc.extra["params_dtype"] == "bfloat16"
+    mc.extra["arch"] = GPT2_TINY
+    mc.extra["max_new_tokens"] = 4
+    mc.seq_buckets, mc.batch_buckets = (16,), (1,)
+    eng = build_engine(ServeConfig(models=[mc]), device="cpu")
+    try:
+        cm = eng.model("gpt2")
+        sample = cm.servable.preprocess({"input_ids": [3, 1, 4, 1, 5]})
+        batch = cm.servable.meta["collate"]([sample], (1, 16), cm.servable.input_spec((1, 16)))
+        out = cm.forward(batch)
+    finally:
+        eng.shutdown()
+    assert out["tokens"].shape == (1, 4)
+    assert ((0 <= out["tokens"]) & (out["tokens"] < 500)).all()

@@ -260,3 +260,77 @@ def test_wrappers_check_shapes_on_cpu(inputs):
     with pytest.raises(ValueError, match="w2 must be"):
         PF.fused_mlp_step(_t(a, "x"), _t(a, "lns"), _t(a, "lnb"), _t(a, "w1"), _t(a, "b1"),
                           _t(a, "w1"), _t(a, "b2"))
+
+
+# -- the CUDA kernels' launch plan (ops/fused_decode.plan), on the CPU -------
+
+PLAN_SHAPES = [
+    # kind, D, N (3D or F), heads, T, bytes per weight, clusters
+    ("attn", 768, 2304, 12, 96, 2, 12), ("attn", 768, 2304, 12, 96, 1, 12),
+    ("attn", 768, 2304, 12, 32768, 2, 12), ("attn", 4096, 12288, 32, 96, 2, 16),
+    ("attn", 60, 180, 5, 7, 2, 5), ("attn", 384, 1152, 3, 200, 1, 3),
+    ("attn", 4096, 12288, 32, 32768, 2, 16),  # the limits: 64 rows, head_dim 128, T 32768
+    ("mlp", 768, 3072, 1, 1, 2, 16), ("mlp", 768, 3072, 1, 1, 1, 16),
+    ("mlp", 768, 16384, 1, 1, 2, 16), ("mlp", 384, 1000, 1, 1, 1, 16),
+    ("mlp", 768, 3072, 1, 1, 2, 5),  # fewer clusters than items
+]
+
+
+@pytest.mark.parametrize("S", [1, 8, 64])
+@pytest.mark.parametrize("kind,D,N,heads,T,wb,ncl", PLAN_SHAPES)
+def test_plan_reads_every_weight_byte_once_and_fits(kind, D, N, heads, T, wb, ncl, S):
+    """Every byte of both projections' weights is read by exactly one block
+    (its cluster's item, its rank's K rows, one chunk), and the plan's
+    shared memory fits a block's 232,448 bytes."""
+    p = PF.plan(kind, S, D, N, T, heads, wb, ncl)
+    assert p is not None and p.smem <= PF.SMEM_LIMIT
+    assert len(p.ints()) == 32
+    Ka, Na = D, N
+    Kb, Nb = (D, D) if kind == "attn" else (N, D)
+    seen = {"a": np.zeros((Ka, Na), np.uint8), "b": np.zeros((Kb, Nb), np.uint8)}
+    for name, k0, k1, col0, width in PF.assignments(p, kind, D, N, heads):
+        seen[name][k0:k1, col0:col0 + width] += 1
+    for name, count in seen.items():
+        assert (count == 1).all(), (name, int(count.min()), int(count.max()))
+    for q in (p.a, p.b):
+        assert q.kslice % q.kch == 0 and q.kch % 16 == 0 and q.kch <= 256
+        assert q.ncols == q.nseg * PF.SEG and q.ncols <= 384
+    # the K/V copy is taken only where it fits beside the full weight slices
+    if p.kv_smem:
+        assert p.a.nch == 1 and p.b.nch == 1
+
+
+def test_plan_streams_a_slice_past_the_budget_through_its_ring():
+    p = PF.plan("mlp", 64, 768, 16384, 1, 1, 2, 16)
+    assert p.b.nch > 2 and p.b.ring_bytes() == 2 * p.b.kch * p.b.stride
+    assert PF.plan("attn", 8, 768, 2304, 96, 12, 2, 12).kv_smem == 1
+    assert PF.plan("attn", 64, 768, 2304, 96, 12, 2, 12).kv_smem == 0  # 8 rows a rank
+    assert PF.plan("attn", 8, 4096, 12288, 96, 32, 2, 16).a.nch > 1
+    # 64 rows, head_dim 128, 32768 positions: the scores reuse the partial tile
+    p = PF.plan("attn", 64, 4096, 12288, 32768, 32, 2, 16)
+    assert p.off_sc == p.off_part and p.smem <= PF.SMEM_LIMIT
+    assert PF.plan("attn", 8, 768, 2304, 96, 12, 2, 12).off_sc != \
+        PF.plan("attn", 8, 768, 2304, 96, 12, 2, 12).off_part
+
+
+def test_plan_uses_tma_only_where_a_tensor_map_can_describe_the_weights():
+    assert PF.plan("attn", 8, 768, 2304, 96, 12, 2, 12).a.tma == 1
+    assert PF.plan("attn", 8, 768, 2304, 96, 12, 2, 12, aligned=False).a.tma == 0
+    p = PF.plan("attn", 3, 60, 180, 7, 5, 2, 5)  # rows of 360 bytes
+    assert p.a.tma == 0 and p.kv_smem == 0
+    assert PF.plan("mlp", 5, 384, 1000, 1, 1, 1, 16).a.tma == 0  # fc1 rows of 1000 bytes
+
+
+def test_fused_ablation_variants_apply_to_the_source():
+    """Every ablation variant of the current kernel design still finds what
+    it substitutes (tools/fused_ablation.py)."""
+    from pytorch_zappa_serverless_tpu_torch.ops import _build
+    from pytorch_zappa_serverless_tpu_torch.tools import fused_ablation as A
+
+    source = (_build.CSRC / A.SOURCE).read_text()
+    design = A.design_of(source)
+    assert design == "hopper"
+    for name in [*A.DESIGNS[design]["variants"], "stamps"]:
+        out = A.apply_variant(source, name)
+        assert (out != source) == (name != "kernel")
+    assert A.apply_variant(source, "stamps").count("fused_stamp(") >= 8

@@ -279,14 +279,25 @@ def _attn_call(FD, o, H, kernel, int8):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,D,H,T", [(8, 768, 12, 96), (1, 768, 12, 96), (3, 768, 12, 96),
                                      (8, 768, 12, 1), (64, 768, 12, 96), (8, 128, 4, 32),
-                                     (5, 384, 3, 200)])
+                                     (5, 384, 3, 200),
+                                     # one row, all rows; one key, 1024 keys
+                                     (1, 768, 12, 1), (64, 768, 12, 1), (1, 768, 12, 1024),
+                                     (64, 768, 12, 1024),
+                                     # an odd head count whose rows no bulk copy can
+                                     # address (hd 12)
+                                     (3, 60, 5, 7),
+                                     # QKV and out slices past the shared-memory budget: the ring
+                                     (8, 4096, 32, 96),
+                                     # 64 rows at head_dim 128: the scores share the partials
+                                     (64, 1024, 8, 4096)])
 @pytest.mark.parametrize("int8", [False, True])
 def test_fused_attn_step_matches_plain(cuda_device, S, D, H, T, int8):
     FD, o = _fused_operands(S, D, H, T, 4 * D, int8, cuda_device)
-    before = FD.fused_attn_step.launches
+    counter = FD.fused_attn_step_int8 if int8 else FD.fused_attn_step
+    before = counter.launches
     x, ck, cv = _attn_call(FD, o, H, True, int8)
     torch.cuda.synchronize()
-    assert FD.fused_attn_step.launches == before + 1
+    assert counter.launches == before + 1
     wx, wk, wv = _attn_call(FD, o, H, False, int8)
     assert x.dtype == torch.bfloat16 and x.shape == (S, D) and torch.isfinite(x.float()).all()
     atol, rtol = FUSED_TOL
@@ -318,12 +329,17 @@ def test_fused_attn_step_edges(cuda_device, int8):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,D,F", [(8, 768, 3072), (1, 768, 3072), (3, 768, 3072),
-                                   (64, 768, 3072), (5, 384, 1000)])
+                                   (64, 768, 3072), (5, 384, 1000),
+                                   # fc2's K slice past the budget: the ring
+                                   (8, 768, 16384), (64, 768, 16384),
+                                   # rows no bulk copy can address
+                                   (2, 60, 200)])
 @pytest.mark.parametrize("int8", [False, True])
 def test_fused_mlp_step_matches_plain(cuda_device, S, D, F, int8):
     FD, o = _fused_operands(S, D, 12 if D % 12 == 0 else 3, 8, F, int8, cuda_device)
     args = (o["x"], o["ln_scale"], o["ln_bias"], o["w1"], o["b1"])
-    before = FD.fused_mlp_step.launches
+    counter = FD.fused_mlp_step_int8 if int8 else FD.fused_mlp_step
+    before = counter.launches
     if int8:
         x = FD.fused_mlp_step_int8(*args, o["s1"], o["w2"], o["b2"], o["s2"])
         want = FD.fused_mlp_step_reference(*args, o["w2"], o["b2"], s1=o["s1"], s2=o["s2"])
@@ -331,7 +347,7 @@ def test_fused_mlp_step_matches_plain(cuda_device, S, D, F, int8):
         x = FD.fused_mlp_step(*args, o["w2"], o["b2"])
         want = FD.fused_mlp_step_reference(*args, o["w2"], o["b2"])
     torch.cuda.synchronize()
-    assert FD.fused_mlp_step.launches == before + 1
+    assert counter.launches == before + 1
     atol, rtol = FUSED_TOL
     torch.testing.assert_close(x.float(), want.float(), rtol=rtol, atol=atol)
 
@@ -339,7 +355,9 @@ def test_fused_mlp_step_matches_plain(cuda_device, S, D, F, int8):
 @pytest.mark.cuda
 def test_fused_decode_raises_on_what_the_kernel_does_not_take(cuda_device):
     FD, o = _fused_operands(8, 768, 12, 96, 3072, False, cuda_device)
-    before = FD.fused_attn_step.launches, FD.fused_mlp_step.launches
+    counters = (FD.fused_attn_step, FD.fused_attn_step_int8, FD.fused_mlp_step,
+                FD.fused_mlp_step_int8)
+    before = [c.launches for c in counters]
     base = dict(o)
     cases = [({"x": o["x"].float()}, TypeError, "bf16"),
              ({"wqkv": o["wqkv"].t().contiguous().t()}, ValueError, "contiguous"),
@@ -358,4 +376,68 @@ def test_fused_decode_raises_on_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="rows"):
         big = torch.zeros(65, 768, dtype=torch.bfloat16, device=cuda_device)
         FD.fused_mlp_step(big, o["ln_scale"], o["ln_bias"], o["w1"], o["b1"], o["w2"], o["b2"])
+    assert [c.launches for c in counters] == before
+
+
+@pytest.mark.cuda
+def test_gpt2_float_lm_head_returns_the_f32_accumulator(cuda_device):
+    """The float lane's tied lm head on a bf16 table (``params_dtype:
+    bfloat16``): bf16 products summed in f32 and returned in f32, never
+    rounded to bf16, as the JAX package's ``preferred_element_type=f32``.
+    Against the same exact products summed in f64: within f32 summation
+    error (1e-5 of the largest logit; a bf16 rounding is ~2e-3 of a logit)."""
+    from pytorch_zappa_serverless_tpu_torch.models import gpt2 as G
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 768, generator=g).to(cuda_device, torch.bfloat16)
+    wte = (torch.randn(50257, 768, generator=g) * 0.02).to(cuda_device, torch.bfloat16)
+    got = G._logits({"wte": wte}, x)
+    want = x.double() @ wte.double().t()
+    assert got.dtype == torch.float32 and got.shape == (8, 50257)
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["hs over ring b", "smem short", "partial rows short"])
+def test_fused_decode_refuses_a_plan_out_of_place(cuda_device, monkeypatch, fault):
+    """The kernel checks the plan's shared-memory layout against the sizes it
+    indexes: a region over the one before it, a total past smem or a partial
+    tile narrower than an item is refused before the launch."""
+    import ctypes
+    import dataclasses
+
+    FD, o = _fused_operands(8, 768, 12, 96, 3072, False, cuda_device)
+    aligned = True
+    for kind, N, T, H in (("attn", 3 * 768, 96, 12), ("mlp", 3072, 1, 1)):
+        p, _ = FD._plan(kind, False, 8, 768, N, T, H, aligned, o["x"].device)
+        bad = {"hs over ring b": dataclasses.replace(p, off_hs=p.off_ring_b),
+               "smem short": dataclasses.replace(p, smem=p.smem - 128),
+               "partial rows short": dataclasses.replace(p, p_stride=p.p_stride - 16)}[fault]
+        key = (kind, False, 8, 768, N, T, H, aligned, o["x"].device.index)
+        monkeypatch.setitem(FD._plans, key, (bad, (ctypes.c_int * 32)(*bad.ints())))
+    before = (FD.fused_attn_step.launches, FD.fused_mlp_step.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _attn_call(FD, o, 12, True, False)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FD.fused_mlp_step(o["x"], o["ln_scale"], o["ln_bias"], o["w1"], o["b1"], o["w2"],
+                          o["b2"])
     assert (FD.fused_attn_step.launches, FD.fused_mlp_step.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_fused_steps_are_bitwise_repeatable(cuda_device, int8):
+    """Two launches on the same inputs give the same bytes: the split-K sums
+    run in a fixed rank order, with no atomics."""
+    S, D, H, T, F = 8, 768, 12, 96, 3072
+    FD, o = _fused_operands(S, D, H, T, F, int8, cuda_device)
+    runs = [_attn_call(FD, o, H, True, int8) for _ in range(2)]
+    torch.cuda.synchronize()
+    for got, again in zip(*runs):
+        assert torch.equal(got, again)
+    args = (o["x"], o["ln_scale"], o["ln_bias"], o["w1"], o["b1"])
+    if int8:
+        mlps = [FD.fused_mlp_step_int8(*args, o["s1"], o["w2"], o["b2"], o["s2"]) for _ in range(2)]
+    else:
+        mlps = [FD.fused_mlp_step(*args, o["w2"], o["b2"]) for _ in range(2)]
+    assert torch.equal(mlps[0], mlps[1])
