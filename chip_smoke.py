@@ -22,15 +22,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``text``, ``input_ids``, an 8-element ``instances`` body) and
    ``/classify``, then ``/healthz``, ``/v1/models`` and ``/metrics``; the
    int8 kernel's launch count must equal its launches per forward times the
-   forwards run;
+   forwards run; then each bucket's captured CUDA graph against the eager
+   forward on the same batch, byte for byte, two batches replayed in turn,
+   and exactly 72 ``int8_matmul`` launches a replay;
 5. BERT parity: the served int8 forward against the same model with every
-   projection routed through the plain version, on the same weights and
-   batch;
+   projection routed through the plain version (eagerly), on the same
+   weights and batch;
 6. SD-1.5 path: ``build_engine`` with full-width SD-1.5 at 512x512, 20 DDIM
    steps in chunks of 4 (seed weights), the server, two ``:submit`` jobs
    polled on ``/v1/jobs/{id}`` to valid 512x512 PNGs, ``:predict`` → 405,
    ``/v1/models``, ``/healthz``, ``/metrics``; the flash kernel's launch
-   count must be ten per UNet call;
+   count must be ten per UNet call; each chunk's replayed graph against the
+   same chunk run eagerly (the latents byte for byte, exactly 40 flash
+   launches a replay); the two jobs at once through ``runner.run_chunked``,
+   their chunks taking turns on the one chunk graph, against each alone;
 7. SD-1.5 parity: one UNet call with every long self-attention through the
    kernel, against the same with it routed through the plain version; and
    the PNG the job lane served for the first job against the same request
@@ -40,19 +45,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``:predict`` with ``text``, ``input_ids``, 8 ragged ``instances``, and one
    sampled request sent twice (the same answer both times); the GETs; the
    int8 kernel's launch count must be 49 per position step times 33 steps
-   per generate call; then prefill and teacher-forced step logits against the
-   same model with the int8 product routed to its plain version;
+   per generate call; the captured graphs (greedy and a sampled, filtered
+   variant, at both buckets) against the eager call, byte for byte, exactly
+   49 x 33 launches a replay; then prefill and teacher-forced step logits
+   against the same model with the int8 product routed to its plain version;
 9. fused decode: the bench's three lanes (``tools/bench_fused_decode``) on
    8 ragged prompts through the port's prefill; each fused kernel of one step
    against its plain version, per layer, and a planted fault (the key at
    pos[s] masked) the tolerance must reject; 32 teacher-forced steps of each
    fused lane against the unfused step (12 launches of each of the four
-   entry points per step of its lane); ms per step of the three lanes and
-   each kernel's per-launch time beside its bound; with ``--profile``, the
-   per-phase ``%globaltimer`` stamps of one launch of each fused kernel
+   entry points per step of its lane); each lane's captured step replayed
+   32 times against 32 eager steps (tokens and caches byte for byte); ms per
+   step of the three lanes, replayed and eager, and each kernel's per-launch
+   time beside its bound; with ``--profile``, the per-phase
+   ``%globaltimer`` stamps of one launch of each fused kernel
    (``tools/fused_ablation``).
 
+With ``--profile``, every path is also profiled eager against replayed:
+device-busy and wall time, the idle share, and the host's calls, where a
+replay must issue one ``cudaGraphLaunch`` a forward, chunk, generate call
+or step and no kernel launch.  Each path prints its device memory peak.
+
 Every kernel count is set to 0 just before each path and read just after.
+A count is of device executions: an eager run counts, a graph's capture
+counts nothing, and each replay adds the launches the graph holds.
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on its main path, error against its plain version, and per-call
 times (kernel, plain version, one PyTorch library call) beside its bound;
@@ -437,26 +453,99 @@ FUSED_ENTRY_POINTS = ("fused_attn_step", "fused_attn_step_int8", "fused_mlp_step
 
 
 def reset_counts() -> None:
-    """Every kernel count (and the UNet calls) to 0: just before a path."""
-    from pytorch_zappa_serverless_tpu_torch.models.sd_unet import unet_apply
-    from pytorch_zappa_serverless_tpu_torch.ops import flash_attention as FA
-    from pytorch_zappa_serverless_tpu_torch.ops import fused_decode as FD
-    from pytorch_zappa_serverless_tpu_torch.ops import int8_matmul as I
+    """Every kernel count (and the UNet calls) to 0: just before a path.  A
+    count is of device executions: an eager call counts as it runs, a
+    graph's capture counts nothing, each replay adds what the graph holds
+    (``ops.counters``)."""
+    from pytorch_zappa_serverless_tpu_torch import models  # noqa: F401  (registers unet_apply)
+    from pytorch_zappa_serverless_tpu_torch.ops import counters, fused_decode  # noqa: F401
 
-    I.int8_matmul.launches = FA.flash_attention.launches = unet_apply.calls = 0
-    for fn in FUSED_ENTRY_POINTS:
-        getattr(FD, fn).launches = 0
+    counters.reset()
 
 
 def read_counts() -> dict:
-    from pytorch_zappa_serverless_tpu_torch.models.sd_unet import unet_apply
-    from pytorch_zappa_serverless_tpu_torch.ops import flash_attention as FA
-    from pytorch_zappa_serverless_tpu_torch.ops import fused_decode as FD
-    from pytorch_zappa_serverless_tpu_torch.ops import int8_matmul as I
+    from pytorch_zappa_serverless_tpu_torch.ops import counters
 
-    return {"int8_matmul": I.int8_matmul.launches,
-            "flash_attention": FA.flash_attention.launches, "unet_calls": unet_apply.calls,
-            **{fn: getattr(FD, fn).launches for fn in FUSED_ENTRY_POINTS}}
+    snap = counters.snapshot()
+    snap["unet_calls"] = snap.pop("unet_apply")
+    return snap
+
+
+def exact_counts(counts: dict, want: dict, what: str) -> None:
+    """``counts`` (from ``read_counts``) hold ``want`` exactly, every other
+    count 0."""
+    full = {k: want.get(k, 0) for k in counts}
+    check(counts == full, f"{what}: launch counts {counts} != {full}")
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def phase_replay(engine, name: str, batches: list[tuple[str, dict]], per_call: dict) -> None:
+    """Each collated batch through the bucket's captured graph against
+    ``forward_eager`` on the same batch, byte for byte; the batches replayed
+    in turn, twice (each replay refills the static inputs, so each must give
+    its own eager result); and the launch counts of each replay exactly
+    ``per_call``."""
+    cm = engine.model(name)
+    run = engine.runner.run_fn_sync
+    eager = {tag: run(cm.forward_eager, batch) for tag, batch in batches}
+    for _, batch in batches:  # every graph these batches need, captured first
+        run(cm.forward, batch)
+    for rnd in range(2):
+        for tag, batch in batches:
+            reset_counts()
+            got = run(cm.forward, batch)
+            exact_counts(read_counts(), per_call, f"{name} replay of {tag}")
+            for key, want in eager[tag].items():
+                check(same_bits(got[key], want),
+                      f"{name} {tag}: replay {key} differs from eager: max |d| "
+                      f"{np.abs(got[key].astype(np.float64) - want).max()}")
+    log(f"{name} replay vs eager: {', '.join(tag for tag, _ in batches)}: bitwise equal, "
+        f"replayed in turn twice; each replay's launches exactly {per_call}; graphs "
+        f"{cm.graphs}")
+
+
+def log_profiles(tag: str, unit: str, eager: dict, replay: dict, per: int = 1,
+                 top: int = 10) -> None:
+    """The eager and replayed windows of one path side by side (``per``
+    divides the per-call numbers, e.g. into per-step ones); the replay must
+    issue one graph launch per call and no kernel launch from the host."""
+    for kind, p in (("eager", eager), ("replay", replay)):
+        log(f"profile {tag} {kind}: wall {p['wall_ms']:.4f} ms, device busy {p['busy_ms']:.4f} "
+            f"ms, idle share {p['idle_share']:.4f} per call; untraced wall "
+            f"{p['wall_ms_untraced']:.4f} ms, idle share {p['idle_share_untraced']:.4f}; host "
+            f"calls per call {p['host_calls']}")
+    calls = replay["host_calls"]
+    check(calls["cudaGraphLaunch"] == 1 and calls["kernel_launches"] == 0,
+          f"profile {tag}: the replayed window issued {calls} per call, not one "
+          f"cudaGraphLaunch and no kernel launch")
+    busy = replay["busy_ms"] or 1.0
+    for name, count, ms in replay["top"][:top]:
+        log(f"profile {tag} replay: {ms / per:9.4f} ms/{unit} {100 * ms / busy:5.1f}% "
+            f"x{count / per:<6.4g} {name[:90]}")
+
+
+def log_memory(tag: str, engine) -> None:
+    """The path's device memory: its peak since the engine build began
+    (weights, warm-up runs and the captures' pool), and what is still
+    allocated and reserved."""
+    m = engine.models
+    log(f"memory {tag}: peak allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+        f"allocated {torch.cuda.memory_allocated() / 2**20:.1f} MiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB; weights "
+        f"{sum(cm.param_nbytes() for cm in m.values()) / 2**20:.1f} MiB; graphs "
+        f"{ {n: cm.graphs for n, cm in m.items()} }")
+
+
+def fresh_memory() -> None:
+    """Free what the last path left and reset the peak, before a path."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 def http(port: int, path: str, body=None):
     data = None if body is None else json.dumps(body).encode()
@@ -556,11 +645,11 @@ def phase_parity(engine, instances: list[dict], seq: int = BERT["seq"]) -> dict:
     bucket, batch = collate(cm, instances, seq)
     dense = [m for m in cm.servable.module.modules() if isinstance(m, Int8Dense)]
 
-    def plain_forward():
+    def plain_forward():  # eager: the captured graph holds the kernel
         for m in dense:
             m.matmul = I.int8_matmul_reference
         try:
-            return cm.forward(batch)["probs"]
+            return cm.forward_eager(batch)["probs"]
         finally:
             for m in dense:
                 m.matmul = I.int8_matmul
@@ -736,10 +825,12 @@ def phase_sd_parity(engine, body: dict, served: np.ndarray) -> dict:
 
     def job_png():
         """The job lane's route (runner.run_chunked's slices, the server's
-        finalize), in one dispatch: the decoded PNG."""
+        finalize) in one dispatch, each chunk eager (the captured chunk graph
+        holds the kernel): the decoded PNG."""
         _, state = cm.chunk_prepare(samples)
         for rows in ch["chunk_rows"]:
-            state = cm.chunk_step(state, rows)
+            with torch.inference_mode():
+                state = ch["chunk"](cm.servable.module.tree(), state, rows)
         result = cm.servable.meta["finalize"](cm.chunk_finalize(state, samples)[0])
         return read_png(base64.b64decode(result["image_b64"]))
 
@@ -759,98 +850,147 @@ def phase_sd_parity(engine, body: dict, served: np.ndarray) -> dict:
         f"vs the plain route's: mean |d| {img_err:.4g} LSB (<= {SD_IMAGE_MEAN_LSB}), "
         f"max {int(diff.max())}")
     log(f"sd denoise: {statistics.median(ms):.3f} ms per step (CFG batch 2, 512x512; one "
-        f"4-step chunk, host clock to a stream synchronize; runs {[round(m, 3) for m in ms]})")
+        f"replayed 4-step chunk, host clock to a stream synchronize; runs "
+        f"{[round(m, 3) for m in ms]})")
     return {"eps_rel_err": eps_err, "image_mean_lsb": img_err,
             "ms_per_step": statistics.median(ms)}
 
 
-def phase_sd_profile(engine, body: dict, top: int = 15) -> None:
-    """``torch.profiler`` over one 4-step chunk on the dispatch thread:
-    device time by kernel name and the device's idle share of the window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def phase_sd_replay(engine, body: dict) -> None:
+    """A job's chunks, each replayed through the chunk graph against the
+    same chunk run eagerly on the same state and schedule rows: the latents
+    after each chunk byte for byte, and each replay's launches exactly ten
+    flash launches a UNet call, one UNet call a step."""
+    cm = engine.model("sd15")
+    ch = cm.servable.meta["chunked"]
+    steps = ch["steps_per_chunk"]
+
+    def chunks():
+        _, state = cm.chunk_prepare([cm.servable.preprocess(body)])
+        for i, rows in enumerate(ch["chunk_rows"]):
+            with torch.inference_mode():
+                want = ch["chunk"](cm.servable.module.tree(), state, rows)["latents"].cpu()
+            reset_counts()
+            state = cm.chunk_step(state, rows)
+            exact_counts(read_counts(), {"flash_attention": 10 * steps, "unet_calls": steps},
+                         f"sd chunk {i} replay")
+            check(same_bits(state["latents"].cpu().numpy(), want.numpy()),
+                  f"sd chunk {i}: replayed latents differ from eager: max |d| "
+                  f"{(state['latents'].cpu() - want).abs().max().item()}")
+        return len(ch["chunk_rows"])
+
+    n = engine.runner.run_fn_sync(chunks)
+    log(f"sd replay vs eager: the latents after each of {n} chunks bitwise equal; each "
+        f"replay's launches exactly {10 * steps} flash, {steps} UNet calls")
+
+
+def phase_sd_interleave(engine) -> None:
+    """The two jobs through ``runner.run_chunked`` at once, so that their
+    chunks take turns on the one bucket's chunk graph, against each job
+    alone: the same pixels (hence the same PNG)."""
+    import asyncio
+
+    cm = engine.model("sd15")
+    runner = engine.runner
+    jobs = [[cm.servable.preprocess(body)] for body in SD_JOBS]
+    alone = [asyncio.run(runner.run_chunked(cm, samples))[0]["pixels"] for samples in jobs]
+    order = []
+    chunk_step = cm.chunk_step
+
+    def recording(state, rows):  # which job's state each chunk dispatch carried
+        order.append(id(state["context"]))
+        return chunk_step(state, rows)
+
+    async def both():
+        return await asyncio.gather(*(runner.run_chunked(cm, samples) for samples in jobs))
+
+    cm.chunk_step = recording
+    try:
+        together = asyncio.run(both())
+    finally:
+        del cm.chunk_step
+    turns = sum(a != b for a, b in zip(order, order[1:]))
+    check(len(set(order)) == 2 and turns >= 2,
+          f"the two jobs' chunks did not interleave: {turns} turns in {len(order)} chunks")
+    for i, (a, t) in enumerate(zip(alone, together)):
+        check(same_bits(t[0]["pixels"], a), f"sd job {i}: interleaved pixels differ from alone: "
+                                            f"{int((t[0]['pixels'] != a).sum())} values")
+    log(f"sd interleaved jobs: {len(order)} chunk dispatches, {turns} turns between the two "
+        f"jobs; each job's pixels bitwise equal to the job run alone")
+
+
+def phase_sd_profile(engine, body: dict) -> None:
+    """``torch.profiler`` over one 4-step chunk on the dispatch thread, eager
+    against replayed: device time by kernel name, the device's idle share of
+    the window and the host's launch calls."""
+    from pytorch_zappa_serverless_tpu_torch.tools import bench_fused_decode as BF
 
     cm = engine.model("sd15")
     ch = cm.servable.meta["chunked"]
-    samples = [cm.servable.preprocess(body)]
+    rows = ch["chunk_rows"][1]
 
-    def window():
-        _, state = cm.chunk_prepare(samples)
-        cm.chunk_step(state, ch["chunk_rows"][0])
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            cm.chunk_step(state, ch["chunk_rows"][1])
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        return prof, wall_ms
+    def window(replay: bool):
+        _, state = cm.chunk_prepare([cm.servable.preprocess(body)])
 
-    prof, wall_ms = engine.runner.run_fn_sync(window)
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(ms for _, _, ms in rows)
-    steps = ch["steps_per_chunk"]
-    log(f"profile sd15: one chunk of {steps} steps: wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    for name, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
-        log(f"profile sd15: {ms / steps:9.4f} ms/step {100 * ms / busy_ms:5.1f}% "
-            f"x{count / steps:<6g} {name[:90]}")
+        def eager():
+            with torch.inference_mode():
+                ch["chunk"](cm.servable.module.tree(), state, rows)
+
+        return BF.profile((lambda: cm.chunk_step(state, rows)) if replay else eager, 1)
+
+    run = engine.runner.run_fn_sync
+    log_profiles("sd15 chunk", "step", run(window, False), run(window, True),
+                 per=ch["steps_per_chunk"], top=15)
 
 
 # -- optional: where one forward's device time goes --------------------------
 
 def phase_profile(engine, instances: list[dict], seq: int = BERT["seq"],
-                  forwards: int = 5, top: int = 12) -> None:
-    """``torch.profiler`` over ``forwards`` served forwards of one batch, on
-    the dispatch thread: device time by kernel name, and the device's busy
-    share of the window's wall time (host clock, ending in a synchronize)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+                  forwards: int = 5) -> None:
+    """``torch.profiler`` over ``forwards`` forwards of one batch on the
+    dispatch thread, eager (``forward_eager``) against replayed (the
+    served ``forward``): device time by kernel name, the device's idle
+    share of the window (host clock, ending in a synchronize) and the host's
+    launch calls."""
+    from pytorch_zappa_serverless_tpu_torch.tools import bench_fused_decode as BF
 
     cm = engine.model("bert_base")
     bucket, batch = collate(cm, instances, seq)
-
-    def window():
-        for _ in range(3):
-            cm.forward(batch)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(forwards):
-                cm.forward(batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        return prof, wall_ms
-
-    prof, wall_ms = engine.runner.run_fn_sync(window)
-    # Device-side events only: a CPU op's self device time repeats its kernels'.
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(ms for _, _, ms in rows)
-    log(f"profile: {forwards} forwards of bucket {bucket}: wall {wall_ms:.3f} ms, device "
-        f"busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    for name, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
-        log(f"profile: {ms / forwards:9.4f} ms/forward {100 * ms / busy_ms:5.1f}% "
-            f"x{count // forwards:<4d} {name[:90]}")
+    run = engine.runner.run_fn_sync
+    eager = run(BF.profile, lambda: cm.forward_eager(batch), forwards)
+    replay = run(BF.profile, lambda: cm.forward(batch), forwards)
+    log_profiles(f"bert {bucket}", "forward", eager, replay)
 
 
 def run_bert(profile: bool) -> int:
-    """The BERT path, its checks and parity; returns int8_matmul's launches."""
+    """The BERT path, its checks, replay against eager, and parity; returns
+    int8_matmul's launches."""
     cfg = serve_config()
+    fresh_memory()
     run = phase_main_path(cfg)
     engine = run["engine"]
     try:
+        log_memory("bert", engine)
         check_answers(run)
         per_fwd = 6 * BERT["layers"]
         launches = run["launches"]["int8_matmul"]
         check(launches > 0, "int8_matmul was not launched on the main path")
         check(launches == per_fwd * run["forwards"],
               f"int8_matmul launches {launches} != {per_fwd} x {run['forwards']} forwards")
-        log(f"main path: {run['forwards']} forwards ({len(engine.clock.entries)} warm-up, "
-            f"{run['batches']} served batches), int8_matmul launched {launches} times")
+        log(f"main path: {run['forwards']} forwards ({len(engine.clock.entries)} captures' "
+            f"eager warm-up runs, {run['batches']} served batches, each a replay), "
+            f"int8_matmul launched {launches} times")
+        instances = next(b for p, b, _ in run["answers"] if "instances" in b)["instances"]
+        cm = engine.model("bert_base")
+        phase_replay(engine, "bert_base", [
+            ("(1,128)", collate(cm, instances[:1], BERT["seq"])[1]),
+            ("(8,128) a", collate(cm, instances, BERT["seq"])[1]),
+            ("(8,128) b", collate(cm, instances[::-1][:5], BERT["seq"])[1])],
+            {"int8_matmul": per_fwd})
         ring = run["gets"]["/metrics"]["models"]["bert_base"]
         log(f"request latency p50 {ring['total_ms']['p50']} ms, p99 "
             f"{ring['total_ms']['p99']} ms over {ring['requests']} samples "
             f"(device p50 {ring['device_ms']['p50']} ms)")
-        instances = next(b for p, b, _ in run["answers"] if "instances" in b)["instances"]
         parity = phase_parity(engine, instances)
         check(parity["dense_modules"] == per_fwd, f"{parity['dense_modules']} Int8Dense")
         if profile:
@@ -865,9 +1005,11 @@ def run_sd(profile: bool) -> int:
     """The SD-1.5 path, its checks and parity; returns flash_attention's
     launches."""
     t0 = time.perf_counter()
+    fresh_memory()
     run = phase_sd_path(sd_config())
     engine = run["engine"]
     try:
+        log_memory("sd15", engine)
         images = check_sd(run)
         counts = run["counts"]
         launches, calls = counts["flash_attention"], counts["unet_calls"]
@@ -875,8 +1017,11 @@ def run_sd(profile: bool) -> int:
         check(launches == 10 * calls,
               f"flash_attention launches {launches} != 10 x {calls} UNet calls")
         check(counts["int8_matmul"] == 0, f"int8_matmul launched on the SD path: {counts}")
-        log(f"sd path: {calls} UNet calls (4 warm-up, 20 per job), flash_attention launched "
-            f"{launches} times; path in {time.perf_counter() - t0:.3f} s")
+        log(f"sd path: {calls} UNet calls (8 at warm-up: the chunk graph's eager run and one "
+            f"replay; 20 per job, replayed), flash_attention launched {launches} times; path "
+            f"in {time.perf_counter() - t0:.3f} s")
+        phase_sd_replay(engine, SD_JOBS[1])
+        phase_sd_interleave(engine)
         parity = phase_sd_parity(engine, SD_JOBS[0], images[0])
         if profile:
             phase_sd_profile(engine, SD_JOBS[0])
@@ -1031,43 +1176,37 @@ def phase_gpt2_parity(engine, instances: list[dict], steps: int = 4) -> dict:
     return {"logit_rel_err": worst}
 
 
-def phase_gpt2_profile(engine, instances: list[dict], top: int = 10) -> None:
-    """``torch.profiler`` over one served generate call (prefill + 32 decode
-    steps) of a collated batch, on the dispatch thread: device time by
-    kernel name and the device's idle share of the window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    cm = engine.model("gpt2")
+def gpt2_batch(cm, instances: list[dict]) -> dict:
+    """The collated host batch of ``instances``, in their bucket."""
     samples = [cm.servable.preprocess(p) for p in instances]
     bucket = cm.bucket_for(len(samples), max(cm.servable.meta["seq_len_of"](s) for s in samples))
-    batch = cm.servable.meta["collate"](samples, bucket, cm.servable.input_spec(bucket))
+    return cm.servable.meta["collate"](samples, bucket, cm.servable.input_spec(bucket))
 
-    def window():
-        cm.forward(batch)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            cm.forward(batch)  # ends in the device-to-host copy of the tokens
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        return prof, wall_ms
 
-    prof, wall_ms = engine.runner.run_fn_sync(window)
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(ms for _, _, ms in rows)
-    steps = 1 + GPT2["max_new_tokens"]
-    log(f"profile gpt2: one generate call at bucket {bucket} ({steps} position steps): wall "
-        f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    for name, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
-        log(f"profile gpt2: {ms / steps:9.4f} ms/step {100 * ms / busy_ms:5.1f}% "
-            f"x{count / steps:<6.4g} {name[:90]}")
+def phase_gpt2_profile(engine, instances: list[dict]) -> None:
+    """``torch.profiler`` over one generate call (prefill + 32 decode steps)
+    of a collated batch on the dispatch thread, eager against replayed:
+    device time by kernel name, the device's idle share of the window and
+    the host's launch calls."""
+    from pytorch_zappa_serverless_tpu_torch.tools import bench_fused_decode as BF
+
+    cm = engine.model("gpt2")
+    batch = gpt2_batch(cm, instances)
+    run = engine.runner.run_fn_sync
+    eager = run(BF.profile, lambda: cm.forward_eager(batch), 1)
+    replay = run(BF.profile, lambda: cm.forward(batch), 1)
+    log_profiles(f"gpt2 {tuple(batch['input_ids'].shape)}", "step", eager, replay,
+                 per=1 + GPT2["max_new_tokens"])
 
 
 def run_gpt2(profile: bool) -> int:
-    """The GPT-2 path, its checks and parity; returns int8_matmul's launches."""
+    """The GPT-2 path, its checks, replay against eager, and parity; returns
+    int8_matmul's launches."""
+    fresh_memory()
     run = phase_gpt2_path(gpt2_config())
     engine = run["engine"]
     try:
+        log_memory("gpt2", engine)
         check_gpt2(run)
         counts = run["counts"]
         # Per forward position step: 4 projections x 12 layers + the lm head;
@@ -1081,8 +1220,19 @@ def run_gpt2(profile: bool) -> int:
         check(all(counts[fn] == 0 for fn in FUSED_ENTRY_POINTS),
               f"the fused decode kernels ran on the serving path: {counts}")
         log(f"gpt2 path: {run['generate_calls']} generate calls "
-            f"({len(engine.clock.entries)} warm-up, {run['batches']} served batches), "
-            f"int8_matmul launched {launches} times ({per_call} per call)")
+            f"({len(engine.clock.entries)} captures' eager warm-up runs, {run['batches']} "
+            f"served batches, each a replay), int8_matmul launched {launches} times "
+            f"({per_call} per call)")
+        cm = engine.model("gpt2")
+        sampled = [{**p, **{k: v for k, v in GPT2_SAMPLED.items() if k != "text"}, "seed": i}
+                   for i, p in enumerate(gpt2_instances())]
+        phase_replay(engine, "gpt2", [
+            ("(1,64) greedy", gpt2_batch(cm, gpt2_instances(1))),
+            ("(1,64) sampled", gpt2_batch(cm, [GPT2_SAMPLED])),
+            ("(8,64) greedy a", gpt2_batch(cm, gpt2_instances())),
+            ("(8,64) sampled", gpt2_batch(cm, sampled)),
+            ("(8,64) greedy b", gpt2_batch(cm, gpt2_instances()[::-1][:6]))],
+            {"int8_matmul": per_call})
         phase_gpt2_parity(engine, gpt2_instances())
         if profile:
             phase_gpt2_profile(engine, gpt2_instances())
@@ -1307,8 +1457,41 @@ def teacher_forced(lane, ref_ck, ref_cv, cfg, int8: bool, steps: int) -> dict:
             agree += int(same.sum())
             decided += int(sure.sum())
             tok, pos = want.argmax(-1).to(torch.int32), (pos + 1).clamp(max=BF.T - 1)
-    lane.tok, lane.pos = tok, pos
+        lane.tok.copy_(tok)  # in place: a captured step reads these buffers
+        lane.pos.copy_(pos)
     return {"rel_err": max(errs), "agree": agree, "decided": decided, "rows": steps * BF.S}
+
+
+def phase_fused_replay(lanes: dict, cfg, steps: int = FUSED_STEPS) -> None:
+    """Each lane's captured step replayed ``steps`` times (each feeding back
+    its token and moving its position on) against ``steps`` eager steps from
+    the same state: the emitted tokens and the caches after the last step
+    byte for byte, and the replays' launches exactly 12 of each of the
+    lane's two fused entry points a step (none on ``seg1``)."""
+    from pytorch_zappa_serverless_tpu_torch.tools import bench_fused_decode as BF
+
+    for name, lane in lanes.items():
+        if lane.tok.is_cuda:
+            BF.step_graph(lane, cfg, advance=True)  # captured before the counts
+        start = lane.state()
+        eager = [BF.eager_step(lane, cfg) for _ in range(steps)]
+        eager_state = lane.state()
+        lane.set_state(start)
+        reset_counts()
+        replayed = [BF.step(lane, cfg).clone() for _ in range(steps)]
+        sync(lane.tok.device)
+        kinds = {"fused": ("fused_attn_step", "fused_mlp_step"),
+                 "fused_int8": ("fused_attn_step_int8", "fused_mlp_step_int8")}.get(name, ())
+        want = {fn: cfg.layers * steps for fn in kinds}
+        if name == "fused_int8":
+            want["int8_matmul"] = steps  # the int8 lm head
+        exact_counts(read_counts(), want, f"{name} lane, {steps} replayed steps")
+        check(all(torch.equal(a, b) for a, b in zip(eager, replayed)),
+              f"{name} lane: replayed tokens differ from eager ones")
+        check(all(torch.equal(a, b) for a, b in zip(eager_state, lane.state())),
+              f"{name} lane: the caches after {steps} replayed steps differ from eager ones")
+        log(f"fused decode {name}: {steps} replayed steps vs {steps} eager steps from the same "
+            f"state: tokens and caches bitwise equal; launches {want or 'no fused kernel'}")
 
 
 def sync(device) -> None:
@@ -1355,9 +1538,11 @@ def run_fused(profile: bool, cfg=None, device: str = "cuda") -> dict:
             f"{r['rows']} rows, on all {r['decided']} whose top-2 margin exceeds 2 x the error")
     log("fused decode: launches " + ", ".join(f"{fn} {counts[fn]}" for fn in FUSED_ENTRY_POINTS)
         + f" ({cfg.layers} of each kernel per step, {FUSED_STEPS} steps a lane)")
+    phase_fused_replay(lanes, cfg)
     ms = {name: BF.time_lane(lane, cfg) for name, lane in lanes.items()}
-    log(f"decode step, ms per step (S={BF.S}, T={BF.T}, CUDA events over 60 steps): "
-        + ", ".join(f"{n} {v:.4f}" for n, v in ms.items()))
+    eager_ms = {name: BF.time_lane(lane, cfg, replay=False) for name, lane in lanes.items()}
+    log(f"decode step, ms per step (S={BF.S}, T={BF.T}, CUDA events over 60 steps), replayed "
+        f"graph / eager: " + ", ".join(f"{n} {ms[n]:.4f} / {eager_ms[n]:.4f}" for n in ms))
     lm = {"fused": 2 * cfg.vocab_size * cfg.d_model, "fused_int8": cfg.vocab_size * cfg.d_model}
     for name in ("fused", "fused_int8"):
         t = kern[name]["timing"]
@@ -1367,17 +1552,16 @@ def run_fused(profile: bool, cfg=None, device: str = "cuda") -> dict:
             f"(24 launches + the lm head's weights)")
     if profile:
         for name, lane in lanes.items():
-            prof = BF.profile_lane(lane, cfg)
-            log(f"profile {name}: wall {prof['wall_ms_per_step']:.4f} ms/step, device busy "
-                f"{prof['busy_ms_per_step']:.4f} ms/step, idle share {prof['idle_share']:.3f}")
-            for kname, count, kms in prof["top"]:
-                log(f"profile {name}: {kms:9.4f} ms/step x{count:<5g} {kname}")
+            log_profiles(f"{name} lane", "step",
+                         BF.profile_lane(lane, cfg, replay=False),
+                         BF.profile_lane(lane, cfg))
         # Where one launch of each fused kernel spends its time: %globaltimer
         # stamps at the phase boundaries of every block (a stamped build).
         from pytorch_zappa_serverless_tpu_torch.tools import fused_ablation as FAB
 
         check(FAB.main(["--variants", "", "--stamp-reps", "3"]) == 0, "fused phase stamps failed")
-    return {"counts": counts, "kernels": kern, "ms": ms, "teacher_forced": tf}
+    return {"counts": counts, "kernels": kern, "ms": ms, "eager_ms": eager_ms,
+            "teacher_forced": tf}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1450,6 +1634,7 @@ def main(argv: list[str] | None = None) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "unfused_step_ms": fused["ms"]["seg1"],
+            "step_ms": {"replayed": fused["ms"][lane], "eager": fused["eager_ms"][lane]},
             "timed_work": "one launch at GPT-2 small [S=8, D=768, T=96, F=3072], "
                           + ("int8 (W8A16)" if lane == "fused_int8" else "bf16")
                           + " weights, the mean over all 12 layers",

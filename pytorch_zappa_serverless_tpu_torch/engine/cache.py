@@ -1,10 +1,12 @@
-"""First-dispatch timing per bucket: the port's cold-start metric.
+"""Capture timing per bucket: the port's cold-start metric.
 
-PyTorch runs eagerly, so there is no compiled program to cache.  What a cold
-bucket pays instead is its first dispatch: the CUDA context and library
-setup, the build of the hand-written kernels at first use, and the
-allocator's first allocations.  ``CompileClock`` records those seconds per
-(model, bucket) for /metrics and /v1/models, under the JAX package's names.
+What the JAX package compiles per bucket, the port captures as a CUDA graph
+(``engine.compiled.BucketGraph``), and nothing of it outlives the process.
+A cold bucket pays its eager warm-up run (the CUDA context and library
+setup, the build of the hand-written kernels at first use, the allocator's
+first allocations) and its capture; on the CPU, its first eager dispatch.
+``CompileClock`` records those seconds per (model, bucket or graph) for
+/metrics and /v1/models, under the JAX package's names.
 """
 
 from __future__ import annotations

@@ -1,26 +1,145 @@
 """Bucketed batched execution on one device.
 
 A fixed set of (batch[, seq]) buckets per model; requests pad up to the
-smallest fitting bucket, so the device sees a few static shapes (the JAX
-package compiles one program per bucket; PyTorch runs eagerly, and a bucket's
-first dispatch is what ``warmup`` pays ahead of traffic).
+smallest fitting bucket, so the device sees a few static shapes.  The JAX
+package compiles one program per bucket (``jax.jit``); on the GPU the port
+captures one CUDA graph per bucket (:class:`BucketGraph`) and replays it at
+every dispatch: one ``cudaGraphLaunch`` in place of every kernel launch the
+model's Python would issue.
+
+- Warm-up runs each bucket once eagerly on a side stream (kernel builds,
+  library handles, first-use attributes), then captures it on that stream;
+  a bucket (or a servable's variant of one, ``meta["variant_of"]``) first
+  met in traffic is captured then, "captured lazily".  Both go on the
+  ``CompileClock``, as the JAX package's compiles do.
+- The SD job lane's chunk step is captured once per state and row shape
+  (:meth:`CompiledModel.chunk_step`); its prepare and finalize run eagerly.
+- On the CPU (``device="cpu"``, the caller's choice) every dispatch runs
+  eagerly.  On CUDA a capture or a replay that fails raises: there is no
+  eager fallback.  :meth:`CompiledModel.forward_eager` is what a check
+  holds a replay against.
 """
 
 from __future__ import annotations
 
 import itertools
 import time
-from typing import Any, Sequence
+from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..ops import counters
 from ..utils.logging import get_logger, log_event
 from .cache import CompileClock, timed
 from .servable import Servable
 
 log = get_logger("engine.compiled")
+
+
+class Captured(NamedTuple):
+    """A captured CUDA graph, its static outputs, and the counted launches
+    (``ops.counters``) each replay runs."""
+
+    graph: torch.cuda.CUDAGraph
+    outputs: Any
+    launches: dict[str, int]
+
+    def replay(self):
+        """Launch the graph on the current stream; returns the static outputs,
+        valid until the next replay of any graph of the same pool."""
+        self.graph.replay()
+        counters.add(self.launches)
+        return self.outputs
+
+
+def capture(fn: Callable[[], Any], device: torch.device, pool=None) -> Captured:
+    """Run ``fn()`` once eagerly on a side stream (its first-use work: kernel
+    builds, ``cudaFuncSetAttribute``, launch plans, cuBLAS and cuDNN handles
+    of that stream), then capture a second call on the same stream into one
+    graph of ``pool``.  The eager call counts its launches; the capture
+    counts none (the counters are restored after it).  ``fn`` must not read
+    the device on the host: such a read raises during capture."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = counters.snapshot()
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=side):
+            outputs = fn()
+    finally:
+        launches = counters.delta(before)
+        counters.restore(before)
+    return Captured(graph, outputs, launches)
+
+
+def _source(v) -> torch.Tensor:
+    """What a static input copies from: a tensor as it is, a host array
+    through pinned memory (so that the copy is asynchronous)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+
+
+class BucketGraph:
+    """One bucket's captured program: the port's counterpart of the JAX
+    package's per-bucket compiled program.
+
+    ``inputs`` are static device buffers shaped like ``example`` (allocated
+    outside the graph's pool, so no capture can hand their memory to
+    another graph); :meth:`run` copies a batch into them, replays, and
+    returns the static outputs.  The first call of ``fn`` (the warm-up) runs
+    on ``example``'s values."""
+
+    def __init__(self, fn: Callable[[dict[str, torch.Tensor]], Any],
+                 example: dict[str, Any], device: torch.device, pool):
+        self.inputs = {k: torch.empty(tuple(np.shape(v)), device=device,
+                                      dtype=v.dtype if isinstance(v, torch.Tensor)
+                                      else torch.from_numpy(np.asarray(v)).dtype)
+                       for k, v in example.items()}
+        self._fill(example)
+        self.captured = capture(lambda: fn(self.inputs), device, pool)
+
+    def _fill(self, values: dict[str, Any]) -> None:
+        for k, v in values.items():
+            dst = self.inputs[k]
+            dst.copy_(_source(v), non_blocking=True)
+
+    def run(self, values: dict[str, Any]):
+        """Copy ``values`` into the static inputs, replay, and return the
+        static outputs (read them before the next replay of the pool)."""
+        self._fill(values)
+        return self.captured.replay()
+
+    @property
+    def launches(self) -> dict[str, int]:
+        return self.captured.launches
+
+
+def _entry(key: tuple) -> list:
+    """A graph's key as the clock's "bucket": [8, 64]; with a variant, the
+    names of its gates that are on ([8, 64, "sampled+filtered"], [1, 64,
+    "greedy"]); a chunk graph's latents and rows shapes (["chunk",
+    "latents[1, 64, 64, 4]", "t[4]"])."""
+    if key[0] == "chunk":
+        return ["chunk", *(f"{k.split('.')[-1]}{list(shape)}" for k, shape in key[1]
+                           if k in ("state.latents", "rows.t"))]
+    bucket, variant = key
+    if variant is None:
+        return list(bucket)
+    return [*bucket, "+".join(f for f in variant._fields if getattr(variant, f)) or "greedy"]
+
+
+def _label(key: tuple) -> str:
+    """``_entry`` in words: "(8, 64) sampled+filtered", "chunk latents[1,
+    64, 64, 4] t[4]"."""
+    if key[0] == "chunk":
+        return " ".join(_entry(key))
+    return " ".join([str(key[0]), *map(str, _entry(key)[len(key[0]):])])
 
 
 def default_collate(samples: Sequence[dict[str, np.ndarray]], bucket: tuple[int, ...],
@@ -67,7 +186,8 @@ def cast_params_at_rest(module: torch.nn.Module, dtype: torch.dtype) -> None:
 
 
 class CompiledModel:
-    """One servable, placed on ``device``, with its bucket set."""
+    """One servable, placed on ``device``, with its bucket set and, on CUDA,
+    its captured graphs."""
 
     def __init__(self, servable: Servable, cfg: ModelConfig, device: torch.device,
                  clock: CompileClock | None = None):
@@ -107,6 +227,19 @@ class CompiledModel:
             raise ValueError(f"unsupported bucket axes {servable.bucket_axes}")
         self.max_batch = max(b[0] for b in self.buckets)
         self._warmed: set[tuple[int, ...]] = set()
+        self.graphed = self.device.type == "cuda"
+        self._warming = False
+        # The captured programs, by (bucket, variant) or chunk key; one pool:
+        # the dispatch thread replays one graph at a time and every output is
+        # copied out before the next replay.
+        self._graphs: dict[tuple, BucketGraph] = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
+        ch = servable.meta.get("chunked")
+        # One device copy of each chunk's schedule rows (their order is the
+        # job lane's), which a chunk graph's static rows copy from.
+        self._chunk_rows = ([{k: torch.as_tensor(np.asarray(v), device=self.device)
+                              for k, v in rows.items()} for rows in ch["chunk_rows"]]
+                            if ch and self.graphed else [])
 
     # -- bucket selection ---------------------------------------------------
     def bucket_for(self, batch: int, seq: int | None = None) -> tuple[int, ...]:
@@ -132,17 +265,82 @@ class CompiledModel:
         """Device → host; ``.cpu()`` waits for the device."""
         return {k: v.cpu().numpy() for k, v in out.items()}
 
-    def forward(self, batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
-        """One collated bucket batch through the model, back on the host."""
+    def _bucket_of(self, batch: dict[str, np.ndarray]) -> tuple[int, ...]:
+        for b in self.buckets:
+            if all(np.shape(batch[k]) == tuple(shape)
+                   for k, (shape, _) in self.servable.input_spec(b).items()):
+                return b
+        raise ValueError(f"{self.servable.name}: the batch fills no bucket "
+                         f"({ {k: np.shape(v) for k, v in batch.items()} })")
+
+    def _variant(self, batch: dict[str, np.ndarray]):
+        """The servable's variant key of a collated host batch (None where it
+        has one program per bucket)."""
+        of = self.servable.meta.get("variant_of")
+        return of(batch) if of else None
+
+    def _apply(self, inputs: dict[str, torch.Tensor], variant):
+        if variant is None:
+            return self.servable.apply_fn(self.servable.module, inputs)
+        return self.servable.apply_fn(self.servable.module, inputs, variant=variant)
+
+    def forward_eager(self, batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+        """One collated bucket batch through ``apply_fn`` eagerly, back on the
+        host: the CPU's path, and on CUDA what a replay is held against."""
         with torch.inference_mode():
-            return self._fetch(self.servable.apply_fn(self.servable.module,
-                                                      self._place(batch)))
+            return self._fetch(self._apply(self._place(batch), self._variant(batch)))
+
+    def forward(self, batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+        """One collated bucket batch through the model, back on the host: on
+        CUDA a replay of the bucket's graph (captured now if it is new)."""
+        if not self.graphed:
+            return self.forward_eager(batch)
+        variant = self._variant(batch)
+        key = (self._bucket_of(batch), variant)
+        with torch.inference_mode():
+            graph = self._graphs.get(key) or self._capture(key, self._bucket_fn(variant), batch,
+                                                           record=True)
+            return self._fetch(graph.run(batch))
+
+    def _bucket_fn(self, variant):
+        return lambda inputs: self._apply(inputs, variant)
+
+    def _capture(self, key: tuple, fn, example, record: bool) -> BucketGraph:
+        """Capture ``key``'s graph (its eager warm-up run included); with
+        ``record``, its seconds go on the clock (the JAX package's compile
+        seconds): "captured" at warm-up, "captured lazily" in traffic."""
+        t0 = time.perf_counter()
+        graph = BucketGraph(fn, example, self.device, self._pool)
+        torch.cuda.current_stream(self.device).synchronize()
+        secs = time.perf_counter() - t0
+        self._graphs[key] = graph
+        if record:
+            self.clock.record(self.servable.name, _entry(key), secs)
+        log_event(log, "captured" if self._warming else "captured lazily",
+                  model=self.servable.name, graph=_label(key), launches=graph.launches,
+                  seconds=round(secs, 3))
+        return graph
+
+    @property
+    def graphs(self) -> list[str]:
+        """The captured graphs' keys, in words."""
+        return [_label(k) for k in list(self._graphs)]
 
     # -- warmup -------------------------------------------------------------
-    def _warm_bucket(self, bucket: tuple[int, ...]):
+    def _zeros(self, bucket: tuple[int, ...], per_sample: bool = False):
         spec = self.servable.input_spec(bucket)
-        dummy = {k: np.zeros(shape, torch.empty(0, dtype=dt).numpy().dtype)
-                 for k, (shape, dt) in spec.items()}
+        return {k: np.zeros(shape[1:] if per_sample else shape,
+                            torch.empty(0, dtype=dt).numpy().dtype)
+                for k, (shape, dt) in spec.items()}
+
+    def _warm_bucket(self, bucket: tuple[int, ...]):
+        dummy = self._zeros(bucket)
+        if self.graphed:
+            variant = self.servable.meta.get("default_variant")
+            with torch.inference_mode():
+                self._capture((bucket, variant), self._bucket_fn(variant), dummy, record=True)
+            self._warmed.add(bucket)
+            return
         _, secs = timed(lambda: self.forward(dummy))
         self.clock.record(self.servable.name, bucket, secs)
         self._warmed.add(bucket)
@@ -154,16 +352,18 @@ class CompiledModel:
         chunked path for a servable that declares one (the path its jobs
         take), else one forward."""
         chunked = "chunked" in self.servable.meta
-        for b in self.buckets:
-            if b not in self._warmed:
-                (self._warm_chunked if chunked else self._warm_bucket)(b)
+        self._warming = True
+        try:
+            for b in self.buckets:
+                if b not in self._warmed:
+                    (self._warm_chunked if chunked else self._warm_bucket)(b)
+        finally:
+            self._warming = False
 
     def _warm_chunked(self, bucket: tuple[int, ...]):
-        """prepare, one chunk per distinct row shape, and finalize, on a
-        batch of zeros that fills ``bucket``."""
-        spec = self.servable.input_spec(bucket)
-        dummy = [{k: np.zeros(shape[1:], torch.empty(0, dtype=dt).numpy().dtype)
-                  for k, (shape, dt) in spec.items()} for _ in range(bucket[0])]
+        """prepare, one chunk per distinct row shape (on CUDA: its capture),
+        and finalize, on a batch of zeros that fills ``bucket``."""
+        dummy = [self._zeros(bucket, per_sample=True) for _ in range(bucket[0])]
         _, secs = timed(lambda: self.chunk_finalize(self._warm_chunk_steps(dummy), dummy))
         self.clock.record(self.servable.name, (*bucket, "chunked"), secs)
         self._warmed.add(bucket)
@@ -203,12 +403,41 @@ class CompiledModel:
         return bucket, state
 
     def chunk_step(self, state, rows):
-        """One chunk of the model's loop."""
+        """One chunk of the model's loop.  On CUDA a replay of the chunk graph
+        of this state's and rows' shapes: the job's own state and rows are
+        copied into the graph's static buffers and the new state copied back
+        out, so two jobs whose chunks interleave on one bucket never share a
+        buffer."""
+        chunk = self.servable.meta["chunked"]["chunk"]
         with torch.inference_mode():
-            state = self.servable.meta["chunked"]["chunk"](
-                self.servable.module.tree(), state, rows)
+            if not self.graphed:
+                state = chunk(self.servable.module.tree(), state, rows)
+            else:
+                rows = next((dev for dev, host in zip(self._chunk_rows,
+                                                      self.servable.meta["chunked"]["chunk_rows"])
+                             if host is rows), rows)
+                state = self._chunk_replay(chunk, state, rows)
         self._sync()
         return state
+
+    def _chunk_replay(self, chunk, state: dict, rows: dict) -> dict:
+        values = {**{f"state.{k}": v for k, v in state.items()},
+                  **{f"rows.{k}": v for k, v in rows.items()}}
+        key = ("chunk", tuple((k, tuple(v.shape)) for k, v in values.items()))
+        graph = self._graphs.get(key)
+        if graph is None:
+            def fn(inputs):
+                tree = self.servable.module.tree()
+                return chunk(tree, {k: inputs[f"state.{k}"] for k in state},
+                             {k: inputs[f"rows.{k}"] for k in rows})
+
+            # At warm-up the chunked entry on the clock holds this capture.
+            graph = self._capture(key, fn, values, record=not self._warming)
+        out = graph.run(values)
+        # The job keeps its own tensors: a state entry the chunk passes
+        # through is the static input itself, the rest are fresh copies.
+        return {k: state[k] if v is graph.inputs.get(f"state.{k}") else v.clone()
+                for k, v in out.items()}
 
     def chunk_finalize(self, state, samples: Sequence[dict]):
         """Decode + fetch + per-sample postprocess (run_batch's tail)."""
@@ -242,12 +471,13 @@ class CompiledModel:
         batch = collate(samples, bucket, spec)
         first_dispatch = bucket not in self._warmed
         t0 = time.perf_counter()
-        out = self.forward(batch)
+        out = self.forward(batch)  # on CUDA: captures a new bucket or variant itself
         if first_dispatch:
-            secs = time.perf_counter() - t0
-            self.clock.record(self.servable.name, bucket, secs)
             self._warmed.add(bucket)
-            log_event(log, "warmed lazily", model=self.servable.name,
-                      bucket=list(bucket), seconds=round(secs, 3))
+            if not self.graphed:
+                secs = time.perf_counter() - t0
+                self.clock.record(self.servable.name, bucket, secs)
+                log_event(log, "warmed lazily", model=self.servable.name,
+                          bucket=list(bucket), seconds=round(secs, 3))
         return ([self.servable.postprocess(out, i) for i in range(len(samples))],
                 bucket)

@@ -1,8 +1,9 @@
 """Cold-start assembly: config → placed, warm engine on one device.
 
 ``build_engine`` builds every configured servable (checkpoint import or
-seed init), places it on the device, runs each bucket's first dispatch when
-``warmup_at_boot`` is set, and reports cold-start timing.
+seed init), places it on the device, captures each bucket's CUDA graph (on
+the CPU: runs its first dispatch) when ``warmup_at_boot`` is set, and
+reports cold-start timing, the captures included.
 """
 
 from __future__ import annotations
@@ -92,7 +93,7 @@ def build_engine(cfg: ServeConfig, device: str | torch.device | None = None, *,
             runner.track_model(mc.name, cm.param_nbytes())
             log_event(log, "model ready", model=mc.name, device=str(dev),
                       seconds=build_seconds[mc.name],
-                      buckets=[list(b) for b in cm.buckets])
+                      buckets=[list(b) for b in cm.buckets], graphs=cm.graphs)
     except BaseException:
         runner.shutdown()
         raise

@@ -20,7 +20,13 @@ class Servable:
     """One deployable model.
 
     ``apply_fn(module, inputs: dict[str, Tensor]) -> dict[str, Tensor]`` runs
-    one padded bucket batch; shapes are static per bucket.
+    one padded bucket batch; shapes are static per bucket, and it reads no
+    tensor on the host, so that the engine can capture it as a CUDA graph.
+    A servable whose batches take different programs (GPT-2's sampling
+    gates) sets ``meta["variant_of"](collated numpy batch) -> hashable``
+    and ``meta["default_variant"]`` (what warm-up captures); its
+    ``apply_fn`` then takes ``variant=`` and the engine keeps one graph per
+    bucket and variant.
     """
 
     name: str

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from ..ops.int8_matmul import (dense_maybe_int8, int8_matmul, pad_weights, quantize_per_channel,
                                quantize_tree)
-from ..ops.sampling import apply_repetition_penalty, choose
+from ..ops.sampling import ALL_ON, Gates, apply_repetition_penalty, choose, gates_of
 
 # The int8 product every quantized projection and the lm head go through; a
 # check may set it to ``int8_matmul_reference`` to hold the served model
@@ -218,22 +218,28 @@ def _presence(tokens, lengths, vocab: int) -> torch.Tensor:
 
 def generate(params: dict, tokens, lengths, temperature, seeds, max_new: int,
              cfg: GPT2Config, dtype=torch.bfloat16, top_k=None, top_p=None,
-             repetition_penalty=None) -> torch.Tensor:
+             repetition_penalty=None, gates: Gates = ALL_ON) -> torch.Tensor:
     """Prefill + decode loop, greedy or sampled per row.  Returns
     [B, max_new] int32, EOS-padded after the first EOS: one
-    :func:`prefill_start` and one ``max_new``-step :func:`decode_segment`."""
+    :func:`prefill_start` and one ``max_new``-step :func:`decode_segment`.
+
+    ``gates`` (``ops.sampling.gates_of`` the batch's knobs, on the host)
+    skips the sampling, penalty and filter work no row needs; the default
+    runs all three, right for any batch.  Nothing here reads the device on
+    the host, so a call captures into one CUDA graph."""
     B, P = tokens.shape
     presence = None
     if repetition_penalty is not None:
         presence = _presence(tokens, lengths, cfg.vocab_size)
     first, cache_k, cache_v = prefill_start(
         params, tokens, lengths, temperature, seeds, P + max_new, cfg, dtype,
-        top_k=top_k, top_p=top_p, repetition_penalty=repetition_penalty, presence=presence)
+        top_k=top_k, top_p=top_p, repetition_penalty=repetition_penalty, presence=presence,
+        gates=gates)
     zeros = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
     emits, *_ = decode_segment(
         params, cache_k, cache_v, first, lengths, zeros, zeros.bool(), temperature, seeds,
         max_new, cfg, dtype, top_k=top_k, top_p=top_p,
-        repetition_penalty=repetition_penalty, presence=presence)
+        repetition_penalty=repetition_penalty, presence=presence, gates=gates)
     return emits
 
 
@@ -242,24 +248,27 @@ def generate_greedy(params: dict, tokens, lengths, max_new: int, cfg: GPT2Config
     """Greedy-only convenience wrapper over :func:`generate`."""
     B = tokens.shape[0]
     zeros = torch.zeros((B,), device=tokens.device)
-    return generate(params, tokens, lengths, zeros, zeros.int(), max_new, cfg, dtype)
+    return generate(params, tokens, lengths, zeros, zeros.int(), max_new, cfg, dtype,
+                    gates=Gates(False, False, False))
 
 
 def prefill_start(params: dict, tokens, lengths, temperature, seeds, total: int,
                   cfg: GPT2Config, dtype=torch.bfloat16, top_k=None, top_p=None,
-                  repetition_penalty=None, presence=None):
+                  repetition_penalty=None, presence=None, gates: Gates = ALL_ON):
     """Prefill and pick each row's first token: (first [B], cache_k,
     cache_v [L, B, total, D])."""
     logits, cache_k, cache_v = prefill(params, tokens, lengths, total, cfg, dtype)
-    if repetition_penalty is not None and bool((repetition_penalty != 1.0).any()):
+    if repetition_penalty is not None and gates.rep_on:
         logits = apply_repetition_penalty(logits, presence, repetition_penalty)
     t0 = torch.zeros(tokens.shape[:1], dtype=torch.int32, device=tokens.device)
-    return choose(logits, temperature, seeds, t0, top_k, top_p), cache_k, cache_v
+    first = choose(logits, temperature, seeds, t0, top_k, top_p, sampled=gates.sampled,
+                   filtered=gates.filtered)
+    return first, cache_k, cache_v
 
 
 def decode_segment(params: dict, cache_k, cache_v, tok, pos, step, finished, temperature,
                    seeds, seg: int, cfg: GPT2Config, dtype=torch.bfloat16, top_k=None,
-                   top_p=None, repetition_penalty=None, presence=None):
+                   top_p=None, repetition_penalty=None, presence=None, gates: Gates = ALL_ON):
     """Advance every slot by ``seg`` tokens.
 
     Per-slot state, all [S]: ``tok`` the next token to feed, ``pos`` its
@@ -268,24 +277,24 @@ def decode_segment(params: dict, cache_k, cache_v, tok, pos, step, finished, tem
     Step t emits the token decided before it.  Returns (emits [S, seg],
     cache_k, cache_v, tok, pos, step, finished); the caches are the tensors
     passed in, updated in place, and ``presence`` gains each fed token.
+    ``gates`` holds for the whole call (the knobs do not change).
     """
     total = cache_k.shape[2]
     rows = torch.arange(tok.shape[0], device=tok.device)
-    # Both gates hold for the whole call (the knobs do not change), so the
-    # greedy path runs no host sync per step.
-    sampled = bool((temperature > 0.0).any())
-    rep_on = repetition_penalty is not None and bool((repetition_penalty != 1.0).any())
+    rep_on = repetition_penalty is not None and gates.rep_on
+    seen = torch.ones((), dtype=torch.bool, device=tok.device)  # no host-to-device copy a step
     t = step
     emits = []
     for _ in range(seg):
         wpos = pos.clamp(max=total - 1)
         logits = decode_step(params, cache_k, cache_v, tok, wpos, cfg, dtype)
         if repetition_penalty is not None:
-            presence[rows, tok.long()] = True
+            presence[rows, tok.long()] = seen
             if rep_on:
                 logits = apply_repetition_penalty(logits, presence, repetition_penalty)
-        if sampled:
-            nxt = choose(logits, temperature, seeds, t + 1, top_k, top_p)
+        if gates.sampled:
+            nxt = choose(logits, temperature, seeds, t + 1, top_k, top_p,
+                         filtered=gates.filtered)
         else:
             nxt = logits.argmax(-1).to(torch.int32)
         emits.append(torch.where(finished, cfg.eos_id, tok))
@@ -449,11 +458,17 @@ def make_gpt2_servable(name: str, cfg_model):
             ids = ids[-max_seq:]
         return ids
 
-    def apply_fn(m, inputs):
+    def apply_fn(m, inputs, variant: Gates = ALL_ON):
         return {"tokens": generate(m.tree(), inputs["input_ids"], inputs["length"],
                                    inputs["temperature"], inputs["seed"], max_new, cfg, dtype,
                                    top_k=inputs["top_k"], top_p=inputs["top_p"],
-                                   repetition_penalty=inputs["repetition_penalty"])}
+                                   repetition_penalty=inputs["repetition_penalty"],
+                                   gates=variant)}
+
+    def variant_of(batch) -> Gates:
+        """The collated host batch's gates: which captured variant runs it."""
+        return gates_of(batch["temperature"], batch["top_k"], batch["top_p"],
+                        batch["repetition_penalty"])
 
     def input_spec(bucket):
         b, s = bucket
@@ -503,10 +518,16 @@ def make_gpt2_servable(name: str, cfg_model):
 
         batch = default_collate(samples, bucket, spec)
         batch["length"] = np.maximum(batch["length"], 1)  # pad rows: a real index
+        # Pad rows with neutral knobs, so that they open no gate.
+        batch["repetition_penalty"][len(samples):] = 1.0
+        batch["top_p"][len(samples):] = 1.0
         return batch
 
     meta = {"seq_len_of": lambda s: int(s["input_ids"].shape[0]),
             "max_new_tokens": max_new, "collate": collate_lengths,
+            "variant_of": variant_of,
+            # What warm-up captures: a request that sets no knob.
+            "default_variant": Gates(default_temperature > 0.0, False, False),
             "config": cfg, "dtype": dtype}
     return Servable(name=name, apply_fn=apply_fn, module=module, input_spec=input_spec,
                     preprocess=preprocess, postprocess=postprocess,

@@ -108,20 +108,23 @@ def denoise(params: dict, latents: torch.Tensor, context: torch.Tensor, g: torch
             rows: dict, cfg: SD15Config = FULL, dtype=torch.bfloat16) -> torch.Tensor:
     """The DDIM update over the given schedule rows (any contiguous slice:
     all steps in the monolithic pipeline, one chunk on the job lane; the same
-    body either way, so chunked serving is the monolithic loop in slices)."""
+    body either way, so chunked serving is the monolithic loop in slices).
+
+    ``rows`` are f32 arrays or tensors; they go to the device once and each
+    step reads its constants there, never on the host, so a chunk captures
+    into one CUDA graph whose rows buffer is refilled per chunk."""
     B = latents.shape[0]
-    for i in range(len(rows["t"])):
+    rows = {k: torch.as_tensor(v, dtype=torch.float32, device=latents.device)
+            for k, v in rows.items()}
+    for i in range(rows["t"].shape[0]):
         lat2 = torch.cat([latents, latents], dim=0)
-        t2 = torch.full((2 * B,), float(rows["t"][i]), dtype=torch.float32,
-                        device=latents.device)
+        t2 = rows["t"][i].expand(2 * B)
         eps_u, eps_c = unet_apply(params["unet"], lat2, t2, context, cfg.unet,
                                   dtype).chunk(2, dim=0)
         eps = eps_u + g * (eps_c - eps_u)
         # DDIM (eta=0): x0-prediction, then the deterministic step.
-        x0 = (latents - float(rows["sqrt_one_minus_alpha"][i]) * eps) / float(
-            rows["sqrt_alpha"][i])
-        latents = (float(rows["sqrt_alpha_prev"][i]) * x0
-                   + float(rows["sqrt_one_minus_alpha_prev"][i]) * eps)
+        x0 = (latents - rows["sqrt_one_minus_alpha"][i] * eps) / rows["sqrt_alpha"][i]
+        latents = rows["sqrt_alpha_prev"][i] * x0 + rows["sqrt_one_minus_alpha_prev"][i] * eps
     return latents
 
 

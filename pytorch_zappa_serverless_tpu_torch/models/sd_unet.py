@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import counters
 from ..ops.flash_attention import FLASH_MIN_TOKENS, attention, flash_attention
 
 
@@ -211,7 +212,7 @@ def unet_apply(params: dict, latents: torch.Tensor, t: torch.Tensor, context: to
 
 # UNet calls in this process, on any device: a run holds the flash kernel's
 # launches against it (ten per call at 512x512).
-unet_apply.calls = 0
+counters.register(unet_apply, "calls")
 
 
 def init_unet_params(seed: int = 0, cfg: UNetConfig = SD15_UNET) -> dict:

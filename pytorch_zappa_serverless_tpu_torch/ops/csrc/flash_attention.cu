@@ -501,7 +501,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // A 4-D map (D, H, T, B) over a bf16 operand's own strides (elements), with
-// a box of 64 head-dim columns by `rows` positions of one (b, h).
+// a box of 64 head-dim columns by `rows` positions of one (b, h).  Under
+// graph capture the map is baked into the launch by value (the address of
+// `base` at capture; hopper.cuh, encode_tiled).
 int encode(EncodeTiled fn, CUtensorMap* map, const void* base, int D, int H, int T, int B,
            long long sb, long long st, long long sh, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};

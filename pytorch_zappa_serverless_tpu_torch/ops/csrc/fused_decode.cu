@@ -834,7 +834,11 @@ int launch_one(const Args& args, cudaStream_t stream) {
   attrs[0].val.clusterDim.x = args.pl.C;
   attrs[0].val.clusterDim.y = 1;
   attrs[0].val.clusterDim.z = 1;
-  // Every block resident at once: the grid barrier needs it.
+  // Every block resident at once: the grid barrier needs it.  A cooperative
+  // launch of clusters may be captured into a CUDA graph and keeps both
+  // attributes there (tools/graph_probe.py); its shared-memory limit and
+  // plan are set by the eager call before any capture (set_smem is then a
+  // no-op), and its tensor maps are baked in by value (hopper.cuh).
   attrs[1].id = cudaLaunchAttributeCooperative;
   attrs[1].val.cooperative = 1;
   cfg.attrs = attrs;

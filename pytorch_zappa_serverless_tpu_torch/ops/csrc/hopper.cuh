@@ -482,6 +482,13 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
 
 // cuTensorMapEncodeTiled is a driver-API function; the runtime hands out its
 // address, so the library needs no link against libcuda.
+//
+// The kernels encode their maps on the host at every launch and pass them
+// by value as __grid_constant__ parameters.  A launch captured into a CUDA
+// graph keeps the parameters it was captured with, so its maps hold the
+// operands' addresses at capture: right only because a graph's buffers
+// (static inputs, its pool's intermediates, weights) never move between
+// replays (engine/compiled.py).
 inline EncodeTiled encode_tiled() {
   static const EncodeTiled fn = [] {
     void* p = nullptr;

@@ -425,6 +425,8 @@ __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
 
 // A 2-D map over a row-major operand with `inner` columns, `outer` rows
 // and rows `row_bytes` apart; boxes of box_inner x box_outer elements.
+// Under graph capture the map is baked into the launch by value (the
+// address of `base` at capture; hopper.cuh, encode_tiled).
 int encode_2d(EncodeTiled fn, CUtensorMap* map, const void* base, CUtensorMapDataType type,
               int inner, int outer, long long row_bytes, int box_inner, int box_outer,
               CUtensorMapSwizzle swizzle) {
@@ -471,7 +473,9 @@ int launch(const CUtensorMap& mx, const CUtensorMap& mw, const float* scale, O* 
   attrs[0].val.clusterDim.y = 1;
   attrs[0].val.clusterDim.z = splits;
   // Programmatic dependent launch: this grid may start while the kernel
-  // before it finishes, up to griddep_wait.
+  // before it finishes, up to griddep_wait.  Stream capture (CUDA 12.3 on)
+  // keeps it as a programmatic edge of the graph; tools/graph_probe.py holds
+  // two chained launches, captured and replayed, against eager ones.
   attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attrs[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attrs;

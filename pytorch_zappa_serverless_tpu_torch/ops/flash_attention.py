@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from . import counters
 from ._tma import launch_error, padded_copy, tma_describable
 
 _NEG_INF = -1e9
@@ -140,7 +141,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # Launches of the CUDA kernel in this process (the plain version on CPU
 # tensors does not count): a run reads it to show the main path used the
 # kernel.
-flash_attention.launches = 0
+counters.register(flash_attention)
 
 # Streaming beats materialised scores once the score tensor is large; below
 # this the two batched products are as fast (CLIP-77, cross-attention over

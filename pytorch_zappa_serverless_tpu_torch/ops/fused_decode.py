@@ -39,6 +39,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from . import counters
 from ._tma import launch_error
 
 # The kernels' limits (csrc/fused_decode.cu).
@@ -514,5 +515,5 @@ def fused_mlp_step_int8(x, ln_scale, ln_bias, w1_q, b1, s1, w2_q, b2, s2, *,
 # Launches of the CUDA kernels in this process, per entry point (the plain
 # version on CPU tensors does not count): a run reads them to show the
 # decode loop used the kernels.
-fused_attn_step.launches = fused_attn_step_int8.launches = 0
-fused_mlp_step.launches = fused_mlp_step_int8.launches = 0
+for _fn in (fused_attn_step, fused_attn_step_int8, fused_mlp_step, fused_mlp_step_int8):
+    counters.register(_fn)

@@ -31,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import counters
 from ._tma import launch_error, padded_copy, tma_describable
 
 
@@ -221,7 +222,7 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
 # Launches of the CUDA kernel in this process (the plain version on CPU
 # tensors does not count): a run reads it to show the main path used the
 # kernel.
-int8_matmul.launches = 0
+counters.register(int8_matmul)
 
 
 def dense_maybe_int8(p: dict, x: torch.Tensor, matmul=int8_matmul) -> torch.Tensor:

@@ -13,15 +13,22 @@ package's ``ops/sampling.py``, whose semantics these functions keep:
   penalty and multiplies a negative one.
 - A sampled row draws ``argmax(logits / T + g)`` with Gumbel noise ``g``:
   what ``jax.random.categorical`` computes.  The noise comes from
-  :func:`gumbel_noise`, one explicit ``torch.Generator`` per row seeded
-  from (seed, step), so a row's draw does not depend on its batch.  It
-  does not give JAX's bits (the tests hand both packages the same noise).
+  :func:`gumbel_noise`, a counter-based hash of (seed, step, column)
+  computed on the device with integer tensor ops, so a row's draw depends
+  on neither its batch nor the device, and the draw runs inside a captured
+  CUDA graph (no host read, no generator state).  It does not give JAX's
+  bits (the tests hand both packages the same noise).
 
-The JAX package's ``lax.cond`` gates are plain ``if``s here.
+The JAX package's ``lax.cond`` gates are host booleans here (``sampled``,
+``filtered``), which the caller derives from the batch on the host: a gate
+only skips work that would leave every row's result as it is.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 
@@ -57,50 +64,97 @@ def apply_repetition_penalty(logits: torch.Tensor, presence: torch.Tensor,
     return torch.where(presence, penalized, logits)
 
 
-_M64 = (1 << 64) - 1
+_M32 = 0xFFFFFFFF
+EULER_GAMMA = 0.5772156649015329  # the mean of Gumbel(0, 1)
 
 
-def _row_seed(seed: int, step: int) -> int:
-    """(seed, step) → one 64-bit generator seed, splitmix64-mixed so that
-    its low 32 bits (all the CPU generator reads) depend on both."""
-    z = (((seed & 0xFFFFFFFF) << 32 | (step & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15) & _M64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-    return z ^ (z >> 31)
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32) and a 32-bit
+    constant, in two 16-bit halves so that no product leaves int64's range."""
+    lo = (x & 0xFFFF) * c
+    hi = ((x >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finaliser (a bijection of [0, 2**32)), on int64
+    tensors holding non-negative 32-bit values: every shift is logical."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def uniform_bits(seeds: torch.Tensor, t: torch.Tensor, V: int) -> torch.Tensor:
+    """[B, V] int64 in [0, 2**24): 24 hashed bits per (seeds[b], t[b],
+    column).  Integer ops only, so the bits are the same on every device and
+    in every batch."""
+    s = seeds.long()[:, None] & _M32
+    step = t.long()[:, None] & _M32
+    row = _fmix32(_mul32(s, 0x9E3779B1) ^ _fmix32(step ^ 0x7F4A7C15))   # [B, 1]
+    row2 = _fmix32(row ^ 0x68E31DA4)
+    col = torch.arange(V, device=seeds.device, dtype=torch.int64)[None, :]
+    return _fmix32(row ^ _fmix32(_mul32(col, 0xCC9E2D51) ^ row2)) >> 8
 
 
 def gumbel_noise(seeds: torch.Tensor, t: torch.Tensor, V: int,
                  device: torch.device) -> torch.Tensor:
-    """Gumbel(0, 1) noise [B, V] f32: row b from its own generator seeded
-    from (seeds[b], t[b]), on ``device``."""
-    rows = []
-    for seed, step in zip(seeds.tolist(), t.tolist()):
-        g = torch.Generator(device=device)
-        g.manual_seed(_row_seed(int(seed), int(step)))
-        u = torch.rand(V, generator=g, device=device, dtype=torch.float32)
-        u = u.clamp_min(torch.finfo(torch.float32).tiny)
-        rows.append(-torch.log(-torch.log(u)))
-    return torch.stack(rows)
+    """Gumbel(0, 1) noise [B, V] f32 on ``device``: row b from (seeds[b],
+    t[b]) alone.  ``u = (bits + 0.5) / 2**24`` lies in (0, 1), exact in f64,
+    and the double log runs in f64 (in f32, u's top value would round to
+    1.0 and give an infinite draw)."""
+    bits = uniform_bits(seeds.to(device), t.to(device), V)
+    u = (bits.double() + 0.5) * 2.0 ** -24
+    return (-torch.log(-torch.log(u))).float()
 
 
 def choose(logits: torch.Tensor, temperature: torch.Tensor, seeds: torch.Tensor,
            t: torch.Tensor, top_k: torch.Tensor | None = None,
-           top_p: torch.Tensor | None = None) -> torch.Tensor:
+           top_p: torch.Tensor | None = None, *, sampled: bool = True,
+           filtered: bool = True) -> torch.Tensor:
     """Next token per row [B] int32: greedy where temperature == 0, else a
-    filtered sample at per-row step ``t`` [B]."""
+    filtered sample at per-row step ``t`` [B].
+
+    ``sampled`` (some row has temperature > 0) and ``filtered`` (some hot row
+    sets top-k or top-p) are the batch's gates, known on the host: with a
+    gate off its work is skipped, with it on a row it does not concern is
+    left as it is (the filter keeps every logit of a row with top_k = 0 and
+    top_p >= 1), so the defaults give every batch its right result."""
     greedy = logits.argmax(-1).to(torch.int32)
-    hot = temperature > 0.0
-    if not bool(hot.any()):
+    if not sampled:
         return greedy
+    hot = temperature > 0.0
     scaled = logits / temperature.clamp_min(1e-3)[:, None]
-    if top_k is not None or top_p is not None:
+    if filtered and (top_k is not None or top_p is not None):
         B = logits.shape[0]
         if top_k is None:
             top_k = torch.zeros((B,), dtype=torch.int32, device=logits.device)
         if top_p is None:
             top_p = torch.ones((B,), dtype=torch.float32, device=logits.device)
-        if bool((hot & ((top_k > 0) | (top_p < 1.0))).any()):
-            scaled = filter_top_k_top_p(scaled, top_k, top_p)
+        scaled = filter_top_k_top_p(scaled, top_k, top_p)
     noise = gumbel_noise(seeds, t, logits.shape[-1], logits.device)
-    sampled = (scaled + noise).argmax(-1).to(torch.int32)
-    return torch.where(hot, sampled, greedy)
+    sampled_tok = (scaled + noise).argmax(-1).to(torch.int32)
+    return torch.where(hot, sampled_tok, greedy)
+
+
+class Gates(NamedTuple):
+    """A batch's three gates, the JAX package's ``lax.cond``s: some row
+    samples, some row's repetition penalty is not 1, some sampled row sets
+    top-k or top-p.  Hashable: the key of a batch's captured variant."""
+
+    sampled: bool
+    rep_on: bool
+    filtered: bool
+
+
+ALL_ON = Gates(True, True, True)  # right for every batch: each gate only skips work
+
+
+def gates_of(temperature, top_k, top_p, repetition_penalty) -> Gates:
+    """The gates of a collated host batch's per-row knobs (numpy arrays)."""
+    temperature, top_k, top_p, rep = map(np.asarray, (temperature, top_k, top_p,
+                                                      repetition_penalty))
+    hot = temperature > 0.0
+    return Gates(bool(hot.any()), bool((rep != 1.0).any()),
+                 bool((hot & ((top_k > 0) | (top_p < 1.0))).any()))

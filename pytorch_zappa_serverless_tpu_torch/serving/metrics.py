@@ -85,6 +85,9 @@ class MetricsHub:
                          "batch_occupancy": round(st.samples / total, 3) if total else 1.0,
                          "device_seconds": round(st.device_seconds, 3),
                          "by_bucket": by_bucket}
+        for name, cm in engine.models.items():
+            if cm.graphed:  # the buckets (and variants, chunks) captured as CUDA graphs
+                occ.setdefault(name, {})["graphs"] = cm.graphs
         out["runner"] = occ
         out["dispatch"] = {"priority_enabled": engine.runner.priority_enabled,
                            "lanes": engine.runner.lane_stats()}

@@ -14,10 +14,14 @@ Three lanes:
 - ``fused_int8``: :func:`fused_step_int8`, the same with int8 weights and
   per-column scales, and the int8 lm head.
 
-The pool's caches come from one ragged ``prefill``; each lane is timed in
-ms per step with CUDA events over steps that feed back their own tokens.
-``--profile`` adds a ``torch.profiler`` breakdown per lane: device time by
-kernel name and the device's idle share of the window.
+The pool's caches come from one ragged ``prefill``.  On the GPU each lane's
+step is captured once as a CUDA graph (the JAX bench jits it) and replayed:
+the caches update in place, and the graph feeds its token (and, with
+``advance``, its position) back into the lane's own ``tok``/``pos`` buffers.
+Each lane is timed in ms per step with CUDA events over replays that feed
+back their own tokens.  ``--profile`` adds a ``torch.profiler`` breakdown
+per lane, eager against replayed: device time by kernel name and the
+device's idle share of the window.
 ``--platform cpu --arch '{...}'`` runs a narrow model on the CPU, where the
 fused wrappers compute their plain versions.
 """
@@ -36,6 +40,7 @@ from ..engine import weights as W
 from ..models import gpt2 as G
 from ..ops.fused_decode import (fused_attn_step, fused_attn_step_int8, fused_mlp_step,
                                 fused_mlp_step_int8)
+from ..ops.sampling import Gates
 
 S, P, MAX_NEW = 8, 64, 32
 T = P + MAX_NEW
@@ -122,7 +127,9 @@ class Lane:
     """One lane's weights and decode state: ``ck``/``cv`` are the serving
     caches ``[L, S, T, D]`` (``seg1``) or lists of per-layer ``[T, S, D]``
     caches (fused lanes); ``tok`` is the next token to feed, ``pos`` its
-    write position."""
+    write position.  Steps update all four in place (a captured step reads
+    and writes these very buffers); ``graphs`` holds the captured steps by
+    ``advance``."""
 
     name: str
     params: dict
@@ -130,6 +137,20 @@ class Lane:
     cv: object
     tok: torch.Tensor
     pos: torch.Tensor
+    graphs: dict = dataclasses.field(default_factory=dict)
+
+    def caches(self) -> list[torch.Tensor]:
+        return list(self.ck) + list(self.cv)
+
+    def state(self) -> list[torch.Tensor]:
+        """Copies of the decode state (caches, tok, pos)."""
+        return [t.clone() for t in (*self.caches(), self.tok, self.pos)]
+
+    def set_state(self, state: list[torch.Tensor]) -> None:
+        """Copy ``state`` (from :meth:`state`) back into the lane's buffers."""
+        with torch.inference_mode():
+            for dst, src in zip((*self.caches(), self.tok, self.pos), state):
+                dst.copy_(src)
 
 
 def build_lanes(cfg: G.GPT2Config, device, seed: int = 0) -> dict[str, Lane]:
@@ -152,73 +173,139 @@ def build_lanes(cfg: G.GPT2Config, device, seed: int = 0) -> dict[str, Lane]:
     return lanes
 
 
-def step(lane: Lane, cfg: G.GPT2Config, advance: bool = True) -> torch.Tensor:
-    """One greedy step of ``lane``; feeds its own token back and, with
-    ``advance``, moves ``pos`` on.  Returns the emitted token [S]."""
+def eager_step(lane: Lane, cfg: G.GPT2Config, advance: bool = True) -> torch.Tensor:
+    """One greedy step of ``lane``, eagerly; feeds its own token back and,
+    with ``advance``, moves ``pos`` on, in place.  Returns the emitted token
+    [S] (a new tensor)."""
     with torch.inference_mode():
         if lane.name == "seg1":
             z = torch.zeros_like(lane.tok)
             emits, _, _, nxt, *_ = G.decode_segment(
                 lane.params, lane.ck, lane.cv, lane.tok, lane.pos, z, z.bool(),
-                z.float(), z, 1, cfg, DTYPE)
+                z.float(), z, 1, cfg, DTYPE, gates=Gates(False, False, False))
             emit = emits[:, 0]
         else:
             fn = fused_step_int8 if lane.name == "fused_int8" else fused_step
             nxt, _ = fn(lane.params, lane.ck, lane.cv, lane.tok, lane.pos, cfg)
-            emit = lane.tok
-    lane.tok = nxt
-    if advance:
-        lane.pos = (lane.pos + 1).clamp(max=T - 1)
+            emit = lane.tok.clone()
+        lane.tok.copy_(nxt)
+        if advance:
+            lane.pos.copy_((lane.pos + 1).clamp(max=T - 1))
     return emit
 
 
-def time_lane(lane: Lane, cfg: G.GPT2Config, steps: int = 60, reps: int = 5) -> float:
+def step_graph(lane: Lane, cfg: G.GPT2Config, advance: bool = True):
+    """The lane's step captured as one CUDA graph (once per ``advance``); the
+    lane's decode state is as it was before (the capture's eager warm-up
+    step is undone)."""
+    from ..engine.compiled import capture
+
+    if advance not in lane.graphs:
+        before = lane.state()
+        with torch.inference_mode():
+            lane.graphs[advance] = capture(lambda: eager_step(lane, cfg, advance),
+                                           lane.tok.device)
+        lane.set_state(before)
+    return lane.graphs[advance]
+
+
+def step(lane: Lane, cfg: G.GPT2Config, advance: bool = True) -> torch.Tensor:
+    """One greedy step of ``lane``: a replay of its captured step on the GPU,
+    :func:`eager_step` on the CPU.  Returns the emitted token [S] (on the
+    GPU the graph's static output, overwritten by its next replay)."""
+    if lane.tok.device.type != "cuda":
+        return eager_step(lane, cfg, advance)
+    return step_graph(lane, cfg, advance).replay()
+
+
+def time_lane(lane: Lane, cfg: G.GPT2Config, steps: int = 60, reps: int = 5,
+              replay: bool = True) -> float:
     """Median over ``reps`` of ms per step over ``steps`` back-to-back steps
-    (CUDA events on a GPU, the host clock on the CPU), after a warm-up; the
-    write position stays fixed so every rep decodes the same shape."""
+    (replays of the captured step, or with ``replay=False`` eager steps; CUDA
+    events on a GPU, the host clock on the CPU), after a warm-up; the write
+    position stays fixed so every rep decodes the same shape."""
     cuda = lane.tok.device.type == "cuda"
+    run = step if replay else eager_step
     for _ in range(3):
-        step(lane, cfg, advance=False)
+        run(lane, cfg, advance=False)
     times = []
     for _ in range(reps):
         if cuda:
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
             for _ in range(steps):
-                step(lane, cfg, advance=False)
+                run(lane, cfg, advance=False)
             e1.record()
             e1.synchronize()
             times.append(e0.elapsed_time(e1) / steps)
         else:
             t0 = time.perf_counter()
             for _ in range(steps):
-                step(lane, cfg, advance=False)
+                run(lane, cfg, advance=False)
             times.append((time.perf_counter() - t0) * 1e3 / steps)
     return float(np.median(times))
 
 
-def profile_lane(lane: Lane, cfg: G.GPT2Config, steps: int = 20, top: int = 10) -> dict:
-    """``torch.profiler`` over ``steps`` steps: device time by kernel name
-    and the device's idle share of the window (host clock to a synchronize)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# Host calls that put one kernel on a stream (CUDA runtime and ``cu*``
+# API names); a replayed window should show none, only ``cudaGraphLaunch``.
+KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchKernelEx",
+                       "cuLaunchKernel", "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
 
-    for _ in range(3):
-        step(lane, cfg, advance=False)
+
+def host_calls(prof) -> dict[str, int]:
+    """Counts of the host's graph launches and kernel launches in a
+    ``torch.profiler`` window."""
+    counts = {"cudaGraphLaunch": 0, "kernel_launches": 0}
+    for e in prof.key_averages():
+        if e.key == "cudaGraphLaunch":
+            counts["cudaGraphLaunch"] += e.count
+        elif e.key in KERNEL_LAUNCH_CALLS:
+            counts["kernel_launches"] += e.count
+    return counts
+
+
+def profile(fn, calls: int) -> dict:
+    """``torch.profiler`` over ``calls`` calls of ``fn`` (on the calling
+    thread, which must be the one that issues the device work), after a
+    warm-up, ending in a synchronize: wall ms, device-busy ms and the idle
+    share of the window, device time by kernel name (``top``, largest
+    first) and the host's ``cudaGraphLaunch`` and kernel-launch calls, all
+    per call.  The tracer lengthens the wall time (it records every kernel,
+    a graph's too), so the same calls are first timed without it
+    (``wall_ms_untraced``) and ``idle_share_untraced`` sets the traced busy
+    time against that."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as trace
+
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3 / calls
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            step(lane, cfg, advance=False)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    # Device-side events only: a CPU op's self device time repeats its kernels'.
+    rows = [(e.key, e.count / calls, e.self_device_time_total / 1e3 / calls)
+            for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, _, ms in rows)
-    return {"wall_ms_per_step": wall_ms / steps, "busy_ms_per_step": busy_ms / steps,
-            "idle_share": 1 - busy_ms / wall_ms,
-            "top": [(name[:90], count / steps, ms / steps)
-                    for name, count, ms in sorted(rows, key=lambda r: -r[2])[:top]]}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "wall_ms_untraced": untraced_ms, "idle_share_untraced": 1 - busy_ms / untraced_ms,
+            "host_calls": {k: v / calls for k, v in host_calls(prof).items()},
+            "top": sorted(rows, key=lambda r: -r[2])}
+
+
+def profile_lane(lane: Lane, cfg: G.GPT2Config, steps: int = 20, replay: bool = True) -> dict:
+    """:func:`profile` over ``steps`` steps of ``lane``, replayed or (with
+    ``replay=False``) eager, at a fixed write position."""
+    run = step if replay else eager_step
+    return profile(lambda: run(lane, cfg, advance=False), steps)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -239,12 +326,15 @@ def main(argv: list[str] | None = None) -> int:
         print(f"{name}: {time_lane(lane, cfg, args.steps):.4f} ms/step", flush=True)
     if args.profile and device.type == "cuda":
         for name, lane in lanes.items():
-            prof = profile_lane(lane, cfg)
-            print(f"== {name}: wall {prof['wall_ms_per_step']:.4f} ms/step, device busy "
-                  f"{prof['busy_ms_per_step']:.4f} ms/step, idle share "
-                  f"{prof['idle_share']:.3f}", flush=True)
-            for kname, count, ms in prof["top"]:
-                print(f"   {ms:8.4f} ms  x{count:<5g} {kname}", flush=True)
+            for replay in (False, True):
+                prof = profile_lane(lane, cfg, replay=replay)
+                print(f"== {name} {'replayed' if replay else 'eager'}: wall "
+                      f"{prof['wall_ms']:.4f} ms/step ({prof['wall_ms_untraced']:.4f} "
+                      f"untraced), device busy {prof['busy_ms']:.4f} ms/step, idle share "
+                      f"{prof['idle_share']:.3f} ({prof['idle_share_untraced']:.3f} "
+                      f"untraced), host calls per step {prof['host_calls']}", flush=True)
+                for kname, count, ms in prof["top"][:10]:
+                    print(f"   {ms:8.4f} ms  x{count:<5g} {kname[:90]}", flush=True)
     return 0
 
 

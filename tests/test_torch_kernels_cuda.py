@@ -25,6 +25,11 @@ test below plants that fault).
 fused_attn_step / fused_mlp_step: per element ``atol = 1e-3, rtol = 2^-7``
 (``FUSED_TOL`` below gives the reasons), the K/V rows written at ``pos``
 within one bf16 ulp and every other cache entry untouched.
+Captured CUDA graphs (``engine.compiled``), on tiny BERT, GPT-2 and SD-1.5
+configurations and the bench lanes: a replay equals the eager run byte for
+byte, batches replayed in turn each give their own result, interleaved SD
+jobs keep their own state, and the counters add exactly a graph's launches
+per replay; the Gumbel draw's bits are the same on the CPU and the card.
 """
 
 import numpy as np
@@ -441,3 +446,214 @@ def test_fused_steps_are_bitwise_repeatable(cuda_device, int8):
     else:
         mlps = [FD.fused_mlp_step(*args, o["w2"], o["b2"]) for _ in range(2)]
     assert torch.equal(mlps[0], mlps[1])
+
+
+# -- captured CUDA graphs (engine.compiled) ---------------------------------------
+#
+# A bucket's captured graph replays the same kernels in the same order as an
+# eager run of its apply_fn, so the two agree byte for byte; the counters
+# count device executions (an eager run counts, a capture none, each replay
+# what the graph holds).
+
+TINY_BERT = {"num_layers": 2, "num_heads": 2, "head_dim": 64, "mlp_dim": 256,
+             "vocab_size": 512, "max_position": 64}
+TINY_GPT2 = {"vocab_size": 512, "d_model": 128, "layers": 2, "heads": 2, "ffn_dim": 256,
+             "max_positions": 128, "eos_id": 511}
+
+
+def _engine(name, **kw):
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+
+    return build_engine(ServeConfig(models=[ModelConfig(name=name, **kw)]), device="cuda")
+
+
+def _same(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(x.dtype == b[k].dtype and x.shape == b[k].shape
+                                        and x.tobytes() == b[k].tobytes()
+                                        for k, x in a.items())
+
+
+def _replays_in_turn(eng, name, batches, per_replay):
+    """Every batch replayed in turn, twice, each against its eager result,
+    and each replay's counts exactly ``per_replay``."""
+    from pytorch_zappa_serverless_tpu_torch.ops import counters
+
+    cm = eng.model(name)
+    run = eng.runner.run_fn_sync
+    eager = [run(cm.forward_eager, b) for b in batches]
+    for b in batches:
+        run(cm.forward, b)  # captured, where new
+    for _ in range(2):
+        for b, want in zip(batches, eager):
+            before = counters.snapshot()
+            got = run(cm.forward, b)
+            assert counters.delta(before) == {k: per_replay.get(k, 0) for k in before}
+            assert _same(got, want)
+    return cm
+
+
+@pytest.mark.cuda
+def test_capture_counts_the_eager_run_and_each_replay(cuda_device):
+    from pytorch_zappa_serverless_tpu_torch.engine.compiled import capture
+
+    x, w_q, scale = _operands(8, 768, 768, cuda_device)
+    x = x.bfloat16()
+    before = P.int8_matmul.launches
+    with torch.inference_mode():
+        cap = capture(lambda: P.int8_matmul(P.int8_matmul(x, w_q, scale), w_q, scale),
+                      cuda_device)
+        assert P.int8_matmul.launches == before + 2  # the eager warm-up run only
+        assert cap.launches["int8_matmul"] == 2
+        got = cap.replay().clone()
+        assert P.int8_matmul.launches == before + 4
+        want = P.int8_matmul(P.int8_matmul(x, w_q, scale), w_q, scale)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_a_host_read_under_capture_raises(cuda_device):
+    """No eager fallback: a capture that reads the device on the host raises,
+    and the card stays usable."""
+    from pytorch_zappa_serverless_tpu_torch.engine.compiled import capture
+
+    x = torch.ones(8, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        capture(lambda: bool((x * 2).sum() > 0), cuda_device)
+    assert (x * 2).sum().item() == 16.0
+
+
+@pytest.mark.cuda
+def test_noise_bits_are_the_same_on_cpu_and_cuda(cuda_device):
+    from pytorch_zappa_serverless_tpu_torch.ops import sampling as PS
+
+    seeds = torch.tensor([0, 7, -3, 2**31 - 1], dtype=torch.int32)
+    t = torch.tensor([0, 1, 31, 5], dtype=torch.int32)
+    cpu = PS.uniform_bits(seeds, t, 50257)
+    assert torch.equal(PS.uniform_bits(seeds.to(cuda_device), t.to(cuda_device), 50257).cpu(),
+                       cpu)
+    g = PS.gumbel_noise(seeds, t, 50257, cuda_device)
+    assert g.is_cuda and torch.isfinite(g).all()
+    torch.testing.assert_close(g.cpu(), PS.gumbel_noise(seeds, t, 50257, torch.device("cpu")),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_bert_graphs_replay_as_eager(cuda_device):
+    from pytorch_zappa_serverless_tpu_torch.engine.compiled import default_collate
+
+    eng = _engine("bert_base", dtype="bfloat16", seq_buckets=(16,), batch_buckets=(1, 4),
+                  extra={"arch": TINY_BERT, "params_dtype": "int8"})
+    try:
+        cm = eng.model("bert_base")
+        assert cm.graphs == ["(1, 16)", "(4, 16)"]
+        samples = [cm.servable.preprocess({"text": " ".join(["word"] * (3 + i))})
+                   for i in range(4)]
+        batches = [default_collate(samples[:1], (1, 16), cm.servable.input_spec((1, 16))),
+                   default_collate(samples, (4, 16), cm.servable.input_spec((4, 16))),
+                   default_collate(samples[2:], (4, 16), cm.servable.input_spec((4, 16)))]
+        _replays_in_turn(eng, "bert_base", batches, {"int8_matmul": 6 * 2})
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_gpt2_variants_replay_as_eager(cuda_device):
+    """Greedy (captured at warm-up) and a sampled, filtered variant (captured
+    lazily, on the clock) at both buckets."""
+    eng = _engine("gpt2", dtype="bfloat16", seq_buckets=(8,), batch_buckets=(1, 4),
+                  extra={"arch": TINY_GPT2, "params_dtype": "int8", "max_new_tokens": 5,
+                         "quantize_min_size": 1024})
+    try:
+        cm = eng.model("gpt2")
+        assert cm.graphs == ["(1, 8) greedy", "(4, 8) greedy"]
+        sv = cm.servable
+
+        def batch(bodies, bucket):
+            return sv.meta["collate"]([sv.preprocess(b) for b in bodies], bucket,
+                                      sv.input_spec(bucket))
+
+        greedy = [{"input_ids": list(range(3 + i, 8 + i))} for i in range(4)]
+        sampled = [{**b, "temperature": 0.9, "top_k": 20, "top_p": 0.9, "seed": i}
+                   for i, b in enumerate(greedy)]
+        _replays_in_turn(eng, "gpt2", [batch(greedy[:1], (1, 8)), batch(sampled[:1], (1, 8)),
+                                       batch(greedy, (4, 8)), batch(sampled[1:], (4, 8)),
+                                       batch(greedy[1:3], (4, 8))],
+                         {"int8_matmul": (4 * 2 + 1) * (1 + 5)})
+        assert "(4, 8) sampled+filtered" in cm.graphs
+        assert [1, 8, "sampled+filtered"] in [e["bucket"] for e in eng.clock.entries]
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_sd_chunk_graph_keeps_interleaved_jobs_apart(cuda_device):
+    """Two jobs' chunks taking turns on the one chunk graph give each job's
+    own latents, byte for byte those of the job run alone; each replay adds
+    the launches of one eager chunk (the flash route at 32x32 latents)."""
+    from pytorch_zappa_serverless_tpu_torch.ops import counters
+
+    eng = _engine("sd15", dtype="bfloat16", batch_buckets=(1,),
+                  extra={"variant": "tiny", "height": 256, "width": 256, "num_steps": 4,
+                         "chunk_steps": 2})
+    try:
+        cm = eng.model("sd15")
+        ch = cm.servable.meta["chunked"]
+        jobs = [[cm.servable.preprocess({"prompt": p, "seed": i})]
+                for i, p in enumerate(("a red fox", "a blue boat"))]
+        run = eng.runner.run_fn_sync
+
+        def alone(samples):
+            _, state = cm.chunk_prepare(samples)
+            for rows in ch["chunk_rows"]:
+                state = cm.chunk_step(state, rows)
+            return state["latents"].cpu()
+
+        def interleaved():
+            states = [cm.chunk_prepare(s)[1] for s in jobs]
+            for rows in ch["chunk_rows"]:
+                states = [cm.chunk_step(st, rows) for st in states]
+            return [st["latents"].cpu() for st in states]
+
+        def eager_chunk_launches():
+            _, state = cm.chunk_prepare(jobs[0])
+            before = counters.snapshot()
+            with torch.inference_mode():
+                ch["chunk"](cm.servable.module.tree(), state, ch["chunk_rows"][0])
+            return counters.delta(before)
+
+        want = [run(alone, s) for s in jobs]
+        assert all(torch.equal(a, b) for a, b in zip(run(interleaved), want))
+        per_chunk = run(eager_chunk_launches)
+        assert per_chunk["flash_attention"] > 0 and per_chunk["unet_apply"] == 2
+
+        def one_replay():
+            _, state = cm.chunk_prepare(jobs[1])
+            before = counters.snapshot()
+            cm.chunk_step(state, ch["chunk_rows"][0])
+            return counters.delta(before)
+
+        assert run(one_replay) == per_chunk
+        assert len([g for g in cm.graphs if g.startswith("chunk")]) == 1
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane_name", ["seg1", "fused", "fused_int8"])
+def test_bench_lane_graph_replays_as_eager(cuda_device, lane_name):
+    import dataclasses
+
+    from pytorch_zappa_serverless_tpu_torch.models import gpt2 as G
+    from pytorch_zappa_serverless_tpu_torch.tools import bench_fused_decode as BF
+
+    cfg = dataclasses.replace(G.SMALL, **TINY_GPT2)
+    lane = BF.build_lanes(cfg, cuda_device)[lane_name]
+    BF.step_graph(lane, cfg)
+    start = lane.state()
+    eager = [BF.eager_step(lane, cfg) for _ in range(8)]
+    after = lane.state()
+    lane.set_state(start)
+    replayed = [BF.step(lane, cfg).clone() for _ in range(8)]
+    assert all(torch.equal(a, b) for a, b in zip(eager, replayed))
+    assert all(torch.equal(a, b) for a, b in zip(after, lane.state()))
