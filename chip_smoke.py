@@ -59,7 +59,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    step of the three lanes, replayed and eager, and each kernel's per-launch
    time beside its bound; with ``--profile``, the per-phase
    ``%globaltimer`` stamps of one launch of each fused kernel
-   (``tools/fused_ablation``).
+   (``tools/fused_ablation``);
+10. vision path: ``build_engine`` with full-width ResNet-50 at 224x224
+   (buckets 1, 4, 8, 32), ResNet-18 and EfficientNet-B0 (buckets 1, 8), seed
+   weights; the native host library must load; the server; per model
+   ``:predict`` with a raw PNG body, ``{"b64": ...}``, 8 b64 ``instances``
+   of other sizes and aspect ratios, and the first image pre-decoded as a
+   224x224x3 array (the raw, b64 and array answers equal); a JPEG body →
+   200, a JPEG head with no image → 400; the GETs; no kernel of
+   the port runs on this path (every count 0); 60 single PNGs in turn for
+   the served p50; each bucket's replay against the eager forward byte for
+   byte, two batches in turn; per-bucket device ms replayed and eager beside
+   the FLOP bound; the served bf16 top-k against an fp32 eager run (TF32 off)
+   within ``VISION_PROB_TOL``, top-1 agreeing on every decided row and on at
+   least ``VISION_TOP1_MIN`` of 8; with ``--profile``, served ResNet-50 at
+   bucket 32 and EfficientNet-B0 at bucket 8 eager against replayed.
 
 With ``--profile``, every path is also profiled eager against replayed:
 device-busy and wall time, the idle share, and the host's calls, where a
@@ -79,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import io
 import json
 import statistics
 import struct
@@ -1564,13 +1579,359 @@ def run_fused(profile: bool, cfg=None, device: str = "cuda") -> dict:
             "teacher_forced": tf}
 
 
+# -- phase 10: the vision path ----------------------------------------------------
+
+# Full-width models at 224x224 (resize 256), seed weights; ResNet-50 at the
+# JAX package's dev-profile buckets.
+VISION = {"resnet50": (1, 4, 8, 32), "resnet18": (1, 8), "efficientnet_b0": (1, 8)}
+VISION_SIZE = 224
+VISION_SERVED = 60  # sequential single-image requests for the served p50
+# bf16 served top-k against an fp32 eager run (TF32 off) of the same weights,
+# on the fp32 top-k indices: |ln p_bf16 - ln p_fp32| <= 2·VISION_TAU·sigma,
+# sigma the fp32 logits' standard deviation.  bf16 rounds every conv output,
+# BN and activation (2^-8 relative); over 18 to 50 layers that moves each
+# logit by a share of the logits' spread (CPU rehearsal at 224x224: 1.7% of
+# sigma on ResNet-18, 2.2% on ResNet-50, 1.4% on EfficientNet-B0), and a
+# log-probability moves by at most twice the largest logit's move.
+VISION_TAU = 0.05
+# Top-1: every row whose fp32 top-1 leads its top-2 by more than twice the
+# tolerance in log-probability must agree (a swap would break the
+# tolerance), and at least this many of the 8 rows in all.
+VISION_TOP1_MIN = 6
+
+
+def vision_config(image_size: int = VISION_SIZE, buckets: dict = VISION):
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+
+    extra = {"image_size": image_size, "resize_to": image_size * 8 // 7}
+    return ServeConfig(models=[ModelConfig(name=name, dtype="bfloat16", batch_buckets=tuple(b),
+                                           extra=dict(extra))
+                               for name, b in buckets.items()])
+
+
+def vision_pngs(n: int = 8, seed: int = 0) -> list[bytes]:
+    """``n`` PNGs (the port's own encoder) of other sizes and aspect ratios:
+    blocks of colour, a gradient and a little noise, made from ``seed``."""
+    from pytorch_zappa_serverless_tpu_torch.models.sd15 import png_bytes
+
+    rng = np.random.default_rng(seed)
+    sizes = [(480, 640), (640, 480), (300, 300), (256, 512), (720, 400), (224, 224),
+             (333, 251), (900, 600)]
+    out = []
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        blocks = rng.integers(0, 256, (h // 32 + 1, w // 32 + 1, 3)).astype(np.float32)
+        img = np.kron(blocks, np.ones((32, 32, 1)))[:h, :w]
+        img += np.linspace(0, 60, w)[None, :, None] + rng.normal(0, 6, (h, w, 3))
+        out.append(png_bytes(img.clip(0, 255).astype(np.uint8)))
+    return out
+
+
+def http_raw(port: int, path: str, data: bytes, ctype: str):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method="POST",
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+# A JPEG's first bytes (SOI, APP0 "JFIF", EOI) and no image: a 400.
+JPEG_HEAD = bytes.fromhex("ffd8ffe000104a46494600010100000100010000ffd9")
+
+
+def jpeg_bytes(png: bytes) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.open(io.BytesIO(png)).convert("RGB").save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def phase_vision_host(cm, pngs: list[bytes], reps: int = 5) -> list[float]:
+    """Host ms per image of the preprocess (Pillow's decode, native resize
+    + crop), the median of ``reps`` per image."""
+    out = []
+    for png in pngs:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            cm.servable.preprocess(png)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.append(statistics.median(times))
+    log(f"host preprocess, ms per image, PNG bytes → uint8 224x224 crop (this machine's "
+        f"CPU): {', '.join(f'{m:.3f}' for m in out)}; mean {statistics.fmean(out):.3f}")
+    return out
+
+
+def phase_vision_path(cfg, device: str = "cuda") -> dict:
+    """Build the three vision engines, serve, and answer every body kind;
+    then ``VISION_SERVED`` single raw PNGs to ResNet-50 for the served p50."""
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+    from pytorch_zappa_serverless_tpu_torch.ops import hostops
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    check(hostops.native_available(), "the native hostops library did not build or load "
+                                      "(g++ missing?)")
+    log(f"hostops: native library loaded from {hostops.BUILD_DIR}")
+    pngs = vision_pngs()
+    b64 = [base64.b64encode(p).decode() for p in pngs]
+    size = cfg.models[0].extra["image_size"]
+    reset_counts()
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, device)
+    log(f"vision engines ready in {time.perf_counter() - t0:.3f} s on {engine.device}: build "
+        f"seconds {engine.build_seconds}; capture seconds {engine.clock.entries}")
+    decoded = engine.model("resnet50").servable.preprocess(pngs[0])["image"]
+    answers, gets = [], {}
+    with BackgroundServer(cfg, engine) as srv:
+        for name in [m.name for m in cfg.models]:
+            path = f"/v1/models/{name}:predict"
+            for kind, sent in (("raw", (pngs[0], "image/png")),
+                               ("b64", (json.dumps({"b64": b64[0]}).encode(),
+                                        "application/json")),
+                               ("instances", (json.dumps({"instances": [{"b64": b} for b in b64]})
+                                              .encode(), "application/json")),
+                               ("array", (json.dumps(decoded.tolist()).encode(),
+                                          "application/json"))):
+                status, out = http_raw(srv.port, path, *sent)
+                check(status == 200, f"{path} {kind}: status {status}: {out}")
+                answers.append((name, kind, out))
+        status, out = http_raw(srv.port, "/v1/models/resnet50:predict", jpeg_bytes(pngs[0]),
+                               "image/jpeg")
+        check(status == 200, f"a JPEG body: status {status}: {out}")
+        answers.append(("resnet50", "jpeg", out))
+        status, out = http_raw(srv.port, "/v1/models/resnet50:predict", JPEG_HEAD, "image/jpeg")
+        check(status == 400, f"a JPEG head with no image: status {status}, not 400: {out}")
+        log(f"a JPEG body: 200; a JPEG head with no image: 400 {out['error'][:120]}")
+        launches = read_counts()  # just after the path
+        lat = []
+        for i in range(VISION_SERVED):
+            t1 = time.perf_counter()
+            status, out = http_raw(srv.port, "/v1/models/resnet50:predict", pngs[i % len(pngs)],
+                                   "image/png")
+            lat.append((time.perf_counter() - t1) * 1e3)
+            check(status == 200, f"served request {i}: {status} {out}")
+        for path in ("/healthz", "/v1/models", "/metrics"):
+            status, out = http(srv.port, path)
+            check(status == 200, f"{path}: status {status}: {out}")
+            gets[path] = out
+    return {"engine": engine, "launches": launches, "answers": answers, "gets": gets,
+            "latency_ms": lat, "pngs": pngs, "size": size}
+
+
+def check_vision(run: dict, classes: int = 1000, topk: int = 5) -> None:
+    """Every answer well formed; per model the raw, b64 and pre-decoded
+    bodies of the first image answer alike, and the instances body's first
+    prediction is that answer too (bucket 8 against bucket 1: the same top-k
+    indices)."""
+    by = {}
+    for name, kind, out in run["answers"]:
+        check(out.get("model") == name and {"timing", "predictions"} <= set(out),
+              f"{name} {kind}: response keys {sorted(out)}")
+        preds = out["predictions"] if kind == "instances" else [out["predictions"]]
+        check(len(preds) == (8 if kind == "instances" else 1), f"{name} {kind}: {len(preds)}")
+        for pred in preds:
+            top = pred["top_k"]
+            probs = [t["prob"] for t in top]
+            idx = [t["index"] for t in top]
+            check(len(top) == topk and all(0.0 <= p <= 1.0 for p in probs)
+                  and probs == sorted(probs, reverse=True) and sum(probs) <= 1.0 + 1e-5,
+                  f"{name} {kind}: probabilities {probs}")
+            check(len(set(idx)) == topk and all(0 <= i < classes for i in idx)
+                  and all(t["label"] == f"class_{t['index']:04d}" for t in top),
+                  f"{name} {kind}: indices {idx}")
+        by[(name, kind)] = preds
+    for name in {n for n, _ in by}:
+        first = by[(name, "raw")][0]
+        same = [by[(name, k)][0] == first for k in ("b64", "array")]
+        check(all(same), f"{name}: the raw, b64 and pre-decoded bodies of one image answer "
+                         f"differently")
+        check([t["index"] for t in by[(name, "instances")][0]["top_k"]]
+              == [t["index"] for t in first["top_k"]],
+              f"{name}: the image's top-k at bucket 8 differs from bucket 1")
+        log(f"{name}: raw / b64 / array / 8 instances: 200, top-1 "
+            f"{first['top_k'][0]['label']} p={first['top_k'][0]['prob']:.4g}")
+    health = run["gets"]["/healthz"]
+    check(health["device_ok"] is True, f"/healthz: {health}")
+    check(set(VISION) <= set(run["gets"]["/v1/models"]["models"]), "/v1/models misses a model")
+
+
+def vision_batches(cm, pngs: list[bytes], bucket: int) -> list[tuple[str, dict]]:
+    """Two collated batches that fill ``bucket``, of other images."""
+    from pytorch_zappa_serverless_tpu_torch.engine.compiled import default_collate
+
+    samples = [cm.servable.preprocess(p) for p in pngs]
+    spec = cm.servable.input_spec((bucket,))
+    a = [samples[i % len(samples)] for i in range(bucket)]
+    b = [samples[(3 * i + 1) % len(samples)] for i in range(max(bucket - 1, 1))]
+    return [(f"({bucket},) a", default_collate(a, (bucket,), spec)),
+            (f"({bucket},) b", default_collate(b, (bucket,), spec))]
+
+
+def vision_flops(module, size: int, device) -> int:
+    """Multiply-add operations x 2 of one image through ``module``, from
+    the shapes its convs and dense layers see (hooks on one eager run)."""
+    from pytorch_zappa_serverless_tpu_torch.models.bert import Dense
+    from pytorch_zappa_serverless_tpu_torch.models.layers import Conv
+
+    total = []
+
+    def conv(m, _inputs, y):
+        total.append(2 * y.numel() * m.weight.shape[1] * m.kernel * m.kernel)
+
+    def dense(m, _inputs, y):
+        total.append(2 * y.numel() * m.weight.shape[1])
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, Conv) else dense)
+             for m in module.modules() if isinstance(m, (Conv, Dense))]
+    try:
+        with torch.inference_mode():
+            module(torch.zeros(1, size, size, 3, device=device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(total)
+
+
+def phase_vision_timing(engine, size: int) -> dict:
+    """Per model and bucket: device ms of one replay of the captured graph
+    and of the same program run eagerly (``device_ms``: launches queued
+    behind a spin kernel), beside the bf16 FLOP bound and the f32 weights'
+    read bound."""
+    rows = {}
+    for name, cm in engine.models.items():
+        m = cm.servable.module
+        flops = engine.runner.run_fn_sync(vision_flops, m, size, engine.device)
+        for (bucket, _), graph in sorted(cm._graphs.items()):
+            def eager(g=graph):
+                with torch.inference_mode():
+                    cm._apply(g.inputs, None)
+
+            replay_ms = engine.runner.run_fn_sync(device_ms, graph.captured.replay)
+            eager_ms = engine.runner.run_fn_sync(device_ms, eager)
+            f = flops * bucket[0]
+            flop_ms = 1e3 * f / PEAK_BF16_FLOPS
+            bytes_ms = 1e3 * cm.param_nbytes() / PEAK_BYTES_PER_S
+            bound = max(flop_ms, bytes_ms)
+            rows[(name, bucket[0])] = {"replay_ms": replay_ms, "eager_ms": eager_ms,
+                                       "gflop": f / 1e9, "bound_ms": bound}
+            log(f"vision {name} bucket {bucket[0]}: device ms replayed {replay_ms:.4f}, eager "
+                f"{eager_ms:.4f}; {f / 1e9:.2f} GFLOP, bf16 FLOP bound {flop_ms:.5f} ms, "
+                f"weights' read {bytes_ms:.5f} ms (bound by "
+                f"{'operations' if flop_ms >= bytes_ms else 'bytes'}; replay at "
+                f"{bound / replay_ms:.3f} of it); {1e3 * bucket[0] / replay_ms:.1f} images/s")
+    return rows
+
+
+def phase_vision_parity(engine, pngs: list[bytes]) -> dict:
+    """The served bf16 top-k (a replay at bucket 8) against an fp32 eager run
+    of the same seeded weights on the card, TF32 off, for each model."""
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig
+    from pytorch_zappa_serverless_tpu_torch.models.vision_common import topk_first_index
+    from pytorch_zappa_serverless_tpu_torch.ops.preprocessing import normalize_on_device
+    from pytorch_zappa_serverless_tpu_torch.utils.registry import get_model_builder
+
+    out = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, cm in engine.models.items():
+        (_, batch), _ = vision_batches(cm, pngs, 8)
+        served = engine.runner.run_fn_sync(cm.forward, batch)["topk_packed"]
+        k = served.shape[1] // 2
+
+        def logits(module):
+            with torch.inference_mode():
+                x = torch.from_numpy(batch["image"]).to(engine.device)
+                return module(normalize_on_device(x, module.norm_mean, module.norm_std)).float()
+
+        def fp32_logits():  # built, run and freed on the dispatch thread
+            f32 = get_model_builder(name)(ModelConfig(name=name, dtype="float32",
+                                                      extra=dict(cm.cfg.extra))).module
+            return logits(f32.to(engine.device))
+
+        l16 = engine.runner.run_fn_sync(logits, cm.servable.module)
+        l32 = engine.runner.run_fn_sync(fp32_logits)
+        v16, i16 = topk_first_index(torch.softmax(l16, dim=-1), k)
+        check(same_bits(torch.cat([v16, i16.float()], -1).cpu().numpy(), served),
+              f"{name}: the served top-k is not the top-k of the eager bf16 logits")
+        sigma = float(l32.std())
+        moved = float((l16 - l32).abs().max()) / sigma
+        lp16, lp32 = torch.log_softmax(l16, -1), torch.log_softmax(l32, -1)
+        _, i32 = topk_first_index(lp32, k)
+        err = (torch.gather(lp16, 1, i32) - torch.gather(lp32, 1, i32)).abs()
+        tol = 2 * VISION_TAU * sigma
+        share = float(err.max()) / tol
+        check(share <= 1.0, f"{name}: bf16 vs fp32 log-probabilities on the fp32 top-{k}: "
+                            f"{share:.3f} of the tolerance {tol:.4g}")
+        top2 = torch.gather(lp32, 1, i32[:, :2])
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        agree = i16[:, 0] == i32[:, 0]
+        n_agree, n_decided = int(agree.sum()), int(decided.sum())
+        check(bool(agree[decided].all()), f"{name}: top-1 differs on a decided row")
+        check(n_agree >= VISION_TOP1_MIN, f"{name}: top-1 agrees on {n_agree} of 8 rows")
+        log(f"{name} bf16 vs fp32 (TF32 off) on 8 images: logits moved by up to {moved:.4f} "
+            f"sigma (sigma {sigma:.4g}); max |d ln p| {float(err.max()):.4g} on the fp32 "
+            f"top-{k}, {share:.3f} of the tolerance; top-1 agrees on {n_agree} of 8 rows, on "
+            f"all {n_decided} decided")
+        out[name] = {"share": share, "moved_sigma": moved, "agree": n_agree,
+                     "decided": n_decided}
+    return out
+
+
+def phase_vision_profile(engine, pngs: list[bytes]) -> None:
+    """``torch.profiler`` over served forwards (H2D, replay, D2H) of the
+    largest ResNet-50 bucket and EfficientNet-B0 at bucket 8, eager
+    (``forward_eager``) against replayed."""
+    from pytorch_zappa_serverless_tpu_torch.tools import bench_fused_decode as BF
+
+    run = engine.runner.run_fn_sync
+    for name, bucket in (("resnet50", max(VISION["resnet50"])), ("efficientnet_b0", 8)):
+        cm = engine.model(name)
+        (_, batch), _ = vision_batches(cm, pngs, bucket)
+        eager = run(BF.profile, lambda: cm.forward_eager(batch), 5)
+        replay = run(BF.profile, lambda: cm.forward(batch), 5)
+        log_profiles(f"{name} ({bucket},)", "forward", eager, replay, top=12)
+
+
+def run_vision(profile: bool) -> dict:
+    """The vision path, its checks, replay against eager, bf16 against fp32,
+    and per-bucket timing."""
+    fresh_memory()
+    run = phase_vision_path(vision_config())
+    engine = run["engine"]
+    try:
+        log_memory("vision", engine)
+        check_vision(run)
+        exact_counts(run["launches"], {}, "the vision path (it runs no kernel of the port)")
+        host = phase_vision_host(engine.model("resnet50"), run["pngs"])
+        lat = run["latency_ms"]
+        ring = run["gets"]["/metrics"]["models"]["resnet50"]
+        log(f"vision served: resnet50, {len(lat)} single raw PNGs in turn: client p50 "
+            f"{statistics.median(lat):.3f} ms, p90 {float(np.percentile(lat, 90)):.3f} ms; "
+            f"server total p50 {ring['total_ms']['p50']} ms, device p50 "
+            f"{ring['device_ms']['p50']} ms over {ring['requests']} samples")
+        for name, cm in engine.models.items():
+            for b in cm.buckets:
+                phase_replay(engine, name, vision_batches(cm, run["pngs"], b[0]), {})
+        timing = phase_vision_timing(engine, run["size"])
+        parity = phase_vision_parity(engine, run["pngs"])
+        if profile:
+            phase_vision_profile(engine, run["pngs"])
+    finally:
+        engine.shutdown()
+    return {"timing": timing, "parity": parity, "p50_ms": statistics.median(lat), "host": host}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
                     help="also profile served BERT forwards at both buckets, one SD-1.5 "
-                         "denoise chunk, one served GPT-2 generate call and the three "
-                         "GPT-2 decode lanes (torch.profiler), and stamp the fused "
-                         "kernels' phases")
+                         "denoise chunk, one served GPT-2 generate call, the three "
+                         "GPT-2 decode lanes, and served ResNet-50 (32,) and "
+                         "EfficientNet-B0 (8,) forwards (torch.profiler), and stamp the "
+                         "fused kernels' phases")
     args = ap.parse_args(argv)
     phase_device()
     phase_build()
@@ -1580,6 +1941,7 @@ def main(argv: list[str] | None = None) -> int:
     flash_launches = run_sd(args.profile)
     gpt2_launches = run_gpt2(args.profile)
     fused = run_fused(args.profile)
+    vision = run_vision(args.profile)
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
         log(f"one forward's int8_matmul at M={m} (72 launches, the per-shape times summed): "
@@ -1639,6 +2001,11 @@ def main(argv: list[str] | None = None) -> int:
                           + ("int8 (W8A16)" if lane == "fused_int8" else "bf16")
                           + " weights, the mean over all 12 layers",
         })
+    for (name, bucket), row in sorted(vision["timing"].items()):
+        log(f"vision {name} ({bucket},): replayed {row['replay_ms']:.4f} ms, eager "
+            f"{row['eager_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['gflop']:.2f} GFLOP)")
+    log(f"vision served p50 (resnet50, single PNGs): {vision['p50_ms']:.3f} ms; the vision "
+        f"path runs no kernel of the port (cuDNN convolutions, cuBLAS fc)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -143,7 +143,9 @@ def load_config(path: str | Path | None = None,
 
 def default_config() -> ServeConfig:
     """The dev profile: the JAX package's dev zoo, random-init, cut to the
-    models the port registers (today bert_base, gpt2 and the tiny sd15)."""
+    models the port registers (today resnet18, resnet50, efficientnet_b0,
+    bert_base, gpt2 and the tiny sd15; vit_b16 and whisper_tiny wait for
+    their slices)."""
     from . import models as _zoo  # noqa: F401  (populates the registry)
     from .utils.registry import list_models
 

@@ -149,12 +149,20 @@ def default_collate(samples: Sequence[dict[str, np.ndarray]], bucket: tuple[int,
 
     Zero is the pad value on all axes (batch rows, token ids, masks).
     """
+    from ..ops import hostops
+
     out = {}
     for key, (shape, dtype) in input_spec.items():
         per_sample = shape[1:]
+        arrays = [np.asarray(s[key]) for s in samples]
+        if dtype == torch.uint8 and all(a.shape == per_sample and a.dtype == np.uint8
+                                        for a in arrays):
+            # Uniform-shape uint8 (the image servables): the native batch
+            # pack, one memcpy per sample into the zero-padded bucket buffer.
+            out[key] = hostops.pack_batch_u8(arrays, shape[0])
+            continue
         padded = []
-        for s in samples:
-            a = np.asarray(s[key])
+        for a in arrays:
             pads = [(0, want - have) for want, have in zip(per_sample, a.shape)]
             padded.append(np.pad(a, pads) if any(p != (0, 0) for p in pads) else a)
         stacked = np.stack(padded).astype(torch.empty(0, dtype=dtype).numpy().dtype)

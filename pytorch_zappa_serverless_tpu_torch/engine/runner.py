@@ -116,6 +116,9 @@ class _DaemonDispatchPool:
                     for lane in LANES}
 
     def shutdown(self, cancel_futures: bool = False):
+        """Stop taking work and wait (up to 120 s) for the dispatch thread to
+        finish what it runs: a process that exits while that thread is
+        still inside the framework can abort in its teardown."""
         with self._cv:
             first = not self._down
             self._down = True
@@ -124,6 +127,8 @@ class _DaemonDispatchPool:
                     while q:
                         q.popleft()[2].cancel()
             self._cv.notify_all()
+        if threading.current_thread() is not self._thread:
+            self._thread.join(120.0)
 
 
 @dataclass

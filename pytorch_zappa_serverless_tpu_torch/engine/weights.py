@@ -1,9 +1,11 @@
 """Checkpoint import and the bridge from the JAX package's param layout.
 
 Weights travel as a nested-dict param tree in the JAX package's layout (the
-flax names; dense kernels ``[in, out]``), which is what that package's
-servables hold and what ``convert_bert`` builds from a Hugging Face state
-dict.  :func:`params_from_jax` turns such a tree into the port's
+flax names; dense kernels ``[in, out]``, conv kernels HWIO), which is what
+that package's servables hold and what the family converters build from a
+torchvision or Hugging Face state dict (``convert_resnet``,
+``convert_efficientnet``, ``convert_bert``, ``convert_gpt2``, copies of that
+package's own).  :func:`params_from_jax` turns such a tree into the port's
 ``state_dict``, so a checkpoint, a seed-initialised tree and the JAX
 servable's own params all load through one path, and the parity tests feed
 both packages the same bytes.
@@ -33,6 +35,16 @@ def load_state_dict(path: str | Path) -> dict[str, np.ndarray]:
             else v.detach().numpy() for k, v in sd.items()}
 
 
+def conv_kernel(w: np.ndarray) -> np.ndarray:
+    """OIHW → HWIO (the JAX package's conv layout)."""
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
+# Torch depthwise (C, 1, H, W) → HWIO (H, W, 1, C): the same transpose as a
+# regular conv; the alias documents intent at call sites.
+depthwise_kernel = conv_kernel
+
+
 def linear_kernel(w: np.ndarray) -> np.ndarray:
     """(out, in) → (in, out)."""
     return np.ascontiguousarray(w.T)
@@ -43,6 +55,106 @@ def _set(tree: dict, path: tuple[str, ...], value: np.ndarray):
     for p in path[:-1]:
         node = node.setdefault(p, {})
     node[path[-1]] = value
+
+
+_BN_MAP = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+
+
+def convert_resnet(sd: Mapping[str, np.ndarray]) -> dict[str, Any]:
+    """torchvision-format ResNet state_dict → param tree for ``models.resnet``.
+
+    Handles both BasicBlock (resnet18/34) and Bottleneck (resnet50/101) keys.
+    """
+    params: dict[str, Any] = {}
+    for key, w in sd.items():
+        parts = key.split(".")
+        if parts[-1] == "num_batches_tracked":
+            continue
+        if parts[0] == "conv1":
+            _set(params, ("conv1", "kernel"), conv_kernel(w))
+        elif parts[0] == "bn1":
+            _set(params, ("bn1", _BN_MAP[parts[1]]), w)
+        elif parts[0] == "fc":
+            _set(params, ("fc", "kernel" if parts[1] == "weight" else "bias"),
+                 linear_kernel(w) if parts[1] == "weight" else w)
+        elif parts[0].startswith("layer"):
+            stage = int(parts[0][len("layer"):])  # 1..4
+            block = f"layer{stage}_{parts[1]}"
+            rest = parts[2:]
+            if rest[0] == "downsample":
+                if rest[1] == "0":  # conv
+                    _set(params, (block, "downsample_conv", "kernel"), conv_kernel(w))
+                else:  # "1" → bn
+                    _set(params, (block, "downsample_bn", _BN_MAP[rest[2]]), w)
+            elif rest[0].startswith("conv"):
+                _set(params, (block, rest[0], "kernel"), conv_kernel(w))
+            elif rest[0].startswith("bn"):
+                _set(params, (block, rest[0], _BN_MAP[rest[1]]), w)
+            else:
+                raise KeyError(f"unrecognized resnet key: {key}")
+        else:
+            raise KeyError(f"unrecognized resnet key: {key}")
+    return params
+
+
+def convert_efficientnet(sd: Mapping[str, np.ndarray]) -> dict[str, Any]:
+    """HF-transformers-format EfficientNet state_dict → param tree for
+    ``models.efficientnet``.
+
+    Accepts both ``EfficientNetModel`` (``efficientnet.`` prefix) and
+    ``EfficientNetForImageClassification`` (adds ``classifier.*``) keys.
+    """
+    params: dict[str, Any] = {}
+    for key, w in sd.items():
+        parts = key.split(".")
+        if parts[0] == "efficientnet":
+            parts = parts[1:]
+        if parts[-1] == "num_batches_tracked":
+            continue
+        if parts[0] == "classifier":
+            _set(params, ("classifier", "kernel" if parts[1] == "weight" else "bias"),
+                 linear_kernel(w) if parts[1] == "weight" else w)
+        elif parts[0] == "embeddings":
+            if parts[1] == "convolution":
+                _set(params, ("stem_conv", "kernel"), conv_kernel(w))
+            else:  # batchnorm
+                _set(params, ("stem_bn", _BN_MAP[parts[2]]), w)
+        elif parts[0] == "encoder":
+            if parts[1] == "top_conv":
+                _set(params, ("top_conv", "kernel"), conv_kernel(w))
+            elif parts[1] == "top_bn":
+                _set(params, ("top_bn", _BN_MAP[parts[2]]), w)
+            elif parts[1] == "blocks":
+                block = f"block{parts[2]}"
+                layer, rest = parts[3], parts[4:]
+                if layer == "expansion":
+                    if rest[0] == "expand_conv":
+                        _set(params, (block, "expand_conv", "kernel"), conv_kernel(w))
+                    else:
+                        _set(params, (block, "expand_bn", _BN_MAP[rest[1]]), w)
+                elif layer == "depthwise_conv":
+                    if rest[0] == "depthwise_conv":
+                        _set(params, (block, "dw_conv", "kernel"), depthwise_kernel(w))
+                    else:
+                        _set(params, (block, "dw_bn", _BN_MAP[rest[1]]), w)
+                elif layer == "squeeze_excite":
+                    which = "se_reduce" if rest[0] == "reduce" else "se_expand"
+                    if rest[1] == "weight":
+                        _set(params, (block, which, "kernel"), conv_kernel(w))
+                    else:
+                        _set(params, (block, which, "bias"), w)
+                elif layer == "projection":
+                    if rest[0] == "project_conv":
+                        _set(params, (block, "project_conv", "kernel"), conv_kernel(w))
+                    else:
+                        _set(params, (block, "project_bn", _BN_MAP[rest[1]]), w)
+                else:
+                    raise KeyError(f"unrecognized efficientnet key: {key}")
+            else:
+                raise KeyError(f"unrecognized efficientnet key: {key}")
+        else:
+            raise KeyError(f"unrecognized efficientnet key: {key}")
+    return params
 
 
 _BERT_LN = {"weight": "scale", "bias": "bias", "gamma": "scale", "beta": "bias"}
@@ -209,8 +321,10 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
       (OIHW, the inverse of the JAX package's ``conv_kernel``);
     - int8 nodes keep ``kernel_q [K, N]`` and ``scale [N]`` as they are:
       that is the kernel's own layout;
-    - LayerNorm/GroupNorm ``scale`` → ``weight``; ``embedding`` tables →
-      ``weight``;
+    - depthwise ``kernel [kh, kw, 1, C]`` → ``weight [C, 1, kh, kw]`` (the
+      same transpose);
+    - LayerNorm/GroupNorm/BatchNorm ``scale`` → ``weight``; ``embedding``
+      tables → ``weight``;
     - everything else keeps its name.  Submodule paths join with ".".
     """
     sd: dict[str, torch.Tensor] = {}

@@ -172,7 +172,7 @@ def make_prompt_ids(text: str, cfg: CLIPTextConfig) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# PNG without PIL (the card's machine has no Pillow)
+# PNG without PIL (a deployment may not have Pillow)
 # ---------------------------------------------------------------------------
 
 def png_bytes(pixels: np.ndarray) -> bytes:

@@ -10,12 +10,15 @@ Routes (the JAX package's, for the port's slices):
   queue shut down 503, both with Retry-After), and ``GET /v1/jobs/{id}`` →
   200, 404 unknown, 410 expired.
 
-A predict body is JSON: one input (``{"text": ...}`` or
-``{"input_ids": [...]}``) or ``{"instances": [...]}`` with N inputs that
-are admitted together and co-batch on the device.  The answer keeps the JAX
-server's shape, ``{"model", "timing", "predictions"}``, with ``X-Queue-Ms``
-and ``X-Device-Ms`` headers; errors are ``{"error": ...}`` with 400, 404,
-405, 413, 429 (+ Retry-After) or 500.
+A predict body is JSON: one input (``{"text": ...}``, ``{"input_ids":
+[...]}``, ``{"b64": ...}`` or a pre-decoded image array) or ``{"instances":
+[...]}`` with N inputs that are admitted together and co-batch on the
+device; any other body (an image file) is the input's raw bytes.  A
+``{"b64": ...}`` input, alone or as an instance, reaches the model's
+``preprocess`` as the decoded bytes, as the JAX server hands them over.
+The answer keeps the JAX server's shape, ``{"model", "timing",
+"predictions"}``, with ``X-Queue-Ms`` and ``X-Device-Ms`` headers; errors
+are ``{"error": ...}`` with 400, 404, 405, 413, 429 (+ Retry-After) or 500.
 
 HTTP/1.1 with keep-alive and ``Content-Length`` bodies (no chunked request
 bodies).  The event loop never touches a device tensor: batches go to the
@@ -25,6 +28,7 @@ runner's dispatch thread.
 from __future__ import annotations
 
 import asyncio
+import base64
 import json
 import math
 import re
@@ -95,6 +99,26 @@ async def _read_request(reader: asyncio.StreamReader):
         raise _HttpError(413, f"body of {n} bytes exceeds {MAX_BODY_BYTES}")
     body = await reader.readexactly(n) if n else b""
     return method, target.split("?", 1)[0], version, headers, body
+
+
+def _unwrap_b64(payload: Any) -> Any:
+    """The wire convention for binary in JSON: ``{"b64": ...}`` → raw bytes.
+    Shared by the whole-body decode and the per-instance path."""
+    if isinstance(payload, dict) and "b64" in payload:
+        return base64.b64decode(payload["b64"])
+    return payload
+
+
+def _decode_body(body: bytes, headers: dict[str, str]) -> Any:
+    """A predict body → the payload: a JSON body (by its Content-Type, or one
+    that starts with ``{`` or ``[``) parsed, with a ``{"b64": ...}`` body
+    unwrapped to its bytes; any other body as its raw bytes.  A body that
+    starts like JSON and does not parse is refused (ValueError), where the
+    JAX server would take it as raw bytes: an image file never starts so."""
+    ctype = headers.get("content-type", "").split(";")[0].strip().lower()
+    if ctype == "application/json" or body[:1] in (b"{", b"["):
+        return _unwrap_b64(json.loads(body))
+    return body
 
 
 def _encode(status: int, obj: Any, headers: dict[str, str], keep_alive: bool) -> bytes:
@@ -275,8 +299,8 @@ class Server:
         if batcher is None:
             return self._unknown_model(name)
         try:
-            payload = json.loads(body)
-        except (ValueError, UnicodeDecodeError) as e:
+            payload = _decode_body(body, headers)
+        except (ValueError, TypeError) as e:
             return _error(400, f"bad request body: {type(e).__name__}: {e}")
         instances = None
         if isinstance(payload, dict) and "instances" in payload:
@@ -287,10 +311,21 @@ class Server:
                 batcher.check_capacity(len(instances))
             except Overloaded as e:
                 return self._overloaded(e, batcher)
+            try:
+                instances = [_unwrap_b64(p) for p in instances]
+            except (ValueError, TypeError) as e:
+                return _error(400, f"bad instance: {type(e).__name__}: {e}")
         cm = batcher.model
+        payloads = instances if instances is not None else [payload]
         try:
-            samples = [cm.servable.preprocess(p)
-                       for p in (instances if instances is not None else [payload])]
+            if any(isinstance(p, bytes) for p in payloads):
+                # Image bytes: decode and resize off the event loop, the
+                # instances at once.  Other inputs preprocess inline.
+                loop = asyncio.get_running_loop()
+                samples = await asyncio.gather(
+                    *[loop.run_in_executor(None, cm.servable.preprocess, p) for p in payloads])
+            else:
+                samples = [cm.servable.preprocess(p) for p in payloads]
         except Exception as e:
             return _error(400, f"preprocess failed: {type(e).__name__}: {e}")
         seq_of = cm.servable.meta.get("seq_len_of")

@@ -177,6 +177,26 @@ def test_priority_lane_order():
         pool.shutdown()
 
 
+def test_shutdown_waits_for_the_running_dispatch():
+    """``shutdown`` cancels what is queued and returns only once the
+    dispatch thread has finished the call it runs (a process that exits
+    with that thread inside the framework can abort in its teardown)."""
+    pool = _DaemonDispatchPool("test-dispatch")
+    started, release = threading.Event(), threading.Event()
+    running = pool.submit(lambda: (started.set(), release.wait(10))[1])
+    queued = pool.submit(lambda: None)
+    assert started.wait(10)
+    timer = threading.Timer(0.2, release.set)
+    timer.start()
+    pool.shutdown(cancel_futures=True)
+    assert running.done() and running.result() is True
+    assert queued.cancelled()
+    assert not pool._thread.is_alive()
+    timer.join(10)
+    with pytest.raises(RuntimeError, match="shut down"):
+        pool.submit(lambda: None)
+
+
 def test_batcher_coalesces_and_caps(engine):
     cm = engine.model("bert_base")
     cfg = ModelConfig(**{**MODEL, "coalesce_ms": 200.0, "max_concurrency": 4})

@@ -30,6 +30,9 @@ configurations and the bench lanes: a replay equals the eager run byte for
 byte, batches replayed in turn each give their own result, interleaved SD
 jobs keep their own state, and the counters add exactly a graph's launches
 per replay; the Gumbel draw's bits are the same on the CPU and the card.
+The vision classifiers' captured graphs (ResNet-18/50, EfficientNet-B0 at
+64x64) replay as their eager forward byte for byte, and their top-k orders
+ties as on the CPU.
 """
 
 import numpy as np
@@ -657,3 +660,45 @@ def test_bench_lane_graph_replays_as_eager(cuda_device, lane_name):
     replayed = [BF.step(lane, cfg).clone() for _ in range(8)]
     assert all(torch.equal(a, b) for a, b in zip(eager, replayed))
     assert all(torch.equal(a, b) for a, b in zip(after, lane.state()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["resnet18", "resnet50", "efficientnet_b0"])
+def test_vision_graphs_replay_as_eager(cuda_device, name):
+    """Each bucket's captured graph (normalize, the bf16 channels_last
+    convolutions, softmax, top-k) equals the eager forward byte for byte:
+    the capture and the eager run take the same cuDNN algorithms.  No kernel
+    of the port runs on this path."""
+    from pytorch_zappa_serverless_tpu_torch.engine.compiled import default_collate
+
+    eng = _engine(name, dtype="bfloat16", batch_buckets=(1, 4),
+                  extra={"image_size": 64, "resize_to": 72})
+    try:
+        cm = eng.model(name)
+        assert cm.graphs == ["(1,)", "(4,)"]
+        rng = np.random.default_rng(0)
+        samples = [cm.servable.preprocess(rng.integers(0, 256, (64, 64, 3), np.uint8))
+                   for _ in range(4)]
+        batches = [default_collate(samples[:1], (1,), cm.servable.input_spec((1,))),
+                   default_collate(samples, (4,), cm.servable.input_spec((4,))),
+                   default_collate(samples[1:], (4,), cm.servable.input_spec((4,)))]
+        cm = _replays_in_turn(eng, name, batches, {})
+        out = eng.runner.run_fn_sync(cm.forward, batches[1])["topk_packed"]
+        assert out.shape == (4, 10) and np.isfinite(out).all()
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_vision_topk_orders_ties_as_on_the_cpu(cuda_device):
+    """Among equal probabilities the lower index first on the card too (the
+    stable sort), as ``jax.lax.top_k`` and the CPU order them."""
+    from pytorch_zappa_serverless_tpu_torch.models.vision_common import topk_first_index
+
+    rng = np.random.default_rng(1)
+    probs = torch.from_numpy(rng.integers(0, 4, (32, 1000)).astype(np.float32) / 4)
+    probs[5] = 0.0
+    want = topk_first_index(probs, 5)
+    got = topk_first_index(probs.to(cuda_device), 5)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert got[1][5].tolist() == [0, 1, 2, 3, 4]
