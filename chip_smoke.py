@@ -12,9 +12,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    per-shape times (kernels and their library calls by ``device_ms``,
    launches queued behind a spin kernel; plain versions by CUDA events);
    ``int8_matmul`` at the BERT shapes, GPT-2 small's decode (M = 1, 8) and
-   prefill (M = 512) shapes and its f32 lm head, two launches of a split-K
-   shape bitwise equal, and one GPT-2 position step and one BERT forward
-   over distinct weights beside cuBLAS on the dequantised weights; at
+   prefill (M = 512) shapes and its f32 lm head, Whisper-tiny's four (K, N)
+   at M = 1, 4, 16 and its f32 lm head, two launches of each of two split-K
+   shapes bitwise equal (GPT-2's, and Whisper's 4x384x384 with one K tile a
+   cluster rank), and one GPT-2 position step, one BERT forward and one
+   Whisper decoder position (M = 4) over distinct weights beside cuBLAS on
+   the dequantised weights; at
    flash's 4096-token shape, a planted fault (the scale of a padded head
    dim) the tolerance must reject;
 4. BERT path: ``build_engine`` with full-width BERT-base int8 (seed weights),
@@ -73,7 +76,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    the FLOP bound; the served bf16 top-k against an fp32 eager run (TF32 off)
    within ``VISION_PROB_TOL``, top-1 agreeing on every decided row and on at
    least ``VISION_TOP1_MIN`` of 8; with ``--profile``, served ResNet-50 at
-   bucket 32 and EfficientNet-B0 at bucket 8 eager against replayed.
+   bucket 32 and EfficientNet-B0 at bucket 8 eager against replayed;
+11. Whisper path: ``build_engine`` with full-width Whisper-tiny (seed
+   weights, buckets 1 and 4, 64 new tokens) twice, ``whisper_tiny`` on the
+   int8 lane and ``whisper_bf16`` (the same builder) with f32 weights at
+   rest; the server; ``:predict`` with a 3 s 16 kHz WAV, a 44.1 kHz stereo
+   WAV, ``{"array", "rate"}``, ``{"b64"}``, a 4-WAV ``instances`` body and a
+   65 s WAV (3 chunks), a WAV on the bf16 lane, and ``{"array",
+   "temperature"}`` → 400; the GETs; exactly 2145 ``int8_matmul`` launches
+   per int8 generate call; each bucket's replay against the eager call byte
+   for byte, two batches in turn; the int8 lane's teacher-forced logits
+   against the plain int8 product; host ms of WAV → log-mel per 30 s
+   window; 20 single WAVs for the served p50; device ms per generate call
+   replayed and eager, and of the encoder alone, per bucket; with
+   ``--profile``, one int8 generate call at bucket 4 eager against replayed;
+12. ViT-B/16 and ``bert_embed``: both at buckets (1, 8) (bert_embed at seq
+   128), seed weights; PNG, b64 and ``instances`` bodies on ViT, ``text``,
+   ``input_ids`` and ``instances`` on bert_embed (unit vectors within
+   1e-5); every kernel count 0; replay against eager byte for byte; ViT
+   bf16 against fp32 under phase 10's rules, bert_embed bf16 against fp32
+   within ``EMBED_ATOL`` and ``EMBED_COS_MIN``; device ms per bucket.
 
 With ``--profile``, every path is also profiled eager against replayed:
 device-busy and wall time, the idle share, and the host's calls, where a
@@ -129,6 +151,13 @@ GPT2_KN = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
 GPT2_HEAD = (768, 50304)
 GPT2_DECODE_M = (1, 8)
 GPT2_PREFILL_M = 512
+# Whisper-tiny's int8 decoder products: (K, N) of q/k/v/out/cq/cout, fc1 and
+# fc2 at decode (M = B: 1, 4) and the prompt's prefill (M = 4B: 4, 16); the
+# padded lm head with f32 logits at M = B.  At K = 384 the split-K plans
+# give each cluster rank one 64-wide K tile.
+WHISPER_KN = [(384, 384), (384, 1536), (1536, 384)]
+WHISPER_HEAD = (384, 51968)
+WHISPER_M = (1, 4, 16)
 DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
           (torch.float32, torch.float32)]
 
@@ -222,9 +251,9 @@ def matmul_bound(m: int, k: int, n: int, x_dtype, out_dtype) -> tuple[float, flo
 
 def int8_cases() -> list[tuple]:
     """(M, K, N, x dtype, out dtype, timed) of every kernel check: the BERT
-    shapes and the ragged ones in the three dtype pairs, the GPT-2 shapes in
-    the served ones; the served dtype pair of the BERT buckets and of GPT-2
-    decode at M = 8 is timed."""
+    shapes and the ragged ones in the three dtype pairs, the GPT-2 and
+    Whisper shapes in the served ones; the served dtype pair of the BERT
+    buckets, of GPT-2 decode at M = 8 and of Whisper at M = 4 is timed."""
     cases = []
     for m in MAIN_M:
         for k, n in sorted(set(LAYER_PROJECTIONS)):
@@ -233,6 +262,8 @@ def int8_cases() -> list[tuple]:
     for m in GPT2_DECODE_M + (GPT2_PREFILL_M,):
         cases += [(m, k, n, *DTYPES[0], m == 8) for k, n in GPT2_KN]
     cases += [(m, *GPT2_HEAD, *DTYPES[1], m == 8) for m in GPT2_DECODE_M]
+    cases += [(m, k, n, *DTYPES[0], m == 4) for m in WHISPER_M for k, n in WHISPER_KN]
+    cases += [(m, *WHISPER_HEAD, *DTYPES[1], m == 4) for m in WHISPER_M[:2]]
     return cases
 
 
@@ -280,25 +311,30 @@ def phase_kernels() -> dict:
             f"plain {row['plain_ms']:.4f} ms, cuBLAS bf16 on dequantised weights "
             f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
             f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.3f} of the kernel's time)")
-    # Split-K sums in fixed rank order: two launches agree bit for bit.
-    m, k, n = 8, 768, 768
-    check(I.plan(m, k, n).splits > 1, f"{m}x{k}x{n} is not a split-K shape")
-    x = (torch.randn(m, k, device=dev, generator=g) * 0.5).bfloat16()
-    w_q = torch.randint(-127, 128, (k, n), device=dev, generator=g, dtype=torch.int8)
-    scale = torch.rand(n, device=dev, generator=g) * 2e-3 + 1e-4
-    runs = [I.int8_matmul(x, w_q, scale) for _ in range(2)]
-    check(torch.equal(*runs), f"int8_matmul {m}x{k}x{n}: two split-K launches differ")
-    log(f"int8_matmul {m}x{k}x{n} (plan {tuple(I.plan(m, k, n))}): two launches bitwise equal")
+    # Split-K sums in fixed rank order: two launches agree bit for bit (GPT-2's
+    # shape, and Whisper's, one K tile on each of six ranks).
+    for m, k, n in ((8, 768, 768), (4, 384, 384)):
+        check(I.plan(m, k, n).splits > 1, f"{m}x{k}x{n} is not a split-K shape")
+        x = (torch.randn(m, k, device=dev, generator=g) * 0.5).bfloat16()
+        w_q = torch.randint(-127, 128, (k, n), device=dev, generator=g, dtype=torch.int8)
+        scale = torch.rand(n, device=dev, generator=g) * 2e-3 + 1e-4
+        runs = [I.int8_matmul(x, w_q, scale) for _ in range(2)]
+        check(torch.equal(*runs), f"int8_matmul {m}x{k}x{n}: two split-K launches differ")
+        log(f"int8_matmul {m}x{k}x{n} (plan {tuple(I.plan(m, k, n))}): two launches bitwise "
+            f"equal")
     return {"max_abs_err": max_err, "timings": timings, "work": phase_int8_work()}
 
 
 def phase_int8_work() -> dict:
     """Whole pieces of main-path work over distinct weights, so that they
     stream from device memory as served: one GPT-2 small position step at
-    M = 8 (48 layer projections + the f32 lm head, 123.6 MB of int8) and one
-    BERT-base (8, 128) forward (72 projections at M = 1024).  Kernel and
-    cuBLAS on the dequantised bf16 weights by ``device_ms``; the bound is
-    the step's bytes, or the forward's operations, at the card's peak."""
+    M = 8 (48 layer projections + the f32 lm head, 123.6 MB of int8), one
+    BERT-base (8, 128) forward (72 projections at M = 1024) and one
+    Whisper-tiny decoder position at M = 4 (32 projections + the f32 lm
+    head, 28.2 MB of int8).  Kernel, plain version and cuBLAS on the
+    dequantised bf16 weights by ``device_ms``; the bound is the step's
+    bytes, or the forward's operations, at the card's peak."""
+    from pytorch_zappa_serverless_tpu_torch.ops import int8_matmul as I
     from pytorch_zappa_serverless_tpu_torch.tools import int8_ablation as IA
 
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -311,12 +347,15 @@ def phase_int8_work() -> dict:
             nbytes, opcount = nbytes + b, opcount + o
         b_ms, o_ms = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * opcount / PEAK_BF16_FLOPS
         row = {"ms": device_ms(IA.run_kernel(ops)), "library_ms": device_ms(IA.run_cublas(ops)),
+               "plain_ms": device_ms(lambda: [I.int8_matmul_reference(x, w, s, o)
+                                              for x, w, s, o, _ in ops]),
                "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
                "launches": len(ops), "weight_mb": sum(op[1].numel() for op in ops) / 1e6}
         out[name] = row
         log(f"time int8_matmul {name} ({row['launches']} launches at M={m}, "
             f"{row['weight_mb']:.1f} MB of distinct int8 weights): kernel {row['ms']:.4f} ms, "
-            f"cuBLAS on dequantised bf16 {row['library_ms']:.4f} ms "
+            f"plain {row['plain_ms']:.4f} ms, cuBLAS on dequantised bf16 "
+            f"{row['library_ms']:.4f} ms "
             f"({row['ms'] / row['library_ms']:.3f} x), bound {row['bound_ms']:.5f} ms "
             f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.3f} of the kernel's time)")
         del ops
@@ -1825,9 +1864,10 @@ def phase_vision_timing(engine, size: int) -> dict:
     return rows
 
 
-def phase_vision_parity(engine, pngs: list[bytes]) -> dict:
+def phase_vision_parity(engine, pngs: list[bytes], names=None) -> dict:
     """The served bf16 top-k (a replay at bucket 8) against an fp32 eager run
-    of the same seeded weights on the card, TF32 off, for each model."""
+    of the same seeded weights on the card, TF32 off, for each model (of
+    ``names``)."""
     from pytorch_zappa_serverless_tpu_torch.config import ModelConfig
     from pytorch_zappa_serverless_tpu_torch.models.vision_common import topk_first_index
     from pytorch_zappa_serverless_tpu_torch.ops.preprocessing import normalize_on_device
@@ -1836,7 +1876,8 @@ def phase_vision_parity(engine, pngs: list[bytes]) -> dict:
     out = {}
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    for name, cm in engine.models.items():
+    for name in names or list(engine.models):
+        cm = engine.model(name)
         (_, batch), _ = vision_batches(cm, pngs, 8)
         served = engine.runner.run_fn_sync(cm.forward, batch)["topk_packed"]
         k = served.shape[1] // 2
@@ -1924,14 +1965,524 @@ def run_vision(profile: bool) -> dict:
     return {"timing": timing, "parity": parity, "p50_ms": statistics.median(lat), "host": host}
 
 
+# -- phase 11: the Whisper path ---------------------------------------------------
+
+# Full-width Whisper-tiny (d_model 384, 4 + 4 layers, vocabulary 51865, 80 x
+# 3000 log-mel), seed weights, the dev profile's buckets and 64 new tokens:
+# ``whisper_tiny`` on the int8 lane and ``whisper_bf16`` (the same builder)
+# with f32 weights at rest.
+WHISPER = {"batch_buckets": (1, 4), "max_new_tokens": 64}
+WHISPER_SERVED = 20  # sequential single 3 s WAVs for the served p50
+# The int8 lane's teacher-forced logits, kernel vs plain route: relative max
+# error, GPT2_LOGIT_RTOL's reasons (one bf16 ulp a projection, carried on by
+# the layers after it).
+WHISPER_LOGIT_RTOL = 2e-2
+WHISPER_FORCED = 8  # generated tokens fed after the prompt
+
+
+def int8_per_call(layers: int = 4, max_new: int = WHISPER["max_new_tokens"]) -> int:
+    """int8 products of one Whisper generate call: each decoder layer's eight
+    projections and the lm head, at the prompt's prefill and each of the
+    ``max_new`` steps (the last step's logits are computed and unused, as in
+    the JAX package's scan)."""
+    return (8 * layers + 1) * (1 + max_new)
+
+
+def whisper_config(arch: dict | None = None, max_new_tokens: int = WHISPER["max_new_tokens"],
+                   batch_buckets=WHISPER["batch_buckets"], **extra):
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+
+    base = {"max_new_tokens": max_new_tokens, **({"arch": arch} if arch else {}), **extra}
+    return ServeConfig(models=[
+        ModelConfig(name="whisper_tiny", dtype="bfloat16", batch_buckets=tuple(batch_buckets),
+                    extra={**base, "params_dtype": "int8"}),
+        ModelConfig(name="whisper_bf16", builder="whisper_tiny", dtype="bfloat16",
+                    batch_buckets=tuple(batch_buckets), extra=dict(base))])
+
+
+def audio_signal(seconds: float, rate: int, seed: int, channels: int = 1) -> np.ndarray:
+    """[n, channels] in [-1, 1]: a few tones gliding in pitch, in bursts, and
+    a little noise, made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    x = np.zeros_like(t)
+    for _ in range(3):
+        f0, glide = rng.uniform(150, 900), rng.uniform(-60, 60)
+        x += rng.uniform(0.1, 0.25) * np.sin(2 * np.pi * (f0 + glide * t) * t)
+    x *= 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(1, 4) * t)
+    x = x[:, None] + rng.normal(0, 0.02, (t.shape[0], channels))
+    return np.clip(x, -1, 1)
+
+
+def wav_bytes(x: np.ndarray, rate: int) -> bytes:
+    """A 16-bit PCM WAV of ``x`` [n, channels]."""
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(x.shape[1])
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes((x * 32767).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def whisper_wavs(n: int = 4, seconds: float = 3.0, seed: int = 10) -> list[bytes]:
+    return [wav_bytes(audio_signal(seconds, 16000, seed + i), 16000) for i in range(n)]
+
+
+def phase_whisper_path(cfg, device: str = "cuda", served: int = WHISPER_SERVED) -> dict:
+    """Build both Whisper engines, serve, and answer every body kind on the
+    int8 lane (a 3 s 16 kHz WAV, a 44.1 kHz stereo WAV, ``{"array",
+    "rate"}``, ``{"b64"}``, a 4-WAV ``instances`` body, a 65 s WAV) and a
+    WAV on the bf16 lane; a sampling knob must answer 400; then the GETs and
+    ``served`` single WAVs in turn for the served p50."""
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    wavs = whisper_wavs()
+    stereo = wav_bytes(audio_signal(3.0, 44100, 20, channels=2), 44100)
+    array = audio_signal(2.5, 22050, 21)[:, 0]
+    long_wav = wav_bytes(audio_signal(65.0, 16000, 22), 16000)
+    reset_counts()
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, device)
+    log(f"whisper engines ready in {time.perf_counter() - t0:.3f} s on {engine.device}: build "
+        f"seconds {engine.build_seconds}; capture seconds {engine.clock.entries}")
+    path = "/v1/models/whisper_tiny:predict"
+    sends = [("wav", path, (wavs[0], "audio/wav")),
+             ("stereo 44.1 kHz", path, (stereo, "audio/wav")),
+             ("array", path, (json.dumps({"array": array.tolist(), "rate": 22050}).encode(),
+                              "application/json")),
+             ("b64", path, (json.dumps({"b64": base64.b64encode(wavs[0]).decode()}).encode(),
+                            "application/json")),
+             ("instances", path, (json.dumps({"instances": [
+                 {"b64": base64.b64encode(w).decode()} for w in wavs]}).encode(),
+                 "application/json")),
+             ("65 s", path, (long_wav, "audio/wav")),
+             ("bf16 wav", "/v1/models/whisper_bf16:predict", (wavs[0], "audio/wav"))]
+    answers, gets = [], {}
+    with BackgroundServer(cfg, engine) as srv:
+        for kind, url, sent in sends:
+            status, out = http_raw(srv.port, url, *sent)
+            check(status == 200, f"{url} {kind}: status {status}: {out}")
+            answers.append((kind, out))
+        status, out = http(srv.port, path, {"array": array.tolist(), "temperature": 0.7})
+        check(status == 400 and "sampling knobs" in out.get("error", ""),
+              f"a sampling knob on :predict: status {status}, not 400: {out}")
+        log(f"whisper {{array, temperature: 0.7}}: 400 {out['error'][:100]}")
+        counts = read_counts()  # just after the path
+        calls = (sum(e["model"] == "whisper_tiny" for e in engine.clock.entries)
+                 + engine.runner.stats["whisper_tiny"].batches)
+        lat = []
+        for i in range(served):
+            t1 = time.perf_counter()
+            status, out = http_raw(srv.port, path, wavs[i % len(wavs)], "audio/wav")
+            lat.append((time.perf_counter() - t1) * 1e3)
+            check(status == 200, f"served request {i}: {status} {out}")
+        for get in ("/healthz", "/v1/models", "/metrics"):
+            status, out = http(srv.port, get)
+            check(status == 200, f"{get}: status {status}: {out}")
+            gets[get] = out
+    return {"engine": engine, "counts": counts, "generate_calls": calls, "answers": answers,
+            "gets": gets, "latency_ms": lat, "wavs": wavs}
+
+
+def check_whisper(run: dict, vocab: int = 51865, max_new: int = WHISPER["max_new_tokens"]) -> None:
+    """Every answer well formed; the raw and b64 bodies of one WAV answer
+    alike and as the first instance does (bucket 4 against bucket 1); the
+    65 s WAV answers three chunks."""
+    by = {}
+    for kind, out in run["answers"]:
+        check({"model", "timing", "predictions"} <= set(out), f"whisper {kind}: keys {sorted(out)}")
+        preds = out["predictions"] if kind == "instances" else [out["predictions"]]
+        check(len(preds) == (4 if kind == "instances" else 1), f"whisper {kind}: {len(preds)}")
+        for pred in preds:
+            toks = pred["tokens"]
+            limit = max_new * pred.get("chunks", 1)
+            check(isinstance(toks, list) and len(toks) <= limit
+                  and all(isinstance(t, int) and 0 <= t < vocab for t in toks),
+                  f"whisper {kind}: tokens {toks[:20]}")
+        by[kind] = preds
+        log(f"whisper :predict {kind}: 200, {[len(p['tokens']) for p in preds]} tokens"
+            f"{', chunks ' + str(preds[0]['chunks']) if 'chunks' in preds[0] else ''}, timing "
+            f"{out['timing']}")
+    check(by["65 s"][0].get("chunks") == 3
+          and dict(run["answers"])["65 s"]["timing"]["samples"] == 3,
+          f"the 65 s WAV: {by['65 s'][0].get('chunks')} chunks, not 3")
+    check(by["wav"][0] == by["b64"][0], "the raw and b64 bodies of one WAV answer differently")
+    log(f"whisper: the WAV's tokens at bucket 4 (first instance) "
+        f"{'equal' if by['instances'][0] == by['wav'][0] else 'differ from'} those at bucket 1")
+    check(run["gets"]["/healthz"]["device_ok"] is True, f"/healthz: {run['gets']['/healthz']}")
+    check({"whisper_tiny", "whisper_bf16"} <= set(run["gets"]["/v1/models"]["models"]),
+          "/v1/models misses a Whisper deployment")
+
+
+def whisper_batches(cm, wavs: list[bytes], bucket: int) -> list[tuple[str, dict]]:
+    """Two collated batches in ``bucket``, of other WAVs (the second one
+    row short)."""
+    from pytorch_zappa_serverless_tpu_torch.engine.compiled import default_collate
+
+    samples = [cm.servable.preprocess(w) for w in wavs]
+    spec = cm.servable.input_spec((bucket,))
+    a = [samples[i % len(samples)] for i in range(bucket)]
+    b = [samples[(i + 1) % len(samples)] for i in range(max(bucket - 1, 1))]
+    return [(f"({bucket},) a", default_collate(a, (bucket,), spec)),
+            (f"({bucket},) b", default_collate(b, (bucket,), spec))]
+
+
+def phase_whisper_parity(engine, wavs: list[bytes], steps: int = WHISPER_FORCED) -> dict:
+    """Teacher-forced logits of the served int8 model at bucket 4 (the
+    prompt and ``steps`` greedy tokens of the kernel route, fed to both),
+    its products through the kernel, against the same model with
+    ``int8_matmul`` routed to its plain version, on the card."""
+    from pytorch_zappa_serverless_tpu_torch.models import whisper as W
+    from pytorch_zappa_serverless_tpu_torch.ops import int8_matmul as I
+
+    cm = engine.model("whisper_tiny")
+    cfg, dtype = cm.servable.meta["config"], cm.servable.meta["dtype"]
+    (_, batch), _ = whisper_batches(cm, wavs, 4)
+    served = engine.runner.run_fn_sync(cm.forward, batch)["tokens"]
+    prompt = np.asarray(cm.servable.meta["prompt_ids"], np.int32)
+    fed = np.concatenate([np.tile(prompt, (4, 1)), served[:, :steps]], axis=1)
+
+    def logits(matmul):
+        W.int8_mm = matmul
+        try:
+            with torch.inference_mode():
+                tree, x = cm.servable.module.tree(), cm._place(batch)
+                enc = W.encode(tree, x["mel"], cfg, dtype)
+                return W.decode_forced(tree, enc, torch.from_numpy(fed).to(engine.device), cfg,
+                                       dtype).cpu()
+        finally:
+            W.int8_mm = I.int8_matmul
+
+    run = engine.runner.run_fn_sync
+    got, want = run(logits, I.int8_matmul), run(logits, I.int8_matmul_reference)
+    check(got.shape == want.shape == (4, fed.shape[1], cfg.vocab_size), f"logits {got.shape}")
+    check(bool(torch.isfinite(got).all()), "whisper int8 logits are not finite")
+    errs = [((got[:, t] - want[:, t]).abs().max() / want[:, t].abs().max()).item()
+            for t in range(fed.shape[1])]
+    check(max(errs) <= WHISPER_LOGIT_RTOL, f"whisper kernel vs plain logits: rel errs {errs}")
+    # The greedy choices the served call made, from the kernel route's logits.
+    P = prompt.shape[0]
+    agree = (got[:, P - 1: P - 1 + steps].argmax(-1).numpy() == served[:, :steps]).mean()
+    log(f"whisper parity: {fed.shape[1]} teacher-forced positions (prompt + {steps} served "
+        f"tokens) at bucket 4, kernel vs plain int8_matmul: rel max err per position "
+        f"{[round(e, 6) for e in errs]} (<= {WHISPER_LOGIT_RTOL}); the kernel route's argmax "
+        f"equals the served token at {agree:.3f} of the fed steps")
+    return {"logit_rel_err": max(errs)}
+
+
+def phase_whisper_host(cm, reps: int = 5) -> dict:
+    """Host ms of WAV bytes → log-mel for one 30 s window: 16 kHz mono, and
+    44.1 kHz stereo (the resample on top); the median of ``reps``."""
+    out = {}
+    for tag, data in (("16 kHz mono", wav_bytes(audio_signal(30.0, 16000, 30), 16000)),
+                      ("44.1 kHz stereo", wav_bytes(audio_signal(30.0, 44100, 31, 2), 44100))):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            cm.servable.preprocess(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[tag] = statistics.median(times)
+    log(f"whisper host preprocess, ms per 30 s window, WAV bytes → [80, 3000] log-mel (this "
+        f"machine's CPU): " + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    return out
+
+
+def phase_whisper_timing(engine) -> dict:
+    """Per deployment and bucket: device ms of one replayed generate call and
+    of the same call eager (``device_ms``), and of its encoder alone (the
+    conv stem, the encoder and cross K/V, captured apart); the decoder's
+    share (the prompt's prefill and 64 steps) is the difference."""
+    from pytorch_zappa_serverless_tpu_torch.engine.compiled import capture
+    from pytorch_zappa_serverless_tpu_torch.models import whisper as W
+
+    rows = {}
+    for name, cm in engine.models.items():
+        cfg, dtype = cm.servable.meta["config"], cm.servable.meta["dtype"]
+        for (bucket, _), graph in sorted(cm._graphs.items()):
+            def eager(g=graph):
+                with torch.inference_mode():
+                    cm._apply(g.inputs, None)
+
+            def encoder(g=graph):
+                tree = cm.servable.module.tree()
+                return W._cross_kv(tree, W.encode(tree, g.inputs["mel"], cfg, dtype), cfg)
+
+            def timings(g=graph):
+                with torch.inference_mode():
+                    enc = capture(encoder, engine.device)
+                return (device_ms(g.captured.replay), device_ms(eager, reps=3),
+                        device_ms(enc.replay))
+
+            replay_ms, eager_ms, enc_ms = engine.runner.run_fn_sync(timings)
+            per_pos = (replay_ms - enc_ms) / (1 + cm.servable.meta["max_new_tokens"])
+            rows[(name, bucket[0])] = {"replay_ms": replay_ms, "eager_ms": eager_ms,
+                                       "encoder_ms": enc_ms, "decode_position_ms": per_pos}
+            log(f"whisper {name} bucket {bucket[0]}: device ms a generate call replayed "
+                f"{replay_ms:.4f}, eager {eager_ms:.4f}; encoder + cross K/V {enc_ms:.4f}, the "
+                f"decoder (prefill + 64 steps) {replay_ms - enc_ms:.4f}, {per_pos:.4f} a "
+                f"position; {1e3 * bucket[0] / replay_ms:.2f} windows/s")
+    return rows
+
+
+def phase_whisper_profile(engine, wavs: list[bytes]) -> None:
+    """``torch.profiler`` over one served generate call of the int8 lane at
+    bucket 4, eager against replayed, per decoder position (65)."""
+    from pytorch_zappa_serverless_tpu_torch.tools import bench_fused_decode as BF
+
+    cm = engine.model("whisper_tiny")
+    (_, batch), _ = whisper_batches(cm, wavs, 4)
+    run = engine.runner.run_fn_sync
+    eager = run(BF.profile, lambda: cm.forward_eager(batch), 1)
+    replay = run(BF.profile, lambda: cm.forward(batch), 1)
+    log_profiles("whisper_tiny int8 (4,)", "position", eager, replay,
+                 per=1 + WHISPER["max_new_tokens"], top=14)
+
+
+def run_whisper(profile: bool) -> dict:
+    """The Whisper path, its checks, replay against eager, parity, host and
+    device timing; returns int8_matmul's launches on it."""
+    fresh_memory()
+    t0 = time.perf_counter()
+    run = phase_whisper_path(whisper_config())
+    engine = run["engine"]
+    try:
+        log_memory("whisper", engine)
+        check_whisper(run)
+        counts, per_call = run["counts"], int8_per_call()
+        launches = counts["int8_matmul"]
+        check(launches > 0, "int8_matmul was not launched on the Whisper path")
+        exact_counts(counts, {"int8_matmul": per_call * run["generate_calls"]},
+                     f"the Whisper path ({run['generate_calls']} int8 generate calls)")
+        log(f"whisper path: {run['generate_calls']} int8 generate calls (2 captures' eager "
+            f"warm-up runs, the rest served replays), int8_matmul launched {launches} times "
+            f"({per_call} per call); engines and requests in {time.perf_counter() - t0:.3f} s")
+        for name in ("whisper_tiny", "whisper_bf16"):
+            cm = engine.model(name)
+            per = {"int8_matmul": per_call} if name == "whisper_tiny" else {}
+            for b in cm.buckets:
+                phase_replay(engine, name, whisper_batches(cm, run["wavs"], b[0]), per)
+        phase_whisper_parity(engine, run["wavs"])
+        host = phase_whisper_host(engine.model("whisper_tiny"))
+        lat = run["latency_ms"]
+        ring = run["gets"]["/metrics"]["models"]["whisper_tiny"]
+        log(f"whisper served: whisper_tiny int8, {len(lat)} single 3 s WAVs in turn: client p50 "
+            f"{statistics.median(lat):.3f} ms, p90 {float(np.percentile(lat, 90)):.3f} ms; "
+            f"server total p50 {ring['total_ms']['p50']} ms, device p50 "
+            f"{ring['device_ms']['p50']} ms over {ring['requests']} samples")
+        timing = phase_whisper_timing(engine)
+        if profile:
+            phase_whisper_profile(engine, run["wavs"])
+    finally:
+        engine.shutdown()
+    return {"launches": launches, "timing": timing, "host": host,
+            "p50_ms": statistics.median(lat)}
+
+
+# -- phase 12: ViT-B/16 and bert_embed ----------------------------------------------
+
+VIT_EMBED = {"vit_b16": (1, 8), "bert_embed": (1, 8)}
+EMBED_SEQ = 128
+# bert_embed served bf16 against an fp32 eager run (TF32 off) of the same
+# weights: per element of the unit vectors, and the cosine.  The CPU
+# rehearsal at full width, (8, 128), read max |d| 0.00118 and a least cosine
+# of 0.999962; the limits leave ~8x and ~25x room for the card's bf16
+# products.
+EMBED_ATOL = 1e-2
+EMBED_COS_MIN = 0.999
+EMBED_NORM_TOL = 1e-5
+
+
+def vit_embed_config(buckets: dict = VIT_EMBED, image_size: int = VISION_SIZE,
+                     embed_arch: dict | None = None):
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+
+    return ServeConfig(models=[
+        ModelConfig(name="vit_b16", dtype="bfloat16", batch_buckets=buckets["vit_b16"],
+                    extra={"image_size": image_size}),
+        ModelConfig(name="bert_embed", dtype="bfloat16", batch_buckets=buckets["bert_embed"],
+                    seq_buckets=(EMBED_SEQ,),
+                    extra={"arch": embed_arch} if embed_arch else {})])
+
+
+def embed_texts(n: int = 8) -> list[dict]:
+    words = ("a server answers every request it is sent while the card replays one graph "
+             "for each bucket of the batch").split()
+    return [{"text": " ".join(words[i: i + 4 + 2 * i])} for i in range(n)]
+
+
+def phase_vit_embed_path(cfg, device: str = "cuda") -> dict:
+    """Build both engines, serve: ViT with a raw PNG, ``{"b64"}`` and 8 b64
+    ``instances``; bert_embed with ``text``, ``input_ids`` and 8
+    ``instances``; then the GETs."""
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    pngs = vision_pngs()
+    b64 = [base64.b64encode(p).decode() for p in pngs]
+    reset_counts()
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, device)
+    log(f"vit / bert_embed engines ready in {time.perf_counter() - t0:.3f} s on "
+        f"{engine.device}: build seconds {engine.build_seconds}; capture seconds "
+        f"{engine.clock.entries}")
+    vit, emb = "/v1/models/vit_b16:predict", "/v1/models/bert_embed:predict"
+    sends = [("vit raw", vit, (pngs[0], "image/png")),
+             ("vit b64", vit, (json.dumps({"b64": b64[0]}).encode(), "application/json")),
+             ("vit instances", vit, (json.dumps({"instances": [{"b64": b} for b in b64]})
+                                     .encode(), "application/json")),
+             ("embed text", emb, (json.dumps(embed_texts(1)[0]).encode(), "application/json")),
+             ("embed input_ids", emb, (json.dumps({"input_ids": [101] + list(range(2000, 2100))
+                                                   + [102]}).encode(), "application/json")),
+             ("embed instances", emb, (json.dumps({"instances": embed_texts()}).encode(),
+                                       "application/json"))]
+    answers, gets = {}, {}
+    with BackgroundServer(cfg, engine) as srv:
+        for kind, url, sent in sends:
+            status, out = http_raw(srv.port, url, *sent)
+            check(status == 200, f"{url} {kind}: status {status}: {out}")
+            answers[kind] = out
+        launches = read_counts()  # just after the path
+        for get in ("/healthz", "/v1/models", "/metrics"):
+            status, out = http(srv.port, get)
+            check(status == 200, f"{get}: status {status}: {out}")
+            gets[get] = out
+    return {"engine": engine, "launches": launches, "answers": answers, "gets": gets,
+            "pngs": pngs}
+
+
+def check_vit_embed(run: dict, classes: int = 1000, dim: int = 768) -> None:
+    a = run["answers"]
+    for kind in ("vit raw", "vit b64", "vit instances"):
+        preds = a[kind]["predictions"] if kind.endswith("instances") else [a[kind]["predictions"]]
+        check(len(preds) == (8 if kind.endswith("instances") else 1), f"{kind}: {len(preds)}")
+        for pred in preds:
+            probs = [t["prob"] for t in pred["top_k"]]
+            check(len(probs) == 5 and probs == sorted(probs, reverse=True)
+                  and all(0 <= t["index"] < classes for t in pred["top_k"]),
+                  f"{kind}: top-k {pred['top_k']}")
+    first = a["vit raw"]["predictions"]
+    check(first == a["vit b64"]["predictions"], "vit: the raw and b64 bodies answer differently")
+    check([t["index"] for t in a["vit instances"]["predictions"][0]["top_k"]]
+          == [t["index"] for t in first["top_k"]], "vit: the image's top-k at bucket 8 differs")
+    norms = []
+    for kind in ("embed text", "embed input_ids", "embed instances"):
+        preds = a[kind]["predictions"] if kind.endswith("instances") else [a[kind]["predictions"]]
+        for pred in preds:
+            e = np.asarray(pred["embedding"], np.float64)
+            check(e.shape == (dim,) and np.isfinite(e).all(), f"{kind}: embedding {e.shape}")
+            norms.append(abs(float(np.linalg.norm(e)) - 1.0))
+    check(max(norms) <= EMBED_NORM_TOL, f"bert_embed: |‖e‖ - 1| up to {max(norms)}")
+    check(np.allclose(a["embed text"]["predictions"]["embedding"],
+                      a["embed instances"]["predictions"][0]["embedding"], rtol=0, atol=2e-2),
+          "bert_embed: a text at bucket 8 embeds far from itself at bucket 1")
+    log(f"vit raw / b64 / 8 instances: 200, top-1 {first['top_k'][0]['label']} "
+        f"p={first['top_k'][0]['prob']:.4g}; bert_embed text / input_ids / 8 instances: 200, "
+        f"{len(norms)} unit vectors of {dim}, |‖e‖ - 1| <= {max(norms):.3g}")
+    check(run["gets"]["/healthz"]["device_ok"] is True, f"/healthz: {run['gets']['/healthz']}")
+
+
+def embed_batches(cm, bucket: int) -> list[tuple[str, dict]]:
+    from pytorch_zappa_serverless_tpu_torch.engine.compiled import default_collate
+
+    samples = [cm.servable.preprocess(p) for p in embed_texts()]
+    key = (bucket, EMBED_SEQ)
+    spec = cm.servable.input_spec(key)
+    return [(f"({bucket},{EMBED_SEQ}) a", default_collate(samples[:bucket], key, spec)),
+            (f"({bucket},{EMBED_SEQ}) b",
+             default_collate(samples[::-1][:max(bucket - 1, 1)], key, spec))]
+
+
+def phase_embed_parity(engine) -> dict:
+    """bert_embed served in bf16 (a replay at (8, 128)) against an fp32 eager
+    run of the same seeded weights on the card, TF32 off."""
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig
+    from pytorch_zappa_serverless_tpu_torch.utils.registry import get_model_builder
+
+    cm = engine.model("bert_embed")
+    (_, batch), _ = embed_batches(cm, 8)
+    served = engine.runner.run_fn_sync(cm.forward, batch)["embedding"]
+
+    def fp32():  # built, run and freed on the dispatch thread
+        sv = get_model_builder("bert_embed")(ModelConfig(
+            name="bert_embed", dtype="float32", seq_buckets=(EMBED_SEQ,),
+            extra=dict(cm.cfg.extra)))
+        sv.module.to(engine.device)
+        with torch.inference_mode():
+            x = {k: torch.from_numpy(v).to(engine.device) for k, v in batch.items()}
+            return sv.apply_fn(sv.module, x)["embedding"].cpu().numpy()
+
+    want = engine.runner.run_fn_sync(fp32)
+    err = float(np.abs(served - want).max())
+    cos = float((served * want).sum(-1).min())
+    check(err <= EMBED_ATOL and cos >= EMBED_COS_MIN,
+          f"bert_embed bf16 vs fp32: max |d| {err} (<= {EMBED_ATOL}), min cosine {cos} "
+          f"(>= {EMBED_COS_MIN})")
+    log(f"bert_embed bf16 vs fp32 (TF32 off) at (8,{EMBED_SEQ}): max |d| {err:.4g} (<= "
+        f"{EMBED_ATOL}), min cosine {cos:.6f} (>= {EMBED_COS_MIN})")
+    return {"max_abs": err, "min_cos": cos}
+
+
+def phase_vit_embed_timing(engine) -> dict:
+    """Per model and bucket: device ms of one replay and of the same program
+    eager (``device_ms``)."""
+    rows = {}
+    for name, cm in engine.models.items():
+        for (bucket, _), graph in sorted(cm._graphs.items()):
+            def eager(g=graph):
+                with torch.inference_mode():
+                    cm._apply(g.inputs, None)
+
+            replay_ms = engine.runner.run_fn_sync(device_ms, graph.captured.replay)
+            eager_ms = engine.runner.run_fn_sync(device_ms, eager)
+            rows[(name, bucket)] = {"replay_ms": replay_ms, "eager_ms": eager_ms}
+            log(f"{name} bucket {bucket}: device ms replayed {replay_ms:.4f}, eager "
+                f"{eager_ms:.4f}; {1e3 * bucket[0] / replay_ms:.1f} inputs/s")
+    return rows
+
+
+def run_vit_embed(profile: bool) -> dict:
+    """ViT-B/16 and bert_embed: served bodies, no kernel of the port, replay
+    against eager, bf16 against fp32, per-bucket device ms."""
+    fresh_memory()
+    run = phase_vit_embed_path(vit_embed_config())
+    engine = run["engine"]
+    try:
+        log_memory("vit / bert_embed", engine)
+        check_vit_embed(run)
+        exact_counts(run["launches"], {}, "ViT and bert_embed (they run no kernel of the port)")
+        vit = engine.model("vit_b16")
+        for b in vit.buckets:
+            phase_replay(engine, "vit_b16", vision_batches(vit, run["pngs"], b[0]), {})
+        emb = engine.model("bert_embed")
+        for b in emb.buckets:
+            phase_replay(engine, "bert_embed", embed_batches(emb, b[0]), {})
+        vit_parity = phase_vision_parity(engine, run["pngs"], names=["vit_b16"])
+        embed_parity = phase_embed_parity(engine)
+        timing = phase_vit_embed_timing(engine)
+        if profile:
+            from pytorch_zappa_serverless_tpu_torch.tools import bench_fused_decode as BF
+
+            (_, batch), _ = vision_batches(vit, run["pngs"], 8)
+            log_profiles("vit_b16 (8,)", "forward",
+                         engine.runner.run_fn_sync(BF.profile, lambda: vit.forward_eager(batch), 5),
+                         engine.runner.run_fn_sync(BF.profile, lambda: vit.forward(batch), 5))
+    finally:
+        engine.shutdown()
+    return {"timing": timing, "vit_parity": vit_parity, "embed_parity": embed_parity}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
                     help="also profile served BERT forwards at both buckets, one SD-1.5 "
                          "denoise chunk, one served GPT-2 generate call, the three "
-                         "GPT-2 decode lanes, and served ResNet-50 (32,) and "
-                         "EfficientNet-B0 (8,) forwards (torch.profiler), and stamp the "
-                         "fused kernels' phases")
+                         "GPT-2 decode lanes, served ResNet-50 (32,), EfficientNet-B0 (8,) "
+                         "and ViT-B/16 (8,) forwards and one Whisper int8 generate call "
+                         "(torch.profiler), and stamp the fused kernels' phases")
     args = ap.parse_args(argv)
     phase_device()
     phase_build()
@@ -1942,6 +2493,8 @@ def main(argv: list[str] | None = None) -> int:
     gpt2_launches = run_gpt2(args.profile)
     fused = run_fused(args.profile)
     vision = run_vision(args.profile)
+    whisper = run_whisper(args.profile)
+    vit_embed = run_vit_embed(args.profile)
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
         log(f"one forward's int8_matmul at M={m} (72 launches, the per-shape times summed): "
@@ -1950,6 +2503,7 @@ def main(argv: list[str] | None = None) -> int:
             f"{fwd['bound_ms']:.5f} ms ({fwd['bound_by']})")
     fwd = per_forward(kern["timings"], 1024)
     bert, step = kern["work"]["bert_fwd"], kern["work"]["gpt2_step"]
+    wstep = kern["work"]["whisper_step"]
     unet = per_unet_call(flash["timings"])
     log(f"one UNet call's flash_attention at 512x512 (10 launches): kernel {unet['ms']:.4f} "
         f"ms, plain {unet['plain_ms']:.4f} ms, SDPA {unet['library_ms']:.4f} ms "
@@ -1965,12 +2519,20 @@ def main(argv: list[str] | None = None) -> int:
         "timed_work": "one BERT-base forward at bucket (8,128): 72 launches at M=1024 over "
                       "12 layers' distinct weights, bf16 (plain: the per-shape times summed)",
         "per_shape_sum": {k: fwd[k] for k in ("ms", "library_ms", "bound_ms")},
-        "gpt2_step": {**{k: step[k] for k in ("ms", "library_ms", "bound_ms", "bound_by")},
+        "gpt2_step": {**{k: step[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                              "bound_by")},
                       "lm_head_ms": kern["timings"][(8, *GPT2_HEAD)]["ms"],
                       "timed_work": "one GPT-2 small position step at M=8: 48 layer "
                                     "projections + the f32 lm head [768, 50304] over 123.6 MB "
                                     "of distinct int8 weights"},
         "launches_gpt2_path": gpt2_launches,
+        "whisper_step": {**{k: wstep[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by")},
+                         "lm_head_ms": kern["timings"][(4, *WHISPER_HEAD)]["ms"],
+                         "timed_work": "one Whisper-tiny decoder position at M=4: 32 layer "
+                                       "projections + the f32 lm head [384, 51968] over 28.2 MB "
+                                       "of distinct int8 weights"},
+        "launches_whisper_path": whisper["launches"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/flash_attention.cu",
@@ -2006,6 +2568,15 @@ def main(argv: list[str] | None = None) -> int:
             f"{row['eager_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['gflop']:.2f} GFLOP)")
     log(f"vision served p50 (resnet50, single PNGs): {vision['p50_ms']:.3f} ms; the vision "
         f"path runs no kernel of the port (cuDNN convolutions, cuBLAS fc)")
+    for (name, bucket), row in sorted(whisper["timing"].items()):
+        log(f"whisper {name} ({bucket},): a generate call replayed {row['replay_ms']:.4f} ms, "
+            f"eager {row['eager_ms']:.4f} ms; encoder {row['encoder_ms']:.4f} ms, "
+            f"{row['decode_position_ms']:.4f} ms a decoder position")
+    log(f"whisper served p50 (int8, single 3 s WAVs): {whisper['p50_ms']:.3f} ms; host "
+        f"log-mel per 30 s window {whisper['host']}; int8_matmul a decoder position at M=4 "
+        f"{wstep['ms']:.4f} ms (cuBLAS {wstep['library_ms']:.4f}, bound {wstep['bound_ms']:.5f})")
+    for (name, bucket), row in sorted(vit_embed["timing"].items()):
+        log(f"{name} {bucket}: replayed {row['replay_ms']:.4f} ms, eager {row['eager_ms']:.4f} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -142,10 +142,8 @@ def load_config(path: str | Path | None = None,
 
 
 def default_config() -> ServeConfig:
-    """The dev profile: the JAX package's dev zoo, random-init, cut to the
-    models the port registers (today resnet18, resnet50, efficientnet_b0,
-    bert_base, gpt2 and the tiny sd15; vit_b16 and whisper_tiny wait for
-    their slices)."""
+    """The dev profile: the JAX package's dev zoo, random-init, filtered by
+    the port's registry, which now holds all eight of its models."""
     from . import models as _zoo  # noqa: F401  (populates the registry)
     from .utils.registry import list_models
 

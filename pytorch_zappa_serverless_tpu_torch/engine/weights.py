@@ -4,8 +4,8 @@ Weights travel as a nested-dict param tree in the JAX package's layout (the
 flax names; dense kernels ``[in, out]``, conv kernels HWIO), which is what
 that package's servables hold and what the family converters build from a
 torchvision or Hugging Face state dict (``convert_resnet``,
-``convert_efficientnet``, ``convert_bert``, ``convert_gpt2``, copies of that
-package's own).  :func:`params_from_jax` turns such a tree into the port's
+``convert_efficientnet``, ``convert_bert``, ``convert_gpt2``, ``convert_vit``,
+``convert_whisper``, copies of that package's own).  :func:`params_from_jax` turns such a tree into the port's
 ``state_dict``, so a checkpoint, a seed-initialised tree and the JAX
 servable's own params all load through one path, and the parity tests feed
 both packages the same bytes.
@@ -253,6 +253,113 @@ def convert_gpt2(sd: Mapping[str, np.ndarray]) -> dict[str, Any]:
     return params
 
 
+def convert_vit(sd: Mapping[str, np.ndarray]) -> dict[str, Any]:
+    """HF-format ViTForImageClassification state_dict → param tree for
+    ``models.vit``, whose layer names are BERT's."""
+    params: dict[str, Any] = {}
+
+    def dense(path, leaf, w):
+        _set(params, path + ("kernel" if leaf == "weight" else "bias",),
+             linear_kernel(w) if leaf == "weight" else w)
+
+    for key, w in sd.items():
+        parts = key.split(".")
+        if parts[0] == "vit":
+            parts = parts[1:]
+        if parts[0] == "embeddings":
+            if parts[1] == "cls_token":
+                _set(params, ("cls_token",), w)
+            elif parts[1] == "position_embeddings":
+                _set(params, ("pos_embed",), w)
+            elif parts[1] == "patch_embeddings":
+                _set(params, ("patch_embed", "kernel" if parts[-1] == "weight" else "bias"),
+                     conv_kernel(w) if parts[-1] == "weight" else w)
+            else:
+                raise KeyError(f"unrecognized vit key: {key}")
+        elif parts[0] == "encoder":
+            layer = f"layer{parts[2]}"
+            rest = parts[3:]
+            if rest[0] == "attention":
+                if rest[1] == "attention":  # .attention.attention.{query,key,value}
+                    dense((layer, "attention", rest[2]), rest[-1], w)
+                else:  # .attention.output.dense
+                    dense((layer, "attention_output"), rest[-1], w)
+            elif rest[0] in ("layernorm_before", "layernorm_after"):
+                name = "ln_before" if rest[0] == "layernorm_before" else "ln_after"
+                _set(params, (layer, name, _BERT_LN[rest[1]]), w)
+            elif rest[0] == "intermediate":
+                dense((layer, "intermediate"), rest[-1], w)
+            elif rest[0] == "output":
+                dense((layer, "output"), rest[-1], w)
+            else:
+                raise KeyError(f"unrecognized vit key: {key}")
+        elif parts[0] == "layernorm":
+            _set(params, ("final_ln", _BERT_LN[parts[1]]), w)
+        elif parts[0] == "classifier":
+            dense(("classifier",), parts[-1], w)
+        elif parts[0] == "pooler":  # ViTModel's pooler: the classifier does not use it
+            continue
+        else:
+            raise KeyError(f"unrecognized vit key: {key}")
+    return params
+
+
+def convert_whisper(sd: Mapping[str, np.ndarray]) -> dict[str, Any]:
+    """HF-format Whisper state_dict → param tree for ``models.whisper`` (the
+    stem's conv weights ``(out, in, k)`` → ``(k, in, out)``; ``proj_out`` is
+    tied to ``decoder.embed_tokens`` and skipped)."""
+    params: dict[str, Any] = {"encoder": {}, "decoder": {}}
+    attn_map = {"q_proj": "q", "k_proj": "k", "v_proj": "v", "out_proj": "out"}
+    cross_map = {"q_proj": "cq", "k_proj": "ck", "v_proj": "cv", "out_proj": "cout"}
+
+    def dense(side, path, leaf, w):
+        _set(params[side], path + ("kernel" if leaf == "weight" else "bias",),
+             linear_kernel(w) if leaf == "weight" else w)
+
+    for key, w in sd.items():
+        parts = key.split(".")
+        if parts[0] == "model":
+            parts = parts[1:]
+        if parts[0] == "proj_out":
+            continue
+        side = parts[0]
+        if side not in ("encoder", "decoder"):
+            raise KeyError(f"unrecognized whisper key: {key}")
+        rest = parts[1:]
+        if rest[0] in ("conv1", "conv2"):
+            if rest[1] == "weight":
+                _set(params[side], (rest[0], "kernel"),
+                     np.ascontiguousarray(np.transpose(w, (2, 1, 0))))
+            else:
+                _set(params[side], (rest[0], "bias"), w)
+        elif rest[0] == "embed_positions":
+            _set(params[side], ("pos_embed",), w)
+        elif rest[0] == "embed_tokens":
+            _set(params[side], ("embed_tokens",), w)
+        elif rest[0] == "layer_norm":
+            _set(params[side], ("final_ln", _BERT_LN[rest[1]]), w)
+        elif rest[0] == "layers":
+            layer = f"layer{rest[1]}"
+            sub, tail = rest[2], rest[3:]
+            if sub == "self_attn":
+                dense(side, (layer, attn_map[tail[0]]), tail[1], w)
+            elif sub == "encoder_attn":
+                dense(side, (layer, cross_map[tail[0]]), tail[1], w)
+            elif sub == "self_attn_layer_norm":
+                _set(params[side], (layer, "self_ln", _BERT_LN[tail[0]]), w)
+            elif sub == "encoder_attn_layer_norm":
+                _set(params[side], (layer, "cross_ln", _BERT_LN[tail[0]]), w)
+            elif sub in ("fc1", "fc2"):
+                dense(side, (layer, sub), tail[0], w)
+            elif sub == "final_layer_norm":  # the FFN's pre-LN in the pre-LN layout
+                _set(params[side], (layer, "ffn_ln", _BERT_LN[tail[0]]), w)
+            else:
+                raise KeyError(f"unrecognized whisper key: {key}")
+        else:
+            raise KeyError(f"unrecognized whisper key: {key}")
+    return params
+
+
 # A staged checkpoint: the param tree already converted to the JAX package's
 # layout, in one safetensors file with the tree keys joined by "/" (what that
 # package's ``tpuserve stage`` writes), so loading it runs no converter.
@@ -346,9 +453,10 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return sd
 
 
-def gpt2_state_from_jax(tree: Mapping[str, Any], dtype: torch.dtype) -> dict[str, torch.Tensor]:
-    """A GPT-2 param tree (numpy, the JAX package's layout) → a ``state_dict``
-    for :class:`ParamTree` that keeps that layout: names as they are, dense
+def tree_state_from_jax(tree: Mapping[str, Any], dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """A param tree of a model written over a param dict (GPT-2, Whisper;
+    numpy, the JAX package's layout) → a ``state_dict`` for
+    :class:`ParamTree` that keeps that layout: names as they are, dense
     kernels ``[in, out]`` and int8 ``kernel_q [K, N]`` row-major and
     contiguous, the layout ``int8_matmul`` and the fused decode kernels
     read.  Float leaves of two or more dims are held in ``dtype`` (the JAX

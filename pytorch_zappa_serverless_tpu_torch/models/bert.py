@@ -11,6 +11,10 @@ classifier.  Numerics follow the JAX package's ``models/bert.py``:
   fully masked row stays finite;
 - pooler and classifier in f32 on ``x[:, 0]``.
 
+``bert_embed`` is the same encoder serving sentence embeddings: the last
+hidden states mean-pooled over the real tokens (mask-aware) in f32 and
+L2-normalised, ``{"embedding": [...]}``.
+
 With ``extra.params_dtype: int8`` the six encoder projections of every layer
 are :class:`Int8Dense` (W8A16, ``ops/int8_matmul``); embeddings, norms,
 pooler and classifier stay float.  Submodule names are the flax names
@@ -150,8 +154,9 @@ class BertClassifier(nn.Module):
         self.pooler = Dense(d, d, torch.float32)
         self.classifier = Dense(d, num_labels, torch.float32)
 
-    def forward(self, input_ids, attention_mask, token_type_ids):
-        """All inputs int32 [B, S]; returns f32 logits [B, num_labels]."""
+    def forward(self, input_ids, attention_mask, token_type_ids, return_hidden: bool = False):
+        """All inputs int32 [B, S]; returns f32 logits [B, num_labels], or
+        with ``return_hidden`` the last hidden states [B, S, D]."""
         dt = self.dtype
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
         x = (self.word_embeddings(input_ids).to(dt)
@@ -162,6 +167,8 @@ class BertClassifier(nn.Module):
         mask_bias = (1.0 - attention_mask[:, None, None, :].float()) * -1e9
         for name in self.layers:
             x = getattr(self, name)(x, mask_bias)
+        if return_hidden:
+            return x
         pooled = torch.tanh(self.pooler(x[:, 0].float()))
         return self.classifier(pooled)
 
@@ -255,8 +262,16 @@ def make_bert_servable(name: str, cfg):
 
         tokenizer = Tokenizer.from_file(str(tok_path))
     vocab_size = model.shapes["vocab_size"]
+    embed = bool(cfg.extra.get("embed", False))
 
     def apply_fn(module, inputs):
+        if embed:
+            hidden = module(inputs["input_ids"], inputs["attention_mask"],
+                            inputs["token_type_ids"], return_hidden=True)
+            mask = inputs["attention_mask"].float()[:, :, None]
+            pooled = (hidden.float() * mask).sum(1) / mask.sum(1).clamp(min=1.0)
+            norm = (pooled * pooled).sum(-1, keepdim=True).clamp(min=1e-12).sqrt()
+            return {"embedding": pooled / norm}  # [B, D] unit vectors
         logits = module(inputs["input_ids"], inputs["attention_mask"],
                         inputs["token_type_ids"])
         return {"probs": logits.softmax(-1)}  # [B, num_labels]: one small fetch
@@ -304,6 +319,8 @@ def make_bert_servable(name: str, cfg):
                 "token_type_ids": np.zeros_like(ids)}
 
     def postprocess(out, i):
+        if embed:
+            return {"embedding": out["embedding"][i].astype(float).tolist()}
         probs = out["probs"][i]
         order = np.argsort(probs)[::-1]
         return {"scores": [{"label": str(labels[int(j)]), "prob": float(probs[int(j)])}
@@ -323,3 +340,13 @@ from ..utils.registry import register_model  # noqa: E402
 @register_model("bert_base", latency_class="latency")
 def build_bert_base(cfg):
     return make_bert_servable("bert_base", cfg)
+
+
+@register_model("bert_embed", latency_class="latency")
+def build_bert_embed(cfg):
+    """The embeddings lane: the same encoder, mean-pooled unit vectors out.
+    A copy of the config carries ``embed``: the caller's may be shared."""
+    import dataclasses
+
+    return make_bert_servable("bert_embed", dataclasses.replace(
+        cfg, extra={**cfg.extra, "embed": True}))

@@ -430,7 +430,7 @@ def make_gpt2_servable(name: str, cfg_model):
         rest = torch.bfloat16  # the JAX lane holds every >= 2-D float leaf in bf16
     else:
         rest = dtype  # cast at every use in the JAX package: the same values
-    module = W.ParamTree(W.gpt2_state_from_jax(params, rest))
+    module = W.ParamTree(W.tree_state_from_jax(params, rest))
     module.eval()
 
     tokenizer = None

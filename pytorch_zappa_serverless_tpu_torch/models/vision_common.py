@@ -1,5 +1,5 @@
 """Shared servable construction for the image classifiers (ResNet,
-EfficientNet): the JAX package's ``models/vision_common.py``.
+EfficientNet, ViT): the JAX package's ``models/vision_common.py``.
 
 The host decodes, resizes and crops each request to **uint8** HWC (4x fewer
 bytes over PCIe than f32); one device program — on the GPU one captured CUDA
@@ -32,41 +32,44 @@ def topk_first_index(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.T
     return values[..., :k], idx[..., :k]
 
 
-# The ImageNet classifiers' input and head; ``cfg.extra`` overrides the
-# input size, the resize, the normalization and ``topk``.
+# The input size unless ``cfg.extra`` sets ``image_size``.
 IMAGE_SIZE = 224
-RESIZE_TO = 256
-NUM_CLASSES = 1000
 
 
 def make_image_classifier(name: str, module: nn.Module, cfg: ModelConfig,
-                          convert_fn: Callable | None) -> Servable:
+                          convert_fn: Callable | None, init_fn: Callable = init_params,
+                          resize_to: int = 256, num_classes: int = 1000,
+                          norm_mean=IMAGENET_MEAN,
+                          norm_std=IMAGENET_STD) -> Servable:
     """module: an ``nn.Module`` taking normalized NHWC floats → f32 logits
-    over ``NUM_CLASSES``, with its weights still to load (a checkpoint
-    through ``convert_fn``, or :func:`layers.init_params` from a seed)."""
+    over ``num_classes``, with its weights still to load (a checkpoint
+    through ``convert_fn``, or ``init_fn(module)`` from a seed).  The
+    keyword arguments are the family's input and head (ImageNet's for the
+    CNNs; ViT passes its own); ``cfg.extra`` overrides the input size, the
+    resize, the normalization and ``topk``."""
     from ..engine import weights as W
 
     image_size = int(cfg.extra.get("image_size", IMAGE_SIZE))
-    resize_to = int(cfg.extra.get("resize_to", RESIZE_TO))
+    resize_to = int(cfg.extra.get("resize_to", resize_to))
     if cfg.checkpoint:
         if convert_fn is None and not W.is_native(cfg.checkpoint):
             raise ValueError(f"{name}: no checkpoint converter available")
         params = W.import_params(cfg.checkpoint, convert_fn)
     else:
-        params = init_params(module)
+        params = init_fn(module)
     module.load_state_dict(W.params_from_jax(params), assign=True)
     # Conv weights in channels_last, the activations' layout: cuDNN then
     # takes them as they lie, with no per-call layout copy.
     module.to(memory_format=torch.channels_last).eval()
     # Normalization constants as device buffers (out of the state_dict): the
     # captured graph reads them where they lie.
-    for key, default in (("norm_mean", IMAGENET_MEAN), ("norm_std", IMAGENET_STD)):
+    for key, default in (("norm_mean", norm_mean), ("norm_std", norm_std)):
         module.register_buffer(key, torch.tensor(np.asarray(
             cfg.extra.get(key, default), np.float32)), persistent=False)
-    labels = load_labels(cfg.extra.get("labels"), NUM_CLASSES)
-    if len(labels) < NUM_CLASSES:
+    labels = load_labels(cfg.extra.get("labels"), num_classes)
+    if len(labels) < num_classes:
         raise ValueError(f"{name}: labels file has {len(labels)} entries, "
-                         f"model has {NUM_CLASSES} classes")
+                         f"model has {num_classes} classes")
     topk = int(cfg.extra.get("topk", 5))
 
     def apply_fn(m, inputs):
@@ -96,4 +99,4 @@ def make_image_classifier(name: str, module: nn.Module, cfg: ModelConfig,
 
     return Servable(name=name, apply_fn=apply_fn, module=module, input_spec=input_spec,
                     preprocess=preprocess, postprocess=postprocess,
-                    bucket_axes=("batch",), meta={"num_classes": NUM_CLASSES})
+                    bucket_axes=("batch",), meta={"num_classes": num_classes})

@@ -11,12 +11,17 @@ Routes (the JAX package's, for the port's slices):
   200, 404 unknown, 410 expired.
 
 A predict body is JSON: one input (``{"text": ...}``, ``{"input_ids":
-[...]}``, ``{"b64": ...}`` or a pre-decoded image array) or ``{"instances":
-[...]}`` with N inputs that are admitted together and co-batch on the
-device; any other body (an image file) is the input's raw bytes.  A
-``{"b64": ...}`` input, alone or as an instance, reaches the model's
-``preprocess`` as the decoded bytes, as the JAX server hands them over.
-The answer keeps the JAX server's shape, ``{"model", "timing",
+[...]}``, ``{"b64": ...}``, ``{"array": [...], "rate": N}`` or a pre-decoded
+image array) or ``{"instances": [...]}`` with N inputs that are admitted
+together and co-batch on the device; any other body (an image or WAV
+file) is the input's raw bytes.  An input that preprocesses to a list of
+samples (Whisper's 30 s windows of long audio) runs them as that many
+samples, co-batched up to the bucket, and its answer is the model's
+``meta["merge_results"]`` of theirs.  A model whose ``:predict`` decodes
+greedily (``meta["predict_ignores_sampling"]``) answers 400 to a sampling
+knob.  A ``{"b64": ...}`` input, alone or as an instance, reaches the
+model's ``preprocess`` as the decoded bytes, as the JAX server hands them
+over.  The answer keeps the JAX server's shape, ``{"model", "timing",
 "predictions"}``, with ``X-Queue-Ms`` and ``X-Device-Ms`` headers; errors
 are ``{"error": ...}`` with 400, 404, 405, 413, 429 (+ Retry-After) or 500.
 
@@ -316,26 +321,41 @@ class Server:
             except (ValueError, TypeError) as e:
                 return _error(400, f"bad instance: {type(e).__name__}: {e}")
         cm = batcher.model
+        meta = cm.servable.meta
         payloads = instances if instances is not None else [payload]
+        ignored = meta.get("predict_ignores_sampling", ())
+        knobs = sorted({k for p in payloads if isinstance(p, dict) for k in ignored if k in p})
+        if knobs:
+            return _error(400, f"model {name!r} ignores sampling knobs {knobs} on :predict "
+                               f"(greedy decode); send the request without them")
         try:
-            if any(isinstance(p, bytes) for p in payloads):
-                # Image bytes: decode and resize off the event loop, the
-                # instances at once.  Other inputs preprocess inline.
+            if meta.get("heavy_preprocess") or any(isinstance(p, bytes) for p in payloads):
+                # Image or audio decoding: off the event loop, the instances
+                # at once.  Other inputs preprocess inline.
                 loop = asyncio.get_running_loop()
-                samples = await asyncio.gather(
+                per_input = await asyncio.gather(
                     *[loop.run_in_executor(None, cm.servable.preprocess, p) for p in payloads])
             else:
-                samples = [cm.servable.preprocess(p) for p in payloads]
+                per_input = [cm.servable.preprocess(p) for p in payloads]
         except Exception as e:
             return _error(400, f"preprocess failed: {type(e).__name__}: {e}")
-        seq_of = cm.servable.meta.get("seq_len_of")
+        # An input may preprocess to a list of samples: flatten for one
+        # atomic admission, regroup after.
+        widths = [len(s) if isinstance(s, list) else 1 for s in per_input]
+        samples = [x for s in per_input for x in (s if isinstance(s, list) else [s])]
+        seq_of = meta.get("seq_len_of")
         seqs = [seq_of(s) if seq_of else None for s in samples]
         try:
-            if instances is None:
+            if len(samples) == 1 and instances is None:
                 result, timing = await batcher.submit(samples[0], seqs[0])
             else:
                 pairs = await asyncio.gather(*batcher.submit_many(samples, seqs))
-                result = [r for r, _ in pairs]
+                grouped, i = [], 0
+                for width in widths:
+                    part = [r for r, _ in pairs[i: i + width]]
+                    grouped.append(meta["merge_results"](part) if width > 1 else part[0])
+                    i += width
+                result = grouped if instances is not None else grouped[0]
                 timing = {k: max(t[k] for _, t in pairs)
                           for k in ("queue_ms", "device_ms", "total_ms", "batch_size")}
                 timing["samples"] = len(pairs)

@@ -51,7 +51,7 @@ def to_device(tree: dict, device) -> dict:
     """A numpy tree on ``device`` through the servable's bridge: float leaves
     of two or more dims in bf16, norms, biases and scales in f32, integers
     as they are; every tensor contiguous, kernels ``[in, out]``."""
-    return W.ParamTree(W.gpt2_state_from_jax(tree, DTYPE)).to(device).tree()
+    return W.ParamTree(W.tree_state_from_jax(tree, DTYPE)).to(device).tree()
 
 
 def int8_tree(params: dict, layers: int) -> dict:

@@ -4,19 +4,21 @@
 
 Builds variants of ``ops/csrc/int8_matmul.cu`` in which one part of the
 bf16 kernel is taken out (their outputs are wrong: they are only timed),
-loads each in turn as the wrapper's library, and times two pieces of main-
+loads each in turn as the wrapper's library, and times three pieces of main-
 path work, each over distinct weights so that they stream from device
 memory as served: ``gpt2_step``, one GPT-2 small position step at M = 8
 (48 layer projections and the f32 lm head [768, 50304], 123.6 MB of int8),
-and ``bert_fwd``, one BERT-base forward at bucket (8, 128) (72 projections
-at M = 1024).  The launches are queued behind a spin kernel, so the host's
-time per call leaves no gaps.  What a part costs where it does not overlap
+``bert_fwd``, one BERT-base forward at bucket (8, 128) (72 projections
+at M = 1024), and ``whisper_step``, one Whisper-tiny decoder position at
+M = 4 (32 projections and the f32 lm head [384, 51968], 28.2 MB of int8).
+The launches are queued behind a spin kernel, so the host's time per call
+leaves no gaps.  What a part costs where it does not overlap
 the rest is the kernel's time less the variant's.  ``kernel`` is the source
 as it is; cuBLAS on the dequantised bf16 weights of the same work is
 printed beside it.
 
 ``--sweep`` also times every tile and split the kernel takes at each
-distinct shape of the two pieces of work (over the layers' distinct
+distinct shape of the three pieces of work (over the layers' distinct
 weights), against the one ``ops.int8_matmul.plan`` picks: the planner's
 evidence.
 
@@ -44,8 +46,13 @@ SOURCE = "int8_matmul.cu"
 GPT2_LAYER = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
 GPT2_HEAD = (768, 50304)
 BERT_LAYER = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
-LAYERS = 12
-WORK = {"gpt2_step": 8, "bert_fwd": 1024}  # name -> M
+# q, k, v, out, cq, cout, fc1, fc2
+WHISPER_LAYER = [(384, 384)] * 6 + [(384, 1536), (1536, 384)]
+WHISPER_HEAD = (384, 51968)
+WORK = {"gpt2_step": 8, "bert_fwd": 1024, "whisper_step": 4}  # name -> M
+# name -> (one layer's products, layers, the f32 lm head or None)
+SHAPES = {"gpt2_step": (GPT2_LAYER, 12, GPT2_HEAD), "bert_fwd": (BERT_LAYER, 12, None),
+          "whisper_step": (WHISPER_LAYER, 4, WHISPER_HEAD)}
 
 # name -> (old, new) substitutions in the kernel source, each of which must
 # match exactly once.
@@ -116,10 +123,10 @@ def build(name: str) -> ctypes.CDLL:
 
 def products(work: str) -> list[tuple[int, int, torch.dtype]]:
     """(K, N, out dtype) of every product of one piece of work, in order."""
-    layer = GPT2_LAYER if work == "gpt2_step" else BERT_LAYER
-    out = [(k, n, torch.bfloat16) for _ in range(LAYERS) for k, n in layer]
-    if work == "gpt2_step":
-        out.append((*GPT2_HEAD, torch.float32))
+    layer, layers, head = SHAPES[work]
+    out = [(k, n, torch.bfloat16) for _ in range(layers) for k, n in layer]
+    if head:
+        out.append((*head, torch.float32))
     return out
 
 

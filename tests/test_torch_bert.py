@@ -227,3 +227,64 @@ def test_checkpoint_import_matches_jax(tmp_path, int8):
     inputs = _inputs(seed=9)
     np.testing.assert_allclose(_probs_port(psv, inputs), _probs_jax(jsv, inputs),
                                rtol=0, atol=1e-5)
+
+
+# -- bert_embed: mean-pooled, L2-normalised sentence embeddings ----------------
+
+def _embed_pair(dtype: str, int8: bool = False):
+    """(JAX servable, port servable) of ``bert_embed`` holding the same
+    weights."""
+    kw = dict(name="bert_embed", dtype=dtype, seq_buckets=(16,), batch_buckets=(2,),
+              extra={"arch": TINY_ARCH, **({"params_dtype": "int8"} if int8 else {})})
+    jsv = j_builder("bert_embed")(JModelConfig(**kw))
+    psv = p_builder("bert_embed")(PModelConfig(**kw))
+    psv.module.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jsv.params)))
+    return jsv, psv
+
+
+def _embed_port(psv, inputs):
+    with torch.inference_mode():
+        out = psv.apply_fn(psv.module, {k: torch.from_numpy(v) for k, v in inputs.items()})
+    return out["embedding"].numpy()
+
+
+@pytest.mark.parametrize("dtype,int8,atol", [("float32", False, 1e-5), ("float32", True, 1e-5),
+                                              ("bfloat16", False, 2e-2)])
+def test_bert_embed_matches_jax(dtype, int8, atol):
+    """Mask-aware mean pool of the last hidden states, in f32, L2-normalised:
+    fp32 within 1e-5 per element, bf16 within 2e-2 (the bf16 roundings of
+    two frameworks, as the classifier's bf16 case)."""
+    jsv, psv = _embed_pair(dtype, int8)
+    inputs = _inputs(seq=16, seed=3)
+    want = np.asarray(jax.jit(jsv.apply_fn)(jsv.params, inputs)["embedding"])
+    got = _embed_port(psv, inputs)
+    assert got.shape == want.shape == (2, 32) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
+    assert json.dumps(psv.postprocess({"embedding": got}, 1)) == json.dumps(
+        jsv.postprocess({"embedding": got}, 1))
+
+
+def test_bert_embed_padded_matches_unpadded():
+    """A 9-token input padded to 16 embeds as the same 9 tokens alone: the
+    -1e9 bias keeps the pad keys out, the mask keeps the pad rows out of
+    the mean."""
+    _, psv = _embed_pair("float32")
+    ids = np.random.default_rng(11).integers(1, 500, (1, 9)).astype(np.int32)
+    short = {"input_ids": ids, "attention_mask": np.ones_like(ids),
+             "token_type_ids": np.zeros_like(ids)}
+    padded = {k: np.pad(v, ((0, 0), (0, 7))) for k, v in short.items()}
+    np.testing.assert_allclose(_embed_port(psv, padded), _embed_port(psv, short), rtol=0,
+                               atol=1e-6)
+
+
+def test_bert_embed_leaves_the_callers_config_alone():
+    cfg = PModelConfig(name="bert_embed", dtype="float32", seq_buckets=(8,), batch_buckets=(1,),
+                       extra={"arch": TINY_ARCH})
+    sv = p_builder("bert_embed")(cfg)
+    assert cfg.extra == {"arch": TINY_ARCH} and sv.name == "bert_embed"
+    from pytorch_zappa_serverless_tpu_torch.utils.registry import get_latency_class
+
+    assert get_latency_class("bert_embed") == "latency"
+    out = sv.postprocess({"embedding": np.full((1, 32), 32 ** -0.5, np.float32)}, 0)
+    assert len(out["embedding"]) == 32 and isinstance(out["embedding"][0], float)

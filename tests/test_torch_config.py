@@ -91,7 +91,8 @@ def test_default_config_is_the_reference_dev_profile_filtered_by_the_port_regist
     registered = set(list_models())
     kept = [m for m in want.models if (m.builder or m.name) in registered]
     assert [m.name for m in got.models] == [m.name for m in kept] == [
-        "resnet18", "resnet50", "efficientnet_b0", "bert_base", "gpt2", "sd15"]
+        "resnet18", "resnet50", "efficientnet_b0", "vit_b16", "bert_base", "whisper_tiny",
+        "gpt2", "sd15"]
     port_fields = [f.name for f in dataclasses.fields(PC.ModelConfig)]
     for g, w in zip(got.models, kept):
         for name in port_fields:

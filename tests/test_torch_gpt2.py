@@ -59,7 +59,7 @@ def _pcfg(jcfg):
 def _trees(cfg, seed=0):
     np_params = JG.init_gpt2_params(seed, cfg)
     jp = jax.tree.map(jnp.asarray, np_params)
-    pp = PW.ParamTree(PW.gpt2_state_from_jax(np_params, torch.float32)).tree()
+    pp = PW.ParamTree(PW.tree_state_from_jax(np_params, torch.float32)).tree()
     return jp, pp
 
 

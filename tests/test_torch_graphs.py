@@ -99,7 +99,7 @@ def test_host_gates_give_the_all_gates_on_tokens(temperature, rep, top_k):
     run gated as before, by reads of the device tensors (a gate only skips
     work)."""
     cfg = G.GPT2Config(**ARCH)
-    params = W.ParamTree(W.gpt2_state_from_jax(G.init_gpt2_params(0, cfg),
+    params = W.ParamTree(W.tree_state_from_jax(G.init_gpt2_params(0, cfg),
                                                torch.float32)).tree()
     rng = np.random.default_rng(1)
     toks = rng.integers(1, 298, (3, 8)).astype(np.int32)

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports torch, never JAX, flax or the JAX package,
-and its entry points run on CUDA unless the caller asks for the CPU."""
+"""The port stands alone: it imports torch, never JAX, flax, the JAX package or
+``transformers`` (the card's machine has none), and its entry points run on
+CUDA unless the caller asks for the CPU."""
 
 import ast
 import json
@@ -13,7 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "pytorch_zappa_serverless_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "pytorch_zappa_serverless_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "pytorch_zappa_serverless_tpu", "transformers")
 
 
 def _port_modules() -> list[str]:

@@ -87,9 +87,36 @@ def test_int8_matmul_matches_plain(cuda_device, m, k, n, x_dtype, out_dtype):
         torch.testing.assert_close(got, want, rtol=0, atol=atol)
 
 
+# Whisper-tiny's int8 decoder products (K, N): q/k/v/out/cq/cout, fc1, fc2,
+# and the padded lm head with f32 logits; at decode M = B (1, 4), at the
+# prompt's prefill M = 4B (4, 16).  At K = 384 the split-K plans give each
+# cluster rank exactly one 64-wide K tile.
+WHISPER_KN = [(384, 384), (384, 1536), (1536, 384)]
+WHISPER_HEAD = (384, 51968)
+WHISPER_PLANS = {(384, 384): (64, 32, 6, 6), (384, 1536): (64, 64, 6, 6),
+                 (1536, 384): (64, 32, 8, 8), WHISPER_HEAD: (64, 128, 1, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("k,n", WHISPER_KN + [WHISPER_HEAD])
+def test_int8_matmul_whisper_shapes(cuda_device, m, k, n):
+    assert tuple(P.plan(m, k, n)) == WHISPER_PLANS[k, n]
+    out_dtype = torch.float32 if (k, n) == WHISPER_HEAD else torch.bfloat16
+    x, w_q, scale = _operands(m, k, n, cuda_device, seed=m + k)
+    x = x.bfloat16()
+    got = P.int8_matmul(x, w_q, scale, out_dtype=out_dtype)
+    want = P.int8_matmul_reference(x, w_q, scale, out_dtype)
+    if out_dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3 * want.abs().max().item())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(8, 768, 768), (1, 3072, 768), (16, 768, 2304),
-                                   (128, 3072, 768), (1024, 3072, 768)])
+                                   (128, 3072, 768), (1024, 3072, 768),
+                                   (4, 384, 384), (4, 384, 1536), (16, 1536, 384)])
 def test_int8_matmul_split_k_is_deterministic(cuda_device, m, k, n):
     """The K slices are summed in fixed rank order: two launches agree bit
     for bit."""
@@ -702,3 +729,58 @@ def test_vision_topk_orders_ties_as_on_the_cpu(cuda_device):
     got = topk_first_index(probs.to(cuda_device), 5)
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
     assert got[1][5].tolist() == [0, 1, 2, 3, 4]
+
+
+TINY_WHISPER = {"d_model": 128, "encoder_layers": 2, "decoder_layers": 2, "heads": 2,
+                "ffn_dim": 256, "vocab_size": 512, "target_positions": 96}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params_dtype", ["int8", None])
+def test_whisper_graphs_replay_as_eager(cuda_device, params_dtype):
+    """Each bucket's captured graph (the encoder, cross K/V, the prompt's
+    prefill and every greedy step) equals the eager call byte for byte; on
+    the int8 lane each replay runs (8 x 2 + 1) x (1 + 6) int8 products."""
+    rng = np.random.default_rng(0)
+    extra = {"arch": TINY_WHISPER, "max_new_tokens": 6, "quantize_min_size": 1024,
+             **({"params_dtype": params_dtype} if params_dtype else {})}
+    eng = _engine("whisper_tiny", dtype="bfloat16", batch_buckets=(1, 2), extra=extra)
+    try:
+        mels = rng.standard_normal((3, 80, 3000)).astype(np.float32)
+        batches = [{"mel": mels[:1]}, {"mel": mels[:2]}, {"mel": mels[1:]}]
+        per = {"int8_matmul": 17 * 7} if params_dtype else {}
+        cm = _replays_in_turn(eng, "whisper_tiny", batches, per)
+        assert cm.graphs == ["(1,)", "(2,)"]
+        out = eng.runner.run_fn_sync(cm.forward, batches[1])["tokens"]
+        assert out.shape == (2, 6) and out.dtype == np.int32
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,extra", [
+    ("vit_b16", {"image_size": 64, "arch": {"num_layers": 2}}),
+    ("bert_embed", {"arch": TINY_BERT})])
+def test_vit_and_bert_embed_graphs_replay_as_eager(cuda_device, name, extra):
+    """ViT and ``bert_embed`` run no kernel of the port; their captured
+    graphs equal the eager call byte for byte."""
+    from pytorch_zappa_serverless_tpu_torch.engine.compiled import default_collate
+
+    rng = np.random.default_rng(1)
+    eng = _engine(name, dtype="bfloat16", batch_buckets=(1, 4), seq_buckets=(32,), extra=extra)
+    try:
+        cm = eng.model(name)
+        if name == "vit_b16":
+            samples = [cm.servable.preprocess(rng.integers(0, 256, (64, 64, 3), np.uint8))
+                       for _ in range(4)]
+            buckets = [(1,), (4,), (4,)]
+        else:
+            samples = [cm.servable.preprocess({"input_ids": rng.integers(1, 500, n).tolist()})
+                       for n in (5, 32, 17, 9)]
+            buckets = [(1, 32), (4, 32), (4, 32)]
+        parts = [samples[:1], samples, samples[1:]]
+        batches = [default_collate(p, b, cm.servable.input_spec(b))
+                   for p, b in zip(parts, buckets)]
+        _replays_in_turn(eng, name, batches, {})
+    finally:
+        eng.shutdown()
