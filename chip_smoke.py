@@ -95,7 +95,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``input_ids`` and ``instances`` on bert_embed (unit vectors within
    1e-5); every kernel count 0; replay against eager byte for byte; ViT
    bf16 against fp32 under phase 10's rules, bert_embed bf16 against fp32
-   within ``EMBED_ATOL`` and ``EMBED_COS_MIN``; device ms per bucket.
+   within ``EMBED_ATOL`` and ``EMBED_COS_MIN``; device ms per bucket;
+13. ``:generate``: one server with four continuous lanes, seed weights at
+   full width: GPT-2 small int8 on the slot pool (8 slots, 8-token segments,
+   seq buckets 16, 64 and 128, 64 new tokens), the same model bf16 on the
+   paged pool (16-token pages, 64-token prefill chunks, the prefix cache),
+   the bf16 weights again on a page pool of one full sequence, and
+   Whisper-tiny int8 on the slot pool (4 slots).  Over HTTP: 16 concurrent
+   SSE streams (prompts of 5 to 120 tokens, budgets of 8 to 64, half
+   greedy, half sampled with top-k and top-p) and one ``stream: false``
+   request on each GPT-2 lane; a 104-token prompt cold, warm, and another
+   sharing its 96-token prefix; two streams that overflow the small pool
+   (one is evicted and re-admitted) and a burst that must shed 429 with
+   Retry-After and the KV fields; four Whisper SSE streams of WAVs.  Every
+   stream is held against the fixed route (teacher-forced logits) under the
+   margin rule, the positions outside it printed; ``int8_matmul``'s launches
+   exactly the lanes' graph runs (392 a GPT-2 segment, 264 a Whisper
+   segment); every new graph (prefill, insert, segment, chunk, page copy)
+   against the same calls eagerly on a second pool, byte for byte, and one
+   stream the same from slot 0 and slot 7; TTFT, inter-token gaps,
+   tokens/s, device ms a segment replayed and eager, and each lane's cold
+   start (its pool and every graph it can run, captured before the load).
 
 With ``--profile``, every path is also profiled eager against replayed:
 device-busy and wall time, the idle share, and the host's calls, where a
@@ -158,6 +178,7 @@ GPT2_PREFILL_M = 512
 WHISPER_KN = [(384, 384), (384, 1536), (1536, 384)]
 WHISPER_HEAD = (384, 51968)
 WHISPER_M = (1, 4, 16)
+WHISPER_PROMPT = 4  # the default task prompt: sot, language, task, no-timestamps
 DTYPES = [(torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
           (torch.float32, torch.float32)]
 
@@ -264,6 +285,28 @@ def int8_cases() -> list[tuple]:
     cases += [(m, *GPT2_HEAD, *DTYPES[1], m == 8) for m in GPT2_DECODE_M]
     cases += [(m, k, n, *DTYPES[0], m == 4) for m in WHISPER_M for k, n in WHISPER_KN]
     cases += [(m, *WHISPER_HEAD, *DTYPES[1], m == 4) for m in WHISPER_M[:2]]
+    return cases + generate_int8_cases()
+
+
+def generate_int8_cases() -> list[tuple]:
+    """The int8 products phase 13's lanes add, from ``GEN`` and
+    ``GEN_WHISPER``: the GPT-2 slot lane's prefill graphs, one per (prompt
+    bucket, power-of-two admission batch B), run the layer projections at
+    M = B x bucket and the lm head at M = B; Whisper's lane prefill runs
+    its decoder projections over the task prompt at M = 4B and its head at
+    M = B.  The segments run at the pool's rows (GPT-2 8, Whisper 4),
+    which the cases above hold.  Row counts those cases hold already are
+    left out."""
+    pow2 = lambda n: [1 << i for i in range(n.bit_length())]  # noqa: E731
+    gpt2_b, whisper_b = pow2(GEN["gen_slots"]), pow2(GEN_WHISPER["gen_slots"])
+    held = set(GPT2_DECODE_M + (GPT2_PREFILL_M,))
+    gen_m = sorted({b * p for b in gpt2_b for p in GEN["seq_buckets"]} - held)
+    cases = [(m, k, n, *DTYPES[0], False) for m in gen_m for k, n in GPT2_KN]
+    cases += [(m, *GPT2_HEAD, *DTYPES[1], False) for m in gpt2_b if m not in GPT2_DECODE_M]
+    whisper_m = sorted({WHISPER_PROMPT * b for b in whisper_b} - set(WHISPER_M))
+    cases += [(m, k, n, *DTYPES[0], False) for m in whisper_m for k, n in WHISPER_KN]
+    cases += [(m, *WHISPER_HEAD, *DTYPES[1], False) for m in whisper_b
+              if m not in WHISPER_M[:2]]
     return cases
 
 
@@ -2475,14 +2518,864 @@ def run_vit_embed(profile: bool) -> dict:
     return {"timing": timing, "vit_parity": vit_parity, "embed_parity": embed_parity}
 
 
+# -- phase 13: the :generate lane ---------------------------------------------------
+
+# Full-width GPT-2 small (seed weights) on three :generate lanes of one
+# server: ``gpt2`` int8 on the slot pool, ``gpt2_paged`` bf16 on the paged
+# pool with chunked prefill and the prefix cache, and ``gpt2_tight``, the
+# same bf16 weights on a page pool of one full sequence, which must evict and
+# shed; and Whisper-tiny int8 on the slot pool.
+GEN = {"seq_buckets": (16, 64, 128), "max_new_tokens": 64, "gen_slots": 8,
+       "segment_tokens": 8, "block_size": 16, "chunk": 64}
+GEN_STREAMS = 16
+# Timed bursts a GPT-2 lane serves after one that wakes the server: the
+# first is held against the fixed route, all give the spread of the
+# served figures.
+GEN_BURSTS = 5
+GEN_SAMPLED = {"temperature": 0.8, "top_k": 40, "top_p": 0.95}
+GEN_WHISPER = {"gen_slots": 4, "streams": 4}
+# Streams of a lane whose teacher-forced steps are also run at the lane's
+# shapes to measure its logit error (the rest run the fixed route's only).
+ERR_STREAMS = 6
+# Limits that keep the margin rule from passing a faulty lane: a fault in
+# the lane's shapes would raise its logit error and leave most positions
+# undecided.  The card read errors of 0.0155-0.0333 and decided shares of
+# 61-96 % a lane (PERF.md §2).
+ERR_LIMIT = 0.1
+DECIDED_MIN = 0.5
+
+
+def generate_config(arch: dict | None = None, whisper_arch: dict | None = None,
+                    max_new_tokens: int = GEN["max_new_tokens"], **extra):
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+
+    seq = GEN["seq_buckets"]
+    lane = {"max_new_tokens": max_new_tokens, "gen_slots": GEN["gen_slots"],
+            "segment_tokens": GEN["segment_tokens"], **({"arch": arch} if arch else {})}
+    paged = {"kv_cache": "paged", "kv_block_size": GEN["block_size"],
+             "prefill_chunk_tokens": GEN["chunk"]}
+    tight = -(-(seq[-1] + max_new_tokens) // GEN["block_size"]) + 1  # one sequence + trash
+    return ServeConfig(models=[
+        ModelConfig(name="gpt2", dtype="bfloat16", batch_buckets=(1,), seq_buckets=seq,
+                    extra={**lane, "params_dtype": "int8", **extra}),
+        ModelConfig(name="gpt2_paged", builder="gpt2", dtype="bfloat16", batch_buckets=(1,),
+                    seq_buckets=seq, **paged, extra={**lane, "params_dtype": "bfloat16"}),
+        ModelConfig(name="gpt2_tight", builder="gpt2", dtype="bfloat16", batch_buckets=(1,),
+                    seq_buckets=seq[-1:], **paged, kv_num_blocks=tight, prefix_cache=False,
+                    extra={**lane, "params_dtype": "bfloat16", "gen_slots": 2}),
+        ModelConfig(name="whisper_tiny", dtype="bfloat16", batch_buckets=(1, 4),
+                    extra={"max_new_tokens": max_new_tokens, "params_dtype": "int8",
+                           "gen_slots": GEN_WHISPER["gen_slots"],
+                           "segment_tokens": GEN["segment_tokens"],
+                           **({"arch": whisper_arch} if whisper_arch else {}), **extra})])
+
+
+def sse(port: int, model: str, body, timeout: float = 600.0) -> dict:
+    """One ``:generate`` request: a JSON body (or raw bytes) posted, the
+    event stream read as it comes; each token's client time from the send."""
+    data = body if isinstance(body, bytes) else json.dumps(body).encode()
+    ctype = "application/octet-stream" if isinstance(body, bytes) else "application/json"
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/models/{model}:generate",
+                                 data=data, headers={"Content-Type": ctype})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            if not r.headers.get("Content-Type", "").startswith("text/event-stream"):
+                return {"status": r.status, "body": json.loads(r.read()),
+                        "headers": dict(r.headers), "wall": time.perf_counter() - t0}
+            toks, times, final = [], [], None
+            for line in r:
+                if not line.startswith(b"data: "):
+                    continue
+                ev = json.loads(line[6:])
+                if "token" in ev:
+                    toks.append(ev["token"])
+                    times.append(time.perf_counter() - t0)
+                else:
+                    final = ev
+            return {"status": r.status, "tokens": toks, "times": times, "final": final,
+                    "headers": dict(r.headers), "wall": time.perf_counter() - t0}
+    except urllib.error.HTTPError as e:
+        return {"status": e.code, "body": json.loads(e.read()), "headers": dict(e.headers)}
+
+
+def gen_bodies(n: int = GEN_STREAMS, seed: int = 13, vocab: int = 50257,
+               max_prompt: int = 120, max_new: int = GEN["max_new_tokens"]) -> list[dict]:
+    """``n`` requests: prompts of 5 to ``max_prompt`` token ids and budgets of
+    8 to ``max_new`` tokens, every other one sampled with top-k and top-p."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        body = {"input_ids": rng.integers(0, vocab - 1, int(rng.integers(5, max_prompt + 1)))
+                .tolist(), "max_new_tokens": int(rng.integers(8, max_new + 1))}
+        if i % 2:
+            body.update(GEN_SAMPLED, seed=int(rng.integers(0, 1 << 16)))
+        out.append(body)
+    return out
+
+
+def gen_burst(port: int, model: str, bodies: list) -> tuple[list[dict], float]:
+    """Every body at once, one thread each; the results and the wall time."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(bodies)) as ex:
+        results = list(ex.map(lambda b: sse(port, model, b), bodies))
+    return results, time.perf_counter() - t0
+
+
+def stream_stats(results: list[dict], wall: float) -> dict:
+    """Client-side TTFT (send → first token event) and inter-token gaps of
+    the streamed results, and tokens/s over the burst."""
+    streams = [r for r in results if r["status"] == 200 and "times" in r and r["times"]]
+    ttft = [r["times"][0] * 1e3 for r in streams]
+    itl = [1e3 * (b - a) for r in streams for a, b in zip(r["times"], r["times"][1:])]
+    toks = sum(len(r["tokens"]) for r in streams)
+    return {"streams": len(streams), "tokens": toks, "wall_s": wall,
+            "tok_per_s": toks / wall if wall else 0.0,
+            "ttft_p50": float(np.percentile(ttft, 50)), "ttft_p99": float(np.percentile(ttft, 99)),
+            "itl_p50": float(np.percentile(itl, 50)) if itl else 0.0,
+            "itl_p99": float(np.percentile(itl, 99)) if itl else 0.0}
+
+
+def gpt2_chains(cm, ids: list[int], toks: list[int], n: int, rows: int,
+                total: int | None = None) -> torch.Tensor:
+    """Teacher-forced logits [n, V] of one stream through the fixed route's
+    functions at ``rows`` rows (the stream's row repeated) and a cache of
+    ``total`` positions (the route's own by default): the prompt's prefill
+    in its seq bucket, then a decode step for each of ``toks[:n-1]`` fed in
+    turn.  Row i is the logits token i is chosen from."""
+    from pytorch_zappa_serverless_tpu_torch.models import gpt2 as G
+
+    meta, dev = cm.servable.meta, cm.device
+    tree, cfg, dtype = cm.servable.module.tree(), meta["config"], meta["dtype"]
+    P = cm.bucket_for(1, len(ids))[1]
+    x = torch.zeros((rows, P), dtype=torch.int32, device=dev)
+    x[:, :len(ids)] = torch.tensor(ids, dtype=torch.int32, device=dev)
+    pos = torch.full((rows,), len(ids), dtype=torch.int32, device=dev)
+    logits, ck, cv = G.prefill(tree, x, pos, total or P + n, cfg, dtype)
+    out = [logits[0]]
+    for t in toks[: n - 1]:
+        logits = G.decode_step(tree, ck, cv, torch.full((rows,), t, dtype=torch.int32,
+                                                        device=dev), pos, cfg, dtype)
+        out.append(logits[0])
+        pos = pos + 1
+    return torch.stack(out).float().cpu()
+
+
+def chunked_chains(cm, ids: list[int], toks: list[int], n: int, rows: int, chunk: int,
+                   block: int) -> torch.Tensor:
+    """:func:`gpt2_chains` with the paged lane's prefill: the prompt in the
+    lane's chunk plan (``chunk``-token chunks, the last one padded to a
+    power of two from 8) for ``rows`` rows through ``prefill_chunk_logits``
+    (the lane's chunk up to its first-token logits) over a scratch page
+    pool, the last chunk's logits kept; then the decode steps over the
+    gathered pages."""
+    from pytorch_zappa_serverless_tpu_torch.models import gpt2 as G
+    from pytorch_zappa_serverless_tpu_torch.ops.paged_attention import gather_kv
+
+    meta, dev = cm.servable.meta, cm.device
+    tree, cfg, dtype = cm.servable.module.tree(), meta["config"], meta["dtype"]
+    MB = -(-meta["continuous"]["total"] // block)
+    ck = torch.zeros((cfg.layers, rows * MB + 1, block, cfg.d_model), dtype=dtype, device=dev)
+    cv = torch.zeros_like(ck)
+    table = (torch.arange(rows * MB, device=dev, dtype=torch.int32) + 1).view(rows, MB)
+    full = lambda v, dt=torch.int32: torch.full((rows,), v, dtype=dt, device=dev)  # noqa: E731
+    start, L = 0, len(ids)
+    while start < L:
+        C = chunk
+        if L - start <= chunk:
+            C = 8
+            while C < L - start:
+                C *= 2
+            C = min(C, chunk)
+        x = torch.zeros((rows, C), dtype=torch.int32, device=dev)
+        part = ids[start:start + C]
+        x[:, :len(part)] = torch.tensor(part, dtype=torch.int32, device=dev)
+        logits = G.prefill_chunk_logits(tree, x, full(start), full(L), ck, cv, table, block,
+                                        cfg, dtype)
+        start += C
+    k = torch.stack([gather_kv(ck[i], table) for i in range(cfg.layers)])
+    v = torch.stack([gather_kv(cv[i], table) for i in range(cfg.layers)])
+    out, pos = [logits[0]], full(L)
+    for t in toks[: n - 1]:
+        out.append(G.decode_step(tree, k, v, full(t), pos, cfg, dtype)[0])
+        pos = pos + 1
+    return torch.stack(out).float().cpu()
+
+
+def whisper_chains(cm, mel: np.ndarray, toks: list[int], n: int, rows: int) -> torch.Tensor:
+    """The same for one Whisper stream: the encoder, cross K/V and the task
+    prompt at ``rows`` rows (the window repeated), then greedy steps fed
+    ``toks``: the :predict route's functions."""
+    from pytorch_zappa_serverless_tpu_torch.models import whisper as W
+
+    meta, dev = cm.servable.meta, cm.device
+    tree, cfg, dtype = cm.servable.module.tree(), meta["config"], meta["dtype"]
+    m = torch.from_numpy(mel).to(dev)[None].expand(rows, -1, -1).contiguous()
+    cross = W._cross_kv(tree, W.encode(tree, m, cfg, dtype), cfg)
+    prompt = torch.tensor(meta["prompt_ids"], dtype=torch.int32, device=dev)[None]
+    P, total = prompt.shape[1], prompt.shape[1] + n
+    logits, ck, cv = W.prefill_decoder(tree, cross, prompt.expand(rows, -1), total, cfg, dtype)
+    out = [logits[0]]
+    for i, t in enumerate(toks[: n - 1]):
+        logits = W._decoder_step(tree, cfg, dtype, cross,
+                                 torch.full((rows,), t, dtype=torch.int32, device=dev), P + i,
+                                 ck, cv, W._kpos_mask(total, P + i, dev))
+        out.append(logits[0])
+    return torch.stack(out).float().cpu()
+
+
+def sample_candidates(s: torch.Tensor, top_k: int, top_p: float, e: float):
+    """The filter of ``ops.sampling.filter_top_k_top_p`` on tempered logits
+    ``s`` [V] when each may be off by up to ``e``: (the tokens surely kept,
+    the tokens that may be kept).  Top-k keeps a token surely when it leads
+    the (k+1)-th by more than 2e; top-p keeps the i-th surely when its
+    preceding mass, scaled by exp(2e) (the most any probability can move),
+    is still within ``top_p``."""
+    V = s.shape[0]
+    desc, order = torch.sort(s, descending=True)
+    k = V if top_k <= 0 else min(top_k, V)
+    nxt = desc[k] if k < V else torch.tensor(-float("inf"))
+    sure = s > nxt + 2 * e
+    maybe = s >= desc[k - 1] - 2 * e
+    if top_p < 1.0:
+        probs = torch.softmax(desc[:k].double(), 0)
+        cum_prev = torch.cumsum(probs, 0) - probs
+        in_sure = torch.zeros(V, dtype=torch.bool)
+        in_maybe = torch.ones(V, dtype=torch.bool)
+        in_sure[order[:k]] = (cum_prev * np.exp(2 * e)) <= top_p
+        in_sure[order[0]] = True  # the filter keeps one token at least
+        in_maybe[order[:k]] = (cum_prev * np.exp(-2 * e)) <= top_p
+        in_maybe[order[0]] = True
+        sure, maybe = sure & in_sure, maybe & in_maybe
+    return sure, maybe | sure
+
+
+def hold_stream(ref: torch.Tensor, err: torch.Tensor, tokens: list[int], knobs: dict) -> dict:
+    """One stream held against the fixed route's teacher-forced logits
+    ``ref`` [n, V] under the margin rule: at each position the stream's token
+    must be the route's choice wherever that choice is decided by more than
+    twice the step's logit error ``err``.  Greedy: the top-2 margin of the
+    logits.  Sampled: the same (seed, step) Gumbel draw over the tempered
+    logits (error divided by T), where the choice must be surely inside the
+    top-k / top-p filter and lead every token that may be inside it by more
+    than twice the error.  Returns the counts and the positions where it
+    fails."""
+    from pytorch_zappa_serverless_tpu_torch.ops import sampling as PS
+
+    temp = max(float(knobs.get("temperature", 0.0)), 0.0)
+    top_k, top_p = int(knobs.get("top_k", 0)), float(knobs.get("top_p", 1.0))
+    V = ref.shape[1]
+    out = {"decided": 0, "undecided": 0, "agree_undecided": 0, "fail": []}
+    for i, tok in enumerate(tokens):
+        e = float(err[i])
+        if temp > 0:
+            s = ref[i] / max(temp, 1e-3)
+            e = e / max(temp, 1e-3)
+            sure, maybe = sample_candidates(s, top_k, top_p, e)
+            kept = PS.filter_top_k_top_p(s[None], torch.tensor([top_k]),
+                                         torch.tensor([top_p]))[0]
+            g = PS.gumbel_noise(torch.tensor([int(knobs.get("seed", 0))]), torch.tensor([i]), V,
+                                torch.device("cpu"))[0]
+            choice = int((kept + g).argmax())
+            v = s + g
+            rivals = v.masked_fill(~maybe, -float("inf"))
+            rivals[choice] = -float("inf")
+            margin = float(v[choice] - rivals.max()) if bool(sure[choice]) else 0.0
+        else:
+            top2 = ref[i].topk(2).values
+            choice, margin = int(ref[i].argmax()), float(top2[0] - top2[1])
+        if margin > 2 * e:
+            out["decided"] += 1
+            if choice != tok:
+                out["fail"].append((i, tok, choice, margin, e))
+        else:
+            out["undecided"] += 1
+            out["agree_undecided"] += int(choice == tok)
+    return out
+
+
+def hold_streams(engine, name: str, streams: list[dict], rows: int,
+                 paged: tuple[int, int] | None = None) -> dict:
+    """Every finished stream of a lane held against the fixed route (the
+    margin rule of :func:`hold_stream`).  The step's logit error is the
+    largest difference between the route's logits at its own row count (one
+    request: 1) and cache, and the same step at the lane's (``rows``, the
+    pool's decode rows, and the pool's cache), where the int8 plan and
+    cuBLAS's algorithm change; for a paged lane (``paged`` = (chunk, page
+    size)) also at the lane's chunked prefill over pages
+    (:func:`chunked_chains`), where a prefill's rows change; the largest
+    such difference over the lane's first ``ERR_STREAMS`` streams serves
+    every step.  Fails at
+    any decided position that disagrees; prints the positions outside the
+    rule."""
+    cm = engine.model(name)
+    eos = cm.servable.meta["continuous"]["eos_id"]
+    whisper = "mel" in streams[0]
+
+    def chains():
+        with torch.inference_mode():
+            res = []
+            for i, s in enumerate(streams):
+                toks = list(s["tokens"]) + ([eos] if s["ended"] else [])
+                n, key = len(toks), s["mel"] if whisper else s["ids"]
+                ref = (whisper_chains if whisper else gpt2_chains)(cm, key, toks, n, 1)
+                err = torch.zeros(n)
+                if i < ERR_STREAMS:  # the lane's error, measured on its first streams
+                    lane = (whisper_chains(cm, key, toks, n, rows) if whisper else
+                            gpt2_chains(cm, key, toks, n, rows,  # the pool's cache
+                                        cm.servable.meta["continuous"]["total"]))
+                    err = (lane - ref).abs().amax(-1)
+                    if paged:
+                        chunked = chunked_chains(cm, key, toks, n, rows, *paged)
+                        err = torch.maximum(err, (chunked - ref).abs().amax(-1))
+                res.append((toks, ref, err))
+            return res
+
+    res = engine.runner.run_fn_sync(chains)
+    # One error for every step of the lane: the largest any step showed
+    # across its streams (a step's own can miss a shape the lane ran).
+    err_max = max(float(err.max()) for _, _, err in res)
+    total = {"streams": len(streams), "decided": 0, "undecided": 0, "agree_undecided": 0,
+             "fail": [], "err_max": err_max}
+    for s, (toks, ref, err) in zip(streams, res):
+        check(bool(torch.isfinite(ref).all()), f"{name}: reference logits not finite")
+        got = hold_stream(ref, torch.full_like(err, err_max), toks, s.get("knobs", {}))
+        for k in ("decided", "undecided", "agree_undecided"):
+            total[k] += got[k]
+        total["fail"] += [(s.get("tag", "?"), *f) for f in got["fail"]]
+    total["decided_share"] = total["decided"] / max(total["decided"] + total["undecided"], 1)
+    log(f"{name}: {total['streams']} streams held against the fixed route: "
+        f"{total['decided']} positions decided ({len(total['fail'])} disagree), "
+        f"{total['undecided']} outside the margin rule ({total['agree_undecided']} of them agree "
+        f"anyway), a decided share of {total['decided_share']:.3f} (at least {DECIDED_MIN}); "
+        f"the lane's logit error {total['err_max']:.4g} (at most {ERR_LIMIT})")
+    check(not total["fail"], f"{name}: stream tokens differ from the fixed route where the "
+                             f"margin exceeds twice the logit error: {total['fail'][:8]}")
+    check(err_max <= ERR_LIMIT, f"{name}: the lane's logit error {err_max:.4g} exceeds "
+                                f"{ERR_LIMIT}")
+    check(total["decided_share"] >= DECIDED_MIN,
+          f"{name}: the margin rule decides {total['decided_share']:.3f} of the positions, "
+          f"under {DECIDED_MIN}")
+    return total
+
+
+def lane_streams(bodies: list, results: list, max_new: int, tag: str = "") -> list[dict]:
+    """The finished streams of a burst, for :func:`hold_streams`: a stream
+    shorter than its budget (the request's, capped at the lane's
+    ``max_new``) ended on EOS."""
+    out = []
+    for i, (b, r) in enumerate(zip(bodies, results)):
+        if r["status"] != 200:
+            continue
+        toks = r["tokens"] if "tokens" in r else r["body"]["predictions"]["tokens"]
+        budget = min(b["max_new_tokens"], max_new)
+        check(len(toks) <= budget, f"stream {i}: {len(toks)} tokens over its budget {budget}")
+        out.append({"tag": f"{tag}{i}", "ids": b["input_ids"], "tokens": toks,
+                    "ended": len(toks) < budget,
+                    "knobs": {k: b[k] for k in ("temperature", "top_k", "top_p", "seed")
+                              if k in b}})
+    return out
+
+
+def check_sse(results: list[dict], vocab: int) -> None:
+    for i, r in enumerate(results):
+        if "times" not in r:
+            continue
+        check(r["headers"].get("Content-Type") == "text/event-stream"
+              and r["headers"].get("Cache-Control") == "no-cache"
+              and r["headers"].get("Transfer-Encoding") == "chunked"
+              and r["headers"].get("X-Stream-Id"), f"stream {i}: headers {r['headers']}")
+        final = r["final"]
+        check(final is not None and final.get("done") is True and final["tokens"] == r["tokens"],
+              f"stream {i}: the final event {final} does not close the streamed tokens")
+        check(all(isinstance(t, int) and 0 <= t < vocab for t in r["tokens"]),
+              f"stream {i}: tokens {r['tokens'][:8]}")
+
+
+def phase_generate_path(cfg, device: str = "cuda", streams: int = GEN_STREAMS,
+                        vocab: int = 50257, wavs=None) -> dict:
+    """Build the four lanes, serve, and drive them over HTTP: a burst of
+    ``streams`` SSE streams and one ``stream: false`` request on each GPT-2
+    lane, a shared-prefix prompt cold then warm on the paged lane, a burst
+    on the tight lane that must evict and shed 429, and Whisper SSE streams
+    of WAVs; then the GETs.  The kernel counts are read just after the load."""
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, device)
+    log(f"generate engines ready in {time.perf_counter() - t0:.3f} s on {engine.device}: "
+        f"build {engine.build_seconds}")
+    max_new = cfg.models[0].extra["max_new_tokens"]
+    bodies = gen_bodies(streams, vocab=vocab, max_new=max_new)
+    out = {"engine": engine, "bodies": bodies}
+    with BackgroundServer(cfg, engine) as srv:
+        # Each lane's cold start: its pool and every graph it can run,
+        # captured ahead of the load (the server captures at first use).
+        scheds = srv.server.schedulers
+        out["lane_cold_s"] = {}
+        for name, sched in scheds.items():
+            t0 = time.perf_counter()
+            engine.runner.run_fn_sync(sched.warm)
+            out["lane_cold_s"][name] = time.perf_counter() - t0
+        log(f"lanes warmed: seconds per lane "
+            f"{ {k: round(v, 3) for k, v in out['lane_cold_s'].items()} }; graphs "
+            f"{ {n: engine.model(n).graphs for n in scheds} }")
+        before = {n: s.kernels.graphs.expected_launches() for n, s in scheds.items()}
+        reset_counts()
+        for name in ("gpt2", "gpt2_paged"):
+            # The same burst 1 + GEN_BURSTS times: the first wakes the
+            # server's threads and sockets, the rest are timed, and the
+            # first of those is held.
+            bursts = []
+            for i in range(1 + GEN_BURSTS):
+                res, wall = gen_burst(srv.port, name,
+                                      bodies + [{**bodies[0], "stream": False}])
+                check(all(r["status"] == 200 for r in res),
+                      f"{name} burst {i}: statuses {[r['status'] for r in res]}")
+                check_sse(res[:-1], vocab)
+                check(res[-1]["body"]["model"] == name and res[-1]["headers"].get("X-Stream-Id"),
+                      f"{name}: stream:false answered {res[-1]}")
+                if i:
+                    bursts.append((res, wall))
+            res, wall = bursts[0]
+            out[name] = {"results": res, "wall": wall,
+                         "stats": [stream_stats(r[:-1], w) for r, w in bursts]}
+        # Warm against cold on the paged lane: a 104-token prompt twice, then
+        # one that shares its first 96 tokens (6 pages of 16).
+        rng = np.random.default_rng(5)
+        shared = rng.integers(0, vocab - 1, 96).tolist()
+        pbodies = [{"input_ids": shared + rng.integers(0, vocab - 1, 8).tolist(),
+                    "max_new_tokens": 32}]
+        pbodies += [dict(pbodies[0]), {"input_ids": shared + rng.integers(0, vocab - 1, 8)
+                                       .tolist(), "max_new_tokens": 32}]
+        out["prefix"] = [sse(srv.port, "gpt2_paged", b) for b in pbodies]
+        out["prefix_bodies"] = pbodies
+        # The tight lane (12 pages of 16 at full width): two 72-token prompts,
+        # 5 pages each at admission, the second admitted while the first
+        # holds at most 6; the first grows to 9, so one must be evicted and
+        # re-admitted.  Then one 120-token prompt decoding while a burst of
+        # four more arrives (the first waits, the rest shed 429 with
+        # Retry-After).
+        check(scheds["gpt2_tight"].num_blocks - 1 >= 11 and max_new >= 48,
+              "the tight lane's pool is too small to admit two 72-token prompts and too large "
+              "to hold both")
+        tbodies = [{"input_ids": rng.integers(0, vocab - 1, 72).tolist(),
+                    "max_new_tokens": max_new} for _ in range(2)]
+        with ThreadPoolExecutor(2) as ex:
+            first = ex.submit(sse, srv.port, "gpt2_tight", tbodies[0])
+            while not scheds["gpt2_tight"].active:  # A admitted: B follows at once
+                time.sleep(0.002)
+            tres = [first, ex.submit(sse, srv.port, "gpt2_tight", tbodies[1])]
+            tres = [f.result() for f in tres]
+        long_ = {"input_ids": rng.integers(0, vocab - 1, 120).tolist(), "max_new_tokens": max_new}
+        burst = [{"input_ids": rng.integers(0, vocab - 1, 120).tolist(), "max_new_tokens": 8}
+                 for _ in range(4)]
+        with ThreadPoolExecutor(1) as ex:
+            first = ex.submit(sse, srv.port, "gpt2_tight", long_)
+            while not scheds["gpt2_tight"].active:
+                time.sleep(0.005)
+            shed, _ = gen_burst(srv.port, "gpt2_tight", burst)
+            first = first.result()
+        out["tight"] = {"evict": tres, "evict_bodies": tbodies, "long": first, "long_body": long_,
+                        "burst": shed, "burst_bodies": burst,
+                        "snapshot": scheds["gpt2_tight"].gen_snapshot()}
+        # Whisper: WAVs as SSE streams, all at once.
+        wavs = wavs or whisper_wavs(GEN_WHISPER["streams"], seed=40)
+        wres, wwall = gen_burst(srv.port, "whisper_tiny", wavs)
+        out["whisper"] = {"results": wres, "wall": wwall, "wavs": wavs}
+        out["counts"] = read_counts()  # just after the load
+        out["expected"] = {}
+        for n, s in scheds.items():
+            after = s.kernels.graphs.expected_launches()
+            for k, v in after.items():
+                out["expected"][k] = out["expected"].get(k, 0) + v - before[n].get(k, 0)
+        out["per_run"] = {n: dict(s.kernels.graphs.per_run) for n, s in scheds.items()}
+        out["kernels"] = {n: s.kernels for n, s in scheds.items()}
+        out["snapshots"] = {n: s.gen_snapshot() for n, s in scheds.items()}
+        for get in ("/healthz", "/v1/models", "/metrics"):
+            status, body = http(srv.port, get)
+            check(status == 200, f"{get}: status {status}: {body}")
+            out[get] = body
+        # The fixed route's answers for the same requests (:predict).
+        out["predict"] = {name: [http(srv.port, f"/v1/models/{name}:predict",
+                                      {k: v for k, v in b.items() if k != "max_new_tokens"})
+                                 for b in bodies] for name in ("gpt2", "gpt2_paged")}
+        out["predict"]["whisper_tiny"] = [
+            http_raw(srv.port, "/v1/models/whisper_tiny:predict", w, "audio/wav") for w in wavs]
+    return out
+
+
+def check_generate(run: dict, vocab: int = 50257, whisper_vocab: int = 51865,
+                   seg: int = GEN["segment_tokens"], layers: int = 12,
+                   whisper_layers: int = 4) -> dict:
+    """The load's answers: every stream well formed; each lane's streams,
+    the warm and cold prefixes, the evicted streams and the Whisper streams
+    held against the fixed route under the margin rule; the tight lane shed
+    with Retry-After and the KV fields; the lanes' graphs and each segment's
+    int8 launches exact."""
+    engine = run["engine"]
+    rows = GEN["gen_slots"]
+    max_new = engine.model("gpt2").servable.meta["max_new_tokens"]
+    paged = (GEN["chunk"], GEN["block_size"])  # the paged lanes' prefill chunk and page
+    held = {}
+    for name in ("gpt2", "gpt2_paged"):
+        res = run[name]["results"]
+        for i, st in enumerate(run[name]["stats"]):
+            log(f"{name} burst {i}: {st['streams']} SSE streams + 1 stream:false, {st['tokens']} "
+                f"tokens in {st['wall_s']:.3f} s ({st['tok_per_s']:.1f} tokens/s); client TTFT "
+                f"p50 {st['ttft_p50']:.3f} ms, p99 {st['ttft_p99']:.3f} ms; inter-token p50 "
+                f"{st['itl_p50']:.3f} ms, p99 {st['itl_p99']:.3f} ms")
+        same = sum(p[1]["predictions"]["tokens"][: len(r["tokens"])] == r["tokens"]
+                   for p, r in zip(run["predict"][name], res[:-1]) if p[0] == 200)
+        log(f"{name}: {same} of {len(res) - 1} streams token for token the :predict answer cut "
+            f"at their budget")
+        # The stream:false request (the burst's first body again) is held
+        # under the same rule: it shares no admission batch with its twin.
+        held[name] = hold_streams(engine, name,
+                                  lane_streams(run["bodies"] + run["bodies"][:1], res, max_new),
+                                  rows, paged if name == "gpt2_paged" else None)
+    # Warm against cold.
+    pres, pb = run["prefix"], run["prefix_bodies"]
+    check(all(r["status"] == 200 for r in pres), f"prefix statuses {[r['status'] for r in pres]}")
+    cached = [r["final"].get("stats", {}).get("prefix_cached_tokens", 0) for r in pres]
+    check(cached == [0, 96, 96], f"prefix cached tokens {cached}, want [0, 96, 96]")
+    log(f"gpt2_paged prefix: cold TTFT {1e3 * pres[0]['times'][0]:.3f} ms, warm "
+        f"{1e3 * pres[1]['times'][0]:.3f} ms (96 cached tokens), shared-prefix other prompt "
+        f"{1e3 * pres[2]['times'][0]:.3f} ms; warm tokens {'==' if pres[0]['tokens'] == pres[1]['tokens'] else '!='} "
+        f"cold tokens")
+    held["prefix"] = hold_streams(engine, "gpt2_paged", lane_streams(pb, pres, max_new, "prefix"),
+                                  rows, paged)
+    # The tight lane: evictions kept correct, the burst shed with Retry-After.
+    t = run["tight"]
+    snap = t["snapshot"]
+    check(all(r["status"] == 200 for r in t["evict"]) and t["long"]["status"] == 200,
+          f"tight lane statuses {[r['status'] for r in t['evict']]}, {t['long']['status']}")
+    check(snap["kv"]["evictions"] > 0, f"the tight lane evicted nothing: {snap['kv']}")
+    shed = [r for r in t["burst"] if r["status"] == 429]
+    check(shed, f"the tight lane's burst shed nothing: {[r['status'] for r in t['burst']]}")
+    for r in shed:
+        check(int(r["headers"]["Retry-After"]) >= 1 and r["body"]["kv_blocks_needed"] > 0
+              and "kv_blocks_free" in r["body"] and r["body"]["estimated_wait_ms"] > 0,
+              f"a 429 without Retry-After or the KV fields: {r}")
+    served = [r for r in t["burst"] if r["status"] == 200]
+    log(f"gpt2_tight: {snap['kv']['evictions']} evictions, {len(shed)} of {len(t['burst'])} "
+        f"burst requests shed 429 (Retry-After {[r['headers']['Retry-After'] for r in shed]}, "
+        f"estimated_wait_ms {[r['body']['estimated_wait_ms'] for r in shed]}), {len(served)} "
+        f"served after the wait")
+    tb = t["evict_bodies"] + [t["long_body"]] + [b for b, r in zip(t["burst_bodies"], t["burst"])
+                                                  if r["status"] == 200]
+    tr = t["evict"] + [t["long"]] + served
+    held["tight"] = hold_streams(engine, "gpt2_paged", lane_streams(tb, tr, max_new, "tight"), 2,
+                                 paged)
+    # Whisper streams against :predict on the same audio.
+    w = run["whisper"]
+    check(all(r["status"] == 200 for r in w["results"]), "whisper stream statuses")
+    check_sse(w["results"], whisper_vocab)
+    cm = engine.model("whisper_tiny")
+    wstreams = []
+    for i, (wav, r, p) in enumerate(zip(w["wavs"], w["results"], run["predict"]["whisper_tiny"])):
+        check(p[0] == 200, f"whisper :predict status {p}")
+        wstreams.append({"tag": f"w{i}", "mel": cm.servable.preprocess(wav)["mel"],
+                         "tokens": r["tokens"],
+                         "ended": len(r["tokens"]) < cm.servable.meta["max_new_tokens"],
+                         "predict": p[1]["predictions"]["tokens"]})
+    same = sum(s["tokens"] == s["predict"] for s in wstreams)
+    lat = run["/metrics"]["generation"]["whisper_tiny"]["latency"]
+    log(f"whisper_tiny: {len(wstreams)} SSE streams in {w['wall']:.3f} s (client TTFT ms "
+        f"{[round(1e3 * r['times'][0], 3) for r in w['results']]}; server-side TTFT from "
+        f"admission, cumulative {lat['ttft_ms']['buckets']}), {same} token for token the "
+        f":predict answer")
+    held["whisper"] = hold_streams(engine, "whisper_tiny", wstreams, GEN_WHISPER["gen_slots"])
+    # Launch counts: exact against the lanes' graphs, and a segment's.
+    exact_counts(run["counts"], run["expected"], "the :generate load")
+    per_seg = {"gpt2": (4 * layers + 1) * seg, "whisper_tiny": (8 * whisper_layers + 1) * seg}
+    for name, want in per_seg.items():
+        if engine.device.type != "cuda":
+            break  # the CPU's wrappers run the plain version and count nothing
+        segs = {k: v for k, v in run["per_run"][name].items() if k[0] == "segment"}
+        check(segs and all(v.get("int8_matmul") == want for v in segs.values()),
+              f"{name}: int8_matmul launches a segment {segs}, want {want}")
+        pre = {k: v for k, v in run["per_run"][name].items() if k[0] == "prefill"}
+        check(all(v.get("int8_matmul") == want // seg for v in pre.values()),
+              f"{name}: int8_matmul launches a prefill {pre}")
+    log(f"generate load: int8_matmul launched {run['counts']['int8_matmul']} times, exactly the "
+        f"lanes' graph runs ({per_seg['gpt2']} a GPT-2 segment, {per_seg['whisper_tiny']} a "
+        f"Whisper segment); lane snapshots "
+        f"{ {n: {k: s[k] for k in ('device_rounds', 'segment_rounds', 'tokens_emitted')} for n, s in run['snapshots'].items()} }")
+    m = run["/metrics"]
+    check(all(f"{n}:generate" in m["models"] for n in ("gpt2", "gpt2_paged", "whisper_tiny")),
+          f"/metrics rings {sorted(m['models'])}")
+    for n in ("gpt2", "gpt2_paged"):
+        lat = m["generation"][n]["latency"]
+        log(f"{n} server-side histograms (ms, cumulative): TTFT {lat['ttft_ms']['buckets']}, "
+            f"inter-token {lat['itl_ms']['buckets']}")
+    check(m["generation"]["gpt2_paged"]["mode"] == "paged" and m["generation"]["gpt2"]["mode"]
+          == "slot", "the /metrics generation block")
+    check(run["/healthz"]["generation_ok"] is True, f"/healthz {run['/healthz']}")
+    return held
+
+
+def gen_payloads(cm, rng, sizes, knobs) -> list[dict]:
+    """Batched admission payloads of the lane: one per entry of ``sizes``
+    ((batch, prompt tokens) for GPT-2, (batch, None) for Whisper)."""
+    meta = cm.servable.meta["continuous"]
+    vocab = cm.servable.meta["config"].vocab_size
+    out = []
+    for B, plen in sizes:
+        parts = []
+        for j in range(B):
+            k = knobs[j % len(knobs)]
+            if plen is None:
+                sample = {"mel": rng.standard_normal((80, 3000)).astype(np.float32), **k}
+                parts.append(meta["collate_admit"](sample, 1))
+            else:
+                s = cm.servable.preprocess({"input_ids": rng.integers(0, vocab - 1, plen).tolist(),
+                                            **k})
+                parts.append(meta["collate_admit"](s, cm.bucket_for(1, plen)[1]))
+        out.append({key: np.concatenate([p[key] for p in parts]) for key in parts[0]})
+    return out
+
+
+def empty_carries(S: int) -> dict:
+    return {"tok": np.zeros(S, np.int32), "pos": np.zeros(S, np.int32),
+            "step": np.zeros(S, np.int32), "fin": np.ones(S, bool),
+            "temp": np.zeros(S, np.float32), "seed": np.zeros(S, np.int32),
+            "topk": np.zeros(S, np.int32), "topp": np.ones(S, np.float32)}
+
+
+def seat(carries: dict, slot: int, first: int, payload: dict, j: int) -> None:
+    carries["tok"][slot], carries["pos"][slot] = first, payload["length"][j]
+    carries["step"][slot], carries["fin"][slot] = 0, False
+    carries["temp"][slot], carries["seed"][slot] = payload["temperature"][j], payload["seed"][j]
+    carries["topk"][slot], carries["topp"][slot] = payload["top_k"][j], payload["top_p"][j]
+
+
+def pool_bits(k, skip_trash: bool = False) -> bytes:
+    start = 1 if skip_trash else 0
+    return b"".join(t[:, start:].contiguous().view(torch.int16).cpu().numpy().tobytes()
+                    for t in (k.cache_k, k.cache_v))
+
+
+def phase_gen_replay(engine) -> None:
+    """Each new graph against the same program run eagerly on a second pool,
+    at full width: the slot lanes' (GPT-2 int8, Whisper int8) prefill graphs
+    (two batch sizes), insert and segment graphs (greedy and sampled,
+    filtered), the paged lane's chunk graphs (two lengths), page copy and
+    segment: first tokens, packed emits and carries, and the pools byte for
+    byte (the paged pool but its trash page).  Then one GPT-2 stream decoded
+    from slot 0 and from the pool's last slot beside other streams: the same
+    tokens, byte for byte."""
+    from pytorch_zappa_serverless_tpu_torch.engine.genkernels import (PagedKernels, SlotKernels,
+                                                                      unpack)
+
+    run = engine.runner.run_fn_sync
+    rng = np.random.default_rng(21)
+    hot = [{"temperature": 0.0}, {**GEN_SAMPLED, "seed": 3}]
+    for name, sizes in (("gpt2", [(2, 60), (1, 12)]), ("whisper_tiny", [(2, None), (1, None)])):
+        cm = engine.model(name)
+        meta = cm.servable.meta["continuous"]
+        S = meta["slots"]
+        payloads = gen_payloads(cm, rng, sizes, hot)
+        outs = []
+        for k in (SlotKernels(cm), SlotKernels(cm, graphed=False)):
+            run(k.ensure)
+            carries, seats, firsts, segs = empty_carries(S), iter([S - 1, 0, 2]), [], []
+            for p in payloads:
+                first = run(k.prefill, p)
+                firsts.append(first)
+                for j in range(len(p["length"])):
+                    slot = next(seats)
+                    run(k.insert_from, j, slot)
+                    seat(carries, slot, first[j], p, j)
+            for rnd in range(3):
+                if rnd == 2:  # the sampled row retires: a greedy-only segment
+                    carries["fin"][0] = True
+                    carries["temp"][0] = 0.0
+                out = run(k.segment, carries)
+                segs.append(out)
+                _, carries["tok"], carries["pos"], carries["step"], carries["fin"] = \
+                    unpack(out, meta["segment_tokens"])
+            outs.append((firsts, segs, pool_bits(k), k))
+        (f0, s0, b0, kg), (f1, s1, b1, _) = outs
+        check(all(a.tobytes() == b.tobytes() for a, b in zip(f0, f1)),
+              f"{name}: replayed prefill first tokens differ from eager")
+        check(all(a.tobytes() == b.tobytes() for a, b in zip(s0, s1)),
+              f"{name}: replayed segments differ from eager")
+        check(b0 == b1, f"{name}: the pool after the replayed programs differs from eager")
+        log(f"{name} slot lane replay vs eager: {kg.graphs.labels}: first tokens, 3 segments "
+            f"and the pool ({len(b0) / 2**20:.1f} MiB) bitwise equal; launches a run "
+            f"{ {kg.graphs.label(k): v.get('int8_matmul', 0) for k, v in kg.graphs.per_run.items()} }")
+    # The paged lane.
+    cm = engine.model("gpt2_paged")
+    meta = cm.servable.meta["continuous"]
+    S, BS = meta["slots"], GEN["block_size"]
+    MB = -(-meta["total"] // BS)
+    vocab = cm.servable.meta["config"].vocab_size
+    ids = rng.integers(0, vocab - 1, 100).astype(np.int32)
+    short = rng.integers(0, vocab - 1, 5).astype(np.int32)
+    table = np.zeros((1, MB), np.int32)
+    table[0] = np.arange(1, MB + 1)
+    table_s = np.zeros((2, MB), np.int32)
+    table_s[0] = np.arange(MB + 1, 2 * MB + 1)
+
+    def chunk(toks, start, length, tab):
+        G = toks.shape[0]
+        return (toks.astype(np.int32), np.asarray(start, np.int32), np.asarray(length, np.int32),
+                np.asarray([0.0, 0.9][:G], np.float32), np.asarray([0, 4][:G], np.int32),
+                np.asarray([0, 40][:G], np.int32), np.asarray([1.0, 0.95][:G], np.float32), tab,
+                np.zeros(G, np.int32))
+
+    outs = []
+    for k in (PagedKernels(cm, BS, 2 * MB + 2, 4), PagedKernels(cm, BS, 2 * MB + 2, 4,
+                                                                  graphed=False)):
+        run(k.ensure)
+        f = [run(k.prefill_chunk, chunk(ids[None, :64], [0], [100], table)),
+             run(k.prefill_chunk, chunk(np.pad(ids[None, 64:], ((0, 0), (0, 28))), [64], [100],
+                                        table)),
+             run(k.prefill_chunk, chunk(np.stack([np.pad(short, (0, 3)), np.zeros(8, np.int32)]),
+                                        [0, 0], [5, 1], table_s))]
+        run(k.copy_page, 1, 2 * MB + 1)
+        seg_table = np.zeros((S, MB), np.int32)
+        seg_table[0], seg_table[S - 1] = table[0], table_s[0]
+        c = empty_carries(S)
+        c["tok"][0], c["pos"][0], c["fin"][0] = f[1][0], 100, False
+        c["tok"][S - 1], c["pos"][S - 1], c["fin"][S - 1] = f[2][0], 5, False
+        c["temp"][S - 1], c["seed"][S - 1], c["topk"][S - 1], c["topp"][S - 1] = 0.9, 4, 40, 0.95
+        segs = []
+        for _ in range(2):
+            out = run(k.segment, seg_table, c)
+            segs.append(out)
+            _, c["tok"], c["pos"], c["step"], c["fin"] = unpack(out, meta["segment_tokens"])
+        outs.append((f, segs, pool_bits(k, skip_trash=True), k))
+    (f0, s0, b0, kg), (f1, s1, b1, _) = outs
+    # The third chunk's pad row (an all-trash table) reads the trash page,
+    # whose colliding writes land in either order: its first token is not
+    # compared.
+    f0[2], f1[2] = f0[2][:1], f1[2][:1]
+    check(all(a.tobytes() == b.tobytes() for a, b in zip(f0 + s0, f1 + s1)),
+          "gpt2_paged: replayed chunks or segments differ from eager")
+    check(b0 == b1, "gpt2_paged: the pages after the replayed programs differ from eager")
+    log(f"gpt2_paged lane replay vs eager: {kg.graphs.labels}: 3 chunks, a page copy, 2 "
+        f"segments and every page but the trash page ({len(b0) / 2**20:.1f} MiB) bitwise equal")
+    # One stream in slot 0, then in the last slot, beside other streams.
+    cm = engine.model("gpt2")
+    meta = cm.servable.meta["continuous"]
+    S = meta["slots"]
+    mine, other1, other2 = gen_payloads(cm, rng, [(1, 30), (1, 50), (1, 9)],
+                                        [{**GEN_SAMPLED, "seed": 8}])
+    k = SlotKernels(cm)
+    streams = []
+    for slot, other_slot, other in ((0, 1, other1), (S - 1, 3, other2)):
+        run(k.reset)
+        run(k.ensure)
+        c = empty_carries(S)
+        for s_, p in ((other_slot, other), (slot, mine)):
+            first = run(k.prefill, p)
+            run(k.insert_from, 0, s_)
+            seat(c, s_, first[0], p, 0)
+        toks = []
+        for _ in range(3):
+            out = run(k.segment, c)
+            emits, c["tok"], c["pos"], c["step"], c["fin"] = unpack(out, meta["segment_tokens"])
+            toks += emits[slot].tolist()
+        streams.append(toks)
+    check(streams[0] == streams[1], f"a stream in slot 0 and slot {S - 1}: {streams}")
+    log(f"gpt2: one sampled stream decoded from slot 0 and from slot {S - 1} beside other "
+        f"streams: the same {len(streams[0])} tokens, byte for byte")
+
+
+def phase_gen_timing(engine, scheds: dict | None = None) -> dict:
+    """Device ms of one greedy segment of each lane, replayed (its graph)
+    and eager (its functions on the graph's static inputs), by
+    ``device_ms``; on the live lanes' pools, after the load (a segment over
+    finished rows writes only their own frozen positions)."""
+    from pytorch_zappa_serverless_tpu_torch.engine.genkernels import LaneGraphs, PagedKernels
+    from pytorch_zappa_serverless_tpu_torch.ops.sampling import Gates
+
+    greedy = Gates(False, False, False)
+    rows = {}
+    for name, kern in (scheds or {}).items():
+        g = kern.graphs._graphs.get(("segment", greedy))
+        if g is None:
+            continue
+        meta = engine.model(name).servable.meta["continuous"]
+        tree, i = kern.graphs.tree, g.inputs
+        carries = [i[k] for k in ("tok", "pos", "step", "fin", "temp", "seed", "topk", "topp")]
+        if isinstance(kern, PagedKernels):
+            def eager(k=kern, c=carries, t=i["table"]):
+                with torch.inference_mode():
+                    k.fns["segment"](tree, k.cache_k, k.cache_v, t, *c, gates=greedy)
+        else:
+            def eager(k=kern, c=carries, m=meta):
+                with torch.inference_mode():
+                    m["segment"](tree, k.cache_k, k.cache_v, *c, gates=greedy)
+
+        def timings(g=g, eager=eager):
+            return device_ms(g.captured.replay), device_ms(eager, reps=3)
+
+        replay_ms, eager_ms = engine.runner.run_fn_sync(timings)
+        seg = meta["segment_tokens"]
+        rows[name] = {"replay_ms": replay_ms, "eager_ms": eager_ms,
+                      "position_ms": replay_ms / seg}
+        log(f"{name}: device ms a greedy segment ({seg} positions, {meta['slots']} rows) "
+            f"replayed {replay_ms:.4f} ({replay_ms / seg:.4f} a position), eager {eager_ms:.4f}; "
+            f"{LaneGraphs.label(('segment', greedy))}")
+    return rows
+
+
+def phase_gen_profile(engine, kern, name: str) -> None:
+    """``torch.profiler`` over one greedy segment of a lane, eager against
+    replayed, per position."""
+    from pytorch_zappa_serverless_tpu_torch.ops.sampling import Gates
+    from pytorch_zappa_serverless_tpu_torch.tools import bench_fused_decode as BF
+
+    greedy = Gates(False, False, False)
+    g = kern.graphs._graphs[("segment", greedy)]
+    meta = engine.model(name).servable.meta["continuous"]
+    c = [g.inputs[k] for k in ("tok", "pos", "step", "fin", "temp", "seed", "topk", "topp")]
+
+    def eager():
+        with torch.inference_mode():
+            meta["segment"](kern.graphs.tree, kern.cache_k, kern.cache_v, *c, gates=greedy)
+
+    run = engine.runner.run_fn_sync
+    log_profiles(f"{name} segment", "position", run(BF.profile, eager, 1),
+                 run(BF.profile, g.captured.replay, 1), per=meta["segment_tokens"])
+
+
+def run_generate(profile: bool) -> dict:
+    """The :generate phase: the load, its checks, replay against eager at full
+    width, and the segment timings; returns int8_matmul's launches on the
+    load and the timings."""
+    fresh_memory()
+    t0 = time.perf_counter()
+    run = phase_generate_path(generate_config())
+    engine = run["engine"]
+    try:
+        log_memory("generate", engine)
+        held = check_generate(run)
+        log(f"generate load and its checks in {time.perf_counter() - t0:.3f} s")
+        phase_gen_replay(engine)
+        timing = phase_gen_timing(engine, run["kernels"])
+        if profile:
+            phase_gen_profile(engine, run["kernels"]["gpt2"], "gpt2")
+    finally:
+        engine.shutdown()
+    return {"launches": run["counts"]["int8_matmul"], "timing": timing, "held": held,
+            "stats": {n: run[n]["stats"] for n in ("gpt2", "gpt2_paged")},
+            "lane_cold_s": run["lane_cold_s"], "prefix": run["prefix"]}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
                     help="also profile served BERT forwards at both buckets, one SD-1.5 "
                          "denoise chunk, one served GPT-2 generate call, the three "
                          "GPT-2 decode lanes, served ResNet-50 (32,), EfficientNet-B0 (8,) "
-                         "and ViT-B/16 (8,) forwards and one Whisper int8 generate call "
-                         "(torch.profiler), and stamp the fused kernels' phases")
+                         "and ViT-B/16 (8,) forwards, one Whisper int8 generate call and "
+                         "one GPT-2 int8 :generate segment (torch.profiler), and stamp the "
+                         "fused kernels' phases")
     args = ap.parse_args(argv)
     phase_device()
     phase_build()
@@ -2495,6 +3388,7 @@ def main(argv: list[str] | None = None) -> int:
     vision = run_vision(args.profile)
     whisper = run_whisper(args.profile)
     vit_embed = run_vit_embed(args.profile)
+    generate = run_generate(args.profile)
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
         log(f"one forward's int8_matmul at M={m} (72 launches, the per-shape times summed): "
@@ -2533,6 +3427,7 @@ def main(argv: list[str] | None = None) -> int:
                                        "projections + the f32 lm head [384, 51968] over 28.2 MB "
                                        "of distinct int8 weights"},
         "launches_whisper_path": whisper["launches"],
+        "launches_generate_path": generate["launches"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/flash_attention.cu",
@@ -2577,6 +3472,17 @@ def main(argv: list[str] | None = None) -> int:
         f"{wstep['ms']:.4f} ms (cuBLAS {wstep['library_ms']:.4f}, bound {wstep['bound_ms']:.5f})")
     for (name, bucket), row in sorted(vit_embed["timing"].items()):
         log(f"{name} {bucket}: replayed {row['replay_ms']:.4f} ms, eager {row['eager_ms']:.4f} ms")
+    for name, bursts in generate["stats"].items():
+        spread = {k: (statistics.median(b[k] for b in bursts), min(b[k] for b in bursts),
+                      max(b[k] for b in bursts))
+                  for k in ("ttft_p50", "ttft_p99", "itl_p50", "tok_per_s")}
+        log(f"generate {name}: {bursts[0]['streams']} SSE streams from client threads in the "
+            f"server's process, median [min, max] over {len(bursts)} bursts: "
+            + ", ".join(f"{k} {m:.3f} [{lo:.3f}, {hi:.3f}]" for k, (m, lo, hi) in spread.items()))
+    for name, row in generate["timing"].items():
+        log(f"generate {name}: a greedy segment replayed {row['replay_ms']:.4f} ms, eager "
+            f"{row['eager_ms']:.4f} ms; lane cold start (its pool and every graph) "
+            f"{generate['lane_cold_s'].get(name, 0.0):.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -43,8 +43,40 @@ class ModelConfig:
     # QoS class of the dispatch lane ("latency" | "throughput"); "" defers to
     # the class the model family registered.
     latency_class: str = ""
+    # -- the :generate lane ---------------------------------------------------
+    # KV-cache engine: "slot" (a fixed pool of max-length rows) or "paged" (a
+    # pool of fixed-size pages; sequences hold the pages their tokens need,
+    # with chunked prefill and the prefix cache).
+    kv_cache: str = "slot"
+    # Token positions per KV page (paged only).
+    kv_block_size: int = 16
+    # Page-pool size (paged only); 0 -> slots x ceil(total / block) + 1, the
+    # slot pool's worst-case capacity.
+    kv_num_blocks: int = 0
+    # Max tokens per prefill dispatch, interleaved with decode segments; 0 ->
+    # one (bucketed) chunk per prompt.
+    prefill_chunk_tokens: int = 0
+    # Speculative decoding: the port serves neither a draft nor its verify
+    # yet, so only these defaults (off) are accepted.
+    spec_draft: str = ""
+    spec_k: int = 4
+    # Prefix KV cache (paged only): radix-tree reuse of frozen prompt pages,
+    # copy-on-write on divergence; idle decay (0 = none) and a page cap (0 =
+    # the pool itself).
+    prefix_cache: bool = True
+    prefix_cache_ttl_s: float = 0.0
+    prefix_cache_blocks: int = 0
     # Free-form per-model extras (arch overrides, params_dtype, labels, ...).
     extra: dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.kv_cache not in ("slot", "paged"):
+            raise ValueError(f"{self.name}: kv_cache must be 'slot' or 'paged', got "
+                             f"{self.kv_cache!r}")
+        if self.spec_draft or self.spec_k != 4:
+            raise ValueError(f"{self.name}: speculative decoding (spec_draft "
+                             f"{self.spec_draft!r}, spec_k {self.spec_k}) is not served by the "
+                             f"port yet; a later slice ports it (ROADMAP Queue 1 item 6)")
 
 
 @dataclass

@@ -242,6 +242,9 @@ class CompiledModel:
         # copied out before the next replay.
         self._graphs: dict[tuple, BucketGraph] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
+        # The :generate lanes' graph sets (engine/genkernels.LaneGraphs), in
+        # the census beside the buckets'.
+        self.lane_graphs: list = []
         ch = servable.meta.get("chunked")
         # One device copy of each chunk's schedule rows (their order is the
         # job lane's), which a chunk graph's static rows copy from.
@@ -331,8 +334,9 @@ class CompiledModel:
 
     @property
     def graphs(self) -> list[str]:
-        """The captured graphs' keys, in words."""
-        return [_label(k) for k in list(self._graphs)]
+        """The captured graphs' keys, in words, the lanes' after the buckets'."""
+        return ([_label(k) for k in list(self._graphs)]
+                + [label for lane in self.lane_graphs for label in lane.labels])
 
     # -- warmup -------------------------------------------------------------
     def _zeros(self, bucket: tuple[int, ...], per_sample: bool = False):

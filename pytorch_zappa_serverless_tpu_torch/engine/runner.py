@@ -225,6 +225,22 @@ class DeviceRunner:
         return self._pool.submit_lane(model.latency_class, self._run,
                                       model, samples, seq).result()
 
+    async def run_fn(self, fn, *args, model: CompiledModel):
+        """Run ``fn(*args)`` on the dispatch thread, on ``model``'s QoS lane,
+        and await its result: the generation lanes' prefills, inserts and
+        segments go through here, so all device work stays serialized on the
+        one thread.  The call's wall time on the thread adds to the model's
+        device seconds."""
+        name = model.servable.name
+
+        def call(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                self._add_device_seconds(name, time.perf_counter() - t0)
+        return await asyncio.wrap_future(self._pool.submit_lane(model.latency_class, call, *args))
+
     def run_fn_sync(self, fn, *args, **kwargs):
         """Run ``fn`` on the dispatch thread (latency lane), blocking the
         caller: device work outside a batch (model build, warmup) still
@@ -236,6 +252,10 @@ class DeviceRunner:
         """Record a model as device-resident with ``nbytes`` of parameters."""
         with self._lock:
             self._resident[name] = int(nbytes)
+
+    def untrack_model(self, name: str) -> None:
+        with self._lock:
+            self._resident.pop(name, None)
 
     def resident_bytes(self) -> dict[str, int]:
         with self._lock:

@@ -18,6 +18,13 @@ With ``extra.params_dtype: int8`` the q/k/v kernels fuse into one
 ``[D, 3D]`` projection and every layer kernel plus a transposed copy of
 ``wte`` (the lm head) become int8 + per-column scales, run by
 ``ops/int8_matmul``: 49 launches per forward position step at 12 layers.
+
+The servable also carries the JAX package's continuous-batching contract
+(``meta["continuous"]``, driven by ``serving/generation.py`` on
+``:generate``): admission prefill into a slot pool ``[L, S, total, D]`` and
+``segment_tokens``-step decode segments over it, and the block-paged
+functions (:func:`prefill_chunk_paged`, :func:`decode_segment_paged`) over
+a page pool ``[L, num_blocks, block_size, D]`` with per-row block tables.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch.nn.functional as F
 
 from ..ops.int8_matmul import (dense_maybe_int8, int8_matmul, pad_weights, quantize_per_channel,
                                quantize_tree)
+from ..ops.paged_attention import gather_kv, scatter_kv
 from ..ops.sampling import ALL_ON, Gates, apply_repetition_penalty, choose, gates_of
 
 # The int8 product every quantized projection and the lm head go through; a
@@ -184,27 +192,35 @@ def prefill(params: dict, tokens: torch.Tensor, lengths: torch.Tensor, total: in
     return _logits(params, x_last), cache_k, cache_v
 
 
+def _step_logits(params: dict, tok, w, klen: int, writer, cfg: GPT2Config, dtype):
+    """One token per row through every layer at positions ``w`` [S] int64,
+    attending over key positions ``< klen`` that are ``<= w``;
+    ``writer(i)`` is layer i's ``write_kv``.  Returns the logits [S, V] f32."""
+    kpos = torch.arange(klen, device=tok.device)
+    x = _embed(params, tok, w, cfg, dtype)[:, None, :]
+    mask_bias = torch.where(kpos[None, :] <= w[:, None], 0.0, _NEG).float()[:, None, None, :]
+    for i in range(cfg.layers):
+        x = _layer(params[f"layer{i}"], x, mask_bias, cfg, writer(i))
+    x = _ln(params["ln_f"], x, cfg.ln_eps)
+    return _logits(params, x[:, 0])
+
+
 def decode_step(params: dict, cache_k, cache_v, tok, wpos, cfg: GPT2Config,
                 dtype=torch.bfloat16) -> torch.Tensor:
     """One token per row through every layer: embeds ``tok`` [S] at
     ``wpos`` [S], writes its K/V into the caches at ``wpos`` in place,
     attends over positions <= ``wpos``; returns the logits [S, V] f32."""
-    S = tok.shape[0]
-    total = cache_k.shape[2]
-    rows = torch.arange(S, device=tok.device)
-    kpos = torch.arange(total, device=tok.device)
+    rows = torch.arange(tok.shape[0], device=tok.device)
     w = wpos.long()
-    x = _embed(params, tok, w, cfg, dtype)[:, None, :]
-    mask_bias = torch.where(kpos[None, :] <= w[:, None], 0.0, _NEG).float()[:, None, None, :]
-    for i in range(cfg.layers):
-        def write_kv(k, v, i=i):
+
+    def writer(i):
+        def write_kv(k, v):
             cache_k[i, rows, w] = k[:, 0]
             cache_v[i, rows, w] = v[:, 0]
             return _split_heads(cache_k[i], cfg.heads), _split_heads(cache_v[i], cfg.heads)
+        return write_kv
 
-        x = _layer(params[f"layer{i}"], x, mask_bias, cfg, write_kv)
-    x = _ln(params["ln_f"], x, cfg.ln_eps)
-    return _logits(params, x[:, 0])
+    return _step_logits(params, tok, w, cache_k.shape[2], writer, cfg, dtype)
 
 
 def _presence(tokens, lengths, vocab: int) -> torch.Tensor:
@@ -279,19 +295,35 @@ def decode_segment(params: dict, cache_k, cache_v, tok, pos, step, finished, tem
     passed in, updated in place, and ``presence`` gains each fed token.
     ``gates`` holds for the whole call (the knobs do not change).
     """
-    total = cache_k.shape[2]
     rows = torch.arange(tok.shape[0], device=tok.device)
     rep_on = repetition_penalty is not None and gates.rep_on
     seen = torch.ones((), dtype=torch.bool, device=tok.device)  # no host-to-device copy a step
-    t = step
-    emits = []
-    for _ in range(seg):
-        wpos = pos.clamp(max=total - 1)
+
+    def logits_at(tok, wpos):
         logits = decode_step(params, cache_k, cache_v, tok, wpos, cfg, dtype)
         if repetition_penalty is not None:
             presence[rows, tok.long()] = seen
             if rep_on:
                 logits = apply_repetition_penalty(logits, presence, repetition_penalty)
+        return logits
+
+    emits, tok, pos, step, finished = _segment_loop(
+        logits_at, cache_k.shape[2], tok, pos, step, finished, temperature, seeds, seg, cfg,
+        top_k, top_p, gates)
+    return emits, cache_k, cache_v, tok, pos, step, finished
+
+
+def _segment_loop(logits_at, limit: int, tok, pos, step, finished, temperature, seeds,
+                  seg: int, cfg: GPT2Config, top_k, top_p, gates: Gates):
+    """The decode loop both segment functions share: ``seg`` steps, each
+    feeding ``tok`` at ``min(pos, limit - 1)`` through ``logits_at(tok,
+    wpos)``.  Step t emits the token decided before it; a row that is
+    finished, or feeds EOS, emits EOS and keeps its ``pos``.  Returns
+    (emits [S, seg], tok, pos, step, finished)."""
+    t = step
+    emits = []
+    for _ in range(seg):
+        logits = logits_at(tok, pos.clamp(max=limit - 1))
         if gates.sampled:
             nxt = choose(logits, temperature, seeds, t + 1, top_k, top_p,
                          filtered=gates.filtered)
@@ -303,7 +335,105 @@ def decode_segment(params: dict, cache_k, cache_v, tok, pos, step, finished, tem
         pos = torch.where(fin, pos, pos + 1)
         t = t + 1
         finished = fin
-    return torch.stack(emits, dim=1), cache_k, cache_v, tok, pos, t, finished
+    return torch.stack(emits, dim=1), tok, pos, t, finished
+
+
+# ---------------------------------------------------------------------------
+# Block-paged functions (serving/generation.PagedGenerationScheduler drives
+# them): a pool of pages [L, num_blocks, block_size, D] and a block table
+# [S, max_blocks] per row.  Writes go through the table
+# (ops/paged_attention.scatter_kv), attention runs over the gathered virtual
+# cache (gather_kv), which at every position a row wrote holds what the slot
+# pool's contiguous row would, masked to exact zeros beyond.
+# ---------------------------------------------------------------------------
+
+def _paged_write(cache, layer: int, table, wpos, values, block_size: int):
+    """Scatter ``values`` [S, T, D] at ``wpos`` [S, T] (clipped to the
+    virtual range) through ``table`` into layer ``layer``'s pages, in place."""
+    return scatter_kv(cache[layer], table, wpos, values, block_size)
+
+
+def _paged_view(cache, layer: int, table, heads: int):
+    """One layer's virtual cache [S, MB*BS, D], head-split for attention."""
+    return _split_heads(gather_kv(cache[layer], table), heads)
+
+
+def _paged_writer(cache_k, cache_v, table, wpos, block_size: int, heads: int):
+    def writer(i):
+        def write_kv(k, v):
+            _paged_write(cache_k, i, table, wpos, k, block_size)
+            _paged_write(cache_v, i, table, wpos, v, block_size)
+            return (_paged_view(cache_k, i, table, heads),
+                    _paged_view(cache_v, i, table, heads))
+        return write_kv
+    return writer
+
+
+def prefill_chunk_logits(params: dict, tokens, start, lengths, cache_k, cache_v, table,
+                         block_size: int, cfg: GPT2Config, dtype=torch.bfloat16):
+    """One bounded prefill chunk over the paged pool, up to the logits.
+
+    ``tokens`` [G, C] is the chunk's slice of each prompt (zero-padded in a
+    final chunk), ``start`` [G] its absolute offset, ``lengths`` [G] the
+    whole prompt's length.  The query at ``start + i`` attends every key
+    ``j <= start + i`` with ``j < length``; earlier chunks' keys come back
+    through the table, so chained chunks give the monolithic
+    :func:`prefill`'s attention, and a prefix-cache hit's first chunk
+    starts at the cached offset over frozen pages.  Writes the chunk's K/V
+    into the caches in place and returns the logits [G, V] f32 at each
+    row's last prompt position inside the chunk, which mean something only
+    for rows whose final chunk this is."""
+    G, C = tokens.shape
+    VT = table.shape[1] * block_size
+    dev = tokens.device
+    pos = start.long()[:, None] + torch.arange(C, device=dev)[None, :]   # [G, C]
+    wpos = pos.clamp(max=VT - 1)
+    x = _embed(params, tokens, pos, cfg, dtype)
+    kpos = torch.arange(VT, device=dev)
+    keep = ((kpos[None, None, :] <= pos[:, :, None])
+            & (kpos[None, None, :] < lengths.long()[:, None, None]))
+    mask_bias = torch.where(keep, 0.0, _NEG).float()[:, None]
+    writer = _paged_writer(cache_k, cache_v, table, wpos, block_size, cfg.heads)
+    for i in range(cfg.layers):
+        x = _layer(params[f"layer{i}"], x, mask_bias, cfg, writer(i))
+    x = _ln(params["ln_f"], x, cfg.ln_eps)
+    idx = (lengths.long() - 1 - start.long()).clamp(0, C - 1)
+    return _logits(params, x[torch.arange(G, device=dev), idx])
+
+
+def prefill_chunk_paged(params: dict, tokens, start, lengths, cache_k, cache_v, table,
+                        temperature, seeds, top_k, top_p, block_size: int, cfg: GPT2Config,
+                        dtype=torch.bfloat16, gates: Gates = ALL_ON):
+    """:func:`prefill_chunk_logits` and each row's first token drawn from
+    them: (first [G], cache_k, cache_v), the caches updated in place;
+    ``first`` means something only for rows whose final chunk this is."""
+    logits = prefill_chunk_logits(params, tokens, start, lengths, cache_k, cache_v, table,
+                                  block_size, cfg, dtype)
+    t0 = torch.zeros(tokens.shape[:1], dtype=torch.int32, device=tokens.device)
+    first = choose(logits, temperature, seeds, t0, top_k, top_p, sampled=gates.sampled,
+                   filtered=gates.filtered)
+    return first, cache_k, cache_v
+
+
+def decode_segment_paged(params: dict, cache_k, cache_v, table, tok, pos, step, finished,
+                         temperature, seeds, seg: int, cfg: GPT2Config, block_size: int,
+                         dtype=torch.bfloat16, top_k=None, top_p=None,
+                         gates: Gates = ALL_ON):
+    """:func:`decode_segment` over the paged pool: the same steps, writes
+    and reads routed through ``table``.  Finished and empty rows carry an
+    all-trash table row, so their frozen-position writes land in the trash
+    page."""
+    VT = table.shape[1] * block_size
+
+    def logits_at(tok, wpos):
+        w = wpos.long()
+        writer = _paged_writer(cache_k, cache_v, table, w[:, None], block_size, cfg.heads)
+        return _step_logits(params, tok, w, VT, writer, cfg, dtype)
+
+    emits, tok, pos, step, finished = _segment_loop(
+        logits_at, VT, tok, pos, step, finished, temperature, seeds, seg, cfg, top_k, top_p,
+        gates)
+    return emits, cache_k, cache_v, tok, pos, step, finished
 
 
 # ---------------------------------------------------------------------------
@@ -383,11 +513,6 @@ _LATER = {
     "int8_crossover_batch": "params_dtype 'auto' (the regime-routed lane)",
     "adapter_slots": "LoRA adapters", "adapter_targets": "LoRA adapters",
     "adapter_rank": "LoRA adapters",
-    "gen_slots": "the continuous-batching contract (:generate)",
-    "segment_tokens": "the continuous-batching contract (:generate)",
-    "kv_cache": "the paged KV-cache contract",
-    "block_size": "the paged KV-cache contract",
-    "num_blocks": "the paged KV-cache contract",
 }
 
 
@@ -523,9 +648,93 @@ def make_gpt2_servable(name: str, cfg_model):
         batch["top_p"][len(samples):] = 1.0
         return batch
 
+    # The continuous-batching contract (serving/generation.py, the JAX
+    # servable's keys): ``gen_slots`` rows in a pool [L, S, total, D],
+    # advanced ``segment_tokens`` steps a segment.  Admission is
+    # model-shaped (Whisper admits audio), so the scheduler sizes it with
+    # ``admit_len_of`` and collates it with ``collate_admit``; ``prefill``
+    # takes the (batched) payload.  The lane's knobs carry no repetition
+    # penalty (the server refuses one on :generate).
+    gen_slots = int(cfg_model.extra.get("gen_slots", 4))
+    segment_tokens = int(cfg_model.extra.get("segment_tokens", 8))
+    total = max_seq + max_new
+
+    def collate_admit(sample, bucket):
+        ids = np.asarray(sample["input_ids"], np.int32)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, : ids.shape[0]] = ids
+        return {"input_ids": toks,
+                "length": np.asarray([max(ids.shape[0], 1)], np.int32),
+                "temperature": np.asarray([sample.get("temperature", 0.0)], np.float32),
+                "seed": np.asarray([sample.get("seed", 0)], np.int32),
+                "top_k": np.asarray([sample.get("top_k", 0)], np.int32),
+                "top_p": np.asarray([sample.get("top_p", 1.0)], np.float32)}
+
+    def admit_spec(bucket):
+        return {"input_ids": ((1, bucket), torch.int32), "length": ((1,), torch.int32),
+                "temperature": ((1,), torch.float32), "seed": ((1,), torch.int32),
+                "top_k": ((1,), torch.int32), "top_p": ((1,), torch.float32)}
+
+    def prefill_admit(tree, payload, gates: Gates = ALL_ON):
+        return prefill_start(tree, payload["input_ids"], payload["length"],
+                             payload["temperature"], payload["seed"], total, cfg, dtype,
+                             top_k=payload["top_k"], top_p=payload["top_p"], gates=gates)
+
+    def segment(tree, ck, cv, tok, pos, st, fin, temp, seeds, topk, topp,
+                gates: Gates = ALL_ON):
+        return decode_segment(tree, ck, cv, tok, pos, st, fin, temp, seeds, segment_tokens, cfg,
+                              dtype, top_k=topk, top_p=topp, gates=gates)
+
+    def make_paged(block_size: int, spec_k: int):
+        """The paged lane's device functions for one pool layout; ``spec_k``
+        is accepted for the contract's shape (speculation is not ported)."""
+        bs = int(block_size)
+        return {
+            "prefill_chunk": (
+                lambda tree, toks, start, length, ck, cv, table, temp, seed, topk, topp,
+                gates=ALL_ON:
+                prefill_chunk_paged(tree, toks, start, length, ck, cv, table, temp, seed,
+                                    topk, topp, bs, cfg, dtype, gates=gates)),
+            "segment": (
+                lambda tree, ck, cv, table, tok, pos, st, fin, temp, seeds, topk, topp,
+                gates=ALL_ON:
+                decode_segment_paged(tree, ck, cv, table, tok, pos, st, fin, temp, seeds,
+                                     segment_tokens, cfg, bs, dtype, top_k=topk, top_p=topp,
+                                     gates=gates)),
+        }
+
+    continuous = {
+        "slots": gen_slots, "segment_tokens": segment_tokens, "total": total,
+        "eos_id": cfg.eos_id, "max_new": max_new,
+        "prompt_buckets": tuple(sorted(int(s) for s in cfg_model.seq_buckets)),
+        "admit_len_of": lambda s: int(np.asarray(s["input_ids"]).shape[0]),
+        "collate_admit": collate_admit, "admit_spec": admit_spec,
+        "cache_shape": (cfg.layers, gen_slots, total, cfg.d_model), "cache_dtype": dtype,
+        "prefill": prefill_admit, "segment": segment,
+        "detokenize": (lambda toks: tokenizer.decode(toks)) if tokenizer is not None else None,
+        "paged": {
+            "make": make_paged,
+            "cache_shape": lambda num_blocks, block_size: (cfg.layers, num_blocks, block_size,
+                                                           cfg.d_model),
+            # Host-side admission adapters: the scheduler builds its own
+            # chunk payloads from the prompt ids and knobs.
+            "prompt_ids": lambda s: np.asarray(s["input_ids"], np.int32).reshape(-1),
+            "knobs": lambda s: (float(s.get("temperature", 0.0)), int(s.get("seed", 0)),
+                                int(s.get("top_k", 0)), float(s.get("top_p", 1.0))),
+            # Eviction continuation: the prompt and the tokens emitted so far
+            # become the re-admission prompt.
+            "extend_sample": lambda s, toks: {
+                **s, "input_ids": np.concatenate(
+                    [np.asarray(s["input_ids"], np.int32).reshape(-1),
+                     np.asarray(toks, np.int32)]),
+                "length": np.int32(np.asarray(s["input_ids"]).reshape(-1).shape[0]
+                                   + len(toks))},
+        },
+    }
+
     meta = {"seq_len_of": lambda s: int(s["input_ids"].shape[0]),
             "max_new_tokens": max_new, "collate": collate_lengths,
-            "variant_of": variant_of,
+            "variant_of": variant_of, "continuous": continuous,
             # What warm-up captures: a request that sets no knob.
             "default_variant": Gates(default_temperature > 0.0, False, False),
             "config": cfg, "dtype": dtype}

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from ..ops.int8_matmul import (dense_maybe_int8, int8_matmul, pad_weights, quantize_per_channel,
                                quantize_tree)
+from ..ops.sampling import ALL_ON, Gates, choose
 
 # The int8 product every quantized projection and the lm head go through; a
 # check may set it to ``int8_matmul_reference`` to hold the served model
@@ -181,21 +182,24 @@ def _cross_block(p: dict, x, cross_kv, heads: int, scale: float):
     return x + _dense(p["cout"], _attn(_dense(p["cq"], h) * scale, ck, cv, heads))
 
 
-def _decoder_step(params: dict, cfg: WhisperConfig, dtype, cross, tok, pos: int,
+def _decoder_step(params: dict, cfg: WhisperConfig, dtype, cross, tok, pos,
                   cache_k, cache_v, mask_bias) -> torch.Tensor:
     """One decoder position for every row: tok [B] at position ``pos`` (a
-    Python int), its K/V written into the caches [L, B, T, D] in place, the
-    self-attention over the cache under ``mask_bias`` [T] f32.  Returns the
-    logits [B, V] f32."""
+    Python int, or a per-row int64 tensor [B] on the continuous lane), its
+    K/V written into the caches [L, B, T, D] in place, the self-attention
+    over the cache under ``mask_bias`` ([T] f32, or [B, 1, 1, T]).  Returns
+    the logits [B, V] f32."""
     dec = params["decoder"]
     scale = cfg.head_dim ** -0.5
     x = _embed(dec, tok, pos, dtype)[:, None, :]
+    at = ((slice(None), pos) if isinstance(pos, int)
+          else (torch.arange(tok.shape[0], device=tok.device), pos))
     for i in range(cfg.decoder_layers):
         p = dec[f"layer{i}"]
         h = _ln(p["self_ln"], x)
         q = _dense(p["q"], h) * scale
-        cache_k[i, :, pos] = _dense(p["k"], h)[:, 0]
-        cache_v[i, :, pos] = _dense(p["v"], h)[:, 0]
+        cache_k[i][at] = _dense(p["k"], h)[:, 0]
+        cache_v[i][at] = _dense(p["v"], h)[:, 0]
         x = x + _dense(p["out"], _attn(q, cache_k[i], cache_v[i], cfg.heads, mask_bias))
         x = _ffn_block(p, _cross_block(p, x, cross[i], cfg.heads, scale))
     x = _ln(dec["final_ln"], x)
@@ -254,6 +258,70 @@ def decode_greedy(params: dict, enc_out: torch.Tensor, prompt: torch.Tensor, max
         finished = finished | (tok == cfg.eot_id)
         tok = logits.argmax(-1).to(torch.int32)
     return torch.stack(emits, dim=1).to(torch.int32)
+
+
+def prefill_continuous(params: dict, mel: torch.Tensor, prompt: torch.Tensor, total_self: int,
+                       cfg: WhisperConfig = TINY, dtype=torch.bfloat16, temperature=None,
+                       seeds=None, top_k=None, top_p=None, gates: Gates = ALL_ON):
+    """Admission for the continuous lane: audio → first token and packed
+    cache rows.  The encoder, each layer's cross K/V and the task prompt
+    ``prompt`` [B, P] run in one call; the rows are packed as ``[L, B,
+    source_positions + total_self, D]``, cross K/V in the first
+    ``source_positions`` slots and the self-attention cache after, so the
+    scheduler holds one (k, v) pool pair per model, as for GPT-2.  The first
+    token draws with the request's knobs at step 0 (greedy at temperature
+    0, the :predict chain)."""
+    enc = encode(params, mel, cfg, dtype)
+    cross = _cross_kv(params, enc, cfg)
+    logits, sk, sv = prefill_decoder(params, cross, prompt, total_self, cfg, dtype)
+    B = mel.shape[0]
+    if temperature is None:
+        first = logits.argmax(-1).to(torch.int32)
+    else:
+        zeros = torch.zeros((B,), dtype=torch.int32, device=mel.device)
+        first = choose(logits, temperature, zeros if seeds is None else seeds, zeros, top_k,
+                       top_p, sampled=gates.sampled, filtered=gates.filtered)
+    cross_k = torch.stack([c[0] for c in cross]).to(dtype)  # [L, B, CL, D]
+    cross_v = torch.stack([c[1] for c in cross]).to(dtype)
+    return first, torch.cat([cross_k, sk], dim=2), torch.cat([cross_v, sv], dim=2)
+
+
+def decode_segment(params: dict, cache_k, cache_v, tok, pos, step, finished, seg: int,
+                   cfg: WhisperConfig = TINY, dtype=torch.bfloat16, temperature=None,
+                   seeds=None, top_k=None, top_p=None, gates: Gates = ALL_ON):
+    """Advance every slot ``seg`` tokens through :func:`_decoder_step`: the
+    continuous lane's segment over the packed pools [L, S, CL + total_self,
+    D] of :func:`prefill_continuous`, updated in place.  ``pos`` [S] is each
+    row's next self-cache position.  Step t emits the token decided before
+    it; a row pins to EOT after its first EOT and keeps its ``pos``.  The
+    per-step math is :func:`decode_greedy`'s, so a lone slot's greedy
+    stream is the fixed-batch chain.  Returns (emits [S, seg], cache_k,
+    cache_v, tok, pos, step, finished)."""
+    CL = cfg.source_positions
+    total_self = cache_k.shape[2] - CL
+    self_k, self_v = cache_k[:, :, CL:], cache_v[:, :, CL:]
+    cross = [(cache_k[i, :, :CL], cache_v[i, :, :CL]) for i in range(cfg.decoder_layers)]
+    kpos = torch.arange(total_self, device=tok.device)
+    sampled = temperature is not None and gates.sampled
+    zeros = torch.zeros_like(tok)
+    t = step
+    emits = []
+    for _ in range(seg):
+        wpos = pos.clamp(max=total_self - 1).long()
+        mask = torch.where(kpos[None, :] <= wpos[:, None], 0.0, _NEG).float()[:, None, None, :]
+        logits = _decoder_step(params, cfg, dtype, cross, tok, wpos, self_k, self_v, mask)
+        if sampled:
+            nxt = choose(logits, temperature, zeros if seeds is None else seeds, t + 1, top_k,
+                         top_p, filtered=gates.filtered)
+        else:
+            nxt = logits.argmax(-1).to(torch.int32)
+        emits.append(torch.where(finished, cfg.eot_id, tok))
+        fin = finished | (tok == cfg.eot_id)
+        tok = torch.where(fin, cfg.eot_id, nxt).to(torch.int32)
+        pos = torch.where(fin, pos, pos + 1)
+        t = t + 1
+        finished = fin
+    return torch.stack(emits, dim=1), cache_k, cache_v, tok, pos, t, finished
 
 
 def decode_forced(params: dict, enc_out: torch.Tensor, tokens: torch.Tensor,
@@ -400,11 +468,6 @@ def make_whisper_servable(name: str, cfg_model):
     dtype = resolve_dtype(cfg_model.dtype)
     max_new = int(cfg_model.extra.get("max_new_tokens", 64))
     arch = {k: int(v) for k, v in dict(cfg_model.extra.get("arch", {})).items()}
-    for key in ("gen_slots", "segment_tokens"):
-        if key in cfg_model.extra:
-            raise ValueError(f"{name}: {key} asks for the continuous-batching contract "
-                             f"(:generate), which the port does not serve yet (ROADMAP Queue 1 "
-                             f"item 7)")
     if cfg_model.checkpoint:
         params = W.import_params(cfg_model.checkpoint, W.convert_whisper)
         cfg = dataclasses.replace(config_from_params(params), **arch)
@@ -462,7 +525,54 @@ def make_whisper_servable(name: str, cfg_model):
         """Per-window results, in order → one transcript."""
         return {"tokens": [t for r in results for t in r["tokens"]], "chunks": len(results)}
 
+    # The continuous lane (:generate), GPT-2's contract: admission carries
+    # one log-mel window (long audio belongs to :predict's chunk-and-merge)
+    # and the fixed task prompt; one admission bucket.
+    gen_slots = int(cfg_model.extra.get("gen_slots", 4))
+    segment_tokens = int(cfg_model.extra.get("segment_tokens", 8))
+    P = len(prompt_ids)
+    total_self = P + max_new
+    CL = cfg.source_positions
+
+    def collate_admit(sample, bucket):
+        return {"mel": np.asarray(sample["mel"], np.float32)[None],
+                "length": np.asarray([P], np.int32),
+                "temperature": np.asarray([sample.get("temperature", 0.0)], np.float32),
+                "seed": np.asarray([sample.get("seed", 0)], np.int32),
+                "top_k": np.asarray([sample.get("top_k", 0)], np.int32),
+                "top_p": np.asarray([sample.get("top_p", 1.0)], np.float32)}
+
+    def admit_spec(bucket):
+        return {"mel": ((1, cfg.n_mels, N_FRAMES), torch.float32),
+                "length": ((1,), torch.int32), "temperature": ((1,), torch.float32),
+                "seed": ((1,), torch.int32), "top_k": ((1,), torch.int32),
+                "top_p": ((1,), torch.float32)}
+
+    def prefill_admit(tree, payload, gates: Gates = ALL_ON):
+        mel = payload["mel"]
+        prompt = tree["prompt_ids"][None].expand(mel.shape[0], -1)
+        return prefill_continuous(tree, mel, prompt, total_self, cfg, dtype,
+                                  temperature=payload["temperature"], seeds=payload["seed"],
+                                  top_k=payload["top_k"], top_p=payload["top_p"], gates=gates)
+
+    def segment(tree, ck, cv, tok, pos, st, fin, temp, seeds, topk, topp,
+                gates: Gates = ALL_ON):
+        return decode_segment(tree, ck, cv, tok, pos, st, fin, segment_tokens, cfg, dtype,
+                              temperature=temp, seeds=seeds, top_k=topk, top_p=topp,
+                              gates=gates)
+
+    continuous = {
+        "slots": gen_slots, "segment_tokens": segment_tokens, "total": total_self,
+        "eos_id": cfg.eot_id, "max_new": max_new,
+        "prompt_buckets": (1,), "admit_len_of": lambda s: 1,
+        "collate_admit": collate_admit, "admit_spec": admit_spec,
+        "cache_shape": (cfg.decoder_layers, gen_slots, CL + total_self, cfg.d_model),
+        "cache_dtype": dtype, "prefill": prefill_admit, "segment": segment,
+        "detokenize": None,
+    }
+
     meta = {"max_new_tokens": max_new, "merge_results": merge_results,
+            "continuous": continuous,
             # :predict decodes greedily; the server answers 400 to these
             # knobs rather than ignore them.
             "predict_ignores_sampling": ("temperature", "seed", "top_k", "top_p"),

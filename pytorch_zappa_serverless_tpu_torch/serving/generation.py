@@ -1,0 +1,1053 @@
+"""Continuous batching and token streaming for the generative models.
+
+The port of the JAX package's ``serving/generation.py`` (single host; no
+lockstep, speculation, adapters or live migration).  The fixed-batch lane
+(``:predict``) runs one whole ``generate`` call a batch: nothing streams
+until it ends, and a batch's members are fixed at admission.  These lanes
+serve ``:generate`` instead, with every device program at static shapes
+(``engine/genkernels.py``):
+
+- :class:`GenerationScheduler`, the slot pool: ``slots`` decode rows over one
+  KV pool ``[L, S, total, D]`` on the device, advanced ``segment_tokens``
+  steps a segment.  Between segments (host control, no new program) the
+  emitted tokens stream to clients, rows that reach EOS or their budget
+  retire, and queued requests admit into free slots: same-bucket admissions
+  share one prefill, and an insert copies each row into its slot.
+- :class:`PagedGenerationScheduler`, the paged pool: sequences hold pages
+  (``serving/kvcache.py``) for the tokens they have; prompts prefill in
+  bounded chunks interleaved with decode segments, a prompt's whole pages
+  freeze into the radix prefix cache (``serving/prefixcache.py``) for later
+  prompts to share, and under pool pressure the newest stream is evicted and
+  re-admitted with its emitted tokens as prompt.
+
+A stream's tokens are those of the fixed-batch route: the same prefill, the
+same step math, and sampling keyed by (seed, per-row step) alone
+(``ops/sampling.py``), so a row's chain depends neither on its slot nor on
+the other rows in the pool.
+
+Concurrency: every device call runs on the engine's one dispatch thread
+through ``runner.run_fn``; each scheduler is one asyncio task, and request
+state is touched only from it.  Clients talk to it through asyncio queues
+and futures.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..engine.genkernels import PagedKernels, SlotKernels, unpack
+from ..utils.logging import get_logger, log_event
+from .kvcache import TRASH_BLOCK, BlockManager, KVPoolExhausted
+from .metrics import TOKEN_LATENCY_BUCKETS_MS, Histogram
+from .prefixcache import PrefixCache
+
+log = get_logger("serving.generation")
+
+
+@dataclass(eq=False)  # identity semantics: requests are unique, hashable
+class GenRequest:
+    """One streaming generation: admission inputs and client-facing outputs."""
+
+    sample: dict[str, np.ndarray]  # servable.preprocess output
+    max_new: int
+    submitted: float = field(default_factory=time.perf_counter)
+    admitted: float | None = None
+    # Device rounds (dispatch + fetch) and segments between submit and the
+    # first token.
+    rounds_at_submit: int = 0
+    segments_at_submit: int = 0
+    rounds_to_first_token: int | None = None
+    segments_to_first_token: int | None = None
+    # Token events stream here; None marks the end.
+    events: asyncio.Queue = field(default_factory=asyncio.Queue)
+    done: asyncio.Future = field(default_factory=asyncio.Future)
+    tokens: list[int] = field(default_factory=list)
+    slot: int | None = None
+    # Paged lane: evictions under pool pressure, admission order, and the
+    # prompt tokens the prefix cache served at the latest admission.
+    evictions: int = 0
+    admit_seq: int = 0
+    cached_tokens: int = 0
+    # When the first and the latest token reached the event queue.
+    first_token_at: float | None = None
+    last_token_at: float | None = None
+
+    def finish(self, error: str | None = None):
+        if not self.done.done():
+            if error is None:
+                self.done.set_result(list(self.tokens))
+            else:
+                self.done.set_exception(RuntimeError(error))
+                # Retrieved: an abandoned error future (client gone, shutdown)
+                # must not log "exception was never retrieved"; awaiting
+                # still raises.
+                self.done.exception()
+        self.events.put_nowait(None)
+
+
+def _note_token_latency(req: GenRequest, ttft_hist: Histogram, itl_hist: Histogram) -> None:
+    """The first token observes submit → now as time to first token; each
+    later one the gap since its predecessor (a segment's tokens arrive as a
+    burst, ~0 ms apart, as the client receives them)."""
+    now = time.perf_counter()
+    if req.first_token_at is None:
+        req.first_token_at = now
+        ttft_hist.observe((now - req.submitted) * 1000.0)
+    else:
+        itl_hist.observe((now - req.last_token_at) * 1000.0)
+    req.last_token_at = now
+
+
+class _Lane:
+    """What both schedulers share: the dispatch call on the model's QoS
+    lane, deferred cancellation, and the token fan-out of one request."""
+
+    def _run(self, fn, *args):
+        return self.runner.run_fn(fn, *args, model=self.cm)
+
+    def cancel(self, req: GenRequest):
+        """Release a request whose client disconnected: deferred to the
+        scheduler task (the only toucher of slot state); a pending request
+        drops before admission, an active one retires at the next segment
+        boundary."""
+        self._cancelled.add(req)
+        self._wake.set()
+
+    @property
+    def depth(self) -> int:
+        return len(self._pending)
+
+    def _emit(self, req: GenRequest, token: int) -> bool:
+        """Record one generated token; True when the request is done.  EOS
+        ends the stream and is never an event; the token that spends the
+        budget is the last."""
+        if token == self.eos_id:
+            return True
+        req.tokens.append(token)
+        req.events.put_nowait(token)
+        self.tokens_emitted += 1
+        _note_token_latency(req, self.ttft_hist, self.itl_hist)
+        return len(req.tokens) >= req.max_new
+
+
+class GenerationScheduler(_Lane):
+    """Slot-pool continuous-batching loop for one generative model."""
+
+    def __init__(self, cm, runner, mc, ring=None):
+        meta = cm.servable.meta["continuous"]
+        self.cm = cm
+        self.runner = runner
+        self.ring = ring
+        self.name = cm.servable.name
+        self.slots: int = meta["slots"]
+        self.total: int = meta["total"]
+        self.eos_id: int = meta["eos_id"]
+        self.max_new: int = meta["max_new"]
+        self.seg: int = meta["segment_tokens"]
+        self.prompt_buckets: tuple[int, ...] = meta["prompt_buckets"]
+        self.detokenize = meta.get("detokenize")
+        # Model-shaped admission (Whisper admits audio, GPT-2 token ids):
+        # the payload must carry "length" [1] (the first decode position)
+        # and may carry the sampling knobs [1].
+        self._admit_len_of = meta["admit_len_of"]
+        self._collate_admit = meta["collate_admit"]
+        # The pool and its programs; the pool is updated in place.
+        self.kernels = SlotKernels(cm)
+        self._prefill = self.kernels.prefill
+        self._segment = self.kernels.segment
+        self._insert_from = self.kernels.insert_from
+        # Slot state and the pool are "dispatch-serialized": mutated by the
+        # *_sync functions on the dispatch thread AND by the scheduler task,
+        # never at once (the task awaits every run_fn round trip).
+        self.prefill_dispatches = 0  # guarded-by: dispatch-serialized
+        S = self.slots
+        self._tok = np.zeros((S,), np.int32)    # guarded-by: dispatch-serialized
+        self._pos = np.zeros((S,), np.int32)    # guarded-by: dispatch-serialized
+        self._step = np.zeros((S,), np.int32)   # guarded-by: dispatch-serialized
+        self._finished = np.ones((S,), bool)    # guarded-by: dispatch-serialized
+        self._temp = np.zeros((S,), np.float32)  # guarded-by: dispatch-serialized
+        self._seed = np.zeros((S,), np.int32)   # guarded-by: dispatch-serialized
+        self._topk = np.zeros((S,), np.int32)   # guarded-by: dispatch-serialized
+        self._topp = np.ones((S,), np.float32)  # guarded-by: dispatch-serialized
+        self._active: dict[int, GenRequest] = {}  # guarded-by: event-loop
+        self._free = list(range(S))               # guarded-by: event-loop
+        self._pending: collections.deque[GenRequest] = collections.deque()  # guarded-by: event-loop
+        self._cancelled: set[GenRequest] = set()  # guarded-by: event-loop
+        self._max_pending = int(mc.max_concurrency)
+        self._wake = asyncio.Event()
+        self._task: asyncio.Task | None = None  # guarded-by: event-loop
+        self._stopped = False  # guarded-by: event-loop
+        # Set only if the lane stops for good; /healthz reports it.
+        self.fatal: str | None = None  # guarded-by: event-loop
+        # Device rounds (one dispatch + fetch each), bumped on the dispatch
+        # thread, read by the loop task.
+        self.device_rounds = 0   # guarded-by: dispatch-serialized
+        self.segment_rounds = 0  # guarded-by: dispatch-serialized
+        self.tokens_emitted = 0  # guarded-by: event-loop
+        self.ttft_hist = Histogram(TOKEN_LATENCY_BUCKETS_MS)
+        self.itl_hist = Histogram(TOKEN_LATENCY_BUCKETS_MS)
+
+    # -- device kernels (all called on the runner's dispatch thread) --------
+    def _ensure_cache(self):
+        self.kernels.ensure()
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.prompt_buckets:
+            if b >= n:
+                return b
+        raise ValueError(f"prompt of {n} tokens exceeds the largest bucket "
+                         f"{self.prompt_buckets[-1]}")
+
+    def _set_slot(self, slot: int, first_tok: int, payload: dict, j: int):
+        self._tok[slot] = first_tok
+        self._pos[slot] = int(payload["length"][j])
+        self._step[slot] = 0
+        self._finished[slot] = False
+        self._temp[slot] = float(payload.get("temperature", np.zeros(j + 1))[j])
+        self._seed[slot] = int(payload.get("seed", np.zeros(j + 1, np.int32))[j])
+        self._topk[slot] = int(payload.get("top_k", np.zeros(j + 1, np.int32))[j])
+        self._topp[slot] = float(payload.get("top_p", np.ones(j + 1))[j])
+
+    def _admit_batch_sync(self, group: list, bucket: int):
+        """Admit N same-bucket requests with ONE prefill dispatch.
+
+        ``group`` is [(req, slot, payload), ...].  Payloads stack on the
+        batch axis and pad to the next power of two (one prefill program per
+        (bucket, power-of-two batch)); pad rows compute garbage and are never
+        inserted.  One fetch (the first tokens) for the whole group."""
+        B = len(group)
+        Bp = 1 << (B - 1).bit_length()
+        payloads = [p for _, _, p in group]
+        batched = {
+            k: np.concatenate([p[k] for p in payloads] + [payloads[0][k]] * (Bp - B), axis=0)
+            for k in payloads[0]
+        }
+        self._ensure_cache()
+        first = self._prefill(batched)
+        self.prefill_dispatches += 1
+        for j, (req, slot, payload) in enumerate(group):
+            self._insert_from(j, slot)
+            self._set_slot(slot, int(first[j]), batched, j)
+        self.device_rounds += 1
+
+    def _segment_sync(self):
+        """One decode segment over the whole pool (dispatch thread): the
+        carries go in, the emits [S, seg] and the new carries come back in
+        one fetch; the pool stays on the device."""
+        out = self._segment({"tok": self._tok, "pos": self._pos, "step": self._step,
+                             "fin": self._finished, "temp": self._temp, "seed": self._seed,
+                             "topk": self._topk, "topp": self._topp})
+        emits, self._tok, self._pos, self._step, self._finished = unpack(out, self.seg)
+        self.device_rounds += 1
+        self.segment_rounds += 1
+        return emits
+
+    # -- client API ---------------------------------------------------------
+    def submit(self, sample: dict, max_new: int | None = None) -> GenRequest:
+        if self._stopped:
+            raise RuntimeError("generation scheduler is shut down")
+        backlog = len(self._pending) + len(self._active)
+        if backlog >= self._max_pending:
+            raise OverflowError(f"generation backlog full ({self._max_pending})")
+        # An over-length prompt fails here, with a clean error to the client.
+        self._bucket_for(self._admit_len_of(sample))
+        want = self.max_new if max_new is None else max(1, min(int(max_new), self.max_new))
+        req = GenRequest(sample=sample, max_new=want, rounds_at_submit=self.device_rounds,
+                         segments_at_submit=self.segment_rounds)
+        self._pending.append(req)
+        self._wake.set()
+        return req
+
+    def _process_cancellations(self):
+        for req in list(self._cancelled):
+            self._cancelled.discard(req)
+            if req in self._pending:
+                self._pending.remove(req)
+                req.finish(error="cancelled")
+            elif req.slot is not None and self._active.get(req.slot) is req:
+                slot = req.slot
+                self._finished[slot] = True
+                self._tok[slot] = self.eos_id
+                del self._active[slot]
+                self._free.append(slot)
+                req.finish(error="cancelled")
+            # else: already finished — nothing to release
+
+    @property
+    def active(self) -> int:
+        return len(self._active)
+
+    def gen_snapshot(self) -> dict:
+        """Lane introspection for /metrics."""
+        return {"mode": "slot", "slots": self.slots,
+                "active": len(self._active), "pending": len(self._pending),
+                "device_rounds": self.device_rounds,
+                "segment_rounds": self.segment_rounds,
+                "prefill_dispatches": self.prefill_dispatches,
+                "tokens_emitted": self.tokens_emitted,
+                "latency": {"ttft_ms": self.ttft_hist.snapshot(),
+                            "itl_ms": self.itl_hist.snapshot()}}
+
+    def warm(self):
+        """Capture the lane's first graphs ahead of traffic (dispatch thread)."""
+        self.kernels.warm()
+
+    def start(self):
+        if self._task is None:
+            self._task = asyncio.get_running_loop().create_task(self._loop(),
+                                                                name=f"gen-{self.name}")
+        return self
+
+    async def stop(self):
+        self._stopped = True
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+        for req in list(self._active.values()) + list(self._pending):
+            req.finish(error="generation scheduler shut down")
+        self._active.clear()
+        self._pending.clear()
+
+    # -- the loop -----------------------------------------------------------
+    async def _loop(self):
+        while True:
+            if not self._pending and not self._active:
+                self._wake.clear()
+                await self._wake.wait()
+            self._process_cancellations()
+            # Admit into free slots (prefill runs on the dispatch thread, so
+            # it serializes with segments and other models' traffic); same-
+            # bucket admissions coalesce into one batched prefill.
+            admits: list[tuple[GenRequest, int]] = []
+            while self._free and self._pending:
+                admits.append((self._pending.popleft(), self._free.pop()))
+            groups: dict[int, list] = {}
+            for req, slot in admits:
+                try:
+                    bucket = self._bucket_for(self._admit_len_of(req.sample))
+                    payload = self._collate_admit(req.sample, bucket)
+                except Exception as e:  # bad sample fails only itself
+                    self._free.append(slot)
+                    req.finish(error=f"{type(e).__name__}: {e}")
+                    continue
+                groups.setdefault(bucket, []).append((req, slot, payload))
+            group_list = list(groups.items())
+            for gi, (bucket, group) in enumerate(group_list):
+                try:
+                    await self._run(self._admit_batch_sync, group, bucket)
+                except Exception as e:  # device fault: fail these requests
+                    log.exception("admission failed for %s", self.name)
+                    for req, slot, _ in group:
+                        self._free.append(slot)
+                        # A partly admitted batch may have unfrozen some slot
+                        # rows; re-pin them so an orphaned row doesn't keep
+                        # decoding garbage until reuse.
+                        self._finished[slot] = True
+                        req.finish(error=f"{type(e).__name__}: {e}")
+                    # Requests in groups this round hasn't reached were popped
+                    # from _pending but never entered _active: re-queue them,
+                    # or a pool reset would orphan them.
+                    remaining = [r for _, g in group_list[gi + 1:] for r, _, _ in g]
+                    if self._cache_deleted():
+                        # The fault tore the pool: fail the in-flight streams
+                        # like a segment fault, reset the pool, and re-admit
+                        # this round's remaining groups next round (their
+                        # slots came from the old free list).
+                        for slot, req in list(self._active.items()):
+                            req.finish(error=f"{type(e).__name__}: {e} "
+                                             "(cache pool lost to a faulted admission)")
+                        for r in reversed(remaining):
+                            self._pending.appendleft(r)
+                        self._reset_pool()
+                        break
+                    continue
+                for req, slot, _ in group:
+                    req.slot = slot
+                    req.admitted = time.perf_counter()
+                    self._active[slot] = req
+                # (The first token is computed at admission but streamed by
+                # the next segment, which emits the token decided before each
+                # step.)
+            if not self._active:
+                continue
+            try:
+                emits = await self._run(self._segment_sync)
+            except Exception as e:
+                # Device fault mid-segment: fail every in-flight request
+                # loudly and reset the pool.
+                log.exception("segment failed for %s", self.name)
+                for slot, req in list(self._active.items()):
+                    req.finish(error=f"{type(e).__name__}: {e}")
+                self._reset_pool()
+                continue
+            self._distribute(emits)
+
+    def _cache_deleted(self) -> bool:
+        """True when a pool-writing dispatch faulted part-way."""
+        return self.kernels.torn
+
+    def _reset_pool(self):
+        self.kernels.reset()
+        self._finished[:] = True
+        self._active.clear()
+        self._free = list(range(self.slots))
+
+    def _distribute(self, emits: np.ndarray):
+        """Fan segment output to requests; retire finished slots."""
+        for slot, req in list(self._active.items()):
+            finished = False
+            had_tokens = bool(req.tokens)
+            for t in range(emits.shape[1]):
+                finished = self._emit(req, int(emits[slot, t]))
+                if finished:
+                    break
+            if not had_tokens and req.tokens:
+                req.rounds_to_first_token = self.device_rounds - req.rounds_at_submit
+                req.segments_to_first_token = self.segment_rounds - req.segments_at_submit
+            if finished:
+                self._finished[slot] = True
+                self._tok[slot] = self.eos_id
+                del self._active[slot]
+                self._free.append(slot)
+                if self.ring is not None:
+                    total_ms = (time.perf_counter() - req.submitted) * 1000
+                    queue_ms = (req.admitted - req.submitted) * 1000
+                    self.ring.record(queue_ms, total_ms - queue_ms, total_ms)
+                req.finish()
+                log_event(log, "generation finished", model=self.name, slot=slot,
+                          tokens=len(req.tokens))
+        if self._free and self._pending:
+            self._wake.set()
+
+
+# ---------------------------------------------------------------------------
+# The paged lane: block-paged KV pool, chunked prefill, prefix cache
+# ---------------------------------------------------------------------------
+
+@dataclass(eq=False)
+class _PrefillJob:
+    """One request mid-chunked-prefill: which chunk is next, into which
+    slot, against which prompt ids (eviction continuations extend them)."""
+
+    req: GenRequest
+    slot: int
+    ids: np.ndarray                       # the whole prompt, int32 [P]
+    chunks: list[tuple[int, int]]         # (start, bucket) per chunk
+    knobs: tuple[float, int, int, float]  # temperature, seed, top_k, top_p
+    aidx: int = 0                         # adapter slot: always 0 in the port
+    next: int = 0
+    # Prefix-cache state: tokens already resident in frozen pages (chunk 0
+    # starts there), and copy-on-write page pairs (src, dst) the first chunk
+    # dispatch copies before any read; the scheduler then drops the held src
+    # refs.
+    cached: int = 0
+    cow: list[tuple[int, int]] = field(default_factory=list)
+
+    @property
+    def done(self) -> bool:
+        return self.next >= len(self.chunks)
+
+
+class PagedGenerationScheduler(_Lane):
+    """Continuous batching over a block-paged KV pool, with chunked prefill
+    and the prefix cache (``ModelConfig.kv_cache: "paged"``).
+
+    Against :class:`GenerationScheduler`: one pool of ``kv_num_blocks``
+    pages (``serving/kvcache.BlockManager``) instead of ``slots``
+    max-length rows, so sequences hold pages for the tokens they have (the
+    pool's bytes are tracked in the runner's residency ledger as
+    ``{model}:kvcache``); prompts prefill in ``prefill_chunk_tokens``-bounded
+    chunks, at most one chunk dispatch a loop tick between decode segments,
+    so a long prompt cannot stall the live streams.  One asyncio task owns
+    all host state and every device call goes through ``runner.run_fn``, as
+    in the slot pool.
+    """
+
+    # The final (partial) chunk pads to the smallest power of two from this
+    # one up that holds it: one chunk program per (bucket, power-of-two
+    # group), not one per prompt length.
+    _CHUNK_LADDER_MIN = 8
+
+    def __init__(self, cm, runner, mc, ring=None):
+        meta = cm.servable.meta["continuous"]
+        if meta.get("paged") is None:
+            raise ValueError(
+                f"{cm.servable.name}: kv_cache='paged' configured but the servable exposes no "
+                "paged kernel contract (meta['continuous']['paged']); use kv_cache='slot'")
+        self.cm = cm
+        self.runner = runner
+        self.ring = ring
+        self.name = cm.servable.name
+        self.slots: int = meta["slots"]
+        self.total: int = meta["total"]
+        self.eos_id: int = meta["eos_id"]
+        self.max_new: int = meta["max_new"]
+        self.seg: int = meta["segment_tokens"]
+        self.max_prompt: int = meta["prompt_buckets"][-1]
+        self.detokenize = meta.get("detokenize")
+        pg = meta["paged"]
+        self._prompt_ids = pg["prompt_ids"]
+        self._knobs_of = pg["knobs"]
+        self._extend_sample = pg["extend_sample"]
+        # Pool layout: block 0 is trash; the default size is the slot pool's
+        # worst case (slots x max_blocks + 1), so it serves the same load in
+        # the same memory; kv_num_blocks sizes it down.
+        self.block_size = max(int(mc.kv_block_size), 1)
+        self.max_blocks = -(-self.total // self.block_size)
+        auto_blocks = self.slots * self.max_blocks + 1
+        self.num_blocks = int(mc.kv_num_blocks) or auto_blocks
+        self._mgr = BlockManager(self.num_blocks, self.block_size,
+                                 self.max_blocks)  # guarded-by: event-loop
+        # Chunked prefill: bounded chunk cost; 0 → one chunk per prompt.
+        cap = int(mc.prefill_chunk_tokens)
+        self.chunk_cap = cap if cap > 0 else self.max_prompt
+        self.kernels = PagedKernels(cm, self.block_size, self.num_blocks, int(mc.spec_k))
+        self._prefill_chunk = self.kernels.prefill_chunk
+        self._segment = self.kernels.segment
+        self._copy_page = self.kernels.copy_page
+        self._cache_nbytes = self.kernels.cache_nbytes
+        # Prefix KV cache: matched prefixes skip prefill, CoW keeps
+        # divergence exact.
+        self.prefix_ttl_s = float(mc.prefix_cache_ttl_s)
+        self._prefix: PrefixCache | None = None  # guarded-by: event-loop
+        if bool(mc.prefix_cache):
+            self._prefix = PrefixCache(self._mgr, self.block_size,
+                                       max_pages=int(mc.prefix_cache_blocks))
+        S = self.slots
+        self._tok = np.zeros((S,), np.int32)    # guarded-by: dispatch-serialized
+        self._pos = np.zeros((S,), np.int32)    # guarded-by: dispatch-serialized
+        self._step = np.zeros((S,), np.int32)   # guarded-by: dispatch-serialized
+        self._finished = np.ones((S,), bool)    # guarded-by: dispatch-serialized
+        self._temp = np.zeros((S,), np.float32)  # guarded-by: dispatch-serialized
+        self._seed = np.zeros((S,), np.int32)   # guarded-by: dispatch-serialized
+        self._topk = np.zeros((S,), np.int32)   # guarded-by: dispatch-serialized
+        self._topp = np.ones((S,), np.float32)  # guarded-by: dispatch-serialized
+        self._active: dict[int, GenRequest] = {}  # guarded-by: event-loop
+        self._prefilling: collections.deque[_PrefillJob] = collections.deque()  # guarded-by: event-loop
+        self._free = list(range(S))               # guarded-by: event-loop
+        self._pending: collections.deque[GenRequest] = collections.deque()  # guarded-by: event-loop
+        self._cancelled: set[GenRequest] = set()  # guarded-by: event-loop
+        self._max_pending = int(mc.max_concurrency)
+        self._wake = asyncio.Event()
+        self._task: asyncio.Task | None = None  # guarded-by: event-loop
+        self._stopped = False  # guarded-by: event-loop
+        self.fatal: str | None = None  # guarded-by: event-loop
+        self._admit_counter = 0  # guarded-by: event-loop
+        # Decode pace EMA (seconds per emitted token): what the exhaustion
+        # shed's Retry-After is computed from.
+        self._s_per_token = 0.0  # guarded-by: event-loop
+        self.device_rounds = 0      # guarded-by: dispatch-serialized
+        self.segment_rounds = 0     # guarded-by: dispatch-serialized
+        self.prefill_chunks = 0     # guarded-by: dispatch-serialized
+        self.tokens_emitted = 0  # guarded-by: event-loop
+        self.ttft_hist = Histogram(TOKEN_LATENCY_BUCKETS_MS)
+        self.itl_hist = Histogram(TOKEN_LATENCY_BUCKETS_MS)
+
+    # -- sizing ---------------------------------------------------------------
+    def _chunk_plan(self, n: int, start: int = 0) -> list[tuple[int, int]]:
+        """(start, bucket) chunks covering an ``n``-token prompt from
+        ``start`` (the prefix-cached offset): whole ``chunk_cap`` chunks,
+        then one power-of-two-bucketed remainder."""
+        chunks = []
+        while n - start > self.chunk_cap:
+            chunks.append((start, self.chunk_cap))
+            start += self.chunk_cap
+        rem = n - start
+        b = self._CHUNK_LADDER_MIN
+        while b < rem:
+            b *= 2
+        chunks.append((start, min(b, self.chunk_cap)))
+        return chunks
+
+    def chunk_buckets(self) -> list[int]:
+        """Every chunk length a plan can give."""
+        out, b = [], self._CHUNK_LADDER_MIN
+        while b < self.chunk_cap:
+            out.append(b)
+            b *= 2
+        return out + [self.chunk_cap]
+
+    def _table_np(self) -> np.ndarray:
+        """The decode block table [S, max_blocks]: active rows from the
+        manager, every other row all trash (frozen rows write harmlessly)."""
+        table = np.full((self.slots, self.max_blocks), TRASH_BLOCK, np.int32)
+        for slot, req in self._active.items():
+            table[slot] = self._mgr.table_row(req)
+        return table
+
+    # -- device kernels (dispatch thread) ------------------------------------
+    def _ensure_cache(self):
+        self.kernels.ensure()
+        self._track_pool()
+
+    def _track_pool(self):
+        """The page pool's bytes in the runner's residency ledger, as
+        ``{model}:kvcache``."""
+        self.runner.track_model(f"{self.name}:kvcache", self._cache_nbytes)
+
+    def _chunk_payload(self, jobs: list[_PrefillJob], bucket: int) -> tuple:
+        """Collate one chunk group's host arrays (event-loop side).  Pad rows
+        (power-of-two group) carry zeros and an all-trash table."""
+        G = len(jobs)
+        Gp = 1 << (G - 1).bit_length()
+        toks = np.zeros((Gp, bucket), np.int32)
+        start = np.zeros((Gp,), np.int32)
+        length = np.ones((Gp,), np.int32)
+        temp = np.zeros((Gp,), np.float32)
+        seed = np.zeros((Gp,), np.int32)
+        topk = np.zeros((Gp,), np.int32)
+        topp = np.ones((Gp,), np.float32)
+        table = np.full((Gp, self.max_blocks), TRASH_BLOCK, np.int32)
+        aidx = np.zeros((Gp,), np.int32)
+        for j, job in enumerate(jobs):
+            s0, cb = job.chunks[job.next]
+            sl = job.ids[s0:s0 + cb]
+            toks[j, :sl.shape[0]] = sl
+            start[j] = s0
+            length[j] = job.ids.shape[0]
+            temp[j], seed[j], topk[j], topp[j] = job.knobs
+            aidx[j] = job.aidx
+            table[j] = self._mgr.table_row(job.req)
+        return toks, start, length, temp, seed, topk, topp, table, aidx
+
+    def _prefill_chunk_sync(self, payload: tuple, n_jobs: int,
+                            cows: list[tuple[int, int]] = ()):
+        """One chunk dispatch for a same-bucket group (padded to a power of
+        two).  Pending copy-on-write page copies run first: a job whose
+        prefix hit diverged mid-page got a fresh page at admission, and its
+        chunk reads the copied page's cached positions."""
+        self._ensure_cache()
+        for src, dst in cows:
+            self._copy_page(src, dst)
+        first = self._prefill_chunk(payload)
+        self.prefill_chunks += n_jobs
+        self.device_rounds += 1
+        return first
+
+    def _segment_sync(self, table: np.ndarray):
+        """One decode segment over the pool (dispatch thread)."""
+        out = self._segment(table, {"tok": self._tok, "pos": self._pos, "step": self._step,
+                                    "fin": self._finished, "temp": self._temp,
+                                    "seed": self._seed, "topk": self._topk,
+                                    "topp": self._topp})
+        emits, self._tok, self._pos, self._step, self._finished = unpack(out, self.seg)
+        self.device_rounds += 1
+        self.segment_rounds += 1
+        return emits
+
+    # -- client API -----------------------------------------------------------
+    def submit(self, sample: dict, max_new: int | None = None) -> GenRequest:
+        if self._stopped:
+            raise RuntimeError("generation scheduler is shut down")
+        backlog = len(self._pending) + len(self._prefilling) + len(self._active)
+        if backlog >= self._max_pending:
+            raise OverflowError(f"generation backlog full ({self._max_pending})")
+        ids = self._prompt_ids(sample)
+        plen = int(ids.shape[0])
+        if plen > self.max_prompt:
+            raise ValueError(f"prompt is {plen} tokens but the longest configured seq "
+                             f"bucket is {self.max_prompt}")
+        need = self._mgr.blocks_for(plen + 1)
+        effective_free = self._mgr.free_blocks
+        if self._prefix is not None:
+            # Pages held only by decayed prefix nodes are one reclaim() away
+            # from free.
+            effective_free += self._prefix.reclaimable()
+        if need > effective_free and self._pending:
+            # Pool exhausted AND a queue already waits: shed with the
+            # expected block-release horizon (the server answers 429 with
+            # Retry-After).
+            raise KVPoolExhausted(
+                f"KV pool exhausted ({self._mgr.free_blocks} of {self.num_blocks - 1} blocks "
+                f"free, prompt needs {need})",
+                retry_after_s=self.expected_release_s(),
+                free_blocks=self._mgr.free_blocks, needed_blocks=need)
+        want = self.max_new if max_new is None else max(1, min(int(max_new), self.max_new))
+        req = GenRequest(sample=sample, max_new=want, rounds_at_submit=self.device_rounds,
+                         segments_at_submit=self.segment_rounds)
+        self._pending.append(req)
+        self._wake.set()
+        return req
+
+    def expected_release_s(self) -> float:
+        """When blocks plausibly free: the closest-to-done active stream's
+        remaining tokens at the recent decode pace."""
+        pace = self._s_per_token or 0.05
+        remaining = [req.max_new - len(req.tokens) for req in self._active.values()]
+        horizon = min(remaining) * pace if remaining else 1.0
+        return float(min(max(horizon, 0.05), 30.0))
+
+    @property
+    def active(self) -> int:
+        return len(self._active) + len(self._prefilling)
+
+    def gen_snapshot(self) -> dict:
+        """Lane introspection for /metrics."""
+        out = {
+            "mode": "paged",
+            "slots": self.slots,
+            "active": len(self._active),
+            "prefilling": len(self._prefilling),
+            "pending": len(self._pending),
+            "kv": self._mgr.snapshot(),
+            "prefill_chunks": self.prefill_chunks,
+            "chunk_cap": self.chunk_cap,
+            "device_rounds": self.device_rounds,
+            "segment_rounds": self.segment_rounds,
+            "tokens_emitted": self.tokens_emitted,
+            "latency": {"ttft_ms": self.ttft_hist.snapshot(),
+                        "itl_ms": self.itl_hist.snapshot()},
+        }
+        if self._prefix is not None:
+            out["prefix"] = self._prefix.snapshot()
+        return out
+
+    def invalidate_prefix(self, aidx: int) -> int:
+        """Drop every frozen prefix under one adapter slot (0 is the base
+        model's: the port serves no adapters yet)."""
+        if self._prefix is None:
+            return 0
+        return self._prefix.invalidate(aidx)
+
+    def warm(self):
+        """Capture the lane's first graphs ahead of traffic (dispatch thread)."""
+        self.kernels.warm(self.chunk_buckets(), self.max_blocks)
+        if self.kernels.cache_k is not None:
+            self._track_pool()
+
+    def start(self):
+        if self._task is None:
+            self._task = asyncio.get_running_loop().create_task(
+                self._loop(), name=f"gen-paged-{self.name}")
+        return self
+
+    async def stop(self):
+        self._stopped = True
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+        for req in (list(self._active.values()) + [j.req for j in self._prefilling]
+                    + list(self._pending)):
+            req.finish(error="generation scheduler shut down")
+        self._active.clear()
+        self._prefilling.clear()
+        self._pending.clear()
+        self.runner.untrack_model(f"{self.name}:kvcache")
+
+    # -- the loop -------------------------------------------------------------
+    async def _loop(self):
+        while True:
+            if not (self._pending or self._prefilling or self._active):
+                self._wake.clear()
+                await self._wake.wait()
+            self._process_cancellations()
+            if self._prefix is not None and self.prefix_ttl_s > 0:
+                self._prefix.decay(self.prefix_ttl_s)
+            try:
+                await self._admit()
+                await self._prefill_tick()
+                await self._decode_tick()
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:
+                # A device fault that tore the pool: fail every in-flight
+                # stream loudly and rebuild the pool, manager included.
+                log.exception("paged generation tick failed for %s", self.name)
+                self._fail_all_inflight(f"{type(e).__name__}: {e}")
+                self._reset_pool()
+
+    def _fail_all_inflight(self, msg: str):
+        for req in list(self._active.values()) + [j.req for j in self._prefilling]:
+            req.finish(error=msg)
+        self._active.clear()
+        self._prefilling.clear()
+
+    def _reset_pool(self):
+        self.kernels.reset()
+        self._finished[:] = True
+        self._free = list(range(self.slots))
+        self._mgr = BlockManager(self.num_blocks, self.block_size, self.max_blocks)
+        if self._prefix is not None:
+            # The pool's frozen pages went with the fault.
+            self._prefix = PrefixCache(self._mgr, self.block_size,
+                                       max_pages=self._prefix.max_pages)
+
+    def _process_cancellations(self):
+        for req in list(self._cancelled):
+            self._cancelled.discard(req)
+            if req in self._pending:
+                self._pending.remove(req)
+                req.finish(error="cancelled")
+                continue
+            job = next((j for j in self._prefilling if j.req is req), None)
+            if job is not None:
+                self._prefilling.remove(job)
+                self._drop_cows(job)
+                self._release(req, job.slot)
+                req.finish(error="cancelled")
+            elif req.slot is not None and self._active.get(req.slot) is req:
+                slot = req.slot
+                self._finished[slot] = True
+                self._tok[slot] = self.eos_id
+                del self._active[slot]
+                self._release(req, slot)
+                req.finish(error="cancelled")
+
+    def _release(self, req: GenRequest, slot: int):
+        self._mgr.free(req)
+        self._free.append(slot)
+
+    # -- admission ------------------------------------------------------------
+    def _prefix_match(self, ids: np.ndarray, aidx: int) -> tuple[int, list[int]]:
+        """Radix lookup for one admission: a lookup that fails falls back to
+        a cold prefill (counted as a miss), never to a failed request."""
+        try:
+            return self._prefix.lookup(aidx, ids, max_tokens=int(ids.shape[0]) - 1)
+        except Exception:
+            log.exception("prefix lookup failed for %s; cold prefill", self.name)
+            self._prefix.misses += 1
+            return 0, []
+
+    async def _admit(self):
+        while self._free and self._pending:
+            req = self._pending[0]
+            try:
+                ids = self._prompt_ids(req.sample)
+            except Exception as e:  # bad sample fails only itself
+                self._pending.popleft()
+                req.finish(error=f"{type(e).__name__}: {e}")
+                continue
+            plen = int(ids.shape[0])
+            aidx = 0
+            cached, shared = (self._prefix_match(ids, aidx) if self._prefix is not None
+                              else (0, []))
+            # Shared pages come free; only the uncached tail (and a CoW clone
+            # when the hit ends mid-page) needs fresh pages.
+            need = self._mgr.blocks_for(plen + 1)
+            partial = cached % self.block_size != 0
+            fresh = need - (len(shared) - (1 if partial else 0))
+            headroom = fresh + len(self._active)
+            if self._mgr.free_blocks < headroom and self._prefix is not None:
+                # Decayed prefix pages yield first, protecting the path this
+                # admission is about to share.
+                self._prefix.reclaim(headroom - self._mgr.free_blocks,
+                                     protect=frozenset(shared))
+            if self._mgr.free_blocks < headroom:
+                # Anti-thrash headroom: without a spare page per live stream
+                # an admission just turns into evict → re-prefill → evict.
+                # Wait for a retire; decode extension still evicts when truly
+                # out of room.
+                break
+            if not self._mgr.adopt(req, shared, cached):
+                break  # max_blocks bounds need: not reached in practice
+            # Clone the shared page prefill will write into: the hit's
+            # partial tail page.
+            cow_pairs: list[tuple[int, int]] = []
+            ok = True
+            for i in ([len(shared) - 1] if partial else ()):
+                pair = self._mgr.cow(req, i)
+                if pair is None:
+                    ok = False
+                    break
+                cow_pairs.append(pair)
+            if ok:
+                ok = self._mgr.extend(req, plen + 1)
+            if not ok:
+                # Unwind: drop the sequence's refs AND the held CoW sources
+                # (cow() pins src for the copy that now never runs), then
+                # wait for a retire.
+                self._mgr.free(req)
+                for src, _ in cow_pairs:
+                    self._mgr.decref(src)
+                break
+            if self._prefix is not None:
+                self._prefix.cow_copies += len(cow_pairs)
+            req.cached_tokens = cached
+            self._pending.popleft()
+            slot = self._free.pop()
+            self._admit_counter += 1
+            req.admit_seq = self._admit_counter
+            req.slot = slot
+            self._finished[slot] = True  # frozen until prefill completes
+            self._prefilling.append(_PrefillJob(
+                req=req, slot=slot, ids=ids, chunks=self._chunk_plan(plen, start=cached),
+                knobs=self._knobs_of(req.sample), aidx=aidx, cached=cached, cow=cow_pairs))
+
+    def _drop_cows(self, job: _PrefillJob):
+        """Release a job's pinned copy-on-write source pages: after the copies
+        landed, or when the job dies before its first chunk."""
+        for src, _ in job.cow:
+            self._mgr.decref(src)
+        job.cow = []
+
+    async def _prefill_tick(self):
+        """At most ONE chunk dispatch: the head job's bucket groups every job
+        at the same next-chunk size (burst admissions coalesce)."""
+        if not self._prefilling:
+            return
+        bucket = self._prefilling[0].chunks[self._prefilling[0].next][1]
+        jobs = [j for j in self._prefilling if j.chunks[j.next][1] == bucket]
+        cows = [pair for j in jobs for pair in j.cow]
+        try:
+            first = await self._run(self._prefill_chunk_sync,
+                                    self._chunk_payload(jobs, bucket), len(jobs), cows)
+        except Exception as e:
+            log.exception("prefill chunk failed for %s", self.name)
+            if self._cache_deleted():
+                raise  # containment: _loop fails everyone and resets the pool
+            for j in jobs:
+                self._prefilling.remove(j)
+                self._drop_cows(j)
+                self._release(j.req, j.slot)
+                j.req.finish(error=f"{type(e).__name__}: {e}")
+            return
+        for j in jobs:
+            # The CoW copies landed with this dispatch.
+            self._drop_cows(j)
+        for j, job in enumerate(jobs):
+            job.next += 1
+            if not job.done:
+                continue
+            self._prefilling.remove(job)
+            req = job.req
+            plen = int(job.ids.shape[0])
+            self._tok[job.slot] = int(first[j])
+            self._pos[job.slot] = plen
+            self._step[job.slot] = 0
+            self._finished[job.slot] = False
+            t, s, tk, tp = job.knobs
+            self._temp[job.slot] = t
+            self._seed[job.slot] = s
+            self._topk[job.slot] = tk
+            self._topp[job.slot] = tp
+            self._mgr.note_tokens(req, plen + 1)
+            if self._prefix is not None:
+                # Freeze the whole-prompt pages for the next matching prompt;
+                # a failure here never fails the stream.
+                try:
+                    self._prefix.insert(job.aidx, job.ids, self._mgr.blocks_of(req))
+                except Exception:
+                    log.exception("prefix insert failed for %s (stream unaffected)",
+                                  self.name)
+            req.admitted = time.perf_counter()
+            self._active[job.slot] = req
+
+    # -- decode ---------------------------------------------------------------
+    def _pick_victim(self, protect: GenRequest) -> GenRequest | None:
+        """Evict the newest-admitted stream holding blocks (prefilling or
+        active) but ``protect``, and requeue it first."""
+        cands: list[tuple[int, GenRequest, int, bool]] = []
+        for j in self._prefilling:
+            cands.append((j.req.admit_seq, j.req, j.slot, True))
+        for slot, req in self._active.items():
+            if req is not protect:
+                cands.append((req.admit_seq, req, slot, False))
+        if not cands:
+            return None
+        _, req, slot, prefilling = max(cands, key=lambda c: c[0])
+        if prefilling:
+            job = next(j for j in self._prefilling if j.req is req)
+            self._prefilling.remove(job)
+            self._drop_cows(job)
+        else:
+            del self._active[slot]
+            self._finished[slot] = True
+            self._tok[slot] = self.eos_id
+            if req.tokens:
+                # The continuation prompt is the prompt and the tokens
+                # emitted so far: the re-admitted prefill resumes the stream.
+                req.sample = self._extend_sample(req.sample, req.tokens)
+        self._release(req, slot)
+        req.slot = None
+        req.evictions += 1
+        self._mgr.evictions += 1
+        self._pending.appendleft(req)
+        log_event(log, "kv eviction", model=self.name, tokens=len(req.tokens),
+                  evictions=self._mgr.evictions)
+        return req
+
+    async def _ensure_blocks(self, span: int) -> None:
+        """Every active stream gets blocks for its next ``span`` writes; on
+        exhaustion decayed prefix pages reclaim first (leaf-first, LRU), then
+        the newest stream is evicted, never the one being extended: the
+        oldest always completes (the pool holds one max-length sequence)."""
+        for slot in sorted(self._active):
+            req = self._active.get(slot)
+            if req is None:
+                continue
+            need = min(int(self._pos[slot]) + span, self.max_blocks * self.block_size)
+            while not self._mgr.extend(req, need):
+                if self._prefix is not None and self._prefix.reclaim(1) > 0:
+                    continue
+                if self._pick_victim(protect=req) is None:
+                    break
+            self._mgr.note_tokens(req, need)
+
+    async def _decode_tick(self):
+        if not self._active:
+            return
+        t_tick = time.perf_counter()
+        await self._ensure_blocks(self.seg)
+        if not self._active:  # everyone evicted (a tiny pool)
+            return
+        emits = await self._run(self._segment_sync, self._table_np())
+        emitted_total = self._distribute(emits)
+        if emitted_total:
+            dt = (time.perf_counter() - t_tick) / emitted_total
+            self._s_per_token = (0.7 * self._s_per_token + 0.3 * dt
+                                 if self._s_per_token else dt)
+
+    # -- emit fan-out ---------------------------------------------------------
+    def _retire(self, slot: int, req: GenRequest):
+        self._finished[slot] = True
+        self._tok[slot] = self.eos_id
+        del self._active[slot]
+        self._release(req, slot)
+        if self.ring is not None:
+            total_ms = (time.perf_counter() - req.submitted) * 1000
+            queue_ms = (req.admitted - req.submitted) * 1000
+            self.ring.record(queue_ms, total_ms - queue_ms, total_ms)
+        req.finish()
+        log_event(log, "generation finished", model=self.name, slot=slot,
+                  tokens=len(req.tokens), paged=True)
+
+    def _fan_tokens(self, slot: int, req: GenRequest, toks: list[int]) -> int:
+        """Feed a tick's tokens to one request, retiring it on EOS or budget;
+        returns how many streamed."""
+        had_tokens = bool(req.tokens)
+        n_before = len(req.tokens)
+        finished = False
+        for t in toks:
+            finished = self._emit(req, int(t))
+            if finished:
+                break
+        if not had_tokens and req.tokens:
+            req.rounds_to_first_token = self.device_rounds - req.rounds_at_submit
+            req.segments_to_first_token = self.segment_rounds - req.segments_at_submit
+        if finished:
+            self._retire(slot, req)
+        return len(req.tokens) - n_before
+
+    def _distribute(self, emits: np.ndarray) -> int:
+        total = 0
+        for slot, req in list(self._active.items()):
+            total += self._fan_tokens(slot, req, [int(t) for t in emits[slot]])
+        if (self._free and self._pending) or self._prefilling:
+            self._wake.set()
+        return total
+
+    def _cache_deleted(self) -> bool:
+        return self.kernels.torn

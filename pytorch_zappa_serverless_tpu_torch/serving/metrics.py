@@ -3,7 +3,10 @@
 The JSON parts of the JAX package's ``MetricsHub`` this slice can fill:
 p50/p99/mean of queue, device and total ms, requests and errors, lifetime
 req/s, batch occupancy per model and bucket, the dispatch lanes, first-
-dispatch ("compile") timings, and device-resident parameter bytes.
+dispatch ("compile") timings, device-resident parameter bytes, and each
+``:generate`` lane's snapshot (its ``<name>:generate`` ring sits beside the
+models' rings; time to first token and inter-token gaps are
+histograms over :data:`TOKEN_LATENCY_BUCKETS_MS`).
 """
 
 from __future__ import annotations
@@ -13,6 +16,44 @@ import time
 from collections import deque
 
 import numpy as np
+
+# Bucket bounds (ms) of the per-token histograms: time to first token and
+# the gap between tokens, decode cadence included.
+TOKEN_LATENCY_BUCKETS_MS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+                            500.0, 1000.0, 2500.0, 5000.0)
+
+
+class Histogram:
+    """Cumulative histogram over fixed bounds: O(1) observe, exact counts.
+    Lock-protected: observed from the event loop, read by a scrape."""
+
+    def __init__(self, bounds: tuple[float, ...] = TOKEN_LATENCY_BUCKETS_MS):
+        self.bounds = tuple(bounds)
+        self._lock = threading.Lock()
+        self._counts = [0] * (len(self.bounds) + 1)  # guarded-by: _lock
+        self.sum = 0.0    # guarded-by: _lock
+        self.count = 0    # guarded-by: _lock
+
+    def observe(self, value: float):
+        i = 0
+        while i < len(self.bounds) and value > self.bounds[i]:
+            i += 1
+        with self._lock:
+            self._counts[i] += 1
+            self.sum += value
+            self.count += 1
+
+    def snapshot(self) -> dict:
+        """Cumulative bucket counts keyed by upper bound."""
+        with self._lock:
+            counts = list(self._counts)
+            total, s = self.count, self.sum
+        out, acc = {}, 0
+        for bound, n in zip(self.bounds, counts):
+            acc += n
+            out[f"{bound:g}"] = acc
+        out["+Inf"] = total
+        return {"buckets": out, "sum": round(s, 3), "count": total}
 
 
 class LatencyRing:
@@ -64,6 +105,9 @@ class MetricsHub:
 
     def __init__(self):
         self.models: dict[str, LatencyRing] = {}  # guarded-by: event-loop
+        # () -> {model: gen_snapshot()} of the :generate lanes, set by the
+        # server; None before any lane exists.
+        self.generation = None  # guarded-by: event-loop
 
     def ring(self, model: str) -> LatencyRing:
         if model not in self.models:
@@ -72,6 +116,8 @@ class MetricsHub:
 
     def render(self, engine=None) -> dict:
         out = {"models": {k: r.snapshot() for k, r in self.models.items()}}
+        if self.generation is not None:
+            out["generation"] = self.generation()
         if engine is None:
             return out
         occ = {}

@@ -8,7 +8,18 @@ Routes (the JAX package's, for the port's slices):
 - ``POST /v1/models/{name}:submit`` → 202 ``{"job": ...}`` (an
   ``Idempotency-Key`` header dedupes resubmits; a full backlog is 429, a
   queue shut down 503, both with Retry-After), and ``GET /v1/jobs/{id}`` →
-  200, 404 unknown, 410 expired.
+  200, 404 unknown, 410 expired;
+- ``POST /v1/models/{name}:generate`` on a model whose servable carries the
+  continuous contract (GPT-2, Whisper): a server-sent event stream
+  (``text/event-stream``, chunked) of ``data: {"token": id}`` events, a
+  decode segment's tokens as soon as the segment ends, then ``data:
+  {"done": true, "tokens": [...]}``;
+  with ``"stream": false`` one JSON body.  A client that disconnects
+  cancels its stream.  Errors: 400 (a bad ``max_new_tokens``, a repetition
+  penalty, an over-length prompt, an input of several windows), 405 (no
+  lane), 429 with Retry-After (a full backlog, or the paged pool exhausted,
+  with ``kv_blocks_free``, ``kv_blocks_needed`` and ``estimated_wait_ms``),
+  503 with Retry-After (a stopped lane).
 
 A predict body is JSON: one input (``{"text": ...}``, ``{"input_ids":
 [...]}``, ``{"b64": ...}``, ``{"array": [...], "rate": N}`` or a pre-decoded
@@ -26,8 +37,9 @@ over.  The answer keeps the JAX server's shape, ``{"model", "timing",
 are ``{"error": ...}`` with 400, 404, 405, 413, 429 (+ Retry-After) or 500.
 
 HTTP/1.1 with keep-alive and ``Content-Length`` bodies (no chunked request
-bodies).  The event loop never touches a device tensor: batches go to the
-runner's dispatch thread.
+bodies; an event stream's response is chunked).  The event loop never
+touches a device tensor: batches and the generation lanes' programs go to
+the runner's dispatch thread.
 """
 
 from __future__ import annotations
@@ -46,7 +58,9 @@ from ..config import ServeConfig
 from ..engine.loader import Engine, build_engine
 from ..utils.logging import get_logger, log_event
 from .batcher import DynamicBatcher, Overloaded
+from .generation import GenerationScheduler, PagedGenerationScheduler
 from .jobs import JobQueue
+from .kvcache import KVPoolExhausted
 from .metrics import MetricsHub
 
 log = get_logger("serving.server")
@@ -54,9 +68,13 @@ log = get_logger("serving.server")
 MAX_BODY_BYTES = 64 * 1024 * 1024
 _PREDICT = re.compile(r"^/v1/models/([^:/]+):predict$")
 _SUBMIT = re.compile(r"^/v1/models/([^:/]+):submit$")
+_GENERATE = re.compile(r"^/v1/models/([^:/]+):generate$")
 _JOB = re.compile(r"^/v1/jobs/([^/]+)$")
 
 Response = tuple[int, Any, dict[str, str]]
+# How often a stream that waits for its next token checks that its client
+# is still connected.
+_GONE_POLL_S = 0.05
 
 
 class _HttpError(Exception):
@@ -126,14 +144,57 @@ def _decode_body(body: bytes, headers: dict[str, str]) -> Any:
     return body
 
 
-def _encode(status: int, obj: Any, headers: dict[str, str], keep_alive: bool) -> bytes:
-    data = json.dumps(obj, separators=(",", ":")).encode()
-    lines = [f"HTTP/1.1 {status} {HTTPStatus(status).phrase}",
-             "Content-Type: application/json; charset=utf-8",
-             f"Content-Length: {len(data)}",
+class EventStream:
+    """A response body of server-sent events: ``_handle_conn`` writes the
+    head, then one chunk an event as ``events(reader)`` yields it, draining
+    the socket each time; ``cancel()`` runs if the client goes away."""
+
+    def __init__(self, events, cancel):
+        self.events = events
+        self.cancel = cancel
+
+
+def _head(status: int, framing: list[str], headers: dict[str, str], keep_alive: bool) -> bytes:
+    lines = [f"HTTP/1.1 {status} {HTTPStatus(status).phrase}", *framing,
              f"Connection: {'keep-alive' if keep_alive else 'close'}",
              *(f"{k}: {v}" for k, v in headers.items())]
-    return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1") + data
+    return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
+
+
+def _sse_head(status: int, headers: dict[str, str], keep_alive: bool) -> bytes:
+    return _head(status, ["Content-Type: text/event-stream", "Cache-Control: no-cache",
+                          "Transfer-Encoding: chunked"], headers, keep_alive)
+
+
+def _sse_chunk(obj: Any) -> bytes:
+    data = f"data: {json.dumps(obj, separators=(',', ':'))}\n\n".encode()
+    return f"{len(data):x}\r\n".encode() + data + b"\r\n"
+
+
+_GONE = object()  # what _next_or_gone answers for a client that went away
+
+
+async def _next_or_gone(aw, reader: asyncio.StreamReader):
+    """Await ``aw`` (a task), polling the connection meanwhile: the result,
+    or ``_GONE`` once the client has closed its side (the reader saw EOF
+    with nothing left to read; nothing is consumed)."""
+    try:
+        while True:
+            done, _ = await asyncio.wait({aw}, timeout=_GONE_POLL_S)
+            if done:
+                return aw.result()
+            if reader.at_eof():
+                aw.cancel()
+                return _GONE
+    except asyncio.CancelledError:
+        aw.cancel()
+        raise
+
+
+def _encode(status: int, obj: Any, headers: dict[str, str], keep_alive: bool) -> bytes:
+    data = json.dumps(obj, separators=(",", ":")).encode()
+    return _head(status, ["Content-Type: application/json; charset=utf-8",
+                          f"Content-Length: {len(data)}"], headers, keep_alive) + data
 
 
 class Server:
@@ -144,10 +205,13 @@ class Server:
         self.engine = engine
         self.metrics = MetricsHub()
         self.batchers: dict[str, DynamicBatcher] = {}  # guarded-by: event-loop
+        self.schedulers: dict[str, GenerationScheduler | PagedGenerationScheduler] = {}  # guarded-by: event-loop
+        self._streams = 0  # guarded-by: event-loop
         self.jobs: JobQueue | None = None  # guarded-by: event-loop
         self.default_model = cfg.models[0].name if cfg.models else None
         self._server: asyncio.Server | None = None
         self._conns: set[asyncio.StreamWriter] = set()  # guarded-by: event-loop
+        self._handlers: set[asyncio.Task] = set()  # guarded-by: event-loop
         self._routes = {
             "/": ("GET", self.handle_root),
             "/healthz": ("GET", self.handle_healthz),
@@ -164,6 +228,19 @@ class Server:
             if not cm.servable.meta.get("async_only"):
                 self.batchers[name] = DynamicBatcher(
                     cm, self.engine.runner, cm.cfg, ring=self.metrics.ring(name)).start()
+            if "continuous" in cm.servable.meta:
+                # The :generate lane beside :predict, its pool allocated and
+                # its graphs captured at first use, as the JAX lanes compile;
+                # kv_cache "paged" is the paged scheduler, which refuses a
+                # servable without the paged contract (a config error fails
+                # the boot).
+                lane = (PagedGenerationScheduler if cm.cfg.kv_cache == "paged"
+                        else GenerationScheduler)
+                self.schedulers[name] = lane(
+                    cm, self.engine.runner, cm.cfg,
+                    ring=self.metrics.ring(f"{name}:generate")).start()
+        self.metrics.generation = lambda: {n: s.gen_snapshot()
+                                           for n, s in self.schedulers.items()}
         self.jobs = JobQueue(self._run_job, run_jobs=self._run_jobs,
                              batch_of=self._job_batch_of,
                              max_backlog=self.cfg.job_max_backlog,
@@ -180,10 +257,17 @@ class Server:
             self._server.close()
             for w in list(self._conns):
                 w.close()
+            # Handlers still streaming (or waiting on a generation) end now:
+            # their streams are cancelled.
+            for t in list(self._handlers):
+                t.cancel()
+            await asyncio.gather(*self._handlers, return_exceptions=True)
             await self._server.wait_closed()
             self._server = None
         for b in self.batchers.values():
             await b.stop()
+        for sched in self.schedulers.values():
+            await sched.stop()
         if self.jobs is not None:
             await self.jobs.stop()
 
@@ -191,6 +275,7 @@ class Server:
     async def _handle_conn(self, reader: asyncio.StreamReader,
                            writer: asyncio.StreamWriter):
         self._conns.add(writer)
+        self._handlers.add(asyncio.current_task())
         try:
             while True:
                 try:
@@ -202,27 +287,55 @@ class Server:
                 if req is None:
                     break
                 method, path, version, headers, body = req
-                status, obj, extra = await self._dispatch(method, path, headers, body)
+                status, obj, extra = await self._dispatch(method, path, headers, body, reader)
                 keep = (version == "HTTP/1.1"
                         and headers.get("connection", "").lower() != "close")
-                writer.write(_encode(status, obj, extra, keep))
-                await writer.drain()
+                if isinstance(obj, EventStream):
+                    keep = await self._write_stream(writer, reader, status, obj, extra, keep)
+                else:
+                    writer.write(_encode(status, obj, extra, keep))
+                    await writer.drain()
                 if not keep:
                     break
         except (ConnectionError, asyncio.IncompleteReadError, ValueError):
             pass  # client went away or sent an over-long line
         finally:
             self._conns.discard(writer)
+            self._handlers.discard(asyncio.current_task())
             writer.close()
 
+    async def _write_stream(self, writer: asyncio.StreamWriter, reader, status: int,
+                            stream: EventStream, headers: dict[str, str], keep: bool) -> bool:
+        """Write an event stream: the head, one chunk an event as it comes,
+        the last chunk.  A client that goes away (EOF on its side, or a
+        failed write) cancels the stream and ends the connection; returns
+        whether the connection stays open."""
+        try:
+            writer.write(_sse_head(status, headers, keep))
+            await writer.drain()
+            async for obj in stream.events(reader):
+                if obj is _GONE:
+                    stream.cancel()
+                    return False
+                writer.write(_sse_chunk(obj))
+                await writer.drain()
+            writer.write(b"0\r\n\r\n")
+            await writer.drain()
+            return keep
+        except (ConnectionError, asyncio.CancelledError):
+            stream.cancel()
+            raise
+
     async def _dispatch(self, method: str, path: str, headers: dict[str, str],
-                        body: bytes) -> Response:
-        for pattern, want, handler in ((_PREDICT, "POST", self._predict),
-                                       (_SUBMIT, "POST", self.handle_submit),
-                                       (_JOB, "GET", self.handle_job)):
+                        body: bytes, reader: asyncio.StreamReader | None = None) -> Response:
+        for pattern, want, handler, tail in (
+                (_PREDICT, "POST", self._predict, ()),
+                (_SUBMIT, "POST", self.handle_submit, ()),
+                (_GENERATE, "POST", self.handle_generate, (reader,)),
+                (_JOB, "GET", self.handle_job, ())):
             m = pattern.match(path)
             if m is not None:
-                args = (m.group(1), body, headers)
+                args = (m.group(1), body, headers, *tail)
                 break
         else:
             want, handler = self._routes.get(path, (None, None))
@@ -233,6 +346,8 @@ class Server:
             return _error(405, f"{path} takes {want}")
         try:
             return await handler(*args)
+        except ConnectionError:
+            raise  # the client is gone: _handle_conn ends the connection
         except Exception as e:
             log.exception("handler failed for %s %s", method, path)
             return _error(500, f"internal error: {type(e).__name__}")
@@ -256,13 +371,20 @@ class Server:
                 "endpoint": f"/v1/models/{name}:{'submit' if is_async else 'predict'}",
                 "checkpoint": cm.cfg.checkpoint or "random-init",
             }
+            if name in self.schedulers:
+                models[name]["generate"] = f"/v1/models/{name}:generate"
         return 200, {"models": models}, {}
 
     async def handle_healthz(self, body: bytes) -> Response:
         alive = await asyncio.get_running_loop().run_in_executor(
             None, self.engine.runner.probe)
+        gen_fatal = {n: s.fatal for n, s in self.schedulers.items() if s.fatal}
         return (200 if alive else 503), {
             "device_ok": alive,
+            "generation_ok": not gen_fatal,
+            "generation": {n: {"active": s.active, "pending": s.depth,
+                               **({"fatal": s.fatal} if s.fatal else {})}
+                           for n, s in self.schedulers.items()},
             "models": {name: {"buckets_compiled": len(cm.warmed_buckets),
                               "buckets_total": len(cm.buckets)}
                        for name, cm in self.engine.models.items()},
@@ -367,6 +489,113 @@ class Server:
         return 200, {"model": name, "timing": timing, "predictions": result}, {
             "X-Queue-Ms": str(timing["queue_ms"]),
             "X-Device-Ms": str(timing["device_ms"])}
+
+    # -- streaming generation -----------------------------------------------
+    async def handle_generate(self, name: str, body: bytes, headers: dict[str, str],
+                              reader: asyncio.StreamReader | None = None) -> Response:
+        """Continuous-batching generation: ``{"text"|"input_ids": ...,
+        "temperature", "seed", "top_k", "top_p", "max_new_tokens",
+        "stream"}`` (Whisper: the audio bodies of ``:predict``).  The request
+        joins its model's pool at once; ``stream`` (default true) answers
+        ``text/event-stream``, else one JSON body once it is done."""
+        sched = self.schedulers.get(name)
+        if sched is None:
+            if name not in self.engine.models:
+                return self._unknown_model(name)
+            return _error(405, f"model {name!r} has no generation lane; use "
+                               f"POST /v1/models/{name}:predict")
+        try:
+            payload = _decode_body(body, headers)
+        except (ValueError, TypeError) as e:
+            return _error(400, f"bad request body: {type(e).__name__}: {e}")
+        stream, max_new = True, None
+        if isinstance(payload, dict):
+            stream = bool(payload.get("stream", True))
+            if "max_new_tokens" in payload:
+                try:
+                    max_new = int(payload["max_new_tokens"])
+                except (TypeError, ValueError):
+                    return _error(400, "max_new_tokens must be an integer")
+            try:
+                rep = float(payload.get("repetition_penalty", 1.0))
+            except (TypeError, ValueError):
+                return _error(400, "repetition_penalty must be a number")
+            if rep != 1.0:
+                return _error(400, "repetition_penalty is not supported on the streaming "
+                                   f"lane; use POST /v1/models/{name}:predict (batch API)")
+        try:
+            if sched.cm.servable.meta.get("heavy_preprocess") or isinstance(payload, bytes):
+                sample = await asyncio.get_running_loop().run_in_executor(
+                    None, sched.cm.servable.preprocess, payload)
+            else:
+                sample = sched.cm.servable.preprocess(payload)
+        except Exception as e:
+            return _error(400, f"preprocess failed: {type(e).__name__}: {e}")
+        if isinstance(sample, list):
+            # Long audio's windows have no single token stream: that work
+            # belongs to :predict's chunk-and-merge.
+            return _error(400, "input fans out to multiple windows; use "
+                               f"POST /v1/models/{name}:predict for long inputs")
+        try:
+            gen = sched.submit(sample, max_new)
+        except KVPoolExhausted as e:
+            return _error_retry(429, str(e), e.retry_after_s, kv_blocks_free=e.free_blocks,
+                                kv_blocks_needed=e.needed_blocks,
+                                estimated_wait_ms=round(e.retry_after_s * 1000, 1))
+        except OverflowError as e:
+            return _error_retry(429, str(e), 1.0, backlog=sched.depth, active=sched.active)
+        except ValueError as e:  # over-length prompt, checked at submit
+            return _error(400, str(e))
+        except RuntimeError as e:  # the lane is stopped
+            return _error_retry(503, str(e), 1.0)
+        self._streams += 1
+        stream_id = f"{name}-{self._streams}"
+
+        def final_body(tokens: list[int]) -> dict:
+            out: dict = {"done": True, "tokens": tokens}
+            if sched.detokenize is not None:
+                out["text"] = sched.detokenize(tokens)
+            if gen.rounds_to_first_token is not None:
+                out["stats"] = {"rounds_to_first_token": gen.rounds_to_first_token,
+                                "segments_to_first_token": gen.segments_to_first_token}
+            if gen.cached_tokens:
+                out.setdefault("stats", {})["prefix_cached_tokens"] = gen.cached_tokens
+            return out
+
+        if not stream:
+            done = asyncio.ensure_future(asyncio.shield(gen.done))
+            try:
+                got = await _next_or_gone(done, reader) if reader is not None else await done
+            except asyncio.CancelledError:
+                sched.cancel(gen)  # the server stops: free the slot
+                raise
+            if got is _GONE:
+                sched.cancel(gen)
+                raise ConnectionResetError("client closed the connection")
+            try:
+                tokens = gen.done.result()
+            except RuntimeError as e:
+                return _error(500, f"generation failed: {e}")
+            out = final_body(tokens)
+            out.pop("done")
+            return 200, {"model": name, "predictions": out}, {"X-Stream-Id": stream_id}
+
+        async def events(reader):
+            while True:
+                get = asyncio.ensure_future(gen.events.get())
+                ev = await _next_or_gone(get, reader) if reader is not None else await get
+                if ev is _GONE:
+                    yield _GONE
+                    return
+                if ev is None:
+                    break
+                yield {"token": ev}
+            if gen.done.exception() is not None:
+                yield {"error": str(gen.done.exception())}
+            else:
+                yield final_body(gen.done.result())
+
+        return 200, EventStream(events, lambda: sched.cancel(gen)), {"X-Stream-Id": stream_id}
 
     # -- async job lane -----------------------------------------------------
     async def handle_submit(self, name: str, body: bytes,

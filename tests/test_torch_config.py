@@ -7,6 +7,7 @@ two loaders must agree exactly, env overrides included.
 """
 
 import dataclasses
+import json
 
 import pytest
 
@@ -109,3 +110,39 @@ def test_load_config_without_a_file_is_the_dev_profile(monkeypatch):
     cfg = PC.load_config()
     assert cfg == PC.default_config()
     assert cfg.profile == "dev" and not cfg.warmup_at_boot
+
+
+GEN_FIELDS = ("kv_cache", "kv_block_size", "kv_num_blocks", "prefill_chunk_tokens",
+              "spec_draft", "spec_k", "prefix_cache", "prefix_cache_ttl_s",
+              "prefix_cache_blocks")
+
+
+@pytest.mark.parametrize("field", GEN_FIELDS)
+def test_generate_lane_fields_have_the_reference_defaults(field):
+    ref = {f.name: f for f in dataclasses.fields(JC.ModelConfig)}
+    port = {f.name: f for f in dataclasses.fields(PC.ModelConfig)}
+    assert port[field].default == ref[field].default
+    assert type(port[field].default) is type(ref[field].default)
+
+
+@pytest.mark.parametrize("values", [
+    {"kv_cache": "paged", "kv_block_size": 8, "kv_num_blocks": 64, "prefill_chunk_tokens": 32},
+    {"prefix_cache": False, "prefix_cache_ttl_s": 12.5, "prefix_cache_blocks": 16},
+])
+def test_profile_loads_the_generate_fields_as_the_reference(tmp_path, values):
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({"models": [{"name": "gpt2", **values}]}))
+    got, want = PC.load_config(path).models[0], JC.load_config(path).models[0]
+    for field in GEN_FIELDS:
+        assert getattr(got, field) == getattr(want, field), field
+    for field, value in values.items():
+        assert getattr(got, field) == value
+
+
+@pytest.mark.parametrize("over,match", [({"spec_draft": "auto"}, "speculative decoding"),
+                                        ({"spec_k": 2}, "speculative decoding"),
+                                        ({"kv_cache": "blocks"}, "'slot' or 'paged'")])
+def test_generate_fields_the_port_refuses(over, match):
+    JC.ModelConfig(name="gpt2", **over)  # the reference takes them
+    with pytest.raises(ValueError, match=match):
+        PC.ModelConfig(name="gpt2", **over)

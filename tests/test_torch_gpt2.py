@@ -356,8 +356,8 @@ def test_overlength_matches_jax():
 @pytest.mark.parametrize("extra,match", [
     ({"params_dtype": "auto"}, "'auto'"),
     ({"adapter_slots": 2}, "LoRA adapters"),
-    ({"gen_slots": 4}, "continuous-batching"),
-    ({"kv_cache": "paged"}, "paged KV-cache"),
+    ({"int8_crossover_batch": 32}, "'auto'"),
+    ({"adapter_rank": 4}, "LoRA adapters"),
     ({"max_new_tokens": 60}, "exceeds the model's max_positions"),
     ({"overlength": "drop"}, "overlength"),
 ])

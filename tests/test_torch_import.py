@@ -28,6 +28,9 @@ def _port_modules() -> list[str]:
 def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
     assert len(mods) >= 20 and "pytorch_zappa_serverless_tpu_torch.serving.server" in mods
+    for lane in ("serving.generation", "serving.kvcache", "serving.prefixcache",
+                 "ops.paged_attention", "engine.genkernels"):
+        assert f"pytorch_zappa_serverless_tpu_torch.{lane}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -32,7 +32,11 @@ jobs keep their own state, and the counters add exactly a graph's launches
 per replay; the Gumbel draw's bits are the same on the CPU and the card.
 The vision classifiers' captured graphs (ResNet-18/50, EfficientNet-B0 at
 64x64) replay as their eager forward byte for byte, and their top-k orders
-ties as on the CPU.
+ties as on the CPU.  The :generate lanes' graphs (``engine/genkernels.py``:
+prefill, insert, segment, paged chunk and page copy) replay as the same
+calls run eagerly on a second pool, byte for byte; an insert reads its row
+and slot from device scalars; and a stream's tokens are the same in any
+slot.
 """
 
 import numpy as np
@@ -782,5 +786,243 @@ def test_vit_and_bert_embed_graphs_replay_as_eager(cuda_device, name, extra):
         batches = [default_collate(p, b, cm.servable.input_spec(b))
                    for p, b in zip(parts, buckets)]
         _replays_in_turn(eng, name, batches, {})
+    finally:
+        eng.shutdown()
+
+
+# The :generate lanes' graphs (engine/genkernels.py), each against the same
+# program run eagerly on a second pool: outputs and pools byte for byte
+# (the paged pool but its trash page, whose colliding writes are unordered).
+
+GEN = {"gen_slots": 4, "segment_tokens": 3, "quantize_min_size": 1024}
+
+
+def _gen_cm(name, params_dtype, **kw):
+    if name == "gpt2":
+        extra = {"arch": TINY_GPT2, "max_new_tokens": 8, **GEN}
+        eng = _engine("gpt2", dtype="bfloat16", batch_buckets=(1,), seq_buckets=(8, 16),
+                      extra={**extra, **({"params_dtype": params_dtype} if params_dtype else {})},
+                      **kw)
+    else:
+        extra = {"arch": TINY_WHISPER, "max_new_tokens": 8, **GEN}
+        eng = _engine("whisper_tiny", dtype="bfloat16", batch_buckets=(1,),
+                      extra={**extra, **({"params_dtype": params_dtype} if params_dtype else {})},
+                      **kw)
+    return eng, eng.model(name)
+
+
+def _admit_payload(cm, rng, n):
+    meta = cm.servable.meta["continuous"]
+    if "input_ids" in meta["admit_spec"](8):
+        samples = [cm.servable.preprocess({"input_ids": rng.integers(1, 500, k).tolist(),
+                                           "temperature": t, "seed": 3, "top_k": 5})
+                   for k, t in zip((5, 8, 3, 7)[:n], (0.0, 1.2, 0.0, 0.9))]
+        parts = [meta["collate_admit"](s, 8) for s in samples]
+    else:
+        parts = [{**meta["collate_admit"]({"mel": rng.standard_normal((80, 3000))
+                                                  .astype(np.float32)}, 1),
+                  "temperature": np.asarray([t], np.float32)}
+                 for t in (0.0, 1.2, 0.0, 0.9)[:n]]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _carries(S, active, first, payload):
+    c = {"tok": np.full(S, 0, np.int32), "pos": np.zeros(S, np.int32),
+         "step": np.zeros(S, np.int32), "fin": np.ones(S, bool),
+         "temp": np.zeros(S, np.float32), "seed": np.zeros(S, np.int32),
+         "topk": np.zeros(S, np.int32), "topp": np.ones(S, np.float32)}
+    for j, slot in enumerate(active):
+        c["tok"][slot], c["pos"][slot], c["fin"][slot] = first[j], payload["length"][j], False
+        c["temp"][slot], c["seed"][slot] = payload["temperature"][j], payload["seed"][j]
+        c["topk"][slot], c["topp"][slot] = payload["top_k"][j], payload["top_p"][j]
+    return c
+
+
+def _bits(t: torch.Tensor) -> bytes:
+    return t.cpu().view(torch.uint8 if t.element_size() == 1 else torch.int16
+                        if t.element_size() == 2 else torch.int32).numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,params_dtype", [("gpt2", "int8"), ("gpt2", None),
+                                               ("whisper_tiny", "int8")])
+def test_slot_lane_graphs_replay_as_eager(cuda_device, name, params_dtype):
+    """Prefill (a batch of 2), two inserts and two segments (one greedy and
+    one sampled, filtered row) replayed against the same calls eagerly:
+    first tokens, packed emits and carries, and the pools byte for byte; a
+    segment replay runs 3 positions' int8 products on the int8 lane."""
+    from pytorch_zappa_serverless_tpu_torch.engine.genkernels import SlotKernels, unpack
+
+    eng, cm = _gen_cm(name, params_dtype)
+    try:
+        run = eng.runner.run_fn_sync
+        rng = np.random.default_rng(0)
+        payload = _admit_payload(cm, rng, 2)
+        sets = [SlotKernels(cm), SlotKernels(cm, graphed=False)]
+        assert sets[0].graphs.graphed and not sets[1].graphs.graphed
+        outs = []
+        for k in sets:
+            run(k.ensure)
+            first = run(k.prefill, payload)
+            run(k.insert_from, 1, 3)
+            run(k.insert_from, 0, 0)
+            c = _carries(4, [0, 3], first, payload)
+            segs = []
+            for _ in range(2):
+                out = run(k.segment, c)
+                segs.append(out)
+                _, c["tok"], c["pos"], c["step"], c["fin"] = unpack(out, 3)
+            outs.append((first, segs, _bits(k.cache_k), _bits(k.cache_v)))
+        (f0, s0, k0, v0), (f1, s1, k1, v1) = outs
+        assert f0.tobytes() == f1.tobytes()
+        assert all(a.tobytes() == b.tobytes() for a, b in zip(s0, s1))
+        assert k0 == k1 and v0 == v1
+        per = sets[0].graphs.per_run
+        seg_keys = [key for key in per if key[0] == "segment"]
+        assert len(seg_keys) == 1 and per[("insert",)] == {k: 0 for k in per[("insert",)]}
+        layers = 2
+        want = (8 * layers + 1 if name == "whisper_tiny" else 4 * layers + 1) * 3
+        assert per[seg_keys[0]]["int8_matmul"] == (want if params_dtype else 0)
+        assert set(sets[0].graphs.labels) <= set(cm.graphs)
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_insert_reads_its_slot_and_row_from_device_scalars(cuda_device):
+    """An insert into slot 3 after one into slot 0 writes slot 3 (and
+    leaves slot 0 as it was): ``j`` and ``slot`` are static inputs, not
+    host ints baked into the capture."""
+    from pytorch_zappa_serverless_tpu_torch.engine.genkernels import SlotKernels
+
+    eng, cm = _gen_cm("gpt2", "int8")
+    try:
+        run = eng.runner.run_fn_sync
+        k = SlotKernels(cm)
+        run(k.ensure)
+        rng = np.random.default_rng(1)
+        run(k.prefill, _admit_payload(cm, rng, 1))
+        run(k.insert_from, 0, 0)
+        slot0 = k.cache_k[:, 0].clone()
+        run(k.prefill, _admit_payload(cm, rng, 2))
+        run(k.insert_from, 1, 3)
+        torch.cuda.synchronize()
+        assert torch.equal(k.cache_k[:, 3], k.stage_k[:, 1])
+        assert torch.equal(k.cache_k[:, 0], slot0)
+        assert not torch.equal(k.cache_k[:, 3], slot0)
+        assert cm.graphs.count("generate insert") == 1
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_paged_lane_graphs_replay_as_eager(cuda_device):
+    """Two chunks of one prompt and one of another (two chunk graphs), a
+    copy-on-write page copy and two segments, replayed against the same
+    calls eagerly: outputs and every page but the trash page byte for
+    byte."""
+    from pytorch_zappa_serverless_tpu_torch.engine.genkernels import PagedKernels, unpack
+
+    eng, cm = _gen_cm("gpt2", "int8", kv_cache="paged", kv_block_size=4)
+    try:
+        run = eng.runner.run_fn_sync
+        rng = np.random.default_rng(2)
+        MB = 6  # ceil((16 + 8) / 4)
+        ids = rng.integers(1, 500, 12).astype(np.int32)
+        # Every position a row writes has a page of its own: only the pad
+        # row and the finished rows write the trash page.
+        table = np.zeros((1, MB), np.int32)
+        table[0, :5] = [1, 2, 3, 4, 8]
+        table_b = np.zeros((2, MB), np.int32)
+        table_b[0, :3] = [5, 6, 9]
+
+        def chunk(toks, start, length, tab):
+            G = toks.shape[0]
+            return (toks, np.asarray(start, np.int32), np.asarray(length, np.int32),
+                    np.zeros(G, np.float32), np.zeros(G, np.int32), np.zeros(G, np.int32),
+                    np.ones(G, np.float32), tab, np.zeros(G, np.int32))
+
+        outs = []
+        for k in (PagedKernels(cm, 4, 16, 4), PagedKernels(cm, 4, 16, 4, graphed=False)):
+            run(k.ensure)
+            f1 = run(k.prefill_chunk, chunk(ids[None, :8], [0], [12], table))
+            f2 = run(k.prefill_chunk, chunk(np.pad(ids[None, 8:], ((0, 0), (0, 4))), [8], [12],
+                                            table))
+            f3 = run(k.prefill_chunk, chunk(np.stack([ids[:8], np.zeros(8, np.int32)]),
+                                            [0, 0], [5, 1], table_b))
+            run(k.copy_page, 2, 7)
+            seg_table = np.zeros((4, MB), np.int32)
+            seg_table[0], seg_table[2] = table[0], table_b[0]
+            c = {"tok": np.asarray([f2[0], 0, f3[0], 0], np.int32),
+                 "pos": np.asarray([12, 0, 5, 0], np.int32), "step": np.zeros(4, np.int32),
+                 "fin": np.asarray([False, True, False, True]),
+                 "temp": np.asarray([0, 0, 1.1, 0], np.float32),
+                 "seed": np.asarray([0, 0, 9, 0], np.int32), "topk": np.zeros(4, np.int32),
+                 "topp": np.asarray([1, 1, 0.9, 1], np.float32)}
+            segs = []
+            for _ in range(2):
+                out = run(k.segment, seg_table, c)
+                segs.append(out)
+                _, c["tok"], c["pos"], c["step"], c["fin"] = unpack(out, 3)
+            outs.append((f1, f2, f3, segs, _bits(k.cache_k[:, 1:]), _bits(k.cache_v[:, 1:]),
+                         k))
+        a, b = outs
+        # The chunks' first tokens, but the pad row's of the third: its
+        # all-trash table reads the trash page, whose colliding writes land
+        # in either order.
+        for x, y in zip(a[:3], b[:3]):
+            assert x[:1].tobytes() == y[:1].tobytes()
+        assert all(x.tobytes() == y.tobytes() for x, y in zip(a[3], b[3]))
+        assert a[4] == b[4] and a[5] == b[5]
+        kg = a[6]
+        assert torch.equal(kg.cache_k[:, 7], kg.cache_k[:, 2])
+        assert sorted(kg.graphs.labels) == sorted(
+            ["generate chunk 8 1", "generate chunk 8 2", "generate copy_page",
+             "generate segment sampled+filtered"])
+        assert kg.graphs.per_run[("chunk", 8, 1)]["int8_matmul"] == 9
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_a_stream_is_the_same_in_any_slot(cuda_device):
+    """One prompt decoded from slot 0 beside another stream, then from slot
+    3 beside a different one, on the replayed graphs: the same tokens, byte
+    for byte (a row's chain depends neither on its slot nor on its
+    neighbours)."""
+    from pytorch_zappa_serverless_tpu_torch.engine.genkernels import SlotKernels, unpack
+
+    eng, cm = _gen_cm("gpt2", "int8")
+    try:
+        run = eng.runner.run_fn_sync
+        meta = cm.servable.meta["continuous"]
+        rng = np.random.default_rng(3)
+
+        def payload(ids, t):
+            s = cm.servable.preprocess({"input_ids": ids, "temperature": t, "seed": 5,
+                                        "top_p": 0.8})
+            return meta["collate_admit"](s, 8)
+
+        mine = payload(rng.integers(1, 500, 6).tolist(), 1.0)
+        k = SlotKernels(cm)
+        streams = []
+        for slot, other_slot, other in ((0, 1, [7, 8, 9]), (3, 2, [400, 2, 77, 5, 6])):
+            run(k.reset)
+            run(k.ensure)
+            S = 4
+            c = _carries(S, [], [], mine)
+            for s_, p in ((other_slot, payload(other, 0.0)), (slot, mine)):
+                first = run(k.prefill, p)
+                run(k.insert_from, 0, s_)
+                c2 = _carries(S, [s_], first, p)
+                for key in c:
+                    c[key][s_] = c2[key][s_]
+            toks = []
+            for _ in range(3):
+                out = run(k.segment, c)
+                emits, c["tok"], c["pos"], c["step"], c["fin"] = unpack(out, 3)
+                toks.extend(emits[slot].tolist())
+            streams.append(toks)
+        assert streams[0] == streams[1]
     finally:
         eng.shutdown()

@@ -569,9 +569,9 @@ def test_bad_audio_answers_400(served):
 
 def test_whisper_registration_and_refusals():
     assert get_latency_class("whisper_tiny") == "latency"
-    with pytest.raises(ValueError, match="continuous-batching"):
-        p_builder("whisper_tiny")(ModelConfig(name="whisper_tiny", extra={
-            "arch": TINY_ARCH, "gen_slots": 4}))
+    lane = p_builder("whisper_tiny")(ModelConfig(name="whisper_tiny", extra={
+        "arch": TINY_ARCH, "gen_slots": 4})).meta["continuous"]
+    assert lane["slots"] == 4 and lane["prompt_buckets"] == (1,)
     with pytest.raises(ValueError, match="positions"):
         p_builder("whisper_tiny")(ModelConfig(name="whisper_tiny", extra={
             "arch": TINY_ARCH, "max_new_tokens": 96}))
