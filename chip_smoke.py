@@ -115,7 +115,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the same calls eagerly on a second pool, byte for byte, and one
    stream the same from slot 0 and slot 7; TTFT, inter-token gaps,
    tokens/s, device ms a segment replayed and eager, and each lane's cold
-   start (its pool and every graph it can run, captured before the load).
+   start (its pool and every graph it can run, captured before the load);
+   then the prefix cache's chaos modes on the paged lane: ``poison`` fails
+   every lookup (the request prefills cold, its tokens equal the cold
+   ones) and ``cow`` copies every shared page of a hit (its tokens equal
+   the warm ones, ``cow_copies`` counts the copies);
+14. the failure path: one server with BERT-base int8 at (1, 8) x 128 and
+   GPT-2 small int8 at (1,) x 64 with an 8-slot ``:generate`` lane, seed
+   weights at full width, under ``retry_max_attempts`` 3,
+   ``breaker_threshold`` 0.5, ``breaker_min_samples`` 4 and
+   ``watchdog_interval_s`` 0.5; the fault-free answers first, then (1) a
+   transient fault every second dispatch, three times: the answers
+   byte-equal, ``dispatch_retries`` +3, ``int8_matmul`` launches exactly
+   72 a dispatch that ran; (2) 200 ms of latency on one dispatch and six
+   requests with ``X-Deadline-Ms: 50`` behind it: 504, counted, and no
+   launch for the shed work; (3) a fatal fault on every BERT dispatch: the
+   breaker opens, BERT fast-fails 503 with ``Retry-After`` while GPT-2's
+   ``:predict`` and ``:generate`` answer byte-equal, then the watchdog
+   rebuilds on the fatal cause; (4) twice, a poisoned runner: eight
+   concurrent ``/healthz`` 503 through one shared probe, the watchdog's
+   rebuild (every graph re-captured), byte-equal answers, the recovery
+   seconds, and ``torch.cuda.memory_allocated()`` after the recovery no
+   more than one engine's weights over its value before the poison, with
+   the same number of live ``CompiledModel`` objects; (6) ``/admin/drain``
+   with a stream in flight: the stream finishes whole, a new ``:predict``
+   and ``/healthz`` answer 503; (7) ``/metrics?format=prometheus`` against
+   ``tools/metrics_manifest.json`` through ``tools/check_metrics.py``.
+   (Check 5, the prefix chaos, runs in phase 13's paged engine.)
 
 With ``--profile``, every path is also profiled eager against replayed:
 device-busy and wall time, the idle share, and the host's calls, where a
@@ -135,15 +161,19 @@ from __future__ import annotations
 
 import argparse
 import base64
+import gc
+import importlib.util
 import io
 import json
 import statistics
 import struct
 import subprocess
 import sys
+import threading
 import time
 import urllib.error
 import urllib.request
+import weakref
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
@@ -194,7 +224,9 @@ def check(cond: bool, msg: str) -> None:
 
 # -- phase 1: device ---------------------------------------------------------
 
-def phase_device() -> None:
+def phase_device() -> str:
+    """Check for the card; returns its name and power limit as nvidia-smi
+    gives them, for the lines that report a number."""
     check(torch.cuda.is_available(), "CUDA is not available: chip_smoke needs an NVIDIA GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -205,6 +237,7 @@ def phase_device() -> None:
     # f32 products in full f32: the plain versions are the reference.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return smi
 
 
 # -- phase 2: build ----------------------------------------------------------
@@ -3003,6 +3036,41 @@ def phase_generate_path(cfg, device: str = "cuda", streams: int = GEN_STREAMS,
                                  for b in bodies] for name in ("gpt2", "gpt2_paged")}
         out["predict"]["whisper_tiny"] = [
             http_raw(srv.port, "/v1/models/whisper_tiny:predict", w, "audio/wav") for w in wavs]
+        out["chaos"] = phase_prefix_chaos(srv.port, engine.runner.faults,
+                                          scheds["gpt2_paged"], pbodies[0], out["prefix"])
+    return out
+
+
+def phase_prefix_chaos(port: int, faults, sched, body: dict, prefix: list[dict]) -> dict:
+    """The prefix cache's chaos modes on the paged lane, its pages warm from
+    ``prefix`` (``body`` cold, then warm): ``mode="poison"`` fails every
+    lookup, so the request prefills cold and its tokens must equal the cold
+    ones; ``mode="cow"`` copies every shared page of the hit, so it stays a
+    hit whose tokens must equal the warm ones, with ``cow_copies`` counting
+    the copies."""
+    name = sched.name
+    cold, warm = prefix[0]["tokens"], prefix[1]["tokens"]
+    out = {}
+    for mode in ("poison", "cow"):
+        before = dict(sched.gen_snapshot()["prefix"])
+        faults.configure(model=name, fail_every_n=1, kind="prefix", mode=mode)
+        try:
+            r = sse(port, name, body)
+        finally:
+            faults.clear(name)
+        after = sched.gen_snapshot()["prefix"]
+        check(r["status"] == 200, f"prefix chaos {mode}: status {r['status']}")
+        cached = r["final"].get("stats", {}).get("prefix_cached_tokens", 0)
+        delta = {k: after[k] - before[k] for k in ("hits", "misses", "cow_copies")}
+        out[mode] = {"tokens": r["tokens"], "cached": cached, **delta}
+    p, c = out["poison"], out["cow"]
+    check(p["tokens"] == cold and p["cached"] == 0 and p["misses"] == 1 and p["hits"] == 0,
+          f"prefix chaos poison: {p} against cold {cold}")
+    check(c["tokens"] == warm and c["cached"] == 96 and c["hits"] == 1 and c["cow_copies"] > 0,
+          f"prefix chaos cow: {c} against warm {warm}")
+    log(f"{name} prefix chaos: poison prefilled cold ({p['misses']} miss), tokens == cold; cow "
+        f"hit 96 cached tokens with {c['cow_copies']} page copies, tokens == warm; warm "
+        f"{'==' if warm == cold else '!='} cold")
     return out
 
 
@@ -3367,6 +3435,397 @@ def run_generate(profile: bool) -> dict:
             "lane_cold_s": run["lane_cold_s"], "prefix": run["prefix"]}
 
 
+# -- phase 14: the failure path ----------------------------------------------
+
+# A probe waits this long for the dispatch thread (above any capture the
+# phase makes; the rebuild's quiesce waits as long).
+FAIL_PROBE_S = 5.0
+# The resilience settings the phase serves under, and the :generate lane of
+# its GPT-2 (the slot pool, as phase 13's int8 lane).
+FAIL = {"retry_max_attempts": 3, "breaker_threshold": 0.5, "breaker_min_samples": 4,
+        "watchdog_interval_s": 0.5, "dispatch_probe_timeout_s": FAIL_PROBE_S}
+FAIL_GEN = {"gen_slots": 8, "segment_tokens": 8, "max_new_tokens": 32}
+# Check 4: how long the last /healthz verdict is kept (DeviceRunner.probe's
+# cache), and how long a slow dispatch wedges the lane: past the timeout of
+# the one probe that eight /healthz share.
+FAIL_WEDGE_MS = 8000
+FAIL_PROBE_CACHE_S = 5.0
+# Check 2: the latency that holds the lane, the deadline of the requests
+# queued behind it, and how many there are.
+FAIL_SLOW_MS = 200
+FAIL_DEADLINE_MS = 50
+FAIL_SHED = 6
+# How long a recovery (poison → /healthz 200) may take before the phase
+# fails, and how many poison → recovery cycles check 4 runs.
+FAIL_RECOVERY_S = 600
+FAIL_POISON_CYCLES = 2
+
+
+def failure_config(bert_arch: dict | None = None, gpt2_arch: dict | None = None, **gpt2_extra):
+    """BERT-base int8 at (1, 8) x 128 and GPT-2 small int8 at (1,) x 64 with a
+    slot-pool :generate lane, under :data:`FAIL`'s resilience settings."""
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+
+    return ServeConfig(**FAIL, models=[
+        ModelConfig(name="bert_base", dtype="bfloat16", seq_buckets=(BERT["seq"],),
+                    batch_buckets=BERT["batch_buckets"],
+                    extra={"params_dtype": "int8", **({"arch": bert_arch} if bert_arch else {})}),
+        ModelConfig(name="gpt2", dtype="bfloat16", seq_buckets=(GPT2["seq"],), batch_buckets=(1,),
+                    extra={"params_dtype": "int8", **FAIL_GEN,
+                           **({"arch": gpt2_arch} if gpt2_arch else {}), **gpt2_extra})])
+
+
+def http_h(port: int, path: str, body=None, headers: dict | None = None, timeout: float = 120.0):
+    """(status, JSON or text body, headers) of one request."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw, status, hdrs = r.read(), r.status, dict(r.headers)
+    except urllib.error.HTTPError as e:
+        raw, status, hdrs = e.read(), e.code, dict(e.headers)
+    if hdrs.get("Content-Type", "").startswith("application/json"):
+        return status, json.loads(raw), hdrs
+    return status, raw.decode(), hdrs
+
+
+def wait_until(pred, timeout: float, what: str, every: float = 0.05) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        check(time.monotonic() < deadline, f"timed out after {timeout} s waiting for {what}")
+        time.sleep(every)
+
+
+def device_census() -> dict:
+    """What the process keeps alive: CompiledModel objects, captured CUDA
+    graphs, and the bytes of the distinct CUDA storages Python can reach."""
+    models = graphs = 0
+    storages = {}
+    for o in gc.get_objects():
+        if type(o).__name__ == "CompiledModel":
+            models += 1
+        elif torch.cuda.is_available() and isinstance(o, torch.cuda.CUDAGraph):
+            graphs += 1
+        elif torch.is_tensor(o) and o.is_cuda:
+            st = o.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+    return {"models": models, "graphs": graphs, "tensor_mib": round(sum(storages.values()) / 2**20, 1)}
+
+
+def check_metrics_tool():
+    """``tools/check_metrics.py`` (stdlib only), loaded by path."""
+    spec = importlib.util.spec_from_file_location("check_metrics", "tools/check_metrics.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_failure_path(cfg, device: str = "cuda", per_forward: int = 72, bert_vocab: int = 30522,
+                       gpt2_vocab: int = 50257, card: str = "") -> dict:
+    """Serve BERT and GPT-2 over HTTP and drive the failure path: transient
+    retries, deadline shedding, the breaker's isolation and the watchdog's
+    recovery from it, a poisoned runner's shared probe and recovery (freed
+    memory, byte-equal answers), drain with a stream in flight, and the
+    Prometheus exposition against the manifest.  ``per_forward`` is
+    ``int8_matmul``'s launches a BERT forward (0 on the CPU, where the
+    wrappers compute their plain versions and count nothing)."""
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    cuda = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(14)
+    bodies = [{"input_ids": rng.integers(1, bert_vocab - 1, n).tolist()}
+              for n in (5, 20, 40, 64, 90, 120)]
+    gpt2_body = {"input_ids": rng.integers(0, gpt2_vocab - 1, 24).tolist()}
+    gen_body = {"input_ids": rng.integers(0, gpt2_vocab - 1, 16).tolist(), "max_new_tokens": 24}
+    bert, gpt2 = "/v1/models/bert_base:predict", "/v1/models/gpt2:predict"
+    out = {}
+    t0 = time.perf_counter()
+    # The server builds its engine and owns it, as `serve` runs it: a
+    # recovery frees the engine it replaces.
+    with BackgroundServer(cfg, device=device) as srv:
+        server, port = srv.server, srv.port
+        log(f"{card}: failure-path engines ready in {time.perf_counter() - t0:.3f} s on "
+            f"{server.engine.device}: build {server.engine.build_seconds}")
+
+        def answers() -> list:
+            """BERT's bodies one at a time, GPT-2 :predict and a :generate
+            stream: what must come back byte-equal after every fault."""
+            got = []
+            for path, body in [(bert, b) for b in bodies] + [(gpt2, gpt2_body)]:
+                status, o, _ = http_h(port, path, body)
+                check(status == 200, f"{path}: status {status}: {o}")
+                got.append(json.dumps(o["predictions"], sort_keys=True))
+            r = sse(port, "gpt2", gen_body)
+            check(r["status"] == 200 and r["final"] and r["final"]["done"],
+                  f"gpt2 :generate answered {r}")
+            return got + [r["tokens"]]
+
+        def healthy() -> bool:
+            return http_h(port, "/healthz")[0] == 200
+
+        free = answers()
+        mr = server.resilience.model("bert_base")
+        # What one engine holds with every graph captured: each recovery must
+        # come back to it, within one engine's weights.
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        weights = sum(cm.param_nbytes() for cm in server.engine.models.values())
+        mem0 = torch.cuda.memory_allocated() if cuda else 0
+        census0 = device_census()
+        graphs0 = {n: cm.graphs for n, cm in server.engine.models.items()}
+
+        def after_recovery(what: str, old) -> dict:
+            """Byte-equal answers from the new engine, every graph captured
+            again, and the old engine (a weak reference) gone with its memory."""
+            check(answers() == free, f"{what}: the answers after recovery differ from the "
+                                     "fault-free bytes")
+            graphs = {n: cm.graphs for n, cm in server.engine.models.items()}
+            check(graphs == graphs0, f"{what}: graphs {graphs} after recovery, {graphs0} before")
+            gc.collect()
+            check(old() is None, f"{what}: the replaced engine is still reachable")
+            row = {"mem": torch.cuda.memory_allocated() if cuda else 0,
+                   "census": device_census(),
+                   "graphs": {n: len(g) for n, g in graphs.items()}}
+            check(row["mem"] - mem0 <= weights,
+                  f"{what}: allocated {row['mem']} bytes after recovery against {mem0} before, "
+                  f"more than one engine's weights ({weights}): the old engine was not freed")
+            check(row["census"]["models"] == census0["models"],
+                  f"{what}: {row['census']['models']} CompiledModel objects alive after the "
+                  f"recovery, {census0['models']} before: the old engine was not freed")
+            return row
+
+        # 1. Transient: every second dispatch fails, three times; retried.
+        runner = server.engine.runner
+        stats = runner.stats["bert_base"]
+        retries0, batches0 = mr.stats.retries, stats.batches
+        runner.faults.configure(model="bert_base", fail_every_n=2, count=3, kind="transient")
+        reset_counts()
+        got = []
+        for b in bodies[:5]:
+            status, o, _ = http_h(port, bert, b)
+            check(status == 200, f"transient: status {status}: {o}")
+            got.append(json.dumps(o["predictions"], sort_keys=True))
+        counts = read_counts()
+        injected = runner.faults.snapshot()["injected"]["dispatch"]
+        runner.faults.clear()
+        ran = stats.batches - batches0
+        check(got == free[:5], "transient: the retried answers differ from the fault-free bytes")
+        check(mr.stats.retries - retries0 == 3 and injected == 3 and ran == 5,
+              f"transient: retries +{mr.stats.retries - retries0}, injected {injected}, "
+              f"dispatches ran {ran}")
+        exact_counts(counts, {"int8_matmul": per_forward * ran}, "failure path, transient")
+        out["launches"] = counts["int8_matmul"]
+        log(f"{card}: check 1 transient: 5 BERT answers 200 and byte-equal to the fault-free "
+            f"ones; dispatch_retries +3; {ran} dispatches ran; int8_matmul launches "
+            f"{counts['int8_matmul']} = {per_forward} x {ran}")
+
+        # 2. Deadline: a slow dispatch holds the lane; what queues behind it
+        # with a short deadline answers 504 and never reaches the device.
+        batches0, dl0 = stats.batches, mr.stats.deadline_exceeded
+        buckets0 = {b: v["batches"] for b, v in stats.by_bucket.items()}
+        slept0 = runner.faults.snapshot()["injected"]["latency_ms"]
+        runner.faults.configure(model="bert_base", latency_ms=FAIL_SLOW_MS)
+        reset_counts()
+        with ThreadPoolExecutor(FAIL_SHED + 1) as ex:
+            slow = ex.submit(http_h, port, bert, bodies[0])
+            # The dispatch thread is in the slow dispatch's sleep once the
+            # injector has booked its latency.
+            wait_until(lambda: runner.faults.snapshot()["injected"]["latency_ms"] > slept0, 10,
+                       "the slow dispatch", every=0.001)
+            shed = [ex.submit(http_h, port, bert, b, {"X-Deadline-Ms": str(FAIL_DEADLINE_MS)})
+                    for b in bodies[:FAIL_SHED]]
+            shed = [f.result() for f in shed]
+            slow = slow.result()
+        time.sleep(0.2)  # the batcher pops the expired requests and drops them
+        counts = read_counts()
+        runner.faults.clear()
+        check(slow[0] == 200 and json.dumps(slow[1]["predictions"], sort_keys=True) == free[0],
+              f"deadline: the slow request answered {slow[0]}")
+        stages = [o.get("stage") for _, o, _ in shed]
+        check(all(st == 504 for st, _, _ in shed) and set(stages) <= {"queue", "await"},
+              f"deadline: statuses {[st for st, _, _ in shed]}, stages {stages}")
+        ran = {b: v["batches"] - buckets0.get(b, 0) for b, v in stats.by_bucket.items()}
+        check(mr.stats.deadline_exceeded - dl0 == FAIL_SHED and stats.batches - batches0 == 1,
+              f"deadline: deadline_exceeded +{mr.stats.deadline_exceeded - dl0}, batches "
+              f"+{stats.batches - batches0} by bucket {ran}, stages {stages}, answers "
+              f"{[o for _, o, _ in shed]}")
+        exact_counts(counts, {"int8_matmul": per_forward}, "failure path, deadline")
+        out["launches"] += counts["int8_matmul"]
+        log(f"{card}: check 2 deadline: {FAIL_SHED} requests with X-Deadline-Ms "
+            f"{FAIL_DEADLINE_MS} behind a {FAIL_SLOW_MS} ms dispatch answered 504 (stages "
+            f"{sorted(set(stages))}); deadline_exceeded +{FAIL_SHED}; one batch ran, "
+            f"int8_matmul launches {counts['int8_matmul']}")
+        del runner, stats
+
+        # 3. Breaker: a fatal rule on BERT at every dispatch.  The watchdog is
+        # paused so that the breaker's isolation is seen alone, then resumed
+        # to recover from the open breaker's fatal cause.
+        srv.call(server.watchdog.stop)
+        server.engine.runner.faults.configure(model="bert_base", fail_every_n=1, kind="fatal")
+        fails = 0
+        for _ in range(40):
+            status, o, hdrs = http_h(port, bert, bodies[0])
+            if status != 500:
+                break
+            fails += 1
+        check(status == 503 and o.get("breaker") == "open" and "Retry-After" in hdrs,
+              f"breaker: after {fails} failures status {status}: {o}")
+        t1 = time.perf_counter()
+        status, o, hdrs = http_h(port, bert, bodies[1])
+        fast_ms = (time.perf_counter() - t1) * 1e3
+        check(status == 503 and "Retry-After" in hdrs, f"breaker: fast-fail answered {status}")
+        status, o, _ = http_h(port, gpt2, gpt2_body)
+        check(status == 200 and json.dumps(o["predictions"], sort_keys=True) == free[-2],
+              f"breaker: GPT-2 :predict answered {status} or other bytes while BERT's "
+              "breaker was open")
+        r = sse(port, "gpt2", gen_body)
+        check(r["status"] == 200 and r["tokens"] == free[-1],
+              "breaker: GPT-2 :generate differs while BERT's breaker was open")
+        server.engine.runner.faults.clear()
+        original, rec0 = weakref.ref(server.engine), server.watchdog.recoveries_total
+        srv.call(server.watchdog.start)
+        t1 = time.perf_counter()
+        wait_until(lambda: server.watchdog.recoveries_total > rec0 and healthy(),
+                   FAIL_RECOVERY_S, "the recovery from the breaker's fatal cause")
+        breaker_recovery_s = time.perf_counter() - t1
+        check(server.engine is not original() and mr.breaker.state == "closed",
+              "breaker: the watchdog did not rebuild and reset the breaker")
+        breaker_row = after_recovery("breaker", original)
+        log(f"{card}: check 3 breaker: open after {fails} fatal 500s; BERT fast-fails 503 with "
+            f"Retry-After in {fast_ms:.3f} ms; GPT-2 :predict and :generate byte-equal "
+            f"meanwhile; the watchdog rebuilt on the fatal cause in {breaker_recovery_s:.3f} s "
+            f"(rebuild {server.watchdog.last_rebuild_s} s); the answers are byte-equal, graphs "
+            f"re-captured {breaker_row['graphs']}, memory_allocated {mem0 / 2**20:.1f} MiB "
+            f"before, {breaker_row['mem'] / 2**20:.1f} MiB after (one engine's weights "
+            f"{weights / 2**20:.1f} MiB); live objects before {census0}, after "
+            f"{breaker_row['census']}")
+
+        # 4. A wedge, then a poison; twice, to tell a one-time cost from
+        # memory each recovery leaves.  The watchdog is paused while a slow
+        # dispatch wedges the lane: eight concurrent /healthz share one probe
+        # and its timeout.  Then the runner is poisoned (dead with no
+        # dispatch) and the resumed watchdog rebuilds.
+        cycles = []
+        for cycle in range(FAIL_POISON_CYCLES):
+            runner = server.engine.runner
+            srv.call(server.watchdog.stop)
+            time.sleep(FAIL_PROBE_CACHE_S)  # the last /healthz verdict lapses
+            slept0 = runner.faults.snapshot()["injected"]["latency_ms"]
+            runner.faults.configure(model="bert_base", latency_ms=FAIL_WEDGE_MS)
+            probes0 = runner.probe_dispatches
+            barrier = threading.Barrier(8)
+
+            def healthz(_):
+                barrier.wait()
+                return http_h(port, "/healthz")[0]
+
+            with ThreadPoolExecutor(9) as ex:
+                slow = ex.submit(http_h, port, bert, bodies[0])
+                wait_until(lambda: runner.faults.snapshot()["injected"]["latency_ms"] > slept0,
+                           10, "the wedging dispatch", every=0.001)
+                health = list(ex.map(healthz, range(8)))
+                slow = slow.result()
+            runner.faults.clear()
+            probes = runner.probe_dispatches - probes0
+            check(health == [503] * 8 and probes == 1,
+                  f"wedge: /healthz answered {health} through {probes} probes")
+            check(slow[0] == 200 and json.dumps(slow[1]["predictions"], sort_keys=True) == free[0],
+                  f"wedge: the slow request answered {slow[0]}")
+            old, rec0 = weakref.ref(server.engine), server.watchdog.recoveries_total
+            t1 = time.perf_counter()
+            runner.poison(RuntimeError("injected fatal device fault"))
+            srv.call(server.watchdog.start)
+            wait_until(lambda: server.watchdog.recoveries_total > rec0 and healthy(),
+                       FAIL_RECOVERY_S, "the recovery from the poison")
+            recovery_s = time.perf_counter() - t1
+            check(server.engine.runner is not runner, "poison: the runner was not replaced")
+            del runner
+            new = server.engine
+            timing = {"recovery_s": recovery_s, "rebuild_s": server.watchdog.last_rebuild_s,
+                      "cold_s": new.cold_start_seconds, "capture_s": new.clock.total_seconds}
+            del new
+            row = {**timing, **after_recovery("poison", old)}
+            cycles.append(row)
+            log(f"{card}: check 4 wedge and poison, cycle {cycle + 1}: 8 concurrent /healthz "
+                f"503 through 1 shared probe behind a {FAIL_WEDGE_MS} ms dispatch (timeout "
+                f"{FAIL_PROBE_S} s); recovery (poison -> /healthz 200) {recovery_s:.3f} s; "
+                f"rebuild {row['rebuild_s']} s, of it the new engine's cold start "
+                f"{row['cold_s']:.3f} s and its captures (first dispatch per bucket) "
+                f"{row['capture_s']:.3f} s, graphs re-captured {row['graphs']}; answers "
+                f"byte-equal; memory_allocated {mem0 / 2**20:.1f} MiB before the breaker's "
+                f"recovery, {row['mem'] / 2**20:.1f} MiB after this one (one engine's weights "
+                f"{weights / 2**20:.1f} MiB); live objects before {census0}, after "
+                f"{row['census']}")
+        out.update(cycles=cycles, mem0=mem0, weights=weights,
+                   breaker_recovery_s=breaker_recovery_s, breaker_mem=breaker_row["mem"])
+
+        # 6. Drain with a :generate stream in flight (its segments slowed so
+        # that the drain overlaps it).
+        faults = server.engine.runner.faults
+        faults.configure(model="gpt2", latency_ms=100)
+        sched = server.schedulers["gpt2"]
+        with ThreadPoolExecutor(2) as ex:
+            stream = ex.submit(sse, port, "gpt2", gen_body)
+            wait_until(lambda: sched.active, 60, "the stream's admission", every=0.002)
+            drain = ex.submit(http_h, port, "/admin/drain", {"timeout_s": 60})
+            wait_until(lambda: server.draining, 10, "the drain", every=0.002)
+            refused = http_h(port, bert, bodies[0])
+            health = http_h(port, "/healthz")
+            r, drained = stream.result(), drain.result()
+        faults.clear()
+        check(refused[0] == 503 and refused[1].get("draining") is True
+              and "Retry-After" in refused[2], f"drain: a new :predict answered {refused[:2]}")
+        check(health[0] == 503 and health[1]["draining"] is True,
+              f"drain: /healthz answered {health[0]}")
+        check(r["status"] == 200 and r["final"]["done"] and r["tokens"] == free[-1],
+              "drain: the in-flight stream did not finish whole")
+        check(drained[0] == 200 and drained[1]["drained"] is True, f"drain: {drained[:2]}")
+        log(f"{card}: check 6 drain: the in-flight stream finished whole ({len(r['tokens'])} "
+            "tokens, byte-equal); a new :predict 503 with draining and Retry-After; /healthz 503")
+
+        # 7. Prometheus against the manifest.
+        status, text, hdrs = http_h(port, "/metrics?format=prometheus")
+        check(status == 200 and hdrs.get("Content-Type", "").startswith(
+            "text/plain; version=0.0.4"), f"prometheus: status {status}, headers {hdrs}")
+        tool = check_metrics_tool()
+        problems = tool.check(text, tool.load_manifest())
+        check(not problems, f"prometheus: {problems}")
+        families = tool.parse_exposition(text)[0]
+        for family in ("tpuserve_dispatch_retries_total", "tpuserve_deadline_exceeded_total",
+                       "tpuserve_breaker_state", "tpuserve_recoveries_total", "tpuserve_draining",
+                       "tpuserve_faults_injected_total", "tpuserve_ttft_ms",
+                       "tpuserve_tokens_streamed_total", "tpuserve_device_ms"):
+            check(family in families, f"prometheus: no {family}")
+        recoveries = 1 + FAIL_POISON_CYCLES  # the breaker's and each poison's
+        check(f"tpuserve_recoveries_total {recoveries}" in text and "tpuserve_draining 1" in text,
+              "prometheus: the recoveries or the drain are not in the exposition")
+        log(f"{card}: check 7 prometheus: {len(families)} families, every family and label set "
+            "declared in tools/metrics_manifest.json (tools/check_metrics.py)")
+        if cuda:
+            # What the memory above holds beyond Python's reach: cuBLAS's
+            # per-(handle, stream) workspaces, read by freeing them after the
+            # last check (no graph replays after this).
+            gc.collect()
+            held = torch.cuda.memory_allocated()
+            torch._C._cuda_clearCublasWorkspaces()
+            out["workspaces_mib"] = (held - torch.cuda.memory_allocated()) / 2**20
+            log(f"{card}: cuBLAS workspaces held {out['workspaces_mib']:.1f} MiB of the "
+                f"{held / 2**20:.1f} MiB allocated after the last check")
+    return out
+
+
+def run_failure(card: str) -> dict:
+    fresh_memory()
+    t0 = time.perf_counter()
+    out = phase_failure_path(failure_config(), card=card)
+    log(f"{card}: failure path (phase 14) in {time.perf_counter() - t0:.3f} s; peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -3377,7 +3836,7 @@ def main(argv: list[str] | None = None) -> int:
                          "one GPT-2 int8 :generate segment (torch.profiler), and stamp the "
                          "fused kernels' phases")
     args = ap.parse_args(argv)
-    phase_device()
+    card = phase_device()
     phase_build()
     kern = phase_kernels()
     flash = phase_flash()
@@ -3389,6 +3848,7 @@ def main(argv: list[str] | None = None) -> int:
     whisper = run_whisper(args.profile)
     vit_embed = run_vit_embed(args.profile)
     generate = run_generate(args.profile)
+    failure = run_failure(card)
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
         log(f"one forward's int8_matmul at M={m} (72 launches, the per-shape times summed): "
@@ -3428,6 +3888,7 @@ def main(argv: list[str] | None = None) -> int:
                                        "of distinct int8 weights"},
         "launches_whisper_path": whisper["launches"],
         "launches_generate_path": generate["launches"],
+        "launches_failure_path": failure["launches"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/flash_attention.cu",

@@ -6,7 +6,10 @@
           --config profile.yaml --platform cuda
 
   ``--platform`` defaults to ``cuda``; without a GPU the command fails
-  unless ``--platform cpu`` asks for the CPU.
+  unless ``--platform cpu`` asks for the CPU.  With ``drain_timeout_s > 0``
+  in the profile, SIGTERM drains gracefully (``/healthz`` and new work 503,
+  in-flight work given the budget) before the server stops; a second
+  SIGTERM skips the drain.
 """
 
 from __future__ import annotations

@@ -43,6 +43,12 @@ class ModelConfig:
     # QoS class of the dispatch lane ("latency" | "throughput"); "" defers to
     # the class the model family registered.
     latency_class: str = ""
+    # Default request deadline in milliseconds: applied when the client sends
+    # none; checked at admission, re-checked when the batcher pops the
+    # request (expired work is shed with 504, never dispatched), and bounds
+    # the await on the device future.  0 -> ServeConfig.deadline_default_ms
+    # (0 there too -> no deadline).
+    deadline_ms: float = 0.0
     # -- the :generate lane ---------------------------------------------------
     # KV-cache engine: "slot" (a fixed pool of max-length rows) or "paged" (a
     # pool of fixed-size pages; sequences hold the pages their tokens need,
@@ -76,7 +82,7 @@ class ModelConfig:
         if self.spec_draft or self.spec_k != 4:
             raise ValueError(f"{self.name}: speculative decoding (spec_draft "
                              f"{self.spec_draft!r}, spec_k {self.spec_k}) is not served by the "
-                             f"port yet; a later slice ports it (ROADMAP Queue 1 item 6)")
+                             f"port yet; a later slice ports it (ROADMAP Queue 1 item 5)")
 
 
 @dataclass
@@ -98,6 +104,42 @@ class ServeConfig:
     job_keep_done: int = 256
     job_result_ttl_s: float = 900.0
     job_max_result_mb: float = 64.0
+    # How long the /healthz probe waits for its no-op to clear the dispatch
+    # lane before it calls the lane wedged.  Must sit above the longest
+    # legitimate occupancy (a lazy capture, a long job chunk).
+    dispatch_probe_timeout_s: float = 300.0
+    # -- request resilience: every knob defaults to off (0) ------------------
+    # Deadline when neither the client nor ModelConfig.deadline_ms sets one
+    # (0 -> none), and the cap on a client's deadline (0 -> no cap).
+    deadline_default_ms: float = 0.0
+    deadline_max_ms: float = 0.0
+    # Transient-fault retry (faults.is_transient): retries per dispatch after
+    # the first attempt (0 -> off), capped exponential backoff; a retry
+    # never outlives the request's deadline.
+    retry_max_attempts: int = 0
+    retry_base_ms: float = 10.0
+    retry_max_ms: float = 1000.0
+    # Per-model circuit breaker: the error rate in [0, 1] that trips it OPEN
+    # once min_samples outcomes are in the sliding window (0 -> no breaker);
+    # open_s is the cooldown before half-open probes.
+    breaker_threshold: float = 0.0
+    breaker_window: int = 20
+    breaker_min_samples: int = 10
+    breaker_open_s: float = 5.0
+    # Graceful drain on SIGTERM: health 503, new work 503 + Retry-After, and
+    # this long for in-flight work to finish (0 -> stop at once).
+    drain_timeout_s: float = 0.0
+    # Self-healing watchdog (serving/watchdog.py): probe every interval; a
+    # poisoned engine (dead probe, or a breaker open on a fatal cause) is
+    # quarantined and rebuilt in the background (0 -> off).  After
+    # recover_max_attempts failed rebuilds (backoff from recover_backoff_s)
+    # it gives up until POST /admin/recover.
+    watchdog_interval_s: float = 0.0
+    recover_max_attempts: int = 3
+    recover_backoff_s: float = 1.0
+    # Boot-time fault rules, {model: FaultInjector.configure kwargs}: the
+    # config twin of POST /admin/faults.  File-only.
+    faults: dict[str, dict] = field(default_factory=dict)
     models: list[ModelConfig] = field(default_factory=list)
 
     def model(self, name: str) -> ModelConfig:
@@ -126,12 +168,13 @@ def apply_env_overrides(cfg: ServeConfig, environ: dict[str, str] | None = None)
 
     Each value is coerced by the type of the field's default, so a float
     field loaded from a file as an int still takes "7.5".  ``models`` is
-    file-only: structured per-model config does not go in an env var.
+    file-only, and so is ``faults``: structured config does not go in an
+    env var.
     """
     environ = os.environ if environ is None else environ
     for f in dataclasses.fields(ServeConfig):
         key = _ENV_PREFIX + f.name.upper()
-        if key not in environ or f.name == "models":
+        if key not in environ or f.name in ("models", "faults"):
             continue
         target = (type(f.default) if f.default is not dataclasses.MISSING
                   else type(getattr(cfg, f.name)))

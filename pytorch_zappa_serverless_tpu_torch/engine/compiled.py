@@ -22,6 +22,7 @@ model's Python would issue.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import time
 from typing import Any, Callable, NamedTuple, Sequence
@@ -54,14 +55,25 @@ class Captured(NamedTuple):
         return self.outputs
 
 
+@functools.cache
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one side stream every capture of the process runs on.  cuBLAS
+    keeps a workspace for each (handle, stream) pair for the life of the
+    process, and a handle belongs to a thread: with a fresh stream per
+    capture, each engine rebuilt on a new dispatch thread would leave its
+    pairs' workspaces behind.  One stream bounds the pairs to the handles,
+    which a new thread takes back from one that has exited."""
+    return torch.cuda.Stream(device)
+
+
 def capture(fn: Callable[[], Any], device: torch.device, pool=None) -> Captured:
-    """Run ``fn()`` once eagerly on a side stream (its first-use work: kernel
-    builds, ``cudaFuncSetAttribute``, launch plans, cuBLAS and cuDNN handles
-    of that stream), then capture a second call on the same stream into one
-    graph of ``pool``.  The eager call counts its launches; the capture
-    counts none (the counters are restored after it).  ``fn`` must not read
-    the device on the host: such a read raises during capture."""
-    side = torch.cuda.Stream(device)
+    """Run ``fn()`` once eagerly on the capture stream (its first-use work:
+    kernel builds, ``cudaFuncSetAttribute``, launch plans, cuBLAS and cuDNN
+    handles of that stream), then capture a second call on the same stream
+    into one graph of ``pool``.  The eager call counts its launches; the
+    capture counts none (the counters are restored after it).  ``fn`` must
+    not read the device on the host: such a read raises during capture."""
+    side = capture_stream(torch.device(device))
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         fn()

@@ -6,6 +6,11 @@ order the lane pops it.  The lane is a two-level priority queue: every
 dispatch carries its model's latency class, and a queued "latency" dispatch
 always pops before queued "throughput" work.  Device calls are not
 interruptible, so priority acts between them.
+
+The runner also carries the chaos surface (``faults.FaultInjector``): every
+batch and chunk dispatch passes its hook on the dispatch thread first, and
+``poison`` wedges the runner (every dispatch raises, the probe reports
+dead) until a rebuild replaces it.
 """
 
 from __future__ import annotations
@@ -16,11 +21,13 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FuturesTimeout
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
 import torch
 
+from ..faults import FaultInjector
 from ..utils.logging import get_logger
 from .compiled import CompiledModel
 
@@ -151,9 +158,29 @@ class DeviceRunner:
         self._pool = _DaemonDispatchPool()
         self._lock = threading.Lock()
         self._closed = False  # guarded-by: _lock
+        # Chaos surface: per-model injection rules and the poison latch,
+        # consulted at the head of every dispatch.
+        self.faults = FaultInjector()
         self.stats: dict[str, RunStats] = {}  # guarded-by: _lock
         # Parameter bytes per device-resident model (residency accounting).
         self._resident: dict[str, int] = {}  # guarded-by: _lock
+        # The shared probe: concurrent /healthz calls during a wedge share
+        # one no-op on the dispatch thread and one timeout, and a verdict is
+        # kept for a few seconds.
+        self._probe_lock = threading.Lock()
+        self._probe_future: Future | None = None  # guarded-by: _probe_lock
+        self._probe_verdict = True  # guarded-by: _probe_lock
+        self._probe_deadline = 0.0  # guarded-by: _probe_lock
+        # No-ops the probe has submitted (one per shared probe).
+        self.probe_dispatches = 0  # guarded-by: _probe_lock
+
+    def poison(self, exc: Exception | None):
+        """Wedge the runner: while set, every dispatch raises ``exc`` and
+        the probe reports dead, a fatal device fault for the 5xx path, the
+        health flip and the watchdog's rebuild.  ``None`` clears it.  Flaky
+        faults (transient, every Nth, latency) are :attr:`faults` rules and
+        leave the probe green."""
+        self.faults.poison_exc = exc
 
     def _count_batch(self, name: str, n: int, bucket: tuple[int, ...]):
         with self._lock:
@@ -174,7 +201,9 @@ class DeviceRunner:
             st.chunks += int(chunk)
 
     def _run(self, model: CompiledModel, samples: Sequence[dict], seq: int | None):
-        # On the dispatch thread.
+        # On the dispatch thread: injected latency occupies the lane as a
+        # slow replay would, and a failed dispatch runs nothing.
+        self.faults.on_dispatch(model.servable.name)
         t0 = time.perf_counter()
         results, bucket = model.run_batch(samples, seq=seq)
         self._add_device_seconds(model.servable.name, time.perf_counter() - t0)
@@ -204,12 +233,15 @@ class DeviceRunner:
         name = model.servable.name
 
         def timed(fn, *args, chunk=False):
+            self.faults.on_dispatch(name)
             t0 = time.perf_counter()
             out = fn(*args)
             self._add_device_seconds(name, time.perf_counter() - t0, chunk)
             return out
 
         async def dispatch(fn, *args, chunk=False):
+            if self.faults.poison_exc is not None:
+                raise self.faults.poison_exc
             return await asyncio.wrap_future(self._pool.submit_lane(
                 model.latency_class, timed, fn, *args, chunk=chunk))
 
@@ -225,21 +257,29 @@ class DeviceRunner:
         return self._pool.submit_lane(model.latency_class, self._run,
                                       model, samples, seq).result()
 
-    async def run_fn(self, fn, *args, model: CompiledModel):
-        """Run ``fn(*args)`` on the dispatch thread, on ``model``'s QoS lane,
-        and await its result: the generation lanes' prefills, inserts and
-        segments go through here, so all device work stays serialized on the
-        one thread.  The call's wall time on the thread adds to the model's
-        device seconds."""
-        name = model.servable.name
+    async def run_fn(self, fn, *args, model: str | None = None):
+        """Run ``fn(*args)`` on the dispatch thread and await its result.
 
-        def call(*a):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a)
-            finally:
-                self._add_device_seconds(name, time.perf_counter() - t0)
-        return await asyncio.wrap_future(self._pool.submit_lane(model.latency_class, call, *args))
+        The ``:generate`` lanes' prefills, inserts and segments go through
+        here, so all device work stays serialized on the one thread.  It
+        runs on the latency lane, since streaming decode is interactive
+        work, and it leaves ``RunStats`` alone: device seconds count batch
+        and chunk dispatches only.  It honours the poison latch and, with
+        ``model`` named, the latency half of a matching dispatch rule (a
+        slow device is slow for streams too); failure rules stay off this
+        path, where a mid-stream generation has no retry.
+        """
+        if self.faults.poison_exc is not None:
+            raise self.faults.poison_exc
+        delay_s = self.faults.dispatch_latency_s(model) if model is not None else 0.0
+        if delay_s:
+            # Sleep on the dispatch thread, occupying the lane.
+            run = fn
+
+            def fn(*a, _run=run, _delay=delay_s):  # noqa: F811
+                time.sleep(_delay)
+                return _run(*a)
+        return await asyncio.wrap_future(self._pool.submit_lane(LANE_LATENCY, fn, *args))
 
     def run_fn_sync(self, fn, *args, **kwargs):
         """Run ``fn`` on the dispatch thread (latency lane), blocking the
@@ -281,17 +321,64 @@ class DeviceRunner:
         x = torch.ones(8, device=self.device) * 2
         return bool(x.sum().item() == 16.0)
 
-    def probe(self, timeout_s: float = 30.0) -> bool:
+    def probe(self, timeout_s: float = 300.0, cache_s: float = 5.0) -> bool:
         """Device liveness for /healthz: a tiny op on the dispatch thread (the
-        one thread that touches the device), answered within ``timeout_s``."""
+        one thread that touches the device), answered within ``timeout_s``.
+        A poisoned runner is dead with no dispatch.
+
+        Shared: one no-op is in flight at a time, so concurrent callers
+        during a wedge wait on the same future and the same timeout, and a
+        verdict stands for ``cache_s``.  A timed-out future is kept: it
+        resolves once the lane clears, which makes the next probe quick and
+        truthful.
+        """
         with self._lock:
             if self._closed:
                 return False
-        try:
-            return self._pool.submit(self._device_check).result(timeout=timeout_s)
-        except Exception:
-            log.exception("device probe failed")
+        if self.faults.poison_exc is not None:
             return False
+        with self._probe_lock:
+            if time.monotonic() < self._probe_deadline:
+                return self._probe_verdict
+            fut = self._probe_future
+            if fut is None or fut.done():
+                try:
+                    fut = self._pool.submit(self._device_check)
+                except RuntimeError:  # the pool is shut down
+                    return False
+                self._probe_future = fut
+                self.probe_dispatches += 1
+        try:
+            verdict = bool(fut.result(timeout=timeout_s))
+        except FuturesTimeout:
+            log.error("dispatch thread unresponsive for %.0f s", timeout_s)
+            verdict = False
+        except Exception as e:
+            log.error("device probe failed: %s: %s", type(e).__name__, e)
+            verdict = False
+        with self._probe_lock:
+            self._probe_verdict = verdict
+            self._probe_deadline = time.monotonic() + cache_s
+            # Clear only this future: a racing caller may have installed
+            # another after it resolved.
+            if self._probe_future is fut and fut.done():
+                self._probe_future = None
+        return verdict
+
+    def quiesce(self, timeout_s: float) -> bool:
+        """Wait until everything queued on the dispatch thread has run: a
+        no-op through the lane, answered within ``timeout_s``.  False when
+        the thread is wedged or shut down."""
+        try:
+            self._pool.submit(lambda: None).result(timeout=timeout_s)
+        except (FuturesTimeout, RuntimeError):
+            return False
+        return True
+
+    @property
+    def closed(self) -> bool:
+        with self._lock:
+            return self._closed
 
     def shutdown(self):
         """Stop the dispatch pool (idempotent); queued work is cancelled."""

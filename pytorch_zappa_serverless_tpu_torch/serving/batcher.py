@@ -8,6 +8,14 @@
   results resolve each request's future.
 - Backpressure: at most ``max_concurrency`` requests in flight; beyond that
   ``submit`` raises :class:`Overloaded` → HTTP 429 with Retry-After.
+- Resilience: a request may carry an absolute loop-clock deadline; one
+  already expired when the loop pops it is shed with
+  :class:`~.resilience.DeadlineExceeded` (504), counted, and never reaches
+  the device.  Transient dispatch failures retry with capped, jittered
+  backoff, never past the survivors' deadlines, and every outcome feeds the
+  model's circuit breaker with its fatal flag.  :meth:`estimate_wait_ms`
+  forecasts the queue wait (depth × recent p50 device time) for the
+  server's admission-time shedder.
 
 All batcher state is touched only from the event loop; the one cross-thread
 edge is the runner, which returns through ``await``.
@@ -24,8 +32,10 @@ from typing import Any
 from ..config import ModelConfig
 from ..engine.compiled import CompiledModel
 from ..engine.runner import DeviceRunner
-from ..utils.logging import get_logger
+from ..faults import is_transient
+from ..utils.logging import get_logger, log_event
 from .metrics import LatencyRing
+from .resilience import DeadlineExceeded, ModelResilience
 
 log = get_logger("serving.batcher")
 
@@ -46,16 +56,23 @@ class _Req:
     seq_len: int | None
     fut: asyncio.Future
     t_enq: float = field(default_factory=time.perf_counter)
+    # Absolute loop-clock deadline (None: none), checked when the loop pops
+    # the request and before every (re)dispatch.
+    deadline: float | None = None
 
 
 class DynamicBatcher:
     def __init__(self, model: CompiledModel, runner: DeviceRunner, cfg: ModelConfig,
-                 ring: LatencyRing | None = None):
+                 ring: LatencyRing | None = None,
+                 resilience: ModelResilience | None = None):
         self.model = model
         self.runner = runner
         self.coalesce_s = cfg.coalesce_ms / 1000.0
         self.max_concurrency = cfg.max_concurrency
         self.ring = ring or LatencyRing()
+        # The server's per-model handle (retry policy, breaker, counters);
+        # an inert one (no retry, no breaker) when built without a server.
+        self.resilience = resilience or ModelResilience(name=cfg.name)
         self._queue: asyncio.Queue[_Req] = asyncio.Queue()
         # A request deferred from the previous round because its seq length
         # would have dragged the batch into a larger seq bucket.
@@ -124,25 +141,27 @@ class DynamicBatcher:
     def _dec_in_flight(self, _fut) -> None:
         self._in_flight -= 1
 
-    def _enqueue(self, sample: dict[str, Any], seq_len: int | None):
+    def _enqueue(self, sample: dict[str, Any], seq_len: int | None,
+                 deadline: float | None = None):
         """Admit + enqueue; the in-flight slot is held until the future
-        settles, however it settles."""
+        settles, however it settles (result, failure, shed or stop)."""
         self.check_capacity(1)
         fut = asyncio.get_running_loop().create_future()
         self._in_flight += 1
         fut.add_done_callback(self._dec_in_flight)
-        self._queue.put_nowait(_Req(sample, seq_len, fut))
+        self._queue.put_nowait(_Req(sample, seq_len, fut, deadline=deadline))
         return fut
 
-    async def submit(self, sample: dict[str, Any], seq_len: int | None = None) -> Any:
+    async def submit(self, sample: dict[str, Any], seq_len: int | None = None,
+                     deadline: float | None = None) -> Any:
         """Queue one preprocessed sample; resolves to (result, timing)."""
-        return await self._enqueue(sample, seq_len)
+        return await self._enqueue(sample, seq_len, deadline)
 
-    def submit_many(self, samples, seq_lens) -> list:
+    def submit_many(self, samples, seq_lens, deadline: float | None = None) -> list:
         """Atomically admit + enqueue the samples of ONE request (all or
         none: no await between the check and the enqueues)."""
         self.check_capacity(len(samples))
-        return [self._enqueue(s, sl) for s, sl in zip(samples, seq_lens)]
+        return [self._enqueue(s, sl, deadline) for s, sl in zip(samples, seq_lens)]
 
     def _seq_cap(self, head: _Req) -> int | None:
         """Seq-bucket ceiling the head request sets for this batch: longer
@@ -199,27 +218,74 @@ class DynamicBatcher:
                 req.fut.set_exception(exc)
                 self.ring.record_error()
 
+    def _shed_expired(self, batch: list[_Req], now: float) -> list[_Req]:
+        """Resolve the expired members with 504 and return the survivors:
+        work whose client has given up is never sent to the device."""
+        live = []
+        for req in batch:
+            if req.deadline is None or now < req.deadline:
+                live.append(req)
+            elif not req.fut.done():
+                # A future already done was 504'd (and counted) by the
+                # server's await bound.
+                req.fut.set_exception(DeadlineExceeded(
+                    f"{self.model.servable.name}: deadline passed "
+                    f"{(now - req.deadline) * 1000.0:.1f} ms before dispatch", stage="queue"))
+                self.ring.record_error()
+                self.resilience.stats.deadline_queue += 1
+        return live
+
     async def _dispatch(self, batch: list[_Req]):
-        samples = [req.sample for req in batch]
-        seq = None
-        if self.model.servable.bucket_axes == ("batch", "seq"):
-            lens = [req.seq_len for req in batch if req.seq_len is not None]
-            seq = max(lens) if lens else None
-        t_start = time.perf_counter()
-        try:
-            results = await self.runner.run(self.model, samples, seq=seq)
-        except Exception as e:
-            log.exception("batch failed for %s", self.model.servable.name)
-            self._fail_batch(batch, e)
+        loop = asyncio.get_running_loop()
+        mr = self.resilience
+        attempt = 0
+        while True:
+            # Before EVERY attempt: members expired in the queue, or during a
+            # retry's backoff, are shed before any device time is spent.
+            batch = self._shed_expired(batch, loop.time())
+            if not batch:
+                return
+            samples = [req.sample for req in batch]
+            seq = None
+            if self.model.servable.bucket_axes == ("batch", "seq"):
+                lens = [req.seq_len for req in batch if req.seq_len is not None]
+                seq = max(lens) if lens else None
+            t_start = time.perf_counter()
+            try:
+                results = await self.runner.run(self.model, samples, seq=seq)
+            except Exception as e:
+                # The outcome and its fatal flag: a breaker open on a fatal
+                # cause is the watchdog's rebuild signal.
+                mr.note_outcome(False, fatal=not is_transient(e))
+                delay_ms = mr.retry.backoff_ms(attempt)
+                # Retry only a transient fault, within the budget, and while
+                # at least one member's deadline outlives the backoff.
+                horizon = loop.time() + delay_ms / 1000.0
+                survivors = any(req.deadline is None or req.deadline > horizon
+                                for req in batch)
+                if is_transient(e) and attempt < mr.retry.max_attempts and survivors:
+                    mr.stats.retries += 1
+                    attempt += 1
+                    log_event(log, "transient batch retry", model=self.model.servable.name,
+                              attempt=attempt, delay_ms=round(delay_ms, 1),
+                              error=f"{type(e).__name__}: {e}")
+                    await asyncio.sleep(delay_ms / 1000.0)
+                    continue
+                log.exception("batch failed for %s", self.model.servable.name)
+                self._fail_batch(batch, e)
+                return
+            mr.note_outcome(True)
+            if attempt:
+                mr.stats.retry_successes += 1
+            t_end = time.perf_counter()
+            device_ms = (t_end - t_start) * 1000
+            for req, res in zip(batch, results):
+                queue_ms = (t_start - req.t_enq) * 1000
+                total_ms = (t_end - req.t_enq) * 1000
+                self.ring.record(queue_ms, device_ms, total_ms)
+                if not req.fut.done():
+                    req.fut.set_result((res, {"queue_ms": round(queue_ms, 3),
+                                              "device_ms": round(device_ms, 3),
+                                              "total_ms": round(total_ms, 3),
+                                              "batch_size": len(batch)}))
             return
-        t_end = time.perf_counter()
-        device_ms = (t_end - t_start) * 1000
-        for req, res in zip(batch, results):
-            queue_ms = (t_start - req.t_enq) * 1000
-            total_ms = (t_end - req.t_enq) * 1000
-            self.ring.record(queue_ms, device_ms, total_ms)
-            if not req.fut.done():
-                req.fut.set_result((res, {"queue_ms": round(queue_ms, 3),
-                                          "device_ms": round(device_ms, 3),
-                                          "total_ms": round(total_ms, 3),
-                                          "batch_size": len(batch)}))

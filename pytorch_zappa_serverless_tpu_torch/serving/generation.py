@@ -104,11 +104,13 @@ def _note_token_latency(req: GenRequest, ttft_hist: Histogram, itl_hist: Histogr
 
 
 class _Lane:
-    """What both schedulers share: the dispatch call on the model's QoS
-    lane, deferred cancellation, and the token fan-out of one request."""
+    """What both schedulers share: the dispatch call, deferred cancellation,
+    and the token fan-out of one request."""
 
     def _run(self, fn, *args):
-        return self.runner.run_fn(fn, *args, model=self.cm)
+        # The latency lane whatever the model's QoS class, as the reference
+        # dispatches its streams; named, so a latency fault rule slows them.
+        return self.runner.run_fn(fn, *args, model=self.name)
 
     def cancel(self, req: GenRequest):
         """Release a request whose client disconnected: deferred to the
@@ -811,15 +813,22 @@ class PagedGenerationScheduler(_Lane):
         self._free.append(slot)
 
     # -- admission ------------------------------------------------------------
-    def _prefix_match(self, ids: np.ndarray, aidx: int) -> tuple[int, list[int]]:
-        """Radix lookup for one admission: a lookup that fails falls back to
-        a cold prefill (counted as a miss), never to a failed request."""
+    def _prefix_match(self, ids: np.ndarray, aidx: int) -> tuple[int, list[int], bool]:
+        """Radix lookup for one admission, gated by the prefix chaos hook:
+        ``kind="prefix"`` ``mode="poison"`` fails the lookup, and any failed
+        lookup, injected or real, falls back to a cold prefill (counted as a
+        miss), never to a failed request.  Returns ``(cached_len,
+        shared_blocks, force_cow)``; ``mode="cow"`` sets the last."""
+        mode = self.runner.faults.on_prefix(self.name)
         try:
-            return self._prefix.lookup(aidx, ids, max_tokens=int(ids.shape[0]) - 1)
+            if mode == "poison":
+                raise RuntimeError("injected prefix fault (lookup)")
+            cached, shared = self._prefix.lookup(aidx, ids, max_tokens=int(ids.shape[0]) - 1)
         except Exception:
             log.exception("prefix lookup failed for %s; cold prefill", self.name)
             self._prefix.misses += 1
-            return 0, []
+            return 0, [], False
+        return cached, shared, mode == "cow"
 
     async def _admit(self):
         while self._free and self._pending:
@@ -832,13 +841,16 @@ class PagedGenerationScheduler(_Lane):
                 continue
             plen = int(ids.shape[0])
             aidx = 0
-            cached, shared = (self._prefix_match(ids, aidx) if self._prefix is not None
-                              else (0, []))
+            cached, shared, force_cow = (self._prefix_match(ids, aidx)
+                                         if self._prefix is not None else (0, [], False))
             # Shared pages come free; only the uncached tail (and a CoW clone
-            # when the hit ends mid-page) needs fresh pages.
+            # when the hit ends mid-page, or of every shared page under the
+            # cow chaos mode) needs fresh pages.
             need = self._mgr.blocks_for(plen + 1)
             partial = cached % self.block_size != 0
             fresh = need - (len(shared) - (1 if partial else 0))
+            if force_cow:
+                fresh += len(shared) - (1 if partial else 0)
             headroom = fresh + len(self._active)
             if self._mgr.free_blocks < headroom and self._prefix is not None:
                 # Decayed prefix pages yield first, protecting the path this
@@ -853,11 +865,12 @@ class PagedGenerationScheduler(_Lane):
                 break
             if not self._mgr.adopt(req, shared, cached):
                 break  # max_blocks bounds need: not reached in practice
-            # Clone the shared page prefill will write into: the hit's
-            # partial tail page.
+            # Clone every shared page prefill will write into: the hit's
+            # partial tail page, and under the cow chaos mode every one.
             cow_pairs: list[tuple[int, int]] = []
             ok = True
-            for i in ([len(shared) - 1] if partial else ()):
+            for i in (range(len(shared)) if (force_cow and shared)
+                      else ([len(shared) - 1] if partial else ())):
                 pair = self._mgr.cow(req, i)
                 if pair is None:
                     ok = False

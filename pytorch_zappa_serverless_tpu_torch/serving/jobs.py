@@ -375,6 +375,31 @@ class JobQueue:
             log.exception("job gc failed at submit")
         return job
 
+    def requeue_failed_since(self, ts: float) -> int:
+        """Re-enqueue the jobs that failed terminally at or after ``ts``.
+
+        The watchdog's heal step: jobs the fatal outage killed get a fresh
+        run on the rebuilt engine under their original ids, journaled as a
+        ``requeue`` transition.  Returns how many were requeued.
+        """
+        n = 0
+        for job in list(self._jobs.values()):
+            if job.status != "error" or job.finished is None or job.finished < ts:
+                continue
+            job.status, job.error, job.started, job.finished = "queued", None, None, None
+            job.t_enq = time.perf_counter()
+            try:
+                self._lane(job.model).put_nowait(job)
+            except asyncio.QueueFull:
+                job.status, job.error = "error", "recovery requeue: backlog full"
+                job.finished = self._clock()
+                continue
+            self._journal_event("requeue", job)
+            n += 1
+        if n:
+            log_event(log, "failed jobs requeued after recovery", count=n)
+        return n
+
     def get(self, job_id: str) -> Job | None:
         return self._jobs.get(job_id)
 

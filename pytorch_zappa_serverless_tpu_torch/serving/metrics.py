@@ -1,12 +1,20 @@
-"""Request metrics: per-model latency rings and the /metrics JSON document.
+"""Request metrics: per-model latency rings, the /metrics JSON document and
+its Prometheus text exposition.
 
-The JSON parts of the JAX package's ``MetricsHub`` this slice can fill:
-p50/p99/mean of queue, device and total ms, requests and errors, lifetime
-req/s, batch occupancy per model and bucket, the dispatch lanes, first-
-dispatch ("compile") timings, device-resident parameter bytes, and each
-``:generate`` lane's snapshot (its ``<name>:generate`` ring sits beside the
-models' rings; time to first token and inter-token gaps are
-histograms over :data:`TOKEN_LATENCY_BUCKETS_MS`).
+The parts of the JAX package's ``MetricsHub`` the port's modules fill:
+p50/p99/mean of queue, device and total ms (and lifetime histograms of the
+first two), requests and errors, lifetime req/s, batch occupancy per model
+and bucket, the dispatch lanes, first-dispatch ("compile") timings,
+device-resident parameter bytes, each ``:generate`` lane's snapshot (its
+``<name>:generate`` ring sits beside the models' rings; time to first token
+and inter-token gaps are histograms over :data:`TOKEN_LATENCY_BUCKETS_MS`),
+and the resilience layer: deadlines, retries, breakers, drain, quarantine,
+fault injection and recovery.
+
+:meth:`MetricsHub.render_prometheus` writes the same numbers as text
+exposition 0.0.4 under the names, types and label sets of
+``tools/metrics_manifest.json``; it emits no family the manifest lacks.
+Exemplars wait for the port's request tracing.
 """
 
 from __future__ import annotations
@@ -17,17 +25,20 @@ from collections import deque
 
 import numpy as np
 
+# Bucket bounds (ms) of the queue and device latency histograms, from sub-ms
+# batching to multi-second jobs; +Inf is the last cumulative bucket.
+LATENCY_BUCKETS_MS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+                      500.0, 1000.0, 2500.0, 5000.0, 10000.0)
 # Bucket bounds (ms) of the per-token histograms: time to first token and
 # the gap between tokens, decode cadence included.
-TOKEN_LATENCY_BUCKETS_MS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
-                            500.0, 1000.0, 2500.0, 5000.0)
+TOKEN_LATENCY_BUCKETS_MS = LATENCY_BUCKETS_MS[:-1]
 
 
 class Histogram:
     """Cumulative histogram over fixed bounds: O(1) observe, exact counts.
     Lock-protected: observed from the event loop, read by a scrape."""
 
-    def __init__(self, bounds: tuple[float, ...] = TOKEN_LATENCY_BUCKETS_MS):
+    def __init__(self, bounds: tuple[float, ...] = LATENCY_BUCKETS_MS):
         self.bounds = tuple(bounds)
         self._lock = threading.Lock()
         self._counts = [0] * (len(self.bounds) + 1)  # guarded-by: _lock
@@ -55,9 +66,23 @@ class Histogram:
         out["+Inf"] = total
         return {"buckets": out, "sum": round(s, 3), "count": total}
 
+    def rows(self) -> list[tuple[str, int]]:
+        """(le, cumulative count) per bucket, +Inf last, from ONE locked
+        read, so the +Inf row is never below the buckets under it."""
+        with self._lock:
+            counts = list(self._counts)
+            total = self.count
+        rows, acc = [], 0
+        for bound, n in zip(self.bounds, counts):
+            acc += n
+            rows.append((f"{bound:g}", acc))
+        rows.append(("+Inf", total))
+        return rows
+
 
 class LatencyRing:
-    """Lock-protected ring of recent (queue_ms, device_ms, total_ms) samples."""
+    """Lock-protected ring of recent (queue_ms, device_ms, total_ms) samples,
+    feeding lifetime queue and device histograms beside it."""
 
     def __init__(self, maxlen: int = 4096):
         self._samples: deque[tuple[float, float, float]] = deque(maxlen=maxlen)  # guarded-by: _lock
@@ -65,11 +90,15 @@ class LatencyRing:
         self.count = 0   # guarded-by: _lock
         self.errors = 0  # guarded-by: _lock
         self._t0 = time.monotonic()
+        self.queue_hist = Histogram()
+        self.device_hist = Histogram()
 
     def record(self, queue_ms: float, device_ms: float, total_ms: float):
         with self._lock:
             self._samples.append((queue_ms, device_ms, total_ms))
             self.count += 1
+        self.queue_hist.observe(queue_ms)
+        self.device_hist.observe(device_ms)
 
     def record_error(self):
         with self._lock:
@@ -96,7 +125,14 @@ class LatencyRing:
                 out[name] = {"p50": round(float(np.percentile(col, 50)), 3),
                              "p99": round(float(np.percentile(col, 99)), 3),
                              "mean": round(float(col.mean()), 3)}
+        if self.queue_hist.count:
+            out["queue_hist"] = self.queue_hist.snapshot()
+            out["device_hist"] = self.device_hist.snapshot()
         return out
+
+
+def _prom_label(value: str) -> str:
+    return str(value).replace("\\", r"\\").replace('"', r'\"').replace("\n", r"\n")
 
 
 class MetricsHub:
@@ -108,6 +144,12 @@ class MetricsHub:
         # () -> {model: gen_snapshot()} of the :generate lanes, set by the
         # server; None before any lane exists.
         self.generation = None  # guarded-by: event-loop
+        # Wired by the server: the ResilienceHub, the runner's FaultInjector
+        # (re-pointed at every rebuild) and the Watchdog.  All optional, so a
+        # hub renders without a server.
+        self.resilience = None  # guarded-by: event-loop
+        self.faults = None  # guarded-by: event-loop
+        self.watchdog = None  # guarded-by: event-loop
 
     def ring(self, model: str) -> LatencyRing:
         if model not in self.models:
@@ -118,6 +160,12 @@ class MetricsHub:
         out = {"models": {k: r.snapshot() for k, r in self.models.items()}}
         if self.generation is not None:
             out["generation"] = self.generation()
+        if self.resilience is not None:
+            out["resilience"] = self.resilience.snapshot()
+        if self.faults is not None:
+            out["faults"] = self.faults.snapshot()
+        if self.watchdog is not None:
+            out["recovery"] = self.watchdog.snapshot()
         if engine is None:
             return out
         occ = {}
@@ -144,3 +192,221 @@ class MetricsHub:
         by_model = engine.runner.resident_bytes()
         out["hbm"] = {"by_model": by_model, "total_bytes": sum(by_model.values())}
         return out
+
+    def render_prometheus(self, engine=None) -> str:
+        """Text exposition (version 0.0.4) of the same numbers, under the
+        families of ``tools/metrics_manifest.json``.  Latency percentiles are
+        summary-style quantile series of the recent ring (the JSON numbers);
+        the queue and device histograms are lifetime and exact."""
+        lines: list[str] = []
+
+        def labels(lbl: dict) -> str:
+            return ",".join(f'{k}="{_prom_label(v)}"' for k, v in sorted(lbl.items()))
+
+        def metric(name, mtype, help_text, samples):
+            """samples: [(labels, value)]; a family with none is skipped."""
+            rows = [(lbl, v) for lbl, v in samples if v is not None]
+            if not rows:
+                return
+            lines.append(f"# HELP {name} {help_text}")
+            lines.append(f"# TYPE {name} {mtype}")
+            for lbl, v in rows:
+                lines.append(f"{name}{{{labels(lbl)}}} {v}" if lbl else f"{name} {v}")
+
+        def histogram(name, help_text, hists):
+            """hists: [(labels, rows)], rows as ``Histogram.rows()`` plus the
+            sum; a histogram with no observation is skipped."""
+            rows = [(lbl, r, total) for lbl, r, total in hists if r and r[-1][1]]
+            if not rows:
+                return
+            lines.append(f"# HELP {name} {help_text}")
+            lines.append(f"# TYPE {name} histogram")
+            for lbl, r, total in rows:
+                base = labels(lbl)
+                sep = "," if base else ""
+                for le, acc in r:
+                    lines.append(f'{name}_bucket{{{base}{sep}le="{le}"}} {acc}')
+                lines.append(f"{name}_sum{{{base}}} {total}" if base else f"{name}_sum {total}")
+                lines.append(f"{name}_count{{{base}}} {r[-1][1]}" if base
+                             else f"{name}_count {r[-1][1]}")
+
+        def live(h: Histogram):
+            return h.rows(), round(h.sum, 3)
+
+        def snap(s: dict | None):
+            """A ``Histogram.snapshot()`` (the form a lane publishes) as rows."""
+            if not s:
+                return [], 0
+            return list(s["buckets"].items()), s["sum"]
+
+        snaps = {m: r.snapshot() for m, r in self.models.items()}
+        metric("tpuserve_requests_total", "counter", "Requests recorded per model",
+               [({"model": m}, s["requests"]) for m, s in snaps.items()])
+        metric("tpuserve_request_errors_total", "counter", "Failed requests per model",
+               [({"model": m}, s["errors"]) for m, s in snaps.items()])
+        for stage in ("queue", "device", "total"):
+            samples = []
+            for m, s in snaps.items():
+                col = s.get(f"{stage}_ms")
+                if col:
+                    samples += [({"model": m, "quantile": "0.5"}, col["p50"]),
+                                ({"model": m, "quantile": "0.99"}, col["p99"])]
+            metric(f"tpuserve_{stage}_latency_ms", "summary",
+                   f"Recent {stage} latency percentiles (ring buffer)", samples)
+        histogram("tpuserve_queue_ms", "Batcher queue wait per request (ms, lifetime histogram)",
+                  [({"model": m}, *live(r.queue_hist)) for m, r in self.models.items()])
+        histogram("tpuserve_device_ms", "Device batch time per request (ms, lifetime histogram)",
+                  [({"model": m}, *live(r.device_hist)) for m, r in self.models.items()])
+        if engine is not None:
+            stats = engine.runner.stats
+            metric("tpuserve_batches_total", "counter", "Device batches dispatched",
+                   [({"model": m}, st.batches) for m, st in stats.items()])
+            metric("tpuserve_batch_samples_total", "counter",
+                   "Real (non-padding) samples dispatched",
+                   [({"model": m}, st.samples) for m, st in stats.items()])
+            metric("tpuserve_batch_occupancy", "gauge",
+                   "Real samples / padded batch rows (lifetime)",
+                   [({"model": m}, round(st.samples / (st.samples + st.padded_samples), 3)
+                     if st.samples + st.padded_samples else 1.0) for m, st in stats.items()])
+            metric("tpuserve_device_seconds_total", "counter",
+                   "Device-dispatch wall seconds per model (batches and chunks)",
+                   [({"model": m}, round(st.device_seconds, 3)) for m, st in stats.items()])
+            metric("tpuserve_chunk_dispatches_total", "counter",
+                   "Chunked (preemptible) dispatches per model",
+                   [({"model": m}, st.chunks) for m, st in stats.items() if st.chunks])
+            lanes = engine.runner.lane_stats()
+            metric("tpuserve_dispatch_queue_depth", "gauge", "Dispatch items queued per QoS lane",
+                   [({"lane": ln}, s["depth"]) for ln, s in lanes.items()])
+            metric("tpuserve_dispatch_total", "counter", "Dispatches served per QoS lane",
+                   [({"lane": ln}, s["dispatches"]) for ln, s in lanes.items()])
+            metric("tpuserve_dispatch_wait_ms_total", "counter",
+                   "Cumulative queue wait per QoS lane (ms)",
+                   [({"lane": ln}, s["wait_ms_total"]) for ln, s in lanes.items()])
+            metric("tpuserve_dispatch_wait_ms_max", "gauge",
+                   "Worst queue wait per QoS lane (ms, lifetime)",
+                   [({"lane": ln}, s["wait_ms_max"]) for ln, s in lanes.items()])
+            metric("tpuserve_cold_start_seconds", "gauge",
+                   "Engine boot (weights, warm-up runs, graph captures) seconds",
+                   [({}, round(engine.cold_start_seconds, 3))])
+            metric("tpuserve_compile_seconds_total", "counter",
+                   "Cumulative first-dispatch (build, warm-up, capture) seconds",
+                   [({}, round(engine.clock.total_seconds, 3))])
+            metric("tpuserve_compiled_buckets", "gauge",
+                   "Buckets warmed (captured) vs configured per model",
+                   [({"model": m, "state": st}, v) for m, cm in engine.models.items()
+                    for st, v in (("compiled", len(cm.warmed_buckets)),
+                                  ("configured", len(cm.buckets)))])
+            by_clock = engine.clock.per_model()
+            metric("tpuserve_compile_entries", "gauge", "First dispatches recorded per model",
+                   [({"model": m}, v["entries"]) for m, v in by_clock.items()])
+            metric("tpuserve_model_compile_seconds_total", "counter",
+                   "Cumulative first-dispatch seconds per model",
+                   [({"model": m}, v["seconds"]) for m, v in by_clock.items()])
+            metric("tpuserve_hbm_bytes", "gauge",
+                   "Device-resident parameter bytes per model",
+                   [({"model": m}, v) for m, v in engine.runner.resident_bytes().items()])
+        if self.resilience is not None:
+            from .resilience import BREAKER_STATE_CODE
+
+            rsnap = self.resilience.snapshot()
+            per_model = rsnap["models"].items()
+            metric("tpuserve_deadline_exceeded_total", "counter",
+                   "Requests 504'd per model and stage (admission|queue|await)",
+                   [({"model": m, "stage": stage}, v) for m, s in per_model
+                    for stage, v in s["deadline_exceeded"].items() if stage != "total"])
+            metric("tpuserve_load_shed_total", "counter",
+                   "Requests 429'd by the queue-wait estimator per model",
+                   [({"model": m}, s["shed"]) for m, s in per_model])
+            metric("tpuserve_dispatch_retries_total", "counter",
+                   "Transient dispatch retries attempted per model",
+                   [({"model": m}, s["retries"]) for m, s in per_model])
+            metric("tpuserve_dispatch_retry_success_total", "counter",
+                   "Dispatches that succeeded after at least one retry",
+                   [({"model": m}, s["retry_successes"]) for m, s in per_model])
+            metric("tpuserve_breaker_fast_fails_total", "counter",
+                   "Requests 503'd by an open circuit breaker per model",
+                   [({"model": m}, s["breaker_fast_fails"]) for m, s in per_model])
+            metric("tpuserve_breaker_state", "gauge",
+                   "Circuit breaker state (0=closed, 1=half_open, 2=open)",
+                   [({"model": m}, BREAKER_STATE_CODE[s["breaker"]["state"]])
+                    for m, s in per_model if "breaker" in s])
+            metric("tpuserve_breaker_opens_total", "counter",
+                   "Circuit breaker closed->open transitions per model",
+                   [({"model": m}, s["breaker"]["opens"]) for m, s in per_model
+                    if "breaker" in s])
+            metric("tpuserve_draining", "gauge", "1 while the server is draining",
+                   [({}, int(rsnap["draining"]))])
+            metric("tpuserve_quarantined", "gauge",
+                   "1 while a model is quarantined for engine recovery",
+                   [({"model": m}, 1) for m in rsnap["quarantined"]])
+        if self.faults is not None:
+            fsnap = self.faults.snapshot()
+            metric("tpuserve_faults_injected_total", "counter",
+                   "Chaos faults injected by target (dispatch|preprocess|prefix)",
+                   [({"target": t}, v) for t, v in fsnap["injected"].items()
+                    if t != "latency_ms"])
+            metric("tpuserve_fault_rules_active", "gauge",
+                   "Fault-injection rules currently installed", [({}, len(fsnap["rules"]))])
+        if self.watchdog is not None:
+            from .watchdog import RECOVERY_STATE_CODE
+
+            wsnap = self.watchdog.snapshot()
+            metric("tpuserve_recovery_state", "gauge",
+                   "Watchdog state (0=healthy, 1=recovering, 2=gave_up)",
+                   [({}, RECOVERY_STATE_CODE[wsnap["state"]])])
+            metric("tpuserve_recoveries_total", "counter",
+                   "Successful automatic/manual engine recoveries",
+                   [({}, wsnap["recoveries_total"])])
+            metric("tpuserve_recovery_attempts", "gauge",
+                   "Consecutive failed rebuild attempts (resets on success)",
+                   [({}, wsnap["attempts"])])
+            metric("tpuserve_recovery_requeued_jobs_total", "counter",
+                   "Outage-failed jobs requeued after an engine recovery",
+                   [({}, wsnap["requeued_jobs_total"])])
+        if self.generation is not None:
+            gsnap = self.generation()
+            paged = {m: s for m, s in gsnap.items() if "kv" in s}
+            metric("tpuserve_kv_blocks_used", "gauge",
+                   "KV-cache blocks currently allocated per model",
+                   [({"model": m}, s["kv"]["blocks_used"]) for m, s in paged.items()])
+            metric("tpuserve_kv_blocks_total", "gauge",
+                   "Allocatable KV-cache blocks per model (pool size)",
+                   [({"model": m}, s["kv"]["blocks_total"]) for m, s in paged.items()])
+            metric("tpuserve_kv_block_evictions_total", "counter",
+                   "Streams evicted + re-queued under KV-pool pressure",
+                   [({"model": m}, s["kv"]["evictions"]) for m, s in paged.items()])
+            metric("tpuserve_prefill_chunks_total", "counter",
+                   "Prefill chunks dispatched per model (chunked prefill)",
+                   [({"model": m}, s["prefill_chunks"]) for m, s in paged.items()])
+            pref = {m: s["prefix"] for m, s in paged.items() if s.get("prefix")}
+            metric("tpuserve_prefix_hits_total", "counter",
+                   "Admissions that reused frozen prefix pages per model",
+                   [({"model": m}, p["hits"]) for m, p in pref.items()])
+            metric("tpuserve_prefix_misses_total", "counter",
+                   "Admissions that prefilled cold per model",
+                   [({"model": m}, p["misses"]) for m, p in pref.items()])
+            metric("tpuserve_prefix_nodes_total", "counter",
+                   "Radix-tree nodes ever created per model",
+                   [({"model": m}, p["nodes_total"]) for m, p in pref.items()])
+            metric("tpuserve_prefix_pages_total", "counter",
+                   "KV pages ever frozen into the prefix tree per model",
+                   [({"model": m}, p["pages_total"]) for m, p in pref.items()])
+            metric("tpuserve_prefix_cow_copies_total", "counter",
+                   "Copy-on-write page clones on prefix divergence",
+                   [({"model": m}, p["cow_copies"]) for m, p in pref.items()])
+            metric("tpuserve_prefix_evictions_total", "counter",
+                   "Prefix nodes evicted (LRU decay, reclaim, invalidation)",
+                   [({"model": m}, p["evictions"]) for m, p in pref.items()])
+            histogram("tpuserve_prefix_cached_tokens",
+                      "Prefix tokens served from frozen pages per hit",
+                      [({"model": m}, *snap(p.get("cached_tokens"))) for m, p in pref.items()])
+            lat = {m: s["latency"] for m, s in gsnap.items() if s.get("latency")}
+            histogram("tpuserve_ttft_ms", "Time to first streamed token per request (ms)",
+                      [({"model": m}, *snap(v.get("ttft_ms"))) for m, v in lat.items()])
+            histogram("tpuserve_itl_ms", "Steady-state inter-token latency (ms)",
+                      [({"model": m}, *snap(v.get("itl_ms"))) for m, v in lat.items()])
+            metric("tpuserve_tokens_streamed_total", "counter",
+                   "Tokens streamed to clients per model (:generate lanes)",
+                   [({"model": m}, s["tokens_emitted"]) for m, s in gsnap.items()
+                    if s.get("tokens_emitted") is not None])
+        return "\n".join(lines) + "\n"

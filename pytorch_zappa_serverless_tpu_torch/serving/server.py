@@ -2,7 +2,12 @@
 
 Routes (the JAX package's, for the port's slices):
 
-- ``GET /``, ``/healthz``, ``/v1/models``, ``/metrics`` (JSON);
+- ``GET /``, ``/healthz``, ``/v1/models``, ``/metrics`` (JSON, or
+  Prometheus text with ``?format=prometheus`` or ``Accept: text/plain``);
+- ``POST /admin/drain`` (stop taking work and wait for what is in flight),
+  ``GET``/``POST /admin/faults`` (the fault injector's rules),
+  ``POST /admin/recover`` (the watchdog's recovery, its budget reset) and
+  ``POST /admin/reload`` (rebuild the engine);
 - ``POST /v1/models/{name}:predict``, and ``/predict`` / ``/classify`` for
   the first configured model (405 for an async-only model);
 - ``POST /v1/models/{name}:submit`` → 202 ``{"job": ...}`` (an
@@ -36,6 +41,16 @@ over.  The answer keeps the JAX server's shape, ``{"model", "timing",
 "predictions"}``, with ``X-Queue-Ms`` and ``X-Device-Ms`` headers; errors
 are ``{"error": ...}`` with 400, 404, 405, 413, 429 (+ Retry-After) or 500.
 
+Resilience (``serving/resilience.py``): a ``:predict`` carries a deadline
+(``X-Deadline-Ms``, else the body's top-level ``deadline_ms``, capped by
+``deadline_max_ms``, else the model's and then the server's default); a
+spent deadline is 504 at admission, a hopeless one (the queue-wait forecast
+exceeds it) 429, and one that passes in the queue 504.  An open circuit
+breaker fast-fails ``:predict`` and ``:submit`` with 503 + Retry-After, as a
+model the watchdog has quarantined does.  While the server drains, work
+routes answer 503 + Retry-After and ``/healthz`` 503; what is in flight,
+streams included, runs to its end.
+
 HTTP/1.1 with keep-alive and ``Content-Length`` bodies (no chunked request
 bodies; an event stream's response is chunked).  The event loop never
 touches a device tensor: batches and the generation lanes' programs go to
@@ -46,6 +61,7 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import gc
 import json
 import math
 import re
@@ -53,6 +69,9 @@ import signal
 import threading
 from http import HTTPStatus
 from typing import Any
+from urllib.parse import parse_qs
+
+import torch
 
 from ..config import ServeConfig
 from ..engine.loader import Engine, build_engine
@@ -62,6 +81,8 @@ from .generation import GenerationScheduler, PagedGenerationScheduler
 from .jobs import JobQueue
 from .kvcache import KVPoolExhausted
 from .metrics import MetricsHub
+from .resilience import DeadlineExceeded, ResilienceHub, run_with_retry
+from .watchdog import Watchdog
 
 log = get_logger("serving.server")
 
@@ -93,7 +114,7 @@ def _error_retry(status: int, msg: str, retry_after_s: float, **extra) -> Respon
 
 
 async def _read_request(reader: asyncio.StreamReader):
-    """(method, path, version, headers, body), or None at a clean EOF."""
+    """(method, path, query, version, headers, body), or None at a clean EOF."""
     line = await reader.readline()
     if not line:
         return None
@@ -121,7 +142,8 @@ async def _read_request(reader: asyncio.StreamReader):
     if n > MAX_BODY_BYTES:
         raise _HttpError(413, f"body of {n} bytes exceeds {MAX_BODY_BYTES}")
     body = await reader.readexactly(n) if n else b""
-    return method, target.split("?", 1)[0], version, headers, body
+    path, _, query = target.partition("?")
+    return method, path, query, version, headers, body
 
 
 def _unwrap_b64(payload: Any) -> Any:
@@ -192,18 +214,44 @@ async def _next_or_gone(aw, reader: asyncio.StreamReader):
 
 
 def _encode(status: int, obj: Any, headers: dict[str, str], keep_alive: bool) -> bytes:
-    data = json.dumps(obj, separators=(",", ":")).encode()
-    return _head(status, ["Content-Type: application/json; charset=utf-8",
-                          f"Content-Length: {len(data)}"], headers, keep_alive) + data
+    """A JSON body, or a ``str`` as Prometheus text exposition 0.0.4."""
+    if isinstance(obj, str):
+        data, ctype = obj.encode(), "text/plain; version=0.0.4; charset=utf-8"
+    else:
+        data = json.dumps(obj, separators=(",", ":")).encode()
+        ctype = "application/json; charset=utf-8"
+    return _head(status, [f"Content-Type: {ctype}", f"Content-Length: {len(data)}"],
+                 headers, keep_alive) + data
+
+
+def _is_work(method: str, path: str) -> bool:
+    """Work-bearing requests: what a drain refuses and counts in flight.
+    Health, metrics, job polls and the admin routes keep answering."""
+    return method == "POST" and (path in ("/predict", "/classify")
+                                 or path.startswith("/v1/models/"))
 
 
 class Server:
     """The serving surface over one engine."""
 
-    def __init__(self, cfg: ServeConfig, engine: Engine):
+    def __init__(self, cfg: ServeConfig, engine: Engine | None = None, device=None):
         self.cfg = cfg
+        # With no engine handed in, the server builds one on ``device`` (CUDA
+        # unless asked otherwise) and owns it; one handed in belongs to the
+        # caller.  An engine the server owns, and every engine a rebuild
+        # makes, is shut down when it is replaced or the server stops.
+        self._owns_engine = engine is None
+        if engine is None:
+            engine = build_engine(cfg, device)
         self.engine = engine
         self.metrics = MetricsHub()
+        self.resilience = ResilienceHub(cfg)
+        self.metrics.resilience = self.resilience
+        self.metrics.faults = engine.runner.faults
+        self.watchdog: Watchdog | None = None  # guarded-by: event-loop
+        self._inflight = 0  # guarded-by: event-loop
+        self._drain_task: asyncio.Task | None = None  # guarded-by: event-loop
+        self._rebuild_lock = asyncio.Lock()
         self.batchers: dict[str, DynamicBatcher] = {}  # guarded-by: event-loop
         self.schedulers: dict[str, GenerationScheduler | PagedGenerationScheduler] = {}  # guarded-by: event-loop
         self._streams = 0  # guarded-by: event-loop
@@ -212,22 +260,36 @@ class Server:
         self._server: asyncio.Server | None = None
         self._conns: set[asyncio.StreamWriter] = set()  # guarded-by: event-loop
         self._handlers: set[asyncio.Task] = set()  # guarded-by: event-loop
+        # path -> {method: handler}; each takes (body, headers, query).
         self._routes = {
-            "/": ("GET", self.handle_root),
-            "/healthz": ("GET", self.handle_healthz),
-            "/v1/models": ("GET", self.handle_models),
-            "/metrics": ("GET", self.handle_metrics),
-            "/predict": ("POST", self.handle_predict_default),
-            "/classify": ("POST", self.handle_predict_default),
+            "/": {"GET": self.handle_root},
+            "/healthz": {"GET": self.handle_healthz},
+            "/v1/models": {"GET": self.handle_models},
+            "/metrics": {"GET": self.handle_metrics},
+            "/predict": {"POST": self.handle_predict_default},
+            "/classify": {"POST": self.handle_predict_default},
+            "/admin/drain": {"POST": self.handle_drain},
+            "/admin/faults": {"GET": self.handle_faults_get, "POST": self.handle_faults},
+            "/admin/recover": {"POST": self.handle_recover},
+            "/admin/reload": {"POST": self.handle_reload},
         }
 
-    async def start(self, host: str | None = None, port: int | None = None) -> int:
-        """Start the batchers and the job queue, and listen; returns the
-        bound port.  Async-only models are served by the job queue alone."""
+    @property
+    def draining(self) -> bool:
+        return self.resilience.draining
+
+    @property
+    def rebuilding(self) -> bool:
+        return self._rebuild_lock.locked()
+
+    def _start_lanes(self):
+        """The batchers and ``:generate`` lanes of the current engine.
+        Async-only models are served by the job queue alone."""
         for name, cm in self.engine.models.items():
             if not cm.servable.meta.get("async_only"):
                 self.batchers[name] = DynamicBatcher(
-                    cm, self.engine.runner, cm.cfg, ring=self.metrics.ring(name)).start()
+                    cm, self.engine.runner, cm.cfg, ring=self.metrics.ring(name),
+                    resilience=self.resilience.model(name)).start()
             if "continuous" in cm.servable.meta:
                 # The :generate lane beside :predict, its pool allocated and
                 # its graphs captured at first use, as the JAX lanes compile;
@@ -239,6 +301,24 @@ class Server:
                 self.schedulers[name] = lane(
                     cm, self.engine.runner, cm.cfg,
                     ring=self.metrics.ring(f"{name}:generate")).start()
+
+    async def _stop_lanes(self):
+        for b in self.batchers.values():
+            await b.stop()
+        for sched in self.schedulers.values():
+            await sched.stop()
+        self.batchers.clear()
+        self.schedulers.clear()
+
+    async def start(self, host: str | None = None, port: int | None = None) -> int:
+        """Start the lanes, the job queue and the watchdog, and listen;
+        returns the bound port."""
+        if self.cfg.faults:
+            # Boot-time chaos rules (the config twin of POST /admin/faults);
+            # a refused rule fails the boot.
+            self.engine.runner.faults.apply_config(self.cfg.faults)
+            log_event(log, "fault rules installed from config", models=sorted(self.cfg.faults))
+        self._start_lanes()
         self.metrics.generation = lambda: {n: s.gen_snapshot()
                                            for n, s in self.schedulers.items()}
         self.jobs = JobQueue(self._run_job, run_jobs=self._run_jobs,
@@ -247,6 +327,11 @@ class Server:
                              keep_done=self.cfg.job_keep_done,
                              max_result_mb=self.cfg.job_max_result_mb,
                              result_ttl_s=self.cfg.job_result_ttl_s).start()
+        if self.cfg.watchdog_interval_s > 0:
+            self.watchdog = Watchdog(self, self.cfg.watchdog_interval_s,
+                                     max_attempts=self.cfg.recover_max_attempts,
+                                     backoff_s=self.cfg.recover_backoff_s).start()
+            self.metrics.watchdog = self.watchdog
         self._server = await asyncio.start_server(
             self._handle_conn, host or self.cfg.host,
             self.cfg.port if port is None else port)
@@ -264,12 +349,13 @@ class Server:
             await asyncio.gather(*self._handlers, return_exceptions=True)
             await self._server.wait_closed()
             self._server = None
-        for b in self.batchers.values():
-            await b.stop()
-        for sched in self.schedulers.values():
-            await sched.stop()
+        if self.watchdog is not None:
+            await self.watchdog.stop()
+        await self._stop_lanes()
         if self.jobs is not None:
             await self.jobs.stop()
+        if self._owns_engine:
+            await asyncio.get_running_loop().run_in_executor(None, self.engine.shutdown)
 
     # -- connection loop ----------------------------------------------------
     async def _handle_conn(self, reader: asyncio.StreamReader,
@@ -286,15 +372,30 @@ class Server:
                     break
                 if req is None:
                     break
-                method, path, version, headers, body = req
-                status, obj, extra = await self._dispatch(method, path, headers, body, reader)
+                method, path, query, version, headers, body = req
                 keep = (version == "HTTP/1.1"
                         and headers.get("connection", "").lower() != "close")
-                if isinstance(obj, EventStream):
-                    keep = await self._write_stream(writer, reader, status, obj, extra, keep)
-                else:
-                    writer.write(_encode(status, obj, extra, keep))
+                work = _is_work(method, path)
+                if work and self.draining:
+                    writer.write(_encode(*_error_retry(
+                        503, "server is draining; retry against another replica",
+                        self.cfg.drain_timeout_s or 1.0, draining=True), keep))
                     await writer.drain()
+                    continue
+                # Work in flight, what a drain waits for, until its response
+                # (a stream's last event included) is written.
+                self._inflight += int(work)
+                try:
+                    status, obj, extra = await self._dispatch(method, path, headers, body,
+                                                              reader, query)
+                    if isinstance(obj, EventStream):
+                        keep = await self._write_stream(writer, reader, status, obj, extra,
+                                                        keep)
+                    else:
+                        writer.write(_encode(status, obj, extra, keep))
+                        await writer.drain()
+                finally:
+                    self._inflight -= int(work)
                 if not keep:
                     break
         except (ConnectionError, asyncio.IncompleteReadError, ValueError):
@@ -327,7 +428,8 @@ class Server:
             raise
 
     async def _dispatch(self, method: str, path: str, headers: dict[str, str],
-                        body: bytes, reader: asyncio.StreamReader | None = None) -> Response:
+                        body: bytes, reader: asyncio.StreamReader | None = None,
+                        query: str = "") -> Response:
         for pattern, want, handler, tail in (
                 (_PREDICT, "POST", self._predict, ()),
                 (_SUBMIT, "POST", self.handle_submit, ()),
@@ -335,15 +437,17 @@ class Server:
                 (_JOB, "GET", self.handle_job, ())):
             m = pattern.match(path)
             if m is not None:
+                methods = {want: handler}
                 args = (m.group(1), body, headers, *tail)
                 break
         else:
-            want, handler = self._routes.get(path, (None, None))
-            if want is None:
+            methods = self._routes.get(path)
+            if methods is None:
                 return _error(404, f"no route {path}")
-            args = (body,)
-        if method != want:
-            return _error(405, f"{path} takes {want}")
+            args = (body, headers, query)
+        if method not in methods:
+            return _error(405, f"{path} takes {' or '.join(methods)}")
+        handler = methods[method]
         try:
             return await handler(*args)
         except ConnectionError:
@@ -353,13 +457,13 @@ class Server:
             return _error(500, f"internal error: {type(e).__name__}")
 
     # -- handlers -----------------------------------------------------------
-    async def handle_root(self, body: bytes) -> Response:
+    async def handle_root(self, body: bytes, headers=None, query: str = "") -> Response:
         return 200, {"status": "ok",
                      "framework": "pytorch-zappa-serverless-tpu-torch",
                      "profile": self.cfg.profile,
                      "models": sorted(self.engine.models)}, {}
 
-    async def handle_models(self, body: bytes) -> Response:
+    async def handle_models(self, body: bytes, headers=None, query: str = "") -> Response:
         models = {}
         for name, cm in self.engine.models.items():
             is_async = bool(cm.servable.meta.get("async_only"))
@@ -375,13 +479,24 @@ class Server:
                 models[name]["generate"] = f"/v1/models/{name}:generate"
         return 200, {"models": models}, {}
 
-    async def handle_healthz(self, body: bytes) -> Response:
-        alive = await asyncio.get_running_loop().run_in_executor(
-            None, self.engine.runner.probe)
+    def _probe(self) -> bool:
+        """The shared device probe of the live engine (blocking: run it in
+        an executor)."""
+        return self.engine.runner.probe(self.cfg.dispatch_probe_timeout_s)
+
+    async def handle_healthz(self, body: bytes, headers=None, query: str = "") -> Response:
+        alive = await asyncio.get_running_loop().run_in_executor(None, self._probe)
         gen_fatal = {n: s.fatal for n, s in self.schedulers.items() if s.fatal}
-        return (200 if alive else 503), {
+        quarantined = sorted(self.resilience.quarantined)
+        ok = alive and not gen_fatal and not self.draining and not quarantined
+        return (200 if ok else 503), {
             "device_ok": alive,
             "generation_ok": not gen_fatal,
+            # Draining and a recovery in progress flip health too, so a load
+            # balancer stops routing here.
+            "draining": self.draining,
+            "quarantined": quarantined,
+            **({"recovery": self.watchdog.snapshot()} if self.watchdog is not None else {}),
             "generation": {n: {"active": s.active, "pending": s.depth,
                                **({"fatal": s.fatal} if s.fatal else {})}
                            for n, s in self.schedulers.items()},
@@ -389,21 +504,30 @@ class Server:
                               "buckets_total": len(cm.buckets)}
                        for name, cm in self.engine.models.items()},
             "queue_depths": {n: b.queue_depth for n, b in self.batchers.items()},
+            # Per-model queue-wait forecast (ms), the admission shedder's signal.
+            "forecast": self.resilience.queue_forecast(self.batchers),
             "jobs_backlog": self.jobs.depth if self.jobs else 0,
             "jobs_backlog_by_model": self.jobs.depths if self.jobs else {},
         }, {}
 
-    async def handle_metrics(self, body: bytes) -> Response:
+    async def handle_metrics(self, body: bytes, headers=None, query: str = "") -> Response:
+        """JSON, or Prometheus text under ``?format=prometheus`` or an
+        ``Accept: text/plain`` that does not also take JSON."""
+        accept = (headers or {}).get("accept", "")
+        if (parse_qs(query).get("format") == ["prometheus"]
+                or ("text/plain" in accept and "application/json" not in accept)):
+            return 200, self.metrics.render_prometheus(self.engine), {}
         out = self.metrics.render(self.engine)
         if self.jobs is not None:
             out["jobs"] = {"backlog": self.jobs.depth, "active": self.jobs.active,
                            "backlog_by_model": self.jobs.depths}
         return 200, out, {}
 
-    async def handle_predict_default(self, body: bytes) -> Response:
+    async def handle_predict_default(self, body: bytes, headers=None,
+                                     query: str = "") -> Response:
         if self.default_model is None:
             return _error_retry(503, "no models configured", 30.0)
-        return await self._predict(self.default_model, body, {})
+        return await self._predict(self.default_model, body, headers or {})
 
     def _unknown_model(self, name: str) -> Response:
         served = {n: "active" for n in sorted(self.engine.models)}
@@ -415,6 +539,52 @@ class Server:
                             queue_depth=batcher.queue_depth,
                             in_flight=batcher.in_flight)
 
+    def _unavailable(self, name: str) -> Response | None:
+        """503 + Retry-After for a quarantined model or an open breaker,
+        before any decode work: while the circuit is open a sick model costs
+        its callers no dispatch-lane time and the other models keep serving."""
+        if name in self.resilience.quarantined:
+            return _error_retry(503, f"model {name!r} is quarantined while the engine "
+                                     "recovers", self.cfg.recover_backoff_s or 1.0,
+                                quarantined=True)
+        mr = self.resilience.model(name)
+        if mr.breaker is not None and not mr.breaker.allow():
+            mr.stats.breaker_fast_fails += 1
+            return _error_retry(503, f"model {name!r} circuit breaker is {mr.breaker.state} "
+                                     f"(recent error rate {mr.breaker.error_rate():.0%}); "
+                                     "failing fast", mr.breaker.retry_after_s(),
+                                breaker=mr.breaker.state)
+        return None
+
+    def _deadline_ms(self, headers: dict[str, str], payload: Any, mc) -> float | None:
+        """The request's deadline in ms, or None: the client's (the
+        ``X-Deadline-Ms`` header, else the body's top-level ``deadline_ms``,
+        popped so preprocess never sees it) capped by ``deadline_max_ms``;
+        else the model's ``deadline_ms``, else ``deadline_default_ms``.  A
+        client value <= 0 is returned as it is, for the admission check to
+        504.  ValueError on junk."""
+        raw = headers.get("x-deadline-ms")
+        if raw is None and isinstance(payload, dict):
+            raw = payload.pop("deadline_ms", None)
+        if raw is not None:
+            try:
+                ms = float(raw)
+            except (TypeError, ValueError):
+                raise ValueError("deadline_ms must be a number (milliseconds)") from None
+            if math.isnan(ms):
+                raise ValueError("deadline_ms must be a number (milliseconds)")
+            if self.cfg.deadline_max_ms > 0:
+                ms = min(ms, self.cfg.deadline_max_ms)
+            return ms
+        default = mc.deadline_ms or self.cfg.deadline_default_ms
+        return default if default > 0 else None
+
+    def _preprocess(self, cm, payload):
+        """The chaos hook, then the servable's preprocess: an injected fault
+        fails this request as a malformed payload would."""
+        self.engine.runner.faults.on_preprocess(cm.servable.name)
+        return cm.servable.preprocess(payload)
+
     async def _predict(self, name: str, body: bytes, headers: dict[str, str]) -> Response:
         cm = self.engine.models.get(name)
         if cm is not None and cm.servable.meta.get("async_only"):
@@ -425,10 +595,28 @@ class Server:
         batcher = self.batchers.get(name)
         if batcher is None:
             return self._unknown_model(name)
+        refused = self._unavailable(name)
+        if refused is not None:
+            return refused
+        mr = self.resilience.model(name)
         try:
             payload = _decode_body(body, headers)
         except (ValueError, TypeError) as e:
             return _error(400, f"bad request body: {type(e).__name__}: {e}")
+        cm = batcher.model
+        try:
+            deadline_ms = self._deadline_ms(headers, payload, cm.cfg)
+        except ValueError as e:
+            return _error(400, str(e))
+        loop = asyncio.get_running_loop()
+        deadline = None
+        if deadline_ms is not None:
+            if deadline_ms <= 0:
+                # The client's budget is already spent: never queue it.
+                mr.stats.deadline_admission += 1
+                return _error(504, f"deadline_ms={deadline_ms:g} already expired at "
+                                   "admission", stage="admission")
+            deadline = loop.time() + deadline_ms / 1000.0
         instances = None
         if isinstance(payload, dict) and "instances" in payload:
             instances = payload["instances"]
@@ -442,7 +630,16 @@ class Server:
                 instances = [_unwrap_b64(p) for p in instances]
             except (ValueError, TypeError) as e:
                 return _error(400, f"bad instance: {type(e).__name__}: {e}")
-        cm = batcher.model
+        if deadline_ms is not None:
+            # Admission-time shedding: a queue-wait forecast past the
+            # deadline is refused now (429) rather than queued to die a 504.
+            est_ms = batcher.estimate_wait_ms(len(instances) if instances is not None else 1)
+            if est_ms > deadline_ms:
+                mr.stats.shed_predicted += 1
+                return _error_retry(429, f"estimated queue wait {est_ms:.0f} ms exceeds "
+                                         f"deadline {deadline_ms:.0f} ms; shedding",
+                                    est_ms / 1000.0, estimated_wait_ms=round(est_ms, 1),
+                                    queue_depth=batcher.queue_depth)
         meta = cm.servable.meta
         payloads = instances if instances is not None else [payload]
         ignored = meta.get("predict_ignores_sampling", ())
@@ -454,11 +651,10 @@ class Server:
             if meta.get("heavy_preprocess") or any(isinstance(p, bytes) for p in payloads):
                 # Image or audio decoding: off the event loop, the instances
                 # at once.  Other inputs preprocess inline.
-                loop = asyncio.get_running_loop()
                 per_input = await asyncio.gather(
-                    *[loop.run_in_executor(None, cm.servable.preprocess, p) for p in payloads])
+                    *[loop.run_in_executor(None, self._preprocess, cm, p) for p in payloads])
             else:
-                per_input = [cm.servable.preprocess(p) for p in payloads]
+                per_input = [self._preprocess(cm, p) for p in payloads]
         except Exception as e:
             return _error(400, f"preprocess failed: {type(e).__name__}: {e}")
         # An input may preprocess to a list of samples: flatten for one
@@ -467,11 +663,16 @@ class Server:
         samples = [x for s in per_input for x in (s if isinstance(s, list) else [s])]
         seq_of = meta.get("seq_len_of")
         seqs = [seq_of(s) if seq_of else None for s in samples]
+        # The await is bounded by what is left of the deadline: a client
+        # gone at T gets its 504 at T, not when the batch lands.
+        remaining = max(deadline - loop.time(), 0.001) if deadline is not None else None
         try:
             if len(samples) == 1 and instances is None:
-                result, timing = await batcher.submit(samples[0], seqs[0])
+                result, timing = await asyncio.wait_for(
+                    batcher.submit(samples[0], seqs[0], deadline=deadline), remaining)
             else:
-                pairs = await asyncio.gather(*batcher.submit_many(samples, seqs))
+                futs = batcher.submit_many(samples, seqs, deadline=deadline)
+                pairs = await asyncio.wait_for(asyncio.gather(*futs), remaining)
                 grouped, i = [], 0
                 for width in widths:
                     part = [r for r, _ in pairs[i: i + width]]
@@ -483,6 +684,14 @@ class Server:
                 timing["samples"] = len(pairs)
         except Overloaded as e:
             return self._overloaded(e, batcher)
+        except DeadlineExceeded as e:
+            # Shed by the batcher before dispatch (counted there).
+            return _error(504, str(e), stage=e.stage)
+        except (asyncio.TimeoutError, TimeoutError):
+            mr.stats.deadline_await += 1
+            batcher.ring.record_error()
+            return _error(504, f"deadline ({deadline_ms:g} ms) expired while awaiting the "
+                               "device", stage="await")
         except Exception as e:
             log.exception("predict failed for %s", name)
             return _error(500, f"inference failed: {type(e).__name__}")
@@ -526,9 +735,9 @@ class Server:
         try:
             if sched.cm.servable.meta.get("heavy_preprocess") or isinstance(payload, bytes):
                 sample = await asyncio.get_running_loop().run_in_executor(
-                    None, sched.cm.servable.preprocess, payload)
+                    None, self._preprocess, sched.cm, payload)
             else:
-                sample = sched.cm.servable.preprocess(payload)
+                sample = self._preprocess(sched.cm, payload)
         except Exception as e:
             return _error(400, f"preprocess failed: {type(e).__name__}: {e}")
         if isinstance(sample, list):
@@ -608,10 +817,21 @@ class Server:
         prior = self.jobs.dedupe(idem_key)
         if prior is not None:
             return 200, {"job": prior.public(), "deduped": True}, {}
+        # The job lane shares the dispatch lane: a quarantined model or an
+        # open breaker refuses submits too.
+        refused = self._unavailable(name)
+        if refused is not None:
+            return refused
         try:
             payload = json.loads(body)
         except (ValueError, UnicodeDecodeError) as e:
             return _error(400, f"bad request body: {type(e).__name__}: {e}")
+        if isinstance(payload, dict) and "idempotency_key" in payload:
+            # The body field twin of the header.
+            idem_key = idem_key or str(payload.pop("idempotency_key"))
+            prior = self.jobs.dedupe(idem_key)
+            if prior is not None:
+                return 200, {"job": prior.public(), "deduped": True}, {}
         try:
             job = self.jobs.submit(name, payload, idempotency_key=idem_key)
         except OverflowError as e:
@@ -685,10 +905,185 @@ class Server:
         good = [i for i, s in enumerate(samples) if not isinstance(s, BaseException)]
         out: list = list(samples)  # failed slots already hold their Exception
         if good:
-            results = await self.engine.runner.run_chunked(cm, [samples[i] for i in good])
+            # The batcher's contract: transient faults retry, every outcome
+            # feeds the model's breaker.
+            batch = [samples[i] for i in good]
+            results = await run_with_retry(
+                lambda: self.engine.runner.run_chunked(cm, batch),
+                self.resilience.model(cm.servable.name), None,
+                clock=loop.time, sleep=asyncio.sleep)
             for i, r in zip(good, await self._finalize(cm, results), strict=True):
                 out[i] = r
         return out
+
+
+    # -- drain, recovery and the admin routes --------------------------------
+    def begin_drain(self):
+        """Flip to draining: /healthz answers 503, new work 503 + Retry-After.
+        What is in flight (requests, streams, jobs) keeps running; follow
+        with :meth:`wait_drained`.  Idempotent."""
+        if not self.draining:
+            self.resilience.draining = True
+            log_event(log, "drain started", inflight=self._inflight,
+                      jobs_backlog=self.jobs.depth if self.jobs else 0)
+
+    async def wait_drained(self, timeout_s: float) -> bool:
+        """Wait for in-flight work and queued or running jobs to finish: True
+        when all did within the budget, False when it expired first."""
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout_s
+        while True:
+            jobs_idle = self.jobs is None or (self.jobs.depth == 0 and self.jobs.active == 0)
+            if self._inflight == 0 and jobs_idle:
+                return True
+            if loop.time() >= deadline:
+                log.warning("drain budget expired (inflight=%d jobs=%d)", self._inflight,
+                            self.jobs.depth if self.jobs else 0)
+                return False
+            await asyncio.sleep(0.02)
+
+    def on_sigterm(self, stop: asyncio.Event):
+        """SIGTERM: with ``drain_timeout_s > 0`` drain, then set ``stop``;
+        without a budget, or on a second SIGTERM, set it at once."""
+        if self.cfg.drain_timeout_s <= 0 or self.draining:
+            stop.set()
+            return
+        self._drain_task = asyncio.get_running_loop().create_task(
+            self._drain_then_stop(stop), name="drain")
+
+    async def _drain_then_stop(self, stop: asyncio.Event):
+        self.begin_drain()
+        clean = await self.wait_drained(self.cfg.drain_timeout_s)
+        log_event(log, "drain finished; stopping", clean=clean)
+        stop.set()
+
+    async def rebuild_engine(self, cause: str = "reload"):
+        """Stop the lanes, build a fresh engine on the same device, swap it
+        in, free the old one, and restart the lanes.
+
+        The lanes' pools and graphs belong to the engine, so the batchers and
+        the ``:generate`` schedulers stop and restart with it: in-flight work
+        fails, and work racing the rebuild gets 429/503 from stopped lanes.
+        The new engine builds and captures its graphs on its own runner's
+        dispatch thread, and nothing else may touch the device meanwhile (a
+        graph capture refuses other threads' CUDA calls): the old runner is
+        poisoned for the rebuild, so its dispatches and probes fail fast with
+        no device work, and quiesced, so what it was running has ended.  If
+        the build fails, the old engine stays live under fresh lanes (it
+        never moves to another device) and the error propagates.  After the
+        swap the old engine's dispatch thread is joined off the loop, every
+        reference to it dropped, and the CUDA caching allocator emptied on
+        the new dispatch thread before any lane can capture, so a recovery
+        does not leave a second engine's memory behind.  Serialized: a
+        reload overlapping a recovery waits its turn.
+        """
+        async with self._rebuild_lock:
+            old = self.engine
+            await self._stop_lanes()
+            loop = asyncio.get_running_loop()
+            prev = old.runner.faults.poison_exc
+            old.runner.poison(prev or RuntimeError("the engine is being rebuilt"))
+            try:
+                timeout = self.cfg.dispatch_probe_timeout_s
+                if not await loop.run_in_executor(None, old.runner.quiesce, timeout):
+                    raise RuntimeError(f"the engine's dispatch thread did not go idle in "
+                                       f"{timeout:g} s")
+                new = await loop.run_in_executor(None, build_engine, self.cfg, old.device)
+            except Exception:
+                old.runner.poison(prev)
+                self._start_lanes()
+                raise
+            old.runner.poison(prev)  # a lent engine goes back to its caller as it was
+            self.engine = new
+            # /metrics follows the fresh injector (the old one's rules and
+            # counters went with its runner).
+            self.metrics.faults = new.runner.faults
+            owned, self._owns_engine = self._owns_engine, True
+            if owned:
+                await loop.run_in_executor(None, old.shutdown)
+            del old
+            await loop.run_in_executor(None, new.runner.run_fn_sync, _release_device_memory,
+                                       new.device)
+            self._start_lanes()
+            log_event(log, "engine rebuilt", cause=cause, models=sorted(new.models),
+                      cold_start_seconds=round(new.cold_start_seconds, 3))
+
+    async def handle_drain(self, body: bytes, headers=None, query: str = "") -> Response:
+        """Drain over HTTP: flip to draining, wait up to ``timeout_s`` (the
+        body's, else ``drain_timeout_s``) for in-flight work, and report
+        whether it finished.  The process keeps running."""
+        try:
+            req = json.loads(body) if body else {}
+        except ValueError:
+            req = {}
+        timeout_s = 5.0
+        if isinstance(req, dict):
+            timeout_s = float(req.get("timeout_s", self.cfg.drain_timeout_s or 5.0))
+        self.begin_drain()
+        drained = await self.wait_drained(timeout_s)
+        return 200, {"draining": True, "drained": drained, "inflight": self._inflight,
+                     "jobs_backlog": self.jobs.depth if self.jobs else 0}, {}
+
+    async def handle_faults_get(self, body: bytes, headers=None, query: str = "") -> Response:
+        return 200, {"faults": self.engine.runner.faults.snapshot()}, {}
+
+    async def handle_faults(self, body: bytes, headers=None, query: str = "") -> Response:
+        """Configure the fault injector: ``{"clear": true}`` (optionally
+        scoped by ``"model"``) removes rules; any other body is one rule,
+        ``{"model", "fail_every_n", "count", "kind", "latency_ms",
+        "preprocess", "mode"}``."""
+        try:
+            req = json.loads(body) if body else {}
+        except ValueError:
+            return _error(400, "body must be a JSON object")
+        if not isinstance(req, dict):
+            return _error(400, "body must be a JSON object")
+        faults = self.engine.runner.faults
+        if req.get("clear"):
+            # A typo in a clear must not clear everything.
+            unknown = set(req) - {"clear", "model"}
+            if unknown:
+                return _error(400, f"unknown fault fields {sorted(unknown)}; "
+                                   "allowed with clear: ['clear', 'model']")
+            faults.clear(req.get("model"))
+        else:
+            allowed = {"model", "fail_every_n", "count", "kind", "latency_ms",
+                       "preprocess", "mode"}
+            unknown = set(req) - allowed
+            if unknown:
+                return _error(400, f"unknown fault fields {sorted(unknown)}; "
+                                   f"allowed: {sorted(allowed)}")
+            try:
+                faults.configure(**req)
+            except (TypeError, ValueError) as e:
+                return _error(400, str(e))
+        log_event(log, "fault rules updated", **faults.snapshot()["injected"])
+        return 200, {"faults": faults.snapshot()}, {}
+
+    async def handle_recover(self, body: bytes, headers=None, query: str = "") -> Response:
+        """The watchdog's recovery over HTTP, its attempt budget reset (so it
+        works after ``gave_up``); a one-shot watchdog when none runs."""
+        wd = self.watchdog
+        if wd is None:
+            wd = self.watchdog = Watchdog(self, self.cfg.watchdog_interval_s or 1.0,
+                                          max_attempts=self.cfg.recover_max_attempts,
+                                          backoff_s=self.cfg.recover_backoff_s)
+            self.metrics.watchdog = wd
+        snap = await wd.recover(reason="admin", manual=True)
+        return (200 if snap["state"] == "healthy" else 503), {"recovery": snap}, {}
+
+    async def handle_reload(self, body: bytes, headers=None, query: str = "") -> Response:
+        await self.rebuild_engine()
+        return 200, {"status": "reloaded",
+                     "cold_start_seconds": round(self.engine.cold_start_seconds, 3)}, {}
+
+
+def _release_device_memory(device: torch.device) -> None:
+    """Collect what the dropped engine left and return the caching
+    allocator's free blocks (on the dispatch thread, with no capture open)."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 class BackgroundServer:
@@ -696,9 +1091,9 @@ class BackgroundServer:
     (``with BackgroundServer(cfg, engine) as s: ... s.port``) for scripts and
     tests that drive it over HTTP from the calling thread."""
 
-    def __init__(self, cfg: ServeConfig, engine: Engine, host: str = "127.0.0.1",
-                 port: int = 0):
-        self.server = Server(cfg, engine)
+    def __init__(self, cfg: ServeConfig, engine: Engine | None = None, host: str = "127.0.0.1",
+                 port: int = 0, device=None):
+        self.server = Server(cfg, engine, device)
         self._host, self._want_port = host, port
         self._loop = asyncio.new_event_loop()
         self._thread = threading.Thread(target=self._loop.run_forever,
@@ -711,6 +1106,15 @@ class BackgroundServer:
             self.server.start(self._host, self._want_port), self._loop).result(30)
         return self
 
+    def call(self, fn, *args, timeout: float = 60.0):
+        """Run ``fn(*args)`` on the server's loop (awaited when it is a
+        coroutine function) and return its result: the loop-confined state
+        (drain, the watchdog) is touched from its own thread."""
+        async def run():
+            out = fn(*args)
+            return await out if asyncio.iscoroutine(out) else out
+        return asyncio.run_coroutine_threadsafe(run(), self._loop).result(timeout)
+
     def __exit__(self, *exc):
         try:
             asyncio.run_coroutine_threadsafe(self.server.stop(), self._loop).result(30)
@@ -722,22 +1126,23 @@ class BackgroundServer:
 
 def run(cfg: ServeConfig, device=None) -> None:
     """Build the engine on ``device`` (CUDA unless asked otherwise) and serve
-    until SIGINT/SIGTERM."""
-    engine = build_engine(cfg, device)
+    until SIGINT or SIGTERM.  With ``drain_timeout_s > 0`` a SIGTERM drains
+    first (new work 503, in-flight work given the budget); a second SIGTERM
+    stops at once.  The server owns the engine, so a recovery or a reload
+    frees the one it replaces."""
+    server = Server(cfg, device=device)
 
     async def main():
-        server = Server(cfg, engine)
-        port = await server.start()
-        log_event(log, "serving", host=cfg.host, port=port,
-                  device=str(engine.device), models=sorted(engine.models))
-        stop = asyncio.Event()
-        loop = asyncio.get_running_loop()
-        for sig in (signal.SIGINT, signal.SIGTERM):
-            loop.add_signal_handler(sig, stop.set)
-        await stop.wait()
-        await server.stop()
+        try:
+            port = await server.start()
+            log_event(log, "serving", host=cfg.host, port=port,
+                      device=str(server.engine.device), models=sorted(server.engine.models))
+            stop = asyncio.Event()
+            loop = asyncio.get_running_loop()
+            loop.add_signal_handler(signal.SIGINT, stop.set)
+            loop.add_signal_handler(signal.SIGTERM, server.on_sigterm, stop)
+            await stop.wait()
+        finally:
+            await server.stop()
 
-    try:
-        asyncio.run(main())
-    finally:
-        engine.shutdown()
+    asyncio.run(main())

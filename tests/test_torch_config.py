@@ -16,12 +16,20 @@ from pytorch_zappa_serverless_tpu_torch import config as PC
 from pytorch_zappa_serverless_tpu_torch import models as _port_zoo  # noqa: F401
 from pytorch_zappa_serverless_tpu_torch.utils.registry import list_models
 
-SHARED = [f.name for f in dataclasses.fields(PC.ServeConfig) if f.name != "models"]
+# Structured fields are file-only in both packages.
+SHARED = [f.name for f in dataclasses.fields(PC.ServeConfig)
+          if f.name not in ("models", "faults")]
 # One value per field, as an operator would write it in the environment.
 ENV_VALUES = {"profile": "prod", "host": "0.0.0.0", "port": "9123",
               "warmup_at_boot": "false", "priority_dispatch": "0",
               "job_max_backlog": "7", "job_keep_done": "3", "job_result_ttl_s": "7.5",
-              "job_max_result_mb": "12"}
+              "job_max_result_mb": "12", "dispatch_probe_timeout_s": "30",
+              "deadline_default_ms": "250", "deadline_max_ms": "5000",
+              "retry_max_attempts": "2", "retry_base_ms": "5", "retry_max_ms": "200",
+              "breaker_threshold": "0.5", "breaker_window": "8",
+              "breaker_min_samples": "4", "breaker_open_s": "2.5",
+              "drain_timeout_s": "20", "watchdog_interval_s": "0.5",
+              "recover_max_attempts": "5", "recover_backoff_s": "0.25"}
 
 
 def _env(name):
@@ -44,6 +52,16 @@ def test_env_override_matches_reference(field):
     assert getattr(got, field) == getattr(want, field)
     assert type(getattr(got, field)) is type(getattr(want, field))
     assert getattr(got, field) != getattr(PC.ServeConfig(), field)
+
+
+def test_faults_and_deadline_fields_match_the_reference():
+    """The resilience slice's structured and per-model fields: ``faults`` is
+    file-only (an env var leaves it alone in both packages) and
+    ``ModelConfig.deadline_ms`` has the reference's default."""
+    environ = {"TPUSERVE_FAULTS": '{"m": {"fail_every_n": 1}}'}
+    assert PC.apply_env_overrides(PC.ServeConfig(), environ).faults == {}
+    assert JC.apply_env_overrides(JC.ServeConfig(), environ).faults == {}
+    assert PC.ModelConfig(name="m").deadline_ms == JC.ModelConfig(name="m").deadline_ms == 0.0
 
 
 def test_float_field_loaded_as_int_takes_a_float_override(tmp_path, monkeypatch):

@@ -474,3 +474,39 @@ def test_sse_client_disconnect_cancels_its_stream():
             assert sched.tokens_emitted < 400  # it did not decode to the end
     finally:
         eng.shutdown()
+
+
+def test_generate_rides_the_latency_lane_and_leaves_device_seconds():
+    """The reference runs every prefill, insert and segment on the latency
+    lane and keeps them out of ``RunStats.device_seconds``; so does the
+    port, even for a model whose QoS class is ``throughput``."""
+    mc = dataclasses.replace(_model_cfg(), latency_class="throughput")
+    cfg = ServeConfig(warmup_at_boot=False, models=[mc])
+    eng = build_engine(cfg, device="cpu")
+    try:
+        runner = eng.runner
+        calls = []
+        real = runner.run_fn
+
+        def spy(fn, *args, **kw):
+            calls.append(kw)
+            return real(fn, *args, **kw)
+
+        runner.run_fn = spy
+        with BackgroundServer(cfg, eng) as srv:
+            status, _, _ = _post(srv.port, "/v1/models/gpt2:predict", {"input_ids": [5, 6]})
+            assert status == 200
+            lanes = runner.lane_stats()
+            seconds = runner.stats["gpt2"].device_seconds
+            status, events, _ = _post(srv.port, "/v1/models/gpt2:generate",
+                                      {"input_ids": [5, 6, 7], "max_new_tokens": 6})
+            assert status == 200 and events[-1]["done"] is True
+            after = runner.lane_stats()
+            rounds = srv.server.schedulers["gpt2"].device_rounds
+        assert calls and all(kw == {"model": "gpt2"} for kw in calls)
+        assert after["latency"]["dispatches"] - lanes["latency"]["dispatches"] == len(calls)
+        assert len(calls) >= rounds >= 2
+        assert after["throughput"]["dispatches"] == lanes["throughput"]["dispatches"]
+        assert runner.stats["gpt2"].device_seconds == seconds
+    finally:
+        eng.shutdown()

@@ -29,12 +29,23 @@ def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
     assert len(mods) >= 20 and "pytorch_zappa_serverless_tpu_torch.serving.server" in mods
     for lane in ("serving.generation", "serving.kvcache", "serving.prefixcache",
-                 "ops.paged_attention", "engine.genkernels"):
+                 "ops.paged_attention", "engine.genkernels", "faults",
+                 "serving.resilience", "serving.watchdog"):
         assert f"pytorch_zappa_serverless_tpu_torch.{lane}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        # The Prometheus render, with the resilience hub wired, loads
+        # nothing forbidden either.
+        "from pytorch_zappa_serverless_tpu_torch.config import ServeConfig\n"
+        "from pytorch_zappa_serverless_tpu_torch.faults import FaultInjector\n"
+        "from pytorch_zappa_serverless_tpu_torch.serving.metrics import MetricsHub\n"
+        "from pytorch_zappa_serverless_tpu_torch.serving.resilience import ResilienceHub\n"
+        "hub = MetricsHub(); hub.resilience = ResilienceHub(ServeConfig())\n"
+        "hub.faults = FaultInjector(); hub.ring('m').record(1.0, 2.0, 3.0)\n"
+        "hub.resilience.model('m')\n"
+        "assert 'tpuserve_requests_total' in hub.render_prometheus()\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -314,3 +314,52 @@ def test_invalidate_prefix_drops_the_base_slot(engine):
 
     dropped, cached = _drive(engine, body)
     assert dropped == 1 and cached == 0
+
+
+# ---------------------------------------------------------------------------
+# Prefix chaos (the JAX package's tests/test_prefix.py chaos cases)
+# ---------------------------------------------------------------------------
+
+def test_prefix_poison_chaos_falls_back_to_uncached(engine):
+    ids = list(range(5, 15))
+    faults = engine.runner.faults
+
+    async def body(sched, cm):
+        cold = await _run(sched, cm, {"input_ids": ids})
+        # Every lookup fails: the warm request prefills cold, with the same
+        # tokens, and counts as a miss.
+        faults.configure(model="gpt2", fail_every_n=1, kind="prefix")
+        try:
+            warm = await _run(sched, cm, {"input_ids": ids})
+            snap = dict(sched.gen_snapshot()["prefix"])
+            injected = faults.snapshot()["injected"]["prefix"]
+        finally:
+            faults.clear()
+        again = await _run(sched, cm, {"input_ids": ids})
+        return cold, warm, snap, injected, again
+
+    cold, warm, snap, injected, again = _drive(engine, body)
+    assert warm.tokens == cold.tokens == _fixed(engine, {"input_ids": ids})
+    assert warm.cached_tokens == 0
+    assert snap["hits"] == 0 and snap["misses"] == 2 and injected > 0
+    # The rule cleared: reuse resumes on the same frozen pages.
+    assert again.tokens == cold.tokens and again.cached_tokens == 8
+
+
+def test_prefix_force_cow_chaos_stays_byte_identical(engine):
+    ids = list(range(5, 15))
+    faults = engine.runner.faults
+
+    async def body(sched, cm):
+        cold = await _run(sched, cm, {"input_ids": ids})
+        faults.configure(model="gpt2", fail_every_n=1, kind="prefix", mode="cow")
+        try:
+            warm = await _run(sched, cm, {"input_ids": ids})
+        finally:
+            faults.clear()
+        return cold, warm, sched.gen_snapshot()["prefix"]
+
+    cold, warm, snap = _drive(engine, body)
+    assert warm.tokens == cold.tokens  # the copies are pure
+    assert warm.cached_tokens == 8     # still a hit
+    assert snap["cow_copies"] == 2 and snap["hits"] == 1  # every shared page cloned
