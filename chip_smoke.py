@@ -142,6 +142,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    and ``/healthz`` answer 503; (7) ``/metrics?format=prometheus`` against
    ``tools/metrics_manifest.json`` through ``tools/check_metrics.py``.
    (Check 5, the prefix chaos, runs in phase 13's paged engine.)
+15. residency: one server with BERT-base int8 PINNED at (1, 8) x 128, GPT-2
+   small int8 lazy (its 8-slot ``:generate`` lane, ``:predict`` at (1,) x 64)
+   and ResNet-50 bf16 lazy at (1, 8), seed weights at full width, over a
+   checkpoint store in a temporary directory; (1) only BERT builds at boot
+   (``memory_allocated`` within its ledger entry plus the runner's
+   overhead), eight concurrent cold ResNet-50 requests make one activation
+   and answer byte-equal to a ResNet-50 built eagerly in the process;
+   (2) a GPT-2 request with ``X-Deadline-Ms`` below the activation estimate
+   answers 503 ``cold_start`` with ``Retry-After`` and launches nothing;
+   (3) with ``hbm_budget_bytes`` set so that BERT and either lazy model fit
+   but not all three, the GPT-2 activation that request started demotes
+   ResNet-50 to the host (freeing its weights and graph pool, measured on
+   the dispatch thread), never the pinned BERT, which answers 200 BERT
+   requests sent meanwhile, byte-equal (their p50/p99 printed); (4)
+   ResNet-50 restored from the host answers byte-equal through new
+   captures (one a bucket); (5) GPT-2 demoted to the disk tier and
+   streamed back answers ``:predict`` and a greedy ``:generate`` stream
+   byte-equal, and again with a torn chunk on every read (degraded to the
+   full rebuild); (6) GPT-2 from none streams its stored weights while it
+   builds and captures, copied in place before the first replay,
+   byte-equal; (7) three host and disk cycles of each lazy model leave
+   ``memory_allocated`` within 8 MiB and the live ``CompiledModel`` count
+   as they were, the host tier's bytes those of its pinned copies; (8) the
+   idle reaper takes ResNet-50 to the host, then (a store being set) to
+   disk, and a request brings it back; (9) ``/metrics?format=prometheus``
+   with the residency and store families against the manifest.  Every
+   ``int8_matmul`` launch of the phase ran in a captured graph's warm-up
+   or replay.
 
 With ``--profile``, every path is also profiled eager against replayed:
 device-busy and wall time, the idle share, and the host's calls, where a
@@ -3826,6 +3854,431 @@ def run_failure(card: str) -> dict:
     return out
 
 
+# -- phase 15: serverless residency ---------------------------------------------
+
+# The deployment phase 15 serves: BERT-base int8 pinned, GPT-2 small int8 and
+# ResNet-50 bf16 lazy, over a checkpoint store; the :generate lane as phase 14's.
+RES_GEN = {"gen_slots": 8, "segment_tokens": 8, "max_new_tokens": 32}
+RES_VISION = (1, 8)
+# Check 2's deadline, below any activation estimate.
+RES_DEADLINE_MS = 50
+# Check 3: BERT requests sent while GPT-2 activates, from this many threads,
+# each pausing between its requests so that they span the activation.
+RES_BERT_REQS = 200
+RES_BERT_THREADS = 8
+RES_BERT_PAUSE_S = 0.3
+# Check 7: demote/restore cycles of each lazy model, and the leak allowance.
+RES_CYCLES = 3
+RES_LEAK_BYTES = 8 << 20
+# Check 8: the reaper's timers (the cold ladder with a store ends on disk).
+RES_IDLE_S = 2.0
+RES_HOST_DROP_S = 4.0
+RES_TICK_S = 0.25
+# Check 1: what memory_allocated may hold after boot beyond BERT's ledger
+# entry (its graphs' static inputs, cuBLAS workspaces).
+RES_BOOT_OVERHEAD = 64 << 20
+
+
+def residency_config(store_dir: str, bert_arch: dict | None = None,
+                     gpt2_arch: dict | None = None, image_size: int = VISION_SIZE,
+                     resnet_arch: dict | None = None, **gpt2_extra):
+    """Phase 15's deployment: BERT-base int8 PINNED at (1, 8) x 128, GPT-2
+    small int8 lazy with its 8-slot :generate lane and :predict at (1,) x 64,
+    ResNet-50 bf16 lazy at (1, 8), over a checkpoint store.  The HBM budget
+    is set by the phase once the sizes are known."""
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+
+    return ServeConfig(ckpt_store_dir=store_dir, models=[
+        ModelConfig(name="bert_base", dtype="bfloat16", seq_buckets=(BERT["seq"],),
+                    batch_buckets=BERT["batch_buckets"], pinned=True,
+                    extra={"params_dtype": "int8", **({"arch": bert_arch} if bert_arch else {})}),
+        ModelConfig(name="gpt2", dtype="bfloat16", seq_buckets=(GPT2["seq"],), batch_buckets=(1,),
+                    lazy_load=True,
+                    extra={"params_dtype": "int8", **RES_GEN,
+                           **({"arch": gpt2_arch} if gpt2_arch else {}), **gpt2_extra}),
+        ModelConfig(name="resnet50", dtype="bfloat16", batch_buckets=RES_VISION, lazy_load=True,
+                    extra={"image_size": image_size, "resize_to": image_size + 32,
+                           "params_dtype": "bfloat16",
+                           **({"arch": resnet_arch} if resnet_arch else {})})])
+
+
+def host_param_bytes(mc) -> int:
+    """The weight bytes of ``mc``'s servable, built on the host alone (what
+    its activation will place): each distinct parameter and buffer once."""
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_servable
+
+    seen, total = set(), 0
+    for m in build_servable(mc).module.modules():
+        for t in (*m._parameters.values(), *m._buffers.values()):
+            if t is not None and id(t) not in seen:
+                seen.add(id(t))
+                total += t.numel() * t.element_size()
+    return total
+
+
+def pinned_bytes(cm) -> int:
+    return sum(t.numel() * t.element_size() for t in cm._tensors().values() if t.is_pinned())
+
+
+def phase_residency_path(cfg, device: str = "cuda", bert_vocab: int = 30522,
+                         gpt2_vocab: int = 50257, card: str = "") -> dict:
+    """Serve the residency deployment over HTTP and check, in order: lazy
+    boot and one activation for eight concurrent cold requests (byte-equal
+    to an eagerly built model), cold admission's 503, the HBM budget
+    demoting the LRU model and never the pinned one while BERT keeps
+    answering, the host and disk restores and the stream during a rebuild
+    (byte-equal answers, new captures), a torn stream degrading to the full
+    rebuild, no memory left behind by demote/restore cycles, the idle
+    reaper, and the Prometheus families."""
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_model
+    from pytorch_zappa_serverless_tpu_torch.ops import counters
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    cuda = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(15)
+    bert_bodies = [{"input_ids": rng.integers(1, bert_vocab - 1, n).tolist()}
+                   for n in (5, 40, 90, 120)]
+    gpt2_body = {"input_ids": rng.integers(0, gpt2_vocab - 1, 24).tolist()}
+    gen_body = {"input_ids": rng.integers(0, gpt2_vocab - 1, 16).tolist(), "max_new_tokens": 24}
+    size = cfg.model("resnet50").extra["image_size"]
+    pngs = vision_pngs(8, seed=15)
+    bert, gpt2 = "/v1/models/bert_base:predict", "/v1/models/gpt2:predict"
+    resnet = "/v1/models/resnet50:predict"
+    out: dict = {}
+
+    def mem() -> tuple[int, int]:
+        return ((torch.cuda.memory_allocated(), torch.cuda.memory_reserved()) if cuda
+                else (0, 0))
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with BackgroundServer(cfg, device=device) as srv:
+        server, port = srv.server, srv.port
+        lc, engine = server.lifecycle, server.engine
+        run = engine.runner.run_fn_sync
+
+        def model(name: str) -> dict:
+            return http_h(port, f"/admin/models/{name}")[1]["model"]
+
+        def admin(name: str, **body) -> dict:
+            status, o, _ = http_h(port, f"/admin/models/{name}", body)
+            check(status == 200, f"admin {name} {body}: {status} {o}")
+            return o["model"]
+
+        def answers(name: str) -> list:
+            """What must come back byte-equal after each restore: BERT's
+            bodies; GPT-2's :predict and a greedy :generate stream sent
+            alone; two ResNet-50 PNGs one at a time."""
+            got = []
+            if name == "bert_base":
+                reqs = [(bert, b) for b in bert_bodies]
+            elif name == "gpt2":
+                reqs = [(gpt2, gpt2_body)]
+            else:
+                reqs = []
+                for png in pngs[:2]:
+                    status, o, _ = http_h(port, resnet, {"b64": base64.b64encode(png).decode()})
+                    check(status == 200, f"{resnet}: {status}: {o}")
+                    got.append(json.dumps(o["predictions"], sort_keys=True))
+            for path, body in reqs:
+                status, o, _ = http_h(port, path, body)
+                check(status == 200, f"{path}: {status}: {o}")
+                got.append(json.dumps(o["predictions"], sort_keys=True))
+            if name == "gpt2":
+                r = sse(port, "gpt2", gen_body)
+                check(r["status"] == 200 and r["final"] and r["final"]["done"],
+                      f"gpt2 :generate answered {r}")
+                got.append(r["tokens"])
+            return got
+
+        # 1. Lazy boot: BERT alone; eight concurrent cold requests, one
+        # activation, byte-equal to a ResNet-50 built eagerly.
+        check(sorted(engine.models) == ["bert_base"], f"boot built {sorted(engine.models)}")
+        ledger = engine.runner.resident_bytes()
+        bert_res = ledger["bert_base"]
+        boot_mem = mem()
+        if cuda:
+            check(boot_mem[0] <= bert_res + RES_BOOT_OVERHEAD,
+                  f"boot: memory_allocated {boot_mem[0]} against BERT's resident bytes "
+                  f"{bert_res} plus {RES_BOOT_OVERHEAD}")
+        boot_s = time.perf_counter() - t0
+        bert_free = answers("bert_base")
+        bodies = [{"b64": base64.b64encode(p).decode()} for p in pngs]
+        with ThreadPoolExecutor(len(bodies)) as ex:
+            served = list(ex.map(lambda b: http_h(port, resnet, b), bodies))
+        check(all(st == 200 for st, _, _ in served), f"cold burst: {[st for st, _, _ in served]}")
+        rn = model("resnet50")
+        check(rn["activations_by_cause"] == {"request": 1},
+              f"cold burst: activations {rn['activations_by_cause']}")
+        rcm = engine.model("resnet50")
+        ref = run(build_model, cfg.model("resnet50"), engine.clock, engine.device)
+        try:
+            samples = [ref.servable.preprocess(p) for p in pngs]
+            whole = run(ref.run_batch, samples)[0]
+            for i, (_, o, _) in enumerate(served):
+                want = (whole[i] if o["timing"]["batch_size"] > 1
+                        else run(ref.run_batch, [samples[i]])[0][0])
+                check(json.dumps(o["predictions"], sort_keys=True)
+                      == json.dumps(want, sort_keys=True),
+                      f"cold burst: answer {i} differs from the eagerly built ResNet-50")
+        finally:
+            run(ref.release)
+            del ref
+        resnet_res = engine.runner.resident_bytes()["resnet50"]
+        resnet_params = rcm.param_nbytes()
+        resnet_before = answers("resnet50")
+        out["resnet_cold_ms"] = rn["last_activation_ms"]
+        log(f"{card}: check 1 lazy boot: only bert_base built at boot ({boot_s:.3f} s; "
+            f"resident {bert_res} bytes, memory_allocated {boot_mem[0]}); 8 concurrent cold "
+            f"ResNet-50 requests, 1 activation in {rn['last_activation_ms']:.3f} ms "
+            f"(phases {rn['last_activation_phases']}); the 8 answers byte-equal to a ResNet-50 "
+            f"built eagerly from the same seed; resident {resnet_res} bytes of which weights "
+            f"{resnet_params} and graph pool {resnet_res - resnet_params}")
+
+        # 2. Cold admission: a deadline below GPT-2's estimate answers 503
+        # and launches nothing for it; the activation it started goes on.
+        est = model("gpt2")["estimated_warm_ms"]
+        gpt2_params = host_param_bytes(cfg.model("gpt2"))
+        # BERT plus either lazy model fits (GPT-2's graph pool is smaller
+        # than ResNet-50's resident bytes; checked below), all three do not.
+        budget = bert_res + resnet_res + gpt2_params - 1
+        server.cfg.hbm_budget_bytes = budget
+        reset_counts()
+        status, o, hdrs = http_h(port, gpt2, gpt2_body, {"X-Deadline-Ms": str(RES_DEADLINE_MS)})
+        counts = read_counts()
+        check(status == 503 and o.get("cold_start") is True and "Retry-After" in hdrs
+              and o["estimated_warm_ms"] > RES_DEADLINE_MS,
+              f"cold admission: {status} {o} {hdrs}")
+        exact_counts(counts, {}, "cold admission")
+        log(f"{card}: check 2 cold admission: X-Deadline-Ms {RES_DEADLINE_MS} below the "
+            f"estimate {est} ms: 503 cold_start, Retry-After {hdrs['Retry-After']}, "
+            f"estimated_warm_ms {o['estimated_warm_ms']}; no launch for it")
+
+        # 3. The budget: GPT-2's activation (started by the 503) demotes the
+        # LRU ResNet-50 to the host; BERT, pinned, answers throughout.
+        t1 = time.perf_counter()
+
+        def bert_load(i: int) -> list:
+            lat = []
+            for j in range(RES_BERT_REQS // RES_BERT_THREADS):
+                body = bert_bodies[(i + j) % len(bert_bodies)]
+                t = time.perf_counter()
+                st, o, _ = http_h(port, bert, body)
+                # A lone request runs at bucket 1, as bert_free's did; a
+                # co-batched one at bucket 8, whose numbers differ.
+                alone = st == 200 and o["timing"]["batch_size"] == 1
+                lat.append((st, (time.perf_counter() - t) * 1e3, t - t1,
+                            json.dumps(o["predictions"], sort_keys=True) if alone else None))
+                time.sleep(RES_BERT_PAUSE_S)
+            return lat
+
+        with ThreadPoolExecutor(RES_BERT_THREADS) as ex:
+            lats = [x for part in ex.map(bert_load, range(RES_BERT_THREADS)) for x in part]
+        wait_until(lambda: lc.state_of("gpt2") == "active", 600, "GPT-2's activation")
+        g = model("gpt2")
+        # The activation began at the 503, just before t1.
+        activation_s = g["last_activation_ms"] / 1e3
+        check(all(st == 200 for st, _, _, _ in lats) and len(lats) == RES_BERT_REQS,
+              f"budget: BERT statuses {sorted(set(st for st, _, _, _ in lats))}")
+        alone = [a for _, _, _, a in lats if a is not None]
+        check(all(a in bert_free for a in alone), "budget: a lone BERT answer differs")
+        during = [ms for _, ms, at, _ in lats if at < activation_s]
+        all_ms = sorted(ms for _, ms, _, _ in lats)
+        rn = model("resnet50")
+        ledger = engine.runner.resident_bytes()
+        check(rn["state"] == "cold" and rn["tier"] == "host"
+              and rn["demotions_by_cause"] == {"budget": 1},
+              f"budget: ResNet-50 is {rn['state']}/{rn['tier']} {rn['demotions_by_cause']}")
+        check(model("bert_base")["state"] == "active" and lc.residency("bert_base").pinned
+              and model("bert_base")["activations"] == 1,
+              "budget: the pinned BERT was touched")
+        gpt2_res = ledger["gpt2"]
+        check(bert_res + gpt2_res <= budget < bert_res + gpt2_res + resnet_res,
+              f"budget {budget}: BERT {bert_res} + GPT-2 {gpt2_res} + ResNet-50 {resnet_res}")
+        freed = rn["last_demotion"]
+        if cuda:
+            # memory_allocated counts the weights (and the graphs' live
+            # outputs) but not a graph pool's free blocks, which only the
+            # reserved bytes show: the pool's segments are its own and go
+            # whole, where a weight's segment may hold another model's
+            # tensors and stay.
+            check(freed["freed_allocated"] >= resnet_params
+                  and freed["freed_reserved"] >= resnet_res - resnet_params,
+                  f"budget: the demotion freed {freed}, ResNet-50 held {resnet_res} "
+                  f"({resnet_params} weights)")
+        gpt2_free = answers("gpt2")
+        out.update(gpt2_cold_ms=g["last_activation_ms"], budget=budget,
+                   bert_during_ms=(statistics.median(during) if during else None),
+                   resnet_freed=freed, resident={"bert_base": bert_res, "gpt2": gpt2_res,
+                                                 "resnet50": resnet_res})
+        log(f"{card}: check 3 budget {budget} bytes: GPT-2 activated in "
+            f"{g['last_activation_ms']:.3f} ms (phases {g['last_activation_phases']}; "
+            f"resident {gpt2_res}); ResNet-50 demoted to the host by the budget, freeing "
+            f"{freed}; BERT (pinned) untouched; {len(lats)} BERT requests 200 ({len(alone)} "
+            f"alone at bucket 1, byte-equal to before), "
+            f"{len(during)} of them while GPT-2 activated: p50 "
+            f"{(statistics.median(during) if during else float('nan')):.3f} ms, p99 "
+            f"{(np.percentile(during, 99) if during else float('nan')):.3f} ms; all: p50 "
+            f"{statistics.median(all_ms):.3f} ms, p99 {np.percentile(all_ms, 99):.3f} ms, max "
+            f"{all_ms[-1]:.3f} ms")
+
+        # 4. The host tier: ResNet-50 restored from pinned host copies.
+        captures = rcm.captures
+        check(answers("resnet50") == resnet_before, "host: ResNet-50's answers differ")
+        rn = model("resnet50")
+        new = len(rcm.buckets) if rcm.graphed else 0  # the CPU captures nothing
+        check(engine.model("resnet50") is rcm and rcm.captures == captures + new,
+              f"host: captures {captures} -> {rcm.captures} over {len(rcm.buckets)} buckets")
+        ph = rn["last_activation_phases"]
+        out["resnet_host"] = {"ms": rn["last_activation_ms"], **ph}
+        log(f"{card}: check 4 host tier: ResNet-50 restored in {rn['last_activation_ms']:.3f} "
+            f"ms (H2D {ph['load_ms']:.3f} ms, captures {ph['compile_ms']:.3f} ms; cold "
+            f"activation {out['resnet_cold_ms']:.3f} ms); answers byte-equal; "
+            f"{new} new captures")
+
+        # 5. The disk tier: GPT-2 to the store and back by stream; then a torn
+        # stream degrades to the full rebuild.
+        g = admin("gpt2", action="demote", to="disk")
+        check(g["tier"] == "disk" and g["host_bytes"] == 0 and g["disk_bytes"] > 0
+              and lc.residency("gpt2").cm_host.tier == "disk",
+              f"disk: GPT-2 is {g['tier']} (host {g['host_bytes']}, disk {g['disk_bytes']})")
+        check(answers("gpt2") == gpt2_free, "disk: GPT-2's answers or tokens differ")
+        g = model("gpt2")
+        ph = g["last_activation_phases"]
+        check(ph["tier"] == "disk" and ph.get("streamed") is True,
+              f"disk: the restore did not stream: {ph}")
+        out["gpt2_disk"] = {"ms": g["last_activation_ms"], **ph}
+        admin("gpt2", action="demote", to="disk")
+        engine.runner.faults.configure(model="gpt2", kind="ckpt", mode="torn", fail_every_n=1)
+        degraded0 = lc.store.snapshot()["degraded_loads_total"]
+        check(answers("gpt2") == gpt2_free, "torn: the rebuilt GPT-2's answers differ")
+        engine.runner.faults.clear("gpt2")
+        g = model("gpt2")
+        check(lc.store.snapshot()["degraded_loads_total"] == degraded0 + 1
+              and g["last_activation_phases"].get("streamed") is not True,
+              f"torn: degraded {lc.store.snapshot()['degraded_loads_total']}, "
+              f"phases {g['last_activation_phases']}")
+        out["gpt2_torn"] = {"ms": g["last_activation_ms"], **g["last_activation_phases"]}
+        log(f"{card}: check 5 disk tier: GPT-2 to the store (host copy freed) and back by "
+            f"stream in {out['gpt2_disk']['ms']:.3f} ms ({ph['chunks_streamed']} chunks "
+            f"streamed, load {ph['load_ms']:.3f} ms, captures {ph['compile_ms']:.3f} ms); "
+            f":predict and the greedy :generate stream byte-equal; a torn chunk on every "
+            f"read degraded to the full rebuild ({out['gpt2_torn']['ms']:.3f} ms), byte-equal")
+
+        # 6. Stream while building: from none, the stored weights copied in
+        # place under the captured addresses before the first replay.
+        admin("gpt2", action="demote", to="none")
+        check(answers("gpt2") == gpt2_free, "stream-while-build: GPT-2's answers differ")
+        g = model("gpt2")
+        ph = g["last_activation_phases"]
+        check(ph["tier"] == "none" and ph.get("streamed") is True,
+              f"stream-while-build: {ph}")
+        out["gpt2_none"] = {"ms": g["last_activation_ms"], **ph}
+        log(f"{card}: check 6 stream while building: GPT-2 from none in "
+            f"{g['last_activation_ms']:.3f} ms (build and captures {ph['compile_ms']:.3f} ms, "
+            f"the stream {ph['load_ms']:.3f} ms beside them, {ph['chunks_streamed']} chunks); "
+            "answers byte-equal")
+
+        # 7. No leak: with the budget lifted, both lazy models resident, three
+        # host and disk cycles each come back to the same memory and objects.
+        server.cfg.hbm_budget_bytes = 0
+        answers("resnet50")
+        gc.collect()
+        base, census0 = mem(), device_census()
+        cycles = []
+        for cycle in range(RES_CYCLES):
+            row = {}
+            for name, free in (("resnet50", resnet_before), ("gpt2", gpt2_free)):
+                for to in ("host", "disk"):
+                    m = admin(name, action="demote", to=to)
+                    cm = lc.residency(name).cm_host
+                    if to == "host":
+                        check(lc.host_bytes()[name] == m["host_bytes"] == cm.param_nbytes()
+                              and (not cuda or pinned_bytes(cm) == m["host_bytes"]),
+                              f"{name}: host_bytes {lc.host_bytes()} against pinned "
+                              f"{pinned_bytes(cm)}")
+                    check(answers(name) == free, f"cycle {cycle} {name} {to}: answers differ")
+                    row[f"{name}_{to}_ms"] = model(name)["last_activation_ms"]
+            gc.collect()
+            row["mem"], row["census"] = mem(), device_census()
+            cycles.append(row)
+        if cuda:
+            check(abs(cycles[-1]["mem"][0] - base[0]) <= RES_LEAK_BYTES,
+                  f"leak: memory_allocated {cycles[-1]['mem'][0]} after {RES_CYCLES} cycles, "
+                  f"{base[0]} before")
+        check(cycles[-1]["census"]["models"] == census0["models"],
+              f"leak: {cycles[-1]['census']} live after the cycles, {census0} before")
+        out["cycles"] = cycles
+        log(f"{card}: check 7 no leak: {RES_CYCLES} host and disk cycles of ResNet-50 and "
+            f"GPT-2, answers byte-equal every time; memory_allocated {base[0]} before, "
+            f"{[c['mem'][0] for c in cycles]} after each cycle (reserved {base[1]}, "
+            f"{[c['mem'][1] for c in cycles]}); live objects {census0} before, "
+            f"{cycles[-1]['census']} after; host bytes match the pinned copies; restore ms "
+            f"{[{k: v for k, v in c.items() if k.endswith('_ms')} for c in cycles]}")
+
+        # 8. Idle scale-to-zero: the reaper takes ResNet-50 to the host, then
+        # (a store being set) to disk; a request brings it back.
+        server.cfg.idle_unload_s = RES_IDLE_S
+        server.cfg.host_idle_drop_s = RES_HOST_DROP_S
+        server.cfg.lifecycle_tick_s = RES_TICK_S
+        srv.call(lc.start)
+        admin("gpt2", action="pin")  # only the ResNet-50 idles
+        t1 = time.perf_counter()
+        wait_until(lambda: lc.residency("resnet50").tier == "host", 30, "the idle demotion")
+        host_s = time.perf_counter() - t1
+        wait_until(lambda: lc.residency("resnet50").tier == "disk", 30, "the host-tier drop")
+        disk_s = time.perf_counter() - t1
+        check(answers("resnet50") == resnet_before, "idle: the re-activated answers differ")
+        rn = model("resnet50")
+        check(rn["demotions_by_cause"].get("idle") == 2
+              and rn["activations_by_cause"].get("request", 0) >= 2,
+              f"idle: {rn['demotions_by_cause']} {rn['activations_by_cause']}")
+        admin("gpt2", action="unpin")
+        srv.call(lc.stop)
+        log(f"{card}: check 8 idle: ResNet-50 idle {host_s:.3f} s -> host tier "
+            f"(idle_unload_s {RES_IDLE_S}), {disk_s:.3f} s -> disk (host_idle_drop_s "
+            f"{RES_HOST_DROP_S}); a request re-activated it from disk in "
+            f"{rn['last_activation_ms']:.3f} ms, byte-equal")
+
+        # 9. Prometheus against the manifest.
+        status, text, hdrs = http_h(port, "/metrics?format=prometheus")
+        check(status == 200, f"prometheus: {status}")
+        tool = check_metrics_tool()
+        problems = tool.check(text, tool.load_manifest())
+        check(not problems, f"prometheus: {problems}")
+        families = tool.parse_exposition(text)[0]
+        for family in ("tpuserve_residency_state", "tpuserve_residency_tier_bytes",
+                       "tpuserve_activations_total", "tpuserve_activation_ms",
+                       "tpuserve_hbm_bytes", "tpuserve_ckpt_chunks_streamed_total",
+                       "tpuserve_ckpt_dedup_hits_total", "tpuserve_ckpt_load_ms",
+                       "tpuserve_demotions_total", "tpuserve_cold_start_fast_fails_total"):
+            check(family in families, f"prometheus: no {family}")
+        log(f"{card}: check 9 prometheus: {len(families)} families, the residency and store "
+            "families among them, every family and label set declared in "
+            "tools/metrics_manifest.json (tools/check_metrics.py)")
+    counts, graphed = read_counts(), counters.graphed()
+    # Every launch of the path ran in a captured graph's warm-up or replay.
+    exact_counts(counts, graphed, "residency path")
+    if cuda:
+        check(counts["int8_matmul"] > 0, "residency path: no int8_matmul launch")
+    out["launches"] = counts["int8_matmul"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{card}: residency path int8_matmul launches {counts['int8_matmul']}, each in a "
+        f"captured graph's warm-up or replay ({graphed['int8_matmul']})")
+    return out
+
+
+def run_residency(card: str) -> dict:
+    import tempfile
+
+    fresh_memory()
+    with tempfile.TemporaryDirectory(prefix="tpuserve-store-") as store:
+        out = phase_residency_path(residency_config(store), card=card)
+    log(f"{card}: residency path (phase 15) in {out['seconds']:.3f} s; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -3849,6 +4302,7 @@ def main(argv: list[str] | None = None) -> int:
     vit_embed = run_vit_embed(args.profile)
     generate = run_generate(args.profile)
     failure = run_failure(card)
+    residency = run_residency(card)
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
         log(f"one forward's int8_matmul at M={m} (72 launches, the per-shape times summed): "
@@ -3889,6 +4343,7 @@ def main(argv: list[str] | None = None) -> int:
         "launches_whisper_path": whisper["launches"],
         "launches_generate_path": generate["launches"],
         "launches_failure_path": failure["launches"],
+        "launches_residency_path": residency["launches"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/flash_attention.cu",

@@ -1,7 +1,7 @@
 """Declarative configuration for the PyTorch/CUDA port.
 
 The port's own copy of the JAX package's ``ModelConfig`` and ``ServeConfig``,
-cut to the fields this slice of the port reads; names and defaults are the
+cut to the fields the port reads; names and defaults are the
 same, so a profile written for the JAX package loads here as long as it uses
 only these fields.  A file is JSON, or YAML (``yaml`` is imported only when a
 YAML file is loaded), optionally with named profiles.  ``TPUSERVE_<FIELD>``
@@ -49,6 +49,14 @@ class ModelConfig:
     # the await on the device future.  0 -> ServeConfig.deadline_default_ms
     # (0 there too -> no deadline).
     deadline_ms: float = 0.0
+    # Serverless residency (serving/lifecycle.py): build this model on its
+    # first request instead of at boot.  None defers to
+    # ``ServeConfig.lazy_load``; True/False overrides per model.
+    lazy_load: bool | None = None
+    # PINNED: built at boot even under lazy_load, never idle-unloaded and
+    # never evicted by the HBM budget (``POST /admin/models/{name}
+    # {"action": "pin"}`` is the runtime twin).
+    pinned: bool = False
     # -- the :generate lane ---------------------------------------------------
     # KV-cache engine: "slot" (a fixed pool of max-length rows) or "paged" (a
     # pool of fixed-size pages; sequences hold the pages their tokens need,
@@ -82,7 +90,7 @@ class ModelConfig:
         if self.spec_draft or self.spec_k != 4:
             raise ValueError(f"{self.name}: speculative decoding (spec_draft "
                              f"{self.spec_draft!r}, spec_k {self.spec_k}) is not served by the "
-                             f"port yet; a later slice ports it (ROADMAP Queue 1 item 5)")
+                             f"port yet; a later slice ports it (ROADMAP Queue 1 item 4)")
 
 
 @dataclass
@@ -140,6 +148,43 @@ class ServeConfig:
     # Boot-time fault rules, {model: FaultInjector.configure kwargs}: the
     # config twin of POST /admin/faults.  File-only.
     faults: dict[str, dict] = field(default_factory=dict)
+    # -- serverless residency (serving/lifecycle.py) -------------------------
+    # Build models on their first request (one single-flight activation per
+    # model) instead of at boot; ModelConfig.lazy_load overrides per model,
+    # and PINNED models always build at boot.
+    lazy_load: bool = False
+    # Scale-to-zero: a model idle this long demotes device -> host (pinned
+    # host copies; its CUDA graphs are dropped with the device weights), and
+    # after host_idle_drop_s more to disk (with a checkpoint store) or none.
+    # 0 -> never unload.
+    idle_unload_s: float = 0.0
+    # Device-residency budget in bytes (parameters plus each model's CUDA
+    # graph pool; a :generate KV pool is its own ledger entry): while the
+    # runner's ledger exceeds it, LRU non-PINNED idle models demote to the
+    # host tier.  0 -> unlimited.
+    hbm_budget_bytes: int = 0
+    # Host-tier retention before the next rung down; 0 -> 4 x idle_unload_s.
+    host_idle_drop_s: float = 0.0
+    # Host-residency budget in bytes: while host-tier bytes exceed it, LRU
+    # host copies demote to the disk tier (or none without a store).
+    # 0 -> unlimited.
+    host_budget_bytes: int = 0
+    # Streaming checkpoint store (serving/ckptstore.py): a directory of
+    # content-addressed chunks.  Set -> demotions gain the disk tier and a
+    # cold build streams the stored weights while it builds.  "" -> off.
+    ckpt_store_dir: str = ""
+    # The store's chunk size: the unit of hashing, dedup and staging.
+    ckpt_chunk_bytes: int = 1 << 20
+    # Lifecycle reaper interval; 0 -> idle_unload_s / 4, clamped to [0.05, 5].
+    lifecycle_tick_s: float = 0.0
+    # Cold admission: a request whose deadline cannot cover the estimated
+    # activation answers 503 cold_start + Retry-After + estimated_warm_ms; a
+    # request without one waits up to activation_max_wait_s.
+    # activation_estimate_ms is the estimate before any activation of the
+    # model has been seen (the port has no persistent compile cache to
+    # quarter it).
+    activation_max_wait_s: float = 120.0
+    activation_estimate_ms: float = 15000.0
     models: list[ModelConfig] = field(default_factory=list)
 
     def model(self, name: str) -> ModelConfig:

@@ -18,14 +18,24 @@ model's Python would issue.
   eagerly.  On CUDA a capture or a replay that fails raises: there is no
   eager fallback.  :meth:`CompiledModel.forward_eager` is what a check
   holds a replay against.
+- Residency tiers (``serving/lifecycle.py``): :meth:`CompiledModel.host_offload`
+  copies the weights into pinned host memory and frees the device copies,
+  :meth:`~CompiledModel.disk_offload` hands them to the checkpoint store and
+  frees the host copies, and the restores bring them back.  A captured graph
+  holds the addresses of the weights it read, so a demotion releases every
+  graph and its pool with the device weights (a released graph refuses to
+  replay) and a restore captures every bucket again, on the dispatch thread,
+  before the model serves.  :meth:`~CompiledModel.copy_in_place` is the
+  other way to change weights: values copied under the captured addresses.
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
+import threading
 import time
-from typing import Any, Callable, NamedTuple, Sequence
+from typing import Any, Callable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +47,14 @@ from .cache import CompileClock, timed
 from .servable import Servable
 
 log = get_logger("engine.compiled")
+
+# Held around every CUDA graph capture, and by other threads' device work
+# that may overlap one (``streamio.device_placer``, streaming weights while
+# the dispatch thread builds and captures).  A capture in the default
+# "global" mode fails if another thread allocates, copies or launches while
+# it is open; the dispatch thread issues all other device work, so a lock
+# on the one other source is enough, and captures keep the global mode.
+CAPTURE_LOCK = threading.Lock()
 
 
 class Captured(NamedTuple):
@@ -52,6 +70,7 @@ class Captured(NamedTuple):
         valid until the next replay of any graph of the same pool."""
         self.graph.replay()
         counters.add(self.launches)
+        counters.add_graphed(self.launches)
         return self.outputs
 
 
@@ -75,13 +94,15 @@ def capture(fn: Callable[[], Any], device: torch.device, pool=None) -> Captured:
     not read the device on the host: such a read raises during capture."""
     side = capture_stream(torch.device(device))
     side.wait_stream(torch.cuda.current_stream(device))
+    warm = counters.snapshot()
     with torch.cuda.stream(side):
         fn()
+    counters.add_graphed(counters.delta(warm))
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     before = counters.snapshot()
     try:
-        with torch.cuda.graph(graph, pool=pool, stream=side):
+        with CAPTURE_LOCK, torch.cuda.graph(graph, pool=pool, stream=side):
             outputs = fn()
     finally:
         launches = counters.delta(before)
@@ -124,12 +145,38 @@ class BucketGraph:
     def run(self, values: dict[str, Any]):
         """Copy ``values`` into the static inputs, replay, and return the
         static outputs (read them before the next replay of the pool)."""
+        if self.captured is None:
+            raise RuntimeError("replay of a released CUDA graph: the weights it read "
+                               "were demoted; the model captures new graphs when restored")
         self._fill(values)
         return self.captured.replay()
+
+    def release(self) -> None:
+        """Drop the graph, its static buffers and outputs (dispatch thread):
+        a later :meth:`run` raises instead of reading freed memory."""
+        self.captured = None
+        self.inputs = {}
 
     @property
     def launches(self) -> dict[str, int]:
         return self.captured.launches
+
+
+def _empty_as(t: torch.Tensor, device, pin_memory: bool = False) -> torch.Tensor:
+    """An uninitialized tensor of ``t``'s shape, dtype and strides (its
+    memory format: a channels_last weight stays channels_last)."""
+    return torch.empty_strided(t.size(), t.stride(), dtype=t.dtype, device=device,
+                               pin_memory=pin_memory)
+
+
+def graph_pool_bytes(device: torch.device, pools: list) -> int:
+    """Bytes of the caching allocator's segments that belong to ``pools``
+    (CUDA graph pool ids), from its snapshot; 0 on the CPU."""
+    if torch.device(device).type != "cuda" or not pools:
+        return 0
+    want = {tuple(p) for p in pools}
+    return sum(int(seg["total_size"]) for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in want)
 
 
 def _entry(key: tuple) -> list:
@@ -249,6 +296,11 @@ class CompiledModel:
         self._warmed: set[tuple[int, ...]] = set()
         self.graphed = self.device.type == "cuda"
         self._warming = False
+        # Where the weights are: "device", "host" (pinned copies) or "disk"
+        # (the checkpoint store holds them; the module keeps meta tensors).
+        self.tier = "device"
+        # Graphs captured over the model's life: a restore adds one a bucket.
+        self.captures = 0
         # The captured programs, by (bucket, variant) or chunk key; one pool:
         # the dispatch thread replays one graph at a time and every output is
         # copied out before the next replay.
@@ -257,12 +309,15 @@ class CompiledModel:
         # The :generate lanes' graph sets (engine/genkernels.LaneGraphs), in
         # the census beside the buckets'.
         self.lane_graphs: list = []
-        ch = servable.meta.get("chunked")
-        # One device copy of each chunk's schedule rows (their order is the
-        # job lane's), which a chunk graph's static rows copy from.
-        self._chunk_rows = ([{k: torch.as_tensor(np.asarray(v), device=self.device)
-                              for k, v in rows.items()} for rows in ch["chunk_rows"]]
-                            if ch and self.graphed else [])
+        self._chunk_rows = self._device_chunk_rows()
+
+    def _device_chunk_rows(self) -> list[dict[str, torch.Tensor]]:
+        """One device copy of each chunk's schedule rows (their order is the
+        job lane's), which a chunk graph's static rows copy from."""
+        ch = self.servable.meta.get("chunked")
+        return ([{k: torch.as_tensor(np.asarray(v), device=self.device)
+                  for k, v in rows.items()} for rows in ch["chunk_rows"]]
+                if ch and self.graphed else [])
 
     # -- bucket selection ---------------------------------------------------
     def bucket_for(self, batch: int, seq: int | None = None) -> tuple[int, ...]:
@@ -332,11 +387,15 @@ class CompiledModel:
         """Capture ``key``'s graph (its eager warm-up run included); with
         ``record``, its seconds go on the clock (the JAX package's compile
         seconds): "captured" at warm-up, "captured lazily" in traffic."""
+        if self.tier != "device":
+            raise RuntimeError(f"{self.servable.name}: capture with the weights on the "
+                               f"{self.tier} tier")
         t0 = time.perf_counter()
         graph = BucketGraph(fn, example, self.device, self._pool)
         torch.cuda.current_stream(self.device).synchronize()
         secs = time.perf_counter() - t0
         self._graphs[key] = graph
+        self.captures += 1
         if record:
             self.clock.record(self.servable.name, _entry(key), secs)
         log_event(log, "captured" if self._warming else "captured lazily",
@@ -475,10 +534,200 @@ class CompiledModel:
         return set(self._warmed)
 
     def param_nbytes(self) -> int:
-        """Parameter + buffer bytes on the device (residency accounting)."""
-        m = self.servable.module
-        return sum(t.numel() * t.element_size()
-                   for t in itertools.chain(m.parameters(), m.buffers()))
+        """Parameter + buffer bytes, wherever they lie (device, or pinned
+        host memory on the host tier)."""
+        return sum(t.numel() * t.element_size() for t in self._tensors().values())
+
+    def graph_pools(self) -> list:
+        """The CUDA graph pools holding this model's captured graphs: the
+        buckets' and each ``:generate`` lane's."""
+        if not self.graphed:
+            return []
+        return [self._pool] + [lane._pool for lane in self.lane_graphs]
+
+    def resident_nbytes(self) -> int:
+        """What the model holds on the device: its weights plus the segments
+        of its graph pools (a graph replays into its pool's memory, which no
+        other allocation may take).  The runner's residency ledger and the
+        HBM budget count this."""
+        if self.tier != "device":
+            return 0
+        return self.param_nbytes() + graph_pool_bytes(self.device, self.graph_pools())
+
+    # -- residency tiers (serving/lifecycle.py) ----------------------------
+    def _slots(self):
+        """(owner dict, key, flat name) of every parameter and buffer, module
+        by module; the flat name is the module path joined with "/"."""
+        for mod_name, m in self.servable.module.named_modules():
+            for store in (m._parameters, m._buffers):
+                for key, t in store.items():
+                    if t is not None:
+                        yield store, key, f"{mod_name}/{key}".replace(".", "/").lstrip("/")
+
+    def _tensors(self) -> dict[str, torch.Tensor]:
+        """Flat name → tensor, each distinct tensor once, under its first
+        name (a tied weight's other names alias it)."""
+        out: dict[str, torch.Tensor] = {}
+        seen: set[int] = set()
+        for store, key, name in self._slots():
+            if id(store[key]) not in seen:
+                seen.add(id(store[key]))
+                out[name] = store[key]
+        return out
+
+    def _assign(self, flat: Mapping[str, torch.Tensor]) -> None:
+        """Put ``flat``'s tensors in the module in place of its own, by flat
+        name (an alias takes its first name's tensor); shapes and dtypes must
+        match, and a tensor in another layout (a stream's contiguous bytes
+        for a channels_last conv weight) is copied into the module's."""
+        first: dict[int, str] = {}
+        for store, key, name in list(self._slots()):
+            old = store[key]
+            canon = first.setdefault(id(old), name)
+            new = flat.get(canon)
+            if new is None:
+                raise KeyError(f"{self.servable.name}: no tensor {canon!r} to restore")
+            if tuple(new.shape) != tuple(old.shape) or new.dtype != old.dtype:
+                raise ValueError(f"{self.servable.name}: {canon} is {new.dtype}"
+                                 f"{list(new.shape)}, the model holds {old.dtype}"
+                                 f"{list(old.shape)}")
+            if new.stride() != old.stride():
+                new = _empty_as(old, new.device).copy_(new)
+            store[key] = (torch.nn.Parameter(new, old.requires_grad)
+                          if isinstance(old, torch.nn.Parameter) else new)
+
+    def _drop_graphs(self) -> None:
+        """Release every graph (the buckets', the chunks', the lanes') and
+        forget the warmed buckets: the next capture starts a new pool."""
+        for graph in self._graphs.values():
+            graph.release()
+        self._graphs.clear()
+        for lane in list(self.lane_graphs):
+            lane.release()
+        self.lane_graphs.clear()
+        self._warmed.clear()
+        self._chunk_rows = []
+        if self.graphed:
+            self._pool = torch.cuda.graph_pool_handle()
+
+    def _recapture(self) -> float:
+        """Capture every bucket again after a restore (dispatch thread);
+        returns the seconds.  The CPU has nothing to capture."""
+        if not self.graphed:
+            return 0.0
+        t0 = time.perf_counter()
+        self._chunk_rows = self._device_chunk_rows()
+        self.warmup()
+        return time.perf_counter() - t0
+
+    def host_offload(self) -> dict:
+        """Device → host tier (dispatch thread): every graph released, every
+        parameter and buffer copied into pinned host memory (plain host
+        memory on the CPU) and the device copies dropped.  Returns the
+        copy's ms."""
+        if self.tier != "device":
+            raise RuntimeError(f"{self.servable.name}: host_offload from the {self.tier} tier")
+        t0 = time.perf_counter()
+        self._drop_graphs()
+        pin = self.device.type == "cuda"
+        host = {}
+        with torch.no_grad():
+            for name, t in self._tensors().items():
+                host[name] = _empty_as(t, "cpu", pin_memory=pin)
+                host[name].copy_(t, non_blocking=pin)
+        self._sync()
+        self._assign(host)
+        self.tier = "host"
+        return {"d2h_ms": (time.perf_counter() - t0) * 1e3}
+
+    def device_restore(self) -> dict:
+        """Host tier → device (dispatch thread): the pinned copies to the
+        device, then every bucket captured again.  Returns ``h2d_ms`` and
+        ``capture_ms``."""
+        if self.tier != "host":
+            raise RuntimeError(f"{self.servable.name}: device_restore from the {self.tier} tier")
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            dev = {name: t.to(self.device, non_blocking=True)
+                   for name, t in self._tensors().items()}
+        self._sync()
+        self._assign(dev)
+        self.tier = "device"
+        h2d = time.perf_counter() - t0
+        return {"h2d_ms": h2d * 1e3, "capture_ms": self._recapture() * 1e3}
+
+    def release(self) -> None:
+        """Drop everything (dispatch thread): every graph released and the
+        weights replaced by meta tensors, so the device memory goes now and
+        not when the last reference does."""
+        self._drop_graphs()
+        self._assign({name: _empty_as(t, "meta") for name, t in self._tensors().items()})
+        self.tier = "none"
+
+    def host_state(self) -> dict[str, Any]:
+        """The weights as a tree of host tensors, nested by module path (a
+        copy on the device tier, the pinned copies themselves on the host
+        tier): what the checkpoint store holds."""
+        from .weights import unflatten_tree
+
+        if self.tier not in ("device", "host"):
+            raise RuntimeError(f"{self.servable.name}: no weights on the {self.tier} tier")
+        with torch.no_grad():
+            return unflatten_tree({name: t.cpu() if self.tier == "device" else t
+                                   for name, t in self._tensors().items()})
+
+    def disk_offload(self, save_fn) -> None:
+        """Host tier → disk tier: hand the host copies to ``save_fn`` (the
+        checkpoint store's put), then drop them; the module keeps meta
+        tensors of the same shapes.  Host work only, off the dispatch
+        thread.  If ``save_fn`` raises, nothing is dropped: the model stays
+        on the host tier."""
+        if self.tier != "host":
+            raise RuntimeError(f"{self.servable.name}: disk_offload from the {self.tier} tier "
+                               "(host_offload first)")
+        save_fn(self.host_state())
+        self._assign({name: _empty_as(t, "meta") for name, t in self._tensors().items()})
+        self.tier = "disk"
+
+    def disk_restore(self, load_fn) -> dict:
+        """Disk tier → device (dispatch thread): ``load_fn()`` returns the
+        streamed tree (its leaves placed on the device by
+        ``streamio.device_placer``), which is adopted onto this thread's
+        stream and put in place; then every bucket is captured again.
+        Returns ``capture_ms``."""
+        from . import streamio
+        from .weights import flatten_tree
+
+        if self.tier != "disk":
+            raise RuntimeError(f"{self.servable.name}: disk_restore from the {self.tier} tier")
+        flat = flatten_tree(load_fn())
+        streamio.adopt(flat.values(), self.device)
+        flat = {k: v if v.device == self.device else v.to(self.device)
+                for k, v in flat.items()}
+        self._assign(flat)
+        self.tier = "device"
+        return {"capture_ms": self._recapture() * 1e3}
+
+    def copy_in_place(self, flat: Mapping[str, torch.Tensor]) -> None:
+        """Copy ``flat``'s values into the weights the module holds, under
+        their addresses (dispatch thread): the captured graphs read the new
+        values at their next replay.  Rebinding the tensors instead would
+        leave the graphs reading the old ones."""
+        from . import streamio
+
+        streamio.adopt(flat.values(), self.device)
+        with torch.no_grad():
+            for name, t in self._tensors().items():
+                src = flat.get(name)
+                if src is None:
+                    raise KeyError(f"{self.servable.name}: the streamed weights lack {name!r}")
+                if tuple(src.shape) != tuple(t.shape) or src.dtype != t.dtype:
+                    raise ValueError(f"{self.servable.name}: streamed {name} is {src.dtype}"
+                                     f"{list(src.shape)}, the model holds {t.dtype}"
+                                     f"{list(t.shape)}")
+                ptr = t.data_ptr()
+                t.copy_(src)
+                assert t.data_ptr() == ptr
 
     # -- execution ----------------------------------------------------------
     def run_batch(self, samples: Sequence[dict[str, np.ndarray]],

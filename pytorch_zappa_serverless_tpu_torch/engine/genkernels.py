@@ -26,6 +26,9 @@ prefill, insert and segment programs and donate the pool through them:
 All methods run on the runner's dispatch thread.  A program that writes the
 pool and raises leaves ``torn`` set: the scheduler fails its in-flight
 streams and resets the pool (the JAX lanes' donated-pool-lost rule).
+``release()`` frees the pool and every graph when the lane stops for good
+(the model's demotion): a restored model starts a new lane, which allocates
+and captures again at first use.
 """
 
 from __future__ import annotations
@@ -115,6 +118,15 @@ class LaneGraphs:
                   launches=graph.launches, seconds=round(secs, 3))
         return graph
 
+    def release(self) -> None:
+        """Release every graph (a later replay raises) and leave the
+        model's census."""
+        for graph in self._graphs.values():
+            graph.release()
+        self._graphs.clear()
+        if self in self.cm.lane_graphs:
+            self.cm.lane_graphs.remove(self)
+
     @staticmethod
     def label(key: tuple) -> str:
         return " ".join(["generate", *(_gate_label(k) if isinstance(k, Gates) else str(k)
@@ -170,6 +182,16 @@ class _PoolKernels:
         """Mark the pool for zeroing at the next :meth:`ensure` (host only:
         the scheduler's event loop calls this)."""
         self._dirty = True
+
+    def release(self) -> None:
+        """Free the pool, the lane's other buffers and every graph (dispatch
+        thread); the lane must not run again."""
+        self.graphs.release()
+        self.cache_k = self.cache_v = None
+        self._release_extra()
+
+    def _release_extra(self) -> None:
+        """Drop what :meth:`_alloc_extra` made."""
 
     def _writes(self, key: tuple, fn, values):
         """A call of a program that writes the pool: ``torn`` if it raises."""
@@ -230,6 +252,9 @@ class SlotKernels(_PoolKernels):
     def _alloc_extra(self) -> None:
         self.stage_k = torch.zeros(self._stage_shape, dtype=self.dtype, device=self.cm.device)
         self.stage_v = torch.zeros_like(self.stage_k)
+
+    def _release_extra(self) -> None:
+        self.stage_k = self.stage_v = None
 
     def prefill(self, payload: dict[str, np.ndarray]) -> np.ndarray:
         """One batched admission prefill; returns each row's first token [B]

@@ -3,7 +3,9 @@
 ``build_engine`` builds every configured servable (checkpoint import or
 seed init), places it on the device, captures each bucket's CUDA graph (on
 the CPU: runs its first dispatch) when ``warmup_at_boot`` is set, and
-reports cold-start timing, the captures included.
+reports cold-start timing, the captures included.  A lazy model
+(:func:`lazy_effective`) is skipped: ``serving/lifecycle.py`` builds it on
+first demand through :func:`build_model` and :meth:`Engine.attach`.
 """
 
 from __future__ import annotations
@@ -39,6 +41,19 @@ class Engine:
         except KeyError:
             raise KeyError(f"model {name!r} not served; available: {sorted(self.models)}") from None
 
+    # -- lifecycle attach/detach (serving/lifecycle.py) ----------------------
+    def attach(self, name: str, cm: CompiledModel, nbytes: int | None = None):
+        """Register an activated model and its device bytes (weights plus
+        graph pools, :meth:`CompiledModel.resident_nbytes`) in the ledger."""
+        self.models[name] = cm
+        self.runner.track_model(name, cm.resident_nbytes() if nbytes is None else nbytes)
+
+    def detach(self, name: str) -> CompiledModel | None:
+        """Unregister a model (demotion); returns it, so the caller can keep
+        the host copy."""
+        self.runner.untrack_model(name)
+        return self.models.pop(name, None)
+
     def shutdown(self):
         self.runner.shutdown()
 
@@ -57,11 +72,29 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-def build_model(mc: ModelConfig, clock: CompileClock, device: torch.device, *,
-                warmup: bool = True) -> CompiledModel:
-    """Build ONE servable, place it, and warm its buckets."""
+def lazy_effective(cfg: ServeConfig, mc: ModelConfig) -> bool:
+    """Whether this model defers its build to its first demand: its own
+    ``lazy_load``, else the profile's; a PINNED model always builds at
+    boot."""
+    if mc.pinned:
+        return False
+    return cfg.lazy_load if mc.lazy_load is None else bool(mc.lazy_load)
+
+
+def build_servable(mc: ModelConfig):
+    """The servable of ``mc`` on the host (checkpoint import or seed init,
+    quantization): host work only, which may run off the dispatch thread."""
     servable = get_model_builder(mc.builder or mc.name)(mc)
     servable.name = mc.name  # the deploy name owns the serving identity
+    return servable
+
+
+def build_model(mc: ModelConfig, clock: CompileClock, device: torch.device, *,
+                warmup: bool = True, servable=None) -> CompiledModel:
+    """Build ONE servable (unless ``servable`` is handed in), place it, and
+    warm its buckets; on the dispatch thread."""
+    if servable is None:
+        servable = build_servable(mc)
     cm = CompiledModel(servable, mc, device, clock)
     if warmup:
         cm.warmup()
@@ -85,12 +118,17 @@ def build_engine(cfg: ServeConfig, device: str | torch.device | None = None, *,
     build_seconds: dict[str, float] = {}
     try:
         for mc in cfg.models:
+            if lazy_effective(cfg, mc):
+                # Scale-to-zero boot: the model starts COLD, and the
+                # lifecycle activates it on its first demand.
+                log_event(log, "model deferred (lazy_load)", model=mc.name)
+                continue
             t1 = time.perf_counter()
             # Built and warmed on the dispatch thread: it owns all device work.
             cm = runner.run_fn_sync(build_model, mc, clock, dev, warmup=warmup)
             compiled[mc.name] = cm
             build_seconds[mc.name] = round(time.perf_counter() - t1, 3)
-            runner.track_model(mc.name, cm.param_nbytes())
+            runner.track_model(mc.name, cm.resident_nbytes())
             log_event(log, "model ready", model=mc.name, device=str(dev),
                       seconds=build_seconds[mc.name],
                       buckets=[list(b) for b in cm.buckets], graphs=cm.graphs)

@@ -162,7 +162,9 @@ class DeviceRunner:
         # consulted at the head of every dispatch.
         self.faults = FaultInjector()
         self.stats: dict[str, RunStats] = {}  # guarded-by: _lock
-        # Parameter bytes per device-resident model (residency accounting).
+        # Device bytes per resident model (its weights plus its CUDA graph
+        # pools), and per :generate KV pool ("<model>:kvcache"): the ledger
+        # the lifecycle's HBM budget reads.
         self._resident: dict[str, int] = {}  # guarded-by: _lock
         # The shared probe: concurrent /healthz calls during a wedge share
         # one no-op on the dispatch thread and one timeout, and a verdict is
@@ -289,7 +291,9 @@ class DeviceRunner:
 
     # -- residency accounting -------------------------------------------------
     def track_model(self, name: str, nbytes: int) -> None:
-        """Record a model as device-resident with ``nbytes`` of parameters."""
+        """Record ``name`` as device-resident with ``nbytes``: a model's
+        ``CompiledModel.resident_nbytes()`` (weights plus graph pools, read
+        from the caching allocator), or a KV pool's bytes."""
         with self._lock:
             self._resident[name] = int(nbytes)
 

@@ -370,8 +370,10 @@ def is_native(path: str | Path) -> bool:
     return str(path).endswith(NATIVE_SUFFIX)
 
 
-def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
-    flat: dict[str, np.ndarray] = {}
+def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
+    """A nested tree → ``{"a/b/c": leaf}``; torch tensors stay tensors,
+    anything else becomes a numpy array."""
+    flat: dict[str, Any] = {}
     for key, value in tree.items():
         if "/" in key:
             raise ValueError(f"param name {key!r} contains the '/' separator")
@@ -379,7 +381,7 @@ def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndar
         if isinstance(value, Mapping):
             flat.update(flatten_tree(value, path))
         else:
-            flat[path] = np.asarray(value)
+            flat[path] = value if isinstance(value, torch.Tensor) else np.asarray(value)
     return flat
 
 
@@ -411,12 +413,61 @@ def load_native(path: str | Path) -> dict[str, Any]:
 
 
 def import_params(checkpoint: str | Path, converter) -> dict[str, Any]:
-    """A checkpoint file → param tree: a staged ``*.tpu.safetensors`` tree as
-    it is, anything else through a family converter.  (``.tpu.ckpt``
-    streams are not read yet.)"""
+    """A checkpoint file → param tree: a ``*.tpu.ckpt`` stream or a staged
+    ``*.tpu.safetensors`` tree as it is, anything else through a family
+    converter."""
+    if is_stream(checkpoint):
+        return open_stream(checkpoint)[0]
     if is_native(checkpoint):
         return load_native(checkpoint)
     return converter(load_state_dict(checkpoint))
+
+
+# ---------------------------------------------------------------------------
+# The stream format (engine/streamio.py): the loading-ordered sibling of the
+# staged-native file above.  The same flattened tree, laid out as fixed-size
+# hashed chunks in layer execution order, so a load overlaps the disk read
+# with the copies to the device.  The bytes are the JAX package's format:
+# either package opens what the other's ``save_stream`` wrote.
+# ---------------------------------------------------------------------------
+
+STREAM_SUFFIX = ".tpu.ckpt"
+
+
+def is_stream(path: str | Path) -> bool:
+    return str(path).endswith(STREAM_SUFFIX)
+
+
+def save_stream(params: Mapping[str, Any], path: str | Path, chunk_bytes: int | None = None):
+    """Write a param tree (numpy or torch leaves) as a chunked stream
+    checkpoint; returns the index."""
+    from . import streamio
+
+    if not is_stream(path):
+        raise ValueError(f"stream params path must end with {STREAM_SUFFIX}: {path}")
+    return streamio.write_stream_file(flatten_tree(params), path,
+                                      chunk_bytes or streamio.DEFAULT_CHUNK_BYTES)
+
+
+def open_stream(path: str | Path, *, place_fn=None, on_layer=None,
+                chaos_fn=None) -> tuple[dict[str, Any], Any]:
+    """Streamed load of a ``*.tpu.ckpt``; returns ``(params, stats)``, the
+    leaves CPU tensors (or what ``place_fn`` made of each, e.g.
+    ``streamio.device_placer``'s device copy, the moment its bytes land);
+    ``on_layer`` fires per completed execution-order layer."""
+    from . import streamio
+
+    flat, stats = streamio.load_stream_file(Path(path).expanduser(), place_fn=place_fn,
+                                            on_layer=on_layer, chaos_fn=chaos_fn)
+    return unflatten_tree(flat), stats
+
+
+def _leaf_tensor(value) -> torch.Tensor:
+    """A tree leaf as a CPU tensor: a tensor (a stream's, bf16 included) as
+    it is, anything else through numpy."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu()
+    return torch.from_numpy(np.asarray(value))
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -442,12 +493,13 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             if isinstance(value, Mapping):
                 walk(value, f"{prefix}{key}.")
                 continue
-            arr = np.asarray(value)
+            t = _leaf_tensor(value)
             if key == "kernel":
-                key, arr = "weight", (arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T)
+                key, t = "weight", (t.permute(3, 2, 0, 1) if t.ndim == 4
+                                    else t.permute(*reversed(range(t.ndim))))
             elif key == "embedding" or (key == "scale" and not quantized):
                 key = "weight"
-            sd[prefix + key] = torch.from_numpy(np.array(arr, order="C"))
+            sd[prefix + key] = t.clone(memory_format=torch.contiguous_format)
 
     walk(tree, "")
     return sd
@@ -470,7 +522,7 @@ def tree_state_from_jax(tree: Mapping[str, Any], dtype: torch.dtype) -> dict[str
             if isinstance(value, Mapping):
                 walk(value, f"{prefix}{key}.")
                 continue
-            t = torch.from_numpy(np.array(value, order="C"))
+            t = _leaf_tensor(value).clone(memory_format=torch.contiguous_format)
             if t.is_floating_point() and t.ndim >= 2:
                 t = t.to(dtype)
             sd[prefix + key] = t

@@ -8,13 +8,13 @@ The port's copy of the JAX package's ``faults.py``.  It defines
 - :class:`FaultInjector`, the config- and ``POST /admin/faults``-driven
   chaos hook on the device runner: fail every Nth dispatch (transient,
   fatal, or a poison that latches), add device latency, fail preprocess,
-  and fail or copy-on-write the prefix cache's lookups.
+  fail or copy-on-write the prefix cache's lookups, fail or slow a model's
+  activation, and tear or slow a streamed checkpoint's chunk reads.
 
 The rule schema and its validation are the reference's, so
 ``/admin/faults`` takes and refuses the same bodies, except that a kind
-whose plane the port lacks (model activation, adapters, live migration,
-the checkpoint store, the autoscaler, speculation) is refused with the
-module still to port: a rule that is accepted and never fires would
+whose plane the port lacks (adapters, live migration, the autoscaler,
+speculation) is refused with the module still to port: a rule that is accepted and never fires would
 report chaos that never happens.
 
 At the package top level because ``engine.runner`` (dispatch-side
@@ -84,12 +84,10 @@ def is_transient(exc: BaseException) -> bool:
 # The reference's kinds whose plane the port has not ported yet, each with
 # what it waits for (ROADMAP Queue 1).
 REFUSED_KINDS = {
-    "activation": "serving/lifecycle.py (ROADMAP Queue 1 item 4)",
-    "ckpt": "serving/ckptstore.py (ROADMAP Queue 1 item 4)",
-    "adapter": "serving/adapters.py (ROADMAP Queue 1 item 5)",
-    "migration": "serving/kvmigrate.py (ROADMAP Queue 1 item 5)",
-    "spec_mismatch": "speculative decoding (ROADMAP Queue 1 item 5)",
-    "demand": "serving/autoscale.py (ROADMAP Queue 1 item 6)",
+    "adapter": "serving/adapters.py (ROADMAP Queue 1 item 4)",
+    "migration": "serving/kvmigrate.py (ROADMAP Queue 1 item 4)",
+    "spec_mismatch": "speculative decoding (ROADMAP Queue 1 item 4)",
+    "demand": "serving/autoscale.py (ROADMAP Queue 1 item 5)",
 }
 
 
@@ -108,6 +106,13 @@ class FaultRule:
     raises, the probe reports dead), the fault the watchdog must detect,
     quarantine and heal with a rebuild.
 
+    ``kind="activation"`` fires on :meth:`FaultInjector.on_activation` at
+    the head of a lifecycle activation (the model stays COLD, the next
+    demand retries); ``kind="ckpt"`` on :meth:`FaultInjector.on_ckpt` at
+    each chunk read of a streamed checkpoint load, ``mode="torn"`` (the
+    default) corrupting the chunk and ``mode="slow"`` sleeping
+    ``latency_ms`` before it.
+
     ``kind="prefix"`` fires on :meth:`FaultInjector.on_prefix` at the head
     of each paged admission's radix lookup.  ``mode="poison"`` (the default)
     fails the lookup, so admission falls back to a cold prefill with
@@ -118,10 +123,11 @@ class FaultRule:
     model: str = "*"
     fail_every_n: int = 0
     count: int | None = None
-    kind: str = "transient"  # transient | fatal | poison | prefix
+    kind: str = "transient"  # transient | fatal | poison | prefix | activation | ckpt
     latency_ms: float = 0.0
     preprocess: bool = False
-    # kind="prefix": "poison" (fail the lookup) | "cow" (force CoW).
+    # kind="prefix": "poison" (fail the lookup) | "cow" (force CoW);
+    # kind="ckpt": "torn" (corrupt chunk bytes) | "slow" (per-chunk delay).
     mode: str = ""
     # Counters, not config: matching calls seen and failures fired.
     seen: int = field(default=0)
@@ -150,7 +156,7 @@ class FaultInjector:
 
     # Kinds that are their own firing target: they never fire on dispatch or
     # preprocess and never displace those rules.
-    _TARGETED = ("prefix",)
+    _TARGETED = ("activation", "prefix", "ckpt")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -159,8 +165,8 @@ class FaultInjector:
         # device and read at the head of every dispatch.
         self.poison_exc: Exception | None = None
         # guarded-by: _lock
-        self.injected = {"dispatch": 0, "preprocess": 0, "prefix": 0,
-                         "latency_ms": 0.0}
+        self.injected = {"dispatch": 0, "preprocess": 0, "activation": 0, "prefix": 0,
+                         "ckpt": 0, "latency_ms": 0.0}
 
     def configure(self, model: str = "*", fail_every_n: int = 0,
                   count: int | None = None, kind: str = "transient",
@@ -175,11 +181,13 @@ class FaultInjector:
             raise ValueError("fail_every_n and latency_ms must be >= 0")
         if count is not None and int(count) < 1:
             raise ValueError("count must be >= 1 when set")
-        if mode and kind != "prefix":
+        if mode and kind not in ("prefix", "ckpt"):
             raise ValueError(
                 "mode is a kind='prefix'/'migration'/'demand'/'ckpt' knob")
         if kind == "prefix" and mode not in ("", "poison", "cow"):
             raise ValueError(f"prefix mode must be 'poison' or 'cow', got {mode!r}")
+        if kind == "ckpt" and mode not in ("", "torn", "slow"):
+            raise ValueError(f"ckpt mode must be 'torn' or 'slow', got {mode!r}")
         rule = FaultRule(model=model, fail_every_n=int(fail_every_n),
                          count=int(count) if count is not None else None,
                          kind=kind, latency_ms=float(latency_ms),
@@ -209,11 +217,15 @@ class FaultInjector:
                     "rules": [r.public() for r in self._rules],
                     "injected": dict(self.injected)}
 
-    def _match(self, model: str, preprocess: bool,
-               prefix: bool = False) -> FaultRule | None:
+    def _match(self, model: str, preprocess: bool, prefix: bool = False,
+               activation: bool = False, ckpt: bool = False) -> FaultRule | None:
         for r in self._rules:
             if (r.kind == "prefix") != prefix:
                 continue  # prefix rules fire on on_prefix only
+            if (r.kind == "activation") != activation:
+                continue  # activation rules fire on on_activation only
+            if (r.kind == "ckpt") != ckpt:
+                continue  # ckpt rules fire on on_ckpt only
             if r.preprocess == preprocess and r.model in ("*", model):
                 return r
         return None
@@ -262,6 +274,48 @@ class FaultInjector:
             time.sleep(latency / 1000.0)
         if fire:
             self._raise(rule, "dispatch")
+
+    def on_activation(self, model: str):
+        """Called (on the activation's build thread) at the head of a
+        lifecycle activation, the cold-start twin of :meth:`on_dispatch`.
+        Latency rules sleep here too, stretching the activation as a slow
+        weight fetch would."""
+        with self._lock:
+            rule = self._match(model, preprocess=False, activation=True)
+            if rule is None:
+                return
+            rule.seen += 1
+            fire = self._fire(rule)
+            latency = rule.latency_ms
+            if fire:
+                self.injected["activation"] += 1
+            if latency:
+                self.injected["latency_ms"] += latency
+        if latency:
+            time.sleep(latency / 1000.0)
+        if fire:
+            self._raise(rule, "activation")
+
+    def on_ckpt(self, model: str) -> tuple[str | None, float]:
+        """Called (on the stream's reader thread) at the head of each chunk
+        read of a streamed checkpoint load (serving/ckptstore.py): ``(mode,
+        latency_s)``, mode ``"torn"`` (the store corrupts the chunk; the
+        integrity hash catches it and the pipeline re-reads once, and a
+        persistent tear fails the stream naming the chunk) or ``"slow"``
+        (the store sleeps first), or ``(None, 0.0)`` when nothing fires.
+        Never raises: the chaos target is the re-read and degrade ladder."""
+        with self._lock:
+            rule = self._match(model, preprocess=False, ckpt=True)
+            if rule is None:
+                return None, 0.0
+            rule.seen += 1
+            if not self._fire(rule):
+                return None, 0.0
+            self.injected["ckpt"] += 1
+            latency = rule.latency_ms if rule.mode == "slow" else 0.0
+            if latency:
+                self.injected["latency_ms"] += latency
+            return rule.mode or "torn", latency / 1000.0
 
     def on_prefix(self, model: str) -> str:
         """Called by the paged scheduler before each admission's prefix

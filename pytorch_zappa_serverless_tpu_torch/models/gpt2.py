@@ -508,7 +508,7 @@ def _fallback_tokenize(text: str, vocab_size: int) -> list[int]:
 
 
 # Options of the JAX servable that the port does not serve yet (ROADMAP
-# Queue 1 item 5 lists them): the extra keys that ask for them.
+# Queue 1 item 4 lists them): the extra keys that ask for them.
 _LATER = {
     "int8_crossover_batch": "params_dtype 'auto' (the regime-routed lane)",
     "adapter_slots": "LoRA adapters", "adapter_targets": "LoRA adapters",
@@ -528,13 +528,13 @@ def make_gpt2_servable(name: str, cfg_model):
     params_dtype = str(cfg_model.extra.get("params_dtype", ""))
     if params_dtype == "auto":
         raise ValueError(f"{name}: params_dtype {params_dtype!r} is not served by the port yet "
-                         f"(a later slice ports the 'auto' lane, ROADMAP Queue 1 item 5); use "
+                         f"(a later slice ports the 'auto' lane, ROADMAP Queue 1 item 4); use "
                          f"'int8' or 'bfloat16', or leave it unset")
     later = sorted(k for k in cfg_model.extra if k in _LATER)
     if later:
         raise ValueError(f"{name}: {', '.join(_LATER[k] for k in later)} "
                          f"({', '.join(later)}) is not served by the port yet; a later slice "
-                         f"ports it (ROADMAP Queue 1 item 5)")
+                         f"ports it (ROADMAP Queue 1 item 4)")
 
     if cfg_model.checkpoint:
         params = W.import_params(cfg_model.checkpoint, W.convert_gpt2)

@@ -8,7 +8,10 @@ A count means executions on the device.  An eager call counts as it runs;
 under a captured CUDA graph (``engine.compiled.capture``) the capture runs
 nothing, so the engine takes a :func:`snapshot` before it, reads the
 graph's :func:`delta` after it, :func:`restore`\\ s the snapshot, and
-:func:`add`\\ s the delta at every replay.
+:func:`add`\\ s the delta at every replay.  :func:`graphed` holds the
+launches the captured graphs account for (each capture's eager warm-up run
+and each replay): a path whose counts exceed it launched a kernel outside
+any graph.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import Callable
 
 # name -> (function, attribute)
 _REGISTRY: dict[str, tuple[Callable, str]] = {}
+# name -> launches run by captured graphs and their warm-up runs.
+_GRAPHED: dict[str, int] = {}
 
 
 def register(fn: Callable, attr: str = "launches") -> Callable:
@@ -49,6 +54,17 @@ def add(d: dict[str, int]) -> None:
         setattr(fn, attr, getattr(fn, attr) + n)
 
 
+def add_graphed(d: dict[str, int]) -> None:
+    for name, n in d.items():
+        _GRAPHED[name] = _GRAPHED.get(name, 0) + n
+
+
+def graphed() -> dict[str, int]:
+    """The launches captured graphs ran since the last :func:`reset`."""
+    return {name: _GRAPHED.get(name, 0) for name in _REGISTRY}
+
+
 def reset() -> None:
-    """Every count to 0."""
+    """Every count, and the graphs' ledger, to 0."""
     restore(dict.fromkeys(_REGISTRY, 0))
+    _GRAPHED.clear()

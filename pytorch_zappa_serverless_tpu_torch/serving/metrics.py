@@ -5,11 +5,13 @@ The parts of the JAX package's ``MetricsHub`` the port's modules fill:
 p50/p99/mean of queue, device and total ms (and lifetime histograms of the
 first two), requests and errors, lifetime req/s, batch occupancy per model
 and bucket, the dispatch lanes, first-dispatch ("compile") timings,
-device-resident parameter bytes, each ``:generate`` lane's snapshot (its
+device-resident bytes (weights and graph pools), each ``:generate`` lane's snapshot (its
 ``<name>:generate`` ring sits beside the models' rings; time to first token
 and inter-token gaps are histograms over :data:`TOKEN_LATENCY_BUCKETS_MS`),
-and the resilience layer: deadlines, retries, breakers, drain, quarantine,
-fault injection and recovery.
+the resilience layer (deadlines, retries, breakers, drain, quarantine,
+fault injection and recovery), and residency: each model's state, its
+activations and demotions by cause, activation times, cold-start
+fast-fails, the bytes on each tier and the checkpoint store's streams.
 
 :meth:`MetricsHub.render_prometheus` writes the same numbers as text
 exposition 0.0.4 under the names, types and label sets of
@@ -150,6 +152,9 @@ class MetricsHub:
         self.resilience = None  # guarded-by: event-loop
         self.faults = None  # guarded-by: event-loop
         self.watchdog = None  # guarded-by: event-loop
+        # The residency manager (serving/lifecycle.py), and through it the
+        # checkpoint store.
+        self.lifecycle = None  # guarded-by: event-loop
 
     def ring(self, model: str) -> LatencyRing:
         if model not in self.models:
@@ -166,6 +171,8 @@ class MetricsHub:
             out["faults"] = self.faults.snapshot()
         if self.watchdog is not None:
             out["recovery"] = self.watchdog.snapshot()
+        if self.lifecycle is not None:
+            out["lifecycle"] = self.lifecycle.snapshot()
         if engine is None:
             return out
         occ = {}
@@ -303,7 +310,7 @@ class MetricsHub:
                    "Cumulative first-dispatch seconds per model",
                    [({"model": m}, v["seconds"]) for m, v in by_clock.items()])
             metric("tpuserve_hbm_bytes", "gauge",
-                   "Device-resident parameter bytes per model",
+                   "Device-resident bytes per model (weights and graph pools; <model>:kvcache a KV pool)",
                    [({"model": m}, v) for m, v in engine.runner.resident_bytes().items()])
         if self.resilience is not None:
             from .resilience import BREAKER_STATE_CODE
@@ -363,6 +370,46 @@ class MetricsHub:
             metric("tpuserve_recovery_requeued_jobs_total", "counter",
                    "Outage-failed jobs requeued after an engine recovery",
                    [({}, wsnap["requeued_jobs_total"])])
+        if self.lifecycle is not None:
+            lc = self.lifecycle
+            lsnap = lc.snapshot()
+            lmodels = lsnap["models"].items()
+            metric("tpuserve_residency_state", "gauge",
+                   "Residency state (0=cold,1=warming,2=active,3=draining_idle,4=pinned)",
+                   [({"model": m}, lc.state_code(m)) for m, _ in lmodels])
+            metric("tpuserve_activations_total", "counter",
+                   "Model activations by cause (boot|request|job|pin|admin|recovery)",
+                   [({"model": m, "cause": c}, n) for m, s in lmodels
+                    for c, n in s["activations_by_cause"].items()])
+            metric("tpuserve_demotions_total", "counter",
+                   "Residency demotions by cause (idle|budget|host_budget|admin)",
+                   [({"model": m, "cause": c}, n) for m, s in lmodels
+                    for c, n in s["demotions_by_cause"].items()])
+            metric("tpuserve_cold_start_fast_fails_total", "counter",
+                   "Requests 503'd cold_start (deadline below the activation estimate)",
+                   [({"model": m}, s["cold_fast_fails"]) for m, s in lmodels])
+            metric("tpuserve_hbm_budget_bytes", "gauge",
+                   "Configured device-residency budget (0 = unlimited)",
+                   [({}, lsnap["hbm_budget_bytes"])])
+            histogram("tpuserve_activation_ms",
+                      "Model activation wall time (ms, lifetime histogram)",
+                      [({"model": m}, *live(h)) for m, h in lc.activation_hists.items()])
+            cs = lsnap.get("ckpt_store")
+            metric("tpuserve_residency_tier_bytes", "gauge",
+                   "Weight bytes resident per tier (disk = post-dedup store bytes)",
+                   [({"tier": "device"}, lsnap["hbm_bytes_total"]),
+                    ({"tier": "host"}, lsnap["host_bytes_total"]),
+                    ({"tier": "disk"}, cs["physical_bytes"] if cs is not None else 0)])
+            if cs is not None:
+                metric("tpuserve_ckpt_chunks_streamed_total", "counter",
+                       "Chunks read through the streamed-load pipeline",
+                       [({"model": k}, n) for k, n in cs["chunks_streamed_total"].items()])
+                metric("tpuserve_ckpt_dedup_hits_total", "counter",
+                       "Staged chunks already content-present in the store",
+                       [({"model": k}, n) for k, n in cs["dedup_hits_total"].items()])
+                histogram("tpuserve_ckpt_load_ms", "Streamed checkpoint load wall time (ms)",
+                          [({"model": k}, *live(h))
+                           for k, h in lc.store.load_hists_snapshot().items()])
         if self.generation is not None:
             gsnap = self.generation()
             paged = {m: s for m, s in gsnap.items() if "kv" in s}

@@ -8,6 +8,12 @@ Routes (the JAX package's, for the port's slices):
   ``GET``/``POST /admin/faults`` (the fault injector's rules),
   ``POST /admin/recover`` (the watchdog's recovery, its budget reset) and
   ``POST /admin/reload`` (rebuild the engine);
+- ``GET /admin/models`` (every model's residency), ``GET
+  /admin/models/{name}`` and ``POST /admin/models/{name}`` with
+  ``{"action": "activate"|"unload"|"demote"|"pin"|"unpin"}`` (``demote``
+  takes ``"to": "host"|"disk"|"none"``): 400 for an unknown action or tier,
+  404 for an unknown model, 409 for a pinned or busy model (or ``disk``
+  without a checkpoint store);
 - ``POST /v1/models/{name}:predict``, and ``/predict`` / ``/classify`` for
   the first configured model (405 for an async-only model);
 - ``POST /v1/models/{name}:submit`` → 202 ``{"job": ...}`` (an
@@ -40,6 +46,15 @@ model's ``preprocess`` as the decoded bytes, as the JAX server hands them
 over.  The answer keeps the JAX server's shape, ``{"model", "timing",
 "predictions"}``, with ``X-Queue-Ms`` and ``X-Device-Ms`` headers; errors
 are ``{"error": ...}`` with 400, 404, 405, 413, 429 (+ Retry-After) or 500.
+
+Residency (``serving/lifecycle.py``): a lazy model is built on its first
+demand.  A work request for a model that is not resident activates it (one
+activation for all concurrent callers) and waits for it; one whose
+deadline is below the activation's estimate answers 503 with
+``cold_start``, ``Retry-After`` and ``estimated_warm_ms`` while the
+activation goes on.  A ``:submit`` to a cold model is acknowledged at once
+and its job activates the model.  An unknown model's 404 lists every
+configured model's residency, and ``/healthz`` and ``/v1/models`` carry it.
 
 Resilience (``serving/resilience.py``): a ``:predict`` carries a deadline
 (``X-Deadline-Ms``, else the body's top-level ``deadline_ms``, capped by
@@ -80,6 +95,7 @@ from .batcher import DynamicBatcher, Overloaded
 from .generation import GenerationScheduler, PagedGenerationScheduler
 from .jobs import JobQueue
 from .kvcache import KVPoolExhausted
+from .lifecycle import ColdStart, LifecycleManager
 from .metrics import MetricsHub
 from .resilience import DeadlineExceeded, ResilienceHub, run_with_retry
 from .watchdog import Watchdog
@@ -91,6 +107,7 @@ _PREDICT = re.compile(r"^/v1/models/([^:/]+):predict$")
 _SUBMIT = re.compile(r"^/v1/models/([^:/]+):submit$")
 _GENERATE = re.compile(r"^/v1/models/([^:/]+):generate$")
 _JOB = re.compile(r"^/v1/jobs/([^/]+)$")
+_ADMIN_MODEL = re.compile(r"^/admin/models/([^/]+)$")
 
 Response = tuple[int, Any, dict[str, str]]
 # How often a stream that waits for its next token checks that its client
@@ -256,6 +273,11 @@ class Server:
         self.schedulers: dict[str, GenerationScheduler | PagedGenerationScheduler] = {}  # guarded-by: event-loop
         self._streams = 0  # guarded-by: event-loop
         self.jobs: JobQueue | None = None  # guarded-by: event-loop
+        # The residency manager and the checkpoint store (ckpt_store_dir),
+        # made at start; the manager is there whatever the residency knobs,
+        # so /admin/models and the residency metrics always answer.
+        self.lifecycle: LifecycleManager | None = None  # guarded-by: event-loop
+        self.ckpt_store = None  # guarded-by: event-loop
         self.default_model = cfg.models[0].name if cfg.models else None
         self._server: asyncio.Server | None = None
         self._conns: set[asyncio.StreamWriter] = set()  # guarded-by: event-loop
@@ -272,6 +294,7 @@ class Server:
             "/admin/faults": {"GET": self.handle_faults_get, "POST": self.handle_faults},
             "/admin/recover": {"POST": self.handle_recover},
             "/admin/reload": {"POST": self.handle_reload},
+            "/admin/models": {"GET": self.handle_admin_models},
         }
 
     @property
@@ -283,14 +306,21 @@ class Server:
         return self._rebuild_lock.locked()
 
     def _start_lanes(self):
-        """The batchers and ``:generate`` lanes of the current engine.
-        Async-only models are served by the job queue alone."""
-        for name, cm in self.engine.models.items():
-            if not cm.servable.meta.get("async_only"):
-                self.batchers[name] = DynamicBatcher(
-                    cm, self.engine.runner, cm.cfg, ring=self.metrics.ring(name),
-                    resilience=self.resilience.model(name)).start()
-            if "continuous" in cm.servable.meta:
+        """The batchers and ``:generate`` lanes of every model the engine
+        holds."""
+        for name in list(self.engine.models):
+            self._start_model_lanes(name)
+
+    def _start_model_lanes(self, name: str):
+        """Start one resident model's lanes (idempotent): at boot, after a
+        rebuild, and after the lifecycle activates it.  Async-only models are
+        served by the job queue alone."""
+        cm = self.engine.model(name)
+        if not cm.servable.meta.get("async_only") and name not in self.batchers:
+            self.batchers[name] = DynamicBatcher(
+                cm, self.engine.runner, cm.cfg, ring=self.metrics.ring(name),
+                resilience=self.resilience.model(name)).start()
+        if "continuous" in cm.servable.meta and name not in self.schedulers:
                 # The :generate lane beside :predict, its pool allocated and
                 # its graphs captured at first use, as the JAX lanes compile;
                 # kv_cache "paged" is the paged scheduler, which refuses a
@@ -310,6 +340,24 @@ class Server:
         self.batchers.clear()
         self.schedulers.clear()
 
+    async def _stop_model_lanes(self, name: str, release: bool = True):
+        """Stop and drop one model's lanes (a demotion; the lifecycle calls
+        it only for a quiet model).  With ``release`` the ``:generate``
+        lane's KV pool and graphs are freed on the dispatch thread now, and
+        its ledger entry goes."""
+        b = self.batchers.pop(name, None)
+        if b is not None:
+            await b.stop()
+        sched = self.schedulers.pop(name, None)
+        if sched is not None:
+            await sched.stop()
+            if release:
+                try:
+                    await self.engine.runner.run_fn(sched.kernels.release)
+                except Exception:
+                    log.exception("releasing %s's :generate lane failed", name)
+            self.engine.runner.untrack_model(f"{name}:kvcache")
+
     async def start(self, host: str | None = None, port: int | None = None) -> int:
         """Start the lanes, the job queue and the watchdog, and listen;
         returns the bound port."""
@@ -319,6 +367,17 @@ class Server:
             self.engine.runner.faults.apply_config(self.cfg.faults)
             log_event(log, "fault rules installed from config", models=sorted(self.cfg.faults))
         self._start_lanes()
+        if self.cfg.ckpt_store_dir:
+            from .ckptstore import CheckpointStore
+
+            self.ckpt_store = CheckpointStore(self.cfg.ckpt_store_dir,
+                                              chunk_bytes=self.cfg.ckpt_chunk_bytes,
+                                              faults=self.engine.runner.faults)
+        # Tracks every configured model (COLD/WARMING/ACTIVE/DRAINING_IDLE,
+        # PINNED), activates lazy ones on demand, scales idle ones to zero
+        # and keeps the HBM and host budgets, LRU first.
+        self.lifecycle = LifecycleManager(self, self.cfg).start()
+        self.metrics.lifecycle = self.lifecycle
         self.metrics.generation = lambda: {n: s.gen_snapshot()
                                            for n, s in self.schedulers.items()}
         self.jobs = JobQueue(self._run_job, run_jobs=self._run_jobs,
@@ -351,6 +410,8 @@ class Server:
             self._server = None
         if self.watchdog is not None:
             await self.watchdog.stop()
+        if self.lifecycle is not None:
+            await self.lifecycle.stop()
         await self._stop_lanes()
         if self.jobs is not None:
             await self.jobs.stop()
@@ -430,14 +491,15 @@ class Server:
     async def _dispatch(self, method: str, path: str, headers: dict[str, str],
                         body: bytes, reader: asyncio.StreamReader | None = None,
                         query: str = "") -> Response:
-        for pattern, want, handler, tail in (
-                (_PREDICT, "POST", self._predict, ()),
-                (_SUBMIT, "POST", self.handle_submit, ()),
-                (_GENERATE, "POST", self.handle_generate, (reader,)),
-                (_JOB, "GET", self.handle_job, ())):
+        for pattern, methods, tail in (
+                (_PREDICT, {"POST": self._predict}, ()),
+                (_SUBMIT, {"POST": self.handle_submit}, ()),
+                (_GENERATE, {"POST": self.handle_generate}, (reader,)),
+                (_JOB, {"GET": self.handle_job}, ()),
+                (_ADMIN_MODEL, {"GET": self.handle_admin_model_get,
+                                "POST": self.handle_admin_model_post}, ())):
             m = pattern.match(path)
             if m is not None:
-                methods = {want: handler}
                 args = (m.group(1), body, headers, *tail)
                 break
         else:
@@ -464,7 +526,14 @@ class Server:
                      "models": sorted(self.engine.models)}, {}
 
     async def handle_models(self, body: bytes, headers=None, query: str = "") -> Response:
+        """Every configured model: a resident one's buckets and endpoints,
+        and each one's residency."""
         models = {}
+        residency = self._registered_models()
+        for mc in self.cfg.models:
+            if mc.name not in self.engine.models:
+                models[mc.name] = {"dtype": mc.dtype,
+                                   "checkpoint": mc.checkpoint or "random-init"}
         for name, cm in self.engine.models.items():
             is_async = bool(cm.servable.meta.get("async_only"))
             models[name] = {
@@ -477,6 +546,8 @@ class Server:
             }
             if name in self.schedulers:
                 models[name]["generate"] = f"/v1/models/{name}:generate"
+        for name in models:
+            models[name]["residency"] = residency.get(name, "active")
         return 200, {"models": models}, {}
 
     def _probe(self) -> bool:
@@ -508,6 +579,8 @@ class Server:
             "forecast": self.resilience.queue_forecast(self.batchers),
             "jobs_backlog": self.jobs.depth if self.jobs else 0,
             "jobs_backlog_by_model": self.jobs.depths if self.jobs else {},
+            # A cold model is not a health problem: it activates on demand.
+            "residency": self._registered_models(),
         }, {}
 
     async def handle_metrics(self, body: bytes, headers=None, query: str = "") -> Response:
@@ -529,10 +602,47 @@ class Server:
             return _error_retry(503, "no models configured", 30.0)
         return await self._predict(self.default_model, body, headers or {})
 
+    def _registered_models(self) -> dict[str, str]:
+        """Every model this deployment knows → its residency state (what an
+        unknown model's 404 teaches the caller)."""
+        out = {mc.name: "active" for mc in self.cfg.models}
+        for name in self.engine.models:
+            out.setdefault(name, "active")
+        if self.lifecycle is not None:
+            for name in out:
+                out[name] = self.lifecycle.state_of(name) or out[name]
+        return dict(sorted(out.items()))
+
     def _unknown_model(self, name: str) -> Response:
-        served = {n: "active" for n in sorted(self.engine.models)}
-        return _error(404, f"model {name!r} not served; available: "
-                           f"{sorted(served)}", models=served)
+        models = self._registered_models()
+        return _error(404, f"model {name!r} not served; available: {sorted(models)}",
+                      models=models)
+
+    async def _residency_gate(self, name: str, headers: dict[str, str]) -> Response | None:
+        """Cold admission for a model that is not resident: None once it is
+        ACTIVE, else the response.  Only the header's (or the model's)
+        deadline counts: the body is not decoded for a model that may
+        answer 503 ``cold_start``.  A deadline that covers the activation's
+        estimate waits for it; a shorter one answers 503 + Retry-After
+        while the activation goes on."""
+        lc = self.lifecycle
+        if lc is None or not lc.knows(name):
+            return self._unknown_model(name)
+        try:
+            deadline_ms = self._deadline_ms(headers, None, self.cfg.model(name))
+        except (ValueError, KeyError) as e:
+            return _error(400, str(e))
+        try:
+            await lc.ensure_active(name, deadline_ms=deadline_ms, cause="request")
+        except ColdStart as e:
+            return _error_retry(503, str(e), e.retry_after_s, cold_start=True,
+                                estimated_warm_ms=round(e.estimated_warm_ms, 1))
+        except Exception as e:
+            log.exception("activation failed for %s", name)
+            return _error_retry(503, f"model {name!r} activation failed: {type(e).__name__}: "
+                                     f"{e}", self.cfg.recover_backoff_s or 1.0,
+                                activation_failed=True)
+        return None
 
     def _overloaded(self, e: Overloaded, batcher: DynamicBatcher) -> Response:
         return _error_retry(429, str(e), e.retry_after_s,
@@ -586,6 +696,22 @@ class Server:
         return cm.servable.preprocess(payload)
 
     async def _predict(self, name: str, body: bytes, headers: dict[str, str]) -> Response:
+        if name not in self.engine.models:
+            refused = await self._residency_gate(name, headers)
+            if refused is not None:
+                return refused
+        # The in-flight window: no demotion while the request is here.
+        lc = self.lifecycle
+        if lc is not None:
+            lc.enter(name)
+        try:
+            return await self._predict_admitted(name, body, headers)
+        finally:
+            if lc is not None:
+                lc.exit(name)
+
+    async def _predict_admitted(self, name: str, body: bytes,
+                                headers: dict[str, str]) -> Response:
         cm = self.engine.models.get(name)
         if cm is not None and cm.servable.meta.get("async_only"):
             # Multi-second programs (SD-1.5's denoise loop) must not occupy
@@ -708,11 +834,28 @@ class Server:
         joins its model's pool at once; ``stream`` (default true) answers
         ``text/event-stream``, else one JSON body once it is done."""
         sched = self.schedulers.get(name)
+        if sched is None and name not in self.engine.models:
+            # Not resident: activation starts the generation lane.
+            refused = await self._residency_gate(name, headers)
+            if refused is not None:
+                return refused
+            sched = self.schedulers.get(name)
         if sched is None:
             if name not in self.engine.models:
                 return self._unknown_model(name)
             return _error(405, f"model {name!r} has no generation lane; use "
                                f"POST /v1/models/{name}:predict")
+        lc = self.lifecycle
+        if lc is not None:
+            lc.enter(name)
+        try:
+            return await self._generate_admitted(name, sched, body, headers, reader)
+        finally:
+            if lc is not None:
+                lc.exit(name)
+
+    async def _generate_admitted(self, name: str, sched, body: bytes, headers: dict[str, str],
+                                 reader: asyncio.StreamReader | None) -> Response:
         try:
             payload = _decode_body(body, headers)
         except (ValueError, TypeError) as e:
@@ -809,8 +952,13 @@ class Server:
     # -- async job lane -----------------------------------------------------
     async def handle_submit(self, name: str, body: bytes,
                             headers: dict[str, str]) -> Response:
-        if name not in self.engine.models:
+        lc = self.lifecycle
+        if name not in self.engine.models and (lc is None or not lc.knows(name)):
             return self._unknown_model(name)
+        if lc is not None:
+            # Never blocks on activation: the 202 is immediate, and the job
+            # activates a cold model when it runs (cause "job").
+            lc.note_use(name)
         # An Idempotency-Key that matches a known job answers it at once: the
         # work already ran (or is running).
         idem_key = headers.get("idempotency-key")
@@ -897,7 +1045,19 @@ class Server:
         (a bad payload must not take down its batch-mates).  Preprocess and
         finalize fan out on the executor; only the device batch is one call.
         """
-        cm = self.engine.model(jobs[0].model)
+        model = jobs[0].model
+        lc = self.lifecycle if self.lifecycle is not None and self.lifecycle.knows(model) else None
+        if lc is not None:
+            # The job lane tolerates latency: no deadline on the activation.
+            await lc.ensure_active(model, cause="job")
+            lc.enter(model)
+        try:
+            return await self._run_jobs_admitted(self.engine.model(model), jobs)
+        finally:
+            if lc is not None:
+                lc.exit(model)
+
+    async def _run_jobs_admitted(self, cm, jobs):
         loop = asyncio.get_running_loop()
         samples = await asyncio.gather(
             *[loop.run_in_executor(None, cm.servable.preprocess, j.payload) for j in jobs],
@@ -995,9 +1155,21 @@ class Server:
                 raise
             old.runner.poison(prev)  # a lent engine goes back to its caller as it was
             self.engine = new
-            # /metrics follows the fresh injector (the old one's rules and
-            # counters went with its runner).
+            # /metrics and the store's chaos hook follow the fresh injector
+            # (the old one's rules and counters went with its runner).
             self.metrics.faults = new.runner.faults
+            if self.ckpt_store is not None:
+                self.ckpt_store.faults = new.runner.faults
+            for name in set(self.batchers) | set(self.schedulers):
+                # Lanes of a model activated on the old engine while it was
+                # being replaced: the model is cold in the new one.
+                await self._stop_model_lanes(name, release=False)
+            if self.lifecycle is not None:
+                # The rebuild is a residency transition: the new engine's
+                # models count as activations under ``cause``, a lazy model
+                # goes back to COLD (never ACTIVE on a dead engine), and
+                # host and disk copies survive.
+                self.lifecycle.rebind(cause=cause)
             owned, self._owns_engine = self._owns_engine, True
             if owned:
                 await loop.run_in_executor(None, old.shutdown)
@@ -1076,6 +1248,69 @@ class Server:
         await self.rebuild_engine()
         return 200, {"status": "reloaded",
                      "cold_start_seconds": round(self.engine.cold_start_seconds, 3)}, {}
+
+    # -- admin: model residency ----------------------------------------------
+    async def handle_admin_models(self, body: bytes, headers=None, query: str = "") -> Response:
+        """``GET /admin/models``: every model's residency, the budgets and
+        the checkpoint store's accounting."""
+        return 200, self.lifecycle.snapshot(), {}
+
+    async def handle_admin_model_get(self, name: str, body: bytes,
+                                     headers: dict[str, str]) -> Response:
+        snap = self.lifecycle.model_snapshot(name)
+        if snap is None:
+            return _error(404, f"model {name!r} not configured; available: "
+                               f"{sorted(self.lifecycle.names)}")
+        return 200, {"model": {"name": name, **snap}}, {}
+
+    async def handle_admin_model_post(self, name: str, body: bytes,
+                                      headers: dict[str, str]) -> Response:
+        """``POST /admin/models/{name} {"action": ...}``: ``activate`` (the
+        shared single-flight activation), ``unload`` (to none; 409 if pinned
+        or busy), ``demote`` (one rung, ``"to"`` host, disk or none; 409 if
+        pinned, busy or not active, or disk without a store), ``pin`` (and
+        activate), ``unpin``."""
+        lc = self.lifecycle
+        if not lc.knows(name):
+            return _error(404, f"model {name!r} not configured; available: {sorted(lc.names)}")
+        try:
+            req = json.loads(body) if body else {}
+        except ValueError:
+            return _error(400, "body must be a JSON object")
+        if not isinstance(req, dict):
+            return _error(400, "body must be a JSON object")
+        action = req.get("action")
+        allowed = ("activate", "unload", "demote", "pin", "unpin")
+        if action not in allowed:
+            return _error(400, f"action must be one of {list(allowed)}, got {action!r}")
+        try:
+            if action == "activate":
+                await lc.ensure_active(name, cause="admin")
+            elif action == "unload":
+                if not await lc.unload(name, cause="admin"):
+                    return _error(409, f"model {name!r} cannot unload (pinned or busy)",
+                                  model=lc.model_snapshot(name))
+            elif action == "demote":
+                to = req.get("to", "host")
+                if to not in ("host", "disk", "none"):
+                    return _error(400, f"demote 'to' must be one of ['host', 'disk', 'none'], "
+                                       f"got {to!r}")
+                if to == "disk" and lc.store is None:
+                    return _error(409, "disk tier requires ckpt_store_dir")
+                if not await lc.demote(name, to=to, cause="admin"):
+                    return _error(409, f"model {name!r} cannot demote (pinned, busy, or not "
+                                       "active)", model=lc.model_snapshot(name))
+            elif action == "pin":
+                await lc.pin(name)
+            else:
+                lc.unpin(name)
+        except ColdStart as e:
+            return _error_retry(503, str(e), e.retry_after_s,
+                                estimated_warm_ms=round(e.estimated_warm_ms, 1))
+        except Exception as e:
+            log.exception("admin lifecycle action %s failed for %s", action, name)
+            return _error(503, f"{action} failed for {name!r}: {type(e).__name__}: {e}")
+        return 200, {"action": action, "model": {"name": name, **lc.model_snapshot(name)}}, {}
 
 
 def _release_device_memory(device: torch.device) -> None:

@@ -12,7 +12,11 @@ The port's copy of the JAX package's ``serving/watchdog.py``.  Every
 3. **Rebuild and swap**: ``Server.rebuild_engine()`` in the background.  The
    new engine builds and captures its CUDA graphs on its own runner's
    dispatch thread; the old engine's graphs, graph pools and the
-   ``:generate`` lanes' KV pools are freed after the swap.
+   ``:generate`` lanes' KV pools are freed after the swap.  The swap
+   rebinds the residency manager (``LifecycleManager.rebind``): the new
+   engine's models count as ``recovery`` activations, and a lazy model
+   activated on the old engine goes back to COLD, never ACTIVE on a dead
+   engine.
 4. **Heal**: requeue the jobs the outage failed, reset the affected
    breakers (their window belongs to the dead engine), lift the quarantine.
 

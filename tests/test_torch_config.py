@@ -29,7 +29,12 @@ ENV_VALUES = {"profile": "prod", "host": "0.0.0.0", "port": "9123",
               "breaker_threshold": "0.5", "breaker_window": "8",
               "breaker_min_samples": "4", "breaker_open_s": "2.5",
               "drain_timeout_s": "20", "watchdog_interval_s": "0.5",
-              "recover_max_attempts": "5", "recover_backoff_s": "0.25"}
+              "recover_max_attempts": "5", "recover_backoff_s": "0.25",
+              "lazy_load": "true", "idle_unload_s": "6", "hbm_budget_bytes": "1000000",
+              "host_idle_drop_s": "30", "host_budget_bytes": "2000000",
+              "ckpt_store_dir": "/srv/tpuserve/store", "ckpt_chunk_bytes": "65536",
+              "lifecycle_tick_s": "0.25", "activation_max_wait_s": "30",
+              "activation_estimate_ms": "2500"}
 
 
 def _env(name):
@@ -164,3 +169,46 @@ def test_generate_fields_the_port_refuses(over, match):
     JC.ModelConfig(name="gpt2", **over)  # the reference takes them
     with pytest.raises(ValueError, match=match):
         PC.ModelConfig(name="gpt2", **over)
+
+
+RESIDENCY = ("lazy_load", "idle_unload_s", "hbm_budget_bytes", "host_idle_drop_s",
+             "host_budget_bytes", "ckpt_store_dir", "ckpt_chunk_bytes", "lifecycle_tick_s",
+             "activation_max_wait_s", "activation_estimate_ms")
+
+
+def test_profile_loads_the_residency_fields_as_the_reference(tmp_path):
+    """A reference profile with every residency knob and the per-model
+    lazy_load/pinned loads in the port with the same values; left out, the
+    reference's defaults."""
+    values = {"lazy_load": True, "idle_unload_s": 2.0, "hbm_budget_bytes": 1 << 30,
+              "host_idle_drop_s": 8.0, "host_budget_bytes": 1 << 31,
+              "ckpt_store_dir": str(tmp_path / "store"), "ckpt_chunk_bytes": 1 << 18,
+              "lifecycle_tick_s": 0.1, "activation_max_wait_s": 60.0,
+              "activation_estimate_ms": 4000.0}
+    models = [{"name": "bert_base", "pinned": True}, {"name": "gpt2", "lazy_load": True},
+              {"name": "resnet50", "lazy_load": False}]
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({**values, "models": models}))
+    got, want = PC.load_config(path), JC.load_config(path)
+    for field in RESIDENCY:
+        assert getattr(got, field) == getattr(want, field) == values[field], field
+    for g, w in zip(got.models, want.models):
+        assert (g.lazy_load, g.pinned) == (w.lazy_load, w.pinned)
+    path.write_text(json.dumps({"models": [{"name": "gpt2"}]}))
+    got, want = PC.load_config(path), JC.load_config(path)
+    for field in RESIDENCY:
+        assert getattr(got, field) == getattr(want, field), field
+    assert (got.models[0].lazy_load, got.models[0].pinned) == (None, False)
+    assert (want.models[0].lazy_load, want.models[0].pinned) == (None, False)
+
+
+@pytest.mark.parametrize("glob,own,pinned,lazy", [
+    (False, None, False, False), (True, None, False, True), (True, False, False, False),
+    (False, True, False, True), (True, True, True, False)])
+def test_lazy_effective_matches_the_reference(glob, own, pinned, lazy):
+    from pytorch_zappa_serverless_tpu.engine.loader import lazy_effective as j_lazy
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import lazy_effective
+
+    mc = dict(name="m", lazy_load=own, pinned=pinned)
+    assert lazy_effective(PC.ServeConfig(lazy_load=glob), PC.ModelConfig(**mc)) is lazy
+    assert j_lazy(JC.ServeConfig(lazy_load=glob), JC.ModelConfig(**mc)) is lazy

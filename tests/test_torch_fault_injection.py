@@ -6,8 +6,8 @@ tiny int8 BERT as ``tests/test_torch_engine.py`` drives it).
 with 500, ``/healthz`` flips 503, and the engine is rebuilt by the operator
 route and by the watchdog.  ``FaultInjector`` rules drive transient retries,
 the breaker's open/half-open/close cycle, deadline shedding under latency,
-drain and the admin surface.  The reference's lifecycle-quarantine case
-waits for the port's ``serving/lifecycle.py`` (ROADMAP).  The last case runs
+drain and the admin surface, and the watchdog's give-up and re-arm seen
+through the residency surface (``serving/lifecycle.py``).  The last case runs
 one script of faults, deadlines, a breaker trip and a drain against both
 packages' servers and holds their answers and counters equal.
 """
@@ -293,17 +293,27 @@ def test_admin_faults_endpoint(engine, faults):
 
 def test_admin_faults_refuses_kinds_the_port_lacks(engine, faults):
     """A kind whose plane the port has not ported is a 400 naming the
-    module, where the reference would accept it."""
+    module, where the reference would accept it; the residency plane's
+    kinds (activation, ckpt with its modes) are accepted."""
     with BackgroundServer(_cfg(), engine) as srv:
-        for kind, module in (("activation", "lifecycle.py"), ("migration", "kvmigrate.py"),
+        for kind, module in (("adapter", "adapters.py"), ("migration", "kvmigrate.py"),
                              ("demand", "autoscale.py")):
             status, body, _ = _http(srv.port, "/admin/faults",
                                     {"model": "bert_base", "fail_every_n": 1, "kind": kind})
             assert status == 400 and module in body["error"]
         assert faults.snapshot()["rules"] == []
-    with pytest.raises(ValueError, match="ckptstore"):
+        for rule in ({"kind": "activation"}, {"kind": "ckpt", "mode": "torn"},
+                     {"kind": "ckpt", "mode": "slow", "latency_ms": 5}):
+            status, body, _ = _http(srv.port, "/admin/faults",
+                                    {"model": "bert_base", "fail_every_n": 1, **rule})
+            assert status == 200, body
+        status, body, _ = _http(srv.port, "/admin/faults",
+                                {"model": "bert_base", "kind": "ckpt", "mode": "cow"})
+        assert status == 400 and "ckpt mode" in body["error"]
+        assert sorted(r["kind"] for r in faults.snapshot()["rules"]) == ["activation", "ckpt"]
+    with pytest.raises(ValueError, match="adapters"):
         asyncio.run(server_mod.Server(
-            _cfg(faults={"bert_base": {"kind": "ckpt", "fail_every_n": 1}}), engine).start())
+            _cfg(faults={"bert_base": {"kind": "adapter", "fail_every_n": 1}}), engine).start())
 
 
 def test_graceful_drain_finishes_inflight_jobs(engine, faults):
@@ -460,6 +470,44 @@ def test_recovery_attempts_bounded_then_manual_recover(monkeypatch):
             assert _predict(srv.port)[0] == 200
     finally:
         eng.shutdown()
+
+
+def test_gave_up_rearm_interacts_with_lifecycle_quarantine(monkeypatch):
+    """The gave_up → /admin/recover re-arm seen through the residency
+    surface: while the watchdog has given up, /admin/models/{name} reports
+    the quarantine without corrupting residency; the manual re-arm records
+    the swap as a cause="recovery" activation and lifts the quarantine
+    everywhere (watchdog, resilience hub, residency snapshot)."""
+    cfg = _cfg(watchdog_interval_s=0.05, recover_max_attempts=1, recover_backoff_s=0.01)
+    with BackgroundServer(cfg, device="cpu") as srv:
+        server = srv.server
+        assert _predict(srv.port)[0] == 200
+        before = server.lifecycle.activations_by_cause.get("bert_base", {}).get("recovery", 0)
+        real_build, seen = server_mod.build_engine, []
+        monkeypatch.setattr(server_mod, "build_engine", _doomed_build(seen, "device still wedged"))
+        server.engine.runner.poison(RuntimeError("injected fatal CUDA error"))
+        assert _wait_for(lambda: server.watchdog.state == "gave_up")
+        model = _http(srv.port, "/admin/models/bert_base")[1]["model"]
+        assert model["quarantined"] is True
+        assert server.lifecycle.knows("bert_base")
+        # The model is resident, so "activate" answers at once, and predicts
+        # still 503: nothing reaches the poisoned engine past the quarantine.
+        status, body, _ = _http(srv.port, "/admin/models/bert_base", {"action": "activate"})
+        assert status == 200 and body["model"]["state"] == "active"
+        status, body, _ = _predict(srv.port)
+        assert status == 503 and body["quarantined"] is True
+        monkeypatch.setattr(server_mod, "build_engine", real_build)
+
+        status, body, _ = _http(srv.port, "/admin/recover", {})
+        assert status == 200, body
+        assert body["recovery"]["state"] == "healthy"
+        model = _http(srv.port, "/admin/models/bert_base")[1]["model"]
+        assert model["quarantined"] is False
+        assert model["state"] == "active"
+        assert model["activations_by_cause"].get("recovery", 0) == before + 1
+        assert ('tpuserve_activations_total{cause="recovery",model="bert_base"}'
+                in _prometheus(srv.port))
+        assert _predict(srv.port)[0] == 200
 
 
 def test_sticky_cuda_error_converges_to_gave_up(monkeypatch):

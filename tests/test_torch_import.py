@@ -1,6 +1,6 @@
-"""The port stands alone: it imports torch, never JAX, flax, the JAX package or
-``transformers`` (the card's machine has none), and its entry points run on
-CUDA unless the caller asks for the CPU."""
+"""The port stands alone: it imports torch, never JAX, flax, ``ml_dtypes``, the
+JAX package or ``transformers`` (the card's machine has none), and its entry
+points run on CUDA unless the caller asks for the CPU."""
 
 import ast
 import json
@@ -14,7 +14,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "pytorch_zappa_serverless_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "pytorch_zappa_serverless_tpu", "transformers")
+FORBIDDEN = ("jax", "jaxlib", "flax", "ml_dtypes", "pytorch_zappa_serverless_tpu",
+             "transformers")
 
 
 def _port_modules() -> list[str]:
@@ -30,7 +31,8 @@ def test_importing_the_port_loads_no_jax():
     assert len(mods) >= 20 and "pytorch_zappa_serverless_tpu_torch.serving.server" in mods
     for lane in ("serving.generation", "serving.kvcache", "serving.prefixcache",
                  "ops.paged_attention", "engine.genkernels", "faults",
-                 "serving.resilience", "serving.watchdog"):
+                 "serving.resilience", "serving.watchdog", "serving.lifecycle",
+                 "serving.ckptstore", "engine.streamio"):
         assert f"pytorch_zappa_serverless_tpu_torch.{lane}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -46,6 +48,12 @@ def test_importing_the_port_loads_no_jax():
         "hub.faults = FaultInjector(); hub.ring('m').record(1.0, 2.0, 3.0)\n"
         "hub.resilience.model('m')\n"
         "assert 'tpuserve_requests_total' in hub.render_prometheus()\n"
+        # A stream round trip (bf16 included) loads nothing forbidden.
+        "import tempfile, torch\n"
+        "from pytorch_zappa_serverless_tpu_torch.engine import weights as W\n"
+        "p = tempfile.mkdtemp() + '/m.tpu.ckpt'\n"
+        "W.save_stream({'w': torch.ones(3, dtype=torch.bfloat16)}, p)\n"
+        "assert W.open_stream(p)[0]['w'].dtype == torch.bfloat16\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -1026,3 +1026,110 @@ def test_a_stream_is_the_same_in_any_slot(cuda_device):
         assert streams[0] == streams[1]
     finally:
         eng.shutdown()
+
+
+# -- residency: graphs go with the weights (serving/lifecycle.py) -------------
+
+def _bert_batches(cm):
+    from pytorch_zappa_serverless_tpu_torch.engine.compiled import default_collate
+
+    samples = [cm.servable.preprocess({"text": " ".join(["word"] * (3 + i))}) for i in range(4)]
+    return [default_collate(samples[:1], (1, 16), cm.servable.input_spec((1, 16))),
+            default_collate(samples, (4, 16), cm.servable.input_spec((4, 16)))]
+
+
+@pytest.mark.cuda
+def test_restored_model_recaptures_and_replays_as_eager(cuda_device, tmp_path):
+    """Host and disk demotions release every graph (an old graph refuses to
+    replay); each restore captures every bucket anew, whose replays equal
+    the eager run and the answers before the demotion, byte for byte."""
+    from pytorch_zappa_serverless_tpu_torch.engine import streamio
+    from pytorch_zappa_serverless_tpu_torch.serving.ckptstore import CheckpointStore
+
+    eng = _engine("bert_base", dtype="bfloat16", seq_buckets=(16,), batch_buckets=(1, 4),
+                  extra={"arch": TINY_BERT, "params_dtype": "int8"})
+    try:
+        cm = eng.model("bert_base")
+        run = eng.runner.run_fn_sync
+        batches = _bert_batches(cm)
+        first = [run(cm.forward, b) for b in batches]
+        assert cm.resident_nbytes() > cm.param_nbytes() > 0  # the graph pool counts
+        store = CheckpointStore(tmp_path / "store")
+        for tier in ("host", "disk"):
+            old = list(cm._graphs.values())
+            captures = cm.captures
+            run(cm.host_offload)
+            assert cm.tier == "host" and cm.resident_nbytes() == 0
+            assert all(t.is_pinned() for t in cm._tensors().values())
+            for g in old:
+                with pytest.raises(RuntimeError, match="released"):
+                    run(g.run, batches[0])
+            if tier == "host":
+                run(cm.device_restore)
+            else:
+                cm.disk_offload(lambda tree: store.put("bert_base", tree))
+                assert all(t.is_meta for t in cm._tensors().values())
+                params, _ = store.load("bert_base", place_fn=streamio.device_placer("cuda"))
+                run(cm.disk_restore, lambda: params)
+            assert cm.tier == "device" and cm.captures == captures + len(cm.buckets)
+            assert not set(map(id, cm._graphs.values())) & set(map(id, old))
+            _replays_in_turn(eng, "bert_base", batches, {"int8_matmul": 6 * 2})
+            assert all(_same(run(cm.forward, b), want) for b, want in zip(batches, first))
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_stream_while_build_copy_lands_under_captured_addresses(cuda_device, tmp_path):
+    """Streamed weights copied in place after the captures: the addresses
+    stay, and the replays answer with the streamed weights (as the eager run
+    on them does), not the seed weights they were captured on."""
+    from pytorch_zappa_serverless_tpu_torch.engine import streamio
+    from pytorch_zappa_serverless_tpu_torch.engine.weights import flatten_tree, unflatten_tree
+    from pytorch_zappa_serverless_tpu_torch.serving.ckptstore import CheckpointStore
+
+    eng = _engine("bert_base", dtype="bfloat16", seq_buckets=(16,), batch_buckets=(1, 4),
+                  extra={"arch": TINY_BERT})
+    try:
+        cm = eng.model("bert_base")
+        run = eng.runner.run_fn_sync
+        batches = _bert_batches(cm)
+        seeded = [run(cm.forward, b) for b in batches]
+        shifted = {k: v + 0.05 * torch.randn_like(v) if v.is_floating_point() else v
+                   for k, v in flatten_tree(run(cm.host_state)).items()}
+        store = CheckpointStore(tmp_path / "store")
+        store.put("bert_base", unflatten_tree(shifted))
+        params, _ = store.load("bert_base", place_fn=streamio.device_placer("cuda"))
+        ptrs = {k: t.data_ptr() for k, t in cm._tensors().items()}
+        graphs = dict(cm._graphs)
+        run(cm.copy_in_place, flatten_tree(params))
+        assert {k: t.data_ptr() for k, t in cm._tensors().items()} == ptrs
+        assert cm._graphs == graphs  # no new capture
+        got = [run(cm.forward, b) for b in batches]
+        want = [run(cm.forward_eager, b) for b in batches]
+        assert all(_same(g, w) for g, w in zip(got, want))
+        assert not any(_same(g, s) for g, s in zip(got, seeded))
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_bf16_stream_loads_on_the_card(cuda_device, tmp_path):
+    """A bf16 stream placed on the card through pinned staging on the copy
+    stream: the device tensors hold the file's bytes."""
+    from pytorch_zappa_serverless_tpu_torch.engine import streamio
+    from pytorch_zappa_serverless_tpu_torch.engine import weights as W
+
+    g = torch.Generator().manual_seed(0)
+    tree = {"wte": torch.randn(513, 96, generator=g).to(torch.bfloat16),
+            "h0": {"w": torch.randn(96, 96, generator=g).to(torch.bfloat16),
+                   "q": torch.randint(-128, 127, (96, 64), generator=g, dtype=torch.int8)}}
+    path = tmp_path / f"m{W.STREAM_SUFFIX}"
+    W.save_stream(tree, path, chunk_bytes=4096)
+    got, stats = W.open_stream(path, place_fn=streamio.device_placer("cuda"))
+    flat = W.flatten_tree(got)
+    streamio.adopt(flat.values(), "cuda")
+    assert stats.chunks_streamed > 1
+    for name, want in W.flatten_tree(tree).items():
+        assert flat[name].is_cuda and flat[name].dtype == want.dtype
+        assert torch.equal(flat[name].cpu().view(torch.uint8), want.view(torch.uint8))
