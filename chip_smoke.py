@@ -169,7 +169,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    disk, and a request brings it back; (9) ``/metrics?format=prometheus``
    with the residency and store families against the manifest.  Every
    ``int8_matmul`` launch of the phase ran in a captured graph's warm-up
-   or replay.
+   or replay;
+16. the request plane: one server with BERT-base int8 (1, 8) x 128,
+   ResNet-50 bf16 (1, 8) and GPT-2 small int8 on an 8-slot ``:generate``
+   lane, seed weights at full width.  (1) The same instances over the JSON
+   lane and the binary tensor lane (``serving/wire.py``), single and 8 at
+   once: predictions byte-decode equal, the client p50 of each lane
+   printed; a truncated frame 400 with both ids, a declared oversize 413,
+   the lane off 415; every ``int8_matmul`` launch in a graph's replay.  (2)
+   Every work answer carries ``X-Request-Id`` (a given one echoed) and
+   ``X-Trace-Id``, a ``traceparent`` joins its trace, ``GET
+   /admin/trace/{id}`` of a BERT request holds admission, queue,
+   batch_form, device (equal to ``X-Device-Ms``) with the exec span inside
+   it, and respond, under a root no shorter than that chain; a GPT-2
+   stream's ``X-Stream-Id`` is its request id; a 400 carries both ids.  (3)
+   ``POST /admin/profile`` over BERT traffic names ``int8_matmul``'s kernel,
+   a second capture meanwhile answers 409, and ResNet-50 restored from the
+   host tier while the profile is open captures and answers byte-equal;
+   ``/metrics`` with exemplars against the manifest.  (4) The kill -9 test
+   (``tools/crashtest.py``) with SD-1.5 at 512x512, 20 steps: four
+   journaled jobs, a SIGKILL with a backlog, the restart: none lost, every
+   resubmit deduped, a recovered job's PNG byte-equal to the same payload
+   run fresh (boot seconds, ``replay_ms``, job seconds and flash launches
+   of both server processes printed).  (5) Runs on phase 6's engine: SD's
+   prepare and finalize graphs against eager, bitwise, no kernel launched,
+   and a job's seconds with them captured and eager.
 
 With ``--profile``, every path is also profiled eager against replayed:
 device-busy and wall time, the idle share, and the host's calls, where a
@@ -936,6 +960,8 @@ def check_sd(run: dict, size=(SD["height"], SD["width"])) -> list[np.ndarray]:
 # each of the ten flash outputs differs from the plain version's by about one
 # bf16 rounding (2^-8 relative), and the bf16 layers after them carry that on.
 SD_EPS_RTOL = 5e-2
+# The job seconds of phase 16's check 5 (run on phase 6's engine).
+SD_EDGES: dict = {}
 # The finished image, mean |Δ| over the uint8 values: twenty steps feed each
 # step's small eps difference back through the sampler.
 SD_IMAGE_MEAN_LSB = 4.0
@@ -1077,6 +1103,74 @@ def phase_sd_interleave(engine) -> None:
         f"jobs; each job's pixels bitwise equal to the job run alone")
 
 
+def phase_sd_edges(engine, bodies=SD_JOBS, reps: int = 3) -> dict:
+    """SD-1.5's prepare (the CLIP encode) and finalize (the VAE decode)
+    graphs against the same calls eagerly, on the dispatch thread: each
+    job's state and pixels byte for byte, each replay's launches exactly
+    none of the port's kernels (neither runs one), a job's state its own
+    when another job's prepare replays after it; then one job through
+    ``runner.run_chunked`` with both edges replayed against both eager
+    (seconds, the median of ``reps``).  Phase 16's check 5, on the full-width
+    engine of phase 6."""
+    import asyncio
+
+    cm = engine.model("sd15")
+    ch = cm.servable.meta["chunked"]
+    jobs = [[cm.servable.preprocess(body)] for body in bodies]
+    check(not cm.graphed or (any(g.startswith("prepare") for g in cm.graphs)
+                             and any(g.startswith("finalize") for g in cm.graphs)),
+          f"sd15 warm-up captured no prepare or finalize graph: {cm.graphs}")
+
+    def edges():
+        states = []
+        for samples in jobs:
+            _, want = cm.chunk_prepare_eager(samples)
+            reset_counts()
+            _, got = cm.chunk_prepare(samples)
+            exact_counts(read_counts(), {}, "sd prepare replay")
+            for k in want:
+                check(same_bits(got[k].float().cpu().numpy(), want[k].float().cpu().numpy()),
+                      f"sd prepare replay: {k} differs from eager")
+            states.append((got, {k: v.clone() for k, v in want.items()}))
+        got, want = states[0]
+        check(all(torch.equal(got[k], want[k]) for k in want),
+              "sd prepare: the first job's state changed when the second job's prepare replayed")
+        for (state, _), samples in zip(states, jobs):
+            for rows in ch["chunk_rows"]:
+                state = cm.chunk_step(state, rows)
+            want = cm.chunk_finalize_eager(state, samples)
+            reset_counts()
+            got = cm.chunk_finalize(state, samples)
+            exact_counts(read_counts(), {}, "sd finalize replay")
+            check(same_bits(got[0]["pixels"], want[0]["pixels"]),
+                  f"sd finalize replay: pixels differ from eager in "
+                  f"{int((got[0]['pixels'] != want[0]['pixels']).sum())} values")
+
+    engine.runner.run_fn_sync(edges)
+
+    def job_s(eager: bool) -> float:
+        if eager:
+            cm.chunk_prepare, cm.chunk_finalize = cm.chunk_prepare_eager, cm.chunk_finalize_eager
+        try:
+            t0 = time.perf_counter()
+            asyncio.run(engine.runner.run_chunked(cm, jobs[0]))
+            return time.perf_counter() - t0
+        finally:
+            if eager:
+                del cm.chunk_prepare, cm.chunk_finalize
+
+    times = {kind: statistics.median(job_s(kind == "eager") for _ in range(reps))
+             for kind in ("captured", "eager", "captured_again")}
+    _, lh, lw, _ = cm.servable.input_spec((1,))["latents"][0]
+    log(f"sd prepare and finalize graphs (phase 16 check 5): {len(jobs)} jobs' states and "
+        f"pixels bitwise equal to eager, no kernel of the port launched; a {8 * lh}x{8 * lw} "
+        f"{cm.servable.meta['num_steps']}-step job through run_chunked: edges captured "
+        f"{times['captured']:.4f} s "
+        f"({times['captured_again']:.4f} s again), eager {times['eager']:.4f} s "
+        f"(median of {reps})")
+    return times
+
+
 def phase_sd_profile(engine, body: dict) -> None:
     """``torch.profiler`` over one 4-step chunk on the dispatch thread, eager
     against replayed: device time by kernel name, the device's idle share of
@@ -1180,6 +1274,7 @@ def run_sd(profile: bool) -> int:
             f"in {time.perf_counter() - t0:.3f} s")
         phase_sd_replay(engine, SD_JOBS[1])
         phase_sd_interleave(engine)
+        SD_EDGES.update(phase_sd_edges(engine))
         parity = phase_sd_parity(engine, SD_JOBS[0], images[0])
         if profile:
             phase_sd_profile(engine, SD_JOBS[0])
@@ -4279,6 +4374,352 @@ def run_residency(card: str) -> dict:
     return out
 
 
+# -- phase 16: the request plane -----------------------------------------------
+
+PLANE_BERT = (1, 8)        # BERT-base int8 batch buckets, at seq 128
+PLANE_VISION = (1, 8)      # ResNet-50 bf16 batch buckets, at 224x224
+PLANE_GEN = {"gen_slots": 8, "segment_tokens": 8, "max_new_tokens": 16}
+PLANE_REQS = 40            # sequential requests a lane for the client p50
+PLANE_PROFILE_S = 1.0
+PLANE_SD_JOBS = 4          # the kill -9 test's journaled SD-1.5 jobs
+PLANE_SD_LATENCY_MS = 250  # injected a dispatch slice in the first process
+
+
+def plane_config(trace_dir: str, bert_arch: dict | None = None,
+                 gpt2_arch: dict | None = None, image_size: int = VISION_SIZE, **gpt2_extra):
+    """BERT-base int8 (1, 8) x 128, ResNet-50 bf16 (1, 8) and GPT-2 small
+    int8 with an 8-slot :generate lane, one server."""
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+
+    return ServeConfig(trace_dir=trace_dir, models=[
+        ModelConfig(name="bert_base", dtype="bfloat16", seq_buckets=(BERT["seq"],),
+                    batch_buckets=PLANE_BERT,
+                    extra={"params_dtype": "int8", **({"arch": bert_arch} if bert_arch else {})}),
+        ModelConfig(name="resnet50", dtype="bfloat16", batch_buckets=PLANE_VISION,
+                    extra={"image_size": image_size, "resize_to": image_size * 8 // 7}),
+        ModelConfig(name="gpt2", dtype="bfloat16", seq_buckets=(16, 64),
+                    batch_buckets=(1,),
+                    extra={"params_dtype": "int8", **PLANE_GEN, **gpt2_extra,
+                           **({"arch": gpt2_arch} if gpt2_arch else {})})])
+
+
+def http_b(port: int, path: str, data: bytes | None, headers: dict | None = None,
+           method: str = "POST", timeout: float = 120.0):
+    """(status, raw body, headers) of one request."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def find_span(node: dict, name: str) -> dict | None:
+    if node["name"] == name:
+        return node
+    for c in node.get("children", []):
+        hit = find_span(c, name)
+        if hit is not None:
+            return hit
+    return None
+
+
+def phase_plane_path(cfg, device: str = "cuda", bert_vocab: int = 30522,
+                     gpt2_vocab: int = 50257, reqs: int = PLANE_REQS) -> dict:
+    """Serve the plane's models over HTTP and check, in order: (1) the
+    binary lane against the JSON lane (predictions byte-decode equal, single
+    and 8-instance requests, BERT and ResNet-50; the client p50 of each
+    lane, ResNet-50's on the same crop as a nested JSON list too; 400 with both ids for a truncated frame, 413 for a declared
+    oversize, 415 with the lane off; every int8_matmul launch in a graph's
+    replay); (2) tracing (ids on every answer, a given one echoed, a
+    traceparent joining its trace, a BERT trace's admission → queue →
+    batch → device → exec tree whose exec span covers at least half of the
+    answer's ``X-Device-Ms`` and lies inside it, the root covering its chain
+    and inside the client's round trip, a
+    GPT-2 int8 stream named by its request id, a 400 with both ids); (3)
+    ``/admin/profile`` over BERT traffic naming int8_matmul's kernel, a
+    second capture meanwhile 409, and a ResNet-50 restore from the host tier
+    captured while the profile is open, answering byte-equal."""
+    from pytorch_zappa_serverless_tpu_torch.ops import counters
+    from pytorch_zappa_serverless_tpu_torch.serving import wire
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    cuda = torch.device(device).type == "cuda"
+    tensor = {"Content-Type": wire.TENSOR_CONTENT_TYPE}
+    rng = np.random.default_rng(16)
+    bert_ids = [rng.integers(1, bert_vocab - 1, n).tolist() for n in (7, 30, 64, 90, 120, 12,
+                                                                      45, 128)]
+    pngs = vision_pngs(8, seed=16)
+    out: dict = {"ids": [], "p50": {}}
+    bert = "/v1/models/bert_base:predict"
+    resnet = "/v1/models/resnet50:predict"
+
+    def note_ids(h: dict, what: str):
+        check(h.get("X-Request-Id") and h.get("X-Trace-Id"),
+              f"{what}: answer without X-Request-Id / X-Trace-Id: {h}")
+        out["ids"].append(h["X-Trace-Id"])
+
+    t0 = time.perf_counter()
+    with BackgroundServer(cfg, device=device) as srv:
+        port, server = srv.port, srv.server
+        cm_resnet = server.engine.model("resnet50")
+        pixels = [cm_resnet.servable.preprocess(png)["image"] for png in pngs]
+        reset_counts()
+        # -- check 1: the binary lane against the JSON lane ----------------------
+        for name, path, json_bodies, frames in (
+                ("bert_base", bert, [{"input_ids": ids} for ids in bert_ids],
+                 [{"input_ids": ids} for ids in bert_ids]),
+                ("resnet50", resnet, [{"b64": base64.b64encode(p).decode()} for p in pngs],
+                 pixels)):
+            for single in (True, False):
+                jb = json_bodies[0] if single else {"instances": json_bodies}
+                status, raw, h = http_b(port, path, json.dumps(jb).encode(),
+                                        {"Content-Type": "application/json"})
+                check(status == 200, f"{name} JSON lane: {status} {raw[:200]}")
+                note_ids(h, f"{name} JSON")
+                want = json.loads(raw)["predictions"]
+                frame = bytes(wire.pack(frames[:1] if single else frames,
+                                        flags=0 if single else wire.FLAG_LIST))
+                status, raw, h = http_b(port, path, frame, tensor)
+                check(status == 200 and h["Content-Type"] == wire.TENSOR_CONTENT_TYPE,
+                      f"{name} binary lane: {status} {h} {raw[:200]}")
+                note_ids(h, f"{name} binary")
+                meta, preds = wire.unpack_response(raw)
+                got = preds[0] if single else preds
+                check(json.dumps(got) == json.dumps(want),
+                      f"{name} binary lane predictions differ from the JSON lane's "
+                      f"({'single' if single else '8 instances'})")
+                check(meta["model"] == name and "timing" in meta, f"{name} meta {meta}")
+            # The client p50 a lane, single requests in turn.  The lanes
+            # compared carry the same work: ResNet-50's binary frame is the
+            # 224x224 crop, so its JSON twin is the same crop as a nested
+            # list ("json crop"); "json" is the base64 PNG, which the server
+            # also decodes and resizes inside the request.
+            lanes = [("json", json.dumps(json_bodies[1]).encode(),
+                      {"Content-Type": "application/json"}),
+                     ("binary", bytes(wire.pack(frames[1:2])), tensor)]
+            if name == "resnet50":
+                crop = json.dumps(pixels[1].tolist()).encode()
+                status, raw, _ = http_b(port, path, crop, {"Content-Type": "application/json"})
+                status_b, raw_b, _ = http_b(port, path, lanes[1][1], tensor)
+                check(status == 200 and status_b == 200 and json.dumps(
+                    json.loads(raw)["predictions"]) == json.dumps(
+                    wire.unpack_response(raw_b)[1][0]),
+                      f"resnet50 JSON crop lane differs from the binary lane: {status} "
+                      f"{raw[:200]}")
+                lanes.insert(1, ("json crop", crop, {"Content-Type": "application/json"}))
+            for lane, data, hdrs in lanes:
+                times = []
+                for _ in range(reqs):
+                    t = time.perf_counter()
+                    status, _, _ = http_b(port, path, data, hdrs)
+                    times.append((time.perf_counter() - t) * 1e3)
+                    check(status == 200, f"{name} {lane} p50 request: {status}")
+                out["p50"][f"{name} {lane}"] = statistics.median(times)
+        good = bytes(wire.pack(pixels[:1]))
+        status, raw, h = http_b(port, resnet, good[:-100], tensor)
+        body = json.loads(raw)
+        check(status == 400 and "truncated" in body["error"] and body["request_id"]
+              == h["X-Request-Id"] and body["trace_id"] == h["X-Trace-Id"],
+              f"truncated frame: {status} {body}")
+        oversize = (wire._HDR.pack(wire.MAGIC, wire.VERSION, 0, 1) + wire._BLK.pack(9, 2, 0)
+                    + wire._DIM.pack(60000) + wire._DIM.pack(60000))
+        status, raw, _ = http_b(port, resnet, oversize, tensor)
+        check(status == 413 and json.loads(raw)["trace_id"], f"declared oversize: {status} {raw}")
+        server.cfg.binary_lane = False
+        try:
+            status, raw, _ = http_b(port, resnet, good, tensor)
+        finally:
+            server.cfg.binary_lane = True
+        check(status == 415 and json.loads(raw)["request_id"], f"lane off: {status} {raw}")
+        counts, graphed = read_counts(), counters.graphed()
+        # (A CPU wrapper runs its plain version and counts nothing.)
+        check(not cuda or 0 < counts["int8_matmul"] == graphed["int8_matmul"],
+              f"check 1: int8_matmul {counts['int8_matmul']} launches, "
+              f"{graphed['int8_matmul']} of them in captured graphs")
+        log(f"plane check 1: binary lane predictions equal to the JSON lane's (BERT int8 and "
+            f"ResNet-50 bf16, single and 8 instances); client p50 "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in out["p50"].items())
+            + f" ({reqs} sequential requests each); 400 / 413 / 415 with ids; "
+            f"{counts['int8_matmul']} int8_matmul launches, all in graph replays")
+
+        # -- check 2: tracing --------------------------------------------------------
+        status, raw, h = http_b(port, bert, json.dumps({"input_ids": bert_ids[2]}).encode(),
+                                {"Content-Type": "application/json", "X-Request-Id": "plane-7"})
+        check(status == 200 and h["X-Request-Id"] == "plane-7", f"echo: {status} {h}")
+        tid, sid = "ab" * 16, "0123456789abcdef"
+        t = time.perf_counter()
+        status, raw, h = http_b(port, bert, json.dumps({"input_ids": bert_ids[3]}).encode(),
+                                {"Content-Type": "application/json",
+                                 "traceparent": f"00-{tid}-{sid}-01"})
+        client_ms = (time.perf_counter() - t) * 1e3
+        check(status == 200 and h["X-Trace-Id"] == tid, f"traceparent: {status} {h}")
+        device_ms = float(h["X-Device-Ms"])
+        status, t, _ = http_h(port, f"/admin/trace/{tid}")
+        check(status == 200, f"/admin/trace/{tid}: {status} {t}")
+        tree = t["trace"]["tree"]
+        check(t["trace"]["remote_parent"] == sid and t["trace"]["status"] == "ok",
+              f"trace {t['trace']}")
+        kids = {c["name"]: c for c in tree["children"]}
+        for stage in ("admission", "queue", "batch_form", "device", "respond"):
+            check(stage in kids, f"BERT trace lacks {stage}: {sorted(kids)}")
+        dev, ex = kids["device"], find_span(kids["device"], "exec")
+        check(ex is not None and ex["attrs"]["lane"] == "latency", f"no exec span: {dev}")
+        # The exec span (the dispatch thread's replay and synchronize) lies
+        # inside the batcher's device window and is most of it: the rest is
+        # the hop to the dispatch thread.
+        check(0.5 * device_ms <= ex["duration_ms"] <= device_ms + 0.002,
+              f"exec {ex['duration_ms']} ms against the device window {device_ms} ms")
+        # The server's root span lies inside the client's own clock.
+        check(tree["duration_ms"] <= client_ms,
+              f"root {tree['duration_ms']} ms past the client's round trip {client_ms} ms")
+        chain = sum(kids[s]["duration_ms"] for s in ("admission", "queue", "device", "respond"))
+        check(tree["duration_ms"] + 0.005 >= chain,
+              f"root {tree['duration_ms']} ms below its chain's sum {chain}")
+        out["trace"] = {s: kids[s]["duration_ms"] for s in ("admission", "queue", "batch_form",
+                                                           "device", "respond")}
+        out["trace"].update(exec=ex["duration_ms"], root=tree["duration_ms"],
+                            client=round(client_ms, 3))
+        r = sse(port, "gpt2", {"input_ids": rng.integers(0, gpt2_vocab - 1, 12).tolist()})
+        check(r["status"] == 200 and r["final"] and r["final"]["done"], f"gpt2 stream {r}")
+        hs = r["headers"]
+        check(hs["X-Stream-Id"] == hs["X-Request-Id"] and
+              r["final"]["stats"]["trace_id"] == hs["X-Trace-Id"], f"stream ids {hs}")
+        _, gt, _ = http_h(port, f"/admin/trace/{hs['X-Trace-Id']}")
+        names = [c["name"] for c in gt["trace"]["tree"]["children"]]
+        for stage in ("queue", "prefill", "first_segment", "decode", "finish"):
+            check(stage in names, f"stream trace lacks {stage}: {names}")
+        status, raw, h = http_b(port, bert, b'{"input_ids": [1, 2,',
+                                {"Content-Type": "application/json"})
+        body = json.loads(raw)
+        check(status == 400 and body["request_id"] == h["X-Request-Id"]
+              and body["trace_id"] == h["X-Trace-Id"], f"400 ids: {status} {body} {h}")
+        log(f"plane check 2: every work answer carried X-Request-Id and X-Trace-Id "
+            f"({len(out['ids'])} checked), a given id echoed, a traceparent joined; BERT "
+            f"trace ms {out['trace']}; the GPT-2 stream's id is its request id; a 400 "
+            f"carries both ids")
+
+        # -- check 3: /admin/profile over traffic, and a restore under it ------------
+        def resnet_answer() -> str:
+            status, raw, _ = http_b(port, resnet, bytes(wire.pack(pixels[3:4])), tensor)
+            check(status == 200, f"resnet50 binary answer: {status} {raw[:200]}")
+            return json.dumps(wire.unpack_response(raw)[1])
+
+        before = resnet_answer()
+        status, o, _ = http_h(port, "/admin/models/resnet50", {"action": "demote", "to": "host"})
+        check(status == 200 and o["model"]["tier"] == "host", f"demote: {status} {o}")
+        res: dict = {}
+        stop = threading.Event()
+
+        def profile():
+            res["first"] = http_h(port, "/admin/profile",
+                                  {"seconds": PLANE_PROFILE_S, "top": 40})
+
+        def traffic():
+            body = json.dumps({"input_ids": bert_ids[4]}).encode()
+            while not stop.is_set():
+                http_b(port, bert, body, {"Content-Type": "application/json"})
+
+        threads = [threading.Thread(target=profile), threading.Thread(target=traffic)]
+        for th in threads:
+            th.start()
+        wait_until(lambda: server._tracing, 30, "the profile to open")
+        second = http_h(port, "/admin/profile", {"seconds": 0.1})
+        check(second[0] == 409, f"a second profile answered {second[0]}: {second[1]}")
+        ta = time.perf_counter()
+        status, o, _ = http_h(port, "/admin/models/resnet50", {"action": "activate"})
+        restore_ms = (time.perf_counter() - ta) * 1e3
+        check(status == 200 and o["model"]["tier"] == "device", f"restore: {status} {o}")
+        check(server._tracing, "the restore outlasted the profile window: raise "
+                               "PLANE_PROFILE_S")
+        after = resnet_answer()
+        threads[0].join(120)
+        stop.set()
+        threads[1].join(120)
+        check(after == before, "ResNet-50 after its restore under the profile answers "
+                               "other bytes")
+        status, prof, _ = res["first"]
+        check(status == 200, f"/admin/profile: {status} {prof}")
+        kernel = [op for op in prof["ops"] if "w8a16" in op["op"]]
+        if cuda:
+            check(kernel, f"/admin/profile's ops name no int8_matmul kernel: "
+                          f"{[op['op'][:60] for op in prof['ops']]}")
+        out["profile"] = {"device_compute_ms": prof["device_compute_ms"],
+                          "copy_ms": prof["copy_ms"], "ops": len(prof["ops"]),
+                          "int8_matmul": kernel[:1], "restore_ms": restore_ms}
+        log(f"plane check 3: /admin/profile {PLANE_PROFILE_S} s under BERT traffic: device "
+            f"compute {prof['device_compute_ms']} ms, copies {prof['copy_ms']} ms; "
+            f"int8_matmul's kernel {[(op['op'][:48], op['ms'], op['count']) for op in kernel]}; "
+            f"a second capture 409; ResNet-50 restored from the host in {restore_ms:.1f} ms "
+            f"(its captures under the open profile), answering byte-equal")
+        out["counts"] = read_counts()
+        out["graphed"] = counters.graphed()
+        _, metrics, _ = http_h(port, "/metrics?format=prometheus")
+    check_metrics = check_metrics_tool()
+    problems = check_metrics.check(metrics, check_metrics.load_manifest())
+    check(not problems, f"/metrics with exemplars against the manifest: {problems}")
+    check('# {trace_id="' in metrics, "no exemplar on the histograms")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_plane_crash(card: str, workdir: str, jobs: int = PLANE_SD_JOBS) -> dict:
+    """Phase 16 check 4: the port's kill -9 harness on the card with SD-1.5
+    txt2img at 512x512, 20 steps: ``jobs`` journaled submits, a SIGKILL with
+    a backlog, the restart; no acknowledged job lost, every resubmit
+    deduped, a recovered job's PNG byte-equal to the same payload submitted
+    fresh under a new key."""
+    from pytorch_zappa_serverless_tpu_torch.tools import crashtest
+
+    t0 = time.perf_counter()
+    out = crashtest.run_crashtest(workdir, n_jobs=jobs, model="sd15", platform="cuda",
+                                  latency_ms=PLANE_SD_LATENCY_MS, boot_timeout_s=400.0,
+                                  finish_timeout_s=400.0)
+    check(out["lost"] == 0 and out["completed"] == jobs, f"kill -9: {out}")
+    check(out["backlog_at_kill"] >= 1 and out["recovered_jobs"] >= 1
+          and out["recovered_jobs"] + out["restored_done"] == jobs, f"kill -9 replay: {out}")
+    check(out["deduped_resubmits"] == jobs and out["deduped_submits_metric"] >= jobs,
+          f"kill -9 dedupes: {out}")
+    check(out["fresh_equal"] is True, "a recovered job's PNG differs from the same payload "
+                                      "run fresh")
+    flash = (out["launches_boot_at_kill"].get("flash_attention", 0)
+             + out["launches_restart"].get("flash_attention", 0))
+    unet = out["launches_restart"].get("unet_apply", 0)
+    check(out["launches_restart"]["flash_attention"] == 10 * unet > 0,
+          f"restarted server: flash {out['launches_restart']} != 10 a UNet call")
+    out["flash_launches"] = flash
+    out["seconds"] = time.perf_counter() - t0
+    log(f"{card}: plane check 4 (kill -9, SD-1.5 512x512 20 steps, {jobs} jobs): boot "
+        f"{out['boot_ready_s']} s, backlog at the kill {out['backlog_at_kill']}, restart "
+        f"{out['restart_ready_s']} s, replay_ms {out['replay_ms']}, recovered "
+        f"{out['recovered_jobs']} + restored {out['restored_done']}, lost {out['lost']}, "
+        f"{out['deduped_resubmits']} resubmits deduped, the fresh PNG equal; job seconds "
+        f"after the restart {out['job_seconds']}, fresh {out['fresh_seconds']}; flash "
+        f"launches {flash} in the two server processes")
+    return out
+
+
+def run_plane(card: str) -> dict:
+    """Phase 16: the request plane (checks 1-4; check 5 ran on phase 6's
+    engine)."""
+    import tempfile
+
+    fresh_memory()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tpuserve-plane-") as tmp:
+        run = phase_plane_path(plane_config(tmp + "/traces"))
+        check(run["counts"]["flash_attention"] == 0, f"flash on the plane path: {run['counts']}")
+        fresh_memory()
+        crash = phase_plane_crash(card, tmp + "/crash")
+    log(f"{card}: request plane (phase 16) in {time.perf_counter() - t0:.3f} s: serving "
+        f"checks {run['seconds']:.3f} s, kill -9 {crash['seconds']:.3f} s; SD job seconds "
+        f"with prepare and finalize captured {SD_EDGES.get('captured', 0.0):.4f}, eager "
+        f"{SD_EDGES.get('eager', 0.0):.4f}")
+    return {"int8_launches": run["counts"]["int8_matmul"],
+            "flash_launches": crash["flash_launches"], "serve": run, "crash": crash}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -4303,6 +4744,7 @@ def main(argv: list[str] | None = None) -> int:
     generate = run_generate(args.profile)
     failure = run_failure(card)
     residency = run_residency(card)
+    plane = run_plane(card)
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
         log(f"one forward's int8_matmul at M={m} (72 launches, the per-shape times summed): "
@@ -4321,7 +4763,7 @@ def main(argv: list[str] | None = None) -> int:
         "name": "int8_matmul", "route": "cuda",
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "pytorch_zappa_serverless_tpu/ops/int8_matmul.py:107",
-        "launches": int8_launches, "max_abs_err": kern["max_abs_err"],
+        "launches": int8_launches + plane["int8_launches"], "max_abs_err": kern["max_abs_err"],
         "ms": bert["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": bert["bound_ms"],
         "bound_by": bert["bound_by"], "library_ms": bert["library_ms"],
         "timed_work": "one BERT-base forward at bucket (8,128): 72 launches at M=1024 over "
@@ -4344,11 +4786,14 @@ def main(argv: list[str] | None = None) -> int:
         "launches_generate_path": generate["launches"],
         "launches_failure_path": failure["launches"],
         "launches_residency_path": residency["launches"],
+        "launches_plane_path": plane["int8_launches"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "pytorch_zappa_serverless_tpu/ops/flash_attention.py:57",
-        "launches": flash_launches, "max_abs_err": flash["max_abs_err"],
+        "launches": flash_launches + plane["flash_launches"],
+        "max_abs_err": flash["max_abs_err"],
+        "launches_plane_path": plane["flash_launches"],
         "ms": unet["ms"], "plain_ms": unet["plain_ms"], "bound_ms": unet["bound_ms"],
         "bound_by": unet["bound_by"], "library_ms": unet["library_ms"],
         "bound_detail": unet["bound_detail"],

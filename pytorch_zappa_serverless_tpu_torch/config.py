@@ -185,6 +185,32 @@ class ServeConfig:
     # quarter it).
     activation_max_wait_s: float = 120.0
     activation_estimate_ms: float = 15000.0
+    # -- the request plane ---------------------------------------------------
+    # Append-only job journal directory ("" = durability off): one JSONL
+    # record a job transition.  At boot the job queue replays it, so an
+    # acknowledged submit survives a kill -9, done results come back from
+    # disk, and Idempotency-Key dedupe works across restarts.
+    journal_dir: str = ""
+    # Journal fsync policy: "always" fsyncs every record (a 202 means on
+    # disk), "interval" at most every ~250 ms, "never" leaves it to the OS.
+    journal_fsync: str = "always"
+    # Request tracing (serving/tracing.py; GET /admin/trace): the ring of
+    # finished span trees; per model the flight recorder also pins the
+    # trace_flight_slow slowest and the last trace_flight_errors errored
+    # traces; trace_max_spans caps one trace (drops counted, never raised).
+    trace_ring: int = 256
+    trace_flight_slow: int = 8
+    trace_flight_errors: int = 32
+    trace_max_spans: int = 512
+    # Where POST /debug/trace and POST /admin/profile write their
+    # torch.profiler captures (Chrome trace JSON).
+    trace_dir: str = "~/.cache/tpuserve/traces"
+    # The binary tensor lane (serving/wire.py): application/x-tpuserve-tensor
+    # bodies beside the JSON and raw lanes; False answers a frame 415.
+    binary_lane: bool = True
+    # A frame's byte cap, checked against its DECLARED sizes before any
+    # allocation (413 past it); 0 -> the HTTP body cap (64 MiB).
+    tensor_max_bytes: int = 0
     models: list[ModelConfig] = field(default_factory=list)
 
     def model(self, name: str) -> ModelConfig:
@@ -195,6 +221,20 @@ class ServeConfig:
 
 
 _ENV_PREFIX = "TPUSERVE_"
+
+# Fields of the JAX package's ServeConfig the port refuses by name (a bare
+# TypeError would not say why), each with the reason.
+REFUSED_FIELDS = {
+    "profiler_port": "jax.profiler's live trace server has no torch counterpart in the "
+                     "port; capture with POST /admin/profile or POST /debug/trace "
+                     "(ROADMAP Queue 1)",
+}
+
+
+def _refuse_fields(data: dict) -> None:
+    for key, why in REFUSED_FIELDS.items():
+        if key in data:
+            raise ValueError(f"ServeConfig field {key!r} is not served by the port: {why}")
 
 
 def _coerce(value: str, target_type: Any) -> Any:
@@ -253,6 +293,7 @@ def load_config(path: str | Path | None = None,
         profile = profile or data.get("default_profile",
                                       next(iter(data["profiles"])))
         data = dict(data["profiles"][profile], profile=profile)
+    _refuse_fields(data)
     models = [ModelConfig(**{**m,
                              "batch_buckets": tuple(m.get("batch_buckets",
                                                           (1, 4, 8, 16, 32))),

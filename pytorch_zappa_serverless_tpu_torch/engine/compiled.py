@@ -13,7 +13,12 @@ model's Python would issue.
   met in traffic is captured then, "captured lazily".  Both go on the
   ``CompileClock``, as the JAX package's compiles do.
 - The SD job lane's chunk step is captured once per state and row shape
-  (:meth:`CompiledModel.chunk_step`); its prepare and finalize run eagerly.
+  (:meth:`CompiledModel.chunk_step`), its prepare (the CLIP encode) once a
+  bucket and its finalize (the VAE decode) once a latents shape; the host
+  work around them (tokenizing, the PNG) stays outside the graphs, and
+  :meth:`~CompiledModel.chunk_prepare_eager` and
+  :meth:`~CompiledModel.chunk_finalize_eager` are what a check holds their
+  replays against.
 - On the CPU (``device="cpu"``, the caller's choice) every dispatch runs
   eagerly.  On CUDA a capture or a replay that fails raises: there is no
   eager fallback.  :meth:`CompiledModel.forward_eager` is what a check
@@ -183,10 +188,15 @@ def _entry(key: tuple) -> list:
     """A graph's key as the clock's "bucket": [8, 64]; with a variant, the
     names of its gates that are on ([8, 64, "sampled+filtered"], [1, 64,
     "greedy"]); a chunk graph's latents and rows shapes (["chunk",
-    "latents[1, 64, 64, 4]", "t[4]"])."""
+    "latents[1, 64, 64, 4]", "t[4]"]); SD's prepare by bucket (["prepare",
+    "1"]) and finalize by latents (["finalize", "latents[1, 64, 64, 4]"])."""
     if key[0] == "chunk":
         return ["chunk", *(f"{k.split('.')[-1]}{list(shape)}" for k, shape in key[1]
                            if k in ("state.latents", "rows.t"))]
+    if key[0] == "prepare":
+        return ["prepare", *map(str, key[1])]
+    if key[0] == "finalize":
+        return ["finalize", *(f"{k}{list(shape)}" for k, shape in key[1] if k == "latents")]
     bucket, variant = key
     if variant is None:
         return list(bucket)
@@ -196,7 +206,7 @@ def _entry(key: tuple) -> list:
 def _label(key: tuple) -> str:
     """``_entry`` in words: "(8, 64) sampled+filtered", "chunk latents[1,
     64, 64, 4] t[4]"."""
-    if key[0] == "chunk":
+    if key[0] in ("chunk", "prepare", "finalize"):
         return " ".join(_entry(key))
     return " ".join([str(key[0]), *map(str, _entry(key)[len(key[0]):])])
 
@@ -444,8 +454,8 @@ class CompiledModel:
             self._warming = False
 
     def _warm_chunked(self, bucket: tuple[int, ...]):
-        """prepare, one chunk per distinct row shape (on CUDA: its capture),
-        and finalize, on a batch of zeros that fills ``bucket``."""
+        """prepare, one chunk per distinct row shape and finalize (on CUDA:
+        each one's capture), on a batch of zeros that fills ``bucket``."""
         dummy = [self._zeros(bucket, per_sample=True) for _ in range(bucket[0])]
         _, secs = timed(lambda: self.chunk_finalize(self._warm_chunk_steps(dummy), dummy))
         self.clock.record(self.servable.name, (*bucket, "chunked"), secs)
@@ -471,17 +481,38 @@ class CompiledModel:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    def chunk_prepare(self, samples: Sequence[dict]):
-        """Collate + place one batch and run the chunked ``prepare``.
-        Returns (bucket, device state); the state (latents + conditioning
-        for sd15) stays on the device between chunk dispatches."""
-        ch = self.servable.meta["chunked"]
+    def _collate_chunked(self, samples: Sequence[dict]):
         bucket = self.bucket_for(len(samples))
-        spec = self.servable.input_spec(bucket)
         collate = self.servable.meta.get("collate") or default_collate
+        return bucket, collate(samples, bucket, self.servable.input_spec(bucket))
+
+    def chunk_prepare(self, samples: Sequence[dict]):
+        """Collate one batch (on the host) and run the chunked ``prepare``
+        (SD-1.5: the CLIP encode).  Returns (bucket, device state); the
+        state (latents + conditioning) stays on the device between chunk
+        dispatches.  On CUDA a replay of the bucket's prepare graph (captured
+        now if it is new); the state is copied out of the graph's pool, so
+        that every job keeps its own."""
+        if not self.graphed:
+            return self.chunk_prepare_eager(samples)
+        bucket, batch = self._collate_chunked(samples)
+        prepare = self.servable.meta["chunked"]["prepare"]
+        key = ("prepare", bucket)
         with torch.inference_mode():
-            state = ch["prepare"](self.servable.module.tree(),
-                                  self._place(collate(samples, bucket, spec)))
+            graph = self._graphs.get(key) or self._capture(
+                key, lambda inputs: prepare(self.servable.module.tree(), inputs), batch,
+                record=not self._warming)
+            state = {k: v.clone() for k, v in graph.run(batch).items()}
+        self._sync()
+        return bucket, state
+
+    def chunk_prepare_eager(self, samples: Sequence[dict]):
+        """:meth:`chunk_prepare` eagerly: the CPU's path, and on CUDA what
+        the prepare graph's replay is held against."""
+        bucket, batch = self._collate_chunked(samples)
+        with torch.inference_mode():
+            state = self.servable.meta["chunked"]["prepare"](self.servable.module.tree(),
+                                                             self._place(batch))
         self._sync()
         return bucket, state
 
@@ -523,7 +554,24 @@ class CompiledModel:
                 for k, v in out.items()}
 
     def chunk_finalize(self, state, samples: Sequence[dict]):
-        """Decode + fetch + per-sample postprocess (run_batch's tail)."""
+        """The chunked ``finalize`` (SD-1.5: the VAE decode), the fetch and
+        each sample's postprocess (run_batch's tail; the PNG encode is the
+        job worker's, off this thread).  On CUDA a replay of the finalize
+        graph of this state's shapes (captured now if it is new)."""
+        if not self.graphed:
+            return self.chunk_finalize_eager(state, samples)
+        finalize = self.servable.meta["chunked"]["finalize"]
+        key = ("finalize", tuple(sorted((k, tuple(v.shape)) for k, v in state.items())))
+        with torch.inference_mode():
+            graph = self._graphs.get(key) or self._capture(
+                key, lambda inputs: finalize(self.servable.module.tree(), inputs), state,
+                record=not self._warming)
+            out = self._fetch(graph.run(state))
+        return [self.servable.postprocess(out, i) for i in range(len(samples))]
+
+    def chunk_finalize_eager(self, state, samples: Sequence[dict]):
+        """:meth:`chunk_finalize` eagerly: the CPU's path, and on CUDA what
+        the finalize graph's replay is held against."""
         with torch.inference_mode():
             out = self._fetch(self.servable.meta["chunked"]["finalize"](
                 self.servable.module.tree(), state))

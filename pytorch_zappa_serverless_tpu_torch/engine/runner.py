@@ -11,6 +11,12 @@ The runner also carries the chaos surface (``faults.FaultInjector``): every
 batch and chunk dispatch passes its hook on the dispatch thread first, and
 ``poison`` wedges the runner (every dispatch raises, the probe reports
 dead) until a rebuild replaces it.
+
+A traced dispatch (``span``, the batcher's device span) records an ``exec``
+span on the dispatch thread around the replay and its synchronize, with
+the lane and the wait for it; a chunked one a span a slice
+(``chunk_prepare``, ``chunk[i]``, ``chunk_finalize``).  A fault the hook
+injects lands in the span as its error.
 """
 
 from __future__ import annotations
@@ -202,23 +208,40 @@ class DeviceRunner:
             st.device_seconds += seconds
             st.chunks += int(chunk)
 
-    def _run(self, model: CompiledModel, samples: Sequence[dict], seq: int | None):
+    def _run(self, model: CompiledModel, samples: Sequence[dict], seq: int | None, span=None):
         # On the dispatch thread: injected latency occupies the lane as a
         # slow replay would, and a failed dispatch runs nothing.
-        self.faults.on_dispatch(model.servable.name)
-        t0 = time.perf_counter()
-        results, bucket = model.run_batch(samples, seq=seq)
-        self._add_device_seconds(model.servable.name, time.perf_counter() - t0)
+        t_exec = time.perf_counter()
+        tspan = None
+        if span is not None:
+            # Opened before the fault hook, so that injected latency and
+            # faults land inside it; the gap back to the parent's start is
+            # the wait for the lane.
+            tspan = span.child("exec", lane=model.latency_class, batch=len(samples),
+                               lane_wait_ms=round((t_exec - span.t0) * 1000, 3),
+                               **({"seq": seq} if seq is not None else {}))
+        try:
+            self.faults.on_dispatch(model.servable.name)
+            t0 = time.perf_counter()
+            results, bucket = model.run_batch(samples, seq=seq)
+        except BaseException as e:
+            if tspan is not None:
+                tspan.end(status="error", error=f"{type(e).__name__}: {e}")
+            raise
+        dt = time.perf_counter() - t0
+        if tspan is not None:
+            tspan.end(bucket=list(bucket))
+        self._add_device_seconds(model.servable.name, dt)
         self._count_batch(model.servable.name, len(samples), bucket)
         return results
 
     async def run(self, model: CompiledModel, samples: Sequence[dict],
-                  seq: int | None = None) -> list[Any]:
+                  seq: int | None = None, span=None) -> list[Any]:
         return await asyncio.wrap_future(self._pool.submit_lane(
-            model.latency_class, self._run, model, samples, seq))
+            model.latency_class, self._run, model, samples, seq, span))
 
     async def run_chunked(self, model: CompiledModel, samples: Sequence[dict],
-                          seq: int | None = None) -> list[Any]:
+                          seq: int | None = None, span=None) -> list[Any]:
         """Run a chunked servable as short dispatches (QoS preemption points).
 
         A servable with ``meta['chunked']`` (models/sd15.py) runs prepare →
@@ -231,26 +254,37 @@ class DeviceRunner:
         """
         ch = model.servable.meta.get("chunked")
         if ch is None:
-            return await self.run(model, samples, seq)
+            return await self.run(model, samples, seq, span=span)
         name = model.servable.name
+        lane = model.latency_class
 
-        def timed(fn, *args, chunk=False):
-            self.faults.on_dispatch(name)
-            t0 = time.perf_counter()
-            out = fn(*args)
+        def timed(fn, *args, chunk=False, label=""):
+            # A span a slice: a latency request stuck behind ONE chunk shows
+            # apart from one stuck behind the whole loop.
+            tspan = span.child(label, lane=lane) if span is not None else None
+            try:
+                self.faults.on_dispatch(name)
+                t0 = time.perf_counter()
+                out = fn(*args)
+            except BaseException as e:
+                if tspan is not None:
+                    tspan.end(status="error", error=f"{type(e).__name__}: {e}")
+                raise
             self._add_device_seconds(name, time.perf_counter() - t0, chunk)
+            if tspan is not None:
+                tspan.end()
             return out
 
-        async def dispatch(fn, *args, chunk=False):
+        async def dispatch(fn, *args, chunk=False, label=""):
             if self.faults.poison_exc is not None:
                 raise self.faults.poison_exc
             return await asyncio.wrap_future(self._pool.submit_lane(
-                model.latency_class, timed, fn, *args, chunk=chunk))
+                lane, timed, fn, *args, chunk=chunk, label=label))
 
-        bucket, state = await dispatch(model.chunk_prepare, samples)
-        for rows in ch["chunk_rows"]:
-            state = await dispatch(model.chunk_step, state, rows, chunk=True)
-        results = await dispatch(model.chunk_finalize, state, samples)
+        bucket, state = await dispatch(model.chunk_prepare, samples, label="chunk_prepare")
+        for i, rows in enumerate(ch["chunk_rows"]):
+            state = await dispatch(model.chunk_step, state, rows, chunk=True, label=f"chunk[{i}]")
+        results = await dispatch(model.chunk_finalize, state, samples, label="chunk_finalize")
         self._count_batch(name, len(samples), bucket)
         return results
 

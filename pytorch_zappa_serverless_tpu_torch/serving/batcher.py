@@ -16,6 +16,14 @@
   model's circuit breaker with its fatal flag.  :meth:`estimate_wait_ms`
   forecasts the queue wait (depth × recent p50 device time) for the
   server's admission-time shedder.
+- Tracing: a request may carry its trace's root span; at dispatch the loop
+  closes its ``queue`` span (enqueue → dispatch), records the head's
+  ``batch_form`` (head in hand → dispatch) and opens a ``device`` span a
+  member (the batch size and co-batched trace ids), under which the runner
+  puts the dispatch thread's ``exec`` span.  Stage times are the
+  ``perf_counter`` stamps the rings record.  A shed request's trace ends in
+  an errored ``queue`` span and a ``deadline_exceeded`` point: it launches
+  nothing.
 
 All batcher state is touched only from the event loop; the one cross-thread
 edge is the runner, which returns through ``await``.
@@ -59,6 +67,8 @@ class _Req:
     # Absolute loop-clock deadline (None: none), checked when the loop pops
     # the request and before every (re)dispatch.
     deadline: float | None = None
+    # The request's root span (serving/tracing.py), None when untraced.
+    span: Any = None
 
 
 class DynamicBatcher:
@@ -142,26 +152,30 @@ class DynamicBatcher:
         self._in_flight -= 1
 
     def _enqueue(self, sample: dict[str, Any], seq_len: int | None,
-                 deadline: float | None = None):
+                 deadline: float | None = None, span=None):
         """Admit + enqueue; the in-flight slot is held until the future
         settles, however it settles (result, failure, shed or stop)."""
         self.check_capacity(1)
         fut = asyncio.get_running_loop().create_future()
         self._in_flight += 1
         fut.add_done_callback(self._dec_in_flight)
-        self._queue.put_nowait(_Req(sample, seq_len, fut, deadline=deadline))
+        self._queue.put_nowait(_Req(sample, seq_len, fut, deadline=deadline, span=span))
         return fut
 
     async def submit(self, sample: dict[str, Any], seq_len: int | None = None,
-                     deadline: float | None = None) -> Any:
-        """Queue one preprocessed sample; resolves to (result, timing)."""
-        return await self._enqueue(sample, seq_len, deadline)
+                     deadline: float | None = None, span=None) -> Any:
+        """Queue one preprocessed sample; resolves to (result, timing), the
+        timing with ``t_done``, the device's end as a ``perf_counter``
+        stamp."""
+        return await self._enqueue(sample, seq_len, deadline, span)
 
-    def submit_many(self, samples, seq_lens, deadline: float | None = None) -> list:
+    def submit_many(self, samples, seq_lens, deadline: float | None = None,
+                    span=None) -> list:
         """Atomically admit + enqueue the samples of ONE request (all or
-        none: no await between the check and the enqueues)."""
+        none: no await between the check and the enqueues); ``span`` parents
+        every sample's queue and device spans."""
         self.check_capacity(len(samples))
-        return [self._enqueue(s, sl, deadline) for s, sl in zip(samples, seq_lens)]
+        return [self._enqueue(s, sl, deadline, span) for s, sl in zip(samples, seq_lens)]
 
     def _seq_cap(self, head: _Req) -> int | None:
         """Seq-bucket ceiling the head request sets for this batch: longer
@@ -189,6 +203,8 @@ class DynamicBatcher:
             else:
                 batch = [await self._queue.get()]
             try:
+                # Batch formation starts with the head in hand.
+                t_form0 = time.perf_counter()
                 seq_cap = self._seq_cap(batch[0])
                 loop = asyncio.get_running_loop()
                 deadline = loop.time() + self.coalesce_s
@@ -207,7 +223,7 @@ class DynamicBatcher:
                         break
                     if not self._admit(batch, req, seq_cap):
                         break
-                await self._dispatch(batch)
+                await self._dispatch(batch, t_form0)
             except asyncio.CancelledError:
                 self._fail_batch(batch, RuntimeError("batcher stopped"))
                 raise
@@ -233,9 +249,35 @@ class DynamicBatcher:
                     f"{(now - req.deadline) * 1000.0:.1f} ms before dispatch", stage="queue"))
                 self.ring.record_error()
                 self.resilience.stats.deadline_queue += 1
+                if req.span is not None:
+                    # Its whole story is the queue: an errored queue span,
+                    # the decision, and no device time after.
+                    req.span.child("queue", start=req.t_enq).end(status="error", stage="queue",
+                                                                 shed=True)
+                    req.span.point("deadline_exceeded", stage="queue")
         return live
 
-    async def _dispatch(self, batch: list[_Req]):
+    @staticmethod
+    def _open_device_spans(batch: list[_Req], t_start: float, attempt: int) -> list:
+        """At dispatch: each member's queue span closes (on the first
+        attempt: the wait is spent once) and a device span opens (on every
+        attempt, so retries show as repeated device stages), naming the
+        co-batched requests' traces."""
+        spans = []
+        for req in batch:
+            if req.span is None:
+                spans.append(None)
+                continue
+            if attempt == 0:
+                req.span.child("queue", start=req.t_enq).end(end=t_start)
+            mates = [r.span.trace.trace_id for r in batch
+                     if r is not req and r.span is not None][:8]
+            spans.append(req.span.child("device", start=t_start, batch_size=len(batch),
+                                        attempt=attempt + 1,
+                                        **({"batch_mates": mates} if mates else {})))
+        return spans
+
+    async def _dispatch(self, batch: list[_Req], t_form0: float | None = None):
         loop = asyncio.get_running_loop()
         mr = self.resilience
         attempt = 0
@@ -251,9 +293,18 @@ class DynamicBatcher:
                 lens = [req.seq_len for req in batch if req.seq_len is not None]
                 seq = max(lens) if lens else None
             t_start = time.perf_counter()
+            dev_spans = self._open_device_spans(batch, t_start, attempt)
+            head_span = next((sp for sp in dev_spans if sp is not None), None)
+            if attempt == 0 and t_form0 is not None and batch[0].span is not None:
+                batch[0].span.child("batch_form", start=t_form0,
+                                    batch_size=len(batch)).end(end=t_start)
             try:
-                results = await self.runner.run(self.model, samples, seq=seq)
+                results = await self.runner.run(self.model, samples, seq=seq, span=head_span)
             except Exception as e:
+                err = f"{type(e).__name__}: {e}"
+                for sp in dev_spans:
+                    if sp is not None:
+                        sp.end(status="error", error=err)
                 # The outcome and its fatal flag: a breaker open on a fatal
                 # cause is the watchdog's rebuild signal.
                 mr.note_outcome(False, fatal=not is_transient(e))
@@ -266,9 +317,14 @@ class DynamicBatcher:
                 if is_transient(e) and attempt < mr.retry.max_attempts and survivors:
                     mr.stats.retries += 1
                     attempt += 1
+                    for req in batch:
+                        if req.span is not None:
+                            req.span.point("retry", attempt=attempt, delay_ms=round(delay_ms, 1),
+                                           error=err)
                     log_event(log, "transient batch retry", model=self.model.servable.name,
-                              attempt=attempt, delay_ms=round(delay_ms, 1),
-                              error=f"{type(e).__name__}: {e}")
+                              attempt=attempt, delay_ms=round(delay_ms, 1), error=err,
+                              **({"trace_id": batch[0].span.trace.trace_id}
+                                 if batch[0].span is not None else {}))
                     await asyncio.sleep(delay_ms / 1000.0)
                     continue
                 log.exception("batch failed for %s", self.model.servable.name)
@@ -279,13 +335,18 @@ class DynamicBatcher:
                 mr.stats.retry_successes += 1
             t_end = time.perf_counter()
             device_ms = (t_end - t_start) * 1000
+            for sp in dev_spans:
+                if sp is not None:
+                    sp.end(end=t_end)
             for req, res in zip(batch, results):
                 queue_ms = (t_start - req.t_enq) * 1000
                 total_ms = (t_end - req.t_enq) * 1000
-                self.ring.record(queue_ms, device_ms, total_ms)
+                self.ring.record(queue_ms, device_ms, total_ms,
+                                 trace_id=req.span.trace.trace_id if req.span is not None else None)
                 if not req.fut.done():
                     req.fut.set_result((res, {"queue_ms": round(queue_ms, 3),
                                               "device_ms": round(device_ms, 3),
                                               "total_ms": round(total_ms, 3),
-                                              "batch_size": len(batch)}))
+                                              "batch_size": len(batch),
+                                              "t_done": t_end}))
             return

@@ -25,6 +25,13 @@ same step math, and sampling keyed by (seed, per-row step) alone
 (``ops/sampling.py``), so a row's chain depends neither on its slot nor on
 the other rows in the pool.
 
+Tracing: a request submitted with its trace's root span gets a ``queue``
+span (submit → its first prefill), a ``prefill`` span for each prefill
+dispatch or chunk (with its co-batched streams), a ``first_segment`` span
+for the segment that gave its first tokens, and at its end a ``decode``
+span (admission → end) and a ``finish`` point, cancelled or failed ones
+included.
+
 Concurrency: every device call runs on the engine's one dispatch thread
 through ``runner.run_fn``; each scheduler is one asyncio task, and request
 state is touched only from it.  Clients talk to it through asyncio queues
@@ -37,6 +44,7 @@ import asyncio
 import collections
 import time
 from dataclasses import dataclass, field
+from typing import Any
 
 import numpy as np
 
@@ -76,8 +84,19 @@ class GenRequest:
     # When the first and the latest token reached the event queue.
     first_token_at: float | None = None
     last_token_at: float | None = None
+    # The request's root span (serving/tracing.py), None when untraced: the
+    # lane records queue, prefill and first_segment spans under it, and
+    # decode and the finish point when the stream ends.
+    span: Any = None
+    queue_traced: bool = False
 
     def finish(self, error: str | None = None):
+        if self.span is not None and not self.done.done():
+            if self.admitted is not None:
+                self.span.child("decode", start=self.admitted, tokens=len(self.tokens)).end(
+                    status="error" if error else None)
+            self.span.point("finish", tokens=len(self.tokens),
+                            **({"error": error} if error else {}))
         if not self.done.done():
             if error is None:
                 self.done.set_result(list(self.tokens))
@@ -106,6 +125,30 @@ def _note_token_latency(req: GenRequest, ttft_hist: Histogram, itl_hist: Histogr
 class _Lane:
     """What both schedulers share: the dispatch call, deferred cancellation,
     and the token fan-out of one request."""
+
+    # perf_counter at the latest segment's dispatch: a request's first
+    # tokens come from the segment that started there.
+    _seg_t0 = 0.0
+
+    def _note_first_segment(self, req: GenRequest):
+        req.rounds_to_first_token = self.device_rounds - req.rounds_at_submit
+        req.segments_to_first_token = self.segment_rounds - req.segments_at_submit
+        if req.span is not None:
+            req.span.child("first_segment", start=self._seg_t0, tokens=len(req.tokens)).end()
+
+    @staticmethod
+    def _trace_admission(req: GenRequest, t0: float, t1: float, stage: str,
+                         mates: list[GenRequest] = (), **attrs):
+        """A request's queue span (submit → its first device work) once, and
+        the ``stage`` span of one dispatch, naming its co-batched streams."""
+        if req.span is None:
+            return
+        if not req.queue_traced:
+            req.queue_traced = True
+            req.span.child("queue", start=req.submitted).end(end=t0)
+        ids = [m.span.trace.trace_id for m in mates if m is not req and m.span is not None][:8]
+        req.span.child(stage, start=t0, **attrs,
+                       **({"batch_mates": ids} if ids else {})).end(end=t1)
 
     def _run(self, fn, *args):
         # The latency lane whatever the model's QoS class, as the reference
@@ -250,7 +293,7 @@ class GenerationScheduler(_Lane):
         return emits
 
     # -- client API ---------------------------------------------------------
-    def submit(self, sample: dict, max_new: int | None = None) -> GenRequest:
+    def submit(self, sample: dict, max_new: int | None = None, span=None) -> GenRequest:
         if self._stopped:
             raise RuntimeError("generation scheduler is shut down")
         backlog = len(self._pending) + len(self._active)
@@ -260,7 +303,7 @@ class GenerationScheduler(_Lane):
         self._bucket_for(self._admit_len_of(sample))
         want = self.max_new if max_new is None else max(1, min(int(max_new), self.max_new))
         req = GenRequest(sample=sample, max_new=want, rounds_at_submit=self.device_rounds,
-                         segments_at_submit=self.segment_rounds)
+                         segments_at_submit=self.segment_rounds, span=span)
         self._pending.append(req)
         self._wake.set()
         return req
@@ -344,6 +387,7 @@ class GenerationScheduler(_Lane):
                 groups.setdefault(bucket, []).append((req, slot, payload))
             group_list = list(groups.items())
             for gi, (bucket, group) in enumerate(group_list):
+                t0 = time.perf_counter()
                 try:
                     await self._run(self._admit_batch_sync, group, bucket)
                 except Exception as e:  # device fault: fail these requests
@@ -372,15 +416,20 @@ class GenerationScheduler(_Lane):
                         self._reset_pool()
                         break
                     continue
+                t1 = time.perf_counter()
+                members = [r for r, _, _ in group]
                 for req, slot, _ in group:
                     req.slot = slot
-                    req.admitted = time.perf_counter()
+                    req.admitted = t1
                     self._active[slot] = req
+                    self._trace_admission(req, t0, t1, "prefill", members, bucket=bucket,
+                                          batch=len(group))
                 # (The first token is computed at admission but streamed by
                 # the next segment, which emits the token decided before each
                 # step.)
             if not self._active:
                 continue
+            self._seg_t0 = time.perf_counter()
             try:
                 emits = await self._run(self._segment_sync)
             except Exception as e:
@@ -413,8 +462,7 @@ class GenerationScheduler(_Lane):
                 if finished:
                     break
             if not had_tokens and req.tokens:
-                req.rounds_to_first_token = self.device_rounds - req.rounds_at_submit
-                req.segments_to_first_token = self.segment_rounds - req.segments_at_submit
+                self._note_first_segment(req)
             if finished:
                 self._finished[slot] = True
                 self._tok[slot] = self.eos_id
@@ -647,7 +695,7 @@ class PagedGenerationScheduler(_Lane):
         return emits
 
     # -- client API -----------------------------------------------------------
-    def submit(self, sample: dict, max_new: int | None = None) -> GenRequest:
+    def submit(self, sample: dict, max_new: int | None = None, span=None) -> GenRequest:
         if self._stopped:
             raise RuntimeError("generation scheduler is shut down")
         backlog = len(self._pending) + len(self._prefilling) + len(self._active)
@@ -675,7 +723,7 @@ class PagedGenerationScheduler(_Lane):
                 free_blocks=self._mgr.free_blocks, needed_blocks=need)
         want = self.max_new if max_new is None else max(1, min(int(max_new), self.max_new))
         req = GenRequest(sample=sample, max_new=want, rounds_at_submit=self.device_rounds,
-                         segments_at_submit=self.segment_rounds)
+                         segments_at_submit=self.segment_rounds, span=span)
         self._pending.append(req)
         self._wake.set()
         return req
@@ -888,6 +936,8 @@ class PagedGenerationScheduler(_Lane):
                 break
             if self._prefix is not None:
                 self._prefix.cow_copies += len(cow_pairs)
+            if cached and req.span is not None:
+                req.span.point("prefix_hit", cached_tokens=cached)
             req.cached_tokens = cached
             self._pending.popleft()
             slot = self._free.pop()
@@ -914,6 +964,7 @@ class PagedGenerationScheduler(_Lane):
         bucket = self._prefilling[0].chunks[self._prefilling[0].next][1]
         jobs = [j for j in self._prefilling if j.chunks[j.next][1] == bucket]
         cows = [pair for j in jobs for pair in j.cow]
+        t0 = time.perf_counter()
         try:
             first = await self._run(self._prefill_chunk_sync,
                                     self._chunk_payload(jobs, bucket), len(jobs), cows)
@@ -927,9 +978,13 @@ class PagedGenerationScheduler(_Lane):
                 self._release(j.req, j.slot)
                 j.req.finish(error=f"{type(e).__name__}: {e}")
             return
+        t1 = time.perf_counter()
+        members = [j.req for j in jobs]
         for j in jobs:
             # The CoW copies landed with this dispatch.
             self._drop_cows(j)
+            self._trace_admission(j.req, t0, t1, "prefill", members, chunk=j.next,
+                                  chunks=len(j.chunks), bucket=bucket)
         for j, job in enumerate(jobs):
             job.next += 1
             if not job.done:
@@ -1016,6 +1071,7 @@ class PagedGenerationScheduler(_Lane):
         await self._ensure_blocks(self.seg)
         if not self._active:  # everyone evicted (a tiny pool)
             return
+        self._seg_t0 = time.perf_counter()
         emits = await self._run(self._segment_sync, self._table_np())
         emitted_total = self._distribute(emits)
         if emitted_total:
@@ -1048,8 +1104,7 @@ class PagedGenerationScheduler(_Lane):
             if finished:
                 break
         if not had_tokens and req.tokens:
-            req.rounds_to_first_token = self.device_rounds - req.rounds_at_submit
-            req.segments_to_first_token = self.segment_rounds - req.segments_at_submit
+            self._note_first_segment(req)
         if finished:
             self._retire(slot, req)
         return len(req.tokens) - n_before

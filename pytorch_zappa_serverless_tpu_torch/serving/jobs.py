@@ -6,11 +6,17 @@ block the batcher: submit returns a job id at once, a per-model worker lane
 drains jobs through the device runner, and clients poll
 ``GET /v1/jobs/{id}``.
 
-Durability hook: a journal with the JAX package's ``JobJournal`` interface
-(``append``, ``replay``, ``rewrite``, ``close``) journals
-every state transition, and ``start()`` replays it (unfinished jobs
-re-enqueue in submit order, done results are restored, the idempotency-key
-map is rebuilt).  The port has no journal yet: the server passes ``None``.
+Durability: with a :class:`~.durability.JobJournal` (``journal_dir``)
+every state transition is journaled, so a 202-acknowledged submit survives
+a ``kill -9``.  ``start()`` replays it: submitted and running jobs
+re-enqueue in their submit order, done results come back from disk (then
+bounded by the same retention knobs as live ones), and the idempotency-key
+map is rebuilt, so a client that retries ``:submit`` with its
+``Idempotency-Key`` after the crash gets its original job id back.  A
+journal append that fails is logged and counted: durability never fails
+serving.  Tracing: a job carries its submit request's root span; the
+worker adds ``job_queue``, ``run`` and ``journal`` spans and finishes the
+trace at the job's terminal state.
 """
 
 from __future__ import annotations
@@ -144,6 +150,7 @@ class JobQueue:
         self.dropped_records = 0  # guarded-by: event-loop
         self.replay_ms = 0.0      # guarded-by: event-loop
         self.deduped_submits = 0  # guarded-by: event-loop
+        self.journal_append_failures = 0  # guarded-by: event-loop
 
     def start(self):
         if self._sweeper is None:
@@ -175,6 +182,7 @@ class JobQueue:
             self._journal.append({"ev": ev, "id": job.id,
                                   "ts": self._clock(), **extra})
         except Exception:
+            self.journal_append_failures += 1
             log.exception("journal append failed (ev=%s job=%s)", ev, job.id)
             if sp is not None:
                 sp.end(status="error")
@@ -395,6 +403,10 @@ class JobQueue:
                 job.finished = self._clock()
                 continue
             self._journal_event("requeue", job)
+            if job.span is not None:
+                # The trace finished with the outage's error; the requeue and
+                # the rerun's spans still land on its tree.
+                job.span.point("watchdog_requeue")
             n += 1
         if n:
             log_event(log, "failed jobs requeued after recovery", count=n)
@@ -402,6 +414,19 @@ class JobQueue:
 
     def get(self, job_id: str) -> Job | None:
         return self._jobs.get(job_id)
+
+    def durability_snapshot(self) -> dict | None:
+        """The journal's and the replay's numbers for /metrics and /healthz
+        (None with durability off)."""
+        if self._journal is None:
+            return None
+        return {"journal": self._journal.snapshot(),
+                "recovered_jobs": self.recovered_jobs,
+                "restored_done": self.restored_done,
+                "dropped_records": self.dropped_records,
+                "replay_ms": self.replay_ms,
+                "deduped_submits": self.deduped_submits,
+                "append_failures": self.journal_append_failures}
 
     @property
     def depth(self) -> int:

@@ -348,11 +348,19 @@ class LifecycleManager:
             self._activation_started[name] = self.clock()
             from_tier = res.tier if res.tier in ("host", "disk") else "none"
             res.state = WARMING
+            # Each activation is a trace of its own (GET /admin/trace): an
+            # "activate" root, its load and capture phases as children.
+            tracer = getattr(self.server, "tracer", None)
+            root = (tracer.start("activate", model=name, cause=cause, tier=from_tier)
+                    if tracer is not None else None)
             t0 = time.perf_counter()
             try:
                 cm = await loop.run_in_executor(None, self._build_fn, name, from_tier,
                                                 res.cm_host)
             except BaseException as e:
+                if root is not None:
+                    root.annotate(error=f"{type(e).__name__}: {e}")
+                    tracer.finish(root.trace, "error")
                 res.state = COLD
                 if getattr(res.cm_host, "tier", res.tier) not in ("host", "disk"):
                     # A restore that failed part-way leaves no tier to retry.
@@ -374,6 +382,13 @@ class LifecycleManager:
             res.last_activation_phases = (
                 {k: (round(v, 3) if isinstance(v, float) else v) for k, v in phases.items()}
                 if phases else None)
+            if root is not None:
+                t = t0
+                for key, span_name in (("load_ms", "load_weights"), ("compile_ms", "compile")):
+                    if phases and isinstance(phases.get(key), float):
+                        root.child(span_name, start=t).end(end=t + phases[key] / 1e3)
+                        t += phases[key] / 1e3
+                tracer.finish(root.trace, "ok")
             self.server._start_model_lanes(name)
             res.state = ACTIVE
             res.last_used = self.clock()

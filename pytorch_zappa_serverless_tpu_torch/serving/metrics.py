@@ -11,12 +11,16 @@ and inter-token gaps are histograms over :data:`TOKEN_LATENCY_BUCKETS_MS`),
 the resilience layer (deadlines, retries, breakers, drain, quarantine,
 fault injection and recovery), and residency: each model's state, its
 activations and demotions by cause, activation times, cold-start
-fast-fails, the bytes on each tier and the checkpoint store's streams.
+fast-fails, the bytes on each tier and the checkpoint store's streams; and
+the request plane: the tracer's counters, the job journal's replay and
+dedupes, and the binary lane's requests.
 
 :meth:`MetricsHub.render_prometheus` writes the same numbers as text
 exposition 0.0.4 under the names, types and label sets of
 ``tools/metrics_manifest.json``; it emits no family the manifest lacks.
-Exemplars wait for the port's request tracing.
+The queue and device histograms carry OpenMetrics exemplars: each bucket
+keeps the last ``(trace_id, value, timestamp)`` observed in it, which links
+a scraped bucket to ``GET /admin/trace/{id}``.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ TOKEN_LATENCY_BUCKETS_MS = LATENCY_BUCKETS_MS[:-1]
 
 
 class Histogram:
-    """Cumulative histogram over fixed bounds: O(1) observe, exact counts.
+    """Cumulative histogram over fixed bounds: O(1) observe, exact counts,
+    and each bucket's last exemplar ``(trace_id, value, wall ts)``.
     Lock-protected: observed from the event loop, read by a scrape."""
 
     def __init__(self, bounds: tuple[float, ...] = LATENCY_BUCKETS_MS):
@@ -46,8 +51,9 @@ class Histogram:
         self._counts = [0] * (len(self.bounds) + 1)  # guarded-by: _lock
         self.sum = 0.0    # guarded-by: _lock
         self.count = 0    # guarded-by: _lock
+        self._exemplars: list[tuple[str, float, float] | None] = [None] * (len(self.bounds) + 1)  # guarded-by: _lock
 
-    def observe(self, value: float):
+    def observe(self, value: float, trace_id: str | None = None):
         i = 0
         while i < len(self.bounds) and value > self.bounds[i]:
             i += 1
@@ -55,6 +61,8 @@ class Histogram:
             self._counts[i] += 1
             self.sum += value
             self.count += 1
+            if trace_id:
+                self._exemplars[i] = (trace_id, value, time.time())
 
     def snapshot(self) -> dict:
         """Cumulative bucket counts keyed by upper bound."""
@@ -68,17 +76,18 @@ class Histogram:
         out["+Inf"] = total
         return {"buckets": out, "sum": round(s, 3), "count": total}
 
-    def rows(self) -> list[tuple[str, int]]:
-        """(le, cumulative count) per bucket, +Inf last, from ONE locked
-        read, so the +Inf row is never below the buckets under it."""
+    def rows(self) -> list[tuple[str, int, tuple[str, float, float] | None]]:
+        """(le, cumulative count, exemplar) per bucket, +Inf last, from ONE
+        locked read, so the +Inf row is never below the buckets under it."""
         with self._lock:
             counts = list(self._counts)
+            exemplars = list(self._exemplars)
             total = self.count
         rows, acc = [], 0
-        for bound, n in zip(self.bounds, counts):
+        for bound, n, ex in zip(self.bounds, counts, exemplars):
             acc += n
-            rows.append((f"{bound:g}", acc))
-        rows.append(("+Inf", total))
+            rows.append((f"{bound:g}", acc, ex))
+        rows.append(("+Inf", total, exemplars[-1]))
         return rows
 
 
@@ -95,12 +104,15 @@ class LatencyRing:
         self.queue_hist = Histogram()
         self.device_hist = Histogram()
 
-    def record(self, queue_ms: float, device_ms: float, total_ms: float):
+    def record(self, queue_ms: float, device_ms: float, total_ms: float,
+               trace_id: str | None = None):
+        """One request's times; its ``trace_id`` (when traced) becomes the
+        exemplar of the buckets it lands in."""
         with self._lock:
             self._samples.append((queue_ms, device_ms, total_ms))
             self.count += 1
-        self.queue_hist.observe(queue_ms)
-        self.device_hist.observe(device_ms)
+        self.queue_hist.observe(queue_ms, trace_id)
+        self.device_hist.observe(device_ms, trace_id)
 
     def record_error(self):
         with self._lock:
@@ -155,6 +167,11 @@ class MetricsHub:
         # The residency manager (serving/lifecycle.py), and through it the
         # checkpoint store.
         self.lifecycle = None  # guarded-by: event-loop
+        # The request plane: the job queue (its journal's numbers), the
+        # tracer, and the binary lane's requests by model.
+        self.jobs = None  # guarded-by: event-loop
+        self.tracer = None  # guarded-by: event-loop
+        self.binary_requests: dict[str, int] | None = None  # guarded-by: event-loop
 
     def ring(self, model: str) -> LatencyRing:
         if model not in self.models:
@@ -173,6 +190,12 @@ class MetricsHub:
             out["recovery"] = self.watchdog.snapshot()
         if self.lifecycle is not None:
             out["lifecycle"] = self.lifecycle.snapshot()
+        if self.jobs is not None and (dsnap := self.jobs.durability_snapshot()) is not None:
+            out["durability"] = dsnap
+        if self.tracer is not None:
+            out["tracing"] = self.tracer.snapshot()
+        if self.binary_requests is not None:
+            out["serverpath"] = {"binary_requests": dict(self.binary_requests)}
         if engine is None:
             return out
         occ = {}
@@ -198,6 +221,12 @@ class MetricsHub:
                              "compile_by_model": engine.clock.per_model()}
         by_model = engine.runner.resident_bytes()
         out["hbm"] = {"by_model": by_model, "total_bytes": sum(by_model.values())}
+        # The port's hand-written kernels' launches in this process
+        # (ops/counters.py): what a client in another process reads to see
+        # its work went through them.
+        from ..ops import counters
+
+        out["kernels"] = counters.snapshot()
         return out
 
     def render_prometheus(self, engine=None) -> str:
@@ -222,7 +251,8 @@ class MetricsHub:
 
         def histogram(name, help_text, hists):
             """hists: [(labels, rows)], rows as ``Histogram.rows()`` plus the
-            sum; a histogram with no observation is skipped."""
+            sum; a histogram with no observation is skipped.  A bucket with
+            an exemplar carries it (``# {trace_id="..."} value ts``)."""
             rows = [(lbl, r, total) for lbl, r, total in hists if r and r[-1][1]]
             if not rows:
                 return
@@ -231,8 +261,12 @@ class MetricsHub:
             for lbl, r, total in rows:
                 base = labels(lbl)
                 sep = "," if base else ""
-                for le, acc in r:
-                    lines.append(f'{name}_bucket{{{base}{sep}le="{le}"}} {acc}')
+                for le, acc, ex in r:
+                    line = f'{name}_bucket{{{base}{sep}le="{le}"}} {acc}'
+                    if ex is not None:
+                        tid, val, ts = ex
+                        line += f' # {{trace_id="{_prom_label(tid)}"}} {round(val, 3)} {round(ts, 3)}'
+                    lines.append(line)
                 lines.append(f"{name}_sum{{{base}}} {total}" if base else f"{name}_sum {total}")
                 lines.append(f"{name}_count{{{base}}} {r[-1][1]}" if base
                              else f"{name}_count {r[-1][1]}")
@@ -244,7 +278,7 @@ class MetricsHub:
             """A ``Histogram.snapshot()`` (the form a lane publishes) as rows."""
             if not s:
                 return [], 0
-            return list(s["buckets"].items()), s["sum"]
+            return [(le, acc, None) for le, acc in s["buckets"].items()], s["sum"]
 
         snaps = {m: r.snapshot() for m, r in self.models.items()}
         metric("tpuserve_requests_total", "counter", "Requests recorded per model",
@@ -456,4 +490,40 @@ class MetricsHub:
                    "Tokens streamed to clients per model (:generate lanes)",
                    [({"model": m}, s["tokens_emitted"]) for m, s in gsnap.items()
                     if s.get("tokens_emitted") is not None])
+        dsnap = self.jobs.durability_snapshot() if self.jobs is not None else None
+        if dsnap is not None:
+            metric("tpuserve_journal_records_appended_total", "counter",
+                   "Job-journal records appended this process lifetime",
+                   [({}, dsnap["journal"]["appended"])])
+            metric("tpuserve_journal_dropped_records", "gauge",
+                   "Corrupt/truncated journal records skipped at replay",
+                   [({}, dsnap["dropped_records"])])
+            metric("tpuserve_recovered_jobs", "gauge",
+                   "Unfinished jobs re-enqueued by the boot-time replay",
+                   [({}, dsnap["recovered_jobs"])])
+            metric("tpuserve_restored_done_jobs", "gauge",
+                   "Terminal jobs (results included) restored at replay",
+                   [({}, dsnap["restored_done"])])
+            metric("tpuserve_journal_replay_ms", "gauge",
+                   "Wall milliseconds the boot-time journal replay took",
+                   [({}, dsnap["replay_ms"])])
+            metric("tpuserve_idempotent_dedupes_total", "counter",
+                   "Submits answered with a prior job via Idempotency-Key",
+                   [({}, dsnap["deduped_submits"])])
+        if self.binary_requests:
+            metric("tpuserve_binary_lane_requests_total", "counter",
+                   "Requests decoded on the zero-copy binary tensor lane, per model",
+                   [({"model": m}, n) for m, n in sorted(self.binary_requests.items())])
+        if self.tracer is not None:
+            tsnap = self.tracer.snapshot()
+            metric("tpuserve_traces_finished_total", "counter",
+                   "Request traces finished this process lifetime",
+                   [({}, tsnap["finished"])])
+            metric("tpuserve_trace_spans_dropped_total", "counter",
+                   "Spans dropped by per-trace span budgets",
+                   [({}, tsnap["dropped_spans"])])
+            metric("tpuserve_traces_pinned", "gauge",
+                   "Flight-recorder pins (slowest / recent errored traces)",
+                   [({"kind": "slow"}, tsnap["pinned_slow"]),
+                    ({"kind": "errored"}, tsnap["pinned_errored"])])
         return "\n".join(lines) + "\n"

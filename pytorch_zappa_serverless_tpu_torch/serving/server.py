@@ -14,6 +14,14 @@ Routes (the JAX package's, for the port's slices):
   takes ``"to": "host"|"disk"|"none"``): 400 for an unknown action or tier,
   404 for an unknown model, 409 for a pinned or busy model (or ``disk``
   without a checkpoint store);
+- ``GET /admin/trace`` (trace summaries, newest first; ``model``,
+  ``status``, ``min_ms``, ``limit``; the flight recorder's pins) and ``GET
+  /admin/trace/{trace_id}`` (one span tree; 404 once evicted);
+- ``POST /admin/profile {"seconds", "top"}`` (a ``torch.profiler`` window
+  over live traffic and its device ops by time, ``utils/xplane.py``) and
+  ``POST /debug/trace {"seconds"}`` (the window as a Chrome trace under
+  ``trace_dir``): 409 while a capture runs, 400 outside ``seconds`` ∈
+  [0.05, 60], 500 if the profiler does not start;
 - ``POST /v1/models/{name}:predict``, and ``/predict`` / ``/classify`` for
   the first configured model (405 for an async-only model);
 - ``POST /v1/models/{name}:submit`` → 202 ``{"job": ...}`` (an
@@ -35,8 +43,16 @@ Routes (the JAX package's, for the port's slices):
 A predict body is JSON: one input (``{"text": ...}``, ``{"input_ids":
 [...]}``, ``{"b64": ...}``, ``{"array": [...], "rate": N}`` or a pre-decoded
 image array) or ``{"instances": [...]}`` with N inputs that are admitted
-together and co-batch on the device; any other body (an image or WAV
-file) is the input's raw bytes.  An input that preprocesses to a list of
+together and co-batch on the device; an ``application/x-tpuserve-tensor``
+frame (``serving/wire.py``: its blocks are read-only views over the body,
+several blocks or ``FLAG_LIST`` the instances); any other body (an image or
+WAV file) is the input's raw bytes.  The Content-Type decides the lane: a
+frame is never sniffed as JSON.  A binary request gets a binary answer
+(``pack_response``: the meta block, then a JSON block a prediction) unless
+it sends ``Accept: application/json``; a malformed frame or a ``FLAG_META``
+request is 400, a declared size over ``tensor_max_bytes`` 413 (before any
+allocation), a frame with ``binary_lane`` off 415, and a multi-instance
+frame on ``:submit`` 400.  An input that preprocesses to a list of
 samples (Whisper's 30 s windows of long audio) runs them as that many
 samples, co-batched up to the bucket, and its answer is the model's
 ``meta["merge_results"]`` of theirs.  A model whose ``:predict`` decodes
@@ -66,6 +82,20 @@ model the watchdog has quarantined does.  While the server drains, work
 routes answer 503 + Retry-After and ``/healthz`` 503; what is in flight,
 streams included, runs to its end.
 
+Tracing (``serving/tracing.py``): every work request takes its
+``X-Request-Id`` (or gets one) and opens a trace (joining a
+``traceparent``); every answer carries ``X-Request-Id`` and work answers
+``X-Trace-Id``, error bodies ``request_id`` and ``trace_id``.  A
+``:predict`` trace holds admission → queue → batch_form → device (with the
+dispatch thread's exec) → respond; a ``:generate`` stream's id is its
+request id (``X-Stream-Id``), its trace ends with the stream; a
+``:submit``'s trace belongs to the job until its terminal state.  With
+``journal_dir`` the job queue is durable (``serving/durability.py``): an
+``Idempotency-Key`` header or body field answers the known job, across
+restarts too, before any work; ``/healthz`` and ``/metrics`` carry the
+replay's ``recovered_jobs``, ``restored_done``, ``replay_ms`` and
+``deduped_submits``.
+
 HTTP/1.1 with keep-alive and ``Content-Length`` bodies (no chunked request
 bodies; an event stream's response is chunked).  The event loop never
 touches a device tensor: batches and the generation lanes' programs go to
@@ -76,28 +106,35 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import contextvars
 import gc
 import json
 import math
 import re
 import signal
 import threading
+import time
+import uuid
 from http import HTTPStatus
-from typing import Any
+from pathlib import Path
+from typing import Any, NamedTuple
 from urllib.parse import parse_qs
 
 import torch
 
 from ..config import ServeConfig
 from ..engine.loader import Engine, build_engine
-from ..utils.logging import get_logger, log_event
+from ..utils.logging import current_trace_id, get_logger, log_event
+from . import wire
 from .batcher import DynamicBatcher, Overloaded
+from .durability import JobJournal
 from .generation import GenerationScheduler, PagedGenerationScheduler
 from .jobs import JobQueue
 from .kvcache import KVPoolExhausted
 from .lifecycle import ColdStart, LifecycleManager
 from .metrics import MetricsHub
 from .resilience import DeadlineExceeded, ResilienceHub, run_with_retry
+from .tracing import Tracer, new_request_id
 from .watchdog import Watchdog
 
 log = get_logger("serving.server")
@@ -108,11 +145,21 @@ _SUBMIT = re.compile(r"^/v1/models/([^:/]+):submit$")
 _GENERATE = re.compile(r"^/v1/models/([^:/]+):generate$")
 _JOB = re.compile(r"^/v1/jobs/([^/]+)$")
 _ADMIN_MODEL = re.compile(r"^/admin/models/([^/]+)$")
+_ADMIN_TRACE = re.compile(r"^/admin/trace/([^/]+)$")
+_KINDS = ((":predict", "predict"), (":generate", "generate"), (":submit", "submit"))
 
 Response = tuple[int, Any, dict[str, str]]
 # How often a stream that waits for its next token checks that its client
 # is still connected.
 _GONE_POLL_S = 0.05
+
+
+class RawBody(NamedTuple):
+    """A response body sent as it is, under its own Content-Type (a binary
+    lane answer frame)."""
+
+    data: bytes
+    ctype: str
 
 
 class _HttpError(Exception):
@@ -121,8 +168,68 @@ class _HttpError(Exception):
         self.status = status
 
 
+class _ReqCtx:
+    """One work request's observability handle: the request id (the
+    client's ``X-Request-Id``, or a new one), the trace (joining a
+    ``traceparent``), the trace id in the logging context, and whether the
+    body came on the binary lane.  ``_handle_conn`` opens it before the
+    handler and closes it after the answer: the trace finishes with the
+    answer's status, unless the job lane took it over (:meth:`detach`)."""
+
+    def __init__(self, server: "Server", headers: dict[str, str], kind: str,
+                 model: str | None, path: str, start: float):
+        self.server = server
+        self.kind = kind
+        self.model = model
+        self.request_id = headers.get("x-request-id") or new_request_id()
+        self.span = server.tracer.start(
+            kind, model=model, traceparent=headers.get("traceparent"), start=start,
+            request_id=self.request_id, **({"path": path} if model is None else {}))
+        self.trace = self.span.trace
+        self._cv_token = current_trace_id.set(self.trace.trace_id)
+        self.binary = False
+        self.detached = False
+
+    @property
+    def trace_id(self) -> str:
+        return self.trace.trace_id
+
+    def headers(self) -> dict[str, str]:
+        return {"X-Request-Id": self.request_id, "X-Trace-Id": self.trace_id}
+
+    def detach(self):
+        """The job lane finishes the trace at the job's terminal state."""
+        self.detached = True
+
+    def close(self, status: int):
+        if self.detached:
+            self.span.end()
+        else:
+            # The root's own status wins over the HTTP code: a stream that
+            # failed mid-way answered 200 but pins as an errored trace.
+            err = status >= 400 or self.span.status == "error"
+            self.server.tracer.finish(self.trace, "error" if err else "ok")
+        current_trace_id.reset(self._cv_token)
+
+
+# The work request being handled by the current task (set by _handle_conn).
+_request_ctx: contextvars.ContextVar[_ReqCtx | None] = contextvars.ContextVar(
+    "tpuserve_request_ctx", default=None)
+
+
 def _error(status: int, msg: str, **extra) -> Response:
-    return status, {"error": msg, **extra}, {}
+    """The error envelope.  Inside a work request it carries the request and
+    trace ids and emits the matching log record, so no 4xx or 5xx of the
+    work surface leaves without ids a client can quote."""
+    body = {"error": msg, **extra}
+    ctx = _request_ctx.get()
+    if ctx is not None:
+        body.setdefault("request_id", ctx.request_id)
+        body.setdefault("trace_id", ctx.trace_id)
+        ctx.span.annotate(http_status=status, error=msg)
+        log_event(log, "request error", kind=ctx.kind, model=ctx.model, status=status,
+                  error=msg, request_id=ctx.request_id, trace_id=ctx.trace_id)
+    return status, body, {}
 
 
 def _error_retry(status: int, msg: str, retry_after_s: float, **extra) -> Response:
@@ -171,16 +278,52 @@ def _unwrap_b64(payload: Any) -> Any:
     return payload
 
 
-def _decode_body(body: bytes, headers: dict[str, str]) -> Any:
-    """A predict body → the payload: a JSON body (by its Content-Type, or one
+class _Refused(Exception):
+    """A helper's early answer (a 4xx or 5xx) for its handler to return."""
+
+    def __init__(self, response: Response):
+        super().__init__(response[1].get("error"))
+        self.response = response
+
+
+class _BinaryLaneDisabled(Exception):
+    """A tensor frame arrived while ``ServeConfig.binary_lane`` is off (415)."""
+
+
+def _content_type(headers: dict[str, str]) -> str:
+    return headers.get("content-type", "").split(";")[0].strip().lower()
+
+
+def _decode_body(body: bytes, headers: dict[str, str],
+                 extract: dict[str, Any] | None = None) -> Any:
+    """A work body → the payload: a JSON body (by its Content-Type, or one
     that starts with ``{`` or ``[``) parsed, with a ``{"b64": ...}`` body
-    unwrapped to its bytes; any other body as its raw bytes.  A body that
-    starts like JSON and does not parse is refused (ValueError), where the
-    JAX server would take it as raw bytes: an image file never starts so."""
-    ctype = headers.get("content-type", "").split(";")[0].strip().lower()
+    unwrapped to its bytes; any other body as its raw bytes.  ``extract``
+    maps top-level fields to defaults: those a JSON object carries are
+    popped into it before the unwrap (``idempotency_key`` must not be lost
+    when ``{"b64": ..., "idempotency_key": ...}`` collapses to bytes).  A
+    body that starts like JSON and does not parse is refused (ValueError),
+    where the JAX server would take it as raw bytes: an image file never
+    starts so.  The binary lane is decoded before this (``Server._payload``)."""
+    ctype = _content_type(headers)
     if ctype == "application/json" or body[:1] in (b"{", b"["):
-        return _unwrap_b64(json.loads(body))
+        data = json.loads(body)
+        if extract is not None and isinstance(data, dict):
+            for key in list(extract):
+                if key in data:
+                    extract[key] = data.pop(key)
+        return _unwrap_b64(data)
     return body
+
+
+def _payload_error(e: Exception) -> Response:
+    """A payload that failed to decode → its status: a declared frame past
+    the cap 413, a frame on a disabled lane 415, anything else 400."""
+    if isinstance(e, wire.FrameTooLarge):
+        return _error(413, f"tensor frame too large: {e}")
+    if isinstance(e, _BinaryLaneDisabled):
+        return _error(415, str(e))
+    return _error(400, f"bad request body: {type(e).__name__}: {e}")
 
 
 class EventStream:
@@ -231,8 +374,11 @@ async def _next_or_gone(aw, reader: asyncio.StreamReader):
 
 
 def _encode(status: int, obj: Any, headers: dict[str, str], keep_alive: bool) -> bytes:
-    """A JSON body, or a ``str`` as Prometheus text exposition 0.0.4."""
-    if isinstance(obj, str):
+    """A JSON body, a ``str`` as Prometheus text exposition 0.0.4, or a
+    :class:`RawBody` as it is."""
+    if isinstance(obj, RawBody):
+        data, ctype = obj.data, obj.ctype
+    elif isinstance(obj, str):
         data, ctype = obj.encode(), "text/plain; version=0.0.4; charset=utf-8"
     else:
         data = json.dumps(obj, separators=(",", ":")).encode()
@@ -262,6 +408,17 @@ class Server:
             engine = build_engine(cfg, device)
         self.engine = engine
         self.metrics = MetricsHub()
+        # Per-request span trees in a bounded ring and a flight recorder,
+        # queryable on /admin/trace.
+        self.tracer = Tracer(ring=cfg.trace_ring, flight_slow=cfg.trace_flight_slow,
+                             flight_errors=cfg.trace_flight_errors,
+                             max_spans=cfg.trace_max_spans)
+        self.metrics.tracer = self.tracer
+        # Binary-lane requests decoded, by model (event loop only).
+        self.binary_requests: dict[str, int] = {}  # guarded-by: event-loop
+        self.metrics.binary_requests = self.binary_requests
+        # True while /admin/profile or /debug/trace holds the profiler.
+        self._tracing = False  # guarded-by: event-loop
         self.resilience = ResilienceHub(cfg)
         self.metrics.resilience = self.resilience
         self.metrics.faults = engine.runner.faults
@@ -271,7 +428,6 @@ class Server:
         self._rebuild_lock = asyncio.Lock()
         self.batchers: dict[str, DynamicBatcher] = {}  # guarded-by: event-loop
         self.schedulers: dict[str, GenerationScheduler | PagedGenerationScheduler] = {}  # guarded-by: event-loop
-        self._streams = 0  # guarded-by: event-loop
         self.jobs: JobQueue | None = None  # guarded-by: event-loop
         # The residency manager and the checkpoint store (ckpt_store_dir),
         # made at start; the manager is there whatever the residency knobs,
@@ -295,6 +451,9 @@ class Server:
             "/admin/recover": {"POST": self.handle_recover},
             "/admin/reload": {"POST": self.handle_reload},
             "/admin/models": {"GET": self.handle_admin_models},
+            "/admin/trace": {"GET": self.handle_trace_list},
+            "/admin/profile": {"POST": self.handle_profile},
+            "/debug/trace": {"POST": self.handle_debug_trace},
         }
 
     @property
@@ -380,12 +539,22 @@ class Server:
         self.metrics.lifecycle = self.lifecycle
         self.metrics.generation = lambda: {n: s.gen_snapshot()
                                            for n, s in self.schedulers.items()}
+        journal = None
+        if self.cfg.journal_dir:
+            # The durable job journal: start() below replays it, so an
+            # acknowledged submit survives a kill -9.
+            journal = JobJournal(self.cfg.journal_dir, fsync=self.cfg.journal_fsync)
         self.jobs = JobQueue(self._run_job, run_jobs=self._run_jobs,
                              batch_of=self._job_batch_of,
                              max_backlog=self.cfg.job_max_backlog,
                              keep_done=self.cfg.job_keep_done,
                              max_result_mb=self.cfg.job_max_result_mb,
-                             result_ttl_s=self.cfg.job_result_ttl_s).start()
+                             result_ttl_s=self.cfg.job_result_ttl_s,
+                             journal=journal, tracer=self.tracer).start()
+        self.metrics.jobs = self.jobs
+        if journal is not None:
+            log_event(log, "durable jobs recovered", recovered=self.jobs.recovered_jobs,
+                      restored_done=self.jobs.restored_done, replay_ms=self.jobs.replay_ms)
         if self.cfg.watchdog_interval_s > 0:
             self.watchdog = Watchdog(self, self.cfg.watchdog_interval_s,
                                      max_attempts=self.cfg.recover_max_attempts,
@@ -428,35 +597,52 @@ class Server:
                 try:
                     req = await _read_request(reader)
                 except _HttpError as e:
-                    writer.write(_encode(*_error(e.status, str(e)), keep_alive=False))
+                    status, obj, _ = _error(e.status, str(e))
+                    writer.write(_encode(status, obj, {"X-Request-Id": new_request_id()},
+                                         keep_alive=False))
                     await writer.drain()
                     break
                 if req is None:
                     break
+                t_read = time.perf_counter()
                 method, path, query, version, headers, body = req
                 keep = (version == "HTTP/1.1"
                         and headers.get("connection", "").lower() != "close")
                 work = _is_work(method, path)
-                if work and self.draining:
-                    writer.write(_encode(*_error_retry(
-                        503, "server is draining; retry against another replica",
-                        self.cfg.drain_timeout_s or 1.0, draining=True), keep))
-                    await writer.drain()
-                    continue
-                # Work in flight, what a drain waits for, until its response
-                # (a stream's last event included) is written.
-                self._inflight += int(work)
+                # Every work request is traced; other routes echo (or mint)
+                # the request id only.
+                ctx = self._open_ctx(headers, path, t_read) if work else None
+                token = _request_ctx.set(ctx)
+                status = 500
                 try:
-                    status, obj, extra = await self._dispatch(method, path, headers, body,
-                                                              reader, query)
-                    if isinstance(obj, EventStream):
-                        keep = await self._write_stream(writer, reader, status, obj, extra,
-                                                        keep)
-                    else:
-                        writer.write(_encode(status, obj, extra, keep))
+                    if work and self.draining:
+                        status, obj, extra = _error_retry(
+                            503, "server is draining; retry against another replica",
+                            self.cfg.drain_timeout_s or 1.0, draining=True)
+                        writer.write(_encode(status, obj, {**extra, **ctx.headers()}, keep))
                         await writer.drain()
+                        continue
+                    # Work in flight, what a drain waits for, until its
+                    # response (a stream's last event included) is written.
+                    self._inflight += int(work)
+                    try:
+                        status, obj, extra = await self._dispatch(method, path, headers, body,
+                                                                  reader, query)
+                        ids = (ctx.headers() if ctx is not None else
+                               {"X-Request-Id": headers.get("x-request-id") or new_request_id()})
+                        extra = {**ids, **extra}
+                        if isinstance(obj, EventStream):
+                            keep = await self._write_stream(writer, reader, status, obj, extra,
+                                                            keep)
+                        else:
+                            writer.write(_encode(status, obj, extra, keep))
+                            await writer.drain()
+                    finally:
+                        self._inflight -= int(work)
                 finally:
-                    self._inflight -= int(work)
+                    _request_ctx.reset(token)
+                    if ctx is not None:
+                        ctx.close(status)
                 if not keep:
                     break
         except (ConnectionError, asyncio.IncompleteReadError, ValueError):
@@ -465,6 +651,45 @@ class Server:
             self._conns.discard(writer)
             self._handlers.discard(asyncio.current_task())
             writer.close()
+
+    def _open_ctx(self, headers: dict[str, str], path: str, start: float) -> _ReqCtx:
+        kind = next((k for suffix, k in _KINDS if path.endswith(suffix)), "predict")
+        m = re.match(r"^/v1/models/([^:/]+):", path)
+        model = m.group(1) if m else self.default_model
+        return _ReqCtx(self, headers, kind, model, path, start)
+
+    def note_binary_request(self, model: str | None) -> None:
+        """One binary-lane request decoded (event loop only): the counter
+        behind ``tpuserve_binary_lane_requests_total``."""
+        key = model or ""
+        self.binary_requests[key] = self.binary_requests.get(key, 0) + 1
+
+    def _payload(self, body: bytes, headers: dict[str, str],
+                 extract: dict[str, Any] | None = None) -> Any:
+        """The request's payload by its lane.  The Content-Type decides: an
+        ``application/x-tpuserve-tensor`` body is a frame (unpacked to
+        read-only views over the body; several blocks, or ``FLAG_LIST``,
+        become ``{"instances": [...]}``), never sniffed as JSON; anything
+        else goes through :func:`_decode_body`.  Raises
+        :class:`wire.FrameError` (400; :class:`wire.FrameTooLarge` 413) or
+        :class:`_BinaryLaneDisabled` (415), for :func:`_payload_error`."""
+        if _content_type(headers) != wire.TENSOR_CONTENT_TYPE:
+            return _decode_body(body, headers, extract)
+        if not self.cfg.binary_lane:
+            raise _BinaryLaneDisabled("the binary tensor lane is disabled on this server "
+                                      "(ServeConfig.binary_lane=false); send JSON or raw bodies")
+        ctx = _request_ctx.get()
+        t0 = time.perf_counter()
+        items, flags = wire.unpack(body, max_bytes=self.cfg.tensor_max_bytes or MAX_BODY_BYTES)
+        if flags & wire.FLAG_META:
+            raise wire.FrameError("FLAG_META frames are response-only")
+        if ctx is not None:
+            ctx.binary = True
+            ctx.span.child("binary_decode", start=t0, blocks=len(items)).end()
+            self.note_binary_request(ctx.model)
+        if flags & wire.FLAG_LIST or len(items) > 1:
+            return {"instances": items}
+        return items[0]
 
     async def _write_stream(self, writer: asyncio.StreamWriter, reader, status: int,
                             stream: EventStream, headers: dict[str, str], keep: bool) -> bool:
@@ -497,7 +722,8 @@ class Server:
                 (_GENERATE, {"POST": self.handle_generate}, (reader,)),
                 (_JOB, {"GET": self.handle_job}, ()),
                 (_ADMIN_MODEL, {"GET": self.handle_admin_model_get,
-                                "POST": self.handle_admin_model_post}, ())):
+                                "POST": self.handle_admin_model_post}, ()),
+                (_ADMIN_TRACE, {"GET": self.handle_trace_get}, ())):
             m = pattern.match(path)
             if m is not None:
                 args = (m.group(1), body, headers, *tail)
@@ -579,6 +805,9 @@ class Server:
             "forecast": self.resilience.queue_forecast(self.batchers),
             "jobs_backlog": self.jobs.depth if self.jobs else 0,
             "jobs_backlog_by_model": self.jobs.depths if self.jobs else {},
+            # The journal's replay at boot (absent with durability off).
+            **({"durability": d} if self.jobs is not None
+               and (d := self.jobs.durability_snapshot()) is not None else {}),
             # A cold model is not a health problem: it activates on demand.
             "residency": self._registered_models(),
         }, {}
@@ -595,6 +824,132 @@ class Server:
             out["jobs"] = {"backlog": self.jobs.depth, "active": self.jobs.active,
                            "backlog_by_model": self.jobs.depths}
         return 200, out, {}
+
+    # -- admin: request tracing and device profiles ---------------------------
+    async def handle_trace_list(self, body: bytes, headers=None, query: str = "") -> Response:
+        """``GET /admin/trace``: trace summaries, newest first, filtered by
+        ``model``, ``status`` (ok|error|open), ``min_ms`` and ``limit``
+        (default 50), with the flight recorder's pins and the tracer's
+        counters."""
+        q = {k: v[-1] for k, v in parse_qs(query).items()}
+        try:
+            min_ms = float(q.get("min_ms", 0.0))
+            limit = int(q.get("limit", 50))
+        except (TypeError, ValueError):
+            return _error(400, "min_ms must be a number, limit an integer")
+        return 200, {"traces": self.tracer.list(model=q.get("model"), status=q.get("status"),
+                                                min_ms=min_ms, limit=limit),
+                     "pinned": self.tracer.pinned(), **self.tracer.snapshot()}, {}
+
+    async def handle_trace_get(self, trace_id: str, body: bytes,
+                               headers: dict[str, str]) -> Response:
+        """``GET /admin/trace/{id}``: one trace's span tree (404 once the
+        ring and the flight recorder have both let it go)."""
+        trace = self.tracer.get(trace_id)
+        if trace is None:
+            return _error(404, "unknown trace id (evicted from the ring, or never traced); "
+                               "see GET /admin/trace")
+        return 200, {"trace": trace.tree()}, {}
+
+    @staticmethod
+    def _capture_args(body: bytes) -> tuple[float, int]:
+        """``seconds`` and ``top`` of a capture request; :class:`_Refused`
+        with the 400 otherwise."""
+        try:
+            req = json.loads(body) if body else {}
+        except ValueError:
+            req = None
+        if not isinstance(req, dict):
+            raise _Refused(_error(400, "body must be a JSON object"))
+        try:
+            seconds = float(req.get("seconds", 2.0))
+            top = int(req.get("top", 15))
+        except (TypeError, ValueError):
+            raise _Refused(_error(400, "seconds must be a number, top an integer")) from None
+        if not 0.05 <= seconds <= 60.0:  # NaN fails too
+            raise _Refused(_error(400, "seconds must be in [0.05, 60]"))
+        return seconds, top
+
+    async def _capture(self, seconds: float, prefix: str):
+        """A ``torch.profiler`` window of ``seconds`` over live traffic:
+        ``(capture, dir)`` with ``dir`` new under ``trace_dir``, or
+        :class:`_Refused` with 409 while another capture runs (one profiler
+        a process) or 500 if the profiler did not start.  The profiler
+        starts and stops on the dispatch thread: a CUDA graph capture (a
+        restore, a lazy bucket) refuses other threads' CUDA calls and may
+        run there at any time."""
+        from ..utils import xplane
+
+        if self._tracing or xplane.busy():
+            raise _Refused(_error(409, "a trace capture is already running"))
+        out_dir = (Path(self.cfg.trace_dir).expanduser()
+                   / f"{prefix}{time.strftime('%Y%m%d-%H%M%S')}-{uuid.uuid4().hex[:6]}")
+        self._tracing = True
+        runner = self.engine.runner
+        cap = xplane.Capture(cuda=self.engine.device.type == "cuda")
+        try:
+            out_dir.mkdir(parents=True, exist_ok=True)
+            try:
+                await runner.run_fn(cap.start)
+            except xplane.ProfilerBusy as e:
+                raise _Refused(_error(409, str(e))) from None
+            except Exception as e:
+                log.exception("profiler failed to start")
+                raise _Refused(_error(500, f"the profiler failed to start: "
+                                           f"{type(e).__name__}: {e}")) from None
+            try:
+                await asyncio.sleep(seconds)
+            finally:
+                # Stopped even when the client goes away mid-window, and on a
+                # runner poisoned meanwhile (run_fn_sync skips the latch but
+                # still runs on the dispatch thread).
+                try:
+                    await runner.run_fn(cap.stop)
+                except Exception:
+                    await asyncio.get_running_loop().run_in_executor(
+                        None, runner.run_fn_sync, cap.stop)
+        finally:
+            self._tracing = False
+        return cap, out_dir
+
+    async def handle_profile(self, body: bytes, headers=None, query: str = "") -> Response:
+        """``POST /admin/profile {"seconds": 2, "top": 15}``: a timed
+        ``torch.profiler`` capture of live traffic and its device ops by
+        time (``utils/xplane.py``: compute ops, with copies and memsets
+        apart), in one call.  409 while a capture runs, 400 outside
+        ``seconds`` ∈ [0.05, 60]; a window that recorded no op answers 500,
+        never an empty list as a success."""
+        from ..utils import xplane
+
+        try:
+            seconds, top = self._capture_args(body)
+            cap, out_dir = await self._capture(seconds, "profile-")
+        except _Refused as r:
+            return r.response
+        loop = asyncio.get_running_loop()
+        breakdown = await loop.run_in_executor(None, xplane.top_ops, cap.prof, top)
+        if not breakdown["ops"]:
+            return _error(500, f"the {seconds:g} s capture recorded no op (no device work "
+                               "ran in the window, or the profiler saw none)", dir=str(out_dir))
+        log_event(log, "profile captured", dir=str(out_dir), seconds=seconds,
+                  ops=len(breakdown["ops"]))
+        return 200, {"dir": str(out_dir), "seconds": seconds, **breakdown}, {}
+
+    async def handle_debug_trace(self, body: bytes, headers=None, query: str = "") -> Response:
+        """``POST /debug/trace {"seconds": 2}``: a ``torch.profiler`` capture
+        of live traffic written as a Chrome trace (chrome://tracing or
+        Perfetto) under ``trace_dir``; the same 400 and 409 as
+        ``/admin/profile``."""
+        try:
+            seconds, _ = self._capture_args(body)
+            cap, out_dir = await self._capture(seconds, "")
+        except _Refused as r:
+            return r.response
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(None, cap.export_chrome_trace, str(out_dir / "trace.json"))
+        files = sorted(str(p.relative_to(out_dir)) for p in out_dir.rglob("*") if p.is_file())
+        log_event(log, "trace captured", dir=str(out_dir), seconds=seconds, files=len(files))
+        return 200, {"dir": str(out_dir), "seconds": seconds, "files": files}, {}
 
     async def handle_predict_default(self, body: bytes, headers=None,
                                      query: str = "") -> Response:
@@ -725,10 +1080,15 @@ class Server:
         if refused is not None:
             return refused
         mr = self.resilience.model(name)
+        ctx = _request_ctx.get()
+        # The admission stage, anchored at the root's start, so that the
+        # stage chain (admission → queue → device → respond) tiles the
+        # request's wall time.
+        adm = ctx.span.child("admission", start=ctx.span.t0) if ctx is not None else None
         try:
-            payload = _decode_body(body, headers)
-        except (ValueError, TypeError) as e:
-            return _error(400, f"bad request body: {type(e).__name__}: {e}")
+            payload = self._payload(body, headers)
+        except (ValueError, TypeError, _BinaryLaneDisabled) as e:
+            return _payload_error(e)
         cm = batcher.model
         try:
             deadline_ms = self._deadline_ms(headers, payload, cm.cfg)
@@ -792,12 +1152,17 @@ class Server:
         # The await is bounded by what is left of the deadline: a client
         # gone at T gets its 504 at T, not when the batch lands.
         remaining = max(deadline - loop.time(), 0.001) if deadline is not None else None
+        span = ctx.span if ctx is not None else None
+        if adm is not None:
+            adm.end()
         try:
             if len(samples) == 1 and instances is None:
                 result, timing = await asyncio.wait_for(
-                    batcher.submit(samples[0], seqs[0], deadline=deadline), remaining)
+                    batcher.submit(samples[0], seqs[0], deadline=deadline, span=span),
+                    remaining)
+                t_done = timing.pop("t_done")
             else:
-                futs = batcher.submit_many(samples, seqs, deadline=deadline)
+                futs = batcher.submit_many(samples, seqs, deadline=deadline, span=span)
                 pairs = await asyncio.wait_for(asyncio.gather(*futs), remaining)
                 grouped, i = [], 0
                 for width in widths:
@@ -805,6 +1170,7 @@ class Server:
                     grouped.append(meta["merge_results"](part) if width > 1 else part[0])
                     i += width
                 result = grouped if instances is not None else grouped[0]
+                t_done = max(t.pop("t_done") for _, t in pairs)
                 timing = {k: max(t[k] for _, t in pairs)
                           for k in ("queue_ms", "device_ms", "total_ms", "batch_size")}
                 timing["samples"] = len(pairs)
@@ -821,9 +1187,26 @@ class Server:
         except Exception as e:
             log.exception("predict failed for %s", name)
             return _error(500, f"inference failed: {type(e).__name__}")
-        return 200, {"model": name, "timing": timing, "predictions": result}, {
-            "X-Queue-Ms": str(timing["queue_ms"]),
-            "X-Device-Ms": str(timing["device_ms"])}
+        # The respond stage, stitched to the device's end: grouping and the
+        # answer's encode.
+        rsp = ctx.span.child("respond", start=t_done) if ctx is not None else None
+        out_meta = {"model": name, "timing": timing}
+        answer: Any
+        if (ctx is not None and ctx.binary
+                and "application/json" not in headers.get("accept", "")):
+            # A binary answer: the meta block, then a block a prediction
+            # (structured predictions as JSON blocks), in one frame.
+            # ``Accept: application/json`` opts back into a JSON answer.
+            preds = result if instances is not None else [result]
+            answer = RawBody(bytes(wire.pack_response(out_meta, preds,
+                                                      list_frame=instances is not None)),
+                             wire.TENSOR_CONTENT_TYPE)
+        else:
+            answer = {**out_meta, "predictions": result}
+        if rsp is not None:
+            rsp.end()
+        return 200, answer, {"X-Queue-Ms": str(timing["queue_ms"]),
+                             "X-Device-Ms": str(timing["device_ms"])}
 
     # -- streaming generation -----------------------------------------------
     async def handle_generate(self, name: str, body: bytes, headers: dict[str, str],
@@ -856,10 +1239,12 @@ class Server:
 
     async def _generate_admitted(self, name: str, sched, body: bytes, headers: dict[str, str],
                                  reader: asyncio.StreamReader | None) -> Response:
+        ctx = _request_ctx.get()
+        adm = ctx.span.child("admission", start=ctx.span.t0) if ctx is not None else None
         try:
-            payload = _decode_body(body, headers)
-        except (ValueError, TypeError) as e:
-            return _error(400, f"bad request body: {type(e).__name__}: {e}")
+            payload = self._payload(body, headers)
+        except (ValueError, TypeError, _BinaryLaneDisabled) as e:
+            return _payload_error(e)
         stream, max_new = True, None
         if isinstance(payload, dict):
             stream = bool(payload.get("stream", True))
@@ -889,7 +1274,7 @@ class Server:
             return _error(400, "input fans out to multiple windows; use "
                                f"POST /v1/models/{name}:predict for long inputs")
         try:
-            gen = sched.submit(sample, max_new)
+            gen = sched.submit(sample, max_new, span=ctx.span if ctx is not None else None)
         except KVPoolExhausted as e:
             return _error_retry(429, str(e), e.retry_after_s, kv_blocks_free=e.free_blocks,
                                 kv_blocks_needed=e.needed_blocks,
@@ -900,8 +1285,11 @@ class Server:
             return _error(400, str(e))
         except RuntimeError as e:  # the lane is stopped
             return _error_retry(503, str(e), 1.0)
-        self._streams += 1
-        stream_id = f"{name}-{self._streams}"
+        if adm is not None:
+            adm.end()
+        # The stream is named by its request id (the client's X-Request-Id
+        # when it sent one), as the reference names it.
+        stream_id = ctx.request_id if ctx is not None else new_request_id()
 
         def final_body(tokens: list[int]) -> dict:
             out: dict = {"done": True, "tokens": tokens}
@@ -912,6 +1300,8 @@ class Server:
                                 "segments_to_first_token": gen.segments_to_first_token}
             if gen.cached_tokens:
                 out.setdefault("stats", {})["prefix_cached_tokens"] = gen.cached_tokens
+            if ctx is not None:
+                out.setdefault("stats", {})["trace_id"] = ctx.trace_id
             return out
 
         if not stream:
@@ -943,15 +1333,37 @@ class Server:
                     break
                 yield {"token": ev}
             if gen.done.exception() is not None:
-                yield {"error": str(gen.done.exception())}
+                err = str(gen.done.exception())
+                out = {"error": err}
+                if ctx is not None:
+                    # The 200 is already sent: the event carries the ids and
+                    # the root turns to error, so the trace pins as errored.
+                    out.update(request_id=ctx.request_id, trace_id=ctx.trace_id)
+                    ctx.span.status = "error"
+                    ctx.span.annotate(error=err)
+                    log_event(log, "request error", kind=ctx.kind, model=name, status=200,
+                              error=err, request_id=ctx.request_id, trace_id=ctx.trace_id)
+                yield out
             else:
                 yield final_body(gen.done.result())
 
-        return 200, EventStream(events, lambda: sched.cancel(gen)), {"X-Stream-Id": stream_id}
+        def cancel():
+            if ctx is not None:
+                ctx.span.annotate(cancelled=True)
+            sched.cancel(gen)
+
+        return 200, EventStream(events, cancel), {"X-Stream-Id": stream_id}
 
     # -- async job lane -----------------------------------------------------
     async def handle_submit(self, name: str, body: bytes,
                             headers: dict[str, str]) -> Response:
+        """``:submit``: 202 ``{"job": ...}`` at once.  An ``Idempotency-Key``
+        header (or the body's ``idempotency_key``) that names a known job,
+        this process's or one the journal replayed, answers that job
+        (``"deduped": true``) before any work.  A multi-instance tensor
+        frame is 400: a job runs one payload."""
+        ctx = _request_ctx.get()
+        adm = ctx.span.child("admission", start=ctx.span.t0) if ctx is not None else None
         lc = self.lifecycle
         if name not in self.engine.models and (lc is None or not lc.knows(name)):
             return self._unknown_model(name)
@@ -960,28 +1372,39 @@ class Server:
             # activates a cold model when it runs (cause "job").
             lc.note_use(name)
         # An Idempotency-Key that matches a known job answers it at once: the
-        # work already ran (or is running).
+        # work already ran (or is running), even while the model is sick.
         idem_key = headers.get("idempotency-key")
         prior = self.jobs.dedupe(idem_key)
         if prior is not None:
-            return 200, {"job": prior.public(), "deduped": True}, {}
+            return self._deduped(prior, ctx)
         # The job lane shares the dispatch lane: a quarantined model or an
         # open breaker refuses submits too.
         refused = self._unavailable(name)
         if refused is not None:
             return refused
+        extract: dict[str, Any] = {"idempotency_key": None}
         try:
-            payload = json.loads(body)
-        except (ValueError, UnicodeDecodeError) as e:
-            return _error(400, f"bad request body: {type(e).__name__}: {e}")
-        if isinstance(payload, dict) and "idempotency_key" in payload:
-            # The body field twin of the header.
-            idem_key = idem_key or str(payload.pop("idempotency_key"))
+            payload = self._payload(body, headers, extract)
+        except (ValueError, TypeError, UnicodeDecodeError, _BinaryLaneDisabled) as e:
+            return _payload_error(e)
+        if ctx is not None and ctx.binary and isinstance(payload, dict) and "instances" in payload:
+            # The journal replays one payload a job; several instances are
+            # :predict's.
+            return _error(400, "multi-instance tensor frames are :predict-only; submit one "
+                               "block per job")
+        if extract["idempotency_key"] is not None:
+            # The body field twin of the header, checked again after the
+            # decode; dedupe and submit below run with no await between them.
+            idem_key = idem_key or str(extract["idempotency_key"])
             prior = self.jobs.dedupe(idem_key)
             if prior is not None:
-                return 200, {"job": prior.public(), "deduped": True}, {}
+                return self._deduped(prior, ctx)
+        if adm is not None:
+            adm.end()
         try:
-            job = self.jobs.submit(name, payload, idempotency_key=idem_key)
+            job = self.jobs.submit(name, payload, idempotency_key=idem_key,
+                                   span=ctx.span if ctx is not None else None,
+                                   request_id=ctx.request_id if ctx is not None else None)
         except OverflowError as e:
             return _error_retry(429, str(e), 1.0, backlog=self.jobs.depths.get(name, 0),
                                 max_backlog=self.jobs.max_backlog)
@@ -989,21 +1412,42 @@ class Server:
             # Shut down: the client should go elsewhere, with an honest
             # horizon for probing this process again.
             return _error_retry(503, str(e), 1.0)
+        if ctx is not None:
+            # The trace now belongs to the job: the worker adds its queue,
+            # run, device and journal spans and finishes it at the job's
+            # terminal state, so /admin/trace/{id} shows submit → done.
+            ctx.detach()
         return 202, {"job": job.public()}, {}
+
+    @staticmethod
+    def _deduped(prior, ctx: _ReqCtx | None) -> Response:
+        if ctx is not None:
+            ctx.span.point("idempotent_dedupe", job=prior.id)
+        ids = {"request_id": ctx.request_id, "trace_id": ctx.trace_id} if ctx is not None else {}
+        return 200, {"job": prior.public(), "deduped": True, **ids}, {}
 
     async def handle_job(self, job_id: str, body: bytes,
                          headers: dict[str, str]) -> Response:
+        """A job poll.  Not traced (it would churn the ring), but correlated:
+        the body carries the poll's request id and the job's trace id, and
+        ``X-Trace-Id`` names the job's trace."""
+        request_id = headers.get("x-request-id") or new_request_id()
         job = self.jobs.get(job_id)
         if job is None:
-            return _error(404, "unknown job id")
-        out = {"job": job.public()}
+            log_event(log, "request error", kind="job_poll", status=404,
+                      error="unknown job id", request_id=request_id)
+            return 404, {"error": "unknown job id", "request_id": request_id,
+                         "trace_id": None}, {"X-Request-Id": request_id}
+        out = {"job": job.public(), "request_id": request_id, "trace_id": job.trace_id}
+        ids = {"X-Request-Id": request_id, **({"X-Trace-Id": job.trace_id}
+                                              if job.trace_id else {})}
         if job.status == "expired":
             # 410 Gone, not a 200 that looks like a live job: the result was
             # evicted by the retention budget; the client resubmits.
             out["expired"] = {"finished": job.finished,
                               "result_ttl_s": self.jobs.result_ttl_s}
-            return 410, out, {}
-        return 200, out, {}
+            return 410, out, ids
+        return 200, out, ids
 
     async def _finalize(self, cm, results: list) -> list:
         """The servable's host-side ``finalize`` (SD-1.5: PNG + base64) in
@@ -1065,14 +1509,35 @@ class Server:
         good = [i for i, s in enumerate(samples) if not isinstance(s, BaseException)]
         out: list = list(samples)  # failed slots already hold their Exception
         if good:
+            # The device span on the head job's trace (its batch-mates
+            # named), parenting the runner's per-slice spans.
+            spans = [getattr(j, "run_span", None) or getattr(j, "span", None) for j in jobs]
+            head = next((i for i in good if spans[i] is not None), None)
+            parent = spans[head] if head is not None else None
+            dev = None
+            if parent is not None:
+                mates = [jobs[i].trace_id for i in good if i != head and jobs[i].trace_id]
+                dev = parent.child("device", batch_size=len(good),
+                                   **({"batch_mates": mates[:8]} if mates else {}))
             # The batcher's contract: transient faults retry, every outcome
             # feeds the model's breaker.
             batch = [samples[i] for i in good]
-            results = await run_with_retry(
-                lambda: self.engine.runner.run_chunked(cm, batch),
-                self.resilience.model(cm.servable.name), None,
-                clock=loop.time, sleep=asyncio.sleep)
-            for i, r in zip(good, await self._finalize(cm, results), strict=True):
+            try:
+                results = await run_with_retry(
+                    lambda: self.engine.runner.run_chunked(cm, batch, span=dev),
+                    self.resilience.model(cm.servable.name), None,
+                    clock=loop.time, sleep=asyncio.sleep)
+            except BaseException as e:
+                if dev is not None:
+                    dev.end(status="error", error=f"{type(e).__name__}: {e}")
+                raise
+            if dev is not None:
+                dev.end()
+            fin = parent.child("finalize") if parent is not None else None
+            finals = await self._finalize(cm, results)
+            if fin is not None:
+                fin.end()
+            for i, r in zip(good, finals, strict=True):
                 out[i] = r
         return out
 

@@ -34,7 +34,11 @@ ENV_VALUES = {"profile": "prod", "host": "0.0.0.0", "port": "9123",
               "host_idle_drop_s": "30", "host_budget_bytes": "2000000",
               "ckpt_store_dir": "/srv/tpuserve/store", "ckpt_chunk_bytes": "65536",
               "lifecycle_tick_s": "0.25", "activation_max_wait_s": "30",
-              "activation_estimate_ms": "2500"}
+              "activation_estimate_ms": "2500",
+              "journal_dir": "/srv/tpuserve/journal", "journal_fsync": "interval",
+              "trace_ring": "64", "trace_flight_slow": "2", "trace_flight_errors": "5",
+              "trace_max_spans": "128", "trace_dir": "/srv/tpuserve/traces",
+              "binary_lane": "false", "tensor_max_bytes": "4096"}
 
 
 def _env(name):
@@ -212,3 +216,26 @@ def test_lazy_effective_matches_the_reference(glob, own, pinned, lazy):
     mc = dict(name="m", lazy_load=own, pinned=pinned)
     assert lazy_effective(PC.ServeConfig(lazy_load=glob), PC.ModelConfig(**mc)) is lazy
     assert j_lazy(JC.ServeConfig(lazy_load=glob), JC.ModelConfig(**mc)) is lazy
+
+
+def test_profile_loads_the_request_plane_fields_as_the_reference(tmp_path):
+    values = {"journal_dir": str(tmp_path / "j"), "journal_fsync": "never",
+              "trace_ring": 32, "trace_flight_slow": 3, "trace_flight_errors": 4,
+              "trace_max_spans": 64, "trace_dir": str(tmp_path / "t"),
+              "binary_lane": False, "tensor_max_bytes": 1 << 20}
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({"default_profile": "p", "profiles": {"p": values}}))
+    got, want = PC.load_config(path), JC.load_config(path)
+    for field, value in values.items():
+        assert getattr(got, field) == getattr(want, field) == value, field
+
+
+def test_profiler_port_is_refused_by_name(tmp_path):
+    """The reference's jax.profiler live-server port has no torch
+    counterpart: the port refuses it with an error that names it, not a
+    bare TypeError."""
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({"profiler_port": 9012, "models": []}))
+    assert JC.load_config(path).profiler_port == 9012
+    with pytest.raises(ValueError, match="profiler_port"):
+        PC.load_config(path)

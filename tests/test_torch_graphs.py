@@ -215,6 +215,30 @@ def test_sd_chunk_reads_nothing_on_the_host(request):
     assert out["latents"].shape == (1, 8, 8, 4) and out["context"] is state["context"]
 
 
+def test_sd_prepare_and_finalize_read_nothing_on_the_host(request):
+    """SD-1.5's prepare (the CLIP encode) and finalize (the VAE decode) are
+    captured too: neither reads a tensor on the host."""
+    sv = S.make_sd15_servable("sd15", ModelConfig(
+        name="sd15", dtype="float32", batch_buckets=(1,),
+        extra={"variant": "tiny", "height": 64, "width": 64, "num_steps": 4, "chunk_steps": 2}))
+    ch = sv.meta["chunked"]
+    batch = EC.default_collate([sv.preprocess({"prompt": "a fox", "seed": 3})], (1,),
+                               sv.input_spec((1,)))
+    inputs = {k: torch.from_numpy(v) for k, v in batch.items()}
+    request.getfixturevalue("no_host_reads")
+    with torch.inference_mode():
+        state = ch["prepare"](sv.module.tree(), inputs)
+        image = ch["finalize"](sv.module.tree(), state)["image"]
+    assert state["latents"].shape == (1, 8, 8, 4) and image.shape == (1, 64, 64, 3)
+
+
+def test_sd_edge_graph_keys_in_words():
+    assert EC._label(("prepare", (1,))) == "prepare 1"
+    key = ("finalize", (("context", (2, 77, 768)), ("g", (1, 1, 1, 1)),
+                        ("latents", (1, 64, 64, 4))))
+    assert EC._label(key) == "finalize latents[1, 64, 64, 4]"
+
+
 # -- the counters --------------------------------------------------------------
 
 def test_counter_registry_holds_every_kernel():

@@ -32,7 +32,8 @@ def test_importing_the_port_loads_no_jax():
     for lane in ("serving.generation", "serving.kvcache", "serving.prefixcache",
                  "ops.paged_attention", "engine.genkernels", "faults",
                  "serving.resilience", "serving.watchdog", "serving.lifecycle",
-                 "serving.ckptstore", "engine.streamio"):
+                 "serving.ckptstore", "engine.streamio", "serving.wire", "serving.tracing",
+                 "serving.durability", "utils.xplane", "tools.crashtest"):
         assert f"pytorch_zappa_serverless_tpu_torch.{lane}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -54,6 +55,13 @@ def test_importing_the_port_loads_no_jax():
         "p = tempfile.mkdtemp() + '/m.tpu.ckpt'\n"
         "W.save_stream({'w': torch.ones(3, dtype=torch.bfloat16)}, p)\n"
         "assert W.open_stream(p)[0]['w'].dtype == torch.bfloat16\n"
+        # A bf16 frame and a journal round trip load nothing forbidden.
+        "from pytorch_zappa_serverless_tpu_torch.serving import wire, durability\n"
+        "items, _ = wire.unpack(bytes(wire.pack([torch.ones(2, dtype=torch.bfloat16)])))\n"
+        "assert items[0].dtype == torch.bfloat16\n"
+        "j = durability.JobJournal(tempfile.mkdtemp())\n"
+        "j.append({'ev': 'submit', 'id': 'a', 'model': 'm', 'payload': b'x'}); j.close()\n"
+        "assert j.replay().jobs[0]['payload'] == b'x'\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -1133,3 +1133,100 @@ def test_bf16_stream_loads_on_the_card(cuda_device, tmp_path):
     for name, want in W.flatten_tree(tree).items():
         assert flat[name].is_cuda and flat[name].dtype == want.dtype
         assert torch.equal(flat[name].cpu().view(torch.uint8), want.view(torch.uint8))
+
+
+def _sd_tiny():
+    return _engine("sd15", dtype="bfloat16", batch_buckets=(1,),
+                   extra={"variant": "tiny", "height": 256, "width": 256, "num_steps": 4,
+                          "chunk_steps": 2})
+
+
+@pytest.mark.cuda
+def test_sd_prepare_and_finalize_graphs_replay_as_eager(cuda_device):
+    """SD-1.5's prepare (the CLIP encode) and finalize (the VAE decode) are
+    captured a bucket at warm-up: each replay equals its eager run byte for
+    byte, launches no kernel of the port (exact counts: none), keeps a job's
+    state its own when another job's prepare replays after it, and a
+    demotion releases both graphs while a restore captures them again."""
+    from pytorch_zappa_serverless_tpu_torch.ops import counters
+
+    eng = _sd_tiny()
+    try:
+        cm = eng.model("sd15")
+        ch = cm.servable.meta["chunked"]
+        assert any(g.startswith("prepare") for g in cm.graphs)
+        assert any(g.startswith("finalize") for g in cm.graphs)
+        jobs = [[cm.servable.preprocess({"prompt": p, "seed": i})]
+                for i, p in enumerate(("a red fox", "a blue boat"))]
+        run = eng.runner.run_fn_sync
+
+        def check():
+            states = []
+            for samples in jobs:
+                _, want = cm.chunk_prepare_eager(samples)
+                before = counters.snapshot()
+                _, got = cm.chunk_prepare(samples)
+                assert counters.delta(before) == dict.fromkeys(before, 0)
+                assert got.keys() == want.keys()
+                assert all(torch.equal(got[k], want[k]) for k in want)
+                states.append((got, {k: v.clone() for k, v in want.items()}))
+            # The first job's state survived the second job's replay.
+            got, want = states[0]
+            assert all(torch.equal(got[k], want[k]) for k in want)
+            for (state, _), samples in zip(states, jobs):
+                for rows in ch["chunk_rows"]:
+                    state = cm.chunk_step(state, rows)
+                want = cm.chunk_finalize_eager(state, samples)
+                before = counters.snapshot()
+                got = cm.chunk_finalize(state, samples)
+                assert counters.delta(before) == dict.fromkeys(before, 0)
+                assert np.array_equal(got[0]["pixels"], want[0]["pixels"])
+            return got[0]["pixels"]
+
+        first = run(check)
+        graphs = cm.graphs
+        run(cm.host_offload)
+        assert cm.graphs == []
+        run(cm.device_restore)
+        assert sorted(cm.graphs) == sorted(graphs)
+        assert np.array_equal(run(check), first)
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_a_profile_open_across_a_restore_capture(cuda_device):
+    """The profiler started on the dispatch thread stays open while a host
+    restore captures every bucket again there: the captures succeed, the
+    replays equal the eager forward byte for byte, and the window names the
+    replayed graphs' kernels."""
+    from pytorch_zappa_serverless_tpu_torch.engine.compiled import default_collate
+    from pytorch_zappa_serverless_tpu_torch.utils import xplane
+
+    eng = _engine("resnet18", dtype="bfloat16", batch_buckets=(1, 4),
+                  extra={"image_size": 64, "resize_to": 72})
+    try:
+        cm = eng.model("resnet18")
+        run = eng.runner.run_fn_sync
+        rng = np.random.default_rng(0)
+        samples = [cm.servable.preprocess(rng.integers(0, 255, (64, 64, 3)).astype(np.uint8))
+                   for _ in range(4)]
+        batch = default_collate(samples, (4,), cm.servable.input_spec((4,)))
+        want = run(cm.forward_eager, batch)
+        cap = xplane.Capture(cuda=True)
+        run(cap.start)
+        try:
+            assert xplane.busy()
+            with pytest.raises(xplane.ProfilerBusy):
+                run(xplane.Capture(cuda=True).start)
+            run(cm.host_offload)
+            run(cm.device_restore)
+            got = run(cm.forward, batch)
+        finally:
+            run(cap.stop)
+        assert not xplane.busy()
+        assert _same(got, want)
+        top = xplane.top_ops(cap.prof, 50)
+        assert top["ops"] and top["device_compute_ms"] > 0
+    finally:
+        eng.shutdown()

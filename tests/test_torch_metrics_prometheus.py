@@ -154,8 +154,9 @@ def test_label_escaping_round_trips():
 
 
 def test_histograms_are_exact_and_carry_no_exemplars():
-    """The reference's buckets carry trace exemplars; the port's wait for
-    its request tracing, so no bucket line has one, and the counts are exact
+    """A bucket carries an exemplar only for a traced observation (one with
+    a trace id; tests/test_torch_serverpath.py holds those): these records
+    carry none, so no bucket line has one, and the counts are exact
     cumulative ones with a JSON twin."""
     hub = _loaded_hub()
     text = hub.render_prometheus()

@@ -343,7 +343,7 @@ class ScriptedRunner:
         self.delay_s = delay_s
         self.dispatches = 0
 
-    async def run(self, model, samples, seq=None):
+    async def run(self, model, samples, seq=None, span=None):
         self.dispatches += 1
         if self.delay_s:
             await asyncio.sleep(self.delay_s)
