@@ -195,6 +195,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    prepare and finalize graphs against eager, bitwise, no kernel launched,
    and a job's seconds with them captured and eager.
 
+17. stream mobility and speculation on the paged lane: one server with
+   GPT-2 small int8 on the paged pool (16-token pages, 64-token chunks, 8
+   slots, 32 new tokens) as ``gpt2`` with ``spec_draft: gpt2_draft`` (GPT-2
+   small bf16 from the same seed, k = 4), as ``gpt2_plain`` without
+   speculation, and as ``gpt2_swap`` on a pool of 12 pages of 16 and the
+   trash page.  (1) The same 16 SSE streams (8 greedy, 8 sampled) with
+   speculation on and off, twice each: greedy streams under the margin rule
+   at the verify's 40 rows, sampled ones replayed tick by tick (the
+   rejection sampling of ``speculative_verify_core`` on the target's and
+   the draft's teacher-forced logits with the lane's draws, every verdict
+   and draw under the margin rule), on against off parting only at
+   undecided positions, the acceptance rate, fallback ticks and tokens/s
+   printed; then 8 of them with ``spec_mismatch`` on every tick (almost
+   nothing accepted, the same rules, the residual mass at each rejection
+   printed).  (2) Four swap-lane streams
+   alone, then together: they swap to host (``pressure`` migrations, no
+   eviction) and each equals its run alone byte for byte; with a
+   ``migration`` drop on every swap they evict instead and still finish.
+   (3) Two ``cli serve`` processes (``tools/streammove.py``): a stream moved
+   mid-decode by snapshot, cutover, import, commit and attach, byte-equal to
+   the source's control with no token lost or repeated; moved again with its
+   prompt pages deduped; a corrupt page caught and fetched again; a drop
+   503 with Retry-After, and an abort resuming in place.  (4) The draft
+   demoted to the host tier: the target decodes plain with no error; the
+   draft restored: its graphs captured again and speculation back.
+   ``int8_matmul``'s launches exactly the lanes' graph runs (49 a verify,
+   at M = 40, which phase 3 holds against the plain version), plus the two
+   server processes' from their ``/metrics``;
+
 With ``--profile``, every path is also profiled eager against replayed:
 device-busy and wall time, the idle share, and the host's calls, where a
 replay must issue one ``cudaGraphLaunch`` a forward, chunk, generate call
@@ -212,6 +241,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import base64
 import gc
 import importlib.util
@@ -381,7 +411,8 @@ def generate_int8_cases() -> list[tuple]:
     its decoder projections over the task prompt at M = 4B and its head at
     M = B.  The segments run at the pool's rows (GPT-2 8, Whisper 4),
     which the cases above hold.  Row counts those cases hold already are
-    left out."""
+    left out.  Phase 17 adds the verify forward's M = S x (k + 1) = 40
+    (its paged chunks' M = G x C lie among the prefill rows)."""
     pow2 = lambda n: [1 << i for i in range(n.bit_length())]  # noqa: E731
     gpt2_b, whisper_b = pow2(GEN["gen_slots"]), pow2(GEN_WHISPER["gen_slots"])
     held = set(GPT2_DECODE_M + (GPT2_PREFILL_M,))
@@ -392,6 +423,10 @@ def generate_int8_cases() -> list[tuple]:
     cases += [(m, k, n, *DTYPES[0], False) for m in whisper_m for k, n in WHISPER_KN]
     cases += [(m, *WHISPER_HEAD, *DTYPES[1], False) for m in whisper_b
               if m not in WHISPER_M[:2]]
+    # Phase 17's speculative verify runs the projections and the head at
+    # S x (k + 1) rows, timed: a verify forward's share of the product.
+    cases += [(SPEC_M, k, n, *DTYPES[0], True) for k, n in GPT2_KN]
+    cases += [(SPEC_M, *GPT2_HEAD, *DTYPES[1], True)]
     return cases
 
 
@@ -487,6 +522,18 @@ def phase_int8_work() -> dict:
             f"({row['ms'] / row['library_ms']:.3f} x), bound {row['bound_ms']:.5f} ms "
             f"({row['bound_by']}; {row['bound_ms'] / row['ms']:.3f} of the kernel's time)")
         del ops
+    return out
+
+
+def per_verify(timings: dict) -> dict:
+    """One speculative verify forward's int8_matmul at M = ``SPEC_M`` from
+    the per-shape rows: GPT-2 small's 12 layers of four projections and the
+    f32 lm head.  The bound is the sum of the launches' bounds; it names
+    what bounds most of it."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms")
+    out = {key: 12 * sum(timings[SPEC_M, k, n][key] for k, n in GPT2_KN)
+           + timings[(SPEC_M, *GPT2_HEAD)][key] for key in keys}
+    out["bound_by"] = "operations" if out.pop("ops_ms") >= out.pop("bytes_ms") else "bytes"
     return out
 
 
@@ -2681,7 +2728,8 @@ def run_vit_embed(profile: bool) -> dict:
 # pool with chunked prefill and the prefix cache, and ``gpt2_tight``, the
 # same bf16 weights on a page pool of one full sequence, which must evict and
 # shed; and Whisper-tiny int8 on the slot pool.
-GEN = {"seq_buckets": (16, 64, 128), "max_new_tokens": 64, "gen_slots": 8,
+# 48 new tokens, so that the whole script stays within half its time limit.
+GEN = {"seq_buckets": (16, 64, 128), "max_new_tokens": 48, "gen_slots": 8,
        "segment_tokens": 8, "block_size": 16, "chunk": 64}
 GEN_STREAMS = 16
 # Timed bursts a GPT-2 lane serves after one that wakes the server: the
@@ -2699,6 +2747,13 @@ ERR_STREAMS = 6
 # 61-96 % a lane (PERF.md §2).
 ERR_LIMIT = 0.1
 DECIDED_MIN = 0.5
+# The same limit for the decisions of a sampled speculative stream
+# (:func:`spec_replay`), which are all draws and verdicts: with GPT-2's
+# near-flat seeded logits at T 0.8, a draw's winner is one of the ~10
+# top-40 tokens the filter may drop in about a quarter of the draws, and a
+# residual max(p - q, 0) of a draft that close to its target lies inside
+# the error band.  The card's decisions decided 0.49-0.52 (PERF.md §2).
+SPEC_DECIDED_MIN = 0.4
 
 
 def generate_config(arch: dict | None = None, whisper_arch: dict | None = None,
@@ -2716,9 +2771,10 @@ def generate_config(arch: dict | None = None, whisper_arch: dict | None = None,
                     extra={**lane, "params_dtype": "int8", **extra}),
         ModelConfig(name="gpt2_paged", builder="gpt2", dtype="bfloat16", batch_buckets=(1,),
                     seq_buckets=seq, **paged, extra={**lane, "params_dtype": "bfloat16"}),
+        # kv_migrate off: the eviction ladder alone (phase 17 swaps to host).
         ModelConfig(name="gpt2_tight", builder="gpt2", dtype="bfloat16", batch_buckets=(1,),
                     seq_buckets=seq[-1:], **paged, kv_num_blocks=tight, prefix_cache=False,
-                    extra={**lane, "params_dtype": "bfloat16", "gen_slots": 2}),
+                    kv_migrate=False, extra={**lane, "params_dtype": "bfloat16", "gen_slots": 2}),
         ModelConfig(name="whisper_tiny", dtype="bfloat16", batch_buckets=(1, 4),
                     extra={"max_new_tokens": max_new_tokens, "params_dtype": "int8",
                            "gen_slots": GEN_WHISPER["gen_slots"],
@@ -2906,7 +2962,8 @@ def sample_candidates(s: torch.Tensor, top_k: int, top_p: float, e: float):
     return sure, maybe | sure
 
 
-def hold_stream(ref: torch.Tensor, err: torch.Tensor, tokens: list[int], knobs: dict) -> dict:
+def hold_stream(ref: torch.Tensor, err: torch.Tensor, tokens: list[int], knobs: dict,
+                support: bool = False) -> dict:
     """One stream held against the fixed route's teacher-forced logits
     ``ref`` [n, V] under the margin rule: at each position the stream's token
     must be the route's choice wherever that choice is decided by more than
@@ -2914,8 +2971,12 @@ def hold_stream(ref: torch.Tensor, err: torch.Tensor, tokens: list[int], knobs: 
     logits.  Sampled: the same (seed, step) Gumbel draw over the tempered
     logits (error divided by T), where the choice must be surely inside the
     top-k / top-p filter and lead every token that may be inside it by more
-    than twice the error.  Returns the counts and the positions where it
-    fails."""
+    than twice the error.  With ``support`` a sampled token is held to the
+    filter alone (an evicted stream prefilled again draws its next token at
+    step 0 again, at a point its tokens do not show): it must be a token
+    that may be inside the top-k / top-p filter, and it is decided where
+    surely inside.
+    Returns the counts and the positions where it fails."""
     from pytorch_zappa_serverless_tpu_torch.ops import sampling as PS
 
     temp = max(float(knobs.get("temperature", 0.0)), 0.0)
@@ -2924,6 +2985,17 @@ def hold_stream(ref: torch.Tensor, err: torch.Tensor, tokens: list[int], knobs: 
     out = {"decided": 0, "undecided": 0, "agree_undecided": 0, "fail": []}
     for i, tok in enumerate(tokens):
         e = float(err[i])
+        if temp > 0 and support:
+            s = ref[i] / max(temp, 1e-3)
+            sure, maybe = sample_candidates(s, top_k, top_p, e / max(temp, 1e-3))
+            if not bool(maybe[tok]):
+                out["fail"].append((i, tok, "outside the filter", e))
+            if bool(sure[tok]):
+                out["decided"] += 1
+            else:
+                out["undecided"] += 1
+                out["agree_undecided"] += int(bool(maybe[tok]))
+            continue
         if temp > 0:
             s = ref[i] / max(temp, 1e-3)
             e = e / max(temp, 1e-3)
@@ -2950,20 +3022,21 @@ def hold_stream(ref: torch.Tensor, err: torch.Tensor, tokens: list[int], knobs: 
     return out
 
 
-def hold_streams(engine, name: str, streams: list[dict], rows: int,
-                 paged: tuple[int, int] | None = None) -> dict:
-    """Every finished stream of a lane held against the fixed route (the
-    margin rule of :func:`hold_stream`).  The step's logit error is the
-    largest difference between the route's logits at its own row count (one
-    request: 1) and cache, and the same step at the lane's (``rows``, the
-    pool's decode rows, and the pool's cache), where the int8 plan and
-    cuBLAS's algorithm change; for a paged lane (``paged`` = (chunk, page
-    size)) also at the lane's chunked prefill over pages
-    (:func:`chunked_chains`), where a prefill's rows change; the largest
-    such difference over the lane's first ``ERR_STREAMS`` streams serves
-    every step.  Fails at
-    any decided position that disagrees; prints the positions outside the
-    rule."""
+def stream_refs(engine, name: str, streams: list[dict], rows: int,
+                paged: tuple[int, int] | None = None,
+                err: float | None = None) -> tuple[list, float]:
+    """Each finished stream's teacher-forced logits through the fixed
+    route, and the lane's logit error: the largest difference between the
+    route's logits at its own row count (one request: 1) and cache, and the
+    same step at the lane's (``rows``, the pool's decode rows, and the
+    pool's cache), where the int8 plan and cuBLAS's algorithm change; for a
+    paged lane (``paged`` = (chunk, page size)) also at the lane's chunked
+    prefill over pages (:func:`chunked_chains`), where a prefill's rows
+    change; the largest such difference over the lane's first
+    ``ERR_STREAMS`` streams serves every step.  ``err`` is the lane's error
+    measured by an earlier call on the same lane's shapes: given, no step is
+    run at the lane's shapes again.  Returns ([(tokens, logits [n, V]), ...],
+    the error)."""
     cm = engine.model(name)
     eos = cm.servable.meta["continuous"]["eos_id"]
     whisper = "mel" in streams[0]
@@ -2975,27 +3048,44 @@ def hold_streams(engine, name: str, streams: list[dict], rows: int,
                 toks = list(s["tokens"]) + ([eos] if s["ended"] else [])
                 n, key = len(toks), s["mel"] if whisper else s["ids"]
                 ref = (whisper_chains if whisper else gpt2_chains)(cm, key, toks, n, 1)
-                err = torch.zeros(n)
-                if i < ERR_STREAMS:  # the lane's error, measured on its first streams
+                check(bool(torch.isfinite(ref).all()), f"{name}: reference logits not finite")
+                e = 0.0
+                if err is None and i < ERR_STREAMS:  # measured on the lane's first streams
                     lane = (whisper_chains(cm, key, toks, n, rows) if whisper else
                             gpt2_chains(cm, key, toks, n, rows,  # the pool's cache
                                         cm.servable.meta["continuous"]["total"]))
-                    err = (lane - ref).abs().amax(-1)
+                    e = float((lane - ref).abs().max())
                     if paged:
                         chunked = chunked_chains(cm, key, toks, n, rows, *paged)
-                        err = torch.maximum(err, (chunked - ref).abs().amax(-1))
-                res.append((toks, ref, err))
+                        e = max(e, float((chunked - ref).abs().max()))
+                res.append((toks, ref, e))
             return res
 
     res = engine.runner.run_fn_sync(chains)
     # One error for every step of the lane: the largest any step showed
     # across its streams (a step's own can miss a shape the lane ran).
-    err_max = max(float(err.max()) for _, _, err in res)
+    err_max = err if err is not None else max(e for _, _, e in res)
+    return [(toks, ref) for toks, ref, _ in res], err_max
+
+
+def hold_streams(engine, name: str, streams: list[dict], rows: int,
+                 paged: tuple[int, int] | None = None, support: bool = False,
+                 keep_refs: bool = False, err: float | None = None) -> dict:
+    """Every finished stream of a lane held against the fixed route's
+    teacher-forced logits under the margin rule of :func:`hold_stream`, with
+    the lane's logit error of :func:`stream_refs` (``rows``, ``paged`` and
+    ``err`` as there).  Fails at any decided position that disagrees, when
+    the error passes ``ERR_LIMIT`` or the decided share falls under
+    ``DECIDED_MIN``; prints the positions outside the rule.  ``support``
+    holds sampled streams to the filter alone (:func:`hold_stream`).  With
+    ``keep_refs`` the teacher-forced logits stay in the result (``refs``:
+    each stream's tokens and logits)."""
+    refs, err_max = stream_refs(engine, name, streams, rows, paged, err)
     total = {"streams": len(streams), "decided": 0, "undecided": 0, "agree_undecided": 0,
              "fail": [], "err_max": err_max}
-    for s, (toks, ref, err) in zip(streams, res):
-        check(bool(torch.isfinite(ref).all()), f"{name}: reference logits not finite")
-        got = hold_stream(ref, torch.full_like(err, err_max), toks, s.get("knobs", {}))
+    for s, (toks, ref) in zip(streams, refs):
+        got = hold_stream(ref, torch.full((len(toks),), err_max), toks, s.get("knobs", {}),
+                          support)
         for k in ("decided", "undecided", "agree_undecided"):
             total[k] += got[k]
         total["fail"] += [(s.get("tag", "?"), *f) for f in got["fail"]]
@@ -3012,6 +3102,274 @@ def hold_streams(engine, name: str, streams: list[dict], rows: int,
     check(total["decided_share"] >= DECIDED_MIN,
           f"{name}: the margin rule decides {total['decided_share']:.3f} of the positions, "
           f"under {DECIDED_MIN}")
+    if keep_refs:
+        total["refs"] = refs
+    return total
+
+
+def filtered_bounds(s: torch.Tensor, top_k: int, top_p: float, e: float):
+    """Bounds of the filtered softmax of tempered logits ``s`` [V] when each
+    may be off by up to ``e``: (p_lo, p_hi) [V] f64 and the filter's (sure,
+    maybe) of :func:`sample_candidates`.  A token's weight moves by at most
+    exp(e).  The kept set's normaliser Z holds every sure token and lies in
+    the maybe set; top-k keeps k tokens, so Z is at most exp(e) times the k
+    largest weights' sum Z_k, and top-p keeps more than ``top_p`` of its
+    top-k set's mass, so Z is at least exp(-e) top_p Z_k."""
+    sure, maybe = sample_candidates(s, top_k, top_p, e)
+    w = torch.exp(s.double() - float(s.max()))
+    k = w.shape[0] if top_k <= 0 else min(top_k, w.shape[0])
+    z_k = float(w.topk(k).values.sum())
+    z_lo = np.exp(-e) * max(float(w[sure].sum()), min(top_p, 1.0) * z_k)
+    z_hi = np.exp(e) * min(float(w[maybe].sum()), z_k)
+    zero = torch.zeros_like(w)
+    return (torch.where(sure, w * np.exp(-e) / z_hi, zero),
+            torch.where(maybe, w * np.exp(e) / z_lo, zero), sure, maybe)
+
+
+def gumbel_draw(v: torch.Tensor, sure: torch.Tensor, maybe: torch.Tensor,
+                e: float) -> tuple[int | None, torch.Tensor]:
+    """The filtered Gumbel-max draw ``argmax(kept(s) + g)`` with ``v = s +
+    g`` when each ``s`` may be off by up to ``e``: (the choice where
+    decided, else None; the tokens that may be chosen).  Decided: surely
+    kept and ahead of every token that may be kept by more than 2e."""
+    top = float(v.masked_fill(~sure, -float("inf")).max())
+    cand = maybe & (v + 2 * e >= top)
+    c = int(v.masked_fill(~sure, -float("inf")).argmax())
+    rivals = v.masked_fill(~maybe, -float("inf"))
+    rivals[c] = -float("inf")
+    return (c if float(v[c] - rivals.max()) > 2 * e else None), cand
+
+
+def log_draw(lo: torch.Tensor, hi: torch.Tensor,
+             g: torch.Tensor) -> tuple[int | None, torch.Tensor]:
+    """The draw ``argmax(log r + g)`` from weights ``r`` known to lie in
+    [``lo``, ``hi``] (f64): (the choice where decided, else None; the tokens
+    that may be chosen)."""
+    g = g.double()
+    a_lo, a_hi = torch.log(lo) + g, torch.log(hi) + g  # -inf where the weight is 0
+    best_lo = float(a_lo.max())
+    cand = a_hi >= best_lo
+    c = int(a_lo.argmax())
+    if best_lo == -float("inf"):
+        return None, cand
+    rivals = a_hi.clone()
+    rivals[c] = -float("inf")
+    return (c if best_lo > float(rivals.max()) else None), cand
+
+
+class SpecTicks:
+    """Record every speculative tick of the paged lane ``sched`` while the
+    ``with`` block runs, as the lane fans it out: for each active stream
+    (keyed by its prompt ids) its pending token and step, the tick's
+    proposals (as verified: shifted under ``spec_mismatch``), the accepted
+    count and the next pending token.  It observes only: the lane's own
+    fan-out runs unchanged."""
+
+    def __init__(self, sched):
+        self.sched, self.ticks = sched, {}
+
+    def __enter__(self):
+        sched, orig = self.sched, self.sched._distribute_spec
+
+        def recorded(n, out, props):
+            for slot, req in sched._active.items():
+                key = tuple(int(x) for x in sched._prompt_ids(req.sample))
+                k = int(n[slot])
+                self.ticks.setdefault(key, []).append(
+                    {"tok": int(sched._tok[slot]), "step": int(sched._step[slot]),
+                     "props": [int(x) for x in props[slot]], "n": k, "next": int(out[slot, k])})
+            return orig(n, out, props)
+
+        sched._distribute_spec = recorded
+        return self
+
+    def __exit__(self, *exc):
+        del self.sched._distribute_spec  # the class's own again
+        return False
+
+
+def spec_replay(ref_t: torch.Tensor, ref_d: torch.Tensor, toks: list[int], ticks: list[dict],
+                knobs: dict, e_t: float, e_d: float, mismatch_eos: int | None = None) -> dict:
+    """One sampled speculative stream's recorded ticks (:class:`SpecTicks`)
+    replayed: the rejection sampling of
+    ``ops.sampling.speculative_verify_core`` (Leviathan et al.) on the
+    target's and the draft's teacher-forced logits along the stream
+    (``ref_t``, ``ref_d`` [n, V]: row i is the logits token i is chosen
+    from) with the lane's draws, every decision under the margin rule: the
+    logits may be off by up to ``e_t`` (the target) and ``e_d`` (the
+    draft).
+
+    The first token is the prefill's plain draw at step 0.  A tick whose
+    pending token is token j (step j) proposes tokens j+1..j+K: proposal i
+    is the draft's draw at step j+1+i (``mismatch_eos``: shifted by one, as
+    the ``spec_mismatch`` fault does); the tick accepts its first n
+    (u·q(d) < p(d), ``spec_draws`` at step j), and token j+n+1 is the
+    residual draw from max(p - q, 0) at a rejection, else the bonus draw
+    from p.  The ticks must follow each other over the whole stream and
+    emit its tokens.  The draft's logits are known where its context is the
+    stream's: every proposal up to the first rejection, and under the fault
+    only up to the first acceptance (the draft drew on after its own,
+    unshifted token); past that a decision is counted undecided.  Decided:
+    where the bounds of :func:`filtered_bounds` settle it; a decided draw or
+    verdict that differs from the lane's fails the stream.  Returns the
+    counts of decisions (draft draws, verdicts, target draws), the first
+    failure, and the residual mass sum(max(p - q, 0)) at each rejection."""
+    from pytorch_zappa_serverless_tpu_torch.ops import sampling as PS
+
+    temp = max(float(knobs["temperature"]), 1e-3)
+    top_k, top_p = int(knobs.get("top_k", 0)), float(knobs.get("top_p", 1.0))
+    seed = int(knobs.get("seed", 0))
+    n_toks, V = len(toks), ref_t.shape[1]
+    et, ed = e_t / temp, e_d / temp
+    cpu = torch.device("cpu")
+    out = {"decided": 0, "undecided": 0, "fail": None, "mass": [],
+           "kinds": {"draft": [0, 0], "verdict": [0, 0], "draw": [0, 0]}}
+
+    def bounds(ref, P, e):
+        s = ref[P].float() / temp
+        return (s, *filtered_bounds(s, top_k, top_p, e))
+
+    def noise(sd, step, salt=None):
+        return PS.gumbel_noise(torch.tensor([sd]), torch.tensor([step]), V, cpu, salt)[0]
+
+    def count(kind, decided):
+        out["decided" if decided else "undecided"] += 1
+        out["kinds"][kind][0 if decided else 1] += 1
+
+    def fail(P, why):
+        out["fail"] = (P, why)
+        return out
+
+    def target_draw(P, g, what):
+        s, _, _, sure, maybe = bounds(ref_t, P, et)
+        c, cand = gumbel_draw(s + g, sure, maybe, et)
+        if not bool(cand[toks[P]]) or (c is not None and c != toks[P]):
+            return f"{what}: the lane drew {toks[P]}, the rule {c}"
+        count("draw", c is not None)
+        return None
+
+    why = target_draw(0, noise(seed, 0), "the prefill's draw at step 0")
+    if why:
+        return fail(0, why)
+    shift = (lambda x: x) if mismatch_eos is None else \
+        (lambda x: (x + 1) % max(mismatch_eos, 2))  # noqa: E731
+    j = 0
+    for t in ticks:
+        if t["step"] != j or j >= n_toks or toks[j] != t["tok"]:
+            return fail(j, f"a tick at step {t['step']} pending {t['tok']} where the stream "
+                           f"is at {j} ({toks[j] if j < n_toks else None})")
+        K, n, props = len(t["props"]), t["n"], t["props"]
+        emitted = props[:n] + [t["next"]]
+        if toks[j + 1:j + 2 + n] != emitted[:n_toks - j - 1]:
+            return fail(j + 1, f"the tick emitted {emitted}, the stream {toks[j + 1:j + 2 + n]}")
+        u = (PS.uniform_bits(torch.tensor([seed]), torch.tensor([j]), K, PS.ACCEPT_SALT)[0]
+             .double() * 2.0 ** -24).tolist()
+        for i in range(min(n + 1, K)):
+            P = j + 1 + i
+            if P >= n_toks:
+                break
+            if mismatch_eos is not None and i > 0:  # the draft drew after its own token
+                count("draft", False)
+                count("verdict", False)
+                continue
+            s_d, q_lo, q_hi, sure_d, maybe_d = bounds(ref_d, P, ed)
+            c, cand = gumbel_draw(s_d + noise(seed ^ PS.DRAFT_SEED_SALT, P), sure_d, maybe_d, ed)
+            if not any(shift(x) == props[i] for x in cand.nonzero().flatten().tolist()) or \
+                    (c is not None and shift(c) != props[i]):
+                return fail(P, f"proposal {i} at step {P}: the lane proposed {props[i]}, the "
+                               f"draft's draw is {c}")
+            count("draft", c is not None)
+            _, p_lo, p_hi, _, _ = bounds(ref_t, P, et)
+            d = props[i]
+            sure_acc = u[i] * float(q_hi[d]) < float(p_lo[d])
+            sure_rej = u[i] * float(q_lo[d]) >= float(p_hi[d])
+            if (i < n and sure_rej) or (i == n and sure_acc):
+                return fail(P, f"proposal {i} ({d}) {'accepted' if i < n else 'rejected'} where "
+                               f"the verdict is decided the other way (u {u[i]:.4f})")
+            count("verdict", sure_acc if i < n else sure_rej)
+        P = j + 1 + n
+        if P < n_toks:
+            if n == K:
+                why = target_draw(P, noise(seed, j, PS.BONUS_SALT), f"the bonus at step {j}")
+            elif mismatch_eos is not None and n > 0:
+                count("draw", False)
+                why = None
+            else:
+                _, p_lo, p_hi, _, _ = bounds(ref_t, P, et)
+                _, q_lo, q_hi, _, _ = bounds(ref_d, P, ed)
+                r_lo, r_hi = (p_lo - q_hi).clamp_min(0.0), (p_hi - q_lo).clamp_min(0.0)
+                g = noise(seed, j, PS.RESIDUAL_SALT ^ (n << 16))
+                if float(r_lo.sum()) <= 1e-9:  # the residual may vanish: then p itself
+                    s, _, _, sure, maybe = bounds(ref_t, P, et)
+                    c, cand = None, gumbel_draw(s + g, sure, maybe, et)[1] | \
+                        log_draw(r_lo, r_hi, g)[1]
+                else:
+                    c, cand = log_draw(r_lo, r_hi, g)
+                if not bool(cand[toks[P]]) or (c is not None and c != toks[P]):
+                    why = f"the residual at step {j}, proposal {n}: the lane drew {toks[P]}, " \
+                          f"the rule {c}"
+                else:
+                    why = None
+                    count("draw", c is not None)
+                    p_f, q_f = (torch.softmax(PS.filter_top_k_top_p(
+                        ref[P].float()[None] / temp, torch.tensor([top_k]),
+                        torch.tensor([top_p]))[0].double(), 0) for ref in (ref_t, ref_d))
+                    out["mass"].append(float((p_f - q_f).clamp_min(0).sum()))
+            if why:
+                return fail(P, why)
+        j = P
+    if j < n_toks - 1:
+        return fail(j, f"the ticks end at {j}, the stream at {n_toks - 1}")
+    return out
+
+
+def hold_spec_streams(engine, target: str, draft: str, streams: list[dict], ticks: dict,
+                      rows: int, draft_rows: int, paged: tuple[int, int], err: float,
+                      mismatch: bool = False) -> dict:
+    """Sampled speculative streams held by :func:`spec_replay` on their
+    recorded ticks (``ticks``, :class:`SpecTicks`' by prompt): the
+    target's teacher-forced logits with the lane's error ``err`` (the
+    verify's, measured on the lane's greedy streams), the draft's with its
+    own (measured here at its ``draft_rows`` decode rows and chunked
+    prefill).  Fails where a decided draw or verdict disagrees, when an
+    error passes ``ERR_LIMIT`` or the decided share of the decisions falls
+    under ``SPEC_DECIDED_MIN``.  ``mismatch``: every proposal was shifted by the
+    ``spec_mismatch`` fault."""
+    refs_t, _ = stream_refs(engine, target, streams, rows, paged, err)
+    refs_d, err_d = stream_refs(engine, draft, streams, draft_rows, paged)
+    eos = engine.model(target).servable.meta["continuous"]["eos_id"]
+    total = {"streams": len(streams), "decided": 0, "undecided": 0, "fail": [],
+             "err": err, "err_draft": err_d, "mass": [],
+             "kinds": {"draft": [0, 0], "verdict": [0, 0], "draw": [0, 0]}}
+    for s, (toks, ref_t), (_, ref_d) in zip(streams, refs_t, refs_d):
+        rec = ticks.get(tuple(s["ids"]))
+        check(rec, f"{s.get('tag')}: no speculative tick recorded")
+        got = spec_replay(ref_t, ref_d, toks, rec, s["knobs"], err, err_d,
+                          eos if mismatch else None)
+        if got["fail"]:
+            total["fail"].append((s.get("tag", "?"), *got["fail"]))
+        for k in ("decided", "undecided"):
+            total[k] += got[k]
+        for k, (a, b) in got["kinds"].items():
+            total["kinds"][k][0] += a
+            total["kinds"][k][1] += b
+        total["mass"] += got["mass"]
+    total["decided_share"] = total["decided"] / max(total["decided"] + total["undecided"], 1)
+    mass = total["mass"]
+    log(f"{target}: {total['streams']} sampled speculative streams replayed on their recorded "
+        f"ticks (draft {draft}{', every proposal shifted' if mismatch else ''}): "
+        f"{total['decided']} decisions decided, {total['undecided']} outside the margin rule "
+        f"(decided, undecided: {total['kinds']}), a decided share of "
+        f"{total['decided_share']:.3f} (at least {SPEC_DECIDED_MIN}); {len(mass)} residual draws, "
+        f"their mass sum(max(p - q, 0)) mean {float(np.mean(mass)) if mass else 0.0:.4f}, "
+        f"median {float(np.median(mass)) if mass else 0.0:.4f}; logit errors {err:.4g} "
+        f"(target) and {err_d:.4g} (draft, at most {ERR_LIMIT})")
+    check(not total["fail"], f"{target}: speculative streams the replay contradicts: "
+                             f"{total['fail'][:8]}")
+    check(err_d <= ERR_LIMIT, f"{draft}: the draft's logit error {err_d:.4g} exceeds {ERR_LIMIT}")
+    check(total["decided_share"] >= SPEC_DECIDED_MIN,
+          f"{target}: the replay decides {total['decided_share']:.3f} of the decisions, "
+          f"under {SPEC_DECIDED_MIN}")
     return total
 
 
@@ -3107,9 +3465,9 @@ def phase_generate_path(cfg, device: str = "cuda", streams: int = GEN_STREAMS,
                                        .tolist(), "max_new_tokens": 32}]
         out["prefix"] = [sse(srv.port, "gpt2_paged", b) for b in pbodies]
         out["prefix_bodies"] = pbodies
-        # The tight lane (12 pages of 16 at full width): two 72-token prompts,
+        # The tight lane (11 pages of 16 at full width): two 72-token prompts,
         # 5 pages each at admission, the second admitted while the first
-        # holds at most 6; the first grows to 9, so one must be evicted and
+        # holds at most 6; each grows to 8, so one must be evicted and
         # re-admitted.  Then one 120-token prompt decoding while a burst of
         # four more arrives (the first waits, the rest shed 429 with
         # Retry-After).
@@ -4380,6 +4738,7 @@ PLANE_BERT = (1, 8)        # BERT-base int8 batch buckets, at seq 128
 PLANE_VISION = (1, 8)      # ResNet-50 bf16 batch buckets, at 224x224
 PLANE_GEN = {"gen_slots": 8, "segment_tokens": 8, "max_new_tokens": 16}
 PLANE_REQS = 40            # sequential requests a lane for the client p50
+PLANE_TRACED = 16          # sequential traceparent-joined BERT requests, check 2
 PLANE_PROFILE_S = 1.0
 PLANE_SD_JOBS = 4          # the kill -9 test's journaled SD-1.5 jobs
 PLANE_SD_LATENCY_MS = 250  # injected a dispatch slice in the first process
@@ -4434,8 +4793,9 @@ def phase_plane_path(cfg, device: str = "cuda", bert_vocab: int = 30522,
     oversize, 415 with the lane off; every int8_matmul launch in a graph's
     replay); (2) tracing (ids on every answer, a given one echoed, a
     traceparent joining its trace, a BERT trace's admission → queue →
-    batch → device → exec tree whose exec span covers at least half of the
-    answer's ``X-Device-Ms`` and lies inside it, the root covering its chain
+    batch → device → exec tree for each of PLANE_TRACED requests, whose exec
+    span lies inside the answer's ``X-Device-Ms`` after its lane wait and
+    covers at least half of it at the median, the root covering its chain
     and inside the client's round trip, a
     GPT-2 int8 stream named by its request id, a 400 with both ids); (3)
     ``/admin/profile`` over BERT traffic naming int8_matmul's kernel, a
@@ -4548,39 +4908,60 @@ def phase_plane_path(cfg, device: str = "cuda", bert_vocab: int = 30522,
         status, raw, h = http_b(port, bert, json.dumps({"input_ids": bert_ids[2]}).encode(),
                                 {"Content-Type": "application/json", "X-Request-Id": "plane-7"})
         check(status == 200 and h["X-Request-Id"] == "plane-7", f"echo: {status} {h}")
-        tid, sid = "ab" * 16, "0123456789abcdef"
-        t = time.perf_counter()
-        status, raw, h = http_b(port, bert, json.dumps({"input_ids": bert_ids[3]}).encode(),
-                                {"Content-Type": "application/json",
-                                 "traceparent": f"00-{tid}-{sid}-01"})
-        client_ms = (time.perf_counter() - t) * 1e3
-        check(status == 200 and h["X-Trace-Id"] == tid, f"traceparent: {status} {h}")
-        device_ms = float(h["X-Device-Ms"])
-        status, t, _ = http_h(port, f"/admin/trace/{tid}")
-        check(status == 200, f"/admin/trace/{tid}: {status} {t}")
-        tree = t["trace"]["tree"]
-        check(t["trace"]["remote_parent"] == sid and t["trace"]["status"] == "ok",
-              f"trace {t['trace']}")
-        kids = {c["name"]: c for c in tree["children"]}
-        for stage in ("admission", "queue", "batch_form", "device", "respond"):
-            check(stage in kids, f"BERT trace lacks {stage}: {sorted(kids)}")
-        dev, ex = kids["device"], find_span(kids["device"], "exec")
-        check(ex is not None and ex["attrs"]["lane"] == "latency", f"no exec span: {dev}")
-        # The exec span (the dispatch thread's replay and synchronize) lies
-        # inside the batcher's device window and is most of it: the rest is
-        # the hop to the dispatch thread.
-        check(0.5 * device_ms <= ex["duration_ms"] <= device_ms + 0.002,
-              f"exec {ex['duration_ms']} ms against the device window {device_ms} ms")
-        # The server's root span lies inside the client's own clock.
-        check(tree["duration_ms"] <= client_ms,
-              f"root {tree['duration_ms']} ms past the client's round trip {client_ms} ms")
-        chain = sum(kids[s]["duration_ms"] for s in ("admission", "queue", "device", "respond"))
-        check(tree["duration_ms"] + 0.005 >= chain,
-              f"root {tree['duration_ms']} ms below its chain's sum {chain}")
-        out["trace"] = {s: kids[s]["duration_ms"] for s in ("admission", "queue", "batch_form",
-                                                           "device", "respond")}
-        out["trace"].update(exec=ex["duration_ms"], root=tree["duration_ms"],
-                            client=round(client_ms, 3))
+        # PLANE_TRACED requests in turn, each joining a traceparent of its own.
+        # Every one's exec span (the dispatch thread's replay and synchronize)
+        # lies inside the batcher's device window, after its lane wait; the
+        # rest of the window is the hop to the dispatch thread and back, host
+        # time that one sample can catch behind another thread of the process,
+        # so "exec is most of the window" is held on the median.
+        sid = "0123456789abcdef"
+        rows = []
+        for i in range(PLANE_TRACED):
+            tid = f"{i + 1:08x}" * 4
+            t = time.perf_counter()
+            status, raw, h = http_b(port, bert,
+                                    json.dumps({"input_ids": bert_ids[3]}).encode(),
+                                    {"Content-Type": "application/json",
+                                     "traceparent": f"00-{tid}-{sid}-01"})
+            client_ms = (time.perf_counter() - t) * 1e3
+            check(status == 200 and h["X-Trace-Id"] == tid, f"traceparent: {status} {h}")
+            device_ms = float(h["X-Device-Ms"])
+            status, t, _ = http_h(port, f"/admin/trace/{tid}")
+            check(status == 200, f"/admin/trace/{tid}: {status} {t}")
+            tree = t["trace"]["tree"]
+            check(t["trace"]["remote_parent"] == sid and t["trace"]["status"] == "ok",
+                  f"trace {t['trace']}")
+            kids = {c["name"]: c for c in tree["children"]}
+            for stage in ("admission", "queue", "batch_form", "device", "respond"):
+                check(stage in kids, f"BERT trace lacks {stage}: {sorted(kids)}")
+            dev, ex = kids["device"], find_span(kids["device"], "exec")
+            check(ex is not None and ex["attrs"]["lane"] == "latency", f"no exec span: {dev}")
+            wait = ex["attrs"]["lane_wait_ms"]
+            check(ex["start_ms"] + 0.002 >= dev["start_ms"] and ex["start_ms"]
+                  + ex["duration_ms"] <= dev["start_ms"] + device_ms + 0.002
+                  and wait + ex["duration_ms"] <= device_ms + 0.002,
+                  f"exec {ex['duration_ms']} ms at {ex['start_ms']} after a lane wait of "
+                  f"{wait} ms outside the device window {device_ms} ms at {dev['start_ms']}")
+            # The server's root span lies inside the client's own clock.
+            check(tree["duration_ms"] <= client_ms,
+                  f"root {tree['duration_ms']} ms past the client's round trip {client_ms} ms")
+            chain = sum(kids[s]["duration_ms"] for s in ("admission", "queue", "device",
+                                                          "respond"))
+            check(tree["duration_ms"] + 0.005 >= chain,
+                  f"root {tree['duration_ms']} ms below its chain's sum {chain}")
+            rows.append({**{s: kids[s]["duration_ms"] for s in ("admission", "queue",
+                                                                 "batch_form", "device",
+                                                                 "respond")},
+                         "exec": ex["duration_ms"], "lane_wait": wait,
+                         "hop_back": round(device_ms - wait - ex["duration_ms"], 3),
+                         "root": tree["duration_ms"], "client": round(client_ms, 3)})
+        share = statistics.median(r["exec"] / r["device"] for r in rows)
+        check(share >= 0.5, f"exec the median {share:.3f} of the device window over "
+                            f"{len(rows)} traced requests: {rows}")
+        out["trace"] = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+        out["trace_spread"] = {k: [min(r[k] for r in rows), max(r[k] for r in rows)]
+                               for k in ("device", "exec", "lane_wait", "hop_back")}
+        out["trace"]["exec_share"] = round(share, 4)
         r = sse(port, "gpt2", {"input_ids": rng.integers(0, gpt2_vocab - 1, 12).tolist()})
         check(r["status"] == 200 and r["final"] and r["final"]["done"], f"gpt2 stream {r}")
         hs = r["headers"]
@@ -4596,8 +4977,10 @@ def phase_plane_path(cfg, device: str = "cuda", bert_vocab: int = 30522,
         check(status == 400 and body["request_id"] == h["X-Request-Id"]
               and body["trace_id"] == h["X-Trace-Id"], f"400 ids: {status} {body} {h}")
         log(f"plane check 2: every work answer carried X-Request-Id and X-Trace-Id "
-            f"({len(out['ids'])} checked), a given id echoed, a traceparent joined; BERT "
-            f"trace ms {out['trace']}; the GPT-2 stream's id is its request id; a 400 "
+            f"({len(out['ids'])} checked), a given id echoed, {PLANE_TRACED} traceparents "
+            f"joined; BERT trace ms, the median of {PLANE_TRACED}: {out['trace']}, [min, max] "
+            f"{out['trace_spread']}; threads {threading.active_count()}; the GPT-2 stream's "
+            f"id is its request id; a 400 "
             f"carries both ids")
 
         # -- check 3: /admin/profile over traffic, and a restore under it ------------
@@ -4720,6 +5103,467 @@ def run_plane(card: str) -> dict:
             "flash_launches": crash["flash_launches"], "serve": run, "crash": crash}
 
 
+# -- phase 17: stream mobility and speculation ----------------------------------
+
+# The paged lanes of phase 17: GPT-2 small int8 (16-token pages, 64-token
+# chunks, 8 slots, 8-token segments, 32 new tokens), speculation with a
+# draft of k = 4 proposals a tick.
+MOB = {"seq_buckets": (16, 64, 128), "max_new_tokens": 32, "gen_slots": 8,
+       "segment_tokens": 8, "block_size": 16, "chunk": 64, "spec_k": 4}
+# The verify forward's rows: every slot's pending token and its proposals.
+SPEC_M = MOB["gen_slots"] * (MOB["spec_k"] + 1)
+MOB_SPEC_STREAMS = 16     # every other one sampled (GEN_SAMPLED)
+MOB_MISMATCH_STREAMS = 8  # the spec_mismatch burst: the first of those
+MOB_RES_STREAMS = 4       # each burst of the residency check
+# The swap lane: one prompt in each chunk bucket (8, 16, 32, 64), so each
+# prefill runs alone under pressure and unpressured alike, and 64 new
+# tokens each; a pool of one full sequence (12 pages) and the trash page,
+# which the four streams (24 pages at their ends) outgrow.
+MOB_SWAP_PROMPTS = (7, 15, 31, 63)
+MOB_SWAP_NEW = 64
+MOB_SWAP_BLOCKS = 13
+# The two-process migration: its prompt's tokens and the tokens a stream
+# streams before it moves.
+MOB_MOVE_PROMPT = 40
+
+
+def mobility_config(arch: dict | None = None, **extra):
+    """Phase 17's deployment: ``gpt2`` (GPT-2 small int8, paged, with
+    ``spec_draft: gpt2_draft``, k = 4), ``gpt2_plain`` (the same without
+    speculation), ``gpt2_draft`` (GPT-2 small from the same seed in bf16:
+    a second deploy, so its proposals are mostly accepted) and ``gpt2_swap``
+    (the int8 target, ``MOB_SWAP_NEW`` new tokens, on a pool of
+    ``MOB_SWAP_BLOCKS`` pages).  No lane has
+    the prefix cache: a stream admitted on a hit decodes plain (the draft
+    never prefilled the skipped positions), and every burst must prefill
+    its prompts as the first did."""
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+
+    lane = {"max_new_tokens": MOB["max_new_tokens"], "gen_slots": MOB["gen_slots"],
+            "segment_tokens": MOB["segment_tokens"], **({"arch": arch} if arch else {})}
+    paged = {"kv_cache": "paged", "kv_block_size": MOB["block_size"],
+             "prefill_chunk_tokens": MOB["chunk"]}
+    common = {"dtype": "bfloat16", "batch_buckets": (1,), "seq_buckets": MOB["seq_buckets"]}
+    int8 = {**lane, "params_dtype": "int8", **extra}
+    return ServeConfig(models=[
+        ModelConfig(name="gpt2", **common, **paged, spec_draft="gpt2_draft",
+                    spec_k=MOB["spec_k"], prefix_cache=False, extra=int8),
+        ModelConfig(name="gpt2_plain", builder="gpt2", **common, **paged, prefix_cache=False,
+                    extra=int8),
+        ModelConfig(name="gpt2_draft", builder="gpt2", **common,
+                    extra={**lane, "params_dtype": "bfloat16"}),
+        ModelConfig(name="gpt2_swap", builder="gpt2", **common, **paged,
+                    kv_num_blocks=MOB_SWAP_BLOCKS, prefix_cache=False,
+                    extra={**int8, "max_new_tokens": MOB_SWAP_NEW})])
+
+
+def mob_bodies(n: int, vocab: int, seed: int = 17, max_prompt: int = 120) -> list[dict]:
+    """``n`` requests of ``MOB["max_new_tokens"]`` tokens, prompts of 5 to
+    ``max_prompt`` ids, every other one sampled with top-k and top-p."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        body = {"input_ids": rng.integers(0, vocab - 1, int(rng.integers(5, max_prompt + 1)))
+                .tolist(), "max_new_tokens": MOB["max_new_tokens"]}
+        if i % 2:
+            body.update(GEN_SAMPLED, seed=int(rng.integers(0, 1 << 16)))
+        out.append(body)
+    return out
+
+
+def phase_mobility_path(cfg, device: str = "cuda", vocab: int = 50257) -> dict:
+    """Serve phase 17's deployment and drive it over HTTP: (1) the same
+    burst of ``MOB_SPEC_STREAMS`` SSE streams on ``gpt2`` (speculation on)
+    and ``gpt2_plain`` (off), twice each, then ``MOB_MISMATCH_STREAMS`` of
+    them with the ``spec_mismatch`` fault; (2) the swap lane's prompts one at
+    a time (unpressured), then all at once (they must swap), then all at
+    once with a ``migration`` drop on every swap (they must evict); (3) the
+    draft demoted to the host tier and a burst, then the draft restored and
+    a burst.  The kernel counts are read just after the load, with the
+    lanes' graph runs for the exact count."""
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, device)
+    log(f"mobility engines ready in {time.perf_counter() - t0:.3f} s on {engine.device}: "
+        f"build {engine.build_seconds}")
+    out: dict = {"engine": engine}
+    bodies = mob_bodies(MOB_SPEC_STREAMS, vocab)
+    out["bodies"] = bodies
+    rng = np.random.default_rng(23)
+    swap_bodies = [{"input_ids": rng.integers(0, vocab - 1, n).tolist(),
+                    "max_new_tokens": MOB_SWAP_NEW,
+                    **({**GEN_SAMPLED, "seed": 100 + i} if i % 2 else {})}
+                   for i, n in enumerate(MOB_SWAP_PROMPTS)]
+    out["swap_bodies"] = swap_bodies
+    faults = engine.runner.faults
+    with BackgroundServer(cfg, engine) as srv:
+        scheds = srv.server.schedulers
+        spec, swap = scheds["gpt2"], scheds["gpt2_swap"]
+        t0 = time.perf_counter()
+        engine.runner.run_fn_sync(spec.warm, engine.model("gpt2_draft"))
+        out["spec_warm_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine.runner.run_fn_sync(scheds["gpt2_plain"].warm)
+        engine.runner.run_fn_sync(swap.warm)
+        log(f"lanes warmed: gpt2 with its draft's graphs {out['spec_warm_s']:.3f} s, gpt2_plain "
+            f"and gpt2_swap {time.perf_counter() - t0:.3f} s; graphs "
+            f"{ {n: engine.model(n).graphs for n in ('gpt2', 'gpt2_draft')} }")
+        before = {n: s.kernels.graphs.expected_launches() for n, s in scheds.items()}
+        reset_counts()
+        spec0 = dict(spec.gen_snapshot()["spec"])
+        # (1) Speculation on against off, twice each, in turn.
+        runs: dict = {"gpt2": [], "gpt2_plain": []}
+        for name in ("gpt2", "gpt2_plain", "gpt2", "gpt2_plain"):
+            # The first burst on is held tick by tick: its ticks recorded.
+            with SpecTicks(spec) as rec:
+                res, wall = gen_burst(srv.port, name, bodies)
+            if name == "gpt2" and "spec_ticks" not in out:
+                out["spec_ticks"] = rec.ticks
+            check(all(r["status"] == 200 for r in res),
+                  f"{name}: statuses {[r['status'] for r in res]}")
+            check_sse(res, vocab)
+            runs[name].append((res, wall))
+        out["spec_runs"] = runs
+        out["spec_stats"] = {k: v - spec0[k] for k, v in spec.gen_snapshot()["spec"].items()
+                             if k in ("proposed", "accepted", "fallback_ticks")}
+        out["spec_headers"] = [r["headers"].get("X-Spec-Draft") for r in runs["gpt2"][0][0]]
+        out["spec_finals"] = [r["final"].get("stats", {}) for r in runs["gpt2"][0][0]]
+        # The spec_mismatch fault on every tick: the rejection path.
+        spec1 = dict(spec.gen_snapshot()["spec"])
+        faults.configure(model="gpt2", fail_every_n=1, kind="spec_mismatch")
+        with SpecTicks(spec) as mrec:
+            mres, mwall = gen_burst(srv.port, "gpt2", bodies[:MOB_MISMATCH_STREAMS])
+        faults.clear("gpt2")
+        check(all(r["status"] == 200 for r in mres), "spec_mismatch burst statuses")
+        check_sse(mres, vocab)
+        out["mismatch"] = {"results": mres, "wall": mwall, "ticks": mrec.ticks,
+                           "stats": {k: v - spec1[k] for k, v in spec.gen_snapshot()["spec"]
+                                     .items() if k in ("proposed", "accepted", "fallback_ticks")},
+                           "injected": faults.snapshot()["injected"]["spec"]}
+        # (2) The swap lane: alone over HTTP, then together (submitted in one
+        # turn of the loop, so that all four are admitted in one tick and
+        # then outgrow the pool), then together with every swap dropped.
+        alone = [sse(srv.port, "gpt2_swap", b) for b in swap_bodies]
+        snap0 = swap.gen_snapshot()
+        t0 = time.perf_counter()
+        together = submit_together(srv, swap, engine.model("gpt2_swap"), swap_bodies)
+        twall = time.perf_counter() - t0
+        snap1 = swap.gen_snapshot()
+        faults.configure(model="gpt2_swap", fail_every_n=1, kind="migration", mode="drop")
+        dropped = submit_together(srv, swap, engine.model("gpt2_swap"), swap_bodies)
+        faults.clear("gpt2_swap")
+        snap2 = swap.gen_snapshot()
+        out["swap"] = {"alone": alone, "together": together, "wall": twall, "dropped": dropped,
+                       "snaps": (snap0, snap1, snap2)}
+        # (3) The draft demoted to the host, then restored.
+        rbodies = [b for b in bodies if "temperature" not in b][:MOB_RES_STREAMS]
+        before_graphs = spec._draft_kernels.graphs
+        status, body = http(srv.port, "/admin/models/gpt2_draft",
+                            {"action": "demote", "to": "host"})
+        check(status == 200, f"draft demotion: {status} {body}")
+        res0 = dict(spec.gen_snapshot()["spec"])
+        cold, _ = gen_burst(srv.port, "gpt2", rbodies)
+        res1 = dict(spec.gen_snapshot()["spec"])
+        released = before_graphs.released
+        t0 = time.perf_counter()
+        status, body = http(srv.port, "/admin/models/gpt2_draft", {"action": "activate"})
+        restore_s = time.perf_counter() - t0
+        check(status == 200, f"draft restore: {status} {body}")
+        back, _ = gen_burst(srv.port, "gpt2", rbodies)
+        res2 = dict(spec.gen_snapshot()["spec"])
+        after_graphs = spec._draft_kernels.graphs
+        out["residency"] = {"cold": cold, "back": back, "snaps": (res0, res1, res2),
+                            "released": released, "restore_s": restore_s,
+                            "new_set": after_graphs is not before_graphs,
+                            "new_released": after_graphs.released,
+                            "new_labels": after_graphs.labels,
+                            "draft_cm": spec._draft_kernels.cm is engine.model("gpt2_draft")}
+        out["counts"] = read_counts()  # just after the load
+        out["expected"] = {}
+        for n, sched in scheds.items():
+            for k, v in sched.kernels.graphs.expected_launches().items():
+                out["expected"][k] = out["expected"].get(k, 0) + v - before[n].get(k, 0)
+        out["per_run"] = dict(spec.kernels.graphs.per_run)
+        status, prom = http_text(srv.port, "/metrics?format=prometheus")
+        check(status == 200, f"/metrics?format=prometheus: {status}")
+        out["prometheus"] = prom
+        out["snapshots"] = {n: s.gen_snapshot() for n, s in scheds.items()}
+    return out
+
+
+def submit_together(srv, sched, cm, bodies: list[dict], timeout: float = 300.0) -> list[dict]:
+    """``bodies`` submitted to the lane ``sched`` in one turn of the
+    server's loop (what ``:generate`` does for each request), so that they
+    admit in one tick, and awaited: each stream's tokens, as ``sse``'s
+    results."""
+    async def run():
+        reqs = [sched.submit(cm.servable.preprocess(b), b.get("max_new_tokens")) for b in bodies]
+        return await asyncio.wait_for(asyncio.gather(*(r.done for r in reqs)), timeout)
+
+    return [{"status": 200, "tokens": toks} for toks in srv.call(run, timeout=timeout + 10)]
+
+
+def http_text(port: int, path: str) -> tuple[int, str]:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        return r.status, r.read().decode()
+
+
+def diverge_undecided(refs: list, err: float, on: list[dict], off: list[dict]) -> dict:
+    """Greedy streams with speculation on against off: they agree up to
+    their first difference, and there the fixed route's top-2 margin (its
+    logits teacher-forced along the ``on`` stream, ``refs``) is within
+    twice the lane's logit error; else fail.  Returns the counts."""
+    out = {"equal": 0, "parted": [], "tokens": 0}
+    for (toks, ref), a, b in zip(refs, on, off):
+        x, y = a["tokens"], b["tokens"]
+        out["tokens"] += len(x)
+        if x == y:
+            out["equal"] += 1
+            continue
+        d = next((i for i, (p, q) in enumerate(zip(x, y)) if p != q), min(len(x), len(y)))
+        if d < ref.shape[0]:
+            top2 = ref[d].topk(2).values
+            margin = float(top2[0] - top2[1])
+        else:
+            margin = 0.0
+        out["parted"].append((a["tag"], d, round(margin, 5)))
+        check(margin <= 2 * err, f"{a['tag']}: speculation on and off part at position {d} "
+                                 f"where the fixed route's margin {margin:.4g} exceeds twice "
+                                 f"the error {err:.4g}")
+    return out
+
+
+def check_mobility(run: dict, vocab: int = 50257, layers: int = 12) -> dict:
+    """Phase 17 checks 1, 2 and 4 on the load's answers (check 3 is
+    :func:`phase_mobility_move`)."""
+    engine = run["engine"]
+    max_new = MOB["max_new_tokens"]
+    paged = (MOB["chunk"], MOB["block_size"])
+    out: dict = {}
+    # (1) Speculation: greedy streams under the margin rule at the verify's
+    # rows, sampled ones held to the filter; on against off.
+    bodies = run["bodies"]
+    on, off = run["spec_runs"]["gpt2"], run["spec_runs"]["gpt2_plain"]
+    st = run["spec_stats"]
+    check(st["proposed"] > 0 and 0 < st["accepted"] <= st["proposed"],
+          f"speculation stats {st}")
+    check(all(h == "gpt2_draft" for h in run["spec_headers"]),
+          f"X-Spec-Draft headers {run['spec_headers']}")
+    check(all(f.get("spec_draft") == "gpt2_draft" and f.get("spec_proposed", 0) > 0
+              for f in run["spec_finals"]), f"final stats {run['spec_finals'][:2]}")
+    streams_on = lane_streams(bodies, on[0][0], max_new, "on")
+    streams_off = lane_streams(bodies, off[0][0], max_new, "off")
+    greedy = [i for i, b in enumerate(bodies) if "temperature" not in b]
+    sampled = [i for i, b in enumerate(bodies) if "temperature" in b]
+    held_on = hold_streams(engine, "gpt2", [streams_on[i] for i in greedy], SPEC_M, paged,
+                           keep_refs=True)
+    check(st["fallback_ticks"] == 0, f"speculation fell back to plain decode on "
+                                     f"{st['fallback_ticks']} ticks with the draft resident")
+    held_on_s = hold_spec_streams(engine, "gpt2", "gpt2_draft", [streams_on[i] for i in sampled],
+                                  run["spec_ticks"], SPEC_M, MOB["gen_slots"], paged,
+                                  held_on["err_max"])
+    held_off = hold_streams(engine, "gpt2_plain", streams_off, MOB["gen_slots"], paged)
+    div = diverge_undecided(held_on["refs"], held_on["err_max"],
+                            [streams_on[i] for i in greedy], [streams_off[i] for i in greedy])
+    again = [r["tokens"] for r in on[1][0]] == [r["tokens"] for r in on[0][0]]
+    tps = {name: [stream_stats(res, wall)["tok_per_s"] for res, wall in runs]
+           for name, runs in run["spec_runs"].items()}
+    rate = st["accepted"] / max(st["proposed"], 1)
+    log(f"speculation (gpt2 int8 target, gpt2_draft bf16, k={MOB['spec_k']}): {st['proposed']} "
+        f"proposed, {st['accepted']} accepted (rate {rate:.4f}), {st['fallback_ticks']} fallback "
+        f"ticks over two bursts of {len(bodies)} streams; tokens/s on {tps['gpt2']}, off "
+        f"{tps['gpt2_plain']}; greedy on == off on {div['equal']} of {len(greedy)} streams, "
+        f"parted at undecided positions {div['parted']}; the second burst on the same as the "
+        f"first: {again}")
+    # The spec_mismatch burst: every proposal derailed, the same rules.
+    mm = run["mismatch"]
+    check(mm["injected"] > 0 and mm["stats"]["proposed"] > 0
+          and mm["stats"]["fallback_ticks"] == 0, f"spec_mismatch fired nothing: {mm}")
+    check(mm["stats"]["accepted"] <= mm["stats"]["proposed"] // 10,
+          f"spec_mismatch: {mm['stats']['accepted']} of {mm['stats']['proposed']} derailed "
+          "proposals accepted")
+    mbodies = bodies[:MOB_MISMATCH_STREAMS]
+    mstreams = lane_streams(mbodies, mm["results"], max_new, "mismatch")
+    mg = [s for s, b in zip(mstreams, mbodies) if "temperature" not in b]
+    ms = [s for s, b in zip(mstreams, mbodies) if "temperature" in b]
+    same = sum(s["tokens"] == streams_on[i]["tokens"] for i, s in enumerate(mstreams)
+               if "temperature" not in mbodies[i])
+    held_mm = hold_streams(engine, "gpt2", mg, SPEC_M, paged, err=held_on["err_max"])
+    held_mm_s = hold_spec_streams(engine, "gpt2", "gpt2_draft", ms, mm["ticks"], SPEC_M,
+                                  MOB["gen_slots"], paged, held_on["err_max"], mismatch=True)
+    log(f"spec_mismatch: {mm['stats']['accepted']} of {mm['stats']['proposed']} proposals "
+        f"accepted, {same} of {len(mg)} greedy streams byte-equal to speculation without the "
+        f"fault, {mm['injected']} ticks derailed")
+    # (2) The swap: pressure swaps, nothing evicted, byte-equal to alone.
+    sw = run["swap"]
+    s0, s1, s2 = sw["snaps"]
+    check(all(r["status"] == 200 for r in sw["alone"] + sw["together"] + sw["dropped"]),
+          "swap lane statuses")
+    pressure = s1["migration"]["by_cause"]["pressure"] - s0["migration"]["by_cause"]["pressure"]
+    check(s0["kv"]["evictions"] == 0 and s0["migration"]["by_cause"]["pressure"] == 0,
+          f"the unpressured swap runs moved a stream: {s0['kv']}, {s0['migration']}")
+    check(pressure > 0 and s1["kv"]["evictions"] == 0,
+          f"the swap lane: {pressure} swaps, {s1['kv']['evictions']} evictions")
+    for i, (a, b) in enumerate(zip(sw["alone"], sw["together"])):
+        check(a["tokens"] == b["tokens"], f"swap stream {i}: {b['tokens'][:8]}... under pressure "
+                                          f"differs from alone {a['tokens'][:8]}...")
+    evicted = s2["kv"]["evictions"] - s1["kv"]["evictions"]
+    check(evicted > 0 and s2["migration"]["by_cause"]["pressure"] == s1["migration"]["by_cause"][
+        "pressure"] and s2["migration"]["failed"] > s1["migration"]["failed"],
+          f"the drop rule: {evicted} evictions, {s2['migration']}")
+    # An evicted stream re-prefills its prompt and tokens, and the first
+    # token after it draws at step 0 again (the JAX package's eviction does
+    # the same): a greedy chain continues, a sampled one is held to the
+    # filter.
+    held_drop = hold_streams(engine, "gpt2_swap",
+                             lane_streams(run["swap_bodies"], sw["dropped"], MOB_SWAP_NEW,
+                                          "drop"),
+                             MOB["gen_slots"], paged, support=True)
+    ms_hist = s1["migration"]["ms"]
+    log(f"swap lane ({MOB_SWAP_BLOCKS - 1} pages of {MOB['block_size']}, 4 streams): {pressure} "
+        f"swaps to host, 0 evictions, all 4 byte-equal to the same streams alone, "
+        f"{s1['migration']['pages']['copied'] - s0['migration']['pages']['copied']} pages moved, "
+        f"swap ms histogram {ms_hist['buckets']} (sum {ms_hist['sum']:.3f}); with the drop "
+        f"rule {evicted} evictions and every stream finished")
+    # (4) Residency: the draft demoted, then restored.
+    rs = run["residency"]
+    r0, r1, r2 = rs["snaps"]
+    check(all(r["status"] == 200 and r["final"] and r["final"].get("done")
+              for r in rs["cold"] + rs["back"]), "residency bursts")
+    check(rs["released"] and r1["proposed"] == r0["proposed"]
+          and r1["fallback_ticks"] > r0["fallback_ticks"]
+          and all("X-Spec-Draft" not in r["headers"] for r in rs["cold"]),
+          f"with the draft demoted: {r0} -> {r1}, released {rs['released']}")
+    check(rs["new_set"] and not rs["new_released"] and rs["draft_cm"]
+          and r2["proposed"] > r1["proposed"]
+          and (engine.device.type != "cuda"  # the CPU captures nothing
+               or any(lbl.startswith("generate propose") for lbl in rs["new_labels"]))
+          and all(r["headers"].get("X-Spec-Draft") == "gpt2_draft" for r in rs["back"]),
+          f"after the restore: {r1} -> {r2}, labels {rs['new_labels']}")
+    log(f"residency: the draft demoted to host, {len(rs['cold'])} streams decoded plain "
+        f"({r1['fallback_ticks'] - r0['fallback_ticks']} fallback ticks, no error); restored in "
+        f"{rs['restore_s']:.3f} s, its graphs captured again ({rs['new_labels']}) and "
+        f"speculation back ({r2['proposed'] - r1['proposed']} proposed)")
+    # Counts: exact against the lanes' graph runs; the verify's products.
+    exact_counts(run["counts"], run["expected"], "the mobility load")
+    if engine.device.type == "cuda":
+        ver = {k: v for k, v in run["per_run"].items() if k[0] == "verify"}
+        check(ver and all(v.get("int8_matmul") == 4 * layers + 1 for v in ver.values()),
+              f"int8_matmul launches a verify {ver}")
+    cmt = check_metrics_tool()
+    problems = cmt.check(run["prometheus"], cmt.load_manifest())
+    check(not problems, f"/metrics against the manifest: {problems}")
+    for fam in ("tpuserve_migrations_total", "tpuserve_migration_pages_total",
+                "tpuserve_migration_ms", "tpuserve_spec_proposed_total",
+                "tpuserve_spec_accepted_total"):
+        check(fam in run["prometheus"], f"{fam} missing from /metrics")
+    out.update(held={"on": held_on, "on_sampled": held_on_s, "off": held_off,
+                     "mismatch": held_mm, "mismatch_sampled": held_mm_s, "drop": held_drop},
+               rate=rate, tok_per_s=tps, diverge=div, swaps=pressure)
+    for h in out["held"].values():
+        h.pop("refs", None)
+    return out
+
+
+def phase_mobility_move(card: str, workdir: str, engine, platform: str = "cuda",
+                        model: dict | None = None) -> dict:
+    """Phase 17 check 3: live migration between two ``cli serve`` processes
+    on the card, each with GPT-2 small int8 on the paged lane
+    (``tools/streammove.py``): a stream moved mid-decode to a target that
+    never saw its prompt is byte-equal to the source's control; the same
+    prompt moved again dedupes its prompt pages against the target's tree
+    (held under the margin rule where it is not byte-equal); a corrupt page
+    is caught by the importer and fetched again; a drop answers 503 with
+    Retry-After, and an abort resumes the stream in place.  No token is
+    lost or repeated: the source streams up to the watermark and ends with
+    the migrated event, the attach streams the rest."""
+    from pytorch_zappa_serverless_tpu_torch.tools import streammove
+
+    t0 = time.perf_counter()
+    model = model or streammove.MODEL
+    out = streammove.run_streammove(workdir, platform, model, prompt_len=MOB_MOVE_PROMPT)
+    ctl = out["control"]
+    for case in ("fresh", "dedup", "corrupt"):
+        c = out[case]
+        check(c["source_end"] and c["source_end"].get("migrated") is True
+              and c["source_end"]["watermark"] == c["watermark"] == len(c["source_tokens"]),
+              f"{case}: the source's end {c['source_end']}, watermark {c['watermark']}, "
+              f"{len(c['source_tokens'])} tokens streamed")
+        check(c["attach_end"] and c["attach_end"].get("done") is True
+              and c["attach_end"]["tokens"] == c["tokens"],
+              f"{case}: the attach's end {c['attach_end']} does not close the tokens")
+        check(len(c["tokens"]) == len(ctl[case]), f"{case}: {len(c['tokens'])} tokens, the "
+                                                  f"control {len(ctl[case])}: lost or repeated")
+    check(out["fresh"]["dedup_pages"] == 0 and out["fresh"]["tokens"] == ctl["fresh"],
+          f"fresh: {out['fresh']['dedup_pages']} pages deduped, tokens equal "
+          f"{out['fresh']['tokens'] == ctl['fresh']}")
+    check(out["dedup"]["dedup_pages"] >= 1, f"dedup: {out['dedup']['dedup_pages']} pages deduped")
+    dedup_equal = out["dedup"]["tokens"] == ctl["dedup"]
+    if not dedup_equal:
+        hold_streams(engine, "gpt2_plain", [{
+            "tag": "dedup", "ids": out["bodies"]["dedup"]["input_ids"],
+            "tokens": out["dedup"]["tokens"],
+            "ended": len(out["dedup"]["tokens"]) < model["extra"]["max_new_tokens"],
+            "knobs": {}}], MOB["gen_slots"], (MOB["chunk"], MOB["block_size"]))
+    check(out["corrupt"]["attempts"] == 2 and out["corrupt"]["tokens"] == ctl["corrupt"],
+          f"corrupt: {out['corrupt']['attempts']} import attempts, tokens equal "
+          f"{out['corrupt']['tokens'] == ctl['corrupt']}")
+    d = out["drop"]
+    check(d["status"] == 503 and int(d["retry_after"]) >= 1 and d["body"].get("retryable")
+          is True, f"drop: {d['status']} Retry-After {d['retry_after']} {d['body']}")
+    check(d["cutover"] == 200 and d["abort"] == 200 and d["tokens"] == ctl["drop"]
+          and d["end"] and d["end"].get("done"), f"abort: {d['cutover']} {d['abort']}, tokens "
+                                                  f"equal {d['tokens'] == ctl['drop']}")
+    src, dst = out["source"], out["target"]
+    check(dst["migration"]["by_cause"]["admin"] == 3 and src["migration"]["by_cause"]["admin"]
+          == 3, f"migrations: source {src['migration']['by_cause']}, target "
+                f"{dst['migration']['by_cause']}")
+    out["int8_launches"] = (src["kernels"].get("int8_matmul", 0)
+                            + dst["kernels"].get("int8_matmul", 0))
+    out["seconds"] = time.perf_counter() - t0
+    ms = dst["migration"]["ms"]
+    log(f"{card}: two-process migration (GPT-2 small int8, a {MOB_MOVE_PROMPT}-token prompt, "
+        f"{model['extra']['max_new_tokens']} new tokens): boots {out['boot_s']} s; "
+        + "; ".join(f"{c}: moved after {len(out[c]['source_tokens'])} tokens, "
+                    f"{out[c]['dedup_pages']} pages deduped and {out[c]['copied_pages']} copied "
+                    f"of {out[c]['npages']} ({out[c]['snapshot_pages']} at the snapshot, "
+                    f"{out[c]['cutover_pages']} at the cutover), {out[c]['attempts']} import "
+                    f"attempts, {out[c]['move_ms']:.3f} ms cutover to commit, byte-equal "
+                    f"{out[c]['tokens'] == ctl[c]}" for c in ("fresh", "dedup", "corrupt"))
+        + f"; drop 503 Retry-After {d['retry_after']}, the abort resumed in place; the "
+          f"target's import ms histogram {ms['buckets']} (sum {ms['sum']:.3f}), pages "
+          f"{dst['migration']['pages']}; int8_matmul launches {out['int8_launches']} in the two "
+          f"processes; {out['seconds']:.3f} s")
+    return out
+
+
+def run_mobility(card: str) -> dict:
+    """Phase 17: stream mobility and speculation on the paged lane."""
+    import tempfile
+
+    fresh_memory()
+    t0 = time.perf_counter()
+    run = phase_mobility_path(mobility_config())
+    engine = run["engine"]
+    try:
+        log_memory("mobility", engine)
+        checked = check_mobility(run)
+        check(run["counts"]["flash_attention"] == 0, f"flash on the mobility path: "
+                                                     f"{run['counts']}")
+        with tempfile.TemporaryDirectory(prefix="tpuserve-move-") as tmp:
+            move = phase_mobility_move(card, tmp, engine)
+    finally:
+        engine.shutdown()
+    launches = run["counts"]["int8_matmul"] + move["int8_launches"]
+    log(f"{card}: stream mobility and speculation (phase 17) in "
+        f"{time.perf_counter() - t0:.3f} s; int8_matmul launches {launches} "
+        f"({run['counts']['int8_matmul']} in process, {move['int8_launches']} in the two "
+        f"servers)")
+    return {"int8_launches": launches, "checked": checked, "move": move}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -4745,6 +5589,7 @@ def main(argv: list[str] | None = None) -> int:
     failure = run_failure(card)
     residency = run_residency(card)
     plane = run_plane(card)
+    mobility = run_mobility(card)
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
         log(f"one forward's int8_matmul at M={m} (72 launches, the per-shape times summed): "
@@ -4752,6 +5597,11 @@ def main(argv: list[str] | None = None) -> int:
             f"{fwd['library_ms']:.4f} ms ({fwd['ms'] / fwd['library_ms']:.3f} x), bound "
             f"{fwd['bound_ms']:.5f} ms ({fwd['bound_by']})")
     fwd = per_forward(kern["timings"], 1024)
+    verify = per_verify(kern["timings"])
+    log(f"one speculative verify forward's int8_matmul at M={SPEC_M} (49 launches, the "
+        f"per-shape times summed): kernel {verify['ms']:.4f} ms, plain {verify['plain_ms']:.4f} "
+        f"ms, cuBLAS {verify['library_ms']:.4f} ms ({verify['ms'] / verify['library_ms']:.3f} x), "
+        f"bound {verify['bound_ms']:.5f} ms ({verify['bound_by']})")
     bert, step = kern["work"]["bert_fwd"], kern["work"]["gpt2_step"]
     wstep = kern["work"]["whisper_step"]
     unet = per_unet_call(flash["timings"])
@@ -4763,7 +5613,8 @@ def main(argv: list[str] | None = None) -> int:
         "name": "int8_matmul", "route": "cuda",
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "pytorch_zappa_serverless_tpu/ops/int8_matmul.py:107",
-        "launches": int8_launches + plane["int8_launches"], "max_abs_err": kern["max_abs_err"],
+        "launches": int8_launches + plane["int8_launches"] + mobility["int8_launches"],
+        "max_abs_err": kern["max_abs_err"],
         "ms": bert["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": bert["bound_ms"],
         "bound_by": bert["bound_by"], "library_ms": bert["library_ms"],
         "timed_work": "one BERT-base forward at bucket (8,128): 72 launches at M=1024 over "
@@ -4787,6 +5638,10 @@ def main(argv: list[str] | None = None) -> int:
         "launches_failure_path": failure["launches"],
         "launches_residency_path": residency["launches"],
         "launches_plane_path": plane["int8_launches"],
+        "launches_mobility_path": mobility["int8_launches"],
+        "spec_verify": {**verify, "timed_work": f"one speculative verify forward of GPT-2 small "
+                                                f"at M={SPEC_M}: 48 layer projections + the f32 "
+                                                f"lm head, the per-shape times summed"},
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/flash_attention.cu",

@@ -70,8 +70,12 @@ class ModelConfig:
     # Max tokens per prefill dispatch, interleaved with decode segments; 0 ->
     # one (bucketed) chunk per prompt.
     prefill_chunk_tokens: int = 0
-    # Speculative decoding: the port serves neither a draft nor its verify
-    # yet, so only these defaults (off) are accepted.
+    # Speculative decoding (paged only): the deploy that proposes spec_k
+    # tokens a tick, verified by this model in one forward with
+    # distribution-preserving rejection sampling.  "" -> off; any other
+    # value names another deploy of this server.  Falls back to plain decode
+    # while the draft is COLD or quarantined.  "auto" (the lowest rung of
+    # the model's variant family) waits for serving/variants.py.
     spec_draft: str = ""
     spec_k: int = 4
     # Prefix KV cache (paged only): radix-tree reuse of frozen prompt pages,
@@ -80,6 +84,12 @@ class ModelConfig:
     prefix_cache: bool = True
     prefix_cache_ttl_s: float = 0.0
     prefix_cache_blocks: int = 0
+    # Live KV migration (paged only): under pool pressure the newest
+    # stream's pages move to host memory and it resumes from them when
+    # pages free (no recompute, no kill) before any stream is evicted and
+    # re-prefilled; also gates the /admin/streams export and import routes.
+    # False keeps the eviction ladder alone.
+    kv_migrate: bool = True
     # Free-form per-model extras (arch overrides, params_dtype, labels, ...).
     extra: dict[str, Any] = field(default_factory=dict)
 
@@ -87,10 +97,19 @@ class ModelConfig:
         if self.kv_cache not in ("slot", "paged"):
             raise ValueError(f"{self.name}: kv_cache must be 'slot' or 'paged', got "
                              f"{self.kv_cache!r}")
-        if self.spec_draft or self.spec_k != 4:
+        if self.spec_draft == "auto":
+            raise ValueError(f"{self.name}: spec_draft 'auto' asks the variant family ladder "
+                             f"for a draft, which waits for serving/variants.py (ROADMAP "
+                             f"Queue 1 item 5); name the draft deploy instead")
+        if self.spec_draft == self.name:
+            raise ValueError(f"{self.name}: spec_draft must name a different deploy (a model "
+                             f"cannot draft for itself)")
+        if self.spec_draft and self.kv_cache != "paged":
             raise ValueError(f"{self.name}: speculative decoding (spec_draft "
-                             f"{self.spec_draft!r}, spec_k {self.spec_k}) is not served by the "
-                             f"port yet; a later slice ports it (ROADMAP Queue 1 item 4)")
+                             f"{self.spec_draft!r}) runs on the paged lane only; set kv_cache "
+                             f"'paged'")
+        if int(self.spec_k) < 1:
+            raise ValueError(f"{self.name}: spec_k must be >= 1, got {self.spec_k}")
 
 
 @dataclass

@@ -591,7 +591,8 @@ class CompiledModel:
         buckets' and each ``:generate`` lane's."""
         if not self.graphed:
             return []
-        return [self._pool] + [lane._pool for lane in self.lane_graphs]
+        return [self._pool] + [lane._pool for lane in self.lane_graphs
+                               if lane._pool is not None]
 
     def resident_nbytes(self) -> int:
         """What the model holds on the device: its weights plus the segments

@@ -77,8 +77,12 @@ class LaneGraphs:
         self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
         self.runs: dict[tuple, int] = {}
         self.per_run: dict[tuple, dict[str, int]] = {}
-        if self.graphed:
-            cm.lane_graphs.append(self)
+        # Every set joins the model's census (an eager one holds no graph or
+        # pool), so the model's demotion releases it: its graphs read weights
+        # that are gone, and a lane that outlives the demotion (a
+        # speculative draft's) sees ``released`` and makes a new set.
+        self.released = False
+        cm.lane_graphs.append(self)
 
     def _place(self, values: dict[str, Any]) -> dict[str, torch.Tensor]:
         if self.device.type == "cpu":  # a copy: the caller mutates its arrays
@@ -124,6 +128,7 @@ class LaneGraphs:
         for graph in self._graphs.values():
             graph.release()
         self._graphs.clear()
+        self.released = True
         if self in self.cm.lane_graphs:
             self.cm.lane_graphs.remove(self)
 
@@ -315,11 +320,20 @@ class SlotKernels(_PoolKernels):
 
 
 class PagedKernels(_PoolKernels):
-    """The paged pool's programs (JAX ``build_paged_kernels``, without the
-    speculative and migration ones): ``prefill_chunk`` for a group of
-    prompts, ``segment`` over every slot through its block table, and
-    ``copy_page`` for copy-on-write, over a pool [L, num_blocks,
-    block_size, D]."""
+    """The paged pool's programs (JAX ``build_paged_kernels``) over a pool
+    [L, num_blocks, block_size, D]: ``prefill_chunk`` for a group of
+    prompts, ``segment`` over every slot through its block table,
+    ``copy_page`` for copy-on-write, the speculative tick's ``propose`` (on
+    a draft's set) and ``verify`` (on the target's, with
+    ``ops.sampling.speculative_verify`` in its graph), and the migration's
+    ``read_pages`` and ``write_pages``.
+
+    Every write lands in the existing pool tensors, in place: a captured
+    graph holds the pool's address, so a scatter, a swap-in or an import
+    that rebound the pool would leave the next replay reading the old one.
+    A draft's set outlives its model's demotion (the target's lane owns
+    it): :meth:`rebind` makes a new graph set on the restored model and
+    keeps the pool."""
 
     def __init__(self, cm, block_size: int, num_blocks: int, spec_k: int,
                  graphed: bool | None = None):
@@ -327,8 +341,35 @@ class PagedKernels(_PoolKernels):
         pg = meta["paged"]
         super().__init__(cm, pg["cache_shape"](num_blocks, block_size), meta["cache_dtype"],
                          graphed)
+        self._graphed_arg = graphed
         self.fns = pg["make"](block_size, spec_k)
         self.seg = int(meta["segment_tokens"])
+        self.spec_k = int(spec_k)
+        self.vocab = int(pg["vocab"])
+        self.slots = int(meta["slots"])
+        # The draft's logits [S, k, V] f32 that a draft set's propose graph
+        # writes and this set's verify graph reads (allocated once, on the
+        # first speculative tick, so both graphs keep its address).
+        self.draft_logits: torch.Tensor | None = None
+
+    def _release_extra(self) -> None:
+        self.draft_logits = None
+
+    def rebind(self, cm) -> None:
+        """Make a new graph set on ``cm`` (the same deploy, restored) when
+        the old one was released or belongs to another model object; the
+        pool stays where it is."""
+        if self.graphs.released or self.cm is not cm:
+            self.cm = cm
+            self.graphs = LaneGraphs(cm, self._graphed_arg)
+
+    def spec_buffer(self) -> torch.Tensor:
+        """The draft-logits buffer the propose and verify graphs share."""
+        if self.draft_logits is None:
+            with torch.inference_mode():
+                self.draft_logits = torch.zeros((self.slots, self.spec_k, self.vocab),
+                                                dtype=torch.float32, device=self.cm.device)
+        return self.draft_logits
 
     def prefill_chunk(self, payload: tuple) -> np.ndarray:
         """One chunk for a group: ``payload`` is (toks [G, C], start, length,
@@ -370,16 +411,90 @@ class PagedKernels(_PoolKernels):
         self._writes(("copy_page",), fn, {"src": np.asarray([src], np.int64),
                                           "dst": np.asarray([dst], np.int64)})
 
-    def warm(self, chunk_buckets, max_blocks: int) -> None:
+    def propose(self, table: np.ndarray, carries: dict[str, np.ndarray],
+                out: torch.Tensor) -> np.ndarray:
+        """A draft set's speculative proposals through ``table`` [S, MB]
+        from the carries (those of :meth:`segment` and ``prev``, the chain
+        token at ``pos - 1``): returns the proposals [S, k] and leaves the
+        draft's logits in ``out`` (the target set's :meth:`spec_buffer`)."""
+        gates = knob_gates(carries["temp"], carries["topk"], carries["topp"])
+
+        def fn(inp):
+            props, logits, _, _ = self.fns["propose"](
+                self.graphs.tree, self.cache_k, self.cache_v, inp["table"], inp["prev"],
+                inp["tok"], inp["pos"], inp["step"], inp["fin"], inp["temp"], inp["seed"],
+                inp["topk"], inp["topp"], gates=gates)
+            out.copy_(logits)
+            return props
+
+        return self._writes(("propose", gates), fn, {"table": table, **carries}).cpu().numpy()
+
+    def verify(self, table: np.ndarray, toks: np.ndarray,
+               carries: dict[str, np.ndarray]) -> np.ndarray:
+        """The target's forward over ``toks`` [S, k+1] (each row's pending
+        token and its proposals) at the rows' positions, and the rejection
+        sampling against the draft's logits in :meth:`spec_buffer`, in one
+        graph: returns [S, k+2] int32, the accepted count then the output
+        tokens (``ops.sampling.speculative_verify``)."""
+        from ..ops.sampling import speculative_verify
+
+        gates = knob_gates(carries["temp"], carries["topk"], carries["topp"])
+        dlogits = self.spec_buffer()
+
+        def fn(inp):
+            logits, _, _ = self.fns["verify"](self.graphs.tree, self.cache_k, self.cache_v,
+                                              inp["table"], inp["toks"], inp["pos"])
+            n, out = speculative_verify(logits, dlogits, inp["toks"][:, 1:], inp["temp"],
+                                        inp["seed"], inp["step"], inp["topk"], inp["topp"],
+                                        sampled=gates.sampled, filtered=gates.filtered)
+            return torch.cat([n[:, None], out], dim=1)
+
+        values = {"table": table, "toks": toks,
+                  **{k: carries[k] for k in ("pos", "temp", "seed", "step", "topk", "topp")}}
+        return self._writes(("verify", gates), fn, values).cpu().numpy()
+
+    def read_pages(self, blocks: list[int]) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """Pages ``blocks`` to the host, each (K, V) [L, block_size, D] (views
+        of one pinned buffer on the card).  Read only: a read that fails
+        leaves the pool whole."""
+        dev = self.cm.device
+        pin = dev.type == "cuda"
+        with torch.inference_mode():
+            idx = torch.tensor(list(blocks), dtype=torch.int64, device=dev)
+            halves = []
+            for cache in (self.cache_k, self.cache_v):
+                src = cache.index_select(1, idx)
+                host = torch.empty(tuple(src.shape), dtype=src.dtype, pin_memory=pin)
+                host.copy_(src, non_blocking=pin)
+                halves.append(host)
+            if pin:
+                torch.cuda.current_stream(dev).synchronize()
+        return [(halves[0][:, i], halves[1][:, i]) for i in range(len(blocks))]
+
+    def write_pages(self, pairs) -> None:
+        """(block, K, V) host pages into the pool, in place (``torn`` if it
+        raises part-way)."""
+        try:
+            with torch.inference_mode():
+                dev = self.cm.device
+                idx = torch.tensor([int(b) for b, _, _ in pairs], dtype=torch.int64, device=dev)
+                for cache, j in ((self.cache_k, 1), (self.cache_v, 2)):
+                    vals = torch.stack([torch.as_tensor(p[j]) for p in pairs], dim=1)
+                    cache.index_copy_(1, idx, vals.to(dev, cache.dtype))
+        except BaseException:
+            self.torn = True
+            raise
+
+    def warm(self, chunk_buckets, max_blocks: int, segments: bool = True) -> None:
         """Capture, ahead of traffic, every graph the lane can run: a chunk
         per length in ``chunk_buckets`` and power-of-two group, the page
         copy, and a segment per gate variant (all-trash tables: the warm-up
-        runs write only the trash page).  Eager sets have nothing to
-        capture."""
+        runs write only the trash page); a draft's set leaves out the
+        segments.  Eager sets have nothing to capture."""
         if not self.graphs.graphed:
             return
         self.ensure()
-        S = self.cm.servable.meta["continuous"]["slots"]
+        S = self.slots
         for C in chunk_buckets:
             for G in _pow2s(1 << (S - 1).bit_length()):
                 self.prefill_chunk((np.zeros((G, C), np.int32), np.zeros(G, np.int32),
@@ -388,5 +503,21 @@ class PagedKernels(_PoolKernels):
                                     np.ones(G, np.float32), np.zeros((G, max_blocks), np.int32),
                                     np.zeros(G, np.int32)))
         self.copy_page(0, 0)
+        if segments:
+            for carries in _idle_carries(S):
+                self.segment(np.zeros((S, max_blocks), np.int32), carries)
+
+    def warm_spec(self, draft: "PagedKernels", max_blocks: int) -> None:
+        """Capture the speculative tick's graphs ahead of traffic: the
+        draft set's propose and this set's verify per gate variant, on an
+        empty pool (the warm-up runs write only the trash page)."""
+        if not self.graphs.graphed:
+            return
+        self.ensure()
+        draft.ensure()
+        S, k = self.slots, self.spec_k
+        table = np.zeros((S, max_blocks), np.int32)
         for carries in _idle_carries(S):
-            self.segment(np.zeros((S, max_blocks), np.int32), carries)
+            carries = {**carries, "prev": np.zeros(S, np.int32)}
+            draft.propose(table, carries, self.spec_buffer())
+            self.verify(table, np.zeros((S, k + 1), np.int32), carries)

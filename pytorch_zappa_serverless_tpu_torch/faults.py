@@ -9,13 +9,14 @@ The port's copy of the JAX package's ``faults.py``.  It defines
   chaos hook on the device runner: fail every Nth dispatch (transient,
   fatal, or a poison that latches), add device latency, fail preprocess,
   fail or copy-on-write the prefix cache's lookups, fail or slow a model's
-  activation, and tear or slow a streamed checkpoint's chunk reads.
+  activation, tear or slow a streamed checkpoint's chunk reads, drop,
+  corrupt or slow a live migration step, and derail speculative proposals.
 
 The rule schema and its validation are the reference's, so
 ``/admin/faults`` takes and refuses the same bodies, except that a kind
-whose plane the port lacks (adapters, live migration, the autoscaler,
-speculation) is refused with the module still to port: a rule that is accepted and never fires would
-report chaos that never happens.
+whose plane the port lacks (adapters, the autoscaler) is refused with the
+module still to port: a rule that is accepted and never fires would report
+chaos that never happens.
 
 At the package top level because ``engine.runner`` (dispatch-side
 injection) and ``serving.*`` (retry classification, the admin route) both
@@ -85,8 +86,6 @@ def is_transient(exc: BaseException) -> bool:
 # what it waits for (ROADMAP Queue 1).
 REFUSED_KINDS = {
     "adapter": "serving/adapters.py (ROADMAP Queue 1 item 4)",
-    "migration": "serving/kvmigrate.py (ROADMAP Queue 1 item 4)",
-    "spec_mismatch": "speculative decoding (ROADMAP Queue 1 item 4)",
     "demand": "serving/autoscale.py (ROADMAP Queue 1 item 5)",
 }
 
@@ -118,16 +117,27 @@ class FaultRule:
     fails the lookup, so admission falls back to a cold prefill with
     identical tokens; ``mode="cow"`` copies every shared page of a hit,
     again with identical tokens, and ``cow_copies`` counts the copies.
+
+    ``kind="migration"`` fires on :meth:`FaultInjector.on_migration` at the
+    head of each live-migration step (export phases, import, the swap to
+    host under pressure): ``mode="drop"`` (the default) aborts before any
+    state moves, ``"corrupt"`` flips a page's bytes after its hash (the
+    importer's verify must catch it and fetch the page again), ``"slow"``
+    stretches the step by ``latency_ms``.  ``kind="spec_mismatch"`` fires on
+    :meth:`FaultInjector.on_spec` before a speculative tick and derails its
+    draft proposals, so the verifier's rejection path runs.
     """
 
     model: str = "*"
     fail_every_n: int = 0
     count: int | None = None
     kind: str = "transient"  # transient | fatal | poison | prefix | activation | ckpt
+    #                          | migration | spec_mismatch
     latency_ms: float = 0.0
     preprocess: bool = False
     # kind="prefix": "poison" (fail the lookup) | "cow" (force CoW);
-    # kind="ckpt": "torn" (corrupt chunk bytes) | "slow" (per-chunk delay).
+    # kind="ckpt": "torn" (corrupt chunk bytes) | "slow" (per-chunk delay);
+    # kind="migration": "drop" | "corrupt" | "slow".
     mode: str = ""
     # Counters, not config: matching calls seen and failures fired.
     seen: int = field(default=0)
@@ -156,7 +166,7 @@ class FaultInjector:
 
     # Kinds that are their own firing target: they never fire on dispatch or
     # preprocess and never displace those rules.
-    _TARGETED = ("activation", "prefix", "ckpt")
+    _TARGETED = ("activation", "prefix", "ckpt", "migration", "spec_mismatch")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -165,8 +175,8 @@ class FaultInjector:
         # device and read at the head of every dispatch.
         self.poison_exc: Exception | None = None
         # guarded-by: _lock
-        self.injected = {"dispatch": 0, "preprocess": 0, "activation": 0, "prefix": 0,
-                         "ckpt": 0, "latency_ms": 0.0}
+        self.injected = {"dispatch": 0, "preprocess": 0, "activation": 0, "spec": 0,
+                         "prefix": 0, "migration": 0, "ckpt": 0, "latency_ms": 0.0}
 
     def configure(self, model: str = "*", fail_every_n: int = 0,
                   count: int | None = None, kind: str = "transient",
@@ -181,13 +191,15 @@ class FaultInjector:
             raise ValueError("fail_every_n and latency_ms must be >= 0")
         if count is not None and int(count) < 1:
             raise ValueError("count must be >= 1 when set")
-        if mode and kind not in ("prefix", "ckpt"):
+        if mode and kind not in ("prefix", "migration", "ckpt"):
             raise ValueError(
                 "mode is a kind='prefix'/'migration'/'demand'/'ckpt' knob")
         if kind == "prefix" and mode not in ("", "poison", "cow"):
             raise ValueError(f"prefix mode must be 'poison' or 'cow', got {mode!r}")
         if kind == "ckpt" and mode not in ("", "torn", "slow"):
             raise ValueError(f"ckpt mode must be 'torn' or 'slow', got {mode!r}")
+        if kind == "migration" and mode not in ("", "drop", "corrupt", "slow"):
+            raise ValueError(f"migration mode must be 'drop', 'corrupt' or 'slow', got {mode!r}")
         rule = FaultRule(model=model, fail_every_n=int(fail_every_n),
                          count=int(count) if count is not None else None,
                          kind=kind, latency_ms=float(latency_ms),
@@ -218,7 +230,8 @@ class FaultInjector:
                     "injected": dict(self.injected)}
 
     def _match(self, model: str, preprocess: bool, prefix: bool = False,
-               activation: bool = False, ckpt: bool = False) -> FaultRule | None:
+               activation: bool = False, ckpt: bool = False, migration: bool = False,
+               spec: bool = False) -> FaultRule | None:
         for r in self._rules:
             if (r.kind == "prefix") != prefix:
                 continue  # prefix rules fire on on_prefix only
@@ -226,6 +239,10 @@ class FaultInjector:
                 continue  # activation rules fire on on_activation only
             if (r.kind == "ckpt") != ckpt:
                 continue  # ckpt rules fire on on_ckpt only
+            if (r.kind == "migration") != migration:
+                continue  # migration rules fire on on_migration only
+            if (r.kind == "spec_mismatch") != spec:
+                continue  # spec rules fire on on_spec only
             if r.preprocess == preprocess and r.model in ("*", model):
                 return r
         return None
@@ -331,6 +348,41 @@ class FaultInjector:
                 return ""
             self.injected["prefix"] += 1
             return rule.mode or "poison"
+
+    def on_migration(self, model: str) -> tuple[str, float]:
+        """Called at the head of each live-migration step (an export phase,
+        an import, the swap to host under pressure): ``(mode, latency_s)``,
+        mode ``"drop"`` (abort before any state moves: the caller falls back
+        or answers retryable), ``"corrupt"`` (flip a page's bytes after its
+        hash) or ``"slow"`` (the caller sleeps ``latency_s``: returned, not
+        slept here, so a caller on the event loop can await it), or ``("",
+        0.0)`` when nothing fires.  Never raises."""
+        with self._lock:
+            rule = self._match(model, preprocess=False, migration=True)
+            if rule is None:
+                return "", 0.0
+            rule.seen += 1
+            if not self._fire(rule):
+                return "", 0.0
+            self.injected["migration"] += 1
+            latency = rule.latency_ms if rule.mode == "slow" else 0.0
+            if latency:
+                self.injected["latency_ms"] += latency
+            return rule.mode or "drop", latency / 1000.0
+
+    def on_spec(self, model: str) -> bool:
+        """Called by the paged scheduler before a speculative tick: True
+        means derail this tick's draft proposals (the verifier's rejection
+        sampling must correct them).  Never raises."""
+        with self._lock:
+            rule = self._match(model, preprocess=False, spec=True)
+            if rule is None:
+                return False
+            rule.seen += 1
+            if not self._fire(rule):
+                return False
+            self.injected["spec"] += 1
+            return True
 
     def dispatch_latency_s(self, model: str) -> float:
         """The matching dispatch rule's latency, without spending a failure

@@ -24,7 +24,9 @@ The servable also carries the JAX package's continuous-batching contract
 ``:generate``): admission prefill into a slot pool ``[L, S, total, D]`` and
 ``segment_tokens``-step decode segments over it, and the block-paged
 functions (:func:`prefill_chunk_paged`, :func:`decode_segment_paged`) over
-a page pool ``[L, num_blocks, block_size, D]`` with per-row block tables.
+a page pool ``[L, num_blocks, block_size, D]`` with per-row block tables,
+and speculative decoding's draft steps and verify forward over that pool
+(:func:`propose_paged`, :func:`verify_paged`).
 """
 
 from __future__ import annotations
@@ -436,6 +438,72 @@ def decode_segment_paged(params: dict, cache_k, cache_v, table, tok, pos, step, 
     return emits, cache_k, cache_v, tok, pos, step, finished
 
 
+def propose_paged(params: dict, cache_k, cache_v, table, prev, tok, pos, step, finished,
+                  temperature, seeds, k: int, cfg: GPT2Config, block_size: int,
+                  dtype=torch.bfloat16, top_k=None, top_p=None, gates: Gates = ALL_ON):
+    """The draft half of a speculative tick: ``k`` decode steps over the
+    draft's own page pool (the target's block table: the same positions),
+    each feeding its proposal back.
+
+    ``k + 1`` steps run: step 0 feeds ``prev`` (the chain token at ``pos -
+    1``) again, since after a tick that accepted every proposal the draft
+    never fed its last one and its KV at ``pos - 1`` is missing (where it is
+    there, the write is the same); its output is dropped, and step 1 feeds
+    the pending ``tok``.  Proposal i of a sampled row draws at step ``step +
+    1 + i`` with the seed XORed with ``DRAFT_SEED_SALT``.  Returns
+    (proposals [S, k] int32, the draft's logits [S, k, V] f32, cache_k,
+    cache_v), the caches updated in place."""
+    from ..ops.sampling import DRAFT_SEED_SALT
+
+    VT = table.shape[1] * block_size
+    draft_seeds = seeds ^ DRAFT_SEED_SALT
+    cur, p, t = prev, (pos - 1).clamp(min=0), step
+    props, logits_k = [], []
+    for j in range(k + 1):
+        w = p.clamp(max=VT - 1).long()
+        writer = _paged_writer(cache_k, cache_v, table, w[:, None], block_size, cfg.heads)
+        logits = _step_logits(params, cur, w, VT, writer, cfg, dtype)
+        if j == 0:
+            nxt = tok
+        else:
+            nxt = choose(logits, temperature, draft_seeds, t + 1, top_k, top_p,
+                         sampled=gates.sampled, filtered=gates.filtered)
+            logits_k.append(logits)
+        cur = torch.where(finished, cfg.eos_id, nxt).to(torch.int32)
+        if j > 0:
+            props.append(cur)
+            t = t + 1
+        p = torch.where(finished, p, p + 1)
+    return torch.stack(props, dim=1), torch.stack(logits_k, dim=1), cache_k, cache_v
+
+
+def verify_paged(params: dict, cache_k, cache_v, table, toks, pos, cfg: GPT2Config,
+                 block_size: int, dtype=torch.bfloat16):
+    """The target half of a speculative tick: one forward over the pending
+    token and the K proposals of each row, ``toks`` [S, K+1] at positions
+    ``pos..pos+K``.  Their K/V are written through the table first; then
+    query i attends every key at or before its own position, over the
+    gathered pages (multi-query paged attention, causal among the new
+    positions), so its logits are those K+1 decode steps would give.
+    Positions past the acceptance point keep rejected tokens' K/V until the
+    next tick's writes replace them, before any mask admits them.  Returns
+    (logits [S, K+1, V] f32, cache_k, cache_v), the caches updated in
+    place; the products run at S x (K+1) rows."""
+    S, K1 = toks.shape
+    VT = table.shape[1] * block_size
+    dev = toks.device
+    wp = (pos.long()[:, None] + torch.arange(K1, device=dev)[None, :]).clamp(max=VT - 1)
+    x = _embed(params, toks, wp, cfg, dtype)
+    kpos = torch.arange(VT, device=dev)
+    mask_bias = torch.where(kpos[None, None, :] <= wp[:, :, None], 0.0, _NEG).float()[:, None]
+    writer = _paged_writer(cache_k, cache_v, table, wp, block_size, cfg.heads)
+    for i in range(cfg.layers):
+        x = _layer(params[f"layer{i}"], x, mask_bias, cfg, writer(i))
+    x = _ln(params["ln_f"], x, cfg.ln_eps)
+    logits = _logits(params, x.reshape(S * K1, x.shape[-1])).reshape(S, K1, -1)
+    return logits, cache_k, cache_v
+
+
 # ---------------------------------------------------------------------------
 # Weights: seed init (no checkpoint is shipped) and the int8 rewrite
 # ---------------------------------------------------------------------------
@@ -686,10 +754,19 @@ def make_gpt2_servable(name: str, cfg_model):
                               dtype, top_k=topk, top_p=topp, gates=gates)
 
     def make_paged(block_size: int, spec_k: int):
-        """The paged lane's device functions for one pool layout; ``spec_k``
-        is accepted for the contract's shape (speculation is not ported)."""
-        bs = int(block_size)
+        """The paged lane's device functions for one pool layout, the
+        speculative tick's ``propose`` (a draft's ``spec_k`` proposals) and
+        ``verify`` (the target's forward over them) among them."""
+        bs, k = int(block_size), int(spec_k)
         return {
+            "propose": (
+                lambda tree, ck, cv, table, prev, tok, pos, st, fin, temp, seeds, topk, topp,
+                gates=ALL_ON:
+                propose_paged(tree, ck, cv, table, prev, tok, pos, st, fin, temp, seeds, k, cfg,
+                              bs, dtype, top_k=topk, top_p=topp, gates=gates)),
+            "verify": (
+                lambda tree, ck, cv, table, toks, pos:
+                verify_paged(tree, ck, cv, table, toks, pos, cfg, bs, dtype)),
             "prefill_chunk": (
                 lambda tree, toks, start, length, ck, cv, table, temp, seed, topk, topp,
                 gates=ALL_ON:
@@ -714,6 +791,7 @@ def make_gpt2_servable(name: str, cfg_model):
         "detokenize": (lambda toks: tokenizer.decode(toks)) if tokenizer is not None else None,
         "paged": {
             "make": make_paged,
+            "vocab": cfg.vocab_size,
             "cache_shape": lambda num_blocks, block_size: (cfg.layers, num_blocks, block_size,
                                                            cfg.d_model),
             # Host-side admission adapters: the scheduler builds its own

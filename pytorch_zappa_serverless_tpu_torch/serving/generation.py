@@ -1,7 +1,7 @@
 """Continuous batching and token streaming for the generative models.
 
 The port of the JAX package's ``serving/generation.py`` (single host; no
-lockstep, speculation, adapters or live migration).  The fixed-batch lane
+lockstep or adapters).  The fixed-batch lane
 (``:predict``) runs one whole ``generate`` call a batch: nothing streams
 until it ends, and a batch's members are fixed at admission.  These lanes
 serve ``:generate`` instead, with every device program at static shapes
@@ -17,8 +17,14 @@ serve ``:generate`` instead, with every device program at static shapes
   (``serving/kvcache.py``) for the tokens they have; prompts prefill in
   bounded chunks interleaved with decode segments, a prompt's whole pages
   freeze into the radix prefix cache (``serving/prefixcache.py``) for later
-  prompts to share, and under pool pressure the newest stream is evicted and
-  re-admitted with its emitted tokens as prompt.
+  prompts to share.  Under pool pressure the newest stream's pages move to
+  host memory and it resumes from them when pages free (``kv_migrate``, on
+  by default); only when that is off or fails is a stream evicted and
+  re-admitted with its emitted tokens as prompt.  A stream can also leave
+  for another server and arrive from one (the export and import commands
+  behind ``/admin/streams``), and with ``spec_draft`` a draft deploy
+  proposes ``spec_k`` tokens a tick that the target verifies in one forward
+  (:class:`DraftGate`; ``ops.sampling.speculative_verify``).
 
 A stream's tokens are those of the fixed-batch route: the same prefill, the
 same step math, and sampling keyed by (seed, per-row step) alone
@@ -51,6 +57,8 @@ import numpy as np
 from ..engine.genkernels import PagedKernels, SlotKernels, unpack
 from ..utils.logging import get_logger, log_event
 from .kvcache import TRASH_BLOCK, BlockManager, KVPoolExhausted
+from .kvmigrate import (MigrationError, MigrationNeedsPages, MigrationStats, PageIntegrityError,
+                        pack_page, unpack_page)
 from .metrics import TOKEN_LATENCY_BUCKETS_MS, Histogram
 from .prefixcache import PrefixCache
 
@@ -77,10 +85,23 @@ class GenRequest:
     tokens: list[int] = field(default_factory=list)
     slot: int | None = None
     # Paged lane: evictions under pool pressure, admission order, and the
-    # prompt tokens the prefix cache served at the latest admission.
+    # prompt tokens the prefix cache served at the latest admission; whether
+    # the draft prefilled beside the target (speculation needs it) and the
+    # stream's speculative proposals and acceptances.
     evictions: int = 0
     admit_seq: int = 0
     cached_tokens: int = 0
+    has_draft: bool = False
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    # Live migration: tokens from before this lane owned the stream (an
+    # import carries them in ``tokens`` and never streams them again: only
+    # events past ``emitted_base`` enter the queue), how often it moved (a
+    # swap or an export), and whether it left this lane by a committed
+    # export (the SSE writer then ends it with a ``migrated`` event).
+    emitted_base: int = 0
+    migrations: int = 0
+    migrated: bool = False
     # When the first and the latest token reached the event queue.
     first_token_at: float | None = None
     last_token_at: float | None = None
@@ -92,11 +113,14 @@ class GenRequest:
 
     def finish(self, error: str | None = None):
         if self.span is not None and not self.done.done():
+            # A stream that left by a committed export ends without error.
+            failed = error is not None and not self.migrated
             if self.admitted is not None:
                 self.span.child("decode", start=self.admitted, tokens=len(self.tokens)).end(
-                    status="error" if error else None)
+                    status="error" if failed else None)
             self.span.point("finish", tokens=len(self.tokens),
-                            **({"error": error} if error else {}))
+                            **({"error": error} if failed else {}),
+                            **({"migrated": True} if self.migrated else {}))
         if not self.done.done():
             if error is None:
                 self.done.set_result(list(self.tokens))
@@ -120,6 +144,33 @@ def _note_token_latency(req: GenRequest, ttft_hist: Histogram, itl_hist: Histogr
     else:
         itl_hist.observe((now - req.last_token_at) * 1000.0)
     req.last_token_at = now
+
+
+class DraftGate:
+    """Resolves a paged lane's speculative draft every tick: the draft's
+    ``CompiledModel`` while it can serve (resident, not quarantined), else
+    None, so the lane falls back to plain decode the moment the draft goes
+    COLD or sick, holding no reference across a rebuild.  ``enter`` and
+    ``exit`` bracket each use, so the lifecycle never demotes the draft
+    during a dispatch."""
+
+    def __init__(self, name: str, resolve, enter=None, exit=None):
+        self.name = name
+        self._resolve = resolve
+        self._enter = enter
+        self._exit = exit
+
+    def acquire(self):
+        """The draft's CompiledModel, or None while it cannot serve; a
+        non-None answer must be followed by :meth:`release`."""
+        cm = self._resolve()
+        if cm is not None and self._enter is not None:
+            self._enter(self.name)
+        return cm
+
+    def release(self):
+        if self._exit is not None:
+            self._exit(self.name)
 
 
 class _Lane:
@@ -149,6 +200,11 @@ class _Lane:
         ids = [m.span.trace.trace_id for m in mates if m is not req and m.span is not None][:8]
         req.span.child(stage, start=t0, **attrs,
                        **({"batch_mates": ids} if ids else {})).end(end=t1)
+
+    def release_kernels(self) -> None:
+        """Free the lane's pool and every graph (dispatch thread); the lane
+        must not run again."""
+        self.kernels.release()
 
     def _run(self, fn, *args):
         # The latency lane whatever the model's QoS class, as the reference
@@ -507,19 +563,39 @@ class _PrefillJob:
         return self.next >= len(self.chunks)
 
 
+
+
 class PagedGenerationScheduler(_Lane):
-    """Continuous batching over a block-paged KV pool, with chunked prefill
-    and the prefix cache (``ModelConfig.kv_cache: "paged"``).
+    """Continuous batching over a block-paged KV pool, with chunked prefill,
+    the prefix cache, live migration and speculative decoding
+    (``ModelConfig.kv_cache: "paged"``).
 
     Against :class:`GenerationScheduler`: one pool of ``kv_num_blocks``
-    pages (``serving/kvcache.BlockManager``) instead of ``slots``
-    max-length rows, so sequences hold pages for the tokens they have (the
-    pool's bytes are tracked in the runner's residency ledger as
-    ``{model}:kvcache``); prompts prefill in ``prefill_chunk_tokens``-bounded
-    chunks, at most one chunk dispatch a loop tick between decode segments,
-    so a long prompt cannot stall the live streams.  One asyncio task owns
-    all host state and every device call goes through ``runner.run_fn``, as
-    in the slot pool.
+    pages (``serving/kvcache.BlockManager``) instead of ``slots`` max-length
+    rows, so sequences hold pages for the tokens they have (the pool's bytes
+    are tracked in the runner's residency ledger as ``{model}:kvcache``, a
+    draft's pool as ``{model}:draftcache``); prompts prefill in
+    ``prefill_chunk_tokens``-bounded chunks, at most one chunk dispatch a
+    loop tick between decode segments, so a long prompt cannot stall the
+    live streams.
+
+    - **Pressure**: when a stream cannot extend, decayed prefix pages
+      reclaim first, then (``kv_migrate``) the newest stream's pages move to
+      host memory and it waits, paused, until pages free; it resumes from
+      them with nothing recomputed.  Only when that is off or fails is the
+      newest stream evicted and re-prefilled.
+    - **Migration**: a decoding stream can be paused at a tick boundary,
+      its pages read out and it detached (export), and a stream created
+      from exported state and pages (import); ``/admin/streams`` drives the
+      ``migrate_*`` commands, which the loop runs between ticks.
+    - **Speculation**: with a :class:`DraftGate`, a tick where the draft
+      can serve and every stream was prefilled on it proposes ``spec_k``
+      tokens a row on the draft's pool, and the target verifies them in one
+      forward with rejection sampling (one graph); otherwise the tick is a
+      plain segment.  Greedy output is plain decoding's.
+
+    One asyncio task owns all host state and every device call goes through
+    ``runner.run_fn``, as in the slot pool.
     """
 
     # The final (partial) chunk pads to the smallest power of two from this
@@ -527,7 +603,7 @@ class PagedGenerationScheduler(_Lane):
     # group), not one per prompt length.
     _CHUNK_LADDER_MIN = 8
 
-    def __init__(self, cm, runner, mc, ring=None):
+    def __init__(self, cm, runner, mc, ring=None, draft: DraftGate | None = None):
         meta = cm.servable.meta["continuous"]
         if meta.get("paged") is None:
             raise ValueError(
@@ -560,13 +636,24 @@ class PagedGenerationScheduler(_Lane):
         # Chunked prefill: bounded chunk cost; 0 → one chunk per prompt.
         cap = int(mc.prefill_chunk_tokens)
         self.chunk_cap = cap if cap > 0 else self.max_prompt
-        self.kernels = PagedKernels(cm, self.block_size, self.num_blocks, int(mc.spec_k))
+        self.spec_k = max(int(mc.spec_k), 1)
+        self.draft = draft
+        self.spec_draft_name = draft.name if draft is not None else None
+        self.kernels = PagedKernels(cm, self.block_size, self.num_blocks, self.spec_k)
         self._prefill_chunk = self.kernels.prefill_chunk
         self._segment = self.kernels.segment
         self._copy_page = self.kernels.copy_page
         self._cache_nbytes = self.kernels.cache_nbytes
+        # The draft's kernel set and page pool (the target's block layout and
+        # tables), made at the draft's first use.
+        self._draft_kernels: PagedKernels | None = None  # guarded-by: dispatch-serialized
+        # One KV page's host shape and dtype: the migration's wire geometry.
+        L, _, BS, D = self.kernels.shape
+        self.page_shape = (L, BS, D)
+        self.cache_dtype = self.kernels.dtype
         # Prefix KV cache: matched prefixes skip prefill, CoW keeps
-        # divergence exact.
+        # divergence exact.  A stream admitted on a hit decodes plain (the
+        # draft's pool never prefilled the skipped positions).
         self.prefix_ttl_s = float(mc.prefix_cache_ttl_s)
         self._prefix: PrefixCache | None = None  # guarded-by: event-loop
         if bool(mc.prefix_cache):
@@ -581,11 +668,24 @@ class PagedGenerationScheduler(_Lane):
         self._seed = np.zeros((S,), np.int32)   # guarded-by: dispatch-serialized
         self._topk = np.zeros((S,), np.int32)   # guarded-by: dispatch-serialized
         self._topp = np.ones((S,), np.float32)  # guarded-by: dispatch-serialized
+        # The chain token at pos - 1 a slot: the draft's backfill feed (a tick
+        # that accepted every proposal leaves the draft one KV write behind).
+        self._prev = np.zeros((S,), np.int32)   # guarded-by: dispatch-serialized
         self._active: dict[int, GenRequest] = {}  # guarded-by: event-loop
         self._prefilling: collections.deque[_PrefillJob] = collections.deque()  # guarded-by: event-loop
         self._free = list(range(S))               # guarded-by: event-loop
         self._pending: collections.deque[GenRequest] = collections.deque()  # guarded-by: event-loop
         self._cancelled: set[GenRequest] = set()  # guarded-by: event-loop
+        # Live KV migration: ``kv_migrate`` puts the swap to host ahead of
+        # eviction; ``_swapped`` holds streams swapped out (their pages in
+        # host memory) until pages free, ``_detached`` streams paused by an
+        # export (pages still in the pool) until its commit or abort, and
+        # ``_cmds`` the migration commands the loop runs between ticks.
+        self.kv_migrate = bool(mc.kv_migrate)
+        self.migration = MigrationStats()
+        self._swapped: collections.deque[dict] = collections.deque()  # guarded-by: event-loop
+        self._detached: dict[GenRequest, dict] = {}  # guarded-by: event-loop
+        self._cmds: collections.deque = collections.deque()  # guarded-by: event-loop
         self._max_pending = int(mc.max_concurrency)
         self._wake = asyncio.Event()
         self._task: asyncio.Task | None = None  # guarded-by: event-loop
@@ -598,6 +698,9 @@ class PagedGenerationScheduler(_Lane):
         self.device_rounds = 0      # guarded-by: dispatch-serialized
         self.segment_rounds = 0     # guarded-by: dispatch-serialized
         self.prefill_chunks = 0     # guarded-by: dispatch-serialized
+        self.spec_proposed = 0      # guarded-by: event-loop
+        self.spec_accepted = 0      # guarded-by: event-loop
+        self.spec_fallback_ticks = 0  # guarded-by: event-loop
         self.tokens_emitted = 0  # guarded-by: event-loop
         self.ttft_hist = Histogram(TOKEN_LATENCY_BUCKETS_MS)
         self.itl_hist = Histogram(TOKEN_LATENCY_BUCKETS_MS)
@@ -640,9 +743,18 @@ class PagedGenerationScheduler(_Lane):
         self._track_pool()
 
     def _track_pool(self):
-        """The page pool's bytes in the runner's residency ledger, as
-        ``{model}:kvcache``."""
+        """The page pools' bytes in the runner's residency ledger: the
+        target's as ``{model}:kvcache``, a draft's as ``{model}:draftcache``
+        (each its own entry, as the HBM budget counts them)."""
         self.runner.track_model(f"{self.name}:kvcache", self._cache_nbytes)
+        dk = self._draft_kernels
+        if dk is not None and dk.cache_k is not None:
+            self.runner.track_model(f"{self.name}:draftcache", dk.cache_nbytes)
+
+    def _carries(self) -> dict[str, np.ndarray]:
+        return {"tok": self._tok, "pos": self._pos, "step": self._step,
+                "fin": self._finished, "temp": self._temp, "seed": self._seed,
+                "topk": self._topk, "topp": self._topp}
 
     def _chunk_payload(self, jobs: list[_PrefillJob], bucket: int) -> tuple:
         """Collate one chunk group's host arrays (event-loop side).  Pad rows
@@ -669,30 +781,76 @@ class PagedGenerationScheduler(_Lane):
             table[j] = self._mgr.table_row(job.req)
         return toks, start, length, temp, seed, topk, topp, table, aidx
 
-    def _prefill_chunk_sync(self, payload: tuple, n_jobs: int,
+    def _prefill_chunk_sync(self, payload: tuple, n_jobs: int, draft: PagedKernels | None,
                             cows: list[tuple[int, int]] = ()):
         """One chunk dispatch for a same-bucket group (padded to a power of
-        two).  Pending copy-on-write page copies run first: a job whose
-        prefix hit diverged mid-page got a fresh page at admission, and its
-        chunk reads the copied page's cached positions."""
+        two), and the draft's chunk on its own pool when speculation is live.
+        Pending copy-on-write page copies run first: a job whose prefix hit
+        diverged mid-page got a fresh page at admission, and its chunk reads
+        the copied page's cached positions."""
         self._ensure_cache()
         for src, dst in cows:
             self._copy_page(src, dst)
         first = self._prefill_chunk(payload)
+        if draft is not None:
+            draft.ensure()
+            self._track_pool()
+            draft.prefill_chunk(payload)
         self.prefill_chunks += n_jobs
         self.device_rounds += 1
         return first
 
     def _segment_sync(self, table: np.ndarray):
         """One decode segment over the pool (dispatch thread)."""
-        out = self._segment(table, {"tok": self._tok, "pos": self._pos, "step": self._step,
-                                    "fin": self._finished, "temp": self._temp,
-                                    "seed": self._seed, "topk": self._topk,
-                                    "topp": self._topp})
+        out = self._segment(table, self._carries())
         emits, self._tok, self._pos, self._step, self._finished = unpack(out, self.seg)
+        # The last step's fed token is the chain token at pos - 1 (EOS for a
+        # finished row, which never speculates).
+        self._prev = emits[:, -1].astype(np.int32)
         self.device_rounds += 1
         self.segment_rounds += 1
         return emits
+
+    def _spec_tick_sync(self, draft: PagedKernels, table: np.ndarray, corrupt: bool):
+        """One speculative tick (dispatch thread): the draft proposes
+        ``spec_k`` tokens a row, and the target's verify graph runs its
+        forward over them and the rejection sampling.  Returns (n_accept
+        [S], out_toks [S, k+1], proposals [S, k], (t0, t1, t2))."""
+        t0 = time.perf_counter()
+        carries = {**self._carries(), "prev": self._prev}
+        props = draft.propose(table, carries, self.kernels.spec_buffer())
+        if corrupt:
+            # The spec_mismatch fault: every proposal derailed, so the
+            # rejection path runs; verification corrects the output.
+            props = ((props + 1) % max(self.eos_id, 2)).astype(np.int32)
+        t1 = time.perf_counter()
+        toks = np.concatenate([self._tok[:, None], props], axis=1).astype(np.int32)
+        out = self.kernels.verify(table, toks, carries)
+        t2 = time.perf_counter()
+        self.device_rounds += 1
+        self.segment_rounds += 1
+        return out[:, 0], out[:, 1:], props, (t0, t1, t2)
+
+    def _gather_pages_sync(self, blocks: list[int]):
+        """Pages to the host (dispatch thread); read only, so a failed read
+        leaves the pool whole."""
+        pages = self.kernels.read_pages(blocks)
+        self.device_rounds += 1
+        return pages
+
+    def _scatter_pages_sync(self, pairs):
+        """(block, K, V) host pages into the pool, in place (dispatch
+        thread)."""
+        self._ensure_cache()
+        self.kernels.write_pages(pairs)
+        self.device_rounds += 1
+
+    def release_kernels(self) -> None:
+        """Free the pools and every graph of the lane (dispatch thread): the
+        target's and the draft's."""
+        self.kernels.release()
+        if self._draft_kernels is not None:
+            self._draft_kernels.release()
 
     # -- client API -----------------------------------------------------------
     def submit(self, sample: dict, max_new: int | None = None, span=None) -> GenRequest:
@@ -740,6 +898,17 @@ class PagedGenerationScheduler(_Lane):
     def active(self) -> int:
         return len(self._active) + len(self._prefilling)
 
+    def spec_live(self) -> bool:
+        """Whether the draft can serve now (the ``X-Spec-Draft`` header's
+        evidence; a tick also needs every stream prefilled on the draft)."""
+        if self.draft is None:
+            return False
+        cm = self.draft.acquire()
+        if cm is None:
+            return False
+        self.draft.release()
+        return True
+
     def gen_snapshot(self) -> dict:
         """Lane introspection for /metrics."""
         out = {
@@ -751,11 +920,16 @@ class PagedGenerationScheduler(_Lane):
             "kv": self._mgr.snapshot(),
             "prefill_chunks": self.prefill_chunks,
             "chunk_cap": self.chunk_cap,
+            "spec": {"draft": self.spec_draft_name, "k": self.spec_k,
+                     "proposed": self.spec_proposed, "accepted": self.spec_accepted,
+                     "fallback_ticks": self.spec_fallback_ticks},
             "device_rounds": self.device_rounds,
             "segment_rounds": self.segment_rounds,
             "tokens_emitted": self.tokens_emitted,
             "latency": {"ttft_ms": self.ttft_hist.snapshot(),
                         "itl_ms": self.itl_hist.snapshot()},
+            "migration": {**self.migration.snapshot(), "enabled": self.kv_migrate,
+                          "swapped": len(self._swapped), "detached": len(self._detached)},
         }
         if self._prefix is not None:
             out["prefix"] = self._prefix.snapshot()
@@ -768,9 +942,15 @@ class PagedGenerationScheduler(_Lane):
             return 0
         return self._prefix.invalidate(aidx)
 
-    def warm(self):
-        """Capture the lane's first graphs ahead of traffic (dispatch thread)."""
+    def warm(self, draft_cm=None):
+        """Capture the lane's first graphs ahead of traffic (dispatch
+        thread); with the draft's CompiledModel, its chunk and propose
+        graphs and the verify graphs too."""
         self.kernels.warm(self.chunk_buckets(), self.max_blocks)
+        if draft_cm is not None:
+            dk = self._draft_set(draft_cm)
+            dk.warm(self.chunk_buckets(), self.max_blocks, segments=False)
+            self.kernels.warm_spec(dk, self.max_blocks)
         if self.kernels.cache_k is not None:
             self._track_pool()
 
@@ -790,20 +970,31 @@ class PagedGenerationScheduler(_Lane):
                 pass
             self._task = None
         for req in (list(self._active.values()) + [j.req for j in self._prefilling]
-                    + list(self._pending)):
+                    + list(self._pending) + [rec["req"] for rec in self._swapped]
+                    + list(self._detached)):
             req.finish(error="generation scheduler shut down")
         self._active.clear()
         self._prefilling.clear()
         self._pending.clear()
+        self._swapped.clear()
+        self._detached.clear()
+        for _, fut in self._cmds:
+            if not fut.done():
+                fut.set_exception(RuntimeError("generation scheduler shut down"))
+                fut.exception()
+        self._cmds.clear()
         self.runner.untrack_model(f"{self.name}:kvcache")
+        self.runner.untrack_model(f"{self.name}:draftcache")
 
     # -- the loop -------------------------------------------------------------
     async def _loop(self):
         while True:
-            if not (self._pending or self._prefilling or self._active):
+            if not (self._pending or self._prefilling or self._active or self._cmds
+                    or self._swapped):
                 self._wake.clear()
                 await self._wake.wait()
             self._process_cancellations()
+            await self._process_cmds()
             if self._prefix is not None and self.prefix_ttl_s > 0:
                 self._prefix.decay(self.prefix_ttl_s)
             try:
@@ -818,15 +1009,58 @@ class PagedGenerationScheduler(_Lane):
                 log.exception("paged generation tick failed for %s", self.name)
                 self._fail_all_inflight(f"{type(e).__name__}: {e}")
                 self._reset_pool()
+            if self._swapped and not (self._active or self._prefilling or self._pending
+                                      or self._cmds):
+                # Only swapped streams are left and none could come back
+                # (pages still short): yield instead of spinning.
+                await asyncio.sleep(0.005)
+
+    async def _process_cmds(self):
+        """Run the queued migration commands at a tick boundary: inside the
+        loop task, so they see quiescent slot state and their device calls
+        serialize with the ticks.  A failed command fails its caller only,
+        unless it tore the pool (then the loop's containment runs)."""
+        while self._cmds:
+            factory, fut = self._cmds.popleft()
+            try:
+                res = await factory()
+            except asyncio.CancelledError:
+                fut.cancel()
+                raise
+            except Exception as e:
+                if not fut.done():
+                    fut.set_exception(e)
+                fut.exception()  # a command's caller may be gone
+                if self._cache_deleted():
+                    self._fail_all_inflight(f"{type(e).__name__}: {e} (pool lost to a "
+                                            "faulted migration dispatch)")
+                    self._reset_pool()
+            else:
+                if not fut.done():
+                    fut.set_result(res)
+
+    def _run_cmd(self, factory) -> asyncio.Future:
+        """Queue one command (a coroutine factory); the loop resolves it."""
+        if self._stopped:
+            raise RuntimeError("generation scheduler is shut down")
+        fut = asyncio.get_running_loop().create_future()
+        self._cmds.append((factory, fut))
+        self._wake.set()
+        return fut
 
     def _fail_all_inflight(self, msg: str):
-        for req in list(self._active.values()) + [j.req for j in self._prefilling]:
+        for req in (list(self._active.values()) + [j.req for j in self._prefilling]
+                    + [rec["req"] for rec in self._swapped] + list(self._detached)):
             req.finish(error=msg)
         self._active.clear()
         self._prefilling.clear()
+        self._swapped.clear()
+        self._detached.clear()
 
     def _reset_pool(self):
         self.kernels.reset()
+        if self._draft_kernels is not None:
+            self._draft_kernels.reset()
         self._finished[:] = True
         self._free = list(range(self.slots))
         self._mgr = BlockManager(self.num_blocks, self.block_size, self.max_blocks)
@@ -843,10 +1077,21 @@ class PagedGenerationScheduler(_Lane):
                 req.finish(error="cancelled")
                 continue
             job = next((j for j in self._prefilling if j.req is req), None)
+            rec = next((r for r in self._swapped if r["req"] is req), None)
             if job is not None:
                 self._prefilling.remove(job)
                 self._drop_cows(job)
                 self._release(req, job.slot)
+                req.finish(error="cancelled")
+            elif rec is not None:
+                # Swapped out: its pages live only in the host record.
+                self._swapped.remove(rec)
+                req.finish(error="cancelled")
+            elif req in self._detached:
+                # Paused by an export whose commit never came: free its pages;
+                # a late commit or abort then fails cleanly.
+                del self._detached[req]
+                self._mgr.free(req)
                 req.finish(error="cancelled")
             elif req.slot is not None and self._active.get(req.slot) is req:
                 slot = req.slot
@@ -879,6 +1124,9 @@ class PagedGenerationScheduler(_Lane):
         return cached, shared, mode == "cow"
 
     async def _admit(self):
+        # Swapped streams come back first: they were live before anything
+        # still queued, and their pages restore without recompute.
+        await self._try_swap_in()
         while self._free and self._pending:
             req = self._pending[0]
             try:
@@ -945,9 +1193,31 @@ class PagedGenerationScheduler(_Lane):
             req.admit_seq = self._admit_counter
             req.slot = slot
             self._finished[slot] = True  # frozen until prefill completes
+            draft_ok = False
+            if self.draft is not None and not cached:
+                # A prefix hit decodes plain: the draft's pool never
+                # prefilled the skipped positions.
+                cm = self.draft.acquire()
+                if cm is not None:
+                    self._draft_set(cm)
+                    self.draft.release()
+                    draft_ok = True
+            req.has_draft = draft_ok
             self._prefilling.append(_PrefillJob(
                 req=req, slot=slot, ids=ids, chunks=self._chunk_plan(plen, start=cached),
                 knobs=self._knobs_of(req.sample), aidx=aidx, cached=cached, cow=cow_pairs))
+
+    def _draft_set(self, draft_cm) -> PagedKernels:
+        """The draft's kernel set on ``draft_cm`` (host side): made at first
+        use with the target's pool layout and tables, and given a new graph
+        set when the draft was demoted and restored since (its pool
+        stays)."""
+        if self._draft_kernels is None:
+            self._draft_kernels = PagedKernels(draft_cm, self.block_size, self.num_blocks,
+                                               self.spec_k)
+        else:
+            self._draft_kernels.rebind(draft_cm)
+        return self._draft_kernels
 
     def _drop_cows(self, job: _PrefillJob):
         """Release a job's pinned copy-on-write source pages: after the copies
@@ -958,16 +1228,26 @@ class PagedGenerationScheduler(_Lane):
 
     async def _prefill_tick(self):
         """At most ONE chunk dispatch: the head job's bucket groups every job
-        at the same next-chunk size (burst admissions coalesce)."""
+        at the same next-chunk size (burst admissions coalesce); the draft's
+        chunk rides along when a job of the group prefills on it."""
         if not self._prefilling:
             return
         bucket = self._prefilling[0].chunks[self._prefilling[0].next][1]
         jobs = [j for j in self._prefilling if j.chunks[j.next][1] == bucket]
         cows = [pair for j in jobs for pair in j.cow]
+        draft = None
+        if self.draft is not None and any(j.req.has_draft for j in jobs):
+            cm = self.draft.acquire()
+            if cm is not None:
+                draft = self._draft_set(cm)
+            else:
+                # The draft went away mid-prefill: these streams decode plain.
+                for j in jobs:
+                    j.req.has_draft = False
         t0 = time.perf_counter()
         try:
             first = await self._run(self._prefill_chunk_sync,
-                                    self._chunk_payload(jobs, bucket), len(jobs), cows)
+                                    self._chunk_payload(jobs, bucket), len(jobs), draft, cows)
         except Exception as e:
             log.exception("prefill chunk failed for %s", self.name)
             if self._cache_deleted():
@@ -978,6 +1258,9 @@ class PagedGenerationScheduler(_Lane):
                 self._release(j.req, j.slot)
                 j.req.finish(error=f"{type(e).__name__}: {e}")
             return
+        finally:
+            if draft is not None:
+                self.draft.release()
         t1 = time.perf_counter()
         members = [j.req for j in jobs]
         for j in jobs:
@@ -993,6 +1276,7 @@ class PagedGenerationScheduler(_Lane):
             req = job.req
             plen = int(job.ids.shape[0])
             self._tok[job.slot] = int(first[j])
+            self._prev[job.slot] = int(job.ids[-1])
             self._pos[job.slot] = plen
             self._step[job.slot] = 0
             self._finished[job.slot] = False
@@ -1040,6 +1324,7 @@ class PagedGenerationScheduler(_Lane):
                 req.sample = self._extend_sample(req.sample, req.tokens)
         self._release(req, slot)
         req.slot = None
+        req.has_draft = False
         req.evictions += 1
         self._mgr.evictions += 1
         self._pending.appendleft(req)
@@ -1048,10 +1333,12 @@ class PagedGenerationScheduler(_Lane):
         return req
 
     async def _ensure_blocks(self, span: int) -> None:
-        """Every active stream gets blocks for its next ``span`` writes; on
-        exhaustion decayed prefix pages reclaim first (leaf-first, LRU), then
-        the newest stream is evicted, never the one being extended: the
-        oldest always completes (the pool holds one max-length sequence)."""
+        """Every active stream gets blocks for its next ``span`` writes.  On
+        exhaustion the pressure ladder runs: decayed prefix pages reclaim
+        first (leaf-first, LRU), then (``kv_migrate``) the newest stream is
+        swapped to host, and only then is the newest stream evicted; never
+        the one being extended: the oldest always completes (the pool holds
+        one max-length sequence)."""
         for slot in sorted(self._active):
             req = self._active.get(slot)
             if req is None:
@@ -1060,20 +1347,52 @@ class PagedGenerationScheduler(_Lane):
             while not self._mgr.extend(req, need):
                 if self._prefix is not None and self._prefix.reclaim(1) > 0:
                     continue
+                if self.kv_migrate and await self._swap_out_newest(protect=req):
+                    continue
                 if self._pick_victim(protect=req) is None:
                     break
             self._mgr.note_tokens(req, need)
+
+    def _spec_usable(self) -> tuple[PagedKernels | None, bool]:
+        """(the draft's kernel set, corrupt?) when this tick can speculate,
+        else (None, False): a draft configured and live, and every active
+        stream prefilled on it.  A non-None set holds the draft (release
+        it after the tick)."""
+        if self.draft is None or not self._active or self._draft_kernels is None:
+            return None, False
+        if not all(req.has_draft for req in self._active.values()):
+            self.spec_fallback_ticks += 1
+            return None, False
+        cm = self.draft.acquire()
+        if cm is None:
+            self.spec_fallback_ticks += 1
+            return None, False
+        return self._draft_set(cm), self.runner.faults.on_spec(self.name)
 
     async def _decode_tick(self):
         if not self._active:
             return
         t_tick = time.perf_counter()
-        await self._ensure_blocks(self.seg)
-        if not self._active:  # everyone evicted (a tiny pool)
-            return
-        self._seg_t0 = time.perf_counter()
-        emits = await self._run(self._segment_sync, self._table_np())
-        emitted_total = self._distribute(emits)
+        draft, corrupt = self._spec_usable()
+        try:
+            await self._ensure_blocks(self.spec_k + 1 if draft is not None else self.seg)
+            if not self._active:  # everyone evicted or swapped (a tiny pool)
+                return
+            self._seg_t0 = time.perf_counter()
+            if draft is not None:
+                n, out, props, (t0, t1, t2) = await self._run(
+                    self._spec_tick_sync, draft, self._table_np(), corrupt)
+                head = next((r for r in self._active.values() if r.span is not None), None)
+                if head is not None:
+                    head.span.child("spec_draft", start=t0, k=self.spec_k).end(end=t1)
+                    head.span.child("spec_verify", start=t1).end(end=t2)
+                emitted_total = self._distribute_spec(n, out, props)
+            else:
+                emits = await self._run(self._segment_sync, self._table_np())
+                emitted_total = self._distribute(emits)
+        finally:
+            if draft is not None:
+                self.draft.release()
         if emitted_total:
             dt = (time.perf_counter() - t_tick) / emitted_total
             self._s_per_token = (0.7 * self._s_per_token + 0.3 * dt
@@ -1091,7 +1410,9 @@ class PagedGenerationScheduler(_Lane):
             self.ring.record(queue_ms, total_ms - queue_ms, total_ms)
         req.finish()
         log_event(log, "generation finished", model=self.name, slot=slot,
-                  tokens=len(req.tokens), paged=True)
+                  tokens=len(req.tokens), paged=True,
+                  **({"spec_accepted": req.spec_accepted, "spec_proposed": req.spec_proposed}
+                     if req.spec_proposed else {}))
 
     def _fan_tokens(self, slot: int, req: GenRequest, toks: list[int]) -> int:
         """Feed a tick's tokens to one request, retiring it on EOS or budget;
@@ -1117,5 +1438,354 @@ class PagedGenerationScheduler(_Lane):
             self._wake.set()
         return total
 
+    def _distribute_spec(self, n: np.ndarray, out: np.ndarray, props: np.ndarray) -> int:
+        """A speculative tick's fan-out: each row emits its pending token and
+        the accepted proposals, and carries the corrected or bonus token as
+        its next pending one."""
+        total = 0
+        k = props.shape[1]
+        for slot, req in list(self._active.items()):
+            n_s = int(n[slot])
+            req.spec_proposed += k
+            req.spec_accepted += n_s
+            self.spec_proposed += k
+            self.spec_accepted += n_s
+            toks = [int(self._tok[slot])] + [int(t) for t in props[slot, :n_s]]
+            self._prev[slot] = toks[-1]
+            self._tok[slot] = int(out[slot, n_s])
+            self._pos[slot] += n_s + 1
+            self._step[slot] += n_s + 1
+            self._mgr.note_tokens(req, int(self._pos[slot]))
+            total += self._fan_tokens(slot, req, toks)
+        if (self._free and self._pending) or self._prefilling:
+            self._wake.set()
+        return total
+
     def _cache_deleted(self) -> bool:
         return self.kernels.torn
+
+    # -- live KV migration ----------------------------------------------------
+    # The primitives move a decoding stream: pause it at a tick boundary,
+    # copy its pages, resume it from copied pages, on this pool (the swap
+    # under pressure) or on another server's (the export and import the
+    # server drives over HTTP).  Every state change happens in the loop
+    # task: callers outside it go through the migrate_* commands; the swap
+    # runs from _ensure_blocks, already inside.
+
+    def _npages(self, pos: int) -> int:
+        """Pages holding written KV for positions [0, pos)."""
+        return -(-int(pos) // self.block_size)
+
+    def _pause_stream(self, req: GenRequest) -> dict:
+        """Detach an active stream at a tick boundary: its slot released, its
+        pages kept in the manager, its sampler state returned (the state
+        and the pages resume it exactly: the draws depend on (seed, step),
+        not on the slot)."""
+        slot = req.slot
+        state = {"tok": int(self._tok[slot]), "pos": int(self._pos[slot]),
+                 "step": int(self._step[slot]), "prev": int(self._prev[slot]),
+                 "temp": float(self._temp[slot]), "seed": int(self._seed[slot]),
+                 "top_k": int(self._topk[slot]), "top_p": float(self._topp[slot])}
+        self._finished[slot] = True
+        self._tok[slot] = self.eos_id
+        del self._active[slot]
+        self._free.append(slot)
+        req.slot = None
+        req.has_draft = False
+        return state
+
+    def _place_stream(self, req: GenRequest, state: dict, slot: int):
+        """Seat a paused or imported stream's state in a free slot."""
+        self._tok[slot] = state["tok"]
+        self._pos[slot] = state["pos"]
+        self._step[slot] = state["step"]
+        self._prev[slot] = state["prev"]
+        self._temp[slot] = state["temp"]
+        self._seed[slot] = state["seed"]
+        self._topk[slot] = state["top_k"]
+        self._topp[slot] = state["top_p"]
+        self._finished[slot] = False
+        req.slot = slot
+        self._active[slot] = req
+
+    async def _swap_out_newest(self, protect: GenRequest) -> bool:
+        """Swap the newest active stream but ``protect`` to host instead of
+        evicting it: it pauses, nothing recomputes, and it resumes from its
+        own pages when pages free.  A prefilling job keeps the eviction
+        path (it holds no finished KV worth copying)."""
+        cands = [(req.admit_seq, slot) for slot, req in self._active.items()
+                 if req is not protect]
+        if not cands:
+            return False
+        _, slot = max(cands)
+        return await self._swap_out(self._active[slot])
+
+    async def _swap_out(self, req: GenRequest) -> bool:
+        mode, lat_s = self.runner.faults.on_migration(self.name)
+        if lat_s:
+            await asyncio.sleep(lat_s)
+        if mode == "drop":
+            # The injected drop: abort before any state moves; the ladder
+            # falls back to eviction.
+            self.migration.failed += 1
+            return False
+        t0 = time.perf_counter()
+        ids = self._prompt_ids(req.sample)
+        state = self._pause_stream(req)
+        npages = self._npages(state["pos"])
+        blocks = self._mgr.blocks_of(req)[:npages]
+        try:
+            pages = await self._run(self._gather_pages_sync, blocks)
+            if mode == "corrupt":
+                # Page 0 through the wire pack with a flipped byte: the hash
+                # must catch it, and the clean retry reads the pages again
+                # (the source pages are still there).
+                try:
+                    unpack_page(pack_page(0, *pages[0], corrupt=True), self.page_shape,
+                                self.cache_dtype)
+                except PageIntegrityError:
+                    pages = await self._run(self._gather_pages_sync, blocks)
+        except Exception:
+            if self._cache_deleted():
+                raise  # containment: the loop fails everyone and resets
+            # The read failed but the pool is whole: resume in place (the
+            # slot the pause freed is still free).
+            self._place_stream(req, state, self._free.pop())
+            self.migration.failed += 1
+            log.exception("swap to host failed for %s; the stream resumed", self.name)
+            return False
+        self._mgr.free(req)
+        self._swapped.append({"req": req, "state": state, "ids": ids, "npages": npages,
+                              "pages": dict(enumerate(pages))})
+        req.migrations += 1
+        self.migration.note("pressure", 0, npages, (time.perf_counter() - t0) * 1000.0)
+        if req.span is not None:
+            req.span.point("migrate_export", cause="pressure", pages=npages)
+        log_event(log, "kv migrate-out", model=self.name, tokens=len(req.tokens), pages=npages)
+        return True
+
+    async def _try_swap_in(self):
+        """Bring swapped streams back, oldest first, when the pool can hold
+        them again (the admission's anti-thrash headroom)."""
+        while self._swapped and self._free:
+            rec = self._swapped[0]
+            need = rec["npages"] + 1 + len(self._active)
+            if self._mgr.free_blocks < need and self._prefix is not None:
+                self._prefix.reclaim(need - self._mgr.free_blocks)
+            if self._mgr.free_blocks < need:
+                break
+            self._swapped.popleft()
+            req = rec["req"]
+            try:
+                hits, _ = await self._attach_stream(req, rec["ids"], rec["state"],
+                                                    rec["pages"])
+            except MigrationError:
+                self._swapped.appendleft(rec)
+                break
+            if req.span is not None:
+                req.span.point("migrate_import", cause="pressure", pages=rec["npages"],
+                               dedup_hits=hits)
+            log_event(log, "kv migrate-in", model=self.name, tokens=len(req.tokens),
+                      pages=rec["npages"], dedup_hits=hits)
+
+    async def _attach_stream(self, req: GenRequest, ids: np.ndarray, state: dict,
+                             page_map: dict) -> tuple[int, int]:
+        """Restore a stream's pages and state into this pool; returns
+        ``(dedup_hits, pages_copied)``.
+
+        Pages wholly covered by prompt tokens resolve through the local
+        prefix tree first (adopted, not copied); the rest come from
+        ``page_map`` by value.  Raises :class:`MigrationError` (or
+        :class:`MigrationNeedsPages`) with no state changed when the pool
+        cannot take the stream now."""
+        if not self._free:
+            raise MigrationError("no free decode slot")
+        pos = int(state["pos"])
+        npages = self._npages(pos)
+        shared: list[int] = []
+        if self._prefix is not None:
+            try:
+                c, blocks = self._prefix.lookup(0, ids, max_tokens=int(ids.shape[0]))
+                shared = blocks[:min(c // self.block_size, npages)]
+            except Exception:
+                shared = []
+        missing = [i for i in range(len(shared), npages) if i not in page_map]
+        if missing:
+            raise MigrationNeedsPages(f"import needs {len(missing)} page values", missing)
+        if not self._mgr.adopt(req, shared, len(shared) * self.block_size):
+            raise MigrationError("per-stream page table cap exceeded")
+        ok = self._mgr.extend(req, pos + 1)
+        if not ok and self._prefix is not None:
+            self._prefix.reclaim(npages, protect=frozenset(shared))
+            ok = self._mgr.extend(req, pos + 1)
+        if not ok:
+            self._mgr.free(req)
+            raise MigrationError("kv pool exhausted")
+        table = self._mgr.blocks_of(req)
+        pairs = [(table[i], *page_map[i]) for i in range(len(shared), npages)]
+        try:
+            if pairs:
+                await self._run(self._scatter_pages_sync, pairs)
+        except Exception:
+            if self._cache_deleted():
+                raise
+            self._mgr.free(req)
+            raise
+        self._mgr.note_tokens(req, pos)
+        self._place_stream(req, state, self._free.pop())
+        self._admit_counter += 1
+        req.admit_seq = self._admit_counter
+        req.has_draft = False
+        if req.admitted is None:
+            req.admitted = time.perf_counter()
+        if self._prefix is not None:
+            # Freeze the restored prompt pages, so the next matching prompt
+            # (or a later move of this stream) dedupes against them.
+            try:
+                self._prefix.insert(0, ids, self._mgr.blocks_of(req))
+            except Exception:
+                log.exception("prefix insert after migration failed for %s (stream "
+                              "unaffected)", self.name)
+        return len(shared), npages - len(shared)
+
+    # -- export and import commands (serving/server.py drives these) ---------
+    def migrate_snapshot(self, req: GenRequest) -> asyncio.Future:
+        return self._run_cmd(lambda: self._cmd_snapshot(req))
+
+    def migrate_cutover(self, req: GenRequest, have_idx=()) -> asyncio.Future:
+        return self._run_cmd(lambda: self._cmd_cutover(req, have_idx))
+
+    def migrate_pages(self, req: GenRequest, indices) -> asyncio.Future:
+        return self._run_cmd(lambda: self._cmd_pages(req, indices))
+
+    def migrate_commit(self, req: GenRequest, cause: str = "admin") -> asyncio.Future:
+        return self._run_cmd(lambda: self._cmd_commit(req, cause))
+
+    def migrate_abort(self, req: GenRequest) -> asyncio.Future:
+        return self._run_cmd(lambda: self._cmd_abort(req))
+
+    def migrate_import(self, ids, emitted, state, page_map, max_new: int | None = None,
+                       cause: str = "admin", span=None) -> asyncio.Future:
+        return self._run_cmd(lambda: self._cmd_import(ids, emitted, state, page_map, max_new,
+                                                      cause, span))
+
+    async def _cmd_snapshot(self, req: GenRequest) -> dict:
+        """Export phase 1: read the stream's complete pages while it keeps
+        decoding; pages below the write frontier never change again, so only
+        the frontier page (and what decode writes meanwhile) is left for
+        the cutover."""
+        slot = req.slot
+        if slot is None or self._active.get(slot) is not req:
+            raise MigrationError("stream is not active (still prefilling, finished, or "
+                                 "already detached)")
+        pos = int(self._pos[slot])
+        frontier = pos // self.block_size
+        blocks = self._mgr.blocks_of(req)[:frontier]
+        pages = await self._run(self._gather_pages_sync, blocks) if blocks else []
+        return {"pages": dict(enumerate(pages)), "frontier": frontier, "pos": pos}
+
+    async def _cmd_cutover(self, req: GenRequest, have_idx) -> dict:
+        """Export phase 2: pause the stream at this tick boundary and read
+        every page the importer lacks.  The stream stays detached (its
+        pages in the pool) until the commit or the abort, so a failed import
+        can resume it in place."""
+        slot = req.slot
+        if slot is None or self._active.get(slot) is not req:
+            raise MigrationError("stream is not active")
+        ids = self._prompt_ids(req.sample)
+        state = self._pause_stream(req)
+        npages = self._npages(state["pos"])
+        have = {int(i) for i in (have_idx or ())}
+        want = [i for i in range(npages) if i not in have]
+        blocks = self._mgr.blocks_of(req)
+        try:
+            pages = (await self._run(self._gather_pages_sync, [blocks[i] for i in want])
+                     if want else [])
+        except Exception:
+            if self._cache_deleted():
+                raise
+            self._place_stream(req, state, self._free.pop())
+            raise
+        self._detached[req] = {"state": state, "npages": npages, "ids": ids}
+        if req.span is not None:
+            req.span.point("migrate_export", cause="admin", pages=npages,
+                           delta_pages=len(want))
+        return {"state": state, "ids": ids, "aidx": 0, "npages": npages,
+                "pages": dict(zip(want, pages)), "emitted": list(req.tokens),
+                "max_new": req.max_new}
+
+    async def _cmd_pages(self, req: GenRequest, indices) -> dict:
+        """Read given pages of a detached stream again, by value: the
+        importer's retry after a failed integrity check."""
+        rec = self._detached.get(req)
+        if rec is None:
+            raise MigrationError("stream is not detached")
+        blocks = self._mgr.blocks_of(req)
+        want = [int(i) for i in indices]
+        for i in want:
+            if not 0 <= i < rec["npages"]:
+                raise MigrationError(f"page index {i} out of range")
+        pages = await self._run(self._gather_pages_sync, [blocks[i] for i in want])
+        return {"pages": dict(zip(want, pages))}
+
+    async def _cmd_commit(self, req: GenRequest, cause: str) -> int:
+        """Export phase 3: the importer has the stream.  Free its pages and
+        end the source stream marked ``migrated`` (the SSE writer ends it
+        with a terminal migrated event, no token lost); returns the
+        watermark (tokens the source streamed)."""
+        rec = self._detached.pop(req, None)
+        if rec is None:
+            raise MigrationError("stream is not detached")
+        self._mgr.free(req)
+        req.migrated = True
+        req.migrations += 1
+        self.migration.by_cause[cause] = self.migration.by_cause.get(cause, 0) + 1
+        watermark = len(req.tokens)
+        req.finish(error="stream migrated to another replica")
+        log_event(log, "stream migrated out", model=self.name, cause=cause,
+                  watermark=watermark, pages=rec["npages"])
+        return watermark
+
+    async def _cmd_abort(self, req: GenRequest) -> bool:
+        """The import failed: resume the detached stream in place (the pause
+        cost a tick of stall and nothing else)."""
+        rec = self._detached.pop(req, None)
+        if rec is None:
+            raise MigrationError("stream is not detached")
+        if not self._free:
+            self._detached[req] = rec
+            raise MigrationError("no free slot to reattach")
+        self._place_stream(req, rec["state"], self._free.pop())
+        self.migration.failed += 1
+        log_event(log, "migration aborted; stream resumed in place", model=self.name)
+        return True
+
+    async def _cmd_import(self, ids, emitted, state, page_map, max_new, cause, span) -> tuple:
+        """Create a stream from exported state: the import half of the
+        protocol.  The emitted history preloads ``tokens`` and never enters
+        the event queue (``emitted_base`` marks where this lane's stream
+        starts), so an attach replays it without duplicates."""
+        t0 = time.perf_counter()
+        ids = np.ascontiguousarray(ids, np.int32).reshape(-1)
+        sample = {"input_ids": ids, "temperature": float(state["temp"]),
+                  "seed": int(state["seed"]), "top_k": int(state["top_k"]),
+                  "top_p": float(state["top_p"])}
+        want = self.max_new if max_new is None else max(1, min(int(max_new), self.max_new))
+        req = GenRequest(sample=sample, max_new=want, rounds_at_submit=self.device_rounds,
+                         segments_at_submit=self.segment_rounds, span=span)
+        req.tokens = [int(t) for t in emitted]
+        req.emitted_base = len(req.tokens)
+        req.migrations = 1
+        hits, copied = await self._attach_stream(req, ids, state, page_map)
+        req.cached_tokens = hits * self.block_size
+        self.migration.note(cause, hits, copied, (time.perf_counter() - t0) * 1000.0)
+        if req.span is not None:
+            req.span.point("migrate_import", cause=cause, pages=self._npages(int(state["pos"])),
+                           dedup_hits=hits)
+        log_event(log, "stream migrated in", model=self.name, cause=cause,
+                  emitted=req.emitted_base, dedup_hits=hits, copied=copied)
+        if len(req.tokens) >= req.max_new:
+            # Exported at its budget's edge: retire now.
+            self._retire(req.slot, req)
+        self._wake.set()
+        return req, hits, copied

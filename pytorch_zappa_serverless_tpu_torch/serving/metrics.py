@@ -459,6 +459,13 @@ class MetricsHub:
             metric("tpuserve_prefill_chunks_total", "counter",
                    "Prefill chunks dispatched per model (chunked prefill)",
                    [({"model": m}, s["prefill_chunks"]) for m, s in paged.items()])
+            spec = {m: s["spec"] for m, s in paged.items() if s.get("spec")}
+            metric("tpuserve_spec_proposed_total", "counter",
+                   "Draft tokens proposed per model (speculative decoding)",
+                   [({"model": m}, g["proposed"]) for m, g in spec.items()])
+            metric("tpuserve_spec_accepted_total", "counter",
+                   "Draft tokens accepted by verification per model",
+                   [({"model": m}, g["accepted"]) for m, g in spec.items()])
             pref = {m: s["prefix"] for m, s in paged.items() if s.get("prefix")}
             metric("tpuserve_prefix_hits_total", "counter",
                    "Admissions that reused frozen prefix pages per model",
@@ -481,6 +488,21 @@ class MetricsHub:
             histogram("tpuserve_prefix_cached_tokens",
                       "Prefix tokens served from frozen pages per hit",
                       [({"model": m}, *snap(p.get("cached_tokens"))) for m, p in pref.items()])
+            # Live migration: migrations by cause (pressure: swapped to host;
+            # failover: resumed after a replica died; admin: operator or
+            # router driven), pages by dedup outcome, and the wall time.
+            mig = {m: s["migration"] for m, s in paged.items() if s.get("migration")}
+            metric("tpuserve_migrations_total", "counter",
+                   "Live stream migrations per model by cause (pressure|failover|admin)",
+                   [({"model": m, "cause": c}, n) for m, g in mig.items()
+                    for c, n in g["by_cause"].items() if n])
+            metric("tpuserve_migration_pages_total", "counter",
+                   "KV pages moved per model by dedup outcome (hit = adopted from the local "
+                   "prefix tree, copied = transferred by value)",
+                   [({"model": m, "dedup": d}, n) for m, g in mig.items()
+                    for d, n in g["pages"].items() if n])
+            histogram("tpuserve_migration_ms", "Stream migration wall time (ms)",
+                      [({"model": m}, *snap(g.get("ms"))) for m, g in mig.items()])
             lat = {m: s["latency"] for m, s in gsnap.items() if s.get("latency")}
             histogram("tpuserve_ttft_ms", "Time to first streamed token per request (ms)",
                       [({"model": m}, *snap(v.get("ttft_ms"))) for m, v in lat.items()])

@@ -22,6 +22,17 @@ Routes (the JAX package's, for the port's slices):
   ``POST /debug/trace {"seconds"}`` (the window as a Chrome trace under
   ``trace_dir``): 409 while a capture runs, 400 outside ``seconds`` ∈
   [0.05, 60], 500 if the profiler does not start;
+- ``GET /admin/prefix`` (each paged lane's prefix-tree counters) and the
+  stream registry of live migration: ``GET /admin/streams`` (every
+  ``:generate`` stream by id: state, tokens, migrations), ``POST
+  /admin/streams/{id}/export`` with ``{"phase": "snapshot"|"cutover"|
+  "pages"|"commit"|"abort"}``, ``POST /admin/streams/{id}/import`` with
+  ``{"manifest", "pages", "cause"}`` and ``GET
+  /admin/streams/{id}/attach?from=N`` (an imported stream's SSE from token
+  N).  409 on a lane without ``kv_migrate``, a phase the stream is not in,
+  or pages to fetch again (``"need"``); 400 for a stream or a model not on
+  a paged lane and for a bad manifest; 503 + Retry-After (``"retryable"``)
+  for a dropped step or a pool that cannot take the import now;
 - ``POST /v1/models/{name}:predict``, and ``/predict`` / ``/classify`` for
   the first configured model (405 for an async-only model);
 - ``POST /v1/models/{name}:submit`` → 202 ``{"job": ...}`` (an
@@ -34,7 +45,10 @@ Routes (the JAX package's, for the port's slices):
   decode segment's tokens as soon as the segment ends, then ``data:
   {"done": true, "tokens": [...]}``;
   with ``"stream": false`` one JSON body.  A client that disconnects
-  cancels its stream.  Errors: 400 (a bad ``max_new_tokens``, a repetition
+  cancels its stream.  A stream exported to another server ends with
+  ``data: {"migrated": true, "stream_id", "watermark"}`` instead.  A lane
+  with a live speculative draft answers ``X-Spec-Draft`` and its final
+  event's ``stats`` carry the stream's proposals and acceptances.  Errors: 400 (a bad ``max_new_tokens``, a repetition
   penalty, an over-length prompt, an input of several windows), 405 (no
   lane), 429 with Retry-After (a full backlog, or the paged pool exhausted,
   with ``kv_blocks_free``, ``kv_blocks_needed`` and ``estimated_wait_ms``),
@@ -128,9 +142,11 @@ from ..utils.logging import current_trace_id, get_logger, log_event
 from . import wire
 from .batcher import DynamicBatcher, Overloaded
 from .durability import JobJournal
-from .generation import GenerationScheduler, PagedGenerationScheduler
+from .generation import DraftGate, GenerationScheduler, PagedGenerationScheduler
 from .jobs import JobQueue
 from .kvcache import KVPoolExhausted
+from .kvmigrate import (CAUSES, FORMAT_VERSION, MigrationError, MigrationNeedsPages,
+                        PageIntegrityError, check_manifest, dtype_name, pack_page, unpack_page)
 from .lifecycle import ColdStart, LifecycleManager
 from .metrics import MetricsHub
 from .resilience import DeadlineExceeded, ResilienceHub, run_with_retry
@@ -146,6 +162,9 @@ _GENERATE = re.compile(r"^/v1/models/([^:/]+):generate$")
 _JOB = re.compile(r"^/v1/jobs/([^/]+)$")
 _ADMIN_MODEL = re.compile(r"^/admin/models/([^/]+)$")
 _ADMIN_TRACE = re.compile(r"^/admin/trace/([^/]+)$")
+_STREAM_EXPORT = re.compile(r"^/admin/streams/([^/]+)/export$")
+_STREAM_IMPORT = re.compile(r"^/admin/streams/([^/]+)/import$")
+_STREAM_ATTACH = re.compile(r"^/admin/streams/([^/]+)/attach$")
 _KINDS = ((":predict", "predict"), (":generate", "generate"), (":submit", "submit"))
 
 Response = tuple[int, Any, dict[str, str]]
@@ -434,6 +453,13 @@ class Server:
         # so /admin/models and the residency metrics always answer.
         self.lifecycle: LifecycleManager | None = None  # guarded-by: event-loop
         self.ckpt_store = None  # guarded-by: event-loop
+        # The stream registry: stream id -> the :generate request behind it,
+        # so the export, import and attach routes can address a stream in
+        # flight.  Finished streams stay until the cap (oldest dropped
+        # first), so a just-migrated or just-finished one can still be
+        # inspected or attached.
+        self.streams: dict[str, dict] = {}  # guarded-by: event-loop
+        self._streams_cap = 1024
         self.default_model = cfg.models[0].name if cfg.models else None
         self._server: asyncio.Server | None = None
         self._conns: set[asyncio.StreamWriter] = set()  # guarded-by: event-loop
@@ -451,6 +477,8 @@ class Server:
             "/admin/recover": {"POST": self.handle_recover},
             "/admin/reload": {"POST": self.handle_reload},
             "/admin/models": {"GET": self.handle_admin_models},
+            "/admin/prefix": {"GET": self.handle_admin_prefix},
+            "/admin/streams": {"GET": self.handle_admin_streams},
             "/admin/trace": {"GET": self.handle_trace_list},
             "/admin/profile": {"POST": self.handle_profile},
             "/debug/trace": {"POST": self.handle_debug_trace},
@@ -484,20 +512,30 @@ class Server:
                 # its graphs captured at first use, as the JAX lanes compile;
                 # kv_cache "paged" is the paged scheduler, which refuses a
                 # servable without the paged contract (a config error fails
-                # the boot).
-                lane = (PagedGenerationScheduler if cm.cfg.kv_cache == "paged"
-                        else GenerationScheduler)
-                self.schedulers[name] = lane(
-                    cm, self.engine.runner, cm.cfg,
-                    ring=self.metrics.ring(f"{name}:generate")).start()
+                # the boot), with the speculative draft's gate.
+                ring = self.metrics.ring(f"{name}:generate")
+                if cm.cfg.kv_cache == "paged":
+                    self.schedulers[name] = PagedGenerationScheduler(
+                        cm, self.engine.runner, cm.cfg, ring=ring,
+                        draft=self._draft_gate(cm.cfg)).start()
+                else:
+                    self.schedulers[name] = GenerationScheduler(
+                        cm, self.engine.runner, cm.cfg, ring=ring).start()
 
     async def _stop_lanes(self):
         for b in self.batchers.values():
             await b.stop()
         for sched in self.schedulers.values():
             await sched.stop()
+            self._forget_streams(sched)
         self.batchers.clear()
         self.schedulers.clear()
+
+    def _forget_streams(self, sched) -> None:
+        """Drop a stopped lane's streams from the registry (they ended with
+        the lane), so that it holds no reference to a replaced engine."""
+        for sid in [sid for sid, e in self.streams.items() if e["sched"] is sched]:
+            del self.streams[sid]
 
     async def _stop_model_lanes(self, name: str, release: bool = True):
         """Stop and drop one model's lanes (a demotion; the lifecycle calls
@@ -510,12 +548,59 @@ class Server:
         sched = self.schedulers.pop(name, None)
         if sched is not None:
             await sched.stop()
+            self._forget_streams(sched)
             if release:
                 try:
-                    await self.engine.runner.run_fn(sched.kernels.release)
+                    await self.engine.runner.run_fn(sched.release_kernels)
                 except Exception:
                     log.exception("releasing %s's :generate lane failed", name)
             self.engine.runner.untrack_model(f"{name}:kvcache")
+            self.engine.runner.untrack_model(f"{name}:draftcache")
+
+    def _draft_gate(self, mc) -> DraftGate | None:
+        """The speculative draft of one paged lane: ``spec_draft`` names
+        another deploy of this server.  The gate resolves it every tick
+        against the live engine, resilience and lifecycle, so the lane
+        decodes plain while the draft is COLD, warming, quarantined or
+        mid-rebuild, and marks it busy (the lifecycle's enter and exit, read
+        at each call: the manager is made after the boot lanes) so a
+        demotion never runs under a tick."""
+        draft = self._spec_draft_name(mc)
+        if draft is None:
+            return None
+
+        def resolve():
+            eng = self.engine
+            if eng is None or draft not in eng.models:
+                return None
+            if draft in self.resilience.quarantined:
+                return None
+            lc = self.lifecycle
+            if lc is not None and lc.knows(draft) and lc.state_of(draft) in ("cold",
+                                                                              "warming"):
+                return None
+            return eng.model(draft)
+
+        def enter(name):
+            if self.lifecycle is not None:
+                self.lifecycle.enter(name)
+
+        def exit_(name):
+            if self.lifecycle is not None:
+                self.lifecycle.exit(name)
+
+        return DraftGate(draft, resolve, enter=enter, exit=exit_)
+
+    def _spec_draft_name(self, model) -> str | None:
+        """A model's speculative draft deploy, or None (no draft, an unknown
+        model, or the model itself: ``ModelConfig`` refuses that and
+        "auto")."""
+        try:
+            mc = model if not isinstance(model, str) else self.cfg.model(model)
+        except KeyError:
+            return None
+        draft = mc.spec_draft
+        return draft if draft and draft != mc.name else None
 
     async def start(self, host: str | None = None, port: int | None = None) -> int:
         """Start the lanes, the job queue and the watchdog, and listen;
@@ -723,7 +808,10 @@ class Server:
                 (_JOB, {"GET": self.handle_job}, ()),
                 (_ADMIN_MODEL, {"GET": self.handle_admin_model_get,
                                 "POST": self.handle_admin_model_post}, ()),
-                (_ADMIN_TRACE, {"GET": self.handle_trace_get}, ())):
+                (_ADMIN_TRACE, {"GET": self.handle_trace_get}, ()),
+                (_STREAM_EXPORT, {"POST": self.handle_stream_export}, ()),
+                (_STREAM_IMPORT, {"POST": self.handle_stream_import}, ()),
+                (_STREAM_ATTACH, {"GET": self.handle_stream_attach}, (reader, query))):
             m = pattern.match(path)
             if m is not None:
                 args = (m.group(1), body, headers, *tail)
@@ -1288,8 +1376,17 @@ class Server:
         if adm is not None:
             adm.end()
         # The stream is named by its request id (the client's X-Request-Id
-        # when it sent one), as the reference names it.
+        # when it sent one), as the reference names it, and registered so
+        # the export and attach routes can address it.
         stream_id = ctx.request_id if ctx is not None else new_request_id()
+        self._register_stream(stream_id, name, sched, gen, imported=False)
+        heads = {"X-Stream-Id": stream_id}
+        draft = getattr(sched, "spec_draft_name", None)
+        if draft and sched.spec_live():
+            # Which draft speculation runs with (decided at admission: the
+            # head goes before any tick); the stream's acceptance rides the
+            # final body's stats.
+            heads["X-Spec-Draft"] = draft
 
         def final_body(tokens: list[int]) -> dict:
             out: dict = {"done": True, "tokens": tokens}
@@ -1298,6 +1395,10 @@ class Server:
             if gen.rounds_to_first_token is not None:
                 out["stats"] = {"rounds_to_first_token": gen.rounds_to_first_token,
                                 "segments_to_first_token": gen.segments_to_first_token}
+            if gen.spec_proposed:
+                out.setdefault("stats", {}).update(
+                    spec_draft=sched.spec_draft_name, spec_proposed=gen.spec_proposed,
+                    spec_accepted=gen.spec_accepted)
             if gen.cached_tokens:
                 out.setdefault("stats", {})["prefix_cached_tokens"] = gen.cached_tokens
             if ctx is not None:
@@ -1320,7 +1421,7 @@ class Server:
                 return _error(500, f"generation failed: {e}")
             out = final_body(tokens)
             out.pop("done")
-            return 200, {"model": name, "predictions": out}, {"X-Stream-Id": stream_id}
+            return 200, {"model": name, "predictions": out}, heads
 
         async def events(reader):
             while True:
@@ -1332,7 +1433,13 @@ class Server:
                 if ev is None:
                     break
                 yield {"token": ev}
-            if gen.done.exception() is not None:
+            if gen.migrated:
+                # The stream left by a committed export: a terminal marker,
+                # never an error; the importer resumes it from the watermark.
+                yield {"migrated": True, "stream_id": stream_id, "watermark": len(gen.tokens),
+                       **({"request_id": ctx.request_id, "trace_id": ctx.trace_id}
+                          if ctx is not None else {})}
+            elif gen.done.exception() is not None:
                 err = str(gen.done.exception())
                 out = {"error": err}
                 if ctx is not None:
@@ -1352,7 +1459,7 @@ class Server:
                 ctx.span.annotate(cancelled=True)
             sched.cancel(gen)
 
-        return 200, EventStream(events, cancel), {"X-Stream-Id": stream_id}
+        return 200, EventStream(events, cancel), heads
 
     # -- async job lane -----------------------------------------------------
     async def handle_submit(self, name: str, body: bytes,
@@ -1776,6 +1883,278 @@ class Server:
             log.exception("admin lifecycle action %s failed for %s", action, name)
             return _error(503, f"{action} failed for {name!r}: {type(e).__name__}: {e}")
         return 200, {"action": action, "model": {"name": name, **lc.model_snapshot(name)}}, {}
+
+    # -- admin: the prefix cache and live migration -------------------------
+    async def handle_admin_prefix(self, body: bytes, headers=None, query: str = "") -> Response:
+        """``GET /admin/prefix``: each paged lane's prefix-tree counters
+        (nodes, pages, hits, CoW copies, evictions, cached tokens) with its
+        pool's used and shared pages."""
+        models = {}
+        for name, sched in self.schedulers.items():
+            snap = sched.gen_snapshot()
+            if "prefix" in snap:
+                models[name] = {**snap["prefix"], "kv_blocks_used": snap["kv"]["blocks_used"],
+                                "kv_shared_blocks": snap["kv"].get("shared_blocks", 0)}
+        return 200, {"models": models}, {}
+
+    def _register_stream(self, stream_id: str, model: str, sched, gen, imported: bool):
+        self.streams[stream_id] = {"model": model, "sched": sched, "gen": gen,
+                                   "imported": imported, "attached": False,
+                                   "created": time.time()}
+        while len(self.streams) > self._streams_cap:
+            self.streams.pop(next(iter(self.streams)))
+
+    def _stream_entry(self, sid: str) -> tuple[dict | None, Response | None]:
+        """(entry, error answer) of one ``/admin/streams/{id}`` call."""
+        entry = self.streams.get(sid)
+        if entry is None:
+            return None, _error(404, f"unknown stream {sid!r}", streams=len(self.streams))
+        sched = entry["sched"]
+        if not isinstance(sched, PagedGenerationScheduler):
+            return None, _error(400, "stream is not on a paged lane; migration requires "
+                                     "kv_cache='paged'")
+        if not sched.kv_migrate:
+            return None, _error(409, f"kv_migrate is disabled on model {entry['model']!r}")
+        return entry, None
+
+    @staticmethod
+    def _stream_state_of(gen) -> str:
+        if gen.migrated:
+            return "migrated"
+        if gen.done.done():
+            return "error" if gen.done.exception() is not None else "done"
+        return "live"
+
+    async def handle_admin_streams(self, body: bytes, headers=None, query: str = "") -> Response:
+        """``GET /admin/streams``: the stream registry, each stream's model,
+        state, tokens and migrations."""
+        out = {}
+        for sid, e in self.streams.items():
+            gen = e["gen"]
+            out[sid] = {"model": e["model"], "state": self._stream_state_of(gen),
+                        "tokens": len(gen.tokens), "max_new": gen.max_new,
+                        "emitted_base": gen.emitted_base, "migrations": gen.migrations,
+                        "imported": e["imported"]}
+        return 200, {"streams": out}, {}
+
+    async def handle_stream_export(self, sid: str, body: bytes,
+                                   headers: dict[str, str]) -> Response:
+        """``POST /admin/streams/{id}/export``, the source half of a live
+        migration in phases, so decode barely stalls:
+
+        - ``snapshot``: read the stream's complete pages while it decodes on;
+          the packed pages and the frontier;
+        - ``cutover`` (``"have": [...]``): pause it at a tick boundary and
+          answer the manifest (prompt, emitted tokens, sampler state, page
+          geometry) and the pages the importer lacks; it stays detached until
+          the commit or the abort;
+        - ``pages`` (``"indices": [...]``): read given pages again (the
+          importer's retry after a failed integrity check);
+        - ``commit`` (``"cause"``): the importer has it; the pages go and the
+          source stream ends with a ``migrated`` event;
+        - ``abort``: resume it in place.
+
+        The ``migration`` fault fires here: ``drop`` answers a retryable
+        503, ``corrupt`` flips the first page's bytes after its hash,
+        ``slow`` stretches the step."""
+        entry, err = self._stream_entry(sid)
+        if err is not None:
+            return err
+        gen, sched, name = entry["gen"], entry["sched"], entry["model"]
+        try:
+            req = json.loads(body) if body else {}
+        except ValueError:
+            return _error(400, "body must be a JSON object")
+        if not isinstance(req, dict):
+            return _error(400, "body must be a JSON object")
+        phase = req.get("phase", "cutover")
+        if phase not in ("snapshot", "cutover", "pages", "commit", "abort"):
+            return _error(400, f"phase must be snapshot|cutover|pages|commit|abort, got "
+                               f"{phase!r}")
+        mode, lat_s = self.engine.runner.faults.on_migration(name)
+        if lat_s:
+            await asyncio.sleep(lat_s)
+        if mode == "drop":
+            sched.migration.failed += 1
+            return _error_retry(503, f"injected migration fault (drop, phase={phase})", 1.0,
+                                retryable=True)
+
+        def packed(pages: dict) -> list:
+            # mode="corrupt": the first page's bytes flipped after its hash.
+            return [pack_page(i, k, v, corrupt=(mode == "corrupt" and j == 0))
+                    for j, (i, (k, v)) in enumerate(sorted(pages.items()))]
+
+        loop = asyncio.get_running_loop()
+        try:
+            if phase == "snapshot":
+                res = await sched.migrate_snapshot(gen)
+                pages = await loop.run_in_executor(None, packed, res["pages"])
+                return 200, {"stream_id": sid, "model": name, "phase": phase,
+                             "frontier": res["frontier"], "pos": res["pos"],
+                             "pages": pages}, {}
+            if phase == "cutover":
+                have = [int(i) for i in (req.get("have") or ())]
+                res = await sched.migrate_cutover(gen, have)
+                manifest = {
+                    "version": FORMAT_VERSION, "stream_id": sid, "model": name,
+                    "adapter": None, "prompt": [int(t) for t in res["ids"]],
+                    "emitted": res["emitted"], "watermark": len(res["emitted"]),
+                    "max_new": res["max_new"], "state": res["state"],
+                    "npages": res["npages"], "page_shape": list(sched.page_shape),
+                    "dtype": dtype_name(sched.cache_dtype)}
+                pages = await loop.run_in_executor(None, packed, res["pages"])
+                return 200, {"manifest": manifest, "pages": pages}, {}
+            if phase == "pages":
+                indices = [int(i) for i in (req.get("indices") or ())]
+                res = await sched.migrate_pages(gen, indices)
+                pages = await loop.run_in_executor(None, packed, res["pages"])
+                return 200, {"stream_id": sid, "phase": phase, "pages": pages}, {}
+            if phase == "commit":
+                cause = req.get("cause", "admin")
+                if cause not in CAUSES:
+                    return _error(400, f"cause must be one of {CAUSES}, got {cause!r}")
+                wm = await sched.migrate_commit(gen, cause)
+                return 200, {"committed": True, "stream_id": sid, "watermark": wm}, {}
+            await sched.migrate_abort(gen)
+            return 200, {"aborted": True, "stream_id": sid}, {}
+        except MigrationError as e:
+            return _error(409, str(e), stream_id=sid, phase=phase)
+
+    async def handle_stream_import(self, sid: str, body: bytes,
+                                   headers: dict[str, str]) -> Response:
+        """``POST /admin/streams/{id}/import``, the target half: verify each
+        page's hash, adopt the prompt pages the local prefix tree already
+        holds, write the rest by value and resume decode from the imported
+        sampler state.  409 with ``"need"`` names the pages to fetch again
+        (corrupt, or missing); 503 retryable when the pool cannot take the
+        stream now."""
+        try:
+            req = json.loads(body) if body else {}
+        except ValueError:
+            return _error(400, "body must be a JSON object")
+        if not isinstance(req, dict):
+            return _error(400, "body must be a JSON object")
+        manifest = req.get("manifest")
+        try:
+            check_manifest(manifest)
+        except MigrationError as e:
+            return _error(400, str(e))
+        name = manifest.get("model")
+        sched = self.schedulers.get(name)
+        if not isinstance(sched, PagedGenerationScheduler):
+            return _error(400, f"model {name!r} has no paged generation lane on this server; "
+                               "migration requires kv_cache='paged'")
+        if not sched.kv_migrate:
+            return _error(409, f"kv_migrate is disabled on model {name!r}")
+        if manifest.get("adapter"):
+            return _error(400, "adapter streams are not served by the port yet "
+                               "(serving/adapters.py, ROADMAP Queue 1 item 4)")
+        local = dtype_name(sched.cache_dtype)
+        if (tuple(manifest["page_shape"]) != tuple(sched.page_shape)
+                or str(manifest["dtype"]) != local):
+            return _error(400, f"incompatible pool geometry: exporter page "
+                               f"{manifest['page_shape']}/{manifest['dtype']} vs local "
+                               f"{list(sched.page_shape)}/{local}")
+        cause = req.get("cause", "admin")
+        if cause not in CAUSES:
+            return _error(400, f"cause must be one of {CAUSES}, got {cause!r}")
+        mode, lat_s = self.engine.runner.faults.on_migration(name)
+        if lat_s:
+            await asyncio.sleep(lat_s)
+        if mode == "drop":
+            sched.migration.failed += 1
+            return _error_retry(503, "injected migration fault (drop, import)", 1.0,
+                                retryable=True)
+        shape = tuple(manifest["page_shape"])
+
+        def unpacked():
+            page_map, bad = {}, []
+            for rec in (req.get("pages") or ()):
+                try:
+                    i, k, v = unpack_page(rec, shape, manifest["dtype"])
+                    page_map[i] = (k, v)
+                except PageIntegrityError as e:
+                    bad.extend(e.indices)
+            return page_map, bad
+
+        page_map, bad = await asyncio.get_running_loop().run_in_executor(None, unpacked)
+        if bad:
+            return 409, {"error": "page integrity check failed; fetch these pages by value",
+                         "need": sorted(bad), "stream_id": sid}, {}
+        span = self.tracer.start("migrate_import", model=name,
+                                 traceparent=headers.get("traceparent"))
+        try:
+            gen, hits, copied = await sched.migrate_import(
+                manifest["prompt"], manifest["emitted"], manifest["state"], page_map,
+                max_new=manifest["max_new"], cause=cause, span=span)
+        except MigrationNeedsPages as e:
+            self.tracer.finish(span.trace, "error")
+            return 409, {"error": str(e), "need": sorted(e.indices), "stream_id": sid}, {}
+        except MigrationError as e:
+            self.tracer.finish(span.trace, "error")
+            return _error_retry(503, str(e), 1.0, retryable=True)
+        self.tracer.finish(span.trace, "ok")
+        self._register_stream(sid, name, sched, gen, imported=True)
+        return 200, {"imported": True, "stream_id": sid, "model": name,
+                     "watermark": gen.emitted_base, "dedup_pages": hits,
+                     "copied_pages": copied}, {}
+
+    async def handle_stream_attach(self, sid: str, body: bytes, headers: dict[str, str],
+                                   reader: asyncio.StreamReader | None = None,
+                                   query: str = "") -> Response:
+        """``GET /admin/streams/{id}/attach?from=N``: the SSE of an imported
+        stream from token N.  Tokens the client holds are never sent again;
+        those it missed replay from the imported history, then the live
+        tail streams as decode gives it."""
+        entry = self.streams.get(sid)
+        if entry is None:
+            return _error(404, f"unknown stream {sid!r}")
+        if not entry["imported"]:
+            return _error(409, "attach takes imported streams; the original :generate "
+                               "answer owns this one")
+        if entry["attached"]:
+            return _error(409, f"stream {sid!r} already has a consumer")
+        gen, sched = entry["gen"], entry["sched"]
+        try:
+            start = max(0, int(parse_qs(query).get("from", [gen.emitted_base])[0]))
+        except ValueError:
+            return _error(400, "from must be an integer")
+        entry["attached"] = True
+
+        async def events(reader):
+            try:
+                # The imported history [start, emitted_base) is only in
+                # ``tokens`` (it never entered the queue) ...
+                for t in gen.tokens[start:gen.emitted_base]:
+                    yield {"token": int(t)}
+                # ... and every later token comes through the queue: skip
+                # what the caller holds past the base.
+                skip = max(0, start - gen.emitted_base)
+                while True:
+                    get = asyncio.ensure_future(gen.events.get())
+                    ev = await _next_or_gone(get, reader) if reader is not None else await get
+                    if ev is _GONE:
+                        yield _GONE
+                        return
+                    if ev is None:
+                        break
+                    if skip > 0:
+                        skip -= 1
+                        continue
+                    yield {"token": ev}
+                if gen.migrated:
+                    yield {"migrated": True, "stream_id": sid, "watermark": len(gen.tokens)}
+                elif gen.done.exception() is not None:
+                    yield {"error": str(gen.done.exception()), "stream_id": sid}
+                else:
+                    out = {"done": True, "tokens": list(gen.tokens)}
+                    if sched.detokenize is not None:
+                        out["text"] = sched.detokenize(gen.tokens)
+                    yield out
+            finally:
+                entry["attached"] = False
+
+        return 200, EventStream(events, lambda: sched.cancel(gen)), {"X-Stream-Id": sid}
 
 
 def _release_device_memory(device: torch.device) -> None:

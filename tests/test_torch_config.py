@@ -141,7 +141,7 @@ def test_load_config_without_a_file_is_the_dev_profile(monkeypatch):
 
 GEN_FIELDS = ("kv_cache", "kv_block_size", "kv_num_blocks", "prefill_chunk_tokens",
               "spec_draft", "spec_k", "prefix_cache", "prefix_cache_ttl_s",
-              "prefix_cache_blocks")
+              "prefix_cache_blocks", "kv_migrate")
 
 
 @pytest.mark.parametrize("field", GEN_FIELDS)
@@ -166,11 +166,38 @@ def test_profile_loads_the_generate_fields_as_the_reference(tmp_path, values):
         assert getattr(got, field) == value
 
 
-@pytest.mark.parametrize("over,match", [({"spec_draft": "auto"}, "speculative decoding"),
-                                        ({"spec_k": 2}, "speculative decoding"),
+@pytest.mark.parametrize("over,match", [({"spec_draft": "auto"}, "variants.py"),
                                         ({"kv_cache": "blocks"}, "'slot' or 'paged'")])
 def test_generate_fields_the_port_refuses(over, match):
     JC.ModelConfig(name="gpt2", **over)  # the reference takes them
+    with pytest.raises(ValueError, match=match):
+        PC.ModelConfig(name="gpt2", **over)
+
+
+@pytest.mark.parametrize("over", [
+    {"spec_k": 2},
+    {"kv_cache": "paged", "spec_draft": "gpt2_draft", "spec_k": 6},
+    {"kv_cache": "paged", "kv_migrate": False},
+])
+def test_speculation_and_migration_fields_the_port_takes(tmp_path, over):
+    """Served since the port has speculation and live migration: a profile
+    that sets them loads in both packages to the same values."""
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({"models": [{"name": "gpt2", **over}]}))
+    got, want = PC.load_config(path).models[0], JC.load_config(path).models[0]
+    for field, value in over.items():
+        assert getattr(got, field) == getattr(want, field) == value
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"spec_draft": "gpt2"}, "different deploy"),
+    ({"spec_draft": "gpt2_draft"}, "paged lane"),
+    ({"kv_cache": "paged", "spec_k": 0}, "spec_k"),
+])
+def test_speculation_settings_the_port_refuses(over, match):
+    """A model drafting for itself (the reference's server refuses it too),
+    speculation off the paged lane (the reference runs it on paged lanes
+    only) and a non-positive spec_k fail at load."""
     with pytest.raises(ValueError, match=match):
         PC.ModelConfig(name="gpt2", **over)
 

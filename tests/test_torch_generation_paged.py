@@ -334,9 +334,10 @@ def test_long_prompt_prefill_does_not_stall_live_stream():
 
 def test_eviction_requeues_newest_and_streams_stay_correct():
     # 7 allocatable pages of 4: one 16 + 12-token stream needs up to 7, so
-    # two concurrent streams must collide and evict (the port has no live
-    # migration: eviction and re-prefill is its only ladder rung).
-    eng = _engine(_model_cfg(kv_num_blocks=8, prefix_cache=False,
+    # two concurrent streams must collide and evict (kv_migrate off:
+    # eviction and re-prefill is the ladder's only rung; with it on the
+    # newest stream swaps to host, tests/test_torch_migration.py).
+    eng = _engine(_model_cfg(kv_num_blocks=8, prefix_cache=False, kv_migrate=False,
                              extra={"gen_slots": 2, "max_new_tokens": 12}))
     try:
         ids_a, ids_b = [5, 6, 7, 8, 9, 10, 11, 12], [9, 10, 11, 12, 13, 14]

@@ -75,7 +75,8 @@ def test_gumbel_mean_is_euler_gamma():
 def test_gumbel_is_finite_at_the_extreme_bits(monkeypatch):
     """u = (bits + 0.5) / 2**24 is never 0 or 1, so no draw is infinite."""
     monkeypatch.setattr(PS, "uniform_bits",
-                        lambda s, t, V: torch.tensor([[0, 2**24 - 1]], dtype=torch.int64))
+                        lambda s, t, V, salt=None: torch.tensor([[0, 2**24 - 1]],
+                                                                dtype=torch.int64))
     g = PS.gumbel_noise(torch.tensor([0]), torch.tensor([0]), 2, CPU)
     assert torch.isfinite(g).all() and g[0, 0] < g[0, 1]
 

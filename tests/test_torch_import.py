@@ -33,7 +33,7 @@ def test_importing_the_port_loads_no_jax():
                  "ops.paged_attention", "engine.genkernels", "faults",
                  "serving.resilience", "serving.watchdog", "serving.lifecycle",
                  "serving.ckptstore", "engine.streamio", "serving.wire", "serving.tracing",
-                 "serving.durability", "utils.xplane", "tools.crashtest"):
+                 "serving.durability", "utils.xplane", "tools.crashtest", "serving.kvmigrate"):
         assert f"pytorch_zappa_serverless_tpu_torch.{lane}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -62,6 +62,11 @@ def test_importing_the_port_loads_no_jax():
         "j = durability.JobJournal(tempfile.mkdtemp())\n"
         "j.append({'ev': 'submit', 'id': 'a', 'model': 'm', 'payload': b'x'}); j.close()\n"
         "assert j.replay().jobs[0]['payload'] == b'x'\n"
+        # A bf16 KV page through the migration wire loads nothing forbidden.
+        "from pytorch_zappa_serverless_tpu_torch.serving import kvmigrate\n"
+        "pg = torch.ones(2, 4, 8, dtype=torch.bfloat16)\n"
+        "rec = kvmigrate.pack_page(0, pg, pg)\n"
+        "assert torch.equal(kvmigrate.unpack_page(rec, (2, 4, 8), 'bfloat16')[1], pg)\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -1230,3 +1230,118 @@ def test_a_profile_open_across_a_restore_capture(cuda_device):
         assert top["ops"] and top["device_compute_ms"] > 0
     finally:
         eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_spec_graphs_replay_as_eager(cuda_device):
+    """The speculative tick's graphs on the card: an int8 target's chunk and
+    a bf16 draft's chunk on their own pools, then the draft's propose and the
+    target's verify (its forward and the rejection sampling in one graph),
+    greedy and sampled, replayed against the same calls run eagerly on second
+    pools: proposals, accepted counts, output tokens and every page but the
+    trash page byte for byte; the verify graph's products run at S x (k + 1)
+    rows (one int8_matmul launch a projection and one for the head)."""
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+    from pytorch_zappa_serverless_tpu_torch.engine.genkernels import PagedKernels
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+
+    extra = {"arch": TINY_GPT2, "max_new_tokens": 8, **GEN}
+    eng = build_engine(ServeConfig(models=[
+        ModelConfig(name="gpt2", dtype="bfloat16", batch_buckets=(1,), seq_buckets=(8, 16),
+                    kv_cache="paged", kv_block_size=4, spec_draft="gpt2_draft", spec_k=3,
+                    extra={**extra, "params_dtype": "int8"}),
+        ModelConfig(name="gpt2_draft", builder="gpt2", dtype="bfloat16", batch_buckets=(1,),
+                    seq_buckets=(8, 16), extra={**extra, "params_dtype": "bfloat16"})]),
+        device="cuda")
+    try:
+        run = eng.runner.run_fn_sync
+        cm, dcm = eng.model("gpt2"), eng.model("gpt2_draft")
+        rng = np.random.default_rng(4)
+        S, K, MB = 4, 3, 6
+        ids = [rng.integers(1, 500, n).astype(np.int32) for n in (7, 5)]
+        table = np.zeros((S, MB), np.int32)
+        table[0], table[2] = [1, 2, 3, 4, 5, 6], [7, 8, 9, 10, 11, 12]
+        toks = np.zeros((2, 8), np.int32)
+        for j, x in enumerate(ids):
+            toks[j, :len(x)] = x
+        chunk = (toks, np.zeros(2, np.int32), np.asarray([7, 5], np.int32),
+                 np.zeros(2, np.float32), np.zeros(2, np.int32), np.zeros(2, np.int32),
+                 np.ones(2, np.float32), table[[0, 2]], np.zeros(2, np.int32))
+        outs = []
+        for graphed in (None, False):
+            k = PagedKernels(cm, 4, 16, K, graphed=graphed)
+            d = PagedKernels(dcm, 4, 16, K, graphed=graphed)
+            run(k.ensure)
+            run(d.ensure)
+            first = run(k.prefill_chunk, chunk)
+            run(d.prefill_chunk, chunk)
+            buf = run(k.spec_buffer)
+            got = [first.tobytes()]
+            for temp in (0.0, 1.1):
+                c = {"tok": np.asarray([first[0], 0, first[1], 0], np.int32),
+                     "pos": np.asarray([7, 0, 5, 0], np.int32), "step": np.zeros(S, np.int32),
+                     "fin": np.asarray([False, True, False, True]),
+                     "temp": np.asarray([temp, 0, temp, 0], np.float32),
+                     "seed": np.asarray([3, 0, 9, 0], np.int32), "topk": np.zeros(S, np.int32),
+                     "topp": np.asarray([1, 1, 0.9, 1], np.float32),
+                     "prev": np.asarray([ids[0][-1], 0, ids[1][-1], 0], np.int32)}
+                props = run(d.propose, table, c, buf)
+                vt = np.concatenate([c["tok"][:, None], props], axis=1).astype(np.int32)
+                out = run(k.verify, table, vt, c)
+                got += [props[[0, 2]].tobytes(), out[[0, 2]].tobytes()]
+            got += [_bits(k.cache_k[:, 1:]), _bits(d.cache_v[:, 1:])]
+            outs.append((got, k, d))
+        (a, kg, dg), (b, _, _) = outs
+        assert a == b
+        assert sorted(kg.graphs.labels) == sorted(
+            ["generate chunk 8 2", "generate verify greedy", "generate verify sampled+filtered"])
+        assert sorted(dg.graphs.labels) == sorted(
+            ["generate chunk 8 2", "generate propose greedy",
+             "generate propose sampled+filtered"])
+        for key in kg.graphs._graphs:
+            if key[0] == "verify":
+                assert kg.graphs.per_run[key]["int8_matmul"] == 9
+        for key in dg.graphs._graphs:
+            assert dg.graphs.per_run[key].get("int8_matmul", 0) == 0
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_pages_read_and_write_in_place_under_captured_graphs(cuda_device):
+    """A page read to pinned host memory and written back into other pages
+    lands in the pool's own tensors (their addresses unchanged), so a
+    captured segment that reads those pages reads the written values: its
+    tokens from the copied pages equal its tokens from the originals."""
+    from pytorch_zappa_serverless_tpu_torch.engine.genkernels import PagedKernels
+
+    eng, cm = _gen_cm("gpt2", "int8", kv_cache="paged", kv_block_size=4)
+    try:
+        run = eng.runner.run_fn_sync
+        k = PagedKernels(cm, 4, 16, 4)
+        run(k.ensure)
+        ids = np.random.default_rng(5).integers(1, 500, 8).astype(np.int32)
+        table = np.zeros((4, 6), np.int32)
+        table[0, :3] = [1, 2, 3]
+        first = run(k.prefill_chunk, (ids[None], np.zeros(1, np.int32),
+                                      np.asarray([8], np.int32), np.zeros(1, np.float32),
+                                      np.zeros(1, np.int32), np.zeros(1, np.int32),
+                                      np.ones(1, np.float32), table[:1], np.zeros(1, np.int32)))
+        ptr = (k.cache_k.data_ptr(), k.cache_v.data_ptr())
+        pages = run(k.read_pages, [1, 2, 3])
+        assert pages[0][0].is_pinned() and tuple(pages[0][0].shape) == k.shape[:1] + k.shape[2:]
+        run(k.write_pages, [(b, kk, vv) for b, (kk, vv) in zip([7, 8, 9], pages)])
+        assert (k.cache_k.data_ptr(), k.cache_v.data_ptr()) == ptr
+        assert torch.equal(k.cache_k[:, 7:10], k.cache_k[:, 1:4])
+        c = {"tok": np.asarray([first[0], 0, 0, 0], np.int32),
+             "pos": np.asarray([8, 0, 0, 0], np.int32), "step": np.zeros(4, np.int32),
+             "fin": np.asarray([False, True, True, True]), "temp": np.zeros(4, np.float32),
+             "seed": np.zeros(4, np.int32), "topk": np.zeros(4, np.int32),
+             "topp": np.ones(4, np.float32)}
+        moved = table.copy()
+        moved[0, :3] = [7, 8, 9]
+        a = run(k.segment, moved, c)  # reads the written copies
+        b = run(k.segment, table, c)  # reads the originals
+        assert a[0].tobytes() == b[0].tobytes()
+    finally:
+        eng.shutdown()

@@ -214,6 +214,22 @@ def test_kinds_without_a_plane_are_refused_naming_the_module(kind):
     assert REFUSED_KINDS[kind].split()[0] in str(ei.value)
 
 
+@pytest.mark.parametrize("kind,mode", [("migration", ""), ("migration", "drop"),
+                                       ("migration", "corrupt"), ("migration", "slow"),
+                                       ("spec_mismatch", "")])
+def test_migration_and_spec_kinds_are_accepted_as_the_reference(kind, mode):
+    """Served since the port has live migration and speculation: each kind
+    and mode is a rule of its own target in both injectors."""
+    for inj in (jfaults.FaultInjector(), FaultInjector()):
+        rule = inj.configure(model="m", fail_every_n=1, kind=kind, mode=mode, latency_ms=5)
+        assert (rule.kind, rule.mode) == (kind, mode)
+        inj.on_dispatch("m")  # never fires on a dispatch
+        fired = inj.on_migration("m") if kind == "migration" else inj.on_spec("m")
+        assert fired == ((mode or "drop", 0.005 if mode == "slow" else 0.0)
+                         if kind == "migration" else True)
+    assert kind not in REFUSED_KINDS
+
+
 def test_prefix_rules_are_their_own_target():
     inj = FaultInjector()
     inj.configure(model="m", fail_every_n=1, kind="transient")
