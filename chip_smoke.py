@@ -132,7 +132,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    launch for the shed work; (3) a fatal fault on every BERT dispatch: the
    breaker opens, BERT fast-fails 503 with ``Retry-After`` while GPT-2's
    ``:predict`` and ``:generate`` answer byte-equal, then the watchdog
-   rebuilds on the fatal cause; (4) twice, a poisoned runner: eight
+   rebuilds on the fatal cause; (4) once, a poisoned runner: eight
    concurrent ``/healthz`` 503 through one shared probe, the watchdog's
    rebuild (every graph re-captured), byte-equal answers, the recovery
    seconds, and ``torch.cuda.memory_allocated()`` after the recovery no
@@ -162,7 +162,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    byte-equal, and again with a torn chunk on every read (degraded to the
    full rebuild); (6) GPT-2 from none streams its stored weights while it
    builds and captures, copied in place before the first replay,
-   byte-equal; (7) three host and disk cycles of each lazy model leave
+   byte-equal; (7) two host and disk cycles of each lazy model leave
    ``memory_allocated`` within 8 MiB and the live ``CompiledModel`` count
    as they were, the host tier's bytes those of its pinned copies; (8) the
    idle reaper takes ResNet-50 to the host, then (a store being set) to
@@ -200,7 +200,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    slots, 32 new tokens) as ``gpt2`` with ``spec_draft: gpt2_draft`` (GPT-2
    small bf16 from the same seed, k = 4), as ``gpt2_plain`` without
    speculation, and as ``gpt2_swap`` on a pool of 12 pages of 16 and the
-   trash page.  (1) The same 16 SSE streams (8 greedy, 8 sampled) with
+   trash page.  (1) The same 8 SSE streams (4 greedy, 4 sampled) with
    speculation on and off, twice each: greedy streams under the margin rule
    at the verify's 40 rows, sampled ones replayed tick by tick (the
    rejection sampling of ``speculative_verify_core`` on the target's and
@@ -223,6 +223,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``int8_matmul``'s launches exactly the lanes' graph runs (49 a verify,
    at M = 40, which phase 3 holds against the plain version), plus the two
    server processes' from their ``/metrics``;
+18. multi-tenant adapters and the regime-routed lane, GPT-2 small at full
+   width from its seed.  (a) ``gpt2``, bf16 with ``adapter_slots`` 4 at
+   rank 8 on q and v, three tenants from seeds (the smallest alpha of
+   ``LORA_ALPHAS`` that parts each tenant's greedy tokens from the base's,
+   printed), the paged lane, :predict buckets (1, 4, 8) x 64, beside
+   ``gpt2_base`` (no pool).  (1) Three tenants and the base in one
+   coalescing window: co-batched (``multi_adapter_batches``), each row
+   byte-equal to its masked run (the others at slot 0) in the same bucket,
+   the base's to ``gpt2_base``, and each under the margin rule against it
+   alone at bucket 1.  (2) 8 SSE streams (two a tenant, two base) under the
+   margin rule against the fixed route with their adapter; the rates of 8
+   adapter streams and 8 base streams.  (3) Three detach and re-attach
+   cycles of one tenant: no graph captured, the detached slot replays the
+   base's bytes, the tenant's bytes come back, ``memory_allocated`` within
+   1 MiB; a deadline below the attach estimate answers 503
+   ``adapter_cold`` with Retry-After and dispatches nothing.  (4) An
+   ``adapter`` fault fails one tenant's attach (503); the base and the
+   other tenants answer byte-equal.  (5) ``/metrics`` with the adapter
+   families against the manifest.  No kernel of the port runs on this
+   lane.  (b) ``gpt2_auto`` (``params_dtype: auto``, crossover 4, a paged
+   lane of 4 slots) beside ``gpt2_int8`` and ``gpt2_bf16``: bucket 8
+   byte-equal to ``gpt2_bf16``'s with no ``int8_matmul``; buckets 1 and 4
+   byte-equal to bf16 prefill followed by int8 decode composed by hand;
+   exactly 49 x 24 ``int8_matmul`` launches a replay at buckets 1 and 4, and
+   the served load's exactly its replays and the lane's graph runs; the
+   int8 tree's ``lm_scale`` zeroed in place changes buckets 1 and 4 and not
+   8, and restored gives the bytes back; the model's bytes the int8 lane's
+   plus the bf16 layer weights and biases within 1 MiB, one address a
+   tensor; the lane's streams under the margin rule.  Printed: attach ms,
+   a bucket-4 call with adapters against the adapter-free model,
+   tokens/s, a generate call per bucket for ``auto``, ``int8`` and bf16;
 
 With ``--profile``, every path is also profiled eager against replayed:
 device-busy and wall time, the idle share, and the host's calls, where a
@@ -427,6 +458,10 @@ def generate_int8_cases() -> list[tuple]:
     # S x (k + 1) rows, timed: a verify forward's share of the product.
     cases += [(SPEC_M, k, n, *DTYPES[0], True) for k, n in GPT2_KN]
     cases += [(SPEC_M, *GPT2_HEAD, *DTYPES[1], True)]
+    # Phase 18's regime-routed lane decodes on the int8 tree at its buckets
+    # up to the crossover (1, 4) and at its lane's 4 slots; the head at M = 4
+    # is among the lane prefills' above.
+    cases += [(AUTO["crossover"], k, n, *DTYPES[0], False) for k, n in GPT2_KN]
     return cases
 
 
@@ -2782,13 +2817,13 @@ def generate_config(arch: dict | None = None, whisper_arch: dict | None = None,
                            **({"arch": whisper_arch} if whisper_arch else {}), **extra})])
 
 
-def sse(port: int, model: str, body, timeout: float = 600.0) -> dict:
+def sse(port: int, model: str, body, timeout: float = 600.0, headers: dict | None = None) -> dict:
     """One ``:generate`` request: a JSON body (or raw bytes) posted, the
     event stream read as it comes; each token's client time from the send."""
     data = body if isinstance(body, bytes) else json.dumps(body).encode()
     ctype = "application/octet-stream" if isinstance(body, bytes) else "application/json"
     req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/models/{model}:generate",
-                                 data=data, headers={"Content-Type": ctype})
+                                 data=data, headers={"Content-Type": ctype, **(headers or {})})
     t0 = time.perf_counter()
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
@@ -2826,11 +2861,15 @@ def gen_bodies(n: int = GEN_STREAMS, seed: int = 13, vocab: int = 50257,
     return out
 
 
-def gen_burst(port: int, model: str, bodies: list) -> tuple[list[dict], float]:
-    """Every body at once, one thread each; the results and the wall time."""
+def gen_burst(port: int, model: str, bodies: list,
+              headers: list | None = None) -> tuple[list[dict], float]:
+    """Every body at once, one thread each (with its ``headers``, where
+    given); the results and the wall time."""
     t0 = time.perf_counter()
+    heads = headers or [None] * len(bodies)
     with ThreadPoolExecutor(len(bodies)) as ex:
-        results = list(ex.map(lambda b: sse(port, model, b), bodies))
+        results = list(ex.map(lambda bh: sse(port, model, bh[0], headers=bh[1]),
+                              zip(bodies, heads)))
     return results, time.perf_counter() - t0
 
 
@@ -2848,33 +2887,47 @@ def stream_stats(results: list[dict], wall: float) -> dict:
             "itl_p99": float(np.percentile(itl, 99)) if itl else 0.0}
 
 
+def route_trees(cm, rows: int, aidx: int = 0):
+    """(prefill tree, decode tree, adapter_idx) of GPT-2's fixed route at
+    ``rows`` decode rows: the regime-routed lane's bf16 prefill and its
+    decode tree for that row count, and the rows' adapter slot where the
+    model has an adapter pool (None otherwise)."""
+    meta, tree = cm.servable.meta, cm.servable.module.tree()
+    ai = (torch.full((rows,), aidx, dtype=torch.int32, device=cm.device)
+          if meta.get("adapters") else None)
+    return meta["pre_tree"](tree), meta["dec_tree"](tree, rows), ai
+
+
 def gpt2_chains(cm, ids: list[int], toks: list[int], n: int, rows: int,
-                total: int | None = None) -> torch.Tensor:
+                total: int | None = None, aidx: int = 0) -> torch.Tensor:
     """Teacher-forced logits [n, V] of one stream through the fixed route's
-    functions at ``rows`` rows (the stream's row repeated) and a cache of
-    ``total`` positions (the route's own by default): the prompt's prefill
-    in its seq bucket, then a decode step for each of ``toks[:n-1]`` fed in
-    turn.  Row i is the logits token i is chosen from."""
+    functions at ``rows`` rows (the stream's row repeated, at adapter slot
+    ``aidx``) and a cache of ``total`` positions (the route's own by
+    default): the prompt's prefill in its seq bucket, then a decode step for
+    each of ``toks[:n-1]`` fed in turn.  Row i is the logits token i is
+    chosen from."""
     from pytorch_zappa_serverless_tpu_torch.models import gpt2 as G
 
     meta, dev = cm.servable.meta, cm.device
-    tree, cfg, dtype = cm.servable.module.tree(), meta["config"], meta["dtype"]
+    cfg, dtype = meta["config"], meta["dtype"]
+    pre, dec, ai = route_trees(cm, rows, aidx)
     P = cm.bucket_for(1, len(ids))[1]
     x = torch.zeros((rows, P), dtype=torch.int32, device=dev)
     x[:, :len(ids)] = torch.tensor(ids, dtype=torch.int32, device=dev)
     pos = torch.full((rows,), len(ids), dtype=torch.int32, device=dev)
-    logits, ck, cv = G.prefill(tree, x, pos, total or P + n, cfg, dtype)
+    logits, ck, cv = G.prefill(pre, x, pos, total or P + n, cfg, dtype, adapter_idx=ai)
     out = [logits[0]]
     for t in toks[: n - 1]:
-        logits = G.decode_step(tree, ck, cv, torch.full((rows,), t, dtype=torch.int32,
-                                                        device=dev), pos, cfg, dtype)
+        logits = G.decode_step(dec, ck, cv, torch.full((rows,), t, dtype=torch.int32,
+                                                       device=dev), pos, cfg, dtype,
+                               adapter_idx=ai)
         out.append(logits[0])
         pos = pos + 1
     return torch.stack(out).float().cpu()
 
 
 def chunked_chains(cm, ids: list[int], toks: list[int], n: int, rows: int, chunk: int,
-                   block: int) -> torch.Tensor:
+                   block: int, aidx: int = 0) -> torch.Tensor:
     """:func:`gpt2_chains` with the paged lane's prefill: the prompt in the
     lane's chunk plan (``chunk``-token chunks, the last one padded to a
     power of two from 8) for ``rows`` rows through ``prefill_chunk_logits``
@@ -2885,7 +2938,8 @@ def chunked_chains(cm, ids: list[int], toks: list[int], n: int, rows: int, chunk
     from pytorch_zappa_serverless_tpu_torch.ops.paged_attention import gather_kv
 
     meta, dev = cm.servable.meta, cm.device
-    tree, cfg, dtype = cm.servable.module.tree(), meta["config"], meta["dtype"]
+    cfg, dtype = meta["config"], meta["dtype"]
+    pre, dec, ai = route_trees(cm, rows, aidx)
     MB = -(-meta["continuous"]["total"] // block)
     ck = torch.zeros((cfg.layers, rows * MB + 1, block, cfg.d_model), dtype=dtype, device=dev)
     cv = torch.zeros_like(ck)
@@ -2902,14 +2956,14 @@ def chunked_chains(cm, ids: list[int], toks: list[int], n: int, rows: int, chunk
         x = torch.zeros((rows, C), dtype=torch.int32, device=dev)
         part = ids[start:start + C]
         x[:, :len(part)] = torch.tensor(part, dtype=torch.int32, device=dev)
-        logits = G.prefill_chunk_logits(tree, x, full(start), full(L), ck, cv, table, block,
-                                        cfg, dtype)
+        logits = G.prefill_chunk_logits(pre, x, full(start), full(L), ck, cv, table, block,
+                                        cfg, dtype, adapter_idx=ai)
         start += C
     k = torch.stack([gather_kv(ck[i], table) for i in range(cfg.layers)])
     v = torch.stack([gather_kv(cv[i], table) for i in range(cfg.layers)])
     out, pos = [logits[0]], full(L)
     for t in toks[: n - 1]:
-        out.append(G.decode_step(tree, k, v, full(t), pos, cfg, dtype)[0])
+        out.append(G.decode_step(dec, k, v, full(t), pos, cfg, dtype, adapter_idx=ai)[0])
         pos = pos + 1
     return torch.stack(out).float().cpu()
 
@@ -3047,16 +3101,17 @@ def stream_refs(engine, name: str, streams: list[dict], rows: int,
             for i, s in enumerate(streams):
                 toks = list(s["tokens"]) + ([eos] if s["ended"] else [])
                 n, key = len(toks), s["mel"] if whisper else s["ids"]
-                ref = (whisper_chains if whisper else gpt2_chains)(cm, key, toks, n, 1)
+                aidx = {} if whisper else {"aidx": s.get("aidx", 0)}
+                ref = (whisper_chains if whisper else gpt2_chains)(cm, key, toks, n, 1, **aidx)
                 check(bool(torch.isfinite(ref).all()), f"{name}: reference logits not finite")
                 e = 0.0
                 if err is None and i < ERR_STREAMS:  # measured on the lane's first streams
                     lane = (whisper_chains(cm, key, toks, n, rows) if whisper else
                             gpt2_chains(cm, key, toks, n, rows,  # the pool's cache
-                                        cm.servable.meta["continuous"]["total"]))
+                                        cm.servable.meta["continuous"]["total"], **aidx))
                     e = float((lane - ref).abs().max())
                     if paged:
-                        chunked = chunked_chains(cm, key, toks, n, rows, *paged)
+                        chunked = chunked_chains(cm, key, toks, n, rows, *paged, **aidx)
                         e = max(e, float((chunked - ref).abs().max()))
                 res.append((toks, ref, e))
             return res
@@ -3939,7 +3994,7 @@ FAIL_SHED = 6
 # How long a recovery (poison → /healthz 200) may take before the phase
 # fails, and how many poison → recovery cycles check 4 runs.
 FAIL_RECOVERY_S = 600
-FAIL_POISON_CYCLES = 2
+FAIL_POISON_CYCLES = 1
 
 
 def failure_config(bert_arch: dict | None = None, gpt2_arch: dict | None = None, **gpt2_extra):
@@ -4321,7 +4376,7 @@ RES_BERT_REQS = 200
 RES_BERT_THREADS = 8
 RES_BERT_PAUSE_S = 0.3
 # Check 7: demote/restore cycles of each lazy model, and the leak allowance.
-RES_CYCLES = 3
+RES_CYCLES = 2
 RES_LEAK_BYTES = 8 << 20
 # Check 8: the reaper's timers (the cold ladder with a store ends on disk).
 RES_IDLE_S = 2.0
@@ -5112,7 +5167,7 @@ MOB = {"seq_buckets": (16, 64, 128), "max_new_tokens": 32, "gen_slots": 8,
        "segment_tokens": 8, "block_size": 16, "chunk": 64, "spec_k": 4}
 # The verify forward's rows: every slot's pending token and its proposals.
 SPEC_M = MOB["gen_slots"] * (MOB["spec_k"] + 1)
-MOB_SPEC_STREAMS = 16     # every other one sampled (GEN_SAMPLED)
+MOB_SPEC_STREAMS = 8      # every other one sampled (GEN_SAMPLED)
 MOB_MISMATCH_STREAMS = 8  # the spec_mismatch burst: the first of those
 MOB_RES_STREAMS = 4       # each burst of the residency check
 # The swap lane: one prompt in each chunk bucket (8, 16, 32, 64), so each
@@ -5564,6 +5619,567 @@ def run_mobility(card: str) -> dict:
     return {"int8_launches": launches, "checked": checked, "move": move}
 
 
+# -- phase 18: multi-tenant adapters and the regime-routed lane --------------
+
+# GPT-2 small bf16 with a stack pool of 4 slots at rank 8 on q and v, three
+# tenants from seeds; its :predict buckets and its paged lane.
+LORA = {"seq_buckets": (64,), "batch_buckets": (1, 4, 8), "max_new_tokens": 24,
+        "gen_slots": 8, "segment_tokens": 8, "block_size": 16, "chunk": 64, "slots": 4,
+        "rank": 8}
+LORA_TENANTS = ("t1", "t2", "t3")
+# Tried in turn: the smallest at which each seeded tenant's greedy tokens
+# part from the base's on the probe prompt (random rank-8 factors of 0.05
+# move GPT-2 small's near-flat seeded logits only at a large scale).
+LORA_ALPHAS = (16.0, 64.0, 256.0, 1024.0, 4096.0)
+LORA_PROMPT = 12
+LORA_CYCLES = 3
+LORA_LEAK_BYTES = 1 << 20
+# The regime-routed lane: int8 decode at up to 4 rows (its buckets 1 and 4,
+# and its paged lane's 4 slots), bf16 at 8.
+AUTO = {"crossover": 4, "gen_slots": 4, "streams": 4, "batch_buckets": (1, 4, 8)}
+AUTO_BYTES_TOL = 1 << 20
+
+
+def lora_config(arch: dict | None = None, alpha: float = LORA_ALPHAS[0]):
+    """Phase 18a's deployment: ``gpt2`` (GPT-2 small bf16 with
+    ``adapter_slots`` 4, rank 8 on q and v, three tenants from seeds 1-3, the
+    paged lane) and ``gpt2_base`` (the same seed with no adapter pool)."""
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+
+    lane = {"max_new_tokens": LORA["max_new_tokens"], "gen_slots": LORA["gen_slots"],
+            "segment_tokens": LORA["segment_tokens"], **({"arch": arch} if arch else {})}
+    common = {"dtype": "bfloat16", "batch_buckets": LORA["batch_buckets"],
+              "seq_buckets": LORA["seq_buckets"], "coalesce_ms": 100.0}
+    adapters = {t: {"seed": i + 1, "alpha": alpha} for i, t in enumerate(LORA_TENANTS)}
+    return ServeConfig(models=[
+        ModelConfig(name="gpt2", **common, kv_cache="paged", kv_block_size=LORA["block_size"],
+                    prefill_chunk_tokens=LORA["chunk"], adapter_slots=LORA["slots"],
+                    adapter_rank=LORA["rank"], adapter_targets=("q", "v"), adapters=adapters,
+                    extra=lane),
+        ModelConfig(name="gpt2_base", builder="gpt2", **common, extra=lane)])
+
+
+def auto_config(arch: dict | None = None, **extra):
+    """Phase 18b's deployment: ``gpt2_auto`` (``params_dtype: auto``,
+    ``int8_crossover_batch`` 4, a paged lane of 4 slots), ``gpt2_int8`` and
+    ``gpt2_bf16`` (the same seed on the int8 lane and with bf16 weights at
+    rest), each at :predict buckets (1, 4, 8) x 64."""
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+
+    lane = {"max_new_tokens": LORA["max_new_tokens"], "gen_slots": AUTO["gen_slots"],
+            "segment_tokens": LORA["segment_tokens"], **({"arch": arch} if arch else {}),
+            **extra}
+    common = {"dtype": "bfloat16", "batch_buckets": AUTO["batch_buckets"],
+              "seq_buckets": LORA["seq_buckets"]}
+    return ServeConfig(models=[
+        ModelConfig(name="gpt2_auto", builder="gpt2", **common, kv_cache="paged",
+                    kv_block_size=LORA["block_size"], prefill_chunk_tokens=LORA["chunk"],
+                    extra={**lane, "params_dtype": "auto",
+                           "int8_crossover_batch": AUTO["crossover"]}),
+        ModelConfig(name="gpt2_int8", builder="gpt2", **common,
+                    extra={**lane, "params_dtype": "int8"}),
+        ModelConfig(name="gpt2_bf16", builder="gpt2", **common,
+                    extra={**lane, "params_dtype": "bfloat16"})])
+
+
+def gpt2_batch_of(cm, payloads: list[dict], slots=None) -> dict:
+    """The collated bucket batch of ``payloads`` (each at adapter slot
+    ``slots[i]`` where given): what the batcher hands ``forward``."""
+    samples = [cm.servable.preprocess(p) for p in payloads]
+    if slots is not None:
+        for s, a in zip(samples, slots):
+            s["adapter_idx"] = np.int32(a)
+    seq = max(cm.servable.meta["seq_len_of"](s) for s in samples)
+    bucket = cm.bucket_for(len(samples), seq)
+    return cm.servable.meta["collate"](samples, bucket, cm.servable.input_spec(bucket))
+
+
+def row_tokens(cm, out: dict, i: int) -> list[int]:
+    return cm.servable.postprocess(out, i)["tokens"]
+
+
+def lora_pick_alpha(engine, ids: list[int]) -> tuple[float, dict]:
+    """The smallest of ``LORA_ALPHAS`` at which each tenant's greedy tokens
+    on ``ids`` part from the base's, tried on the dispatch thread: the three
+    seeded adapters written into the stacks at that scaling, the bucket-1
+    generate run eagerly, and the stacks zeroed again.  Returns (alpha,
+    {tenant or "base": tokens at it})."""
+    from pytorch_zappa_serverless_tpu_torch.engine import weights as W
+    from pytorch_zappa_serverless_tpu_torch.ops import lora as L
+
+    cm = engine.model("gpt2")
+    meta = cm.servable.meta["adapters"]
+
+    def toks(slot):
+        with torch.inference_mode():
+            return row_tokens(cm, cm.forward_eager(gpt2_batch_of(cm, [{"input_ids": ids}],
+                                                                 [slot])), 0)
+
+    def run():
+        stacks = cm.servable.module.tree()["__adapters__"]
+        host = {f"layer{i}": L.zero_stacks(meta["slots"], meta["rank"], meta["dims"])
+                for i in range(meta["layers"])}
+        trees = [W.init_lora(meta["layers"], meta["dims"], meta["rank"], seed=i + 1)
+                 for i in range(len(LORA_TENANTS))]
+        base, got = toks(0), {}
+        for alpha in LORA_ALPHAS:
+            for i, tree in enumerate(trees):
+                L.install_adapter(host, i + 1, tree, scaling=alpha / meta["rank"])
+                L.write_slot(stacks, host, i + 1)
+            got = {t: toks(i + 1) for i, t in enumerate(LORA_TENANTS)}
+            if all(got[t] != base for t in LORA_TENANTS):
+                break
+        for i in range(len(trees)):
+            L.clear_slot(host, i + 1)
+            L.write_slot(stacks, host, i + 1)
+        return alpha, {"base": base, **got}
+
+    alpha, got = engine.runner.run_fn_sync(run)
+    check(all(got[t] != got["base"] for t in LORA_TENANTS),
+          f"no alpha in {LORA_ALPHAS} parts every tenant from the base: {got}")
+    return alpha, got
+
+
+def replay_device_ms(engine, cm, bucket: tuple) -> float:
+    """Device ms of one replay of ``cm``'s captured graph of ``bucket`` (its
+    static inputs as the last dispatch left them), queued behind a spin
+    kernel (``device_ms``), on the dispatch thread."""
+    graph = next(g for k, g in cm._graphs.items() if k[0] == bucket)
+    return engine.runner.run_fn_sync(lambda: device_ms(lambda: graph.captured.graph.replay()))
+
+
+def phase_lora_path(cfg, device: str = "cuda", vocab: int = 50257) -> dict:
+    """Phase 18a: serve ``gpt2`` with three seeded tenants and ``gpt2_base``
+    and drive them over HTTP: each tenant and the base alone at bucket 1; a
+    burst of three tenants and the base in one coalescing window; 8 SSE
+    streams on the paged lane (two a tenant, two base) and a burst each of
+    adapter and base streams for their rates; three detach and re-attach
+    cycles of ``t1`` (a deadline below the estimate on the first); an
+    ``adapter`` fault on ``t2``; ``/metrics``.  The kernel counts are read
+    just after the requests."""
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, device)
+    log(f"adapter engines ready in {time.perf_counter() - t0:.3f} s on {engine.device}: "
+        f"build {engine.build_seconds}")
+    rng = np.random.default_rng(31)
+    ids = rng.integers(0, vocab - 1, LORA_PROMPT).tolist()
+    alpha, probe = lora_pick_alpha(engine, ids)
+    for spec in cfg.models[0].adapters.values():
+        spec["alpha"] = alpha
+    log(f"adapters: alpha {alpha} (scaling {alpha / LORA['rank']}) parts every tenant's greedy "
+        f"tokens from the base's on a {LORA_PROMPT}-token probe: "
+        + "; ".join(f"{k} {v[:8]}" for k, v in probe.items()))
+    out: dict = {"engine": engine, "alpha": alpha, "ids": ids}
+    cm, bcm = engine.model("gpt2"), engine.model("gpt2_base")
+    run = engine.runner.run_fn_sync
+    max_new = LORA["max_new_tokens"]
+
+    def predict(port, body, name=None, headers=None):
+        return http_h(port, "/v1/models/gpt2:predict", body,
+                      {**({"X-Adapter": name} if name else {}), **(headers or {})})
+
+    with BackgroundServer(cfg, engine) as srv:
+        port, server = srv.port, srv.server
+        # The paged lane's graphs captured ahead of traffic, so that no
+        # burst below pays a capture.
+        run(server.schedulers["gpt2"].warm)
+        reset_counts()
+        # Each tenant and the base alone at bucket 1 (the attaches).
+        solo = {}
+        for name in ("base", *LORA_TENANTS):
+            st, body, heads = predict(port, {"input_ids": ids}, None if name == "base" else name)
+            check(st == 200 and heads.get("X-Adapter") == (None if name == "base" else name),
+                  f"{name} alone: {st} {body} {heads.get('X-Adapter')}")
+            solo[name] = body["predictions"]["tokens"]
+        check(solo == probe, f"served solo tokens {solo} != the eager probe's {probe}")
+        _, snap, _ = http_h(port, "/admin/adapters")
+        recs = snap["models"]["gpt2"]
+        slots = {t: recs[t]["slot"] for t in LORA_TENANTS}
+        out["attach_ms"] = {t: recs[t]["last_attach_ms"] for t in LORA_TENANTS}
+        # (1) The burst: three tenants and the base in one window.
+        names = ("base", *LORA_TENANTS)
+        prompts = {n: rng.integers(0, vocab - 1, k).tolist() for n, k in zip(names, (9, 17, 25, 33))}
+        multi0 = server.adapters.multi_adapter_batches
+        with ThreadPoolExecutor(len(names)) as ex:
+            res = dict(zip(names, ex.map(lambda n: predict(port, {"input_ids": prompts[n]},
+                                                           None if n == "base" else n), names)))
+        for n, (st, body, _) in res.items():
+            check(st == 200 and body["timing"]["batch_size"] == 4,
+                  f"burst {n}: {st} {body.get('timing')}")
+        burst = {n: res[n][1]["predictions"]["tokens"] for n in names}
+        out["multi_adapter_batches"] = server.adapters.multi_adapter_batches - multi0
+        check(out["multi_adapter_batches"] >= 1, "the burst co-batched no two adapters")
+        # The same prompts alone, at bucket 1: the margin rule holds the
+        # burst to them (check_lora); how many are byte-equal is printed.
+        alone = {n: predict(port, {"input_ids": prompts[n]},
+                            None if n == "base" else n)[1]["predictions"]["tokens"]
+                 for n in names}
+        # (2) 8 SSE streams on the paged lane: two a tenant, two base.
+        tags = ("t1", "t1", "t2", "t2", "t3", "t3", None, None)
+        bodies = [{"input_ids": rng.integers(0, vocab - 1, int(rng.integers(5, 61))).tolist(),
+                   "max_new_tokens": max_new} for _ in tags]
+        heads = [{"X-Adapter": t} if t else None for t in tags]
+        sres, swall = gen_burst(port, "gpt2", bodies, heads)
+        check(all(r["status"] == 200 for r in sres), f"streams: {[r['status'] for r in sres]}")
+        check(all(r["headers"].get("X-Adapter") == t for r, t in zip(sres, tags)),
+              f"stream X-Adapter headers {[r['headers'].get('X-Adapter') for r in sres]}")
+        check_sse(sres, vocab)
+        streams = lane_streams(bodies, sres, max_new, "lora")
+        for s, t in zip(streams, tags):
+            s["aidx"] = slots[t] if t else 0
+        out["streams"] = streams
+        # Rates: bursts of 8 adapter streams and of 8 base streams, in turn,
+        # twice.
+        rates: dict = {"adapter": [], "base": []}
+        for kind in ("adapter", "base", "adapter", "base"):
+            hs = ([{"X-Adapter": LORA_TENANTS[i % 3]} for i in range(8)]
+                  if kind == "adapter" else None)
+            rb = [{"input_ids": rng.integers(0, vocab - 1, 32).tolist(),
+                   "max_new_tokens": max_new} for _ in range(8)]
+            rr, rw = gen_burst(port, "gpt2", rb, hs)
+            check(all(r["status"] == 200 for r in rr), f"{kind} rate burst statuses")
+            rates[kind].append(stream_stats(rr, rw))
+        out["rates"] = rates
+        out["counts"] = read_counts()  # just after the served load
+        # (3) Detach and re-attach t1, three times.
+        captures, labels = cm.captures, sorted(cm.graphs)
+        t1_batch = gpt2_batch_of(cm, [{"input_ids": ids}], [slots["t1"]])
+        base_batch = gpt2_batch_of(cm, [{"input_ids": ids}], [0])
+        base_bytes = run(cm.forward, base_batch)["tokens"]
+        mem0 = 0
+        if cm.device.type == "cuda":
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+        cycles = []
+        for c in range(LORA_CYCLES):
+            st, body, _ = http_h(port, "/admin/adapters/gpt2/t1", {"action": "detach"})
+            check(st == 200 and body["adapter"]["state"] == "cold", f"detach {c}: {st} {body}")
+            check(same_bits(run(cm.forward, t1_batch)["tokens"], base_bytes),
+                  f"cycle {c}: the detached slot {slots['t1']} does not replay the base's bytes")
+            row = {}
+            if c == 0:
+                # A deadline below the attach estimate: 503 adapter_cold, no dispatch.
+                batches = engine.runner.stats["gpt2"].batches
+                reset_counts()
+                st, body, hd = predict(port, {"input_ids": ids}, "t1", {"X-Deadline-Ms": "0.01"})
+                check(st == 503 and body.get("adapter_cold") is True
+                      and int(hd.get("Retry-After", 0)) >= 1,
+                      f"the cold request: {st} {body} Retry-After {hd.get('Retry-After')}")
+                check(engine.runner.stats["gpt2"].batches == batches
+                      and not any(read_counts().values()),
+                      f"the cold request dispatched: {read_counts()}")
+                row["cold"] = {"status": st, "estimated_attach_ms": body["estimated_attach_ms"],
+                               "retry_after": hd["Retry-After"]}
+                wait_until(lambda: http_h(port, "/admin/adapters")[1]["models"]["gpt2"]["t1"]
+                           ["state"] == "active", 60, "t1's background attach")
+            else:
+                st, body, _ = http_h(port, "/admin/adapters/gpt2/t1", {"action": "attach"})
+                check(st == 200 and body["adapter"]["state"] == "active", f"attach {c}: {body}")
+            st, body, _ = predict(port, {"input_ids": ids}, "t1")
+            check(st == 200 and body["predictions"]["tokens"] == solo["t1"],
+                  f"cycle {c}: t1 after the re-attach {body} != {solo['t1']}")
+            _, snap, _ = http_h(port, "/admin/adapters")
+            check(snap["models"]["gpt2"]["t1"]["slot"] == slots["t1"],
+                  f"cycle {c}: t1 came back at slot {snap['models']['gpt2']['t1']['slot']}")
+            if cm.device.type == "cuda":
+                torch.cuda.synchronize()
+                row["mem_delta"] = torch.cuda.memory_allocated() - mem0
+                check(abs(row["mem_delta"]) <= LORA_LEAK_BYTES,
+                      f"cycle {c}: memory_allocated moved {row['mem_delta']} bytes")
+            row["attach_ms"] = snap["models"]["gpt2"]["t1"]["last_attach_ms"]
+            cycles.append(row)
+        check(cm.captures == captures and sorted(cm.graphs) == labels,
+              f"the cycles captured graphs: {captures} -> {cm.captures}, "
+              f"{sorted(set(cm.graphs) - set(labels))}")
+        out["cycles"] = cycles
+        # (4) An adapter fault poisons t2's attach.
+        st, body, _ = http_h(port, "/admin/adapters/gpt2/t2", {"action": "detach"})
+        check(st == 200, f"detach t2: {st} {body}")
+        st, body, _ = http_h(port, "/admin/faults", {"model": "gpt2:t2", "fail_every_n": 1,
+                                                     "kind": "adapter"})
+        check(st == 200, f"the adapter rule: {st} {body}")
+        st, body, hd = predict(port, {"input_ids": ids}, "t2")
+        check(st == 503 and body.get("adapter_attach_failed") and "Retry-After" in hd,
+              f"the poisoned tenant: {st} {body}")
+        for name in ("base", "t1", "t3"):
+            st, body, _ = predict(port, {"input_ids": ids}, None if name == "base" else name)
+            check(st == 200 and body["predictions"]["tokens"] == solo[name],
+                  f"{name} beside the poisoned tenant: {st} {body}")
+        st, body, _ = http_h(port, "/admin/faults", {"clear": True, "model": "gpt2:t2"})
+        check(st == 200, f"clearing the rule: {st} {body}")
+        st, body, _ = predict(port, {"input_ids": ids}, "t2")
+        check(st == 200 and body["predictions"]["tokens"] == solo["t2"], f"t2 healed: {body}")
+        # (5) The adapter families through the manifest.
+        status, prom = http_text(port, "/metrics?format=prometheus")
+        check(status == 200, f"/metrics?format=prometheus: {status}")
+        out["prometheus"] = prom
+        _, snap, _ = http_h(port, "/admin/adapters")
+        out["snapshot"] = snap
+    # Off the server: the burst's rows against their masked runs and the
+    # adapter-free model, in the same bucket, on the dispatch thread.
+    order = ("base", *LORA_TENANTS)
+    slot_of = {"base": 0, **slots}
+    rows = [{"input_ids": prompts[n]} for n in order]
+    masked = {}
+    for i, n in enumerate(order):
+        keep = [slot_of[m] if j == i else 0 for j, m in enumerate(order)]
+        masked[n] = row_tokens(cm, run(cm.forward, gpt2_batch_of(cm, rows, keep)), i)
+    plain = row_tokens(bcm, run(bcm.forward, gpt2_batch_of(bcm, rows)), 0)
+    out["burst"] = {"tokens": burst, "masked": masked, "plain": plain, "prompts": prompts,
+                    "slots": slot_of, "alone": alone}
+    # The LoRA delta's cost: bucket 4 replayed on gpt2 (the mixed batch in
+    # its static inputs) and on gpt2_base.
+    if cm.device.type == "cuda":
+        run(cm.forward, gpt2_batch_of(cm, rows, [slot_of[n] for n in order]))
+        run(bcm.forward, gpt2_batch_of(bcm, rows))
+        out["replay_ms"] = {"adapters": replay_device_ms(engine, cm, (4, 64)),
+                            "base": replay_device_ms(engine, bcm, (4, 64))}
+    return out
+
+
+def check_lora(run: dict, vocab: int = 50257, layers: int = 12) -> dict:
+    """Phase 18a's checks on the path's results: the burst's rows, byte for
+    byte, against their masked runs and the adapter-free model in the same
+    bucket, and under the margin rule against each one alone at bucket 1;
+    the 8 streams under the margin rule against the fixed route with their
+    adapter; no kernel of the port on the bf16 lane; ``/metrics`` against
+    the manifest with the adapter families."""
+    engine, b = run["engine"], run["burst"]
+    for n in LORA_TENANTS:
+        check(b["tokens"][n] == b["masked"][n],
+              f"burst {n}: {b['tokens'][n]} != its masked run {b['masked'][n]}")
+    check(b["tokens"]["base"] == b["masked"]["base"] == b["plain"],
+          f"burst base: {b['tokens']['base']}, masked {b['masked']['base']}, adapter-free "
+          f"{b['plain']}")
+    max_new = LORA["max_new_tokens"]
+    held_burst = hold_streams(engine, "gpt2", [
+        {"tag": f"burst-{n}", "ids": b["prompts"][n], "tokens": b["tokens"][n],
+         "ended": len(b["tokens"][n]) < max_new, "aidx": b["slots"][n]}
+        for n in ("base", *LORA_TENANTS)], 4)
+    held_streams = hold_streams(engine, "gpt2", run["streams"], LORA["gen_slots"],
+                                (LORA["chunk"], LORA["block_size"]))
+    check(not any(run["counts"].values()), f"a port kernel on the bf16 adapter lane: "
+                                           f"{run['counts']}")
+    cmt = check_metrics_tool()
+    problems = cmt.check(run["prometheus"], cmt.load_manifest())
+    check(not problems, f"/metrics against the manifest: {problems}")
+    for fam in ("tpuserve_adapter_residency", "tpuserve_adapter_served_total",
+                "tpuserve_adapter_cold_fast_fails_total", "tpuserve_adapter_multi_batches_total",
+                "tpuserve_adapter_attach_ms"):
+        check(fam in run["prometheus"], f"{fam} missing from /metrics")
+    return {"burst": held_burst, "streams": held_streams}
+
+
+def phase_auto_path(cfg, device: str = "cuda", vocab: int = 50257,
+                    profile: bool = False) -> dict:
+    """Phase 18b: serve ``gpt2_auto``, ``gpt2_int8`` and ``gpt2_bf16`` and
+    drive the routed lane over HTTP (two requests at bucket 1, four
+    instances at bucket 4, eight at bucket 8, and ``AUTO["streams"]`` SSE
+    streams on its paged lane), the kernel counts read just after; then,
+    on the dispatch thread, each bucket's replay against its reference,
+    the poison, the device bytes and the timings; with ``profile``, one
+    replayed bucket-1 call of ``gpt2_auto``, ``gpt2_int8`` and ``gpt2_bf16``
+    under ``torch.profiler`` (device time by kernel)."""
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+    from pytorch_zappa_serverless_tpu_torch.models import gpt2 as G
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, device)
+    log(f"auto engines ready in {time.perf_counter() - t0:.3f} s on {engine.device}: "
+        f"build {engine.build_seconds}")
+    cm = engine.model("gpt2_auto")
+    meta = cm.servable.meta
+    layers, max_new = meta["config"].layers, LORA["max_new_tokens"]
+    per_call = (4 * layers + 1) * max_new  # a generate call below the crossover
+    rng = np.random.default_rng(37)
+    payloads = [{"input_ids": rng.integers(0, vocab - 1, int(k)).tolist()}
+                for k in rng.integers(5, 61, 8)]
+    out: dict = {"engine": engine, "per_call": per_call}
+    run = engine.runner.run_fn_sync
+    with BackgroundServer(cfg, engine) as srv:
+        port = srv.port
+        sched = srv.server.schedulers["gpt2_auto"]
+        run(sched.warm)  # the lane's graphs captured ahead of traffic
+        before = sched.kernels.graphs.expected_launches()
+        reset_counts()
+        served = []
+        for body in ([payloads[0]], [payloads[1]], payloads[:4], payloads):
+            st, ans, _ = http_h(port, "/v1/models/gpt2_auto:predict",
+                                body[0] if len(body) == 1 else {"instances": body})
+            check(st == 200, f"auto :predict of {len(body)}: {st} {ans}")
+            served.append((len(body), ans))
+        bodies = [{"input_ids": rng.integers(0, vocab - 1, int(rng.integers(5, 61))).tolist(),
+                   "max_new_tokens": max_new} for _ in range(AUTO["streams"])]
+        sres, swall = gen_burst(port, "gpt2_auto", bodies)
+        check(all(r["status"] == 200 for r in sres), f"auto streams {[r['status'] for r in sres]}")
+        check_sse(sres, vocab)
+        out["counts"] = read_counts()  # just after the served load
+        lane = {k: v - before.get(k, 0)
+                for k, v in sched.kernels.graphs.expected_launches().items()}
+        out["expected"] = {k: lane.get(k, 0) + (3 * per_call if k == "int8_matmul" else 0)
+                           for k in set(lane) | {"int8_matmul"}}
+        out["streams"] = lane_streams(bodies, sres, max_new, "auto")
+        out["rate"] = stream_stats(sres, swall)
+        out["served"] = served
+        status, prom = http_text(port, "/metrics?format=prometheus")
+        check(status == 200, f"/metrics?format=prometheus: {status}")
+        out["prometheus"] = prom
+    # Off the server, on the dispatch thread.
+    batches = {b: gpt2_batch_of(cm, payloads[:b]) for b in AUTO["batch_buckets"]}
+    replays = {}
+    for b, batch in batches.items():
+        reset_counts()
+        replays[b] = run(cm.forward, batch)
+        out.setdefault("replay_counts", {})[b] = read_counts()["int8_matmul"]
+    bf16 = engine.model("gpt2_bf16")
+    out["bf16_8"] = run(bf16.forward, gpt2_batch_of(bf16, payloads))
+
+    def composed(batch):
+        tree, cfg_, dtype = cm.servable.module.tree(), meta["config"], meta["dtype"]
+        inp = cm._place(batch)
+        with torch.inference_mode():
+            return G.generate(tree["bf16"], inp["input_ids"], inp["length"], inp["temperature"],
+                              inp["seed"], max_new, cfg_, dtype, top_k=inp["top_k"],
+                              top_p=inp["top_p"], repetition_penalty=inp["repetition_penalty"],
+                              gates=meta["variant_of"](batch),
+                              decode_params=G.int8_view(tree, cfg_.layers)).cpu().numpy()
+
+    out["composed"] = {b: run(composed, batches[b]) for b in (1, 4)}
+    out["replays"] = replays
+    # The poison, in place under the captured graphs: the int8 tree's lm
+    # head scales zeroed, then restored.
+    scale = cm.servable.module.tree()["int8"]["lm_scale"]
+    keep = run(lambda: scale.clone())
+    run(lambda: scale.zero_())
+    out["poisoned"] = {b: run(cm.forward, batch)["tokens"] for b, batch in batches.items()}
+    run(lambda: scale.copy_(keep))
+    out["restored"] = {b: run(cm.forward, batch)["tokens"] for b, batch in batches.items()}
+    # Device bytes: the routed lane's against the int8 lane's, and one
+    # address a tensor.
+    i8 = engine.model("gpt2_int8")
+    tree = cm.servable.module.tree()
+    out["bytes"] = {"auto": cm.param_nbytes(), "int8": i8.param_nbytes(),
+                    "bf16_layers": sum(t.numel() * t.element_size() for i in range(layers)
+                                       for p in ("q", "k", "v", "out", "fc1", "fc2")
+                                       for t in tree["bf16"][f"layer{i}"][p].values()),
+                    "addresses": len({t.data_ptr() for t in cm.servable.module.buffers()}),
+                    "tensors": len(list(cm.servable.module.buffers()))}
+    if cm.device.type == "cuda":
+        out["call_ms"] = {(n, b): replay_device_ms(engine, engine.model(n), (b, 64))
+                          for n in ("gpt2_auto", "gpt2_int8", "gpt2_bf16")
+                          for b in AUTO["batch_buckets"]}
+    if profile:
+        from pytorch_zappa_serverless_tpu_torch.tools import bench_fused_decode as BF
+
+        for n in ("gpt2_auto", "gpt2_int8", "gpt2_bf16"):
+            m = engine.model(n)
+            batch = gpt2_batch_of(m, payloads[:1])
+            p = run(BF.profile, lambda m=m, batch=batch: m.forward(batch), 1)
+            log(f"profile {n} (1, 64) replay: device busy {p['busy_ms']:.4f} ms, wall "
+                f"{p['wall_ms_untraced']:.4f} ms untraced")
+            for kname, count, ms in p["top"][:12]:
+                log(f"profile {n} (1, 64) replay: {ms:9.4f} ms x{count:<6.4g} {kname[:90]}")
+    return out
+
+
+def check_auto(run: dict, layers: int = 12, d_model: int = 768, ffn: int = 3072) -> dict:
+    """Phase 18b's checks: bucket 8 the bf16 model's bytes with no int8
+    product; buckets 1 and 4 the hand-composed bf16 prefill and int8
+    decode; the int8 count exact per replay and over the served load; the
+    poison changing buckets 1 and 4 and not 8, and the restore; the bytes;
+    the lane's streams under the margin rule against the fixed route."""
+    engine, per = run["engine"], run["per_call"]
+    cuda = engine.device.type == "cuda"
+    r = run["replays"]
+    check(same_bits(r[8]["tokens"], run["bf16_8"]["tokens"]),
+          "auto bucket 8 differs from the bf16 model's bucket 8")
+    for b in (1, 4):
+        check(same_bits(r[b]["tokens"], run["composed"][b]),
+              f"auto bucket {b} differs from bf16 prefill + int8 decode composed by hand")
+    if cuda:
+        check(run["replay_counts"] == {1: per, 4: per, 8: 0},
+              f"int8_matmul launches a replay {run['replay_counts']}, want {per} at 1 and 4, "
+              f"0 at 8")
+        exact_counts(run["counts"], run["expected"], "the auto load")
+    for b in (1, 4):
+        check(not same_bits(run["poisoned"][b], r[b]["tokens"]),
+              f"the int8 poison did not reach bucket {b}")
+    check(same_bits(run["poisoned"][8], r[8]["tokens"]), "the int8 poison reached bucket 8")
+    check(all(same_bits(run["restored"][b], r[b]["tokens"]) for b in r),
+          "the restored lm_scale does not give the bytes back")
+    by = run["bytes"]
+    want = layers * ((4 * d_model * d_model + 2 * d_model * ffn) * 2
+                     + (4 * d_model + ffn + d_model) * 4)
+    check(by["bf16_layers"] == want and abs(by["auto"] - by["int8"] - want) <= AUTO_BYTES_TOL,
+          f"auto {by['auto']} - int8 {by['int8']} = {by['auto'] - by['int8']}, want "
+          f"{want} (the bf16 layer weights and biases) within {AUTO_BYTES_TOL}")
+    check(by["addresses"] == by["tensors"], f"shared addresses: {by}")
+    held = hold_streams(engine, "gpt2_auto", run["streams"], AUTO["gen_slots"],
+                        (LORA["chunk"], LORA["block_size"]))
+    cmt = check_metrics_tool()
+    problems = cmt.check(run["prometheus"], cmt.load_manifest())
+    check(not problems, f"/metrics against the manifest: {problems}")
+    return {"streams": held}
+
+
+def run_adapters(card: str, profile: bool = False) -> dict:
+    """Phase 18: multi-tenant adapters (a) and the regime-routed lane (b)."""
+    t0 = time.perf_counter()
+    fresh_memory()
+    lrun = phase_lora_path(lora_config())
+    engine = lrun["engine"]
+    try:
+        log_memory("adapters", engine)
+        lheld = check_lora(lrun)
+    finally:
+        engine.shutdown()
+    del engine
+    b, a = lrun["burst"], lrun["rates"]
+    log(f"{card}: adapters (alpha {lrun['alpha']}): attach ms {lrun['attach_ms']}, over the "
+        f"cycles {[c['attach_ms'] for c in lrun['cycles']]}; the cold request 503 with estimate "
+        f"{lrun['cycles'][0]['cold']['estimated_attach_ms']} ms, Retry-After "
+        f"{lrun['cycles'][0]['cold']['retry_after']}; memory_allocated over the cycles "
+        f"{[c.get('mem_delta') for c in lrun['cycles']]} bytes; co-batched dispatches "
+        f"{lrun['multi_adapter_batches']}")
+    log(f"{card}: adapters: the burst's rows byte-equal to their masked runs and the base's to "
+        f"gpt2_base; against each alone at bucket 1: "
+        f"{sum(b['tokens'][n] == b['alone'][n] for n in b['tokens'])} of 4 byte-equal, the "
+        f"margin rule decided {lheld['burst']['decided_share']:.3f} (error "
+        f"{lheld['burst']['err_max']:.4g}); streams decided "
+        f"{lheld['streams']['decided_share']:.3f} (error {lheld['streams']['err_max']:.4g})")
+    if "replay_ms" in lrun:
+        rm = lrun["replay_ms"]
+        log(f"{card}: adapters: a bucket-4 generate call replayed, three tenants and the base "
+            f"{rm['adapters']:.4f} ms, the adapter-free model {rm['base']:.4f} ms (the LoRA "
+            f"delta {rm['adapters'] - rm['base']:.4f} ms, {rm['adapters'] / rm['base']:.3f} x)")
+    log(f"{card}: adapters: bursts of 8 streams in turn on the warmed lane, tokens/s (TTFT p50 "
+        f"ms): adapter " + ", ".join(f"{r['tok_per_s']:.1f} ({r['ttft_p50']:.1f})"
+                                     for r in a["adapter"])
+        + "; base " + ", ".join(f"{r['tok_per_s']:.1f} ({r['ttft_p50']:.1f})" for r in a["base"]))
+    fresh_memory()
+    arun = phase_auto_path(auto_config(), profile=profile)
+    engine = arun["engine"]
+    try:
+        log_memory("auto", engine)
+        aheld = check_auto(arun)
+    finally:
+        engine.shutdown()
+    by = arun["bytes"]
+    log(f"{card}: auto: int8_matmul {arun['per_call']} launches a replay at buckets 1 and 4, "
+        f"0 at 8; {arun['counts']['int8_matmul']} on the served load; bytes auto "
+        f"{by['auto']}, int8 {by['int8']}, difference {by['auto'] - by['int8']} (bf16 layers "
+        f"{by['bf16_layers']}); streams decided {aheld['streams']['decided_share']:.3f} "
+        f"(error {aheld['streams']['err_max']:.4g}); {arun['rate']['tok_per_s']:.1f} tokens/s")
+    for (n, bkt), ms in sorted(arun.get("call_ms", {}).items()):
+        log(f"{card}: a generate call replayed, {n} bucket ({bkt}, 64): {ms:.4f} ms")
+    log(f"{card}: phase 18 in {time.perf_counter() - t0:.3f} s")
+    return {"auto_launches": arun["counts"]["int8_matmul"], "lora": lrun, "auto": arun}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -5571,7 +6187,8 @@ def main(argv: list[str] | None = None) -> int:
                          "denoise chunk, one served GPT-2 generate call, the three "
                          "GPT-2 decode lanes, served ResNet-50 (32,), EfficientNet-B0 (8,) "
                          "and ViT-B/16 (8,) forwards, one Whisper int8 generate call and "
-                         "one GPT-2 int8 :generate segment (torch.profiler), and stamp the "
+                         "one GPT-2 int8 :generate segment (torch.profiler), one replayed "
+                         "bucket-1 generate call of GPT-2 auto, int8 and bf16, and stamp the "
                          "fused kernels' phases")
     args = ap.parse_args(argv)
     card = phase_device()
@@ -5590,6 +6207,7 @@ def main(argv: list[str] | None = None) -> int:
     residency = run_residency(card)
     plane = run_plane(card)
     mobility = run_mobility(card)
+    adapters = run_adapters(card, args.profile)
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
         log(f"one forward's int8_matmul at M={m} (72 launches, the per-shape times summed): "
@@ -5613,7 +6231,8 @@ def main(argv: list[str] | None = None) -> int:
         "name": "int8_matmul", "route": "cuda",
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "pytorch_zappa_serverless_tpu/ops/int8_matmul.py:107",
-        "launches": int8_launches + plane["int8_launches"] + mobility["int8_launches"],
+        "launches": (int8_launches + plane["int8_launches"] + mobility["int8_launches"]
+                     + adapters["auto_launches"]),
         "max_abs_err": kern["max_abs_err"],
         "ms": bert["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": bert["bound_ms"],
         "bound_by": bert["bound_by"], "library_ms": bert["library_ms"],
@@ -5639,6 +6258,7 @@ def main(argv: list[str] | None = None) -> int:
         "launches_residency_path": residency["launches"],
         "launches_plane_path": plane["int8_launches"],
         "launches_mobility_path": mobility["int8_launches"],
+        "launches_auto_path": adapters["auto_launches"],
         "spec_verify": {**verify, "timed_work": f"one speculative verify forward of GPT-2 small "
                                                 f"at M={SPEC_M}: 48 layer projections + the f32 "
                                                 f"lm head, the per-shape times summed"},

@@ -90,6 +90,22 @@ class ModelConfig:
     # re-prefilled; also gates the /admin/streams export and import routes.
     # False keeps the eviction ladder alone.
     kv_migrate: bool = True
+    # -- multi-tenant LoRA adapters (serving/adapters.py, ops/lora.py) --------
+    # Device slot pool for co-resident adapters on this base: 0 disables
+    # adapters; N reserves N slots beside slot 0, the all-zero adapter (the
+    # base itself).  Requests for different adapters co-batch into one
+    # dispatch: each row gathers its own low-rank factors by slot index.
+    # Not combinable with params_dtype int8 or auto.
+    adapter_slots: int = 0
+    # The pool's rank (the stacks' shapes are fixed at build): a checkpoint
+    # of smaller rank zero-pads up, a larger one is a config error.
+    adapter_rank: int = 8
+    # Which projections carry deltas; every configured adapter must fit.
+    adapter_targets: tuple[str, ...] = ("q", "v")
+    # Registered adapters: {name: {checkpoint, alpha, rank, tenants, seed}};
+    # no checkpoint -> the seed's random factors (dev mode, like models);
+    # ``tenants`` lists the X-Tenant ids that resolve to the adapter.
+    adapters: dict[str, dict] = field(default_factory=dict)
     # Free-form per-model extras (arch overrides, params_dtype, labels, ...).
     extra: dict[str, Any] = field(default_factory=dict)
 
@@ -204,6 +220,15 @@ class ServeConfig:
     # quarter it).
     activation_max_wait_s: float = 120.0
     activation_estimate_ms: float = 15000.0
+    # -- multi-tenant adapters (serving/adapters.py) -------------------------
+    # Scale-to-zero per tenant: an adapter idle this long detaches from its
+    # slot (a re-attach writes the slot again).  0 -> follow idle_unload_s;
+    # negative -> never.
+    adapter_idle_unload_s: float = 0.0
+    # The attach estimate in ms before any attach of an adapter was seen
+    # (its history refines it): a request whose deadline is below it answers
+    # 503 adapter_cold + Retry-After while the attach goes on.
+    adapter_attach_estimate_ms: float = 500.0
     # -- the request plane ---------------------------------------------------
     # Append-only job journal directory ("" = durability off): one JSONL
     # record a job transition.  At boot the job queue replays it, so an
@@ -316,7 +341,8 @@ def load_config(path: str | Path | None = None,
     models = [ModelConfig(**{**m,
                              "batch_buckets": tuple(m.get("batch_buckets",
                                                           (1, 4, 8, 16, 32))),
-                             "seq_buckets": tuple(m.get("seq_buckets", (128,)))})
+                             "seq_buckets": tuple(m.get("seq_buckets", (128,))),
+                             "adapter_targets": tuple(m.get("adapter_targets", ("q", "v")))})
               for m in data.pop("models", [])]
     return apply_env_overrides(ServeConfig(models=models, **data))
 

@@ -281,7 +281,16 @@ class CompiledModel:
                              f"{LATENCY_CLASSES}, got {lc!r}")
         self.latency_class = lc
         params_dtype = cfg.extra.get("params_dtype")
-        if str(params_dtype) == "int8":
+        if str(params_dtype) == "auto":
+            # The regime-routed lane (models/gpt2.py) holds a bf16 and an int8
+            # tree and each program reads one: the at-rest cast must not
+            # touch them, and a builder without the lane must not serve.
+            if not {"bf16", "int8"} <= set(servable.module._modules):
+                raise ValueError(
+                    f"{cfg.name}: params_dtype=auto requested but this model family has no "
+                    f"regime-routed lane (the builder made no bf16/int8 tree pair); use "
+                    f"params_dtype=bfloat16 or int8")
+        elif str(params_dtype) == "int8":
             # The W8A16 lane is a param REWRITE (kernel -> kernel_q + scale)
             # done by the builder; a builder that ignored the flag must not
             # silently serve f32 weights the operator passed over.

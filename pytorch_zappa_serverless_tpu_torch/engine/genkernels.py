@@ -17,6 +17,12 @@ prefill, insert and segment programs and donate the pool through them:
   into the graph's static inputs: a Python int baked into a capture would
   replay the first call's value forever.  A segment returns its emits and
   carries packed in one int32 tensor, fetched in one copy to the host.
+- Each row's adapter slot (``aidx``) is one more static input of the paged
+  chunk and segment graphs: one graph serves any mix of tenants, and an
+  attach or a detach (``ops.lora.write_slot``) changes the stacks' values
+  under the captured addresses, never a graph.  The servable's functions
+  pick the weights a program reads (the regime-routed lane's prefill and
+  decode trees) from the one tree every graph is handed.
 - Captures are lazy (the first call of a key), or ahead of traffic with
   ``warm()``.  A warm-up run of a program on the live pool is harmless: each
   program writes only what its replay then writes again, the same values.
@@ -374,15 +380,15 @@ class PagedKernels(_PoolKernels):
     def prefill_chunk(self, payload: tuple) -> np.ndarray:
         """One chunk for a group: ``payload`` is (toks [G, C], start, length,
         temp, seed, topk, topp, table [G, MB], aidx); returns first [G]."""
-        toks, start, length, temp, seed, topk, topp, table, _ = payload
+        toks, start, length, temp, seed, topk, topp, table, aidx = payload
         values = {"toks": toks, "start": start, "length": length, "table": table,
-                  "temp": temp, "seed": seed, "topk": topk, "topp": topp}
+                  "temp": temp, "seed": seed, "topk": topk, "topp": topp, "aidx": aidx}
 
         def fn(inp):
             first, _, _ = self.fns["prefill_chunk"](
                 self.graphs.tree, inp["toks"], inp["start"], inp["length"], self.cache_k,
                 self.cache_v, inp["table"], inp["temp"], inp["seed"], inp["topk"],
-                inp["topp"], gates=ADMIT_GATES)
+                inp["topp"], gates=ADMIT_GATES, aidx=inp["aidx"])
             return first
 
         G, C = toks.shape
@@ -390,17 +396,19 @@ class PagedKernels(_PoolKernels):
 
     def segment(self, table: np.ndarray, carries: dict[str, np.ndarray]) -> np.ndarray:
         """One decode segment over the pool through ``table`` [S, MB];
-        carries and the packed result as :meth:`SlotKernels.segment`."""
+        carries and the packed result as :meth:`SlotKernels.segment`, and
+        ``aidx`` among the carries (each slot's adapter; all 0 without)."""
         gates = knob_gates(carries["temp"], carries["topk"], carries["topp"])
 
         def fn(inp):
             emits, _, _, tok, pos, step, fin = self.fns["segment"](
                 self.graphs.tree, self.cache_k, self.cache_v, inp["table"], inp["tok"],
                 inp["pos"], inp["step"], inp["fin"], inp["temp"], inp["seed"], inp["topk"],
-                inp["topp"], gates=gates)
+                inp["topp"], gates=gates, aidx=inp["aidx"])
             return _pack(emits, tok, pos, step, fin)
 
-        return self._writes(("segment", gates), fn, {"table": table, **carries}).cpu().numpy()
+        values = {"table": table, "aidx": np.zeros(self.slots, np.int32), **carries}
+        return self._writes(("segment", gates), fn, values).cpu().numpy()
 
     def copy_page(self, src: int, dst: int) -> None:
         """Page ``src`` into page ``dst`` at every layer (copy-on-write)."""

@@ -553,3 +553,108 @@ class ParamTree(nn.Module):
             return {**m._buffers, **{k: walk(c) for k, c in m._modules.items()}}
 
         return walk(self)
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters (serving/adapters.py): per-tenant low-rank fine-tunes of a
+# frozen base.  A torch/PEFT state dict converts mechanically, and the
+# staged-native ``*.tpu.safetensors`` form applies unchanged; the bytes of
+# each function's output are the JAX package's.
+# ---------------------------------------------------------------------------
+
+_LORA_PROJ = {"q": "q", "k": "k", "v": "v", "out": "out", "fc1": "fc1", "fc2": "fc2",
+              "q_proj": "q", "k_proj": "k", "v_proj": "v", "out_proj": "out",
+              "attn.c_proj": "out", "mlp.c_fc": "fc1", "mlp.c_proj": "fc2", "c_fc": "fc1"}
+
+
+def convert_lora(sd: Mapping[str, np.ndarray]) -> dict[str, Any]:
+    """A torch/PEFT LoRA state dict → an adapter tree.
+
+    Takes keys like ``base_model.model.transformer.h.{i}.attn.{proj}
+    .lora_A.weight`` (PEFT) or the bare ``h.{i}.{proj}.lora_A.weight``.
+    Torch holds ``lora_A [r, in]`` and ``lora_B [out, r]``; the tree holds
+    ``a [in, r]`` and ``b [r, out]``.  GPT-2's fused ``c_attn`` splits
+    exactly: ``delta_W = B @ A`` with ``B [3D, r]``, whose rows are q|k|v,
+    so each projection gets the shared ``A`` and its third of ``B``.
+
+    Returns ``{layer{i}: {proj: {"a": [K, r], "b": [r, N]}}}``."""
+    halves: dict[tuple[str, str], dict[str, np.ndarray]] = {}
+    for key, w in sd.items():
+        if ".lora_A." in key:
+            path, half = key.split(".lora_A."), "a"
+        elif ".lora_B." in key:
+            path, half = key.split(".lora_B."), "b"
+        else:
+            continue
+        parts = [p for p in path[0].split(".")
+                 if p not in ("base_model", "model", "transformer", "default")]
+        if parts and parts[0] == "h":
+            parts = parts[1:]
+        if len(parts) < 2 or not parts[0].isdigit():
+            raise KeyError(f"unrecognized lora key: {key}")
+        layer, proj = f"layer{parts[0]}", ".".join(parts[1:])
+        if proj.startswith("attn.") and proj != "attn.c_proj":
+            proj = proj[len("attn."):]  # attn.c_attn, attn.q_proj, ...
+        halves.setdefault((layer, proj), {})[half] = np.asarray(w, np.float32)
+    out: dict[str, Any] = {}
+    for (layer, proj), node in sorted(halves.items()):
+        if "a" not in node or "b" not in node:
+            raise KeyError(f"lora pair incomplete for {layer}.{proj}")
+        a = np.ascontiguousarray(node["a"].T)   # [r, in] -> [in, r]
+        b = np.ascontiguousarray(node["b"].T)   # [out, r] -> [r, out]
+        if proj == "c_attn":
+            for sub, piece in zip(("q", "k", "v"), np.split(b, 3, axis=1)):
+                _set(out, (layer, sub, "a"), a)
+                _set(out, (layer, sub, "b"), np.ascontiguousarray(piece))
+            continue
+        ours = _LORA_PROJ.get(proj)
+        if ours is None:
+            raise KeyError(f"unrecognized lora projection {proj!r} in {layer}")
+        _set(out, (layer, ours, "a"), a)
+        _set(out, (layer, ours, "b"), b)
+    if not out:
+        raise ValueError("state dict carries no lora_A/lora_B pairs")
+    return out
+
+
+def import_adapter(checkpoint: str | Path) -> dict[str, Any]:
+    """One adapter from a file: a staged-native tree as it is, anything else
+    through :func:`convert_lora`."""
+    if is_native(checkpoint):
+        return load_native(checkpoint)
+    return convert_lora(load_state_dict(checkpoint))
+
+
+def save_adapter(tree: Mapping[str, Any], path: str | Path) -> None:
+    """Stage an adapter tree in the native format."""
+    save_native(tree, path)
+
+
+def merge_adapter(params: dict[str, Any], adapter: Mapping[str, Any],
+                  scaling: float = 1.0) -> dict[str, Any]:
+    """Fold an adapter into the base kernels: ``W + A @ B * scaling``, for a
+    tenant served as a plain model of its own.  Returns a new tree; the
+    base is untouched."""
+    def copy(node):
+        return {k: copy(v) if isinstance(v, dict) else v for k, v in node.items()}
+
+    out = copy(params)
+    for lname, layer in adapter.items():
+        for proj, node in layer.items():
+            dst = out[lname][proj]
+            a = np.asarray(node["a"], np.float32)
+            b = np.asarray(node["b"], np.float32)
+            dst["kernel"] = np.asarray(dst["kernel"], np.float32) + a @ b * float(scaling)
+    return out
+
+
+def init_lora(layers: int, dims: Mapping[str, tuple[int, int]], rank: int, seed: int = 0,
+              scale: float = 0.05) -> dict[str, Any]:
+    """A seeded random adapter (dev mode): both factors non-zero, unlike a
+    training init, so that distinct dev adapters give distinct outputs."""
+    g = np.random.default_rng(seed)
+    return {f"layer{i}": {t: {
+        "a": (g.standard_normal((k, rank)) * scale).astype(np.float32),
+        "b": (g.standard_normal((rank, n)) * scale).astype(np.float32)}
+        for t, (k, n) in dims.items()}
+        for i in range(layers)}

@@ -9,14 +9,15 @@ The port's copy of the JAX package's ``faults.py``.  It defines
   chaos hook on the device runner: fail every Nth dispatch (transient,
   fatal, or a poison that latches), add device latency, fail preprocess,
   fail or copy-on-write the prefix cache's lookups, fail or slow a model's
-  activation, tear or slow a streamed checkpoint's chunk reads, drop,
-  corrupt or slow a live migration step, and derail speculative proposals.
+  activation or one tenant's adapter attach, tear or slow a streamed
+  checkpoint's chunk reads, drop, corrupt or slow a live migration step,
+  and derail speculative proposals.
 
 The rule schema and its validation are the reference's, so
 ``/admin/faults`` takes and refuses the same bodies, except that a kind
-whose plane the port lacks (adapters, the autoscaler) is refused with the
-module still to port: a rule that is accepted and never fires would report
-chaos that never happens.
+whose plane the port lacks (the autoscaler's ``demand``) is refused with
+the module still to port: a rule that is accepted and never fires would
+report chaos that never happens.
 
 At the package top level because ``engine.runner`` (dispatch-side
 injection) and ``serving.*`` (retry classification, the admin route) both
@@ -85,7 +86,6 @@ def is_transient(exc: BaseException) -> bool:
 # The reference's kinds whose plane the port has not ported yet, each with
 # what it waits for (ROADMAP Queue 1).
 REFUSED_KINDS = {
-    "adapter": "serving/adapters.py (ROADMAP Queue 1 item 4)",
     "demand": "serving/autoscale.py (ROADMAP Queue 1 item 5)",
 }
 
@@ -126,13 +126,17 @@ class FaultRule:
     stretches the step by ``latency_ms``.  ``kind="spec_mismatch"`` fires on
     :meth:`FaultInjector.on_spec` before a speculative tick and derails its
     draft proposals, so the verifier's rejection path runs.
+
+    ``kind="adapter"`` fires on :meth:`FaultInjector.on_adapter` at the head
+    of one tenant's adapter attach, keyed ``{base}:{adapter}`` (or the base
+    alone, or ``*``): the attach fails and the adapter stays cold.
     """
 
     model: str = "*"
     fail_every_n: int = 0
     count: int | None = None
     kind: str = "transient"  # transient | fatal | poison | prefix | activation | ckpt
-    #                          | migration | spec_mismatch
+    #                          | migration | spec_mismatch | adapter
     latency_ms: float = 0.0
     preprocess: bool = False
     # kind="prefix": "poison" (fail the lookup) | "cow" (force CoW);
@@ -166,7 +170,7 @@ class FaultInjector:
 
     # Kinds that are their own firing target: they never fire on dispatch or
     # preprocess and never displace those rules.
-    _TARGETED = ("activation", "prefix", "ckpt", "migration", "spec_mismatch")
+    _TARGETED = ("activation", "adapter", "prefix", "ckpt", "migration", "spec_mismatch")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -176,7 +180,8 @@ class FaultInjector:
         self.poison_exc: Exception | None = None
         # guarded-by: _lock
         self.injected = {"dispatch": 0, "preprocess": 0, "activation": 0, "spec": 0,
-                         "prefix": 0, "migration": 0, "ckpt": 0, "latency_ms": 0.0}
+                         "adapter": 0, "prefix": 0, "migration": 0, "ckpt": 0,
+                         "latency_ms": 0.0}
 
     def configure(self, model: str = "*", fail_every_n: int = 0,
                   count: int | None = None, kind: str = "transient",
@@ -231,8 +236,10 @@ class FaultInjector:
 
     def _match(self, model: str, preprocess: bool, prefix: bool = False,
                activation: bool = False, ckpt: bool = False, migration: bool = False,
-               spec: bool = False) -> FaultRule | None:
+               spec: bool = False, adapter: bool = False) -> FaultRule | None:
         for r in self._rules:
+            if (r.kind == "adapter") != adapter:
+                continue  # adapter rules fire on on_adapter only
             if (r.kind == "prefix") != prefix:
                 continue  # prefix rules fire on on_prefix only
             if (r.kind == "activation") != activation:
@@ -312,6 +319,31 @@ class FaultInjector:
             time.sleep(latency / 1000.0)
         if fire:
             self._raise(rule, "activation")
+
+    def on_adapter(self, key: str):
+        """Called (on the event loop) at the head of an adapter attach
+        (``serving/adapters.py``).  ``key`` is ``{base}:{adapter}``: a rule's
+        ``model`` may name the pair, the wildcard, or the base alone to fault
+        every tenant's attach on it.  A fired rule fails this attach only: the
+        adapter stays cold, the base and its other tenants serve on.  Latency
+        rules stretch the attach as a slow adapter fetch would."""
+        base = key.split(":", 1)[0]
+        with self._lock:
+            rule = (self._match(key, preprocess=False, adapter=True)
+                    or self._match(base, preprocess=False, adapter=True))
+            if rule is None:
+                return
+            rule.seen += 1
+            fire = self._fire(rule)
+            latency = rule.latency_ms
+            if fire:
+                self.injected["adapter"] += 1
+            if latency:
+                self.injected["latency_ms"] += latency
+        if latency:
+            time.sleep(latency / 1000.0)
+        if fire:
+            self._raise(rule, "adapter")
 
     def on_ckpt(self, model: str) -> tuple[str | None, float]:
         """Called (on the stream's reader thread) at the head of each chunk

@@ -18,6 +18,17 @@ With ``extra.params_dtype: int8`` the q/k/v kernels fuse into one
 ``[D, 3D]`` projection and every layer kernel plus a transposed copy of
 ``wte`` (the lm head) become int8 + per-column scales, run by
 ``ops/int8_matmul``: 49 launches per forward position step at 12 layers.
+With ``params_dtype: auto`` the servable holds both trees and routes each
+program (the JAX package's regime-routed lane): prefill runs the bf16 tree,
+and decode the int8 tree at up to ``int8_crossover_batch`` rows, the bf16
+tree above.  The embeddings and LayerNorms are held once, in the bf16
+tree; the int8 tree holds only what it quantized (:func:`int8_view` puts
+the two together for a program).
+
+With ``adapter_slots`` (multi-tenant LoRA, ``ops/lora.py``,
+``serving/adapters.py``) the tree holds a stack pool ``__adapters__`` and
+every program takes a per-row ``adapter_idx``: each target projection of
+a row gains its adapter's low-rank delta, and rows at slot 0 are the base.
 
 The servable also carries the JAX package's continuous-batching contract
 (``meta["continuous"]``, driven by ``serving/generation.py`` on
@@ -41,6 +52,7 @@ import torch.nn.functional as F
 
 from ..ops.int8_matmul import (dense_maybe_int8, int8_matmul, pad_weights, quantize_per_channel,
                                quantize_tree)
+from ..ops.lora import lora_apply
 from ..ops.paged_attention import gather_kv, scatter_kv
 from ..ops.sampling import ALL_ON, Gates, apply_repetition_penalty, choose, gates_of
 
@@ -117,22 +129,40 @@ def _attn(q, k, v, mask_bias):
     return out.reshape(B, Tq, -1)
 
 
-def _layer(p: dict, x, mask_bias, cfg: GPT2Config, write_kv):
+def _layer(p: dict, x, mask_bias, cfg: GPT2Config, write_kv, lora=None, lora_idx=None):
     """One pre-LN block, shared by prefill and decode.  ``write_kv(k, v)``
     stores this block's fresh keys/values and returns the head-split K/V the
-    attention runs against (the prompt at prefill, the cache at decode)."""
+    attention runs against (the prompt at prefill, the cache at decode).
+
+    ``lora``/``lora_idx``: this layer's adapter stacks and the per-row slot
+    indices; each target projection gains its row's delta
+    (``ops.lora.lora_apply``), rows at slot 0 the base output unchanged.
+    The fused int8 ``qkv`` never carries adapters (refused at build)."""
+    def ad(name, y, inp):
+        if lora is None or name not in lora:
+            return y
+        return lora_apply(y, inp, lora[name], lora_idx)
+
     h = _ln(p["ln1"], x, cfg.ln_eps)
     if "qkv" in p:  # int8 lane: one fused [D, 3D] projection
         q_, k_, v_ = _dense(p["qkv"], h).split(cfg.d_model, dim=-1)
     else:
-        k_, v_ = _dense(p["k"], h), _dense(p["v"], h)
-        q_ = _dense(p["q"], h)
+        k_, v_ = ad("k", _dense(p["k"], h), h), ad("v", _dense(p["v"], h), h)
+        q_ = ad("q", _dense(p["q"], h), h)
     k_heads, v_heads = write_kv(k_, v_)
     ao = _attn(_split_heads(q_, cfg.heads), k_heads, v_heads, mask_bias)
-    x = x + _dense(p["out"], ao)
+    x = x + ad("out", _dense(p["out"], ao), ao)
     h = _ln(p["ln2"], x, cfg.ln_eps)
-    h2 = F.gelu(_dense(p["fc1"], h), approximate="tanh")
-    return x + _dense(p["fc2"], h2)
+    h2 = F.gelu(ad("fc1", _dense(p["fc1"], h), h), approximate="tanh")
+    return x + ad("fc2", _dense(p["fc2"], h2), h2)
+
+
+def _lora_of(params: dict, layer: int, adapter_idx):
+    """This layer's adapter stacks, or None."""
+    if adapter_idx is None:
+        return None
+    stacks = params.get("__adapters__")
+    return None if stacks is None else stacks.get(f"layer{layer}")
 
 
 def _logits(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -163,12 +193,13 @@ def _embed(params: dict, tok, wpos, cfg: GPT2Config, dtype):
 
 
 def prefill(params: dict, tokens: torch.Tensor, lengths: torch.Tensor, total: int,
-            cfg: GPT2Config, dtype=torch.bfloat16):
+            cfg: GPT2Config, dtype=torch.bfloat16, adapter_idx=None):
     """Whole-prompt forward: fills the KV cache, returns last-token logits.
 
     tokens [B, P] int32 (zero-padded), lengths [B] int32, ``total`` the cache
     length (P + max_new).  Returns (logits [B, V] f32 at position
-    length - 1, cache_k, cache_v [L, B, total, D]).
+    length - 1, cache_k, cache_v [L, B, total, D]).  ``adapter_idx`` [B]
+    routes each row through its tenant's slot (0: the base).
     """
     B, P = tokens.shape
     dev = tokens.device
@@ -186,7 +217,8 @@ def prefill(params: dict, tokens: torch.Tensor, lengths: torch.Tensor, total: in
             cache_v[i, :, :P] = v
             return _split_heads(k, cfg.heads), _split_heads(v, cfg.heads)
 
-        x = _layer(params[f"layer{i}"], x, mask_bias, cfg, write_kv)
+        x = _layer(params[f"layer{i}"], x, mask_bias, cfg, write_kv,
+                   _lora_of(params, i, adapter_idx), adapter_idx)
     x = _ln(params["ln_f"], x, cfg.ln_eps)
     last = lengths.long() - 1
     last = torch.where(last < 0, last + P, last)  # JAX's index normalisation
@@ -194,7 +226,8 @@ def prefill(params: dict, tokens: torch.Tensor, lengths: torch.Tensor, total: in
     return _logits(params, x_last), cache_k, cache_v
 
 
-def _step_logits(params: dict, tok, w, klen: int, writer, cfg: GPT2Config, dtype):
+def _step_logits(params: dict, tok, w, klen: int, writer, cfg: GPT2Config, dtype,
+                 adapter_idx=None):
     """One token per row through every layer at positions ``w`` [S] int64,
     attending over key positions ``< klen`` that are ``<= w``;
     ``writer(i)`` is layer i's ``write_kv``.  Returns the logits [S, V] f32."""
@@ -202,13 +235,14 @@ def _step_logits(params: dict, tok, w, klen: int, writer, cfg: GPT2Config, dtype
     x = _embed(params, tok, w, cfg, dtype)[:, None, :]
     mask_bias = torch.where(kpos[None, :] <= w[:, None], 0.0, _NEG).float()[:, None, None, :]
     for i in range(cfg.layers):
-        x = _layer(params[f"layer{i}"], x, mask_bias, cfg, writer(i))
+        x = _layer(params[f"layer{i}"], x, mask_bias, cfg, writer(i),
+                   _lora_of(params, i, adapter_idx), adapter_idx)
     x = _ln(params["ln_f"], x, cfg.ln_eps)
     return _logits(params, x[:, 0])
 
 
 def decode_step(params: dict, cache_k, cache_v, tok, wpos, cfg: GPT2Config,
-                dtype=torch.bfloat16) -> torch.Tensor:
+                dtype=torch.bfloat16, adapter_idx=None) -> torch.Tensor:
     """One token per row through every layer: embeds ``tok`` [S] at
     ``wpos`` [S], writes its K/V into the caches at ``wpos`` in place,
     attends over positions <= ``wpos``; returns the logits [S, V] f32."""
@@ -222,7 +256,7 @@ def decode_step(params: dict, cache_k, cache_v, tok, wpos, cfg: GPT2Config,
             return _split_heads(cache_k[i], cfg.heads), _split_heads(cache_v[i], cfg.heads)
         return write_kv
 
-    return _step_logits(params, tok, w, cache_k.shape[2], writer, cfg, dtype)
+    return _step_logits(params, tok, w, cache_k.shape[2], writer, cfg, dtype, adapter_idx)
 
 
 def _presence(tokens, lengths, vocab: int) -> torch.Tensor:
@@ -236,10 +270,15 @@ def _presence(tokens, lengths, vocab: int) -> torch.Tensor:
 
 def generate(params: dict, tokens, lengths, temperature, seeds, max_new: int,
              cfg: GPT2Config, dtype=torch.bfloat16, top_k=None, top_p=None,
-             repetition_penalty=None, gates: Gates = ALL_ON) -> torch.Tensor:
+             repetition_penalty=None, gates: Gates = ALL_ON, decode_params: dict | None = None,
+             adapter_idx=None) -> torch.Tensor:
     """Prefill + decode loop, greedy or sampled per row.  Returns
     [B, max_new] int32, EOS-padded after the first EOS: one
     :func:`prefill_start` and one ``max_new``-step :func:`decode_segment`.
+
+    ``decode_params`` lets the regime-routed lane (``params_dtype: auto``)
+    prefill with one tree and decode with another; ``adapter_idx`` [B] routes
+    each row through its adapter slot.
 
     ``gates`` (``ops.sampling.gates_of`` the batch's knobs, on the host)
     skips the sampling, penalty and filter work no row needs; the default
@@ -252,12 +291,13 @@ def generate(params: dict, tokens, lengths, temperature, seeds, max_new: int,
     first, cache_k, cache_v = prefill_start(
         params, tokens, lengths, temperature, seeds, P + max_new, cfg, dtype,
         top_k=top_k, top_p=top_p, repetition_penalty=repetition_penalty, presence=presence,
-        gates=gates)
+        gates=gates, adapter_idx=adapter_idx)
     zeros = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
     emits, *_ = decode_segment(
-        params, cache_k, cache_v, first, lengths, zeros, zeros.bool(), temperature, seeds,
-        max_new, cfg, dtype, top_k=top_k, top_p=top_p,
-        repetition_penalty=repetition_penalty, presence=presence, gates=gates)
+        params if decode_params is None else decode_params, cache_k, cache_v, first, lengths,
+        zeros, zeros.bool(), temperature, seeds, max_new, cfg, dtype, top_k=top_k, top_p=top_p,
+        repetition_penalty=repetition_penalty, presence=presence, gates=gates,
+        adapter_idx=adapter_idx)
     return emits
 
 
@@ -272,10 +312,11 @@ def generate_greedy(params: dict, tokens, lengths, max_new: int, cfg: GPT2Config
 
 def prefill_start(params: dict, tokens, lengths, temperature, seeds, total: int,
                   cfg: GPT2Config, dtype=torch.bfloat16, top_k=None, top_p=None,
-                  repetition_penalty=None, presence=None, gates: Gates = ALL_ON):
+                  repetition_penalty=None, presence=None, gates: Gates = ALL_ON,
+                  adapter_idx=None):
     """Prefill and pick each row's first token: (first [B], cache_k,
     cache_v [L, B, total, D])."""
-    logits, cache_k, cache_v = prefill(params, tokens, lengths, total, cfg, dtype)
+    logits, cache_k, cache_v = prefill(params, tokens, lengths, total, cfg, dtype, adapter_idx)
     if repetition_penalty is not None and gates.rep_on:
         logits = apply_repetition_penalty(logits, presence, repetition_penalty)
     t0 = torch.zeros(tokens.shape[:1], dtype=torch.int32, device=tokens.device)
@@ -286,7 +327,8 @@ def prefill_start(params: dict, tokens, lengths, temperature, seeds, total: int,
 
 def decode_segment(params: dict, cache_k, cache_v, tok, pos, step, finished, temperature,
                    seeds, seg: int, cfg: GPT2Config, dtype=torch.bfloat16, top_k=None,
-                   top_p=None, repetition_penalty=None, presence=None, gates: Gates = ALL_ON):
+                   top_p=None, repetition_penalty=None, presence=None, gates: Gates = ALL_ON,
+                   adapter_idx=None):
     """Advance every slot by ``seg`` tokens.
 
     Per-slot state, all [S]: ``tok`` the next token to feed, ``pos`` its
@@ -302,7 +344,7 @@ def decode_segment(params: dict, cache_k, cache_v, tok, pos, step, finished, tem
     seen = torch.ones((), dtype=torch.bool, device=tok.device)  # no host-to-device copy a step
 
     def logits_at(tok, wpos):
-        logits = decode_step(params, cache_k, cache_v, tok, wpos, cfg, dtype)
+        logits = decode_step(params, cache_k, cache_v, tok, wpos, cfg, dtype, adapter_idx)
         if repetition_penalty is not None:
             presence[rows, tok.long()] = seen
             if rep_on:
@@ -372,7 +414,8 @@ def _paged_writer(cache_k, cache_v, table, wpos, block_size: int, heads: int):
 
 
 def prefill_chunk_logits(params: dict, tokens, start, lengths, cache_k, cache_v, table,
-                         block_size: int, cfg: GPT2Config, dtype=torch.bfloat16):
+                         block_size: int, cfg: GPT2Config, dtype=torch.bfloat16,
+                         adapter_idx=None):
     """One bounded prefill chunk over the paged pool, up to the logits.
 
     ``tokens`` [G, C] is the chunk's slice of each prompt (zero-padded in a
@@ -397,7 +440,8 @@ def prefill_chunk_logits(params: dict, tokens, start, lengths, cache_k, cache_v,
     mask_bias = torch.where(keep, 0.0, _NEG).float()[:, None]
     writer = _paged_writer(cache_k, cache_v, table, wpos, block_size, cfg.heads)
     for i in range(cfg.layers):
-        x = _layer(params[f"layer{i}"], x, mask_bias, cfg, writer(i))
+        x = _layer(params[f"layer{i}"], x, mask_bias, cfg, writer(i),
+                   _lora_of(params, i, adapter_idx), adapter_idx)
     x = _ln(params["ln_f"], x, cfg.ln_eps)
     idx = (lengths.long() - 1 - start.long()).clamp(0, C - 1)
     return _logits(params, x[torch.arange(G, device=dev), idx])
@@ -405,12 +449,12 @@ def prefill_chunk_logits(params: dict, tokens, start, lengths, cache_k, cache_v,
 
 def prefill_chunk_paged(params: dict, tokens, start, lengths, cache_k, cache_v, table,
                         temperature, seeds, top_k, top_p, block_size: int, cfg: GPT2Config,
-                        dtype=torch.bfloat16, gates: Gates = ALL_ON):
+                        dtype=torch.bfloat16, gates: Gates = ALL_ON, adapter_idx=None):
     """:func:`prefill_chunk_logits` and each row's first token drawn from
     them: (first [G], cache_k, cache_v), the caches updated in place;
     ``first`` means something only for rows whose final chunk this is."""
     logits = prefill_chunk_logits(params, tokens, start, lengths, cache_k, cache_v, table,
-                                  block_size, cfg, dtype)
+                                  block_size, cfg, dtype, adapter_idx)
     t0 = torch.zeros(tokens.shape[:1], dtype=torch.int32, device=tokens.device)
     first = choose(logits, temperature, seeds, t0, top_k, top_p, sampled=gates.sampled,
                    filtered=gates.filtered)
@@ -420,7 +464,7 @@ def prefill_chunk_paged(params: dict, tokens, start, lengths, cache_k, cache_v, 
 def decode_segment_paged(params: dict, cache_k, cache_v, table, tok, pos, step, finished,
                          temperature, seeds, seg: int, cfg: GPT2Config, block_size: int,
                          dtype=torch.bfloat16, top_k=None, top_p=None,
-                         gates: Gates = ALL_ON):
+                         gates: Gates = ALL_ON, adapter_idx=None):
     """:func:`decode_segment` over the paged pool: the same steps, writes
     and reads routed through ``table``.  Finished and empty rows carry an
     all-trash table row, so their frozen-position writes land in the trash
@@ -430,7 +474,7 @@ def decode_segment_paged(params: dict, cache_k, cache_v, table, tok, pos, step, 
     def logits_at(tok, wpos):
         w = wpos.long()
         writer = _paged_writer(cache_k, cache_v, table, w[:, None], block_size, cfg.heads)
-        return _step_logits(params, tok, w, VT, writer, cfg, dtype)
+        return _step_logits(params, tok, w, VT, writer, cfg, dtype, adapter_idx)
 
     emits, tok, pos, step, finished = _segment_loop(
         logits_at, VT, tok, pos, step, finished, temperature, seeds, seg, cfg, top_k, top_p,
@@ -575,13 +619,31 @@ def _fallback_tokenize(text: str, vocab_size: int) -> list[int]:
             % max(vocab_size - 1, 1) for w in text.split()]
 
 
-# Options of the JAX servable that the port does not serve yet (ROADMAP
-# Queue 1 item 4 lists them): the extra keys that ask for them.
-_LATER = {
-    "int8_crossover_batch": "params_dtype 'auto' (the regime-routed lane)",
-    "adapter_slots": "LoRA adapters", "adapter_targets": "LoRA adapters",
-    "adapter_rank": "LoRA adapters",
-}
+# The leaves the regime-routed lane's int8 tree shares with its bf16 tree:
+# held once, in the bf16 tree (top level, then each layer's).
+_SHARED = ("wte", "wpe", "ln_f")
+_SHARED_LAYER = ("ln1", "ln2")
+
+
+def int8_view(tree: dict, layers: int) -> dict:
+    """The regime-routed lane's decode tree: its ``int8`` subtree with the
+    shared leaves (the embeddings and every LayerNorm) taken from its
+    ``bf16`` subtree, which holds them once."""
+    b, q = tree["bf16"], tree["int8"]
+    out = {**q, **{k: b[k] for k in _SHARED}}
+    for i in range(layers):
+        lq, lb = q[f"layer{i}"], b[f"layer{i}"]
+        out[f"layer{i}"] = {**lq, **{k: lb[k] for k in _SHARED_LAYER}}
+    return out
+
+
+def _int8_only(tree: dict, layers: int) -> dict:
+    """An int8 lane's tree without the leaves it shares with the bf16 tree."""
+    out = {k: v for k, v in tree.items() if k not in _SHARED}
+    for i in range(layers):
+        out[f"layer{i}"] = {k: v for k, v in tree[f"layer{i}"].items()
+                            if k not in _SHARED_LAYER}
+    return out
 
 
 def make_gpt2_servable(name: str, cfg_model):
@@ -594,15 +656,12 @@ def make_gpt2_servable(name: str, cfg_model):
     arch = {k: int(v) for k, v in dict(cfg_model.extra.get("arch", {})).items()}
     max_seq = max(cfg_model.seq_buckets)
     params_dtype = str(cfg_model.extra.get("params_dtype", ""))
-    if params_dtype == "auto":
-        raise ValueError(f"{name}: params_dtype {params_dtype!r} is not served by the port yet "
-                         f"(a later slice ports the 'auto' lane, ROADMAP Queue 1 item 4); use "
-                         f"'int8' or 'bfloat16', or leave it unset")
-    later = sorted(k for k in cfg_model.extra if k in _LATER)
-    if later:
-        raise ValueError(f"{name}: {', '.join(_LATER[k] for k in later)} "
-                         f"({', '.join(later)}) is not served by the port yet; a later slice "
-                         f"ports it (ROADMAP Queue 1 item 4)")
+    routed = params_dtype == "auto"
+    # The regime crossover: the routed lane decodes on the int8 tree at up
+    # to this many rows, on the bf16 tree above.  The default is the JAX
+    # package's, from its sweep on its own chip; it is not measured on the
+    # H100 (ROADMAP Queue 3).
+    crossover = int(cfg_model.extra.get("int8_crossover_batch", 64))
 
     if cfg_model.checkpoint:
         params = W.import_params(cfg_model.checkpoint, W.convert_gpt2)
@@ -617,14 +676,71 @@ def make_gpt2_servable(name: str, cfg_model):
             f"{name}: max(seq_buckets) + max_new_tokens = {max_seq} + {max_new} exceeds the "
             f"model's max_positions ({cfg.max_positions}); shrink seq_buckets or "
             f"max_new_tokens")
+    adapters_on = int(cfg_model.adapter_slots) > 0
+    if adapters_on and params_dtype in ("int8", "auto"):
+        # The fused int8 qkv has no per-projection seam for a delta, and the
+        # routed lane would need the stacks in both trees.
+        raise ValueError(f"{name}: adapter_slots cannot combine with params_dtype="
+                         f"{params_dtype!r}; serve adapters on the bf16 lane")
+    min_size = int(cfg_model.extra.get("quantize_min_size", 1 << 16))
+    adapter_meta = None
     if params_dtype == "int8":
-        params = quantize_gpt2(params, cfg.layers,
-                               int(cfg_model.extra.get("quantize_min_size", 1 << 16)))
-        rest = torch.bfloat16  # the JAX lane holds every >= 2-D float leaf in bf16
+        # The JAX lane holds every >= 2-D float leaf in bf16.
+        sd = W.tree_state_from_jax(quantize_gpt2(params, cfg.layers, min_size), torch.bfloat16)
+    elif routed:
+        # Both trees, each program picking one: prefill the bf16 tree, decode
+        # the int8 tree at up to ``crossover`` rows.  The shared leaves are
+        # registered once (in the bf16 tree), so the move to the device, the
+        # host tier, the checkpoint store and the HBM ledger hold them once.
+        bf16 = W.tree_state_from_jax(params, torch.bfloat16)
+        q = W.tree_state_from_jax(_int8_only(quantize_gpt2(params, cfg.layers, min_size),
+                                             cfg.layers), torch.bfloat16)
+        sd = {**{f"bf16.{k}": v for k, v in bf16.items()},
+              **{f"int8.{k}": v for k, v in q.items()}}
     else:
-        rest = dtype  # cast at every use in the JAX package: the same values
-    module = W.ParamTree(W.tree_state_from_jax(params, rest))
+        if adapters_on:
+            # The multi-tenant slot pool: fixed-shape zero stacks in the tree
+            # (an attach writes a slot in place: no recapture), slot 0 the
+            # reserved base.  serving/adapters.AdapterManager owns the slots.
+            from ..ops.lora import zero_stacks
+
+            D, Fd = cfg.d_model, cfg.ffn_dim
+            every = {"q": (D, D), "k": (D, D), "v": (D, D), "out": (D, D), "fc1": (D, Fd),
+                     "fc2": (Fd, D)}  # each target's (K, N)
+            targets = tuple(cfg_model.adapter_targets) or ("q", "v")
+            unknown = [t for t in targets if t not in every]
+            if unknown:
+                raise ValueError(f"{name}: unknown adapter_targets {unknown}; supported: "
+                                 f"{sorted(every)}")
+            dims = {t: every[t] for t in targets}
+            slots = int(cfg_model.adapter_slots) + 1
+            rank = max(int(cfg_model.adapter_rank), 1)
+            params = {**params, "__adapters__": {
+                f"layer{i}": zero_stacks(slots, rank, dims) for i in range(cfg.layers)}}
+            adapter_meta = {"slots": slots, "rank": rank,
+                            "targets": tuple(cfg_model.adapter_targets), "dims": dims,
+                            "layers": cfg.layers}
+        sd = W.tree_state_from_jax(params, dtype)  # cast at every use in the JAX package
+    module = W.ParamTree(sd)
     module.eval()
+
+    def pre_tree(tree: dict) -> dict:
+        """Prefill weights: the bf16 tree on the routed lane."""
+        return tree["bf16"] if routed else tree
+
+    def dec_tree(tree: dict, rows: int) -> dict:
+        """Decode weights for a program of ``rows`` decode rows."""
+        if not routed:
+            return tree
+        return int8_view(tree, cfg.layers) if rows <= crossover else tree["bf16"]
+
+    def aidx_of(sample) -> int:
+        """A sample's adapter slot, checked on the host: an out-of-range
+        gather on the GPU is a device-side assert that poisons the context."""
+        a = int(np.asarray(sample.get("adapter_idx", 0)))
+        if a and (adapter_meta is None or not 0 <= a < adapter_meta["slots"]):
+            raise ValueError(f"adapter slot {a} outside the model's pool")
+        return a
 
     tokenizer = None
     tok_path = cfg_model.extra.get("tokenizer")
@@ -652,11 +768,14 @@ def make_gpt2_servable(name: str, cfg_model):
         return ids
 
     def apply_fn(m, inputs, variant: Gates = ALL_ON):
-        return {"tokens": generate(m.tree(), inputs["input_ids"], inputs["length"],
+        tree = m.tree()
+        rows = inputs["input_ids"].shape[0]  # static per bucket: one tree per graph
+        return {"tokens": generate(pre_tree(tree), inputs["input_ids"], inputs["length"],
                                    inputs["temperature"], inputs["seed"], max_new, cfg, dtype,
                                    top_k=inputs["top_k"], top_p=inputs["top_p"],
                                    repetition_penalty=inputs["repetition_penalty"],
-                                   gates=variant)}
+                                   gates=variant, decode_params=dec_tree(tree, rows),
+                                   adapter_idx=inputs.get("adapter_idx"))}
 
     def variant_of(batch) -> Gates:
         """The collated host batch's gates: which captured variant runs it."""
@@ -665,10 +784,13 @@ def make_gpt2_servable(name: str, cfg_model):
 
     def input_spec(bucket):
         b, s = bucket
-        return {"input_ids": ((b, s), torch.int32), "length": ((b,), torch.int32),
+        spec = {"input_ids": ((b, s), torch.int32), "length": ((b,), torch.int32),
                 "temperature": ((b,), torch.float32), "seed": ((b,), torch.int32),
                 "top_k": ((b,), torch.int32), "top_p": ((b,), torch.float32),
                 "repetition_penalty": ((b,), torch.float32)}
+        if adapter_meta is not None:
+            spec["adapter_idx"] = ((b,), torch.int32)  # pad rows collate to 0: the base
+        return spec
 
     def preprocess(payload):
         temperature, seed = default_temperature, 0
@@ -692,10 +814,15 @@ def make_gpt2_servable(name: str, cfg_model):
             # device-side assert that poisons the CUDA context.
             raise ValueError(f"input_ids must lie in [0, {cfg.vocab_size}); got "
                              f"{int(arr.min())}..{int(arr.max())}")
-        return {"input_ids": arr, "length": np.int32(arr.shape[0]),
-                "temperature": np.float32(temperature), "seed": np.int32(seed),
-                "top_k": np.int32(top_k), "top_p": np.float32(top_p),
-                "repetition_penalty": np.float32(rep)}
+        sample = {"input_ids": arr, "length": np.int32(arr.shape[0]),
+                  "temperature": np.float32(temperature), "seed": np.int32(seed),
+                  "top_k": np.int32(top_k), "top_p": np.float32(top_p),
+                  "repetition_penalty": np.float32(rep)}
+        if adapter_meta is not None:
+            # Slot 0: the base; the server stamps the tenant's slot after its
+            # attach gate.
+            sample["adapter_idx"] = np.int32(0)
+        return sample
 
     def postprocess(out, i):
         toks = [int(t) for t in out["tokens"][i]]
@@ -714,6 +841,9 @@ def make_gpt2_servable(name: str, cfg_model):
         # Pad rows with neutral knobs, so that they open no gate.
         batch["repetition_penalty"][len(samples):] = 1.0
         batch["top_p"][len(samples):] = 1.0
+        if adapter_meta is not None:
+            for s in samples:
+                aidx_of(s)
         return batch
 
     # The continuous-batching contract (serving/generation.py, the JAX
@@ -744,40 +874,50 @@ def make_gpt2_servable(name: str, cfg_model):
                 "top_k": ((1,), torch.int32), "top_p": ((1,), torch.float32)}
 
     def prefill_admit(tree, payload, gates: Gates = ALL_ON):
-        return prefill_start(tree, payload["input_ids"], payload["length"],
+        return prefill_start(pre_tree(tree), payload["input_ids"], payload["length"],
                              payload["temperature"], payload["seed"], total, cfg, dtype,
                              top_k=payload["top_k"], top_p=payload["top_p"], gates=gates)
 
     def segment(tree, ck, cv, tok, pos, st, fin, temp, seeds, topk, topp,
                 gates: Gates = ALL_ON):
-        return decode_segment(tree, ck, cv, tok, pos, st, fin, temp, seeds, segment_tokens, cfg,
-                              dtype, top_k=topk, top_p=topp, gates=gates)
+        return decode_segment(dec_tree(tree, gen_slots), ck, cv, tok, pos, st, fin, temp, seeds,
+                              segment_tokens, cfg, dtype, top_k=topk, top_p=topp, gates=gates)
 
     def make_paged(block_size: int, spec_k: int):
         """The paged lane's device functions for one pool layout, the
         speculative tick's ``propose`` (a draft's ``spec_k`` proposals) and
-        ``verify`` (the target's forward over them) among them."""
+        ``verify`` (the target's forward over them) among them.  The chunk
+        and the segment take each row's adapter slot (``aidx`` [S]); the
+        draft never sees adapters (the scheduler decodes plain while an
+        adapter stream is active).  Chunks run the prefill tree; segment,
+        propose and verify the decode tree of the pool's ``gen_slots`` rows
+        (the verify's too, not its S x (k+1) rows, as in the JAX package)."""
         bs, k = int(block_size), int(spec_k)
+        ad = (lambda aidx: aidx) if adapter_meta is not None else (lambda aidx: None)
         return {
             "propose": (
                 lambda tree, ck, cv, table, prev, tok, pos, st, fin, temp, seeds, topk, topp,
                 gates=ALL_ON:
-                propose_paged(tree, ck, cv, table, prev, tok, pos, st, fin, temp, seeds, k, cfg,
-                              bs, dtype, top_k=topk, top_p=topp, gates=gates)),
+                propose_paged(dec_tree(tree, gen_slots), ck, cv, table, prev, tok, pos, st, fin,
+                              temp, seeds, k, cfg, bs, dtype, top_k=topk, top_p=topp,
+                              gates=gates)),
             "verify": (
                 lambda tree, ck, cv, table, toks, pos:
-                verify_paged(tree, ck, cv, table, toks, pos, cfg, bs, dtype)),
+                verify_paged(dec_tree(tree, gen_slots), ck, cv, table, toks, pos, cfg, bs,
+                             dtype)),
             "prefill_chunk": (
                 lambda tree, toks, start, length, ck, cv, table, temp, seed, topk, topp,
-                gates=ALL_ON:
-                prefill_chunk_paged(tree, toks, start, length, ck, cv, table, temp, seed,
-                                    topk, topp, bs, cfg, dtype, gates=gates)),
+                gates=ALL_ON, aidx=None:
+                prefill_chunk_paged(pre_tree(tree), toks, start, length, ck, cv, table, temp,
+                                    seed, topk, topp, bs, cfg, dtype, gates=gates,
+                                    adapter_idx=ad(aidx))),
             "segment": (
                 lambda tree, ck, cv, table, tok, pos, st, fin, temp, seeds, topk, topp,
-                gates=ALL_ON:
-                decode_segment_paged(tree, ck, cv, table, tok, pos, st, fin, temp, seeds,
-                                     segment_tokens, cfg, bs, dtype, top_k=topk, top_p=topp,
-                                     gates=gates)),
+                gates=ALL_ON, aidx=None:
+                decode_segment_paged(dec_tree(tree, gen_slots), ck, cv, table, tok, pos, st,
+                                     fin, temp, seeds, segment_tokens, cfg, bs, dtype,
+                                     top_k=topk, top_p=topp, gates=gates,
+                                     adapter_idx=ad(aidx))),
         }
 
     continuous = {
@@ -799,6 +939,9 @@ def make_gpt2_servable(name: str, cfg_model):
             "prompt_ids": lambda s: np.asarray(s["input_ids"], np.int32).reshape(-1),
             "knobs": lambda s: (float(s.get("temperature", 0.0)), int(s.get("seed", 0)),
                                 int(s.get("top_k", 0)), float(s.get("top_p", 1.0))),
+            # The stream's adapter slot (0: the base); an eviction's
+            # continuation (extend_sample) keeps it.
+            "adapter_idx": aidx_of,
             # Eviction continuation: the prompt and the tokens emitted so far
             # become the re-admission prompt.
             "extend_sample": lambda s, toks: {
@@ -815,7 +958,16 @@ def make_gpt2_servable(name: str, cfg_model):
             "variant_of": variant_of, "continuous": continuous,
             # What warm-up captures: a request that sets no knob.
             "default_variant": Gates(default_temperature > 0.0, False, False),
-            "config": cfg, "dtype": dtype}
+            "config": cfg, "dtype": dtype,
+            # Which tree a program reads (the routed lane's regime): what a
+            # check composes the fixed route from.
+            "pre_tree": pre_tree, "dec_tree": dec_tree}
+    if routed:
+        meta["int8_crossover_batch"] = crossover
+    if adapter_meta is not None:
+        # The pool's layout, which the AdapterManager builds host stacks
+        # against (``slots`` counts the reserved slot 0).
+        meta["adapters"] = adapter_meta
     return Servable(name=name, apply_fn=apply_fn, module=module, input_spec=input_spec,
                     preprocess=preprocess, postprocess=postprocess,
                     bucket_axes=("batch", "seq"), meta=meta)

@@ -84,6 +84,10 @@ class DynamicBatcher:
         # an inert one (no retry, no breaker) when built without a server.
         self.resilience = resilience or ModelResilience(name=cfg.name)
         self._queue: asyncio.Queue[_Req] = asyncio.Queue()
+        # Multi-tenant co-batch evidence: ``adapter_hook`` (wired by the
+        # server) hands each dispatch's adapters to the AdapterManager, which
+        # counts the dispatches that mixed more than one into one program.
+        self.adapter_hook = None        # guarded-by: event-loop
         # A request deferred from the previous round because its seq length
         # would have dragged the batch into a larger seq bucket.
         self._carry: _Req | None = None  # guarded-by: event-loop
@@ -298,6 +302,17 @@ class DynamicBatcher:
             if attempt == 0 and t_form0 is not None and batch[0].span is not None:
                 batch[0].span.child("batch_form", start=t_form0,
                                     batch_size=len(batch)).end(end=t_start)
+            if attempt == 0:
+                adapters = {req.sample.get("_adapter") for req in batch
+                            if isinstance(req.sample, dict)} - {None}
+                if adapters:
+                    # The rows of this one dispatch gather different tenants'
+                    # factors by slot: the evidence that multiplexing
+                    # happened, on the head span and the manager's counter.
+                    if head_span is not None:
+                        head_span.annotate(adapters=sorted(adapters))
+                    if self.adapter_hook is not None:
+                        self.adapter_hook(adapters)
             try:
                 results = await self.runner.run(self.model, samples, seq=seq, span=head_span)
             except Exception as e:

@@ -1,7 +1,7 @@
 """Continuous batching and token streaming for the generative models.
 
 The port of the JAX package's ``serving/generation.py`` (single host; no
-lockstep or adapters).  The fixed-batch lane
+lockstep).  The fixed-batch lane
 (``:predict``) runs one whole ``generate`` call a batch: nothing streams
 until it ends, and a batch's members are fixed at admission.  These lanes
 serve ``:generate`` instead, with every device program at static shapes
@@ -549,7 +549,7 @@ class _PrefillJob:
     ids: np.ndarray                       # the whole prompt, int32 [P]
     chunks: list[tuple[int, int]]         # (start, bucket) per chunk
     knobs: tuple[float, int, int, float]  # temperature, seed, top_k, top_p
-    aidx: int = 0                         # adapter slot: always 0 in the port
+    aidx: int = 0                         # adapter slot (0: the base)
     next: int = 0
     # Prefix-cache state: tokens already resident in frozen pages (chunk 0
     # starts there), and copy-on-write page pairs (src, dst) the first chunk
@@ -593,6 +593,9 @@ class PagedGenerationScheduler(_Lane):
       tokens a row on the draft's pool, and the target verifies them in one
       forward with rejection sampling (one graph); otherwise the tick is a
       plain segment.  Greedy output is plain decoding's.
+    - **Adapters**: each stream carries its adapter slot (the sample's
+      ``adapter_idx``) through its chunks, its segments, a swap, an export
+      and an eviction's continuation; its prefixes freeze under that slot.
 
     One asyncio task owns all host state and every device call goes through
     ``runner.run_fn``, as in the slot pool.
@@ -624,6 +627,8 @@ class PagedGenerationScheduler(_Lane):
         self._prompt_ids = pg["prompt_ids"]
         self._knobs_of = pg["knobs"]
         self._extend_sample = pg["extend_sample"]
+        # A stream's adapter slot from its sample (0: the base).
+        self._aidx_of = pg["adapter_idx"]
         # Pool layout: block 0 is trash; the default size is the slot pool's
         # worst case (slots x max_blocks + 1), so it serves the same load in
         # the same memory; kv_num_blocks sizes it down.
@@ -671,6 +676,10 @@ class PagedGenerationScheduler(_Lane):
         # The chain token at pos - 1 a slot: the draft's backfill feed (a tick
         # that accepted every proposal leaves the draft one KV write behind).
         self._prev = np.zeros((S,), np.int32)   # guarded-by: dispatch-serialized
+        # Each slot's adapter (0: the base): a static input of the chunk and
+        # segment graphs, so tenants co-decode in one program.  The draft
+        # has no adapter stacks: a tick with an adapter stream decodes plain.
+        self._aidx = np.zeros((S,), np.int32)   # guarded-by: dispatch-serialized
         self._active: dict[int, GenRequest] = {}  # guarded-by: event-loop
         self._prefilling: collections.deque[_PrefillJob] = collections.deque()  # guarded-by: event-loop
         self._free = list(range(S))               # guarded-by: event-loop
@@ -802,7 +811,7 @@ class PagedGenerationScheduler(_Lane):
 
     def _segment_sync(self, table: np.ndarray):
         """One decode segment over the pool (dispatch thread)."""
-        out = self._segment(table, self._carries())
+        out = self._segment(table, {**self._carries(), "aidx": self._aidx})
         emits, self._tok, self._pos, self._step, self._finished = unpack(out, self.seg)
         # The last step's fed token is the chain token at pos - 1 (EOS for a
         # finished row, which never speculates).
@@ -936,8 +945,9 @@ class PagedGenerationScheduler(_Lane):
         return out
 
     def invalidate_prefix(self, aidx: int) -> int:
-        """Drop every frozen prefix under one adapter slot (0 is the base
-        model's: the port serves no adapters yet)."""
+        """Drop every frozen prefix under one adapter slot: the server's
+        detach hook, so a reused slot never resolves a detached tenant's
+        pages."""
         if self._prefix is None:
             return 0
         return self._prefix.invalidate(aidx)
@@ -1062,6 +1072,7 @@ class PagedGenerationScheduler(_Lane):
         if self._draft_kernels is not None:
             self._draft_kernels.reset()
         self._finished[:] = True
+        self._aidx[:] = 0
         self._free = list(range(self.slots))
         self._mgr = BlockManager(self.num_blocks, self.block_size, self.max_blocks)
         if self._prefix is not None:
@@ -1103,6 +1114,7 @@ class PagedGenerationScheduler(_Lane):
 
     def _release(self, req: GenRequest, slot: int):
         self._mgr.free(req)
+        self._aidx[slot] = 0
         self._free.append(slot)
 
     # -- admission ------------------------------------------------------------
@@ -1136,7 +1148,12 @@ class PagedGenerationScheduler(_Lane):
                 req.finish(error=f"{type(e).__name__}: {e}")
                 continue
             plen = int(ids.shape[0])
-            aidx = 0
+            try:
+                aidx = self._aidx_of(req.sample)
+            except Exception as e:  # a slot outside the pool fails only itself
+                self._pending.popleft()
+                req.finish(error=f"{type(e).__name__}: {e}")
+                continue
             cached, shared, force_cow = (self._prefix_match(ids, aidx)
                                          if self._prefix is not None else (0, [], False))
             # Shared pages come free; only the uncached tail (and a CoW clone
@@ -1285,6 +1302,7 @@ class PagedGenerationScheduler(_Lane):
             self._seed[job.slot] = s
             self._topk[job.slot] = tk
             self._topp[job.slot] = tp
+            self._aidx[job.slot] = job.aidx
             self._mgr.note_tokens(req, plen + 1)
             if self._prefix is not None:
                 # Freeze the whole-prompt pages for the next matching prompt;
@@ -1359,6 +1377,11 @@ class PagedGenerationScheduler(_Lane):
         stream prefilled on it.  A non-None set holds the draft (release
         it after the tick)."""
         if self.draft is None or not self._active or self._draft_kernels is None:
+            return None, False
+        if any(self._aidx[slot] for slot in self._active):
+            # Adapter streams decode plain: the draft has no adapter stacks,
+            # so its proposals would miss the tenant's distribution.
+            self.spec_fallback_ticks += 1
             return None, False
         if not all(req.has_draft for req in self._active.values()):
             self.spec_fallback_ticks += 1
@@ -1485,8 +1508,10 @@ class PagedGenerationScheduler(_Lane):
         state = {"tok": int(self._tok[slot]), "pos": int(self._pos[slot]),
                  "step": int(self._step[slot]), "prev": int(self._prev[slot]),
                  "temp": float(self._temp[slot]), "seed": int(self._seed[slot]),
-                 "top_k": int(self._topk[slot]), "top_p": float(self._topp[slot])}
+                 "top_k": int(self._topk[slot]), "top_p": float(self._topp[slot]),
+                 "aidx": int(self._aidx[slot])}
         self._finished[slot] = True
+        self._aidx[slot] = 0
         self._tok[slot] = self.eos_id
         del self._active[slot]
         self._free.append(slot)
@@ -1504,6 +1529,7 @@ class PagedGenerationScheduler(_Lane):
         self._seed[slot] = state["seed"]
         self._topk[slot] = state["top_k"]
         self._topp[slot] = state["top_p"]
+        self._aidx[slot] = int(state.get("aidx", 0))
         self._finished[slot] = False
         req.slot = slot
         self._active[slot] = req
@@ -1601,11 +1627,12 @@ class PagedGenerationScheduler(_Lane):
         if not self._free:
             raise MigrationError("no free decode slot")
         pos = int(state["pos"])
+        aidx = int(state.get("aidx", 0))
         npages = self._npages(pos)
         shared: list[int] = []
         if self._prefix is not None:
             try:
-                c, blocks = self._prefix.lookup(0, ids, max_tokens=int(ids.shape[0]))
+                c, blocks = self._prefix.lookup(aidx, ids, max_tokens=int(ids.shape[0]))
                 shared = blocks[:min(c // self.block_size, npages)]
             except Exception:
                 shared = []
@@ -1642,7 +1669,7 @@ class PagedGenerationScheduler(_Lane):
             # Freeze the restored prompt pages, so the next matching prompt
             # (or a later move of this stream) dedupes against them.
             try:
-                self._prefix.insert(0, ids, self._mgr.blocks_of(req))
+                self._prefix.insert(aidx, ids, self._mgr.blocks_of(req))
             except Exception:
                 log.exception("prefix insert after migration failed for %s (stream "
                               "unaffected)", self.name)
@@ -1665,9 +1692,9 @@ class PagedGenerationScheduler(_Lane):
         return self._run_cmd(lambda: self._cmd_abort(req))
 
     def migrate_import(self, ids, emitted, state, page_map, max_new: int | None = None,
-                       cause: str = "admin", span=None) -> asyncio.Future:
+                       cause: str = "admin", span=None, aidx: int = 0) -> asyncio.Future:
         return self._run_cmd(lambda: self._cmd_import(ids, emitted, state, page_map, max_new,
-                                                      cause, span))
+                                                      cause, span, aidx))
 
     async def _cmd_snapshot(self, req: GenRequest) -> dict:
         """Export phase 1: read the stream's complete pages while it keeps
@@ -1710,7 +1737,10 @@ class PagedGenerationScheduler(_Lane):
         if req.span is not None:
             req.span.point("migrate_export", cause="admin", pages=npages,
                            delta_pages=len(want))
-        return {"state": state, "ids": ids, "aidx": 0, "npages": npages,
+        # The wire state leaves the slot out: the importer resolves the
+        # adapter by name to its own slot.
+        return {"state": {k: v for k, v in state.items() if k != "aidx"}, "ids": ids,
+                "aidx": state["aidx"], "npages": npages,
                 "pages": dict(zip(want, pages)), "emitted": list(req.tokens),
                 "max_new": req.max_new}
 
@@ -1760,16 +1790,21 @@ class PagedGenerationScheduler(_Lane):
         log_event(log, "migration aborted; stream resumed in place", model=self.name)
         return True
 
-    async def _cmd_import(self, ids, emitted, state, page_map, max_new, cause, span) -> tuple:
+    async def _cmd_import(self, ids, emitted, state, page_map, max_new, cause, span,
+                          aidx: int = 0) -> tuple:
         """Create a stream from exported state: the import half of the
         protocol.  The emitted history preloads ``tokens`` and never enters
         the event queue (``emitted_base`` marks where this lane's stream
-        starts), so an attach replays it without duplicates."""
+        starts), so an attach replays it without duplicates.  ``aidx`` is
+        the stream's adapter slot on this replica (0: the base)."""
         t0 = time.perf_counter()
         ids = np.ascontiguousarray(ids, np.int32).reshape(-1)
+        state = {**state, "aidx": int(aidx)}
         sample = {"input_ids": ids, "temperature": float(state["temp"]),
                   "seed": int(state["seed"]), "top_k": int(state["top_k"]),
                   "top_p": float(state["top_p"])}
+        if aidx:
+            sample["adapter_idx"] = np.int32(aidx)
         want = self.max_new if max_new is None else max(1, min(int(max_new), self.max_new))
         req = GenRequest(sample=sample, max_new=want, rounds_at_submit=self.device_rounds,
                          segments_at_submit=self.segment_rounds, span=span)

@@ -541,6 +541,11 @@ class LifecycleManager:
                 res.state = DRAINING_IDLE
                 engine = self.server.engine
                 cm = engine.detach(name)
+                adapters = getattr(self.server, "adapters", None)
+                if adapters is not None:
+                    # The base's adapters go cold with it: their slots are
+                    # written again, into a fresh pool, after a restore.
+                    adapters.on_base_demoted(name)
                 # The lanes are quiet (the busy gate): stopping them routes new
                 # arrivals through ensure_active, which waits on res.lock.
                 await self.server._stop_model_lanes(name)
@@ -750,8 +755,13 @@ class LifecycleManager:
         host_b = (int(res.cm_host.param_nbytes())
                   if res.tier == "host" and res.cm_host is not None else 0)
         disk_b = store.manifest_nbytes(name) if store is not None else 0
+        adapters = getattr(self.server, "adapters", None)
         return {
             "state": res.state,
+            # Per-tenant adapter residency: a warm tenant's slot is a
+            # routing signal.
+            **({"adapters": adapters.residency_of(name)}
+               if adapters is not None and adapters.names_for(name) else {}),
             "tier": res.tier if res.state != ACTIVE else "device",
             "pinned": res.pinned,
             "quarantined": name in quarantined,

@@ -167,6 +167,8 @@ class MetricsHub:
         # The residency manager (serving/lifecycle.py), and through it the
         # checkpoint store.
         self.lifecycle = None  # guarded-by: event-loop
+        # The multi-tenant adapter manager (serving/adapters.py).
+        self.adapters = None  # guarded-by: event-loop
         # The request plane: the job queue (its journal's numbers), the
         # tracer, and the binary lane's requests by model.
         self.jobs = None  # guarded-by: event-loop
@@ -190,6 +192,8 @@ class MetricsHub:
             out["recovery"] = self.watchdog.snapshot()
         if self.lifecycle is not None:
             out["lifecycle"] = self.lifecycle.snapshot()
+        if self.adapters is not None and self.adapters.enabled:
+            out["adapters"] = self.adapters.snapshot()
         if self.jobs is not None and (dsnap := self.jobs.durability_snapshot()) is not None:
             out["durability"] = dsnap
         if self.tracer is not None:
@@ -444,6 +448,30 @@ class MetricsHub:
                 histogram("tpuserve_ckpt_load_ms", "Streamed checkpoint load wall time (ms)",
                           [({"model": k}, *live(h))
                            for k, h in lc.store.load_hists_snapshot().items()])
+        if self.adapters is not None and self.adapters.enabled:
+            # Scale-to-zero per tenant, beside the per-model residency above.
+            from .adapters import STATE_CODE
+
+            am = self.adapters
+            asnap = am.snapshot()
+            rows = [(b, a, s) for b, ads in asnap["models"].items() for a, s in ads.items()]
+            metric("tpuserve_adapter_residency", "gauge",
+                   "Adapter residency (0=cold, 1=attaching, 2=active)",
+                   [({"model": b, "adapter": a}, STATE_CODE[s["state"]]) for b, a, s in rows])
+            metric("tpuserve_adapter_served_total", "counter",
+                   "Requests served per (model, adapter) tenant",
+                   [({"model": b, "adapter": a}, s["served"]) for b, a, s in rows])
+            metric("tpuserve_adapter_cold_fast_fails_total", "counter",
+                   "Requests 503'd adapter_cold (deadline below the attach estimate)",
+                   [({"model": b, "adapter": a}, s["cold_fast_fails"]) for b, a, s in rows
+                    if s["cold_fast_fails"]])
+            metric("tpuserve_adapter_multi_batches_total", "counter",
+                   "Device dispatches that co-batched >1 distinct adapter",
+                   [({}, asnap["multi_adapter_batches"])])
+            histogram("tpuserve_adapter_attach_ms",
+                      "Adapter attach wall time (ms, lifetime histogram)",
+                      [(dict(zip(("model", "adapter"), key.split(":", 1))), *live(h))
+                       for key, h in list(am.attach_hists.items())])
         if self.generation is not None:
             gsnap = self.generation()
             paged = {m: s for m, s in gsnap.items() if "kv" in s}

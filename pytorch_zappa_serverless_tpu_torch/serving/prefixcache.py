@@ -6,8 +6,11 @@ whose compressed edges own frozen, refcounted pages of the scheduler's
 :class:`~.kvcache.BlockManager`.  Admission walks the tree, shares every
 matched page into the new sequence's block table, and chunked prefill
 starts at the cached offset: a warm prompt's first token costs one small
-chunk instead of the whole prompt.  The adapter slot is always 0 in the
-port, which serves no adapters yet.
+chunk instead of the whole prompt.  Each adapter slot has a tree of its own
+(K/V depends on the tenant's deltas); the server wires
+``AdapterManager.prefix_invalidate`` to the scheduler's
+``invalidate_prefix``, so a detach drops its slot's tree and a reused slot
+never resolves the detached tenant's pages.
 
 - **Only whole-prompt, whole-page spans freeze**: the first
   ``len(prompt) // block_size`` pages of a stream whose prefill completed;

@@ -22,6 +22,9 @@ Routes (the JAX package's, for the port's slices):
   ``POST /debug/trace {"seconds"}`` (the window as a Chrome trace under
   ``trace_dir``): 409 while a capture runs, 400 outside ``seconds`` ∈
   [0.05, 60], 500 if the profiler does not start;
+- ``GET /admin/adapters`` (every tenant's adapter residency) and ``POST
+  /admin/adapters/{model}/{adapter}`` with ``{"action": "attach"|"detach"}``:
+  404 for an unknown adapter, 409 for a detach of a busy or cold adapter;
 - ``GET /admin/prefix`` (each paged lane's prefix-tree counters) and the
   stream registry of live migration: ``GET /admin/streams`` (every
   ``:generate`` stream by id: state, tokens, migrations), ``POST
@@ -86,6 +89,17 @@ activation goes on.  A ``:submit`` to a cold model is acknowledged at once
 and its job activates the model.  An unknown model's 404 lists every
 configured model's residency, and ``/healthz`` and ``/v1/models`` carry it.
 
+Adapters (``serving/adapters.py``): on a base with ``adapters``, a request
+names its tenant's LoRA adapter with ``X-Adapter`` (or the body's top-level
+``adapter``) or ``X-Tenant``; an unknown one is 404 with the base's
+adapters.  The adapter attaches on demand (one attach for all concurrent
+callers); a deadline below the attach estimate answers 503 with
+``adapter_cold`` and Retry-After while the attach goes on.  Each row
+carries its slot, so tenants co-batch on ``:predict`` and co-decode on the
+paged ``:generate`` lane (the slot lane answers 400); a ``:submit`` keys its
+job by (model, adapter) and the worker attaches.  Answers carry
+``X-Adapter``, and each tenant has a latency ring ``{model}:{adapter}``.
+
 Resilience (``serving/resilience.py``): a ``:predict`` carries a deadline
 (``X-Deadline-Ms``, else the body's top-level ``deadline_ms``, capped by
 ``deadline_max_ms``, else the model's and then the server's default); a
@@ -134,12 +148,14 @@ from pathlib import Path
 from typing import Any, NamedTuple
 from urllib.parse import parse_qs
 
+import numpy as np
 import torch
 
 from ..config import ServeConfig
 from ..engine.loader import Engine, build_engine
 from ..utils.logging import current_trace_id, get_logger, log_event
 from . import wire
+from .adapters import AdapterCold, AdapterManager, UnknownAdapter
 from .batcher import DynamicBatcher, Overloaded
 from .durability import JobJournal
 from .generation import DraftGate, GenerationScheduler, PagedGenerationScheduler
@@ -165,6 +181,7 @@ _ADMIN_TRACE = re.compile(r"^/admin/trace/([^/]+)$")
 _STREAM_EXPORT = re.compile(r"^/admin/streams/([^/]+)/export$")
 _STREAM_IMPORT = re.compile(r"^/admin/streams/([^/]+)/import$")
 _STREAM_ATTACH = re.compile(r"^/admin/streams/([^/]+)/attach$")
+_ADMIN_ADAPTER = re.compile(r"^/admin/adapters/([^/]+)/([^/]+)$")
 _KINDS = ((":predict", "predict"), (":generate", "generate"), (":submit", "submit"))
 
 Response = tuple[int, Any, dict[str, str]]
@@ -453,6 +470,13 @@ class Server:
         # so /admin/models and the residency metrics always answer.
         self.lifecycle: LifecycleManager | None = None  # guarded-by: event-loop
         self.ckpt_store = None  # guarded-by: event-loop
+        # Multi-tenant adapter residency: per-tenant attach and detach,
+        # scale-to-zero, ledger entries {base}:{adapter}.  Always made, so the
+        # discovery and metrics surfaces exist with no adapter configured; a
+        # detach drops its slot's prefix tree on the paged lane.
+        self.adapters = AdapterManager(self, cfg)
+        self.metrics.adapters = self.adapters
+        self.adapters.prefix_invalidate = self._invalidate_prefix
         # The stream registry: stream id -> the :generate request behind it,
         # so the export, import and attach routes can address a stream in
         # flight.  Finished streams stay until the cap (oldest dropped
@@ -477,6 +501,7 @@ class Server:
             "/admin/recover": {"POST": self.handle_recover},
             "/admin/reload": {"POST": self.handle_reload},
             "/admin/models": {"GET": self.handle_admin_models},
+            "/admin/adapters": {"GET": self.handle_admin_adapters},
             "/admin/prefix": {"GET": self.handle_admin_prefix},
             "/admin/streams": {"GET": self.handle_admin_streams},
             "/admin/trace": {"GET": self.handle_trace_list},
@@ -507,6 +532,9 @@ class Server:
             self.batchers[name] = DynamicBatcher(
                 cm, self.engine.runner, cm.cfg, ring=self.metrics.ring(name),
                 resilience=self.resilience.model(name)).start()
+            if self.adapters.enabled:
+                # Co-batch evidence: each dispatch's adapter mix.
+                self.batchers[name].adapter_hook = self.adapters.note_batch
         if "continuous" in cm.servable.meta and name not in self.schedulers:
                 # The :generate lane beside :predict, its pool allocated and
                 # its graphs captured at first use, as the JAX lanes compile;
@@ -622,6 +650,9 @@ class Server:
         # and keeps the HBM and host budgets, LRU first.
         self.lifecycle = LifecycleManager(self, self.cfg).start()
         self.metrics.lifecycle = self.lifecycle
+        # The per-tenant reaper (idle detach, the budget's shed); idle with
+        # no adapter configured.
+        self.adapters.start()
         self.metrics.generation = lambda: {n: s.gen_snapshot()
                                            for n, s in self.schedulers.items()}
         journal = None
@@ -666,6 +697,7 @@ class Server:
             await self.watchdog.stop()
         if self.lifecycle is not None:
             await self.lifecycle.stop()
+        await self.adapters.stop()
         await self._stop_lanes()
         if self.jobs is not None:
             await self.jobs.stop()
@@ -811,10 +843,11 @@ class Server:
                 (_ADMIN_TRACE, {"GET": self.handle_trace_get}, ()),
                 (_STREAM_EXPORT, {"POST": self.handle_stream_export}, ()),
                 (_STREAM_IMPORT, {"POST": self.handle_stream_import}, ()),
-                (_STREAM_ATTACH, {"GET": self.handle_stream_attach}, (reader, query))):
+                (_STREAM_ATTACH, {"GET": self.handle_stream_attach}, (reader, query)),
+                (_ADMIN_ADAPTER, {"POST": self.handle_admin_adapter_post}, ())):
             m = pattern.match(path)
             if m is not None:
-                args = (m.group(1), body, headers, *tail)
+                args = (*m.groups(), body, headers, *tail)
                 break
         else:
             methods = self._routes.get(path)
@@ -834,10 +867,13 @@ class Server:
 
     # -- handlers -----------------------------------------------------------
     async def handle_root(self, body: bytes, headers=None, query: str = "") -> Response:
-        return 200, {"status": "ok",
-                     "framework": "pytorch-zappa-serverless-tpu-torch",
-                     "profile": self.cfg.profile,
-                     "models": sorted(self.engine.models)}, {}
+        out = {"status": "ok", "framework": "pytorch-zappa-serverless-tpu-torch",
+               "profile": self.cfg.profile, "models": sorted(self.engine.models)}
+        adapters = {mc.name: self.adapters.names_for(mc.name) for mc in self.cfg.models
+                    if self.adapters.names_for(mc.name)}
+        if adapters:
+            out["adapters"] = adapters
+        return 200, out, {}
 
     async def handle_models(self, body: bytes, headers=None, query: str = "") -> Response:
         """Every configured model: a resident one's buckets and endpoints,
@@ -862,6 +898,9 @@ class Server:
                 models[name]["generate"] = f"/v1/models/{name}:generate"
         for name in models:
             models[name]["residency"] = residency.get(name, "active")
+            if self.adapters.names_for(name):
+                # Each tenant's adapter with its residency.
+                models[name]["adapters"] = self.adapters.residency_of(name)
         return 200, {"models": models}, {}
 
     def _probe(self) -> bool:
@@ -1138,6 +1177,99 @@ class Server:
         self.engine.runner.faults.on_preprocess(cm.servable.name)
         return cm.servable.preprocess(payload)
 
+    # -- multi-tenant adapter admission --------------------------------------
+    def _adapter_extract(self) -> dict[str, Any] | None:
+        """The body fields a decode pops for adapter routing (None: no
+        adapter is configured, the body goes to preprocess as it is)."""
+        return {"adapter": None} if self.adapters.enabled else None
+
+    def _unknown_adapter(self, base: str, requested: str) -> Response:
+        """404 naming the base's adapters, each with its residency and
+        tenants."""
+        ladder = self.adapters.base_snapshot(base)
+        adapters = {a: {"residency": s["state"], "tenants": s["tenants"]}
+                    for a, s in sorted(ladder.items())}
+        return _error(404, f"adapter {requested!r} not served on model {base!r}; available: "
+                           f"{sorted(adapters)}", model=base, adapters=adapters)
+
+    def _adapter_of(self, name: str, headers: dict[str, str], payload: Any,
+                    extract: dict[str, Any] | None):
+        """Tenant to adapter: (record | None, error | None).  The
+        ``X-Adapter`` header wins, then the body's top-level ``adapter``,
+        then ``X-Tenant`` against the registry."""
+        mgr = self.adapters
+        if not mgr.enabled:
+            return None, None
+        aname = headers.get("x-adapter")
+        if aname is None and extract is not None and extract.get("adapter") is not None:
+            aname = str(extract["adapter"])
+        if aname is None and isinstance(payload, dict) and "adapter" in payload:
+            aname = str(payload.pop("adapter"))
+        tenant = headers.get("x-tenant")
+        if aname is None and not tenant:
+            return None, None
+        try:
+            rec = mgr.resolve(name, aname, tenant)
+        except UnknownAdapter as e:
+            return None, self._unknown_adapter(name, e.args[0])
+        ctx = _request_ctx.get()
+        if rec is not None and ctx is not None:
+            ctx.span.annotate(adapter=rec.name)
+        return rec, None
+
+    async def _adapter_gate(self, name: str, rec, deadline_ms: float | None) -> Response | None:
+        """Cold admission for one tenant's adapter: None once attached
+        (``rec.slot`` valid), else the response.  The model's residency gate
+        one level down: a deadline below the learned attach estimate answers
+        503 ``adapter_cold`` + Retry-After while the attach goes on."""
+        ctx = _request_ctx.get()
+        t0 = time.perf_counter()
+        try:
+            await self.adapters.ensure_attached(name, rec.name, deadline_ms=deadline_ms,
+                                                cause="request")
+            waited_ms = (time.perf_counter() - t0) * 1000.0
+            if ctx is not None and waited_ms >= 1.0:
+                ctx.span.point("adapter_attach", adapter=rec.name, waited_ms=round(waited_ms, 1))
+        except AdapterCold as e:
+            if ctx is not None:
+                ctx.span.point("adapter_cold", adapter=rec.name,
+                               estimated_attach_ms=round(e.estimated_attach_ms, 1))
+            return _error_retry(503, str(e), e.retry_after_s, adapter_cold=True,
+                                adapter=rec.name,
+                                estimated_attach_ms=round(e.estimated_attach_ms, 1))
+        except Exception as e:
+            log.exception("adapter attach failed for %s:%s", name, rec.name)
+            return _error_retry(503, f"adapter {rec.name!r} attach failed: {type(e).__name__}: "
+                                     f"{e}", self.cfg.recover_backoff_s or 1.0,
+                                adapter_attach_failed=True, adapter=rec.name)
+        return None
+
+    @staticmethod
+    def _stamp_adapter(samples, rec) -> None:
+        """Route preprocessed samples through the tenant's slot (the row's
+        gather index) and name the tenant for the batcher's evidence."""
+        for s in samples:
+            if isinstance(s, dict):
+                s["adapter_idx"] = np.int32(rec.slot)
+                s["_adapter"] = rec.name
+
+    def _adapter_served(self, name: str, rec, heads: dict[str, str], timing=None) -> None:
+        """The served tenant's evidence: ``X-Adapter``, its served count,
+        and its own latency ring ``{model}:{adapter}``."""
+        heads["X-Adapter"] = rec.name
+        self.adapters.note_served(rec)
+        if timing is not None:
+            self.metrics.ring(f"{name}:{rec.name}").record(
+                timing["queue_ms"], timing["device_ms"], timing["total_ms"])
+
+    @staticmethod
+    def _job_adapter_split(payload):
+        """(adapter name | None, inner payload): the :submit wrapper that
+        keys a durable job by (model, adapter)."""
+        if isinstance(payload, dict) and "_adapter" in payload and "payload" in payload:
+            return str(payload["_adapter"]), payload["payload"]
+        return None, payload
+
     async def _predict(self, name: str, body: bytes, headers: dict[str, str]) -> Response:
         if name not in self.engine.models:
             refused = await self._residency_gate(name, headers)
@@ -1173,8 +1305,9 @@ class Server:
         # stage chain (admission → queue → device → respond) tiles the
         # request's wall time.
         adm = ctx.span.child("admission", start=ctx.span.t0) if ctx is not None else None
+        extract = self._adapter_extract()
         try:
-            payload = self._payload(body, headers)
+            payload = self._payload(body, headers, extract)
         except (ValueError, TypeError, _BinaryLaneDisabled) as e:
             return _payload_error(e)
         cm = batcher.model
@@ -1191,110 +1324,134 @@ class Server:
                 return _error(504, f"deadline_ms={deadline_ms:g} already expired at "
                                    "admission", stage="admission")
             deadline = loop.time() + deadline_ms / 1000.0
-        instances = None
-        if isinstance(payload, dict) and "instances" in payload:
-            instances = payload["instances"]
-            if not isinstance(instances, list) or not instances:
-                return _error(400, '"instances" must be a non-empty list')
+        # Tenant resolution and the adapter's attach gate: the base is
+        # resident, so a small slot write is all that can stand between this
+        # request and its slot.
+        arec, aerr = self._adapter_of(name, headers, payload, extract)
+        if aerr is not None:
+            return aerr
+        if arec is not None:
+            refused = await self._adapter_gate(name, arec, deadline_ms)
+            if refused is not None:
+                return refused
+            # The slot cannot be detached or evicted while this request is in.
+            self.adapters.enter(arec)
+        try:
+            instances = None
+            if isinstance(payload, dict) and "instances" in payload:
+                instances = payload["instances"]
+                if not isinstance(instances, list) or not instances:
+                    return _error(400, '"instances" must be a non-empty list')
+                try:
+                    batcher.check_capacity(len(instances))
+                except Overloaded as e:
+                    return self._overloaded(e, batcher)
+                try:
+                    instances = [_unwrap_b64(p) for p in instances]
+                except (ValueError, TypeError) as e:
+                    return _error(400, f"bad instance: {type(e).__name__}: {e}")
+            if deadline_ms is not None:
+                # Admission-time shedding: a queue-wait forecast past the
+                # deadline is refused now (429) rather than queued to die a 504.
+                est_ms = batcher.estimate_wait_ms(len(instances) if instances is not None else 1)
+                if est_ms > deadline_ms:
+                    mr.stats.shed_predicted += 1
+                    return _error_retry(429, f"estimated queue wait {est_ms:.0f} ms exceeds "
+                                             f"deadline {deadline_ms:.0f} ms; shedding",
+                                        est_ms / 1000.0, estimated_wait_ms=round(est_ms, 1),
+                                        queue_depth=batcher.queue_depth)
+            meta = cm.servable.meta
+            payloads = instances if instances is not None else [payload]
+            ignored = meta.get("predict_ignores_sampling", ())
+            knobs = sorted({k for p in payloads if isinstance(p, dict) for k in ignored if k in p})
+            if knobs:
+                return _error(400, f"model {name!r} ignores sampling knobs {knobs} on :predict "
+                                   f"(greedy decode); send the request without them")
             try:
-                batcher.check_capacity(len(instances))
+                if meta.get("heavy_preprocess") or any(isinstance(p, bytes) for p in payloads):
+                    # Image or audio decoding: off the event loop, the instances
+                    # at once.  Other inputs preprocess inline.
+                    per_input = await asyncio.gather(
+                        *[loop.run_in_executor(None, self._preprocess, cm, p) for p in payloads])
+                else:
+                    per_input = [self._preprocess(cm, p) for p in payloads]
+            except Exception as e:
+                return _error(400, f"preprocess failed: {type(e).__name__}: {e}")
+            # An input may preprocess to a list of samples: flatten for one
+            # atomic admission, regroup after.
+            widths = [len(s) if isinstance(s, list) else 1 for s in per_input]
+            samples = [x for s in per_input for x in (s if isinstance(s, list) else [s])]
+            if arec is not None:
+                # The per-row slot that lets this request co-batch with other
+                # tenants' rows.
+                self._stamp_adapter(samples, arec)
+                if adm is not None:
+                    adm.point("adapter_gather", adapter=arec.name, slot=arec.slot)
+            seq_of = meta.get("seq_len_of")
+            seqs = [seq_of(s) if seq_of else None for s in samples]
+            # The await is bounded by what is left of the deadline: a client
+            # gone at T gets its 504 at T, not when the batch lands.
+            remaining = max(deadline - loop.time(), 0.001) if deadline is not None else None
+            span = ctx.span if ctx is not None else None
+            if adm is not None:
+                adm.end()
+            try:
+                if len(samples) == 1 and instances is None:
+                    result, timing = await asyncio.wait_for(
+                        batcher.submit(samples[0], seqs[0], deadline=deadline, span=span),
+                        remaining)
+                    t_done = timing.pop("t_done")
+                else:
+                    futs = batcher.submit_many(samples, seqs, deadline=deadline, span=span)
+                    pairs = await asyncio.wait_for(asyncio.gather(*futs), remaining)
+                    grouped, i = [], 0
+                    for width in widths:
+                        part = [r for r, _ in pairs[i: i + width]]
+                        grouped.append(meta["merge_results"](part) if width > 1 else part[0])
+                        i += width
+                    result = grouped if instances is not None else grouped[0]
+                    t_done = max(t.pop("t_done") for _, t in pairs)
+                    timing = {k: max(t[k] for _, t in pairs)
+                              for k in ("queue_ms", "device_ms", "total_ms", "batch_size")}
+                    timing["samples"] = len(pairs)
             except Overloaded as e:
                 return self._overloaded(e, batcher)
-            try:
-                instances = [_unwrap_b64(p) for p in instances]
-            except (ValueError, TypeError) as e:
-                return _error(400, f"bad instance: {type(e).__name__}: {e}")
-        if deadline_ms is not None:
-            # Admission-time shedding: a queue-wait forecast past the
-            # deadline is refused now (429) rather than queued to die a 504.
-            est_ms = batcher.estimate_wait_ms(len(instances) if instances is not None else 1)
-            if est_ms > deadline_ms:
-                mr.stats.shed_predicted += 1
-                return _error_retry(429, f"estimated queue wait {est_ms:.0f} ms exceeds "
-                                         f"deadline {deadline_ms:.0f} ms; shedding",
-                                    est_ms / 1000.0, estimated_wait_ms=round(est_ms, 1),
-                                    queue_depth=batcher.queue_depth)
-        meta = cm.servable.meta
-        payloads = instances if instances is not None else [payload]
-        ignored = meta.get("predict_ignores_sampling", ())
-        knobs = sorted({k for p in payloads if isinstance(p, dict) for k in ignored if k in p})
-        if knobs:
-            return _error(400, f"model {name!r} ignores sampling knobs {knobs} on :predict "
-                               f"(greedy decode); send the request without them")
-        try:
-            if meta.get("heavy_preprocess") or any(isinstance(p, bytes) for p in payloads):
-                # Image or audio decoding: off the event loop, the instances
-                # at once.  Other inputs preprocess inline.
-                per_input = await asyncio.gather(
-                    *[loop.run_in_executor(None, self._preprocess, cm, p) for p in payloads])
+            except DeadlineExceeded as e:
+                # Shed by the batcher before dispatch (counted there).
+                return _error(504, str(e), stage=e.stage)
+            except (asyncio.TimeoutError, TimeoutError):
+                mr.stats.deadline_await += 1
+                batcher.ring.record_error()
+                return _error(504, f"deadline ({deadline_ms:g} ms) expired while awaiting the "
+                                   "device", stage="await")
+            except Exception as e:
+                log.exception("predict failed for %s", name)
+                return _error(500, f"inference failed: {type(e).__name__}")
+            # The respond stage, stitched to the device's end: grouping and the
+            # answer's encode.
+            rsp = ctx.span.child("respond", start=t_done) if ctx is not None else None
+            out_meta = {"model": name, "timing": timing}
+            answer: Any
+            if (ctx is not None and ctx.binary
+                    and "application/json" not in headers.get("accept", "")):
+                # A binary answer: the meta block, then a block a prediction
+                # (structured predictions as JSON blocks), in one frame.
+                # ``Accept: application/json`` opts back into a JSON answer.
+                preds = result if instances is not None else [result]
+                answer = RawBody(bytes(wire.pack_response(out_meta, preds,
+                                                          list_frame=instances is not None)),
+                                 wire.TENSOR_CONTENT_TYPE)
             else:
-                per_input = [self._preprocess(cm, p) for p in payloads]
-        except Exception as e:
-            return _error(400, f"preprocess failed: {type(e).__name__}: {e}")
-        # An input may preprocess to a list of samples: flatten for one
-        # atomic admission, regroup after.
-        widths = [len(s) if isinstance(s, list) else 1 for s in per_input]
-        samples = [x for s in per_input for x in (s if isinstance(s, list) else [s])]
-        seq_of = meta.get("seq_len_of")
-        seqs = [seq_of(s) if seq_of else None for s in samples]
-        # The await is bounded by what is left of the deadline: a client
-        # gone at T gets its 504 at T, not when the batch lands.
-        remaining = max(deadline - loop.time(), 0.001) if deadline is not None else None
-        span = ctx.span if ctx is not None else None
-        if adm is not None:
-            adm.end()
-        try:
-            if len(samples) == 1 and instances is None:
-                result, timing = await asyncio.wait_for(
-                    batcher.submit(samples[0], seqs[0], deadline=deadline, span=span),
-                    remaining)
-                t_done = timing.pop("t_done")
-            else:
-                futs = batcher.submit_many(samples, seqs, deadline=deadline, span=span)
-                pairs = await asyncio.wait_for(asyncio.gather(*futs), remaining)
-                grouped, i = [], 0
-                for width in widths:
-                    part = [r for r, _ in pairs[i: i + width]]
-                    grouped.append(meta["merge_results"](part) if width > 1 else part[0])
-                    i += width
-                result = grouped if instances is not None else grouped[0]
-                t_done = max(t.pop("t_done") for _, t in pairs)
-                timing = {k: max(t[k] for _, t in pairs)
-                          for k in ("queue_ms", "device_ms", "total_ms", "batch_size")}
-                timing["samples"] = len(pairs)
-        except Overloaded as e:
-            return self._overloaded(e, batcher)
-        except DeadlineExceeded as e:
-            # Shed by the batcher before dispatch (counted there).
-            return _error(504, str(e), stage=e.stage)
-        except (asyncio.TimeoutError, TimeoutError):
-            mr.stats.deadline_await += 1
-            batcher.ring.record_error()
-            return _error(504, f"deadline ({deadline_ms:g} ms) expired while awaiting the "
-                               "device", stage="await")
-        except Exception as e:
-            log.exception("predict failed for %s", name)
-            return _error(500, f"inference failed: {type(e).__name__}")
-        # The respond stage, stitched to the device's end: grouping and the
-        # answer's encode.
-        rsp = ctx.span.child("respond", start=t_done) if ctx is not None else None
-        out_meta = {"model": name, "timing": timing}
-        answer: Any
-        if (ctx is not None and ctx.binary
-                and "application/json" not in headers.get("accept", "")):
-            # A binary answer: the meta block, then a block a prediction
-            # (structured predictions as JSON blocks), in one frame.
-            # ``Accept: application/json`` opts back into a JSON answer.
-            preds = result if instances is not None else [result]
-            answer = RawBody(bytes(wire.pack_response(out_meta, preds,
-                                                      list_frame=instances is not None)),
-                             wire.TENSOR_CONTENT_TYPE)
-        else:
-            answer = {**out_meta, "predictions": result}
-        if rsp is not None:
-            rsp.end()
-        return 200, answer, {"X-Queue-Ms": str(timing["queue_ms"]),
-                             "X-Device-Ms": str(timing["device_ms"])}
+                answer = {**out_meta, "predictions": result}
+            if rsp is not None:
+                rsp.end()
+            heads = {"X-Queue-Ms": str(timing["queue_ms"]), "X-Device-Ms": str(timing["device_ms"])}
+            if arec is not None:
+                self._adapter_served(name, arec, heads, timing)
+            return 200, answer, heads
+        finally:
+            if arec is not None:
+                self.adapters.exit(arec)
 
     # -- streaming generation -----------------------------------------------
     async def handle_generate(self, name: str, body: bytes, headers: dict[str, str],
@@ -1329,10 +1486,48 @@ class Server:
                                  reader: asyncio.StreamReader | None) -> Response:
         ctx = _request_ctx.get()
         adm = ctx.span.child("admission", start=ctx.span.t0) if ctx is not None else None
+        extract = self._adapter_extract()
         try:
-            payload = self._payload(body, headers)
+            payload = self._payload(body, headers, extract)
         except (ValueError, TypeError, _BinaryLaneDisabled) as e:
             return _payload_error(e)
+        arec, aerr = self._adapter_of(name, headers, payload, extract)
+        if aerr is not None:
+            return aerr
+        if arec is not None:
+            if not isinstance(sched, PagedGenerationScheduler):
+                # The slot pool's rows carry no adapter index: refuse rather
+                # than serve the base.
+                return _error(400, f"adapter-addressed generation requires kv_cache='paged' "
+                                   f"on model {name!r}")
+            try:
+                deadline_ms = self._deadline_ms(headers, None, sched.cm.cfg)
+            except ValueError as e:
+                return _error(400, str(e))
+            refused = await self._adapter_gate(name, arec, deadline_ms)
+            if refused is not None:
+                return refused
+            # Held for the stream's life: its slot is not detached under it.
+            self.adapters.enter(arec)
+        try:
+            resp = await self._generate_stream(name, sched, payload, headers, reader, ctx, adm,
+                                               arec)
+        except BaseException:
+            if arec is not None:
+                self.adapters.exit(arec)
+            raise
+        gen = resp[3] if len(resp) > 3 else None
+        if arec is not None:
+            if gen is None:
+                self.adapters.exit(arec)
+            else:
+                gen.done.add_done_callback(lambda _f: self.adapters.exit(arec))
+        return resp[:3]
+
+    async def _generate_stream(self, name: str, sched, payload, headers: dict[str, str],
+                               reader: asyncio.StreamReader | None, ctx, adm, arec):
+        """The stream of an admitted ``:generate``: its response, and the
+        GenRequest as a fourth item once the lane took it."""
         stream, max_new = True, None
         if isinstance(payload, dict):
             stream = bool(payload.get("stream", True))
@@ -1361,6 +1556,12 @@ class Server:
             # belongs to :predict's chunk-and-merge.
             return _error(400, "input fans out to multiple windows; use "
                                f"POST /v1/models/{name}:predict for long inputs")
+        if arec is not None:
+            # The stream's slot: the paged lane carries it a row, so tenants
+            # co-decode in one program.
+            sample["adapter_idx"] = np.int32(arec.slot)
+            if adm is not None:
+                adm.point("adapter_gather", adapter=arec.name, slot=arec.slot)
         try:
             gen = sched.submit(sample, max_new, span=ctx.span if ctx is not None else None)
         except KVPoolExhausted as e:
@@ -1381,6 +1582,8 @@ class Server:
         stream_id = ctx.request_id if ctx is not None else new_request_id()
         self._register_stream(stream_id, name, sched, gen, imported=False)
         heads = {"X-Stream-Id": stream_id}
+        if arec is not None:
+            self._adapter_served(name, arec, heads)
         draft = getattr(sched, "spec_draft_name", None)
         if draft and sched.spec_live():
             # Which draft speculation runs with (decided at admission: the
@@ -1418,10 +1621,10 @@ class Server:
             try:
                 tokens = gen.done.result()
             except RuntimeError as e:
-                return _error(500, f"generation failed: {e}")
+                return (*_error(500, f"generation failed: {e}"), gen)
             out = final_body(tokens)
             out.pop("done")
-            return 200, {"model": name, "predictions": out}, heads
+            return 200, {"model": name, "predictions": out}, heads, gen
 
         async def events(reader):
             while True:
@@ -1459,7 +1662,7 @@ class Server:
                 ctx.span.annotate(cancelled=True)
             sched.cancel(gen)
 
-        return 200, EventStream(events, cancel), heads
+        return 200, EventStream(events, cancel), heads, gen
 
     # -- async job lane -----------------------------------------------------
     async def handle_submit(self, name: str, body: bytes,
@@ -1489,11 +1692,20 @@ class Server:
         refused = self._unavailable(name)
         if refused is not None:
             return refused
-        extract: dict[str, Any] = {"idempotency_key": None}
+        extract: dict[str, Any] = {"idempotency_key": None, **(self._adapter_extract() or {})}
         try:
             payload = self._payload(body, headers, extract)
         except (ValueError, TypeError, UnicodeDecodeError, _BinaryLaneDisabled) as e:
             return _payload_error(e)
+        # The tenant: the job is keyed (model, adapter) by a wrapper, so the
+        # journal replays it onto its tenant and the worker attaches then.
+        arec, aerr = self._adapter_of(name, headers, payload, extract)
+        if aerr is not None:
+            return aerr
+        if arec is not None:
+            if isinstance(payload, bytes):
+                return _error(400, "adapter-addressed submits require a JSON (or text) body")
+            payload = {"_adapter": arec.name, "payload": payload}
         if ctx is not None and ctx.binary and isinstance(payload, dict) and "instances" in payload:
             # The journal replays one payload a job; several instances are
             # :predict's.
@@ -1524,6 +1736,8 @@ class Server:
             # run, device and journal spans and finishes it at the job's
             # terminal state, so /admin/trace/{id} shows submit → done.
             ctx.detach()
+        if arec is not None:
+            return 202, {"job": job.public(), "adapter": arec.name}, {"X-Adapter": arec.name}
         return 202, {"job": job.public()}, {}
 
     @staticmethod
@@ -1597,6 +1811,11 @@ class Server:
         finalize fan out on the executor; only the device batch is one call.
         """
         model = jobs[0].model
+        if len(jobs) > 1 and any(self._job_adapter_split(j.payload)[0] is not None
+                                 for j in jobs):
+            # Tenant-addressed jobs run one by one: a failed attach fails its
+            # own job alone (the batcher is the adapters' co-batching lane).
+            return [r for j in jobs for r in await self._run_jobs([j])]
         lc = self.lifecycle if self.lifecycle is not None and self.lifecycle.knows(model) else None
         if lc is not None:
             # The job lane tolerates latency: no deadline on the activation.
@@ -1610,9 +1829,34 @@ class Server:
 
     async def _run_jobs_admitted(self, cm, jobs):
         loop = asyncio.get_running_loop()
+        arec = None
+        aname = self._job_adapter_split(jobs[0].payload)[0]
+        if aname is not None:
+            # Journal-replayed or fresh, the job attaches its tenant's adapter
+            # on demand (cause "job": the async lane waits).
+            try:
+                await self.adapters.ensure_attached(cm.servable.name, aname, cause="job")
+            except Exception as e:
+                return [e]
+            arec = self.adapters.get(cm.servable.name, aname)
+            self.adapters.enter(arec)
+        try:
+            out = await self._run_jobs_samples(cm, jobs, arec)
+        finally:
+            if arec is not None:
+                self.adapters.exit(arec)
+        if arec is not None and not isinstance(out[0], BaseException):
+            self.adapters.note_served(arec)
+        return out
+
+    async def _run_jobs_samples(self, cm, jobs, arec):
+        loop = asyncio.get_running_loop()
         samples = await asyncio.gather(
-            *[loop.run_in_executor(None, cm.servable.preprocess, j.payload) for j in jobs],
+            *[loop.run_in_executor(None, cm.servable.preprocess,
+                                   self._job_adapter_split(j.payload)[1]) for j in jobs],
             return_exceptions=True)
+        if arec is not None:
+            self._stamp_adapter([s for s in samples if not isinstance(s, BaseException)], arec)
         good = [i for i, s in enumerate(samples) if not isinstance(s, BaseException)]
         out: list = list(samples)  # failed slots already hold their Exception
         if good:
@@ -1884,6 +2128,57 @@ class Server:
             return _error(503, f"{action} failed for {name!r}: {type(e).__name__}: {e}")
         return 200, {"action": action, "model": {"name": name, **lc.model_snapshot(name)}}, {}
 
+    # -- admin: multi-tenant adapters ------------------------------------------
+    async def handle_admin_adapters(self, body: bytes, headers=None, query: str = "") -> Response:
+        """``GET /admin/adapters``: every tenant's adapter residency."""
+        return 200, self.adapters.snapshot(), {}
+
+    async def handle_admin_adapter_post(self, base: str, aname: str, body: bytes,
+                                        headers: dict[str, str]) -> Response:
+        """``POST /admin/adapters/{model}/{adapter} {"action": ...}``:
+        ``attach`` (the shared single-flight attach, the base activated
+        first) or ``detach`` (409 while the adapter is busy or not
+        attached)."""
+        rec = self.adapters.get(base, aname)
+        if rec is None:
+            return self._unknown_adapter(base, aname)
+        try:
+            req = json.loads(body) if body else {}
+        except ValueError:
+            return _error(400, "body must be a JSON object")
+        if not isinstance(req, dict):
+            return _error(400, "body must be a JSON object")
+        action = req.get("action")
+        if action not in ("attach", "detach"):
+            return _error(400, f"action must be one of ['attach', 'detach'], got {action!r}")
+        try:
+            if action == "attach":
+                if self.lifecycle is not None and self.lifecycle.knows(base):
+                    # The base must be resident to hold a slot pool.
+                    await self.lifecycle.ensure_active(base, cause="admin")
+                await self.adapters.ensure_attached(base, aname, cause="admin")
+            elif not await self.adapters.detach(base, aname, cause="admin"):
+                return _error(409, f"adapter {aname!r} on {base!r} cannot detach (busy or not "
+                                   "attached)", adapter=self.adapters.adapter_snapshot(rec))
+        except AdapterCold as e:
+            return _error_retry(503, str(e), e.retry_after_s,
+                                estimated_attach_ms=round(e.estimated_attach_ms, 1))
+        except ColdStart as e:
+            return _error_retry(503, str(e), e.retry_after_s,
+                                estimated_warm_ms=round(e.estimated_warm_ms, 1))
+        except Exception as e:
+            log.exception("admin adapter action %s failed for %s:%s", action, base, aname)
+            return _error(503, f"{action} failed for {base}:{aname}: {type(e).__name__}: {e}")
+        return 200, {"action": action, "adapter": {"model": base, "name": aname,
+                                                    **self.adapters.adapter_snapshot(rec)}}, {}
+
+    def _invalidate_prefix(self, base: str, slot: int):
+        """The AdapterManager's detach hook: drop the slot's frozen
+        prefixes on the base's paged lane."""
+        sched = self.schedulers.get(base)
+        if isinstance(sched, PagedGenerationScheduler):
+            sched.invalidate_prefix(slot)
+
     # -- admin: the prefix cache and live migration -------------------------
     async def handle_admin_prefix(self, body: bytes, headers=None, query: str = "") -> Response:
         """``GET /admin/prefix``: each paged lane's prefix-tree counters
@@ -1997,7 +2292,9 @@ class Server:
                 res = await sched.migrate_cutover(gen, have)
                 manifest = {
                     "version": FORMAT_VERSION, "stream_id": sid, "model": name,
-                    "adapter": None, "prompt": [int(t) for t in res["ids"]],
+                    # The adapter by name: the importer resolves its own slot.
+                    "adapter": self.adapters.name_of_slot(name, res["aidx"]),
+                    "prompt": [int(t) for t in res["ids"]],
                     "emitted": res["emitted"], "watermark": len(res["emitted"]),
                     "max_new": res["max_new"], "state": res["state"],
                     "npages": res["npages"], "page_shape": list(sched.page_shape),
@@ -2046,9 +2343,6 @@ class Server:
                                "migration requires kv_cache='paged'")
         if not sched.kv_migrate:
             return _error(409, f"kv_migrate is disabled on model {name!r}")
-        if manifest.get("adapter"):
-            return _error(400, "adapter streams are not served by the port yet "
-                               "(serving/adapters.py, ROADMAP Queue 1 item 4)")
         local = dtype_name(sched.cache_dtype)
         if (tuple(manifest["page_shape"]) != tuple(sched.page_shape)
                 or str(manifest["dtype"]) != local):
@@ -2081,18 +2375,36 @@ class Server:
         if bad:
             return 409, {"error": "page integrity check failed; fetch these pages by value",
                          "need": sorted(bad), "stream_id": sid}, {}
+        arec = None
+        if manifest.get("adapter"):
+            # An adapter stream: attach its adapter here before any page is
+            # placed, and hold it for the stream's life.
+            arec = self.adapters.get(name, str(manifest["adapter"]))
+            if arec is None:
+                return self._unknown_adapter(name, str(manifest["adapter"]))
+            try:
+                await self.adapters.ensure_attached(name, arec.name, cause="migration")
+            except Exception as e:
+                return _error_retry(503, f"adapter {arec.name!r} attach failed: "
+                                         f"{type(e).__name__}: {e}", 1.0, retryable=True,
+                                    adapter_cold=True)
+            self.adapters.enter(arec)
         span = self.tracer.start("migrate_import", model=name,
                                  traceparent=headers.get("traceparent"))
         try:
             gen, hits, copied = await sched.migrate_import(
                 manifest["prompt"], manifest["emitted"], manifest["state"], page_map,
-                max_new=manifest["max_new"], cause=cause, span=span)
-        except MigrationNeedsPages as e:
+                max_new=manifest["max_new"], cause=cause, span=span,
+                aidx=arec.slot if arec is not None else 0)
+        except (MigrationNeedsPages, MigrationError) as e:
             self.tracer.finish(span.trace, "error")
-            return 409, {"error": str(e), "need": sorted(e.indices), "stream_id": sid}, {}
-        except MigrationError as e:
-            self.tracer.finish(span.trace, "error")
+            if arec is not None:
+                self.adapters.exit(arec)
+            if isinstance(e, MigrationNeedsPages):
+                return 409, {"error": str(e), "need": sorted(e.indices), "stream_id": sid}, {}
             return _error_retry(503, str(e), 1.0, retryable=True)
+        if arec is not None:
+            gen.done.add_done_callback(lambda _f: self.adapters.exit(arec))
         self.tracer.finish(span.trace, "ok")
         self._register_stream(sid, name, sched, gen, imported=True)
         return 200, {"imported": True, "stream_id": sid, "model": name,

@@ -34,7 +34,8 @@ ENV_VALUES = {"profile": "prod", "host": "0.0.0.0", "port": "9123",
               "host_idle_drop_s": "30", "host_budget_bytes": "2000000",
               "ckpt_store_dir": "/srv/tpuserve/store", "ckpt_chunk_bytes": "65536",
               "lifecycle_tick_s": "0.25", "activation_max_wait_s": "30",
-              "activation_estimate_ms": "2500",
+              "activation_estimate_ms": "2500", "adapter_idle_unload_s": "-1",
+              "adapter_attach_estimate_ms": "125.5",
               "journal_dir": "/srv/tpuserve/journal", "journal_fsync": "interval",
               "trace_ring": "64", "trace_flight_slow": "2", "trace_flight_errors": "5",
               "trace_max_spans": "128", "trace_dir": "/srv/tpuserve/traces",

@@ -292,20 +292,22 @@ def test_admin_faults_endpoint(engine, faults):
 
 
 def test_admin_faults_refuses_kinds_the_port_lacks(engine, faults):
-    """A kind whose plane the port has not ported is a 400 naming the
-    module, where the reference would accept it; the residency plane's
-    kinds (activation, ckpt with its modes), and since live migration and
-    speculation came, migration (with its modes) and spec_mismatch, are
+    """A kind whose plane the port has not ported (the autoscaler's
+    ``demand``) is a 400 naming the module, where the reference would accept
+    it; the residency plane's kinds (activation, ckpt with its modes), and
+    since live migration and speculation came, migration (with its modes)
+    and spec_mismatch, and since the adapters came, adapter, are
     accepted."""
     with BackgroundServer(_cfg(), engine) as srv:
-        for kind, module in (("adapter", "adapters.py"), ("demand", "autoscale.py")):
+        for kind, module in (("demand", "autoscale.py"),):
             status, body, _ = _http(srv.port, "/admin/faults",
                                     {"model": "bert_base", "fail_every_n": 1, "kind": kind})
             assert status == 400 and module in body["error"]
         assert faults.snapshot()["rules"] == []
         for rule in ({"kind": "activation"}, {"kind": "ckpt", "mode": "torn"},
                      {"kind": "ckpt", "mode": "slow", "latency_ms": 5},
-                     {"kind": "migration", "mode": "corrupt"}, {"kind": "spec_mismatch"}):
+                     {"kind": "migration", "mode": "corrupt"}, {"kind": "spec_mismatch"},
+                     {"kind": "adapter"}):
             status, body, _ = _http(srv.port, "/admin/faults",
                                     {"model": "bert_base", "fail_every_n": 1, **rule})
             assert status == 200, body
@@ -314,10 +316,10 @@ def test_admin_faults_refuses_kinds_the_port_lacks(engine, faults):
             status, body, _ = _http(srv.port, "/admin/faults", {"model": "bert_base", **rule})
             assert status == 400 and match in body["error"]
         assert sorted(r["kind"] for r in faults.snapshot()["rules"]) == [
-            "activation", "ckpt", "migration", "spec_mismatch"]
-    with pytest.raises(ValueError, match="adapters"):
+            "activation", "adapter", "ckpt", "migration", "spec_mismatch"]
+    with pytest.raises(ValueError, match="autoscale"):
         asyncio.run(server_mod.Server(
-            _cfg(faults={"bert_base": {"kind": "adapter", "fail_every_n": 1}}), engine).start())
+            _cfg(faults={"bert_base": {"kind": "demand", "fail_every_n": 1}}), engine).start())
 
 
 def test_graceful_drain_finishes_inflight_jobs(engine, faults):

@@ -354,16 +354,42 @@ def test_overlength_matches_jax():
 
 
 @pytest.mark.parametrize("extra,match", [
-    ({"params_dtype": "auto"}, "'auto'"),
-    ({"adapter_slots": 2}, "LoRA adapters"),
-    ({"int8_crossover_batch": 32}, "'auto'"),
-    ({"adapter_rank": 4}, "LoRA adapters"),
+    ({"params_dtype": "int8", "adapter_slots": 2}, "cannot combine with params_dtype='int8'"),
+    ({"params_dtype": "auto", "adapter_slots": 2}, "cannot combine with params_dtype='auto'"),
+    ({"adapter_slots": 2, "adapter_targets": ("q", "lm_head")}, "unknown adapter_targets"),
+    ({"params_dtype": "auto", "int8_crossover_batch": 32}, None),
     ({"max_new_tokens": 60}, "exceeds the model's max_positions"),
     ({"overlength": "drop"}, "overlength"),
 ])
 def test_servable_refuses_what_the_port_lacks(extra, match):
-    with pytest.raises(ValueError, match=match):
-        _build(p_builder, PModelConfig, TINY, **extra)
+    """The build refusals the port shares with the JAX package, each
+    refused by both with the same words; and the regime-routed lane, which
+    the port now builds (the dual tree: bf16 beside int8, the shared
+    leaves held once, in the bf16 tree)."""
+    fields = {k: extra.pop(k) for k in ("adapter_slots", "adapter_targets") if k in extra}
+    quantized = bool(extra.get("params_dtype"))
+    arch = INT8_ARCH if quantized else TINY
+
+    def build(make, mc_cls):
+        mc = mc_cls(name="gpt2", dtype="bfloat16" if quantized else "float32",
+                    seq_buckets=(16,), batch_buckets=(2,), **fields,
+                    extra={"max_new_tokens": 8, "arch": arch, "quantize_min_size": 1024,
+                           **extra})
+        return make("gpt2")(mc)
+
+    if match is None:
+        psv = build(p_builder, PModelConfig)
+        assert set(psv.module._modules) == {"bf16", "int8"}
+        tree = psv.module.tree()
+        assert tree["int8"]["layer0"]["qkv"]["kernel_q"].dtype == torch.int8
+        assert "qkv" not in tree["bf16"]["layer0"] and "wte" not in tree["int8"]
+        dec = psv.meta["dec_tree"](tree, 32)
+        assert dec["wte"] is tree["bf16"]["wte"] and "qkv" in dec["layer0"]
+        assert psv.meta["dec_tree"](tree, 33) is tree["bf16"]
+        return
+    for builder, mcfg in ((j_builder, JModelConfig), (p_builder, PModelConfig)):
+        with pytest.raises(ValueError, match=match):
+            build(builder, mcfg)
 
 
 def test_predict_through_engine_and_server_matches_jax():

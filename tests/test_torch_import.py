@@ -33,7 +33,8 @@ def test_importing_the_port_loads_no_jax():
                  "ops.paged_attention", "engine.genkernels", "faults",
                  "serving.resilience", "serving.watchdog", "serving.lifecycle",
                  "serving.ckptstore", "engine.streamio", "serving.wire", "serving.tracing",
-                 "serving.durability", "utils.xplane", "tools.crashtest", "serving.kvmigrate"):
+                 "serving.durability", "utils.xplane", "tools.crashtest", "serving.kvmigrate",
+                 "ops.lora", "serving.adapters"):
         assert f"pytorch_zappa_serverless_tpu_torch.{lane}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -67,6 +68,18 @@ def test_importing_the_port_loads_no_jax():
         "pg = torch.ones(2, 4, 8, dtype=torch.bfloat16)\n"
         "rec = kvmigrate.pack_page(0, pg, pg)\n"
         "assert torch.equal(kvmigrate.unpack_page(rec, (2, 4, 8), 'bfloat16')[1], pg)\n"
+        # An adapter installed into a bf16 stack pool and applied loads
+        # nothing forbidden.
+        "from pytorch_zappa_serverless_tpu_torch.ops import lora\n"
+        "dims = {'q': (8, 8)}\n"
+        "host = {'layer0': lora.zero_stacks(2, 4, dims)}\n"
+        "lora.install_adapter(host, 1, W.init_lora(1, dims, 4, seed=1), scaling=2.0)\n"
+        "dev = {'layer0': {'q': {h: torch.zeros(host['layer0']['q'][h].shape,\n"
+        "                                       dtype=torch.bfloat16) for h in 'ab'}}}\n"
+        "lora.write_slot(dev, host, 1)\n"
+        "x = torch.ones(2, 8, dtype=torch.bfloat16)\n"
+        "y = lora.lora_apply(x, x, dev['layer0']['q'], torch.tensor([0, 1]))\n"
+        "assert torch.equal(y[0], x[0]) and not torch.equal(y[1], x[1])\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -36,7 +36,10 @@ ties as on the CPU.  The :generate lanes' graphs (``engine/genkernels.py``:
 prefill, insert, segment, paged chunk and page copy) replay as the same
 calls run eagerly on a second pool, byte for byte; an insert reads its row
 and slot from device scalars; and a stream's tokens are the same in any
-slot.
+slot.  An adapter slot written in place under a captured bucket graph
+serves the tenant at the next replay with no capture, and zeroed gives the
+base's bytes back; the regime-routed lane's shared leaves have one address
+on the card, after the move and after a host-tier restore.
 """
 
 import numpy as np
@@ -1343,5 +1346,98 @@ def test_pages_read_and_write_in_place_under_captured_graphs(cuda_device):
         a = run(k.segment, moved, c)  # reads the written copies
         b = run(k.segment, table, c)  # reads the originals
         assert a[0].tobytes() == b[0].tobytes()
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_adapter_slot_written_in_place_under_captured_graphs(cuda_device):
+    """An attach writes its slot into the stacks a captured bucket graph
+    reads, under their addresses: the next replay serves the tenant's rows
+    (equal to the eager run) and the base's rows unchanged, with no new
+    capture; a detach (the slot zeroed) brings the base's bytes back."""
+    from pytorch_zappa_serverless_tpu_torch.engine import weights as W
+    from pytorch_zappa_serverless_tpu_torch.ops import lora as L
+
+    eng = _engine("gpt2", dtype="bfloat16", batch_buckets=(4,), seq_buckets=(8,),
+                  adapter_slots=2, adapter_rank=4,
+                  extra={"arch": TINY_GPT2, "max_new_tokens": 8})
+    try:
+        cm = eng.model("gpt2")
+        run = eng.runner.run_fn_sync
+        meta = cm.servable.meta["adapters"]
+        rng = np.random.default_rng(11)
+        samples = [cm.servable.preprocess({"input_ids": rng.integers(1, 500, 6).tolist()})
+                   for _ in range(4)]
+        for s, slot in zip(samples, (0, 1, 0, 1)):
+            s["adapter_idx"] = np.int32(slot)
+        batch = cm.servable.meta["collate"](samples, (4, 8), cm.servable.input_spec((4, 8)))
+        base = run(cm.forward, batch)
+        captures = cm.captures
+        stacks = cm.servable.module.tree()["__adapters__"]
+        ptrs = [t.data_ptr() for layer in stacks.values() for n in layer.values()
+                for t in n.values()]
+        host = {f"layer{i}": L.zero_stacks(meta["slots"], meta["rank"], meta["dims"])
+                for i in range(meta["layers"])}
+        L.install_adapter(host, 1, W.init_lora(meta["layers"], meta["dims"], 4, seed=3),
+                          scaling=64.0)
+        run(L.write_slot, stacks, host, 1)
+        tenant = run(cm.forward, batch)
+        assert cm.captures == captures
+        assert _same(tenant, run(cm.forward_eager, batch))
+        toks = tenant["tokens"]
+        assert toks[[0, 2]].tobytes() == base["tokens"][[0, 2]].tobytes()
+        assert toks[[1, 3]].tobytes() != base["tokens"][[1, 3]].tobytes()
+        L.clear_slot(host, 1)
+        run(L.write_slot, stacks, host, 1)
+        assert _same(run(cm.forward, batch), base) and cm.captures == captures
+        stacks = cm.servable.module.tree()["__adapters__"]
+        assert ptrs == [t.data_ptr() for layer in stacks.values() for n in layer.values()
+                        for t in n.values()]
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_auto_shared_leaves_have_one_address(cuda_device):
+    """The regime-routed lane's embeddings and LayerNorms lie once on the
+    card: the decode tree reads the bf16 tree's tensors, every tensor of
+    the module has its own address, after the move to the card and after
+    a host-tier restore, and the restore keeps the bytes and the answers."""
+    from pytorch_zappa_serverless_tpu_torch.models import gpt2 as G
+
+    eng = _engine("gpt2", dtype="bfloat16", batch_buckets=(1, 4), seq_buckets=(8,),
+                  extra={"arch": TINY_GPT2, "max_new_tokens": 8, "quantize_min_size": 1024,
+                         "params_dtype": "auto", "int8_crossover_batch": 2})
+    try:
+        cm = eng.model("gpt2")
+        run = eng.runner.run_fn_sync
+
+        def check():
+            tree = cm.servable.module.tree()
+            dec = G.int8_view(tree, G.GPT2Config(**TINY_GPT2).layers)
+            for leaf in ("wte", "wpe"):
+                assert dec[leaf].data_ptr() == tree["bf16"][leaf].data_ptr()
+            assert dec["layer0"]["ln1"]["scale"].data_ptr() == \
+                tree["bf16"]["layer0"]["ln1"]["scale"].data_ptr()
+            ptrs = [t.data_ptr() for t in cm.servable.module.buffers()]
+            assert len(ptrs) == len(set(ptrs)) and all(t.is_cuda
+                                                       for t in cm.servable.module.buffers())
+
+        rng = np.random.default_rng(12)
+        batches = []
+        for b in (1, 4):
+            samples = [cm.servable.preprocess({"input_ids": rng.integers(1, 500, 6).tolist()})
+                       for _ in range(b)]
+            batches.append(cm.servable.meta["collate"](samples, (b, 8),
+                                                       cm.servable.input_spec((b, 8))))
+        check()
+        nbytes = cm.param_nbytes()
+        first = [run(cm.forward, b) for b in batches]
+        run(cm.host_offload)
+        run(cm.device_restore)
+        check()
+        assert cm.param_nbytes() == nbytes
+        assert all(_same(run(cm.forward, b), want) for b, want in zip(batches, first))
     finally:
         eng.shutdown()

@@ -203,15 +203,27 @@ def test_poison_takes_precedence_over_rules():
         inj.on_dispatch("m")
 
 
-@pytest.mark.parametrize("kind", sorted(REFUSED_KINDS))
+@pytest.mark.parametrize("kind", ["adapter", "demand"])
 def test_kinds_without_a_plane_are_refused_naming_the_module(kind):
-    """The reference accepts these; the port has no plane for them yet, so a
-    rule is refused with the module still to port instead of accepted and
-    never fired."""
+    """The reference accepts these.  A kind whose plane the port has not
+    yet (``demand``, the autoscaler's) is refused with the module still to
+    port instead of accepted and never fired; ``adapter`` is served since
+    the port has serving/adapters.py: a rule of its own target that fires
+    on an attach, as the reference's does."""
     jfaults.FaultInjector().configure(model="m", fail_every_n=1, kind=kind)
-    with pytest.raises(ValueError, match="does not have yet") as ei:
-        FaultInjector().configure(model="m", fail_every_n=1, kind=kind)
-    assert REFUSED_KINDS[kind].split()[0] in str(ei.value)
+    if kind in REFUSED_KINDS:
+        with pytest.raises(ValueError, match="does not have yet") as ei:
+            FaultInjector().configure(model="m", fail_every_n=1, kind=kind)
+        assert REFUSED_KINDS[kind].split()[0] in str(ei.value)
+        return
+    assert kind == "adapter" and sorted(REFUSED_KINDS) == ["demand"]
+    for inj in (jfaults.FaultInjector(), FaultInjector()):
+        inj.configure(model="m:alice", fail_every_n=1, kind=kind)
+        inj.on_dispatch("m")  # never fires on a dispatch
+        inj.on_adapter("m:bob")  # another tenant's attach
+        with pytest.raises(RuntimeError, match="injected adapter fault"):
+            inj.on_adapter("m:alice")
+        assert inj.snapshot()["injected"]["adapter"] == 1
 
 
 @pytest.mark.parametrize("kind,mode", [("migration", ""), ("migration", "drop"),
