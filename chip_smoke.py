@@ -254,6 +254,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    tensor; the lane's streams under the margin rule.  Printed: attach ms,
    a bucket-4 call with adapters against the adapter-free model,
    tokens/s, a generate call per bucket for ``auto``, ``int8`` and bf16;
+19. the tenancy and control planes (``serving/variants.py``, ``slo.py``,
+   ``autoscale.py``): the family ``gpt2x`` of GPT-2 small bf16 (rank 2,
+   ``spec_draft: "auto"``, k = 4) and int8 (rank 1), paged lanes of 8 slots
+   and 16-token pages, :predict buckets (1, 4, 8) x 64, 32 new tokens, and a
+   pinned bf16 ``gpt2_probe`` at (1,) x 16, seed weights at full width.
+   (1) A family :predict answers ``X-Served-Variant: gpt2_bf16`` with
+   gpt2_bf16's own answer, ``prefer_cost`` gpt2_int8's, exactly 2 x 49 x 33
+   ``int8_matmul`` launches for the two int8 calls; ``min_quality`` above
+   the ladder sheds 429 with the family's minimum Retry-After.  (2) A
+   latency rule on gpt2_bf16 breaks a 100 ms objective: family :predict and
+   a family :generate stream are served by gpt2_int8, degraded, the
+   brownout gauge 1; the rule cleared, the family leaves after its exit
+   ticks and its hold, each transition counted once; the selection's p50
+   and p99 over 2000 on the server's loop.  (3) The auto draft: 8 greedy
+   streams with ``X-Spec-Draft: gpt2_int8`` and with the draft demoted to
+   the host (plain decode), both under the margin rule, the acceptance rate
+   and tokens/s on and off.  (4) ``/admin/slo``'s outcomes as the client
+   saw them, an ``error`` burst flipping the fast alarm on ``/healthz``
+   (health 200), the usage ledger's device ms against ``X-Device-Ms``, a
+   stream pair's page-seconds and prefix tokens.  (5) The autoscaler: the
+   host-tier restores measured, then periodic arrivals at gpt2_bf16 demoted
+   until the history is in and warm after; both rungs demoted and pre-warmed
+   before the predicted arrival (causes ``prewarm`` and ``prewarm_draft``,
+   no activation wait on its trace), gpt2_probe's latency beside it;
+   ``starve`` dropping the plane to reactive and ``spike`` arrivals never
+   journaled.  (6) ``/metrics`` with the planes' families against the
+   manifest.  (7) Every ``int8_matmul`` launch of the phase in a captured
+   graph's warm-up or replay;
 
 With ``--profile``, every path is also profiled eager against replayed:
 device-busy and wall time, the idle share, and the host's calls, where a
@@ -278,6 +306,7 @@ import gc
 import importlib.util
 import io
 import json
+import math
 import statistics
 import struct
 import subprocess
@@ -6180,6 +6209,562 @@ def run_adapters(card: str, profile: bool = False) -> dict:
     return {"auto_launches": arun["counts"]["int8_matmul"], "lora": lrun, "auto": arun}
 
 
+# -- phase 19: the tenancy and control planes --------------------------------
+
+# The family gpt2x: GPT-2 small bf16 (rank 2, speculation with the family's
+# lowest rung as its draft) and int8 (rank 1), both on paged lanes, at
+# :predict buckets (1, 4, 8) x 64 and 32 new tokens.  ``gpt2_probe`` is a
+# pinned bf16 GPT-2 small at (1,) x 16 and one new token: the model served
+# beside a pre-warm, and the chaos target of the autoscaler's checks.
+TEN = {"seq_buckets": (64,), "batch_buckets": (1, 4, 8), "max_new_tokens": 32, "gen_slots": 8,
+       "segment_tokens": 8, "block_size": 16, "chunk": 64, "spec_k": 4}
+TEN_SPEC_M = TEN["gen_slots"] * (TEN["spec_k"] + 1)  # the verify forward's rows
+TEN_SPEC_STREAMS = 8       # greedy streams with the draft on, then off
+TEN_SLOW_EVIDENCE = 4      # slow gpt2_bf16 answers that make its forecast
+TEN_REFILL = 6             # fast gpt2_bf16 answers after the fault, its evidence again
+# The brownout's objective and the latency rule that breaks it on gpt2_bf16
+# (the card serves either rung's bucket-1 call in ~30 ms).
+TEN_OBJECTIVE_MS = 100.0
+TEN_FAULT_MS = 150.0
+TEN_EXIT_TICKS = 3
+TEN_MIN_HOLD_S = 2.0
+TEN_SELECT_REPS = 2000     # selections timed on the server's loop
+TEN_ERRORS = 3             # the error burst of the SLO check
+TEN_PROMPT = 40            # the prefix-cache stream's prompt (2 full pages)
+# The autoscaler's check: periodic arrivals at gpt2_bf16, the period from
+# the measured host-tier restore plus the idle timer and TEN_SLACK_S.
+TEN_IDLE_S = 1.0
+TEN_SLACK_S = 1.5
+# At least this period, so the median gap's bucket is 10 s: room for both
+# rungs' restores between the last arrival and the predicted one.
+TEN_MIN_PERIOD_S = 5.5
+TEN_MIN_HISTORY = 3
+TEN_ARRIVALS = 6           # arrivals 1-3 find it demoted, 4 and 5 warm
+TEN_MISPREDICT = 2
+TEN_HOLD_S = 2.0
+
+
+def tenancy_config(arch: dict | None = None, **extra):
+    """Phase 19's deployment: the family ``gpt2x`` (``gpt2_bf16`` with
+    ``spec_draft: "auto"``, ``gpt2_int8``) and the pinned ``gpt2_probe``,
+    an objective for ``gpt2x`` with a 30 s fast window, the brownout's
+    hysteresis, and a 0.1 s autoscaler and reaper tick."""
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+
+    lane = {"max_new_tokens": TEN["max_new_tokens"], "gen_slots": TEN["gen_slots"],
+            "segment_tokens": TEN["segment_tokens"], **({"arch": arch} if arch else {})}
+    common = {"builder": "gpt2", "family": "gpt2x", "dtype": "bfloat16",
+              "batch_buckets": TEN["batch_buckets"], "seq_buckets": TEN["seq_buckets"],
+              "kv_cache": "paged", "kv_block_size": TEN["block_size"],
+              "prefill_chunk_tokens": TEN["chunk"]}
+    return ServeConfig(
+        brownout_exit_ticks=TEN_EXIT_TICKS, brownout_min_hold_s=TEN_MIN_HOLD_S,
+        slo={"gpt2x": {"latency_objective_ms": 5000.0, "availability_target": 0.99}},
+        slo_fast_window_s=30.0, autoscale_tick_s=0.1, lifecycle_tick_s=0.1,
+        autoscale_min_history=TEN_MIN_HISTORY, autoscale_mispredict_limit=TEN_MISPREDICT,
+        autoscale_reactive_hold_s=TEN_HOLD_S,
+        models=[
+            # No prefix cache on the speculative lane: a hit decodes plain.
+            ModelConfig(name="gpt2_bf16", quality_rank=2, spec_draft="auto",
+                        spec_k=TEN["spec_k"], prefix_cache=False, **common,
+                        extra={**lane, "params_dtype": "bfloat16"}),
+            ModelConfig(name="gpt2_int8", quality_rank=1, **common,
+                        extra={**lane, "params_dtype": "int8", **extra}),
+            ModelConfig(name="gpt2_probe", builder="gpt2", dtype="bfloat16", batch_buckets=(1,),
+                        seq_buckets=(16,), pinned=True,
+                        extra={"max_new_tokens": 1, "params_dtype": "bfloat16",
+                               **({"arch": arch} if arch else {})})])
+
+
+def trace_points(port: int, trace_id: str) -> list[str]:
+    """The names of every span and point of one request's trace."""
+    status, body, _ = http_h(port, f"/admin/trace/{trace_id}")
+    check(status == 200, f"trace {trace_id}: {status} {body}")
+    names, todo = [], [body["trace"]["tree"]]
+    while todo:
+        node = todo.pop()
+        names.append(node.get("name"))
+        todo += node.get("children", [])
+    return names
+
+
+def ten_selection(port: int, engine, vocab: int) -> dict:
+    """Check 1: a family :predict with no pressure is the top rung's answer,
+    ``prefer_cost`` the int8 rung's, each equal to the rung addressed
+    directly (the same bucket).  The int8 launches are those of the two
+    int8 calls' replays exactly.  (The ``min_quality`` shed, which enters
+    brownout, closes check 2.)"""
+    rng = np.random.default_rng(41)
+    body = {"input_ids": rng.integers(0, vocab - 1, 24).tolist()}
+    reset_counts()
+    st, fam, h = http_h(port, "/v1/models/gpt2x:predict", body)
+    check(st == 200 and h.get("X-Served-Variant") == "gpt2_bf16" and "X-Degraded" not in h
+          and fam.get("family") == "gpt2x" and fam.get("degraded") is False,
+          f"family :predict: {st} {h.get('X-Served-Variant')} {fam}")
+    st, exact, _ = http_h(port, "/v1/models/gpt2_bf16:predict", body)
+    check(st == 200 and json.dumps(fam["predictions"]) == json.dumps(exact["predictions"]),
+          f"the family's answer {fam['predictions']} is not gpt2_bf16's {exact}")
+    st, cheap, h = http_h(port, "/v1/models/gpt2x:predict",
+                          {**body, "objective": {"prefer_cost": True}})
+    check(st == 200 and h.get("X-Served-Variant") == "gpt2_int8" and h.get("X-Degraded") == "1",
+          f"prefer_cost: {st} {h}")
+    st, exact8, _ = http_h(port, "/v1/models/gpt2_int8:predict", body)
+    check(st == 200 and json.dumps(cheap["predictions"]) == json.dumps(exact8["predictions"]),
+          f"prefer_cost's answer {cheap['predictions']} is not gpt2_int8's {exact8}")
+    counts = read_counts()
+    cm = engine.model("gpt2_int8")
+    per_call = (4 * cm.servable.meta["config"].layers + 1) * (1 + TEN["max_new_tokens"])
+    if engine.device.type == "cuda":
+        exact_counts(counts, {"int8_matmul": 2 * per_call}, "the selection check")
+    return {"per_call": per_call, "int8_launches": counts["int8_matmul"],
+            "tokens": fam["predictions"]["tokens"]}
+
+
+def ten_brownout(srv, port: int, vocab: int) -> dict:
+    """Check 2: a latency rule on gpt2_bf16 makes its forecast pass the
+    objective; family :predict and a family :generate stream are served by
+    gpt2_int8, degraded, the brownout gauge 1.  The rule cleared and fast
+    answers refilling the evidence, the family leaves only after its exit
+    ticks and its hold, each transition counted once.  Then a
+    ``min_quality`` above the ladder sheds 429 with the family's minimum
+    Retry-After."""
+    server = srv.server
+    faults = server.engine.runner.faults
+    check(not server.variants.brownout.active("gpt2x"), "gpt2x in brownout before the rule")
+    rng = np.random.default_rng(43)
+    body = {"input_ids": rng.integers(0, vocab - 1, 20).tolist()}
+    obj = {"X-Objective-Max-Latency-Ms": f"{TEN_OBJECTIVE_MS:g}"}
+    faults.configure(model="gpt2_bf16", latency_ms=TEN_FAULT_MS)
+    for _ in range(TEN_SLOW_EVIDENCE):
+        st, _, _ = http_h(port, "/v1/models/gpt2_bf16:predict", body)
+        check(st == 200, f"gpt2_bf16 under the latency rule: {st}")
+    t_enter = time.perf_counter()
+    st, ans, h = http_h(port, "/v1/models/gpt2x:predict", body, obj)
+    enter_s = time.perf_counter() - t_enter
+    check(st == 200 and h.get("X-Served-Variant") == "gpt2_int8" and h.get("X-Degraded") == "1"
+          and ans.get("degraded") is True, f"family :predict under pressure: {st} {h} {ans}")
+    gen = sse(port, "gpt2x", {"input_ids": body["input_ids"], "max_new_tokens": 8}, headers=obj)
+    check(gen["status"] == 200 and gen["headers"].get("X-Served-Variant") == "gpt2_int8"
+          and gen["headers"].get("X-Degraded") == "1" and gen["final"] and gen["final"]["done"],
+          f"family :generate under pressure: {gen['status']} {gen['headers']}")
+    status, prom = http_text(port, "/metrics?format=prometheus")
+    check('tpuserve_variant_brownout_state{family="gpt2x"} 1' in prom,
+          "tpuserve_variant_brownout_state is not 1 under brownout")
+    bc = server.variants.brownout
+    entered_at = bc._entered_at["gpt2x"]
+    faults.clear("gpt2_bf16")
+    for _ in range(TEN_REFILL):
+        st, _, _ = http_h(port, "/v1/models/gpt2_bf16:predict", body)
+        check(st == 200, f"gpt2_bf16 after the rule: {st}")
+    picks, t0 = [], time.perf_counter()
+    while True:
+        st, ans, h = http_h(port, "/v1/models/gpt2x:predict", body, obj)
+        check(st == 200, f"family :predict while recovering: {st} {ans}")
+        picks.append((time.perf_counter() - t0, h.get("X-Served-Variant"),
+                      h.get("X-Degraded") == "1"))
+        if picks[-1][1] == "gpt2_bf16":
+            break
+        check(time.perf_counter() - t0 < 30.0, f"the family never left brownout: {picks}")
+        time.sleep(0.1)
+    exit_held = time.monotonic() - entered_at
+    check(not picks[-1][2] and len(picks) >= TEN_EXIT_TICKS and exit_held >= TEN_MIN_HOLD_S
+          and all(v == "gpt2_int8" and d for _, v, d in picks[:-1]),
+          f"brownout left after {len(picks)} clean selections and {exit_held:.3f} s: {picks}")
+    check(bc.transitions["gpt2x"] == {"enter": 1, "exit": 1},
+          f"brownout transitions {bc.transitions}")
+    st, shed, h = http_h(port, "/v1/models/gpt2x:predict", body, {"X-Objective-Min-Quality": "3"})
+    floor_s = max((shed.get("estimated_wait_ms") or 0.0) / 1000.0, 0.05)
+    check(st == 429 and shed.get("variant_shed") == "no_variant_fits"
+          and shed.get("family") == "gpt2x"
+          and int(h["Retry-After"]) == max(math.ceil(floor_s), 1),
+          f"min_quality above the ladder: {st} {shed} Retry-After {h.get('Retry-After')}")
+
+    async def time_select():
+        from pytorch_zappa_serverless_tpu_torch.serving.variants import Objective, VariantHub
+
+        hub, objective, out = VariantHub(server.cfg), Objective(), []
+        for _ in range(TEN_SELECT_REPS):
+            t = time.perf_counter()
+            hub.resolve(server, "gpt2x", objective, None)
+            out.append((time.perf_counter() - t) * 1000.0)
+        return out
+
+    sel = srv.call(time_select)
+    return {"enter_s": enter_s, "exit_held_s": exit_held, "picks": picks,
+            "shed_retry_after": h["Retry-After"],
+            "select_p50_ms": float(np.percentile(sel, 50)),
+            "select_p99_ms": float(np.percentile(sel, 99)),
+            "select_hist": server.variants.select_hists["gpt2x"].snapshot()}
+
+
+def ten_spec(srv, port: int, vocab: int) -> dict:
+    """Check 3: ``spec_draft: "auto"`` drafts gpt2_bf16's lane with
+    gpt2_int8: the same greedy streams with the draft resident (proposals,
+    ``X-Spec-Draft``) and with it demoted to the host tier (the lane decodes
+    plain), on and off on one lane; the draft restored after."""
+    sched = srv.server.schedulers["gpt2_bf16"]
+    rng = np.random.default_rng(47)
+    bodies = [{"input_ids": rng.integers(0, vocab - 1, int(rng.integers(5, 61))).tolist(),
+               "max_new_tokens": TEN["max_new_tokens"]} for _ in range(TEN_SPEC_STREAMS)]
+    s0 = dict(sched.gen_snapshot()["spec"])
+    on, on_wall = gen_burst(port, "gpt2_bf16", bodies)
+    s1 = dict(sched.gen_snapshot()["spec"])
+    check(all(r["status"] == 200 for r in on), f"draft on: {[r['status'] for r in on]}")
+    check_sse(on, vocab)
+    check(all(r["headers"].get("X-Spec-Draft") == "gpt2_int8" for r in on)
+          and all(r["final"].get("stats", {}).get("spec_proposed", 0) > 0 for r in on),
+          f"the auto draft: headers {[r['headers'].get('X-Spec-Draft') for r in on]}")
+    status, body = http(port, "/admin/models/gpt2_int8", {"action": "demote", "to": "host"})
+    check(status == 200, f"the draft's demotion: {status} {body}")
+    off, off_wall = gen_burst(port, "gpt2_bf16", bodies)
+    s2 = dict(sched.gen_snapshot()["spec"])
+    check(all(r["status"] == 200 for r in off), f"draft off: {[r['status'] for r in off]}")
+    check_sse(off, vocab)
+    check(all("X-Spec-Draft" not in r["headers"] for r in off) and s2["proposed"] == s1["proposed"]
+          and s2["fallback_ticks"] > s1["fallback_ticks"],
+          f"with the draft demoted: {s1} -> {s2}")
+    status, body = http(port, "/admin/models/gpt2_int8", {"action": "activate"})
+    check(status == 200, f"the draft's restore: {status} {body}")
+    return {"bodies": bodies, "on": on, "off": off,
+            "stats": {k: s1[k] - s0[k] for k in ("proposed", "accepted", "fallback_ticks")},
+            "tok_per_s": {"on": stream_stats(on, on_wall)["tok_per_s"],
+                          "off": stream_stats(off, off_wall)["tok_per_s"]}}
+
+
+def ten_slo(srv, port: int, vocab: int) -> dict:
+    """Check 4: the outcome counts of /admin/slo against what the client
+    saw, by status and by degraded; an ``error`` burst flipping the fast
+    alarm on /healthz while health stays ok; the usage ledger's device ms
+    against the answers' ``X-Device-Ms``, and a stream's KV page-seconds
+    and prefix tokens against its final events."""
+    server = srv.server
+    faults = server.engine.runner.faults
+    srv.call(server.slo._trackers.clear)
+    usage0 = server.slo.usage.snapshot()
+    rng = np.random.default_rng(53)
+    body = {"input_ids": rng.integers(0, vocab - 1, 16).tolist()}
+    saw: dict = {}
+    device_ms: dict = {}
+    for path, heads, b in (("gpt2_bf16", {}, body), ("gpt2_bf16", {}, body),
+                           ("gpt2x", {"X-Objective-Prefer-Cost": "1"}, body),
+                           ("gpt2x", {"X-Objective-Prefer-Cost": "1"}, body),
+                           ("gpt2_bf16", {"X-Deadline-Ms": "0"}, body),
+                           ("gpt2_int8", {}, {"input_ids": "junk"})):
+        st, ans, h = http_h(port, f"/v1/models/{path}:predict", b, heads)
+        model = h.get("X-Served-Variant") or path
+        if st == 200:
+            kind = "degraded" if h.get("X-Degraded") == "1" else "good"
+            device_ms[model] = device_ms.get(model, 0.0) + float(h["X-Device-Ms"])
+        elif st in (429, 503, 504):
+            kind = "shed"
+        else:
+            check(st == 400, f"{path}: {st} {ans}")
+            continue
+        saw.setdefault(model, {}).setdefault(kind, 0)
+        saw[model][kind] += 1
+    status, slo, _ = http_h(port, "/admin/slo")
+    for model, want in saw.items():
+        got = {k: v for k, v in slo["models"][model]["predict"]["outcomes"].items() if v}
+        check(got == want, f"/admin/slo outcomes of {model}: {got}, the client saw {want}")
+    usage1 = server.slo.usage.snapshot()
+    for model, ms in device_ms.items():
+        spent = usage1[model]["device_ms"] - usage0.get(model, {}).get("device_ms", 0.0)
+        check(spent >= ms - 1e-3 * 4, f"{model}: the ledger's device ms {spent} under the "
+                                      f"answers' {ms}")
+    status, health, _ = http_h(port, "/healthz")
+    check("gpt2_int8|predict" not in health["slo"]["fast_alarms"],
+          f"gpt2_int8's fast alarm before the burst: {health['slo']}")
+    faults.configure(model="gpt2_int8", fail_every_n=1, count=TEN_ERRORS, kind="fatal")
+    errors = [http_h(port, "/v1/models/gpt2_int8:predict", body)[0] for _ in range(TEN_ERRORS)]
+    faults.clear("gpt2_int8")
+    check(errors == [500] * TEN_ERRORS, f"the error burst: {errors}")
+    status, health, _ = http_h(port, "/healthz")
+    check(status == 200 and health.get("device_ok") is True
+          and "gpt2_int8|predict" in health["slo"]["fast_alarms"],
+          f"/healthz after the burst: {status} {health.get('slo')}")
+    status, slo, _ = http_h(port, "/admin/slo")
+    lane = slo["models"]["gpt2_int8"]["predict"]
+    check(lane["outcomes"]["error"] == TEN_ERRORS and lane["windows"]["fast"]["alarm"],
+          f"gpt2_int8 after the burst: {lane}")
+    prompt = rng.integers(0, vocab - 1, TEN_PROMPT).tolist()
+    cached = 0
+    for _ in range(2):
+        r = sse(port, "gpt2_int8", {"input_ids": prompt, "max_new_tokens": 8})
+        check(r["status"] == 200 and r["final"] and r["final"]["done"], f"stream {r['status']}")
+        cached += r["final"].get("stats", {}).get("prefix_cached_tokens", 0)
+    usage2 = server.slo.usage.snapshot()["gpt2_int8"]
+    saved = usage2["prefix_saved_tokens"] - usage1["gpt2_int8"]["prefix_saved_tokens"]
+    pages_s = usage2["kv_block_seconds"] - usage1["gpt2_int8"]["kv_block_seconds"]
+    check(cached > 0 and saved == cached and pages_s > 0,
+          f"the streams' bill: {saved} saved tokens against {cached} cached, {pages_s} "
+          f"page-seconds")
+    return {"saw": saw, "device_ms": device_ms, "burn": lane["windows"]["fast"]["burn_rate"],
+            "cached": cached, "page_s": pages_s}
+
+
+def ten_autoscale(srv, port: int, vocab: int) -> dict:
+    """Check 5: the autoscaler on the live server.  The host-tier restore
+    of each rung measured first sets the arrivals' period; (a) periodic
+    arrivals at gpt2_bf16 find it demoted until the history is in, and
+    warm after; (b) with both rungs demoted, the pre-warm activates them
+    before the next predicted arrival, which waits for no activation,
+    while ``gpt2_probe`` is served beside it (its stall printed); (c)
+    ``starve`` drops the plane to reactive after its mispredict limit; (d)
+    ``spike`` arrivals never reach the journal."""
+    server = srv.server
+    plane, lc, faults = server.autoscale, server.lifecycle, server.engine.runner.faults
+    rng = np.random.default_rng(59)
+    body = {"input_ids": rng.integers(0, vocab - 1, 12).tolist()}
+    probe = {"input_ids": [5, 6, 7]}
+    out: dict = {"restore_ms": {}}
+    for name in ("gpt2_bf16", "gpt2_int8"):
+        status, ans = http(port, f"/admin/models/{name}", {"action": "demote", "to": "host"})
+        check(status == 200, f"{name} to host: {status} {ans}")
+        status, ans = http(port, f"/admin/models/{name}", {"action": "activate"})
+        check(status == 200, f"{name} restored: {status} {ans}")
+        out["restore_ms"][name] = ans["model"]["last_activation_ms"]
+    restore_s = out["restore_ms"]["gpt2_bf16"] / 1000.0
+    period = max(restore_s + TEN_IDLE_S + TEN_SLACK_S, TEN_MIN_PERIOD_S)
+    out["period_s"] = period
+    log(f"autoscale: host-tier restores {out['restore_ms']} ms; arrivals every {period:.3f} s")
+
+    def knobs():
+        server.cfg.idle_unload_s = TEN_IDLE_S
+        server.cfg.host_idle_drop_s = 3600.0
+        plane._models.pop("gpt2_bf16", None)
+        plane.prewarm_margin_s = out["restore_ms"]["gpt2_int8"] / 1000.0 + 2.0
+        lc.start()
+
+    srv.call(knobs)
+    state = lambda n: srv.call(lc.state_of, n)  # noqa: E731
+    # (a) The learned window.
+    status, ans = http(port, "/admin/models/gpt2_bf16", {"action": "demote", "to": "host"})
+    check(status == 200, f"gpt2_bf16 to host: {status} {ans}")
+    found, t_next, sent = [], time.perf_counter(), 0.0
+    for k in range(TEN_ARRIVALS):
+        time.sleep(max(t_next - time.perf_counter(), 0.0))
+        before = state("gpt2_bf16")
+        sent = time.perf_counter()
+        st, ans, h = http_h(port, "/v1/models/gpt2_bf16:predict", body)
+        check(st == 200, f"arrival {k}: {st} {ans}")
+        waited = "activation_wait" in trace_points(port, h["X-Trace-Id"])
+        found.append((before, waited))
+        t_next = sent + period
+    want = [True] * (TEN_MIN_HISTORY + 1) + [False] * (TEN_ARRIVALS - TEN_MIN_HISTORY - 1)
+    check([b != "active" for b, _ in found] == want and [w for _, w in found] == want,
+          f"arrivals' residency (state, waited) {found}; want demoted {want}")
+    _, snap, _ = http_h(port, "/admin/autoscale")
+    m = snap["models"]["gpt2_bf16"]
+    out["window_s"], out["median_gap_s"] = m["keepwarm_window_s"], m["median_gap_s"]
+    check(m["keepwarm_window_s"] is not None and m["keepwarm_window_s"] >= period,
+          f"the learned window {m}")
+    # (b) The pre-warm, with gpt2_probe served beside it.  The draft may
+    # already be on the host (the idle timer's).
+    for name in ("gpt2_bf16", "gpt2_int8"):
+        status, ans = http(port, f"/admin/models/{name}", {"action": "demote", "to": "host"})
+        check(status == 200 or (status == 409 and ans["model"]["state"] != "active"),
+              f"{name} to host: {status} {ans}")
+    est_ms = srv.call(lc.estimate_warm_ms, "gpt2_bf16")  # what the plane's lead reads
+    lat, stop = [], threading.Event()
+
+    def probing():
+        while not stop.is_set():
+            t = time.perf_counter()
+            st, _, _ = http_h(port, "/v1/models/gpt2_probe:predict", probe)
+            lat.append((t, (time.perf_counter() - t) * 1000.0, st))
+
+    th = threading.Thread(target=probing, daemon=True)
+    th.start()
+    due = sent + m["median_gap_s"]
+    both = None  # when both rungs were first active together
+    while time.perf_counter() < due:
+        if both is None and all(state(n) == "active" for n in ("gpt2_bf16", "gpt2_int8")):
+            both = time.perf_counter() - sent
+        time.sleep(0.05)
+    states = {"gpt2_bf16": state("gpt2_bf16"), "both_active_at_s": both}
+    st, ans, h = http_h(port, "/v1/models/gpt2_bf16:predict", body)
+    stop.set()
+    th.join(60)
+    check(st == 200, f"the predicted arrival: {st} {ans}")
+    points = trace_points(port, h["X-Trace-Id"])
+    _, models, _ = http_h(port, "/admin/models")
+    causes = {n: models["models"][n]["activations_by_cause"] for n in ("gpt2_bf16", "gpt2_int8")}
+    check(states["gpt2_bf16"] == "active" and both is not None
+          and "activation_wait" not in points and "cold_start" not in points
+          and causes["gpt2_bf16"].get("prewarm", 0) >= 1
+          and causes["gpt2_int8"].get("prewarm_draft", 0) >= 1,
+          f"the pre-warm: states at the arrival {states}, its trace {points}, causes {causes}")
+    _, snap, _ = http_h(port, "/admin/autoscale")
+    check(snap["counters"]["prewarms"] >= 1 and snap["counters"]["prewarm_hits"] >= 1
+          and snap["counters"]["prewarm_errors"] == 0, f"pre-warm counters {snap['counters']}")
+    ok = [x for _, x, s in lat if s == 200]
+    check(len(ok) == len(lat) and len(ok) >= 3, f"the probe beside the pre-warm: {lat[:4]}")
+    out["prewarm"] = {"lead_s": est_ms / 1000.0 + plane.prewarm_margin_s, "estimate_ms": est_ms,
+                      "both_active_s": both, "due_s": m["median_gap_s"],
+                      "activation_ms": {n: models["models"][n]["last_activation_ms"]
+                                        for n in ("gpt2_bf16", "gpt2_int8")},
+                      "probe_p50_ms": float(np.percentile(ok, 50)),
+                      "probe_max_ms": max(ok), "probe_calls": len(ok)}
+    # (c) starve: phantom predictions on the probe walk the plane down.
+    srv.call(setattr, plane, "prewarm_margin_s", 0.25)
+    faults.configure(model="gpt2_probe", kind="demand", mode="starve", fail_every_n=1)
+    t0 = time.perf_counter()
+    while True:
+        _, snap, _ = http_h(port, "/admin/autoscale")
+        if snap["degraded"]:
+            break
+        check(time.perf_counter() - t0 < 30.0, f"starve never degraded the plane: {snap}")
+        time.sleep(0.1)
+    out["degrade_s"] = time.perf_counter() - t0
+    faults.clear("gpt2_probe")
+    check(snap["effective_mode"] == "reactive" and snap["counters"]["degradations"] == 1
+          and snap["counters"]["prewarm_misses"] >= TEN_MISPREDICT
+          and snap["models"]["gpt2_probe"]["prewarms_by_cause"].get("phantom", 0) >= 1,
+          f"the plane under starve: {snap['counters']}")
+    wait_until(lambda: not http_h(port, "/admin/autoscale")[1]["degraded"], TEN_HOLD_S + 10.0,
+               "the plane's reactive hold to expire")
+    # (d) spike: the arrivals happen, the journal never sees them.
+    seen = srv.call(lambda: plane._models["gpt2_probe"].arrivals)
+    injected = faults.snapshot()["injected"]["demand"]
+    faults.configure(model="gpt2_probe", kind="demand", mode="spike", fail_every_n=1)
+    for _ in range(3):
+        check(http_h(port, "/v1/models/gpt2_probe:predict", probe)[0] == 200, "spiked arrival")
+    faults.clear("gpt2_probe")
+    # The control tick consults the rule too (for a phantom), so the rule
+    # fires at least once an arrival.
+    after = (srv.call(lambda: plane._models["gpt2_probe"].arrivals),
+             faults.snapshot()["injected"]["demand"])
+    check(after[0] == seen and after[1] >= injected + 3,
+          f"spike: the journal's arrivals {seen} -> {after[0]}, the rule fired "
+          f"{after[1] - injected} times for 3 arrivals")
+
+    def calm():
+        server.cfg.idle_unload_s = 0.0
+
+    srv.call(calm)
+    for name in ("gpt2_bf16", "gpt2_int8"):  # the reactive timer may have taken them
+        status, ans = http(port, f"/admin/models/{name}", {"action": "activate"})
+        check(status == 200, f"{name} activated after the checks: {status} {ans}")
+    out["found"] = found
+    out["counters"] = snap["counters"]
+    return out
+
+
+def phase_tenancy_path(cfg, device: str = "cuda", vocab: int = 50257) -> dict:
+    """Phase 19: serve the family and the probe, and run checks 1-6 on the
+    live server (the kernel counts reset before and read after); the
+    speculative streams are held against the fixed route afterwards."""
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+    from pytorch_zappa_serverless_tpu_torch.ops import counters
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    t0 = time.perf_counter()
+    engine = build_engine(cfg, device)
+    log(f"tenancy engines ready in {time.perf_counter() - t0:.3f} s on {engine.device}: "
+        f"build {engine.build_seconds}")
+    out: dict = {"engine": engine}
+    with BackgroundServer(cfg, engine) as srv:
+        port, scheds = srv.port, srv.server.schedulers
+        engine.runner.run_fn_sync(scheds["gpt2_bf16"].warm, engine.model("gpt2_int8"))
+        engine.runner.run_fn_sync(scheds["gpt2_int8"].warm)
+        out["select"] = ten_selection(port, engine, vocab)
+        reset_counts()
+        out["brownout"] = ten_brownout(srv, port, vocab)
+        out["spec"] = ten_spec(srv, port, vocab)
+        out["slo"] = ten_slo(srv, port, vocab)
+        out["autoscale"] = ten_autoscale(srv, port, vocab)
+        out["counts"] = read_counts()  # just after the load
+        out["graphed"] = counters.graphed()
+        status, prom = http_text(port, "/metrics?format=prometheus")
+        check(status == 200, f"/metrics?format=prometheus: {status}")
+        out["prometheus"] = prom
+    return out
+
+
+def check_tenancy(run: dict, vocab: int = 50257) -> dict:
+    """Checks 3, 6 and 7 on the load's answers: the speculative streams
+    under the margin rule with the draft on and off; /metrics against the
+    manifest with the planes' families; every int8 launch of the phase in a
+    captured graph's warm-up or replay."""
+    engine = run["engine"]
+    sp = run["spec"]
+    paged = (TEN["chunk"], TEN["block_size"])
+    on = lane_streams(sp["bodies"], sp["on"], TEN["max_new_tokens"], "on")
+    off = lane_streams(sp["bodies"], sp["off"], TEN["max_new_tokens"], "off")
+    st = sp["stats"]
+    check(st["proposed"] > 0 and 0 < st["accepted"] <= st["proposed"]
+          and st["fallback_ticks"] == 0, f"the auto draft's speculation: {st}")
+    held_on = hold_streams(engine, "gpt2_bf16", on, TEN_SPEC_M, paged, keep_refs=True)
+    held_off = hold_streams(engine, "gpt2_bf16", off, TEN["gen_slots"], paged,
+                            err=held_on["err_max"])
+    div = diverge_undecided(held_on.pop("refs"), held_on["err_max"], on, off)
+    cmt = check_metrics_tool()
+    problems = cmt.check(run["prometheus"], cmt.load_manifest())
+    check(not problems, f"/metrics against the manifest: {problems}")
+    for fam in ("tpuserve_variant_selections_total", "tpuserve_variant_degraded_total",
+                "tpuserve_variant_sheds_total", "tpuserve_variant_brownout_state",
+                "tpuserve_variant_brownout_transitions_total", "tpuserve_variant_select_ms",
+                "tpuserve_slo_requests_total", "tpuserve_slo_burn_rate",
+                "tpuserve_slo_burn_alarm", "tpuserve_slo_goodput_ratio",
+                "tpuserve_slo_budget_remaining", "tpuserve_usage_requests_total",
+                "tpuserve_usage_device_ms_total", "tpuserve_usage_kv_block_seconds_total",
+                "tpuserve_usage_prefix_saved_tokens_total", "tpuserve_autoscale_forecast_rps",
+                "tpuserve_autoscale_keepwarm_window_s", "tpuserve_autoscale_prewarm_total"):
+        check(f"# TYPE {fam} " in run["prometheus"], f"{fam} missing from /metrics")
+    counts, graphed = run["counts"], run["graphed"]
+    check(counts["int8_matmul"] == graphed["int8_matmul"]
+          and all(counts[k] == 0 for k in counts if k not in ("int8_matmul",)),
+          f"phase 19's launches {counts}, in graphs {graphed}")
+    return {"on": held_on, "off": held_off, "diverge": div,
+            "rate": st["accepted"] / max(st["proposed"], 1)}
+
+
+def run_tenancy(card: str) -> dict:
+    """Phase 19: the tenancy and control planes on the card."""
+    t0 = time.perf_counter()
+    fresh_memory()
+    run = phase_tenancy_path(tenancy_config())
+    engine = run["engine"]
+    try:
+        log_memory("tenancy", engine)
+        held = check_tenancy(run)
+    finally:
+        engine.shutdown()
+    sel, bo, sp, slo, au = (run["select"], run["brownout"], run["spec"], run["slo"],
+                            run["autoscale"])
+    launches = sel["int8_launches"] + run["counts"]["int8_matmul"]
+    log(f"{card}: variants: the family's answers equal each rung's; int8_matmul "
+        f"{sel['int8_launches']} launches for the two int8 calls ({sel['per_call']} a call); "
+        f"selection {bo['select_p50_ms']:.4f} ms p50, {bo['select_p99_ms']:.4f} ms p99 over "
+        f"{TEN_SELECT_REPS} on the server's loop")
+    log(f"{card}: brownout: entered on the first family request after the rule "
+        f"({bo['enter_s'] * 1e3:.1f} ms round trip), left after {len(bo['picks'])} clean "
+        f"selections and {bo['exit_held_s']:.3f} s held (exit ticks {TEN_EXIT_TICKS}, hold "
+        f"{TEN_MIN_HOLD_S} s)")
+    log(f"{card}: auto draft gpt2_int8 under gpt2_bf16 (k={TEN['spec_k']}): "
+        f"{sp['stats']['proposed']} proposed, {sp['stats']['accepted']} accepted (rate "
+        f"{held['rate']:.4f}); tokens/s with the draft {sp['tok_per_s']['on']:.1f}, without "
+        f"{sp['tok_per_s']['off']:.1f}; greedy on == off on {held['diverge']['equal']} of "
+        f"{TEN_SPEC_STREAMS}, parted at undecided positions {held['diverge']['parted']}")
+    log(f"{card}: slo: outcomes as the client saw {slo['saw']}; fast burn after the error "
+        f"burst {slo['burn']}; a stream pair's bill {slo['page_s']:.4f} page-seconds, "
+        f"{slo['cached']} prefix tokens saved")
+    pw = au["prewarm"]
+    log(f"{card}: autoscale: restores {au['restore_ms']} ms, period {au['period_s']:.3f} s, "
+        f"learned window {au['window_s']} s (median gap {au['median_gap_s']} s); arrivals "
+        f"(state, waited) {au['found']}; pre-warm lead {pw['lead_s']:.3f} s (estimate "
+        f"{pw['estimate_ms']:.1f} ms) against activations {pw['activation_ms']} ms, both "
+        f"rungs active {pw['both_active_s']:.3f} s after the last arrival, the predicted one "
+        f"at {pw['due_s']} s; "
+        f"gpt2_probe beside it {pw['probe_p50_ms']:.3f} ms p50, {pw['probe_max_ms']:.3f} ms "
+        f"max over {pw['probe_calls']} calls (the stall behind the capture "
+        f"{pw['probe_max_ms'] - pw['probe_p50_ms']:.3f} ms); starve degraded the plane in "
+        f"{au['degrade_s']:.3f} s; counters {au['counters']}")
+    log(f"{card}: phase 19 in {time.perf_counter() - t0:.3f} s; int8_matmul launches "
+        f"{launches}, every one in a captured graph's warm-up or replay")
+    return {"int8_launches": launches, "held": held}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -6208,6 +6793,7 @@ def main(argv: list[str] | None = None) -> int:
     plane = run_plane(card)
     mobility = run_mobility(card)
     adapters = run_adapters(card, args.profile)
+    tenancy = run_tenancy(card)
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
         log(f"one forward's int8_matmul at M={m} (72 launches, the per-shape times summed): "
@@ -6232,7 +6818,7 @@ def main(argv: list[str] | None = None) -> int:
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "pytorch_zappa_serverless_tpu/ops/int8_matmul.py:107",
         "launches": (int8_launches + plane["int8_launches"] + mobility["int8_launches"]
-                     + adapters["auto_launches"]),
+                     + adapters["auto_launches"] + tenancy["int8_launches"]),
         "max_abs_err": kern["max_abs_err"],
         "ms": bert["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": bert["bound_ms"],
         "bound_by": bert["bound_by"], "library_ms": bert["library_ms"],
@@ -6259,6 +6845,7 @@ def main(argv: list[str] | None = None) -> int:
         "launches_plane_path": plane["int8_launches"],
         "launches_mobility_path": mobility["int8_launches"],
         "launches_auto_path": adapters["auto_launches"],
+        "launches_tenancy_path": tenancy["int8_launches"],
         "spec_verify": {**verify, "timed_work": f"one speculative verify forward of GPT-2 small "
                                                 f"at M={SPEC_M}: 48 layer projections + the f32 "
                                                 f"lm head, the per-shape times summed"},

@@ -36,6 +36,17 @@ class ModelConfig:
     dtype: str = "bfloat16"
     # Registered builder this deploy name instantiates ("" → the name itself).
     builder: str = ""
+    # Variant family (serving/variants.py): deploys of one family are
+    # interchangeable implementations of one task at different quality and
+    # cost, and a client may address the family (with an objective) instead
+    # of a deploy; the server picks.  "" → the model is its own family.
+    family: str = ""
+    # Rung on the family's quality ladder (higher = better); the brownout
+    # ladder degrades down it before it sheds.
+    quality_rank: int = 0
+    # Expected device ms a request, ranking variants until live latency
+    # evidence exists.  0 → unknown.
+    cost_hint_ms: float = 0.0
     # Max requests in flight before 429 (backpressure).
     max_concurrency: int = 256
     # Batcher coalescing window in milliseconds.
@@ -73,9 +84,9 @@ class ModelConfig:
     # Speculative decoding (paged only): the deploy that proposes spec_k
     # tokens a tick, verified by this model in one forward with
     # distribution-preserving rejection sampling.  "" -> off; any other
-    # value names another deploy of this server.  Falls back to plain decode
-    # while the draft is COLD or quarantined.  "auto" (the lowest rung of
-    # the model's variant family) waits for serving/variants.py.
+    # value names another deploy of this server, and "auto" the lowest rung
+    # of the model's variant family (serving/variants.py).  Falls back to
+    # plain decode while the draft is COLD or quarantined.
     spec_draft: str = ""
     spec_k: int = 4
     # Prefix KV cache (paged only): radix-tree reuse of frozen prompt pages,
@@ -113,10 +124,6 @@ class ModelConfig:
         if self.kv_cache not in ("slot", "paged"):
             raise ValueError(f"{self.name}: kv_cache must be 'slot' or 'paged', got "
                              f"{self.kv_cache!r}")
-        if self.spec_draft == "auto":
-            raise ValueError(f"{self.name}: spec_draft 'auto' asks the variant family ladder "
-                             f"for a draft, which waits for serving/variants.py (ROADMAP "
-                             f"Queue 1 item 5); name the draft deploy instead")
         if self.spec_draft == self.name:
             raise ValueError(f"{self.name}: spec_draft must name a different deploy (a model "
                              f"cannot draft for itself)")
@@ -229,6 +236,53 @@ class ServeConfig:
     # (its history refines it): a request whose deadline is below it answers
     # 503 adapter_cold + Retry-After while the attach goes on.
     adapter_attach_estimate_ms: float = 500.0
+    # -- predictive autoscaling (serving/autoscale.py) -----------------------
+    # "predictive" learns each key's keep-warm window from its inter-arrival
+    # gaps and pre-warms ahead of forecast demand; "histogram" learns the
+    # windows only; "off" keeps the fixed timers alone.  The fixed timers
+    # stay the fallback while a key's history is thin or the plane has
+    # degraded to reactive after mispredictions.
+    autoscale: str = "predictive"
+    # Control-tick cadence; 0 → 1 s.
+    autoscale_tick_s: float = 0.0
+    # Keep-warm window = this quantile of the key's gaps, clamped to
+    # [keepwarm_min_s, keepwarm_max_s].
+    keepwarm_quantile: float = 0.95
+    keepwarm_min_s: float = 1.0
+    keepwarm_max_s: float = 600.0
+    # Gaps a key needs before its learned window and forecast apply.
+    autoscale_min_history: int = 8
+    # Lead added to the activation estimate, so a pre-warm finishes before
+    # the predicted arrival.
+    prewarm_margin_s: float = 1.0
+    # This many pre-warms in a row that no arrival matches drop the plane to
+    # reactive for autoscale_reactive_hold_s.
+    autoscale_mispredict_limit: int = 3
+    autoscale_reactive_hold_s: float = 30.0
+    # -- variant families (serving/variants.py) ------------------------------
+    # Brownout of family-addressed requests: "auto" serves a cheaper rung
+    # while the preferred one would shed and recovers with hysteresis;
+    # "forced" always serves the cheapest satisfying rung; "off" never
+    # degrades because of pressure.
+    brownout: str = "auto"
+    # Hysteresis: pressure-free selections in a row before a family leaves
+    # brownout, and the least seconds a brownout holds once entered.
+    brownout_exit_ticks: int = 3
+    brownout_min_hold_s: float = 5.0
+    # -- SLO and goodput (serving/slo.py) ------------------------------------
+    # Objectives keyed "model", "model:adapter" or a family:
+    # {latency_objective_ms, availability_target}.  File-only.  Other keys
+    # take the slo_* defaults below.
+    slo: dict[str, dict] = field(default_factory=dict)
+    # Default latency objective (0 → served means on time) and availability
+    # target (0.999 → a 0.1% error budget).
+    slo_latency_objective_ms: float = 0.0
+    slo_availability_target: float = 0.999
+    # The burn-rate alarm's fast and slow windows and their thresholds.
+    slo_fast_window_s: float = 300.0
+    slo_slow_window_s: float = 3600.0
+    slo_fast_burn_alarm: float = 14.0
+    slo_slow_burn_alarm: float = 6.0
     # -- the request plane ---------------------------------------------------
     # Append-only job journal directory ("" = durability off): one JSONL
     # record a job transition.  At boot the job queue replays it, so an
@@ -297,13 +351,13 @@ def apply_env_overrides(cfg: ServeConfig, environ: dict[str, str] | None = None)
 
     Each value is coerced by the type of the field's default, so a float
     field loaded from a file as an int still takes "7.5".  ``models`` is
-    file-only, and so is ``faults``: structured config does not go in an
-    env var.
+    file-only, and so are ``faults`` and ``slo``: structured config does not
+    go in an env var.
     """
     environ = os.environ if environ is None else environ
     for f in dataclasses.fields(ServeConfig):
         key = _ENV_PREFIX + f.name.upper()
-        if key not in environ or f.name in ("models", "faults"):
+        if key not in environ or f.name in ("models", "faults", "slo"):
             continue
         target = (type(f.default) if f.default is not dataclasses.MISSING
                   else type(getattr(cfg, f.name)))

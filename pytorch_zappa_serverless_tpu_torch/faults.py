@@ -11,13 +11,14 @@ The port's copy of the JAX package's ``faults.py``.  It defines
   fail or copy-on-write the prefix cache's lookups, fail or slow a model's
   activation or one tenant's adapter attach, tear or slow a streamed
   checkpoint's chunk reads, drop, corrupt or slow a live migration step,
-  and derail speculative proposals.
+  derail speculative proposals, and hide arrivals from (or invent them
+  for) the autoscaler's demand model.
 
 The rule schema and its validation are the reference's, so
-``/admin/faults`` takes and refuses the same bodies, except that a kind
-whose plane the port lacks (the autoscaler's ``demand``) is refused with
-the module still to port: a rule that is accepted and never fires would
-report chaos that never happens.
+``/admin/faults`` takes and refuses the same bodies.  A kind whose plane
+the port lacks would be refused with the module still to port
+(:data:`REFUSED_KINDS`, empty now): a rule that is accepted and never
+fires would report chaos that never happens.
 
 At the package top level because ``engine.runner`` (dispatch-side
 injection) and ``serving.*`` (retry classification, the admin route) both
@@ -84,10 +85,8 @@ def is_transient(exc: BaseException) -> bool:
 
 
 # The reference's kinds whose plane the port has not ported yet, each with
-# what it waits for (ROADMAP Queue 1).
-REFUSED_KINDS = {
-    "demand": "serving/autoscale.py (ROADMAP Queue 1 item 5)",
-}
+# what it waits for (ROADMAP Queue 1).  Every kind has its plane now.
+REFUSED_KINDS: dict[str, str] = {}
 
 
 @dataclass
@@ -130,18 +129,27 @@ class FaultRule:
     ``kind="adapter"`` fires on :meth:`FaultInjector.on_adapter` at the head
     of one tenant's adapter attach, keyed ``{base}:{adapter}`` (or the base
     alone, or ``*``): the attach fails and the adapter stays cold.
+
+    ``kind="demand"`` targets the autoscaler (``serving/autoscale.py``) and
+    fires on :meth:`FaultInjector.on_demand`: ``mode="spike"`` (the
+    default) drops an arrival before the demand model sees it (the burst
+    happens, the forecast never moves), ``"starve"`` plants a phantom
+    prediction each control tick (demand that never comes: the pre-warm's
+    watch expires unmatched and walks the plane down to reactive).  Nothing
+    raises: the chaos target is the degradation ladder, not the lane.
     """
 
     model: str = "*"
     fail_every_n: int = 0
     count: int | None = None
     kind: str = "transient"  # transient | fatal | poison | prefix | activation | ckpt
-    #                          | migration | spec_mismatch | adapter
+    #                          | migration | spec_mismatch | adapter | demand
     latency_ms: float = 0.0
     preprocess: bool = False
     # kind="prefix": "poison" (fail the lookup) | "cow" (force CoW);
     # kind="ckpt": "torn" (corrupt chunk bytes) | "slow" (per-chunk delay);
-    # kind="migration": "drop" | "corrupt" | "slow".
+    # kind="migration": "drop" | "corrupt" | "slow";
+    # kind="demand": "spike" | "starve".
     mode: str = ""
     # Counters, not config: matching calls seen and failures fired.
     seen: int = field(default=0)
@@ -170,7 +178,8 @@ class FaultInjector:
 
     # Kinds that are their own firing target: they never fire on dispatch or
     # preprocess and never displace those rules.
-    _TARGETED = ("activation", "adapter", "prefix", "ckpt", "migration", "spec_mismatch")
+    _TARGETED = ("activation", "adapter", "prefix", "ckpt", "migration", "spec_mismatch",
+                 "demand")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -180,8 +189,8 @@ class FaultInjector:
         self.poison_exc: Exception | None = None
         # guarded-by: _lock
         self.injected = {"dispatch": 0, "preprocess": 0, "activation": 0, "spec": 0,
-                         "adapter": 0, "prefix": 0, "migration": 0, "ckpt": 0,
-                         "latency_ms": 0.0}
+                         "adapter": 0, "prefix": 0, "migration": 0, "demand": 0,
+                         "ckpt": 0, "latency_ms": 0.0}
 
     def configure(self, model: str = "*", fail_every_n: int = 0,
                   count: int | None = None, kind: str = "transient",
@@ -196,7 +205,7 @@ class FaultInjector:
             raise ValueError("fail_every_n and latency_ms must be >= 0")
         if count is not None and int(count) < 1:
             raise ValueError("count must be >= 1 when set")
-        if mode and kind not in ("prefix", "migration", "ckpt"):
+        if mode and kind not in ("prefix", "migration", "demand", "ckpt"):
             raise ValueError(
                 "mode is a kind='prefix'/'migration'/'demand'/'ckpt' knob")
         if kind == "prefix" and mode not in ("", "poison", "cow"):
@@ -205,6 +214,8 @@ class FaultInjector:
             raise ValueError(f"ckpt mode must be 'torn' or 'slow', got {mode!r}")
         if kind == "migration" and mode not in ("", "drop", "corrupt", "slow"):
             raise ValueError(f"migration mode must be 'drop', 'corrupt' or 'slow', got {mode!r}")
+        if kind == "demand" and mode not in ("", "spike", "starve"):
+            raise ValueError(f"demand mode must be 'spike' or 'starve', got {mode!r}")
         rule = FaultRule(model=model, fail_every_n=int(fail_every_n),
                          count=int(count) if count is not None else None,
                          kind=kind, latency_ms=float(latency_ms),
@@ -236,7 +247,8 @@ class FaultInjector:
 
     def _match(self, model: str, preprocess: bool, prefix: bool = False,
                activation: bool = False, ckpt: bool = False, migration: bool = False,
-               spec: bool = False, adapter: bool = False) -> FaultRule | None:
+               spec: bool = False, adapter: bool = False,
+               demand: bool = False) -> FaultRule | None:
         for r in self._rules:
             if (r.kind == "adapter") != adapter:
                 continue  # adapter rules fire on on_adapter only
@@ -250,6 +262,8 @@ class FaultInjector:
                 continue  # migration rules fire on on_migration only
             if (r.kind == "spec_mismatch") != spec:
                 continue  # spec rules fire on on_spec only
+            if (r.kind == "demand") != demand:
+                continue  # demand rules fire on on_demand only
             if r.preprocess == preprocess and r.model in ("*", model):
                 return r
         return None
@@ -401,6 +415,21 @@ class FaultInjector:
             if latency:
                 self.injected["latency_ms"] += latency
             return rule.mode or "drop", latency / 1000.0
+
+    def on_demand(self, model: str) -> str:
+        """Called by the autoscale plane at the head of each demand
+        observation and once a model a control tick: the firing rule's mode,
+        ``"spike"`` (drop this arrival) or ``"starve"`` (plant a phantom
+        prediction this tick), or ``""`` when nothing fires.  Never raises."""
+        with self._lock:
+            rule = self._match(model, preprocess=False, demand=True)
+            if rule is None:
+                return ""
+            rule.seen += 1
+            if not self._fire(rule):
+                return ""
+            self.injected["demand"] += 1
+            return rule.mode or "spike"
 
     def on_spec(self, model: str) -> bool:
         """Called by the paged scheduler before a speculative tick: True

@@ -159,6 +159,10 @@ class AdapterManager:
         # invalidation, so a reused slot never resolves a detached tenant's
         # frozen KV.  Called (base, slot).
         self.prefix_invalidate = None  # guarded-by: event-loop
+        # The autoscaler's learned keep-warm window, fn("base:adapter") ->
+        # seconds | None: the idle reaper holds a tenant's slot that long
+        # instead of the fixed timer; None keeps the timer.
+        self.keepwarm_fn = None  # guarded-by: event-loop
         for mc in cfg.models:
             for aname, spec in (mc.adapters or {}).items():
                 rec = AdapterResidency(base=mc.name, name=aname, spec=dict(spec or {}))
@@ -405,6 +409,10 @@ class AdapterManager:
             rec.last_error = None
             ms = (time.perf_counter() - t0) * 1000.0
             rec.note_attach(ms)
+            slo = getattr(self.server, "slo", None)
+            if slo is not None:
+                # The usage ledger: the attach billed to its tenant.
+                slo.usage.note_attach(rec.base, rec.name, ms)
             hist = self.attach_hists.get(rec.key)
             if hist is None:
                 hist = self.attach_hists[rec.key] = Histogram(ATTACH_BUCKETS_MS)
@@ -536,12 +544,28 @@ class AdapterManager:
             return min(max(idle / 4.0, 0.05), 5.0)
         return 1.0
 
+    def idle_window_s(self, rec: AdapterResidency) -> float:
+        """One tenant's detach window: the autoscaler's learned keep-warm
+        window when it has one, else the fixed timer.  A learned window
+        replaces a timer and never creates one: with none set (never), no
+        tenant is idle-detached, as the lifecycle's reaper demotes no model
+        without ``idle_unload_s``."""
+        idle = self._idle_s()
+        if self.keepwarm_fn is None or idle == float("inf"):
+            return idle
+        try:
+            learned = self.keepwarm_fn(rec.key)
+        except Exception:
+            log.exception("keepwarm window lookup failed for %s", rec.key)
+            return idle
+        return float(learned) if learned is not None else idle
+
     async def tick_once(self):
         """One reaper pass: idle detaches, then the HBM budget."""
         now = self.clock()
-        idle = self._idle_s()
         for rec in list(self._adapters.values()):
-            if rec.state == ACTIVE and rec.inflight == 0 and now - rec.last_used >= idle:
+            if (rec.state == ACTIVE and rec.inflight == 0
+                    and now - rec.last_used >= self.idle_window_s(rec)):
                 await self._detach(rec, cause="idle")
         await self._enforce_budget()
 

@@ -606,7 +606,8 @@ class PagedGenerationScheduler(_Lane):
     # group), not one per prompt length.
     _CHUNK_LADDER_MIN = 8
 
-    def __init__(self, cm, runner, mc, ring=None, draft: DraftGate | None = None):
+    def __init__(self, cm, runner, mc, ring=None, draft: DraftGate | None = None,
+                 usage_hook=None):
         meta = cm.servable.meta["continuous"]
         if meta.get("paged") is None:
             raise ValueError(
@@ -615,6 +616,11 @@ class PagedGenerationScheduler(_Lane):
         self.cm = cm
         self.runner = runner
         self.ring = ring
+        # The usage ledger's hook (serving/slo.py), called at a stream's
+        # retire with (adapter_slot, device_ms, kv_block_seconds,
+        # cached_tokens): the stream's bill.  Accounting never fails a
+        # stream.
+        self.usage_hook = usage_hook
         self.name = cm.servable.name
         self.slots: int = meta["slots"]
         self.total: int = meta["total"]
@@ -1425,6 +1431,18 @@ class PagedGenerationScheduler(_Lane):
     def _retire(self, slot: int, req: GenRequest):
         self._finished[slot] = True
         self._tok[slot] = self.eos_id
+        if self.usage_hook is not None:
+            # The stream's bill: its decode wall, the pages it holds times
+            # the seconds it held them (the pool charges by page-second as
+            # the HBM ledger charges by byte), and the prompt tokens the
+            # prefix cache served.  Read before _release frees the table.
+            try:
+                now = time.perf_counter()
+                held_s = max(now - (req.admitted or req.submitted), 0.0)
+                self.usage_hook(int(self._aidx[slot]), held_s * 1000.0,
+                                len(self._mgr.blocks_of(req)) * held_s, req.cached_tokens)
+            except Exception:
+                log.exception("usage hook failed for %s", self.name)
         del self._active[slot]
         self._release(req, slot)
         if self.ring is not None:

@@ -183,6 +183,10 @@ class LifecycleManager:
         self.demotions_by_cause: dict[str, dict[str, int]] = {}  # guarded-by: event-loop
         self._task: asyncio.Task | None = None  # guarded-by: event-loop
         self._over_budget_warned = False  # guarded-by: event-loop
+        # The autoscaler's learned keep-warm window per model
+        # (serving/autoscale.py), consulted by the reaper in place of
+        # idle_unload_s; None answers (thin history) keep the fixed timer.
+        self.keepwarm_fn: Callable | None = None  # guarded-by: event-loop
         now = self.clock()
         engine = server.engine
         for mc in cfg.models:
@@ -646,15 +650,33 @@ class LifecycleManager:
             except Exception:
                 log.exception("lifecycle tick failed; the next interval retries")
 
+    def idle_window_s(self, name: str) -> float:
+        """One model's demotion window: the autoscaler's learned keep-warm
+        window when it has one, else the fixed ``idle_unload_s`` (thin
+        history, a degraded plane, or no autoscaler)."""
+        idle = self.cfg.idle_unload_s
+        if self.keepwarm_fn is None:
+            return idle
+        try:
+            learned = self.keepwarm_fn(name)
+        except Exception:
+            log.exception("keepwarm window lookup failed for %s", name)
+            return idle
+        return float(learned) if learned is not None else idle
+
     async def tick_once(self):
         """One reaper pass: idle demotions, host-tier drops, the budgets."""
         now = self.clock()
-        idle = self.cfg.idle_unload_s
-        if idle > 0:
-            retention = max(self._host_drop_s() - idle, 0.0)
+        if self.cfg.idle_unload_s > 0:
+            # Host-tier retention after the device demotion: with the fixed
+            # timer this is host_idle_drop_s; a learned window shifts it out
+            # by as much, so a long keep-warm window never skips the host
+            # tier.
+            retention = max(self._host_drop_s() - self.cfg.idle_unload_s, 0.0)
             for name, res in list(self._models.items()):
                 if res.pinned:
                     continue
+                idle = self.idle_window_s(name)
                 if res.state == ACTIVE and now - res.last_used >= idle and not self._busy(name):
                     await self.demote(name, to="host", cause="idle")
                 elif (res.state == COLD and res.tier == "host"
@@ -756,12 +778,20 @@ class LifecycleManager:
                   if res.tier == "host" and res.cm_host is not None else 0)
         disk_b = store.manifest_nbytes(name) if store is not None else 0
         adapters = getattr(self.server, "adapters", None)
+        try:
+            mc = self.cfg.model(name)
+            family, quality = mc.family or mc.name, mc.quality_rank
+        except KeyError:
+            family, quality = name, 0
         return {
             "state": res.state,
+            # The variant family and rung: the models table groups by them.
+            "family": family,
             # Per-tenant adapter residency: a warm tenant's slot is a
             # routing signal.
             **({"adapters": adapters.residency_of(name)}
                if adapters is not None and adapters.names_for(name) else {}),
+            "quality_rank": quality,
             "tier": res.tier if res.state != ACTIVE else "device",
             "pinned": res.pinned,
             "quarantined": name in quarantined,

@@ -174,6 +174,12 @@ class MetricsHub:
         self.jobs = None  # guarded-by: event-loop
         self.tracer = None  # guarded-by: event-loop
         self.binary_requests: dict[str, int] | None = None  # guarded-by: event-loop
+        # The tenancy and control planes: the variant hub
+        # (serving/variants.py), the SLO hub and its usage ledger
+        # (serving/slo.py) and the autoscaler (serving/autoscale.py).
+        self.variants = None  # guarded-by: event-loop
+        self.slo = None  # guarded-by: event-loop
+        self.autoscale = None  # guarded-by: event-loop
 
     def ring(self, model: str) -> LatencyRing:
         if model not in self.models:
@@ -200,6 +206,12 @@ class MetricsHub:
             out["tracing"] = self.tracer.snapshot()
         if self.binary_requests is not None:
             out["serverpath"] = {"binary_requests": dict(self.binary_requests)}
+        if self.variants is not None:
+            out["variants"] = self.variants.snapshot()
+        if self.slo is not None:
+            out["slo"] = self.slo.snapshot()
+        if self.autoscale is not None:
+            out["autoscale"] = self.autoscale.snapshot()
         if engine is None:
             return out
         occ = {}
@@ -540,6 +552,95 @@ class MetricsHub:
                    "Tokens streamed to clients per model (:generate lanes)",
                    [({"model": m}, s["tokens_emitted"]) for m, s in gsnap.items()
                     if s.get("tokens_emitted") is not None])
+        if self.variants is not None:
+            # Selections and degradations per (family, variant), family
+            # sheds, the brownout state and its transitions, and the
+            # selection-time histogram.
+            vh = self.variants
+            fams = vh.snapshot()["families"].items()
+            metric("tpuserve_variant_selections_total", "counter",
+                   "Family-addressed selections per (family, variant)",
+                   [({"family": f, "variant": v}, n)
+                    for f, s in fams for v, n in s["selections"].items()])
+            metric("tpuserve_variant_degraded_total", "counter",
+                   "Selections served below the family's ladder top",
+                   [({"family": f, "variant": v}, n)
+                    for f, s in fams for v, n in s["degraded"].items()])
+            metric("tpuserve_variant_sheds_total", "counter",
+                   "Family-addressed requests shed (no variant satisfied the objective)",
+                   [({"family": f}, s["sheds"]) for f, s in fams if s["sheds"]])
+            metric("tpuserve_variant_brownout_state", "gauge",
+                   "Brownout state per family (0=off, 1=active, 2=forced)",
+                   [({"family": f}, vh.brownout.state_code(f)) for f, _ in fams])
+            metric("tpuserve_variant_brownout_transitions_total", "counter",
+                   "Brownout enter/exit transitions per family",
+                   [({"family": f, "direction": d}, n)
+                    for f, t in vh.brownout.transitions.items() for d, n in t.items() if n])
+            histogram("tpuserve_variant_select_ms", "Variant selection wall time per family (ms)",
+                      [({"family": f}, *live(h)) for f, h in vh.select_hists.items()])
+        if self.slo is not None:
+            # Outcomes, goodput, the fast and slow burn rates with their
+            # alarms, then the usage ledger keyed like the HBM ledger.
+            ssnap = self.slo.snapshot()
+            rows = [(key, lane, s) for key, lanes in ssnap["models"].items()
+                    for lane, s in lanes.items()]
+            metric("tpuserve_slo_requests_total", "counter",
+                   "SLO-classified requests per (model, lane, outcome: "
+                   "good|degraded|late|shed|error)",
+                   [({"model": k, "lane": ln, "outcome": o}, n)
+                    for k, ln, s in rows for o, n in s["outcomes"].items() if n])
+            metric("tpuserve_slo_goodput_ratio", "gauge",
+                   "Lifetime goodput fraction (good+degraded)/total",
+                   [({"model": k, "lane": ln}, s["goodput_ratio"]) for k, ln, s in rows])
+            metric("tpuserve_slo_burn_rate", "gauge",
+                   "Error-budget burn rate per rolling window "
+                   "(bad fraction / budget; 1 = exhausts at the horizon)",
+                   [({"model": k, "lane": ln, "window": w}, s["windows"][w]["burn_rate"])
+                    for k, ln, s in rows for w in ("fast", "slow")])
+            metric("tpuserve_slo_burn_alarm", "gauge",
+                   "1 while a window's burn rate is over its alarm threshold",
+                   [({"model": k, "lane": ln, "window": w}, int(s["windows"][w]["alarm"]))
+                    for k, ln, s in rows for w in ("fast", "slow")])
+            metric("tpuserve_slo_budget_remaining", "gauge",
+                   "max(1 - burn_rate, 0) per rolling window",
+                   [({"model": k, "lane": ln, "window": w}, s["windows"][w]["budget_remaining"])
+                    for k, ln, s in rows for w in ("fast", "slow")])
+            urows = [(dict(zip(("model", "adapter"), (key.split(":", 1) + [""])[:2])), row)
+                     for key, row in ssnap["usage"].items()]
+            metric("tpuserve_usage_requests_total", "counter",
+                   "Requests billed to a tenant's usage ledger row",
+                   [(lbl, row["requests"]) for lbl, row in urows])
+            metric("tpuserve_usage_device_ms_total", "counter",
+                   "Device milliseconds consumed per tenant",
+                   [(lbl, row["device_ms"]) for lbl, row in urows])
+            metric("tpuserve_usage_kv_block_seconds_total", "counter",
+                   "KV page-seconds held per tenant (paged :generate)",
+                   [(lbl, row["kv_block_seconds"]) for lbl, row in urows
+                    if row["kv_block_seconds"]])
+            metric("tpuserve_usage_prefix_saved_tokens_total", "counter",
+                   "Prompt tokens served from frozen prefix pages per tenant "
+                   "(the prefix cache's savings)",
+                   [(lbl, row["prefix_saved_tokens"]) for lbl, row in urows
+                    if row["prefix_saved_tokens"]])
+            metric("tpuserve_usage_adapter_attach_ms_total", "counter",
+                   "Adapter attach wall milliseconds billed per tenant",
+                   [(lbl, row["attach_ms"]) for lbl, row in urows if row["attach_ms"]])
+        if self.autoscale is not None:
+            # The demand forecast, the learned keep-warm window each key
+            # earns, and the pre-warms by cause (predicted or phantom).  The
+            # scale-events family belongs to a fleet router.
+            arows = list(self.autoscale.snapshot()["models"].items())
+            metric("tpuserve_autoscale_forecast_rps", "gauge",
+                   "Short-horizon offered-rate forecast per demand key",
+                   [({"model": k}, m["forecast_rps"]) for k, m in arows])
+            metric("tpuserve_autoscale_keepwarm_window_s", "gauge",
+                   "Learned keep-warm window per demand key (absent while history is thin "
+                   "or the plane is degraded)",
+                   [({"model": k}, m["keepwarm_window_s"]) for k, m in arows])
+            metric("tpuserve_autoscale_prewarm_total", "counter",
+                   "Pre-warm actions fired per (key, cause: predicted|phantom)",
+                   [({"model": k, "cause": c}, n) for k, m in arows
+                    for c, n in m["prewarms_by_cause"].items() if n])
         dsnap = self.jobs.durability_snapshot() if self.jobs is not None else None
         if dsnap is not None:
             metric("tpuserve_journal_records_appended_total", "counter",

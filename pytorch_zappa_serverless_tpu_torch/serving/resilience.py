@@ -1,7 +1,6 @@
 """Request resilience: deadlines, retry, the per-model circuit breaker, stats.
 
-The port's copy of the JAX package's ``serving/resilience.py`` (the
-brownout ladder waits for ``serving/variants.py``).
+The port's copy of the JAX package's ``serving/resilience.py``.
 
 - **Deadlines**: a request may carry one (the client's ``deadline_ms``, the
   model's, the server's default, capped by the server's maximum); checked
@@ -12,6 +11,9 @@ brownout ladder waits for ``serving/variants.py``).
 - **Circuit breaker**: per model, closed → open on an error-rate trip →
   half-open probes; an open breaker fast-fails 503, so a sick model cannot
   take the shared dispatch lane from the others.
+
+- **Brownout**: per variant family, the hysteresis that decides when a
+  family serves its cheaper rungs (``serving/variants.py``).
 
 Everything here is event-loop-confined (no locks): the server and the
 batchers mutate it, and ``/metrics`` reads it from the same loop.
@@ -204,6 +206,99 @@ class ModelResilience:
 
 # Numeric encoding of the Prometheus breaker-state gauge.
 BREAKER_STATE_CODE = {"closed": 0, "half_open": 1, "open": 2}
+
+
+# Numeric encoding for the tpuserve_variant_brownout_state gauge.
+BROWNOUT_STATE_CODE = {"off": 0, "active": 1, "forced": 2}
+
+BROWNOUT_MODES = ("off", "auto", "forced")
+
+
+class BrownoutController:
+    """Per-family brownout state machine.
+
+    Cheap to enter, slow to leave: one selection where the family's
+    preferred rung would shed (its forecast over the latency bound, its
+    breaker open, quarantined) puts the family in brownout, and the
+    selector then serves the cheapest satisfying rung instead of probing
+    the preferred one every request.  Leaving takes ``exit_ticks``
+    pressure-free selections in a row and ``min_hold_s`` elapsed: a forecast
+    that oscillates resets the streak, so the ladder cannot flap at the
+    overload boundary.
+
+    Modes (``ServeConfig.brownout``): ``auto`` as above; ``forced`` keeps
+    every family in brownout; ``off`` never enters, so a preferred rung that
+    cannot serve sheds.  The clock is injectable, so hysteresis tests do not
+    sleep.
+    """
+
+    def __init__(self, mode: str = "auto", exit_ticks: int = 3,
+                 min_hold_s: float = 5.0, clock=time.monotonic):
+        if mode not in BROWNOUT_MODES:
+            raise ValueError(f"brownout must be one of {BROWNOUT_MODES}, got {mode!r}")
+        self.mode = mode
+        self.exit_ticks = max(int(exit_ticks), 1)
+        self.min_hold_s = float(min_hold_s)
+        self._clock = clock
+        self._active: dict[str, bool] = {}  # guarded-by: event-loop
+        self._entered_at: dict[str, float] = {}  # guarded-by: event-loop
+        self._ok_streak: dict[str, int] = {}  # guarded-by: event-loop
+        # family -> {"enter": n, "exit": n}, the transitions counter.
+        self.transitions: dict[str, dict[str, int]] = {}  # guarded-by: event-loop
+
+    def _bump(self, family: str, direction: str):
+        d = self.transitions.setdefault(family, {"enter": 0, "exit": 0})
+        d[direction] += 1
+
+    def active(self, family: str) -> bool:
+        if self.mode == "forced":
+            return True
+        if self.mode == "off":
+            return False
+        return self._active.get(family, False)
+
+    def state_code(self, family: str) -> int:
+        if self.mode == "forced":
+            return BROWNOUT_STATE_CODE["forced"]
+        return BROWNOUT_STATE_CODE["active" if self.active(family) else "off"]
+
+    def observe(self, family: str, preferred_fits: bool) -> bool:
+        """Fold one selection's evidence in; whether the family is in
+        brownout for this selection.  ``preferred_fits`` is the selector's
+        verdict on the family's top rung from the same evidence snapshot
+        the selection uses, so entry and the pick it biases agree."""
+        if self.mode != "auto":
+            return self.active(family)
+        now = self._clock()
+        active = self._active.get(family, False)
+        if not preferred_fits:
+            self._ok_streak[family] = 0
+            if not active:
+                self._active[family] = True
+                self._entered_at[family] = now
+                self._bump(family, "enter")
+                log_event(log, "brownout entered", family=family)
+            return True
+        if not active:
+            return False
+        self._ok_streak[family] = self._ok_streak.get(family, 0) + 1
+        held = now - self._entered_at.get(family, now)
+        if self._ok_streak[family] >= self.exit_ticks and held >= self.min_hold_s:
+            self._active[family] = False
+            self._ok_streak[family] = 0
+            self._bump(family, "exit")
+            log_event(log, "brownout exited", family=family, held_s=round(held, 3))
+            return False
+        return True
+
+    def snapshot(self) -> dict:
+        fams = set(self._active) | set(self.transitions)
+        return {"mode": self.mode,
+                "families": {f: {"active": self.active(f),
+                                 "ok_streak": self._ok_streak.get(f, 0),
+                                 "transitions": dict(self.transitions.get(
+                                     f, {"enter": 0, "exit": 0}))}
+                             for f in sorted(fams)}}
 
 
 class ResilienceHub:

@@ -22,6 +22,9 @@ Routes (the JAX package's, for the port's slices):
   ``POST /debug/trace {"seconds"}`` (the window as a Chrome trace under
   ``trace_dir``): 409 while a capture runs, 400 outside ``seconds`` ∈
   [0.05, 60], 500 if the profiler does not start;
+- ``GET /admin/slo`` (objectives, outcomes, burn rates and the usage
+  ledger, ``serving/slo.py``) and ``GET /admin/autoscale`` (each demand
+  key's fit, keep-warm window and planned action, ``serving/autoscale.py``);
 - ``GET /admin/adapters`` (every tenant's adapter residency) and ``POST
   /admin/adapters/{model}/{adapter}`` with ``{"action": "attach"|"detach"}``:
   404 for an unknown adapter, 409 for a detach of a busy or cold adapter;
@@ -100,6 +103,18 @@ paged ``:generate`` lane (the slot lane answers 400); a ``:submit`` keys its
 job by (model, adapter) and the worker attaches.  Answers carry
 ``X-Adapter``, and each tenant has a latency ring ``{model}:{adapter}``.
 
+Variant families (``serving/variants.py``): a request may address a family
+(``ModelConfig.family``) instead of a deploy, with an objective (the body's
+``objective`` ``{"max_latency_ms", "min_quality", "prefer_cost"}`` or the
+``X-Objective-*`` headers) on ``:predict``, ``:generate`` and ``:submit``.
+The server picks the rung from live evidence, degrades down the ladder
+under pressure (brownout, with hysteresis) before it sheds, and answers
+``X-Served-Variant`` (``X-Degraded: 1`` below the ladder's top; the body's
+``family`` and ``degraded``).  An objective on a deploy is 400.  A shed of a
+family member reports the family's minimum Retry-After.  Every work
+request's arrival feeds the autoscaler's demand model, and its outcome the
+SLO plane (``serving/slo.py``), at the one point where its status is known.
+
 Resilience (``serving/resilience.py``): a ``:predict`` carries a deadline
 (``X-Deadline-Ms``, else the body's top-level ``deadline_ms``, capped by
 ``deadline_max_ms``, else the model's and then the server's default); a
@@ -156,6 +171,7 @@ from ..engine.loader import Engine, build_engine
 from ..utils.logging import current_trace_id, get_logger, log_event
 from . import wire
 from .adapters import AdapterCold, AdapterManager, UnknownAdapter
+from .autoscale import AutoscalePlane
 from .batcher import DynamicBatcher, Overloaded
 from .durability import JobJournal
 from .generation import DraftGate, GenerationScheduler, PagedGenerationScheduler
@@ -166,7 +182,9 @@ from .kvmigrate import (CAUSES, FORMAT_VERSION, MigrationError, MigrationNeedsPa
 from .lifecycle import ColdStart, LifecycleManager
 from .metrics import MetricsHub
 from .resilience import DeadlineExceeded, ResilienceHub, run_with_retry
+from .slo import SLOHub
 from .tracing import Tracer, new_request_id
+from .variants import Objective, VariantHub
 from .watchdog import Watchdog
 
 log = get_logger("serving.server")
@@ -183,6 +201,8 @@ _STREAM_IMPORT = re.compile(r"^/admin/streams/([^/]+)/import$")
 _STREAM_ATTACH = re.compile(r"^/admin/streams/([^/]+)/attach$")
 _ADMIN_ADAPTER = re.compile(r"^/admin/adapters/([^/]+)/([^/]+)$")
 _KINDS = ((":predict", "predict"), (":generate", "generate"), (":submit", "submit"))
+_OBJECTIVE_HEADERS = ("X-Objective-Max-Latency-Ms", "X-Objective-Min-Quality",
+                      "X-Objective-Prefer-Cost")
 
 Response = tuple[int, Any, dict[str, str]]
 # How often a stream that waits for its next token checks that its client
@@ -251,6 +271,42 @@ class _ReqCtx:
 # The work request being handled by the current task (set by _handle_conn).
 _request_ctx: contextvars.ContextVar[_ReqCtx | None] = contextvars.ContextVar(
     "tpuserve_request_ctx", default=None)
+# What admission learned about the current work request, for its later
+# steps and for the SLO observation after its answer: "selection" (a family
+# request's Selection), "family" (the family of a multi-variant deploy, for
+# the shed minima), "adapter" (the tenant's record once its slot is held),
+# "payload" and "extract" (a body the variant resolver decoded early),
+# "deadline_ms" and "objective_ms" (the bound the selection used).
+_request_state: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
+    "tpuserve_request_state", default=None)
+
+
+def _rstate() -> dict:
+    st = _request_state.get()
+    return st if st is not None else {}
+
+
+class _request_scope:
+    """Give a handler called outside the connection loop (a direct call) a
+    request state of its own; inside a request, the loop's state stands."""
+
+    def __enter__(self):
+        self._token = _request_state.set({}) if _request_state.get() is None else None
+
+    def __exit__(self, *exc):
+        if self._token is not None:
+            _request_state.reset(self._token)
+
+
+def _objective_headers(headers: dict[str, str]) -> dict[str, str]:
+    """The ``X-Objective-*`` headers under their names as sent (the
+    connection loop lowercases header names)."""
+    return {h: headers[h.lower()] for h in _OBJECTIVE_HEADERS if h.lower() in headers}
+
+
+def _objective_on_deploy(name: str) -> Response:
+    return _error(400, "objective requires addressing the variant family (or the "
+                       f"X-Objective-* headers), not concrete variant {name!r}")
 
 
 def _error(status: int, msg: str, **extra) -> Response:
@@ -477,6 +533,17 @@ class Server:
         self.adapters = AdapterManager(self, cfg)
         self.metrics.adapters = self.adapters
         self.adapters.prefix_invalidate = self._invalidate_prefix
+        # The tenancy and control planes: family ladders with the selector
+        # and the brownout ladder; per-(key, lane) objectives, burn windows
+        # and the usage ledger; the demand models with their keep-warm
+        # windows and pre-warms.  Always made, so their routes and metric
+        # families exist; ``autoscale: off`` makes every hook a no-op.
+        self.variants = VariantHub(cfg)
+        self.metrics.variants = self.variants
+        self.slo = SLOHub(cfg)
+        self.metrics.slo = self.slo
+        self.autoscale = AutoscalePlane(cfg)
+        self.metrics.autoscale = self.autoscale
         # The stream registry: stream id -> the :generate request behind it,
         # so the export, import and attach routes can address a stream in
         # flight.  Finished streams stay until the cap (oldest dropped
@@ -504,6 +571,8 @@ class Server:
             "/admin/adapters": {"GET": self.handle_admin_adapters},
             "/admin/prefix": {"GET": self.handle_admin_prefix},
             "/admin/streams": {"GET": self.handle_admin_streams},
+            "/admin/slo": {"GET": self.handle_admin_slo},
+            "/admin/autoscale": {"GET": self.handle_admin_autoscale},
             "/admin/trace": {"GET": self.handle_trace_list},
             "/admin/profile": {"POST": self.handle_profile},
             "/debug/trace": {"POST": self.handle_debug_trace},
@@ -545,7 +614,8 @@ class Server:
                 if cm.cfg.kv_cache == "paged":
                     self.schedulers[name] = PagedGenerationScheduler(
                         cm, self.engine.runner, cm.cfg, ring=ring,
-                        draft=self._draft_gate(cm.cfg)).start()
+                        draft=self._draft_gate(cm.cfg),
+                        usage_hook=self._gen_usage_hook(name)).start()
                 else:
                     self.schedulers[name] = GenerationScheduler(
                         cm, self.engine.runner, cm.cfg, ring=ring).start()
@@ -587,7 +657,9 @@ class Server:
 
     def _draft_gate(self, mc) -> DraftGate | None:
         """The speculative draft of one paged lane: ``spec_draft`` names
-        another deploy of this server.  The gate resolves it every tick
+        another deploy of this server, or ``"auto"`` the lowest rung of the
+        model's family ladder (none below it: speculation off).  The gate
+        resolves it every tick
         against the live engine, resilience and lifecycle, so the lane
         decodes plain while the draft is COLD, warming, quarantined or
         mid-rebuild, and marks it busy (the lifecycle's enter and exit, read
@@ -621,14 +693,64 @@ class Server:
 
     def _spec_draft_name(self, model) -> str | None:
         """A model's speculative draft deploy, or None (no draft, an unknown
-        model, or the model itself: ``ModelConfig`` refuses that and
-        "auto")."""
+        model, the model itself, or "auto" in a family with no other rung):
+        "auto" is the family ladder's lowest rung (the ladder is
+        quality-descending).  The autoscaler pre-warms it with its target."""
         try:
             mc = model if not isinstance(model, str) else self.cfg.model(model)
         except KeyError:
             return None
         draft = mc.spec_draft
+        if draft == "auto":
+            below = [m.name for m in self.variants.registry.ladder(mc.family or mc.name)
+                     if m.name != mc.name]
+            if not below:
+                log_event(log, "spec_draft auto found no family sibling; speculation off",
+                          model=mc.name)
+                return None
+            draft = below[-1]
         return draft if draft and draft != mc.name else None
+
+    # -- the autoscaler's actuators and the usage ledger's hooks ------------
+    async def _autoscale_activate(self, name: str, cause: str):
+        """Pre-warm: the lifecycle's single-flight activation."""
+        if self.lifecycle is not None and self.lifecycle.knows(name):
+            await self.lifecycle.ensure_active(name, cause=cause)
+
+    async def _autoscale_attach(self, base: str, adapter: str, cause: str):
+        """Pre-warm of a tenant: the base first (a slot pool needs its base
+        resident), then the adapters' single-flight attach."""
+        if self.lifecycle is not None and self.lifecycle.knows(base):
+            await self.lifecycle.ensure_active(base, cause=cause)
+        await self.adapters.ensure_attached(base, adapter, cause=cause)
+
+    def _autoscale_residency(self, key: str) -> str | None:
+        """The residency of a ``model`` or ``model:adapter`` key."""
+        base, _, adapter = key.partition(":")
+        if adapter:
+            rec = self.adapters.get(base, adapter)
+            return rec.state if rec is not None else None
+        return self.lifecycle.state_of(base) if self.lifecycle is not None else None
+
+    def _autoscale_estimate_ms(self, key: str) -> float:
+        """A key's activation cost: the pre-warm lead's base."""
+        base, _, adapter = key.partition(":")
+        if adapter:
+            rec = self.adapters.get(base, adapter)
+            return self.adapters.estimate_attach_ms(rec) if rec is not None else 0.0
+        if self.lifecycle is not None and self.lifecycle.knows(base):
+            return self.lifecycle.estimate_warm_ms(base)
+        return 0.0
+
+    def _gen_usage_hook(self, name: str):
+        """One paged lane's retire hook: the stream's bill to the usage
+        ledger, its adapter slot resolved back to the tenant's name (the
+        lane knows slots, the ledger tenants)."""
+        def hook(aidx: int, device_ms: float, kv_block_seconds: float, cached_tokens: int):
+            adapter = self.adapters.name_of_slot(name, aidx) if aidx else None
+            self.slo.usage.note_stream(name, adapter, device_ms, kv_block_seconds,
+                                       cached_tokens)
+        return hook
 
     async def start(self, host: str | None = None, port: int | None = None) -> int:
         """Start the lanes, the job queue and the watchdog, and listen;
@@ -653,6 +775,19 @@ class Server:
         # The per-tenant reaper (idle detach, the budget's shed); idle with
         # no adapter configured.
         self.adapters.start()
+        # The autoscaler's actuators are the single-flight paths demand
+        # uses, so a pre-warm and a cold request never race two builds; the
+        # reapers consult its learned windows, their fixed timers the
+        # fallback.
+        self.autoscale.bind(
+            activate_fn=self._autoscale_activate, attach_fn=self._autoscale_attach,
+            draft_of=self._spec_draft_name, residency_fn=self._autoscale_residency,
+            estimate_warm_ms_fn=self._autoscale_estimate_ms,
+            resident_bytes_fn=lambda: sum(self.engine.runner.resident_bytes().values()),
+            faults=self.engine.runner.faults, model_names=[mc.name for mc in self.cfg.models])
+        self.lifecycle.keepwarm_fn = self.autoscale.keepwarm_window_s
+        self.adapters.keepwarm_fn = self.autoscale.keepwarm_window_s
+        self.autoscale.start()
         self.metrics.generation = lambda: {n: s.gen_snapshot()
                                            for n, s in self.schedulers.items()}
         journal = None
@@ -695,6 +830,7 @@ class Server:
             self._server = None
         if self.watchdog is not None:
             await self.watchdog.stop()
+        await self.autoscale.stop()
         if self.lifecycle is not None:
             await self.lifecycle.stop()
         await self.adapters.stop()
@@ -730,6 +866,11 @@ class Server:
                 # the request id only.
                 ctx = self._open_ctx(headers, path, t_read) if work else None
                 token = _request_ctx.set(ctx)
+                stoken = _request_state.set({} if work else None)
+                if ctx is not None:
+                    # The demand journal: every work arrival, served, shed
+                    # or drained, is demand the forecaster should see.
+                    self.autoscale.note_arrival(ctx.model)
                 status = 500
                 try:
                     if work and self.draining:
@@ -757,6 +898,11 @@ class Server:
                     finally:
                         self._inflight -= int(work)
                 finally:
+                    if ctx is not None:
+                        # Before close: close turns the root to error for
+                        # every 4xx, and a client's mistake must not count.
+                        self._observe_slo(ctx, status)
+                    _request_state.reset(stoken)
                     _request_ctx.reset(token)
                     if ctx is not None:
                         ctx.close(status)
@@ -768,6 +914,31 @@ class Server:
             self._conns.discard(writer)
             self._handlers.discard(asyncio.current_task())
             writer.close()
+
+    def _observe_slo(self, ctx: _ReqCtx, status: int) -> None:
+        """The SLO plane's one classification point: every work request
+        leaves through here once its answer (a stream's last event
+        included) is written, on every shed, degrade and error path.  A
+        stream that fails after its 200 counts as an error by its root
+        span's status.  The tenant's arrival feeds the per-tenant demand
+        model here too (the adapter is known only after admission).
+        Accounting never fails a request."""
+        try:
+            st = _rstate()
+            sel = st.get("selection")
+            model = sel.variant if sel is not None and sel.variant else ctx.model
+            if model is None:
+                return
+            arec = st.get("adapter")
+            if arec is not None:
+                self.autoscale.note_arrival(model, adapter=arec.name)
+            wall_ms = (time.perf_counter() - ctx.span.t0) * 1000.0
+            self.slo.observe(model, ctx.kind, status, wall_ms,
+                             degraded=bool(sel is not None and sel.degraded),
+                             adapter=arec.name if arec is not None else None,
+                             errored=ctx.span.status == "error")
+        except Exception:
+            log.exception("slo observation failed")
 
     def _open_ctx(self, headers: dict[str, str], path: str, start: float) -> _ReqCtx:
         kind = next((k for suffix, k in _KINDS if path.endswith(suffix)), "predict")
@@ -789,7 +960,17 @@ class Server:
         become ``{"instances": [...]}``), never sniffed as JSON; anything
         else goes through :func:`_decode_body`.  Raises
         :class:`wire.FrameError` (400; :class:`wire.FrameTooLarge` 413) or
-        :class:`_BinaryLaneDisabled` (415), for :func:`_payload_error`."""
+        :class:`_BinaryLaneDisabled` (415), for :func:`_payload_error`.  A
+        body the variant resolver already decoded is answered from its
+        stash, with the fields it popped (but ``objective``, the
+        resolver's)."""
+        st = _rstate()
+        if "payload" in st:
+            if extract is not None:
+                for k in extract:
+                    if k != "objective" and st["extract"].get(k) is not None:
+                        extract[k] = st["extract"][k]
+            return st["payload"]
         if _content_type(headers) != wire.TENSOR_CONTENT_TYPE:
             return _decode_body(body, headers, extract)
         if not self.cfg.binary_lane:
@@ -937,6 +1118,9 @@ class Server:
                and (d := self.jobs.durability_snapshot()) is not None else {}),
             # A cold model is not a health problem: it activates on demand.
             "residency": self._registered_models(),
+            # Burn-rate state: the alarmed keys and the worst burn of each
+            # window.  An alarm is evidence, not ill health: no flip.
+            "slo": self.slo.health_summary(),
         }, {}
 
     async def handle_metrics(self, body: bytes, headers=None, query: str = "") -> Response:
@@ -1096,9 +1280,16 @@ class Server:
         return dict(sorted(out.items()))
 
     def _unknown_model(self, name: str) -> Response:
+        """404 naming every model with its residency, and each family's
+        ladder (rank and residency, best first): how to address it without
+        a deploy name."""
         models = self._registered_models()
+        reg = self.variants.registry
+        families = {fam: [{"variant": mc.name, "quality_rank": mc.quality_rank,
+                           "residency": models.get(mc.name, "cold")} for mc in reg.ladder(fam)]
+                    for fam in reg.families()}
         return _error(404, f"model {name!r} not served; available: {sorted(models)}",
-                      models=models)
+                      models=models, families=families)
 
     async def _residency_gate(self, name: str, headers: dict[str, str]) -> Response | None:
         """Cold admission for a model that is not resident: None once it is
@@ -1114,9 +1305,18 @@ class Server:
             deadline_ms = self._deadline_ms(headers, None, self.cfg.model(name))
         except (ValueError, KeyError) as e:
             return _error(400, str(e))
+        ctx = _request_ctx.get()
+        t0 = time.perf_counter()
         try:
             await lc.ensure_active(name, deadline_ms=deadline_ms, cause="request")
+            waited_ms = (time.perf_counter() - t0) * 1000.0
+            if ctx is not None and waited_ms >= 1.0:
+                # The request waited for the model's activation: a cold
+                # arrival, where a pre-warm would have left none.
+                ctx.span.point("activation_wait", waited_ms=round(waited_ms, 1))
         except ColdStart as e:
+            if ctx is not None:
+                ctx.span.point("cold_start", estimated_warm_ms=round(e.estimated_warm_ms, 1))
             return _error_retry(503, str(e), e.retry_after_s, cold_start=True,
                                 estimated_warm_ms=round(e.estimated_warm_ms, 1))
         except Exception as e:
@@ -1127,26 +1327,129 @@ class Server:
         return None
 
     def _overloaded(self, e: Overloaded, batcher: DynamicBatcher) -> Response:
-        return _error_retry(429, str(e), e.retry_after_s,
-                            queue_depth=batcher.queue_depth,
-                            in_flight=batcher.in_flight)
+        extra: dict[str, Any] = {"queue_depth": batcher.queue_depth,
+                                 "in_flight": batcher.in_flight}
+        retry_s = self._family_floor(e.retry_after_s, extra, wait="set")
+        return _error_retry(429, str(e), retry_s, **extra)
 
     def _unavailable(self, name: str) -> Response | None:
         """503 + Retry-After for a quarantined model or an open breaker,
         before any decode work: while the circuit is open a sick model costs
         its callers no dispatch-lane time and the other models keep serving."""
         if name in self.resilience.quarantined:
+            extra: dict[str, Any] = {"quarantined": True}
+            retry_s = self._family_floor(self.cfg.recover_backoff_s or 1.0, extra)
             return _error_retry(503, f"model {name!r} is quarantined while the engine "
-                                     "recovers", self.cfg.recover_backoff_s or 1.0,
-                                quarantined=True)
+                                     "recovers", retry_s, **extra)
         mr = self.resilience.model(name)
         if mr.breaker is not None and not mr.breaker.allow():
             mr.stats.breaker_fast_fails += 1
+            extra = {"breaker": mr.breaker.state}
+            retry_s = self._family_floor(mr.breaker.retry_after_s(), extra)
             return _error_retry(503, f"model {name!r} circuit breaker is {mr.breaker.state} "
                                      f"(recent error rate {mr.breaker.error_rate():.0%}); "
-                                     "failing fast", mr.breaker.retry_after_s(),
-                                breaker=mr.breaker.state)
+                                     "failing fast", retry_s, **extra)
         return None
+
+    def _family_floor(self, retry_s: float, extra: dict, wait: str = "") -> float:
+        """A shed of a family member: its Retry-After capped by the family's
+        minimum (a sibling may serve sooner), ``family`` in ``extra``, and
+        with ``wait`` the family's minimum queue wait as
+        ``estimated_wait_ms`` ("set") or the smaller of it and the one in
+        ``extra`` ("min").  A request with no multi-variant family keeps
+        ``retry_s``."""
+        fam = _rstate().get("family")
+        if fam is None:
+            return retry_s
+        floor_s, floor_ms = self.variants.family_floor(self, fam)
+        extra["family"] = fam
+        if wait and floor_ms is not None:
+            extra["estimated_wait_ms"] = (min(extra["estimated_wait_ms"], floor_ms)
+                                          if wait == "min" else floor_ms)
+        return min(retry_s, floor_s)
+
+    def _resolve_variant(self, name: str, body: bytes,
+                         headers: dict[str, str]) -> tuple[str, Response | None]:
+        """Family-addressed admission: (the deploy to serve, or an error).
+
+        A request is family-addressed when its name is a family that is not
+        itself a deploy, or when it states an objective in the
+        ``X-Objective-*`` headers (a body objective rides a family name).
+        Any other request passes as it is; a deploy of a multi-variant
+        family remembers the family for the shed minima.  A family request
+        has its body decoded here (it may carry the objective; the later
+        steps read the stash), its objective parsed, its bound computed
+        once, and the selection run (evidence, brownout, select), with a
+        ``variant_select`` point on its trace.  No satisfying variant sheds
+        with the family's minimum evidence: 503 when every rung is blocked,
+        else 429."""
+        reg = self.variants.registry
+        st = _rstate()
+        family_only = reg.is_family(name) and not reg.is_model(name)
+        if not family_only and not any(h.lower() in headers for h in _OBJECTIVE_HEADERS):
+            fam = reg.family_of(name)
+            if fam is not None and len(reg.ladder(fam)) > 1:
+                st["family"] = fam
+            return name, None
+        fam = name if family_only else reg.family_of(name)
+        if fam is None:
+            return name, self._unknown_model(name)
+        extract = {"objective": None, "idempotency_key": None,
+                   **(self._adapter_extract() or {})}
+        try:
+            payload = self._payload(body, headers, extract)
+        except (ValueError, TypeError, UnicodeDecodeError, _BinaryLaneDisabled) as e:
+            return name, _payload_error(e)
+        st["payload"], st["extract"] = payload, extract
+        try:
+            objective = Objective.parse(_objective_headers(headers), extract["objective"])
+        except ValueError as e:
+            return name, _error(400, str(e))
+        if objective.max_latency_ms is not None:
+            st["objective_ms"] = objective.max_latency_ms
+        try:
+            deadline_ms = self._deadline_ms(headers, payload, reg.ladder(fam)[0])
+        except ValueError as e:
+            return name, _error(400, str(e))
+        st["deadline_ms"] = deadline_ms
+        bounds = [b for b in (objective.max_latency_ms, deadline_ms) if b is not None and b > 0]
+        sel = self.variants.resolve(self, fam, objective, min(bounds) if bounds else None)
+        ctx = _request_ctx.get()
+        if ctx is not None:
+            ctx.span.point("variant_select", family=fam, variant=sel.variant,
+                           degraded=sel.degraded, brownout=sel.brownout,
+                           **({"shed": sel.shed_reason} if sel.shed_reason else {}),
+                           candidates=sel.candidates)
+        if sel.variant is None:
+            extra: dict[str, Any] = {"family": fam, "variant_shed": sel.shed_reason,
+                                     "candidates": sel.candidates}
+            if sel.estimated_wait_ms is not None:
+                extra["estimated_wait_ms"] = sel.estimated_wait_ms
+            if sel.estimated_warm_ms is not None:
+                extra["estimated_warm_ms"] = sel.estimated_warm_ms
+            return name, _error_retry(503 if sel.shed_reason == "all_blocked" else 429,
+                                      f"no variant of family {fam!r} satisfies the objective "
+                                      f"({sel.shed_reason}); shedding", sel.retry_after_s,
+                                      **extra)
+        st["selection"], st["family"] = sel, fam
+        if ctx is not None:
+            ctx.span.annotate(variant=sel.variant, family=fam)
+        return sel.variant, None
+
+    @staticmethod
+    def _served_variant(name: str, heads: dict[str, str], out: dict | None = None) -> None:
+        """A family request's served-variant evidence: ``X-Served-Variant``
+        (and ``X-Degraded: 1`` below the ladder's top), and in ``out`` the
+        family and whether the serve was degraded."""
+        sel = _rstate().get("selection")
+        if sel is None:
+            return
+        heads["X-Served-Variant"] = name
+        if sel.degraded:
+            heads["X-Degraded"] = "1"
+        if out is not None:
+            out["family"] = sel.family
+            out["degraded"] = sel.degraded
 
     def _deadline_ms(self, headers: dict[str, str], payload: Any, mc) -> float | None:
         """The request's deadline in ms, or None: the client's (the
@@ -1154,10 +1457,18 @@ class Server:
         popped so preprocess never sees it) capped by ``deadline_max_ms``;
         else the model's ``deadline_ms``, else ``deadline_default_ms``.  A
         client value <= 0 is returned as it is, for the admission check to
-        504.  ValueError on junk."""
+        504.  A family request's objective ``max_latency_ms`` stands in for
+        a client deadline (an overrun answers 504 rather than break the
+        objective), and its bound, computed once by the variant resolver,
+        is the one every later step reads.  ValueError on junk."""
+        st = _rstate()
+        if "deadline_ms" in st:
+            return st["deadline_ms"]
         raw = headers.get("x-deadline-ms")
         if raw is None and isinstance(payload, dict):
             raw = payload.pop("deadline_ms", None)
+        if raw is None:
+            raw = st.get("objective_ms")
         if raw is not None:
             try:
                 ms = float(raw)
@@ -1271,6 +1582,14 @@ class Server:
         return None, payload
 
     async def _predict(self, name: str, body: bytes, headers: dict[str, str]) -> Response:
+        with _request_scope():
+            name, refused = self._resolve_variant(name, body, headers)
+            if refused is not None:
+                return refused
+            return await self._predict_resident(name, body, headers)
+
+    async def _predict_resident(self, name: str, body: bytes,
+                                headers: dict[str, str]) -> Response:
         if name not in self.engine.models:
             refused = await self._residency_gate(name, headers)
             if refused is not None:
@@ -1305,11 +1624,15 @@ class Server:
         # stage chain (admission → queue → device → respond) tiles the
         # request's wall time.
         adm = ctx.span.child("admission", start=ctx.span.t0) if ctx is not None else None
-        extract = self._adapter_extract()
+        extract = {"objective": None, **(self._adapter_extract() or {})}
         try:
             payload = self._payload(body, headers, extract)
         except (ValueError, TypeError, _BinaryLaneDisabled) as e:
             return _payload_error(e)
+        if extract["objective"] is not None:
+            # Selection happens at the family: an objective sent to a deploy
+            # would be ignored in silence, so it is refused.
+            return _objective_on_deploy(name)
         cm = batcher.model
         try:
             deadline_ms = self._deadline_ms(headers, payload, cm.cfg)
@@ -1334,6 +1657,7 @@ class Server:
             refused = await self._adapter_gate(name, arec, deadline_ms)
             if refused is not None:
                 return refused
+            _rstate()["adapter"] = arec
             # The slot cannot be detached or evicted while this request is in.
             self.adapters.enter(arec)
         try:
@@ -1356,10 +1680,12 @@ class Server:
                 est_ms = batcher.estimate_wait_ms(len(instances) if instances is not None else 1)
                 if est_ms > deadline_ms:
                     mr.stats.shed_predicted += 1
+                    extra: dict[str, Any] = {"estimated_wait_ms": round(est_ms, 1),
+                                             "queue_depth": batcher.queue_depth}
+                    retry_s = self._family_floor(est_ms / 1000.0, extra, wait="min")
                     return _error_retry(429, f"estimated queue wait {est_ms:.0f} ms exceeds "
                                              f"deadline {deadline_ms:.0f} ms; shedding",
-                                        est_ms / 1000.0, estimated_wait_ms=round(est_ms, 1),
-                                        queue_depth=batcher.queue_depth)
+                                        retry_s, **extra)
             meta = cm.servable.meta
             payloads = instances if instances is not None else [payload]
             ignored = meta.get("predict_ignores_sampling", ())
@@ -1431,6 +1757,8 @@ class Server:
             # answer's encode.
             rsp = ctx.span.child("respond", start=t_done) if ctx is not None else None
             out_meta = {"model": name, "timing": timing}
+            heads = {"X-Queue-Ms": str(timing["queue_ms"]), "X-Device-Ms": str(timing["device_ms"])}
+            self._served_variant(name, heads, out_meta)
             answer: Any
             if (ctx is not None and ctx.binary
                     and "application/json" not in headers.get("accept", "")):
@@ -1445,9 +1773,12 @@ class Server:
                 answer = {**out_meta, "predictions": result}
             if rsp is not None:
                 rsp.end()
-            heads = {"X-Queue-Ms": str(timing["queue_ms"]), "X-Device-Ms": str(timing["device_ms"])}
             if arec is not None:
                 self._adapter_served(name, arec, heads, timing)
+            # The usage ledger: the device time this request spent, billed
+            # to its tenant.
+            self.slo.usage.note_request(name, arec.name if arec is not None else None,
+                                        timing["device_ms"])
             return 200, answer, heads
         finally:
             if arec is not None:
@@ -1461,6 +1792,14 @@ class Server:
         "stream"}`` (Whisper: the audio bodies of ``:predict``).  The request
         joins its model's pool at once; ``stream`` (default true) answers
         ``text/event-stream``, else one JSON body once it is done."""
+        with _request_scope():
+            name, refused = self._resolve_variant(name, body, headers)
+            if refused is not None:
+                return refused
+            return await self._generate_resident(name, body, headers, reader)
+
+    async def _generate_resident(self, name: str, body: bytes, headers: dict[str, str],
+                                 reader: asyncio.StreamReader | None) -> Response:
         sched = self.schedulers.get(name)
         if sched is None and name not in self.engine.models:
             # Not resident: activation starts the generation lane.
@@ -1486,11 +1825,13 @@ class Server:
                                  reader: asyncio.StreamReader | None) -> Response:
         ctx = _request_ctx.get()
         adm = ctx.span.child("admission", start=ctx.span.t0) if ctx is not None else None
-        extract = self._adapter_extract()
+        extract = {"objective": None, **(self._adapter_extract() or {})}
         try:
             payload = self._payload(body, headers, extract)
         except (ValueError, TypeError, _BinaryLaneDisabled) as e:
             return _payload_error(e)
+        if extract["objective"] is not None:
+            return _objective_on_deploy(name)
         arec, aerr = self._adapter_of(name, headers, payload, extract)
         if aerr is not None:
             return aerr
@@ -1507,6 +1848,7 @@ class Server:
             refused = await self._adapter_gate(name, arec, deadline_ms)
             if refused is not None:
                 return refused
+            _rstate()["adapter"] = arec
             # Held for the stream's life: its slot is not detached under it.
             self.adapters.enter(arec)
         try:
@@ -1565,15 +1907,20 @@ class Server:
         try:
             gen = sched.submit(sample, max_new, span=ctx.span if ctx is not None else None)
         except KVPoolExhausted as e:
-            return _error_retry(429, str(e), e.retry_after_s, kv_blocks_free=e.free_blocks,
-                                kv_blocks_needed=e.needed_blocks,
-                                estimated_wait_ms=round(e.retry_after_s * 1000, 1))
+            extra: dict[str, Any] = {"kv_blocks_free": e.free_blocks,
+                                     "kv_blocks_needed": e.needed_blocks,
+                                     "estimated_wait_ms": round(e.retry_after_s * 1000, 1)}
+            return _error_retry(429, str(e), self._family_floor(e.retry_after_s, extra),
+                                **extra)
         except OverflowError as e:
-            return _error_retry(429, str(e), 1.0, backlog=sched.depth, active=sched.active)
+            extra = {"backlog": sched.depth, "active": sched.active}
+            return _error_retry(429, str(e), self._family_floor(1.0, extra, wait="set"),
+                                **extra)
         except ValueError as e:  # over-length prompt, checked at submit
             return _error(400, str(e))
         except RuntimeError as e:  # the lane is stopped
-            return _error_retry(503, str(e), 1.0)
+            extra = {}
+            return _error_retry(503, str(e), self._family_floor(1.0, extra), **extra)
         if adm is not None:
             adm.end()
         # The stream is named by its request id (the client's X-Request-Id
@@ -1582,6 +1929,7 @@ class Server:
         stream_id = ctx.request_id if ctx is not None else new_request_id()
         self._register_stream(stream_id, name, sched, gen, imported=False)
         heads = {"X-Stream-Id": stream_id}
+        self._served_variant(name, heads)
         if arec is not None:
             self._adapter_served(name, arec, heads)
         draft = getattr(sched, "spec_draft_name", None)
@@ -1624,7 +1972,9 @@ class Server:
                 return (*_error(500, f"generation failed: {e}"), gen)
             out = final_body(tokens)
             out.pop("done")
-            return 200, {"model": name, "predictions": out}, heads, gen
+            answer = {"model": name, "predictions": out}
+            self._served_variant(name, {}, answer)
+            return 200, answer, heads, gen
 
         async def events(reader):
             while True:
@@ -1672,6 +2022,14 @@ class Server:
         this process's or one the journal replayed, answers that job
         (``"deduped": true``) before any work.  A multi-instance tensor
         frame is 400: a job runs one payload."""
+        with _request_scope():
+            name, refused = self._resolve_variant(name, body, headers)
+            if refused is not None:
+                return refused
+            return await self._submit_resolved(name, body, headers)
+
+    async def _submit_resolved(self, name: str, body: bytes,
+                               headers: dict[str, str]) -> Response:
         ctx = _request_ctx.get()
         adm = ctx.span.child("admission", start=ctx.span.t0) if ctx is not None else None
         lc = self.lifecycle
@@ -1692,11 +2050,14 @@ class Server:
         refused = self._unavailable(name)
         if refused is not None:
             return refused
-        extract: dict[str, Any] = {"idempotency_key": None, **(self._adapter_extract() or {})}
+        extract: dict[str, Any] = {"idempotency_key": None, "objective": None,
+                                   **(self._adapter_extract() or {})}
         try:
             payload = self._payload(body, headers, extract)
         except (ValueError, TypeError, UnicodeDecodeError, _BinaryLaneDisabled) as e:
             return _payload_error(e)
+        if extract["objective"] is not None:
+            return _objective_on_deploy(name)
         # The tenant: the job is keyed (model, adapter) by a wrapper, so the
         # journal replays it onto its tenant and the worker attaches then.
         arec, aerr = self._adapter_of(name, headers, payload, extract)
@@ -1725,8 +2086,9 @@ class Server:
                                    span=ctx.span if ctx is not None else None,
                                    request_id=ctx.request_id if ctx is not None else None)
         except OverflowError as e:
-            return _error_retry(429, str(e), 1.0, backlog=self.jobs.depths.get(name, 0),
-                                max_backlog=self.jobs.max_backlog)
+            extra: dict[str, Any] = {"backlog": self.jobs.depths.get(name, 0),
+                                     "max_backlog": self.jobs.max_backlog}
+            return _error_retry(429, str(e), self._family_floor(1.0, extra), **extra)
         except RuntimeError as e:
             # Shut down: the client should go elsewhere, with an honest
             # horizon for probing this process again.
@@ -1736,9 +2098,13 @@ class Server:
             # run, device and journal spans and finishes it at the job's
             # terminal state, so /admin/trace/{id} shows submit → done.
             ctx.detach()
+        ack: dict[str, Any] = {"job": job.public()}
+        heads: dict[str, str] = {}
+        self._served_variant(name, heads, ack)
         if arec is not None:
-            return 202, {"job": job.public(), "adapter": arec.name}, {"X-Adapter": arec.name}
-        return 202, {"job": job.public()}, {}
+            ack["adapter"] = arec.name
+            heads["X-Adapter"] = arec.name
+        return 202, ack, heads
 
     @staticmethod
     def _deduped(prior, ctx: _ReqCtx | None) -> Response:
@@ -1974,6 +2340,7 @@ class Server:
             # /metrics and the store's chaos hook follow the fresh injector
             # (the old one's rules and counters went with its runner).
             self.metrics.faults = new.runner.faults
+            self.autoscale.faults = new.runner.faults
             if self.ckpt_store is not None:
                 self.ckpt_store.faults = new.runner.faults
             for name in set(self.batchers) | set(self.schedulers):
@@ -2127,6 +2494,19 @@ class Server:
             log.exception("admin lifecycle action %s failed for %s", action, name)
             return _error(503, f"{action} failed for {name!r}: {type(e).__name__}: {e}")
         return 200, {"action": action, "model": {"name": name, **lc.model_snapshot(name)}}, {}
+
+    # -- admin: the SLO plane and the autoscaler ----------------------------
+    async def handle_admin_slo(self, body: bytes, headers=None, query: str = "") -> Response:
+        """``GET /admin/slo``: objectives, outcome counts, goodput, the fast
+        and slow burn windows with their alarms, and the usage ledger."""
+        return 200, self.slo.snapshot(), {}
+
+    async def handle_admin_autoscale(self, body: bytes, headers=None,
+                                     query: str = "") -> Response:
+        """``GET /admin/autoscale``: the plane's mode (and whether it has
+        degraded to reactive), its counters and knobs, and each demand
+        key's fit, learned keep-warm window and planned action."""
+        return 200, self.autoscale.snapshot(), {}
 
     # -- admin: multi-tenant adapters ------------------------------------------
     async def handle_admin_adapters(self, body: bytes, headers=None, query: str = "") -> Response:

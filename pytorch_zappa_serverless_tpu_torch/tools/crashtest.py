@@ -29,8 +29,10 @@ and the job seconds.  The port has no persistent compile cache, so the
 restart builds (and on CUDA captures) from scratch.  Every wait has a
 timeout, and whatever process is still alive at the end is killed.
 
-``--platform cpu`` (the default) serves ResNet-18 at 64 px; ``--model
-sd15`` serves SD-1.5 txt2img at 512x512, 20 DDIM steps (for the card).
+It runs on the card unless asked for the CPU: ``--platform cuda`` (the
+default) raises at once where CUDA is not available, never serving on the
+CPU in its place; ``--platform cpu`` asks for the CPU.  ResNet-18 serves at
+64 px; ``--model sd15`` serves SD-1.5 txt2img at 512x512, 20 DDIM steps.
 """
 
 from __future__ import annotations
@@ -164,10 +166,16 @@ def _wait_done(base: str, ids: dict[str, str], timeout_s: float) -> dict[str, di
 
 
 def run_crashtest(workdir: str | Path, n_jobs: int = 6, model: str = "resnet18",
-                  platform: str = "cpu", latency_ms: float = 600.0,
+                  platform: str = "cuda", latency_ms: float = 600.0,
                   boot_timeout_s: float = 300.0, finish_timeout_s: float = 120.0) -> dict:
     """Run the kill -9 scenario; returns the evidence dict.  Raises
-    AssertionError on any acknowledged job lost or run twice."""
+    AssertionError on any acknowledged job lost or run twice, and
+    RuntimeError for ``platform="cuda"`` without CUDA (the servers would
+    refuse to boot)."""
+    if platform == "cuda":
+        from ..engine.loader import resolve_device
+
+        resolve_device("cuda")
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     port = _free_port()
@@ -248,7 +256,7 @@ def run_crashtest(workdir: str | Path, n_jobs: int = 6, model: str = "resnet18",
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workdir", required=True)
-    ap.add_argument("--platform", choices=("cpu", "cuda"), default="cpu")
+    ap.add_argument("--platform", choices=("cpu", "cuda"), default="cuda")
     ap.add_argument("--model", choices=sorted(MODELS), default="resnet18")
     ap.add_argument("--jobs", type=int, default=6)
     ap.add_argument("--latency-ms", type=float, default=600.0)

@@ -18,7 +18,7 @@ from pytorch_zappa_serverless_tpu_torch.utils.registry import list_models
 
 # Structured fields are file-only in both packages.
 SHARED = [f.name for f in dataclasses.fields(PC.ServeConfig)
-          if f.name not in ("models", "faults")]
+          if f.name not in ("models", "faults", "slo")]
 # One value per field, as an operator would write it in the environment.
 ENV_VALUES = {"profile": "prod", "host": "0.0.0.0", "port": "9123",
               "warmup_at_boot": "false", "priority_dispatch": "0",
@@ -39,7 +39,15 @@ ENV_VALUES = {"profile": "prod", "host": "0.0.0.0", "port": "9123",
               "journal_dir": "/srv/tpuserve/journal", "journal_fsync": "interval",
               "trace_ring": "64", "trace_flight_slow": "2", "trace_flight_errors": "5",
               "trace_max_spans": "128", "trace_dir": "/srv/tpuserve/traces",
-              "binary_lane": "false", "tensor_max_bytes": "4096"}
+              "binary_lane": "false", "tensor_max_bytes": "4096",
+              "autoscale": "histogram", "autoscale_tick_s": "0.5", "keepwarm_quantile": "0.9",
+              "keepwarm_min_s": "2", "keepwarm_max_s": "120", "autoscale_min_history": "4",
+              "prewarm_margin_s": "0.5", "autoscale_mispredict_limit": "2",
+              "autoscale_reactive_hold_s": "10", "brownout": "forced",
+              "brownout_exit_ticks": "5", "brownout_min_hold_s": "2.5",
+              "slo_latency_objective_ms": "250", "slo_availability_target": "0.99",
+              "slo_fast_window_s": "60", "slo_slow_window_s": "600",
+              "slo_fast_burn_alarm": "10", "slo_slow_burn_alarm": "3"}
 
 
 def _env(name):
@@ -167,12 +175,40 @@ def test_profile_loads_the_generate_fields_as_the_reference(tmp_path, values):
         assert getattr(got, field) == value
 
 
-@pytest.mark.parametrize("over,match", [({"spec_draft": "auto"}, "variants.py"),
+@pytest.mark.parametrize("over,match", [({"spec_draft": "auto"}, "paged lane"),
                                         ({"kv_cache": "blocks"}, "'slot' or 'paged'")])
 def test_generate_fields_the_port_refuses(over, match):
+    """The reference's config takes these; the port refuses at load what
+    its server would refuse at boot: speculation, "auto" included, off the
+    paged lane, and an unknown KV engine."""
     JC.ModelConfig(name="gpt2", **over)  # the reference takes them
     with pytest.raises(ValueError, match=match):
         PC.ModelConfig(name="gpt2", **over)
+
+
+def test_spec_draft_auto_loads_as_the_reference_and_names_the_lowest_rung(tmp_path):
+    """``spec_draft: "auto"`` with the variant fields loads to the same
+    values in both packages, and the family ladder's lowest rung is the
+    draft it resolves to, in both."""
+    from pytorch_zappa_serverless_tpu.serving import variants as JV
+    from pytorch_zappa_serverless_tpu_torch.serving import variants as PV
+
+    models = [{"name": "gpt2_bf16", "family": "gpt2x", "quality_rank": 2, "cost_hint_ms": 30.5,
+               "kv_cache": "paged", "spec_draft": "auto"},
+              {"name": "gpt2_int8", "builder": "gpt2", "family": "gpt2x", "quality_rank": 1,
+               "kv_cache": "paged"},
+              {"name": "gpt2_mid", "builder": "gpt2", "family": "gpt2x", "quality_rank": 1}]
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({"models": models}))
+    got, want = PC.load_config(path), JC.load_config(path)
+    for g, w in zip(got.models, want.models, strict=True):
+        for field in ("family", "quality_rank", "cost_hint_ms", "spec_draft", "builder"):
+            assert getattr(g, field) == getattr(w, field), field
+    assert got.models[0].spec_draft == "auto"
+    rungs = [[m.name for m in R(cfg.models).ladder("gpt2x")]
+             for R, cfg in ((PV.FamilyRegistry, got), (JV.FamilyRegistry, want))]
+    assert rungs[0] == rungs[1] == ["gpt2_bf16", "gpt2_int8", "gpt2_mid"]
+    assert rungs[0][-1] == "gpt2_mid"  # quality-descending, name-tied
 
 
 @pytest.mark.parametrize("over", [
@@ -267,3 +303,34 @@ def test_profiler_port_is_refused_by_name(tmp_path):
     assert JC.load_config(path).profiler_port == 9012
     with pytest.raises(ValueError, match="profiler_port"):
         PC.load_config(path)
+
+
+PLANES = {"brownout": "forced", "brownout_exit_ticks": 4, "brownout_min_hold_s": 1.5,
+          "slo": {"gpt2x": {"latency_objective_ms": 250.0}, "gpt2:t0": {"availability_target": 0.99}},
+          "slo_latency_objective_ms": 500.0, "slo_availability_target": 0.995,
+          "slo_fast_window_s": 30.0, "slo_slow_window_s": 300.0, "slo_fast_burn_alarm": 7.0,
+          "slo_slow_burn_alarm": 2.0, "autoscale": "histogram", "autoscale_tick_s": 0.25,
+          "keepwarm_quantile": 0.9, "keepwarm_min_s": 0.5, "keepwarm_max_s": 60.0,
+          "autoscale_min_history": 3, "prewarm_margin_s": 0.25,
+          "autoscale_mispredict_limit": 2, "autoscale_reactive_hold_s": 8.0}
+
+
+def test_profile_loads_the_tenancy_and_control_plane_fields_as_the_reference(tmp_path):
+    """The 19 fields of the variant, SLO and autoscale planes, and the
+    variant fields of a model, load to the same values in both packages;
+    left out, both take the reference's defaults."""
+    models = [{"name": "gpt2", "family": "gpt2x", "quality_rank": 3, "cost_hint_ms": 12.5}]
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({**PLANES, "models": models}))
+    got, want = PC.load_config(path), JC.load_config(path)
+    assert len(PLANES) == 19
+    for field, value in PLANES.items():
+        assert getattr(got, field) == getattr(want, field) == value, field
+    for field in ("family", "quality_rank", "cost_hint_ms"):
+        assert getattr(got.models[0], field) == getattr(want.models[0], field)
+    path.write_text(json.dumps({"models": [{"name": "gpt2"}]}))
+    got, want = PC.load_config(path), JC.load_config(path)
+    for field in PLANES:
+        assert getattr(got, field) == getattr(want, field), field
+    assert (got.models[0].family, got.models[0].quality_rank,
+            got.models[0].cost_hint_ms) == ("", 0, 0.0)

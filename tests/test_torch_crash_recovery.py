@@ -30,3 +30,25 @@ def test_kill9_midbacklog_loses_no_acknowledged_jobs(tmp_path):
     # A recovered job's result equals the same payload run fresh.
     assert out["fresh_equal"] is True
     assert out["boot_ready_s"] > 0 and out["restart_ready_s"] > 0
+
+
+def test_crashtest_defaults_to_the_card_and_raises_without_one(tmp_path, monkeypatch):
+    """Like every entry point of the port, the harness runs on the card
+    unless asked for the CPU: its default platform is ``cuda`` (the
+    function's and the command line's), and without CUDA it raises before
+    it writes or starts anything, rather than serving on the CPU."""
+    import inspect
+
+    import pytest
+    import torch
+
+    assert inspect.signature(crashtest.run_crashtest).parameters["platform"].default == "cuda"
+    seen = {}
+    monkeypatch.setattr(crashtest, "run_crashtest", lambda workdir, **kw: seen.update(kw) or {})
+    crashtest.main(["--workdir", str(tmp_path / "cli")])
+    assert seen["platform"] == "cuda"
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        crashtest.run_crashtest(tmp_path / "ct")
+    assert not (tmp_path / "ct").exists()

@@ -292,19 +292,14 @@ def test_admin_faults_endpoint(engine, faults):
 
 
 def test_admin_faults_refuses_kinds_the_port_lacks(engine, faults):
-    """A kind whose plane the port has not ported (the autoscaler's
-    ``demand``) is a 400 naming the module, where the reference would accept
-    it; the residency plane's kinds (activation, ckpt with its modes), and
-    since live migration and speculation came, migration (with its modes)
-    and spec_mismatch, and since the adapters came, adapter, are
-    accepted."""
+    """Every kind of the reference has its plane in the port now: the
+    autoscaler's ``demand`` (with ``spike`` and ``starve``), the residency
+    plane's kinds (activation, ckpt with its modes), migration (with its
+    modes), spec_mismatch and adapter are accepted over HTTP and at boot; a
+    bad mode is a 400 naming the kind, as the reference's is."""
     with BackgroundServer(_cfg(), engine) as srv:
-        for kind, module in (("demand", "autoscale.py"),):
-            status, body, _ = _http(srv.port, "/admin/faults",
-                                    {"model": "bert_base", "fail_every_n": 1, "kind": kind})
-            assert status == 400 and module in body["error"]
-        assert faults.snapshot()["rules"] == []
-        for rule in ({"kind": "activation"}, {"kind": "ckpt", "mode": "torn"},
+        for rule in ({"kind": "demand"}, {"kind": "demand", "mode": "starve"},
+                     {"kind": "activation"}, {"kind": "ckpt", "mode": "torn"},
                      {"kind": "ckpt", "mode": "slow", "latency_ms": 5},
                      {"kind": "migration", "mode": "corrupt"}, {"kind": "spec_mismatch"},
                      {"kind": "adapter"}):
@@ -312,14 +307,30 @@ def test_admin_faults_refuses_kinds_the_port_lacks(engine, faults):
                                     {"model": "bert_base", "fail_every_n": 1, **rule})
             assert status == 200, body
         for rule, match in (({"kind": "ckpt", "mode": "cow"}, "ckpt mode"),
-                            ({"kind": "migration", "mode": "cow"}, "migration mode")):
+                            ({"kind": "migration", "mode": "cow"}, "migration mode"),
+                            ({"kind": "demand", "mode": "cow"}, "demand mode")):
             status, body, _ = _http(srv.port, "/admin/faults", {"model": "bert_base", **rule})
             assert status == 400 and match in body["error"]
-        assert sorted(r["kind"] for r in faults.snapshot()["rules"]) == [
-            "activation", "adapter", "ckpt", "migration", "spec_mismatch"]
-    with pytest.raises(ValueError, match="autoscale"):
-        asyncio.run(server_mod.Server(
-            _cfg(faults={"bert_base": {"kind": "demand", "fail_every_n": 1}}), engine).start())
+        rules = faults.snapshot()["rules"]
+        assert sorted(r["kind"] for r in rules) == [
+            "activation", "adapter", "ckpt", "demand", "migration", "spec_mismatch"]
+        assert [r["mode"] for r in rules if r["kind"] == "demand"] == ["starve"]
+        faults.clear()
+
+    async def boot():
+        server = server_mod.Server(
+            _cfg(faults={"bert_base": {"kind": "demand", "mode": "spike", "fail_every_n": 1}}),
+            engine)
+        await server.start(port=0)
+        try:
+            return server.engine.runner.faults.snapshot()["rules"]
+        finally:
+            await server.stop()
+
+    try:
+        assert [(r["kind"], r["mode"]) for r in asyncio.run(boot())] == [("demand", "spike")]
+    finally:
+        faults.clear()
 
 
 def test_graceful_drain_finishes_inflight_jobs(engine, faults):

@@ -205,25 +205,31 @@ def test_poison_takes_precedence_over_rules():
 
 @pytest.mark.parametrize("kind", ["adapter", "demand"])
 def test_kinds_without_a_plane_are_refused_naming_the_module(kind):
-    """The reference accepts these.  A kind whose plane the port has not
-    yet (``demand``, the autoscaler's) is refused with the module still to
-    port instead of accepted and never fired; ``adapter`` is served since
-    the port has serving/adapters.py: a rule of its own target that fires
-    on an attach, as the reference's does."""
+    """The reference accepts these, and so does the port now that each has
+    its plane (no kind is left in ``REFUSED_KINDS``): ``adapter`` fires on
+    an attach of the named tenant, ``demand`` on the autoscaler's demand
+    hook, ``spike`` by default and ``starve`` when asked, and a bad mode is
+    refused by both; neither fires on a dispatch."""
+    assert REFUSED_KINDS == {}
     jfaults.FaultInjector().configure(model="m", fail_every_n=1, kind=kind)
-    if kind in REFUSED_KINDS:
-        with pytest.raises(ValueError, match="does not have yet") as ei:
-            FaultInjector().configure(model="m", fail_every_n=1, kind=kind)
-        assert REFUSED_KINDS[kind].split()[0] in str(ei.value)
-        return
-    assert kind == "adapter" and sorted(REFUSED_KINDS) == ["demand"]
     for inj in (jfaults.FaultInjector(), FaultInjector()):
-        inj.configure(model="m:alice", fail_every_n=1, kind=kind)
+        if kind == "adapter":
+            inj.configure(model="m:alice", fail_every_n=1, kind=kind)
+            inj.on_dispatch("m")  # never fires on a dispatch
+            inj.on_adapter("m:bob")  # another tenant's attach
+            with pytest.raises(RuntimeError, match="injected adapter fault"):
+                inj.on_adapter("m:alice")
+            assert inj.snapshot()["injected"]["adapter"] == 1
+            continue
+        inj.configure(model="m", fail_every_n=2, kind=kind)
         inj.on_dispatch("m")  # never fires on a dispatch
-        inj.on_adapter("m:bob")  # another tenant's attach
-        with pytest.raises(RuntimeError, match="injected adapter fault"):
-            inj.on_adapter("m:alice")
-        assert inj.snapshot()["injected"]["adapter"] == 1
+        assert [inj.on_demand("m") for _ in range(4)] == ["", "spike", "", "spike"]
+        assert inj.on_demand("other") == ""
+        inj.configure(model="m", fail_every_n=1, kind=kind, mode="starve")
+        assert inj.on_demand("m") == "starve"
+        assert inj.snapshot()["injected"]["demand"] == 3
+        with pytest.raises(ValueError, match="demand mode"):
+            inj.configure(model="m", fail_every_n=1, kind=kind, mode="cow")
 
 
 @pytest.mark.parametrize("kind,mode", [("migration", ""), ("migration", "drop"),
