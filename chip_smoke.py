@@ -282,6 +282,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    journaled.  (6) ``/metrics`` with the planes' families against the
    manifest.  (7) Every ``int8_matmul`` launch of the phase in a captured
    graph's warm-up or replay;
+20. the host ingest planes (``serving/perfplane.py``, ``acceptors.py``,
+   ``acceptor_telemetry.py``): one server with BERT-base int8 (1, 8) x 128
+   (its ``flops_per_sample`` from its shapes) and ResNet-50 bf16 (1, 8),
+   seed weights at full width, two ``SO_REUSEPORT`` acceptor workers on
+   shared-memory rings sized to ``/dev/shm``, the perf plane on.  (1) 24
+   single and 4 8-instance frames a model, one at a time, to the ingest
+   port and to the main port: the answers byte-decode equal; at the worker
+   a declared oversize 413, a truncated frame 400, a JSON body 415,
+   ``X-Deadline-MS: 1`` behind a slow dispatch 504, each with both ids.
+   (2) ``int8_matmul`` on the fast lane exactly 72 x the BERT forwards the
+   runner counted there, every one in a replay.  (3) Both workers alive and
+   accepting; no worker maps libtorch.  (4) A fast-lane BERT trace joins a
+   given ``traceparent``: sock_read, frame_validate, ring_wait,
+   binary_decode, admission, queue, batch_form, device (exec inside),
+   respond.  (5) ``kill -9`` of a worker with 4 requests in flight: each
+   answered, ``worker_up`` 0 then 1, ``restarts_total`` 1, check 1's frames
+   byte-equal after the respawn; a demoted ResNet-50 answers 503
+   ``cold_start`` on the fast lane, and the loop lag over its restore is
+   printed.  (6) ``/admin/perf``: every stage of check 1 with the count of
+   requests each lane sent, the loop-lag histogram, the dispatch thread in
+   the stack table, BERT's gauges with ``mfu_pct`` its own arithmetic
+   against the card's peak; ``cli perf`` renders it.  (7) ``/metrics`` with
+   the host planes' families against the manifest.  Printed: the client
+   p50/p99 of each lane, the stage p50s, the loop lag, the workers' spawn
+   seconds, the host's machine and ``/dev/shm``;
 
 With ``--profile``, every path is also profiled eager against replayed:
 device-busy and wall time, the idle share, and the host's calls, where a
@@ -6765,6 +6790,438 @@ def run_tenancy(card: str) -> dict:
     return {"int8_launches": launches, "held": held}
 
 
+# -- phase 20: the host ingest planes ---------------------------------------------
+
+# The acceptor fast lane of phase 20: two worker processes, BERT-base int8
+# (1, 8) x 128 and ResNet-50 bf16 (1, 8) at 224x224.
+INGEST_WORKERS = 2
+INGEST_SINGLES = 24        # sequential single frames a model and lane, check 1
+INGEST_EIGHTS = 4          # sequential 8-instance frames a model and lane, check 1
+INGEST_REQS = 40           # sequential single requests a model and lane, the client p50
+INGEST_INFLIGHT = 4        # requests in flight at the kill -9, check 5
+INGEST_SLOW_MS = 400       # the injected dispatch latency of checks 1 and 5
+# Ring geometry: an 8-instance 224x224x3 uint8 frame is 1,204,224 bytes, past
+# the reference's 1 MiB slot, so 2 MiB slots; as many as /dev/shm holds, up
+# to INGEST_SLOTS (two rings a worker).
+INGEST_SLOTS = 32
+INGEST_SLOT_BYTES = 2 << 20
+# The stages each lane's request crosses on its way to an answer.
+FAST_STAGES = ("sock_read", "frame_validate", "ring_wait", "binary_decode", "validate",
+               "batch_form", "serialize", "respond")
+MAIN_STAGES = ("payload_read", "binary_decode", "validate", "batch_form", "serialize",
+               "respond")
+HOST_FAMILIES = ("tpuserve_loop_lag_ms", "tpuserve_loop_lag_max_ms", "tpuserve_ingest_ms",
+                 "tpuserve_perf_samples_per_s", "tpuserve_perf_tokens_per_s",
+                 "tpuserve_perf_step_ms", "tpuserve_perf_device_util_pct",
+                 "tpuserve_perf_mfu_pct", "tpuserve_ingest_workers", "tpuserve_shm_ring_depth",
+                 "tpuserve_shm_ring_occupancy_pct", "tpuserve_acceptor_accepts_total",
+                 "tpuserve_acceptor_sheds_total", "tpuserve_acceptor_responses_total",
+                 "tpuserve_acceptor_bytes_total", "tpuserve_acceptor_worker_up",
+                 "tpuserve_acceptor_heartbeat_age_s", "tpuserve_acceptor_restarts_total",
+                 "tpuserve_acceptor_inworker_ms", "tpuserve_acceptor_ring_wait_ms")
+
+
+def bert_flops(layers: int = 12, seq: int = 128, d: int = 768, ffn: int = 3072,
+               heads: int = 12) -> float:
+    """FLOPs of one BERT-base sample at ``seq``: the 6 products a layer
+    (2·seq·K·N each) and the two attention products (2·seq²·head_dim a
+    head each)."""
+    products = 2 * seq * (4 * d * d + 2 * d * ffn)
+    attention = 2 * 2 * seq * seq * (d // heads) * heads
+    return float(layers * (products + attention))
+
+
+def ingest_config(bert_arch: dict | None = None, image_size: int = VISION_SIZE,
+                  slots: int = INGEST_SLOTS, slot_bytes: int = INGEST_SLOT_BYTES,
+                  gpt2_arch: dict | None = None):
+    """BERT-base int8 (1, 8) x 128 with its FLOP hint and ResNet-50 bf16
+    (1, 8), two acceptor workers, the perf plane on a window that spans the
+    phase; GPT-2 small int8 on an 8-slot ``:generate`` lane beside them, for
+    the plane's token gauges."""
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+
+    a = bert_arch or {}
+    flops = bert_flops(a.get("num_layers", 12), BERT["seq"],
+                       a.get("num_heads", 12) * a.get("head_dim", 64), a.get("mlp_dim", 3072),
+                       a.get("num_heads", 12))
+    return ServeConfig(
+        ingest_workers=INGEST_WORKERS, perfplane=True, perf_window_s=600.0,
+        perf_loop_lag_interval_s=0.1, shm_ring_slots=slots, shm_ring_slot_bytes=slot_bytes,
+        models=[
+            ModelConfig(name="bert_base", dtype="bfloat16", seq_buckets=(BERT["seq"],),
+                        batch_buckets=PLANE_BERT,
+                        extra={"params_dtype": "int8", "flops_per_sample": flops,
+                               **({"arch": bert_arch} if bert_arch else {})}),
+            ModelConfig(name="resnet50", dtype="bfloat16", batch_buckets=PLANE_VISION,
+                        extra={"image_size": image_size,
+                               "resize_to": image_size * 8 // 7}),
+            ModelConfig(name="gpt2", dtype="bfloat16", seq_buckets=(16,), batch_buckets=(1,),
+                        extra={"params_dtype": "int8", **PLANE_GEN,
+                               **({"arch": gpt2_arch} if gpt2_arch else {})})])
+
+
+def ring_geometry() -> tuple[int, int, dict]:
+    """(slots, slot bytes, the /dev/shm reading): INGEST_SLOT_BYTES slots, as
+    many as fit half of /dev/shm's free bytes, at most INGEST_SLOTS."""
+    import os
+
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    fits = free // 2 // (2 * INGEST_WORKERS * INGEST_SLOT_BYTES)
+    slots = int(min(INGEST_SLOTS, fits))
+    check(slots >= 4, f"/dev/shm holds {free} free bytes: not even 4 slots of "
+                      f"{INGEST_SLOT_BYTES} bytes for {INGEST_WORKERS} workers' two rings")
+    return slots, INGEST_SLOT_BYTES, {"size": st.f_blocks * st.f_frsize, "free": free}
+
+
+def phase_ingest_path(cfg, device: str = "cuda", bert_vocab: int = 30522,
+                      gpt2_vocab: int = 50257, per_forward: int = 72,
+                      reqs: int = INGEST_REQS) -> dict:
+    """Serve BERT-base int8 and ResNet-50 through two acceptor workers and
+    check, in order: (1) fast-lane answers byte-decode equal to the main
+    port's binary lane (INGEST_SINGLES single and INGEST_EIGHTS 8-instance
+    frames a model, sent one at a time); at the worker a declared oversize
+    413, a truncated frame 400, a JSON body 415, ``X-Deadline-MS: 1`` behind
+    a slow dispatch 504, every error with ``request_id`` and ``trace_id``;
+    (2) ``int8_matmul`` on the fast lane exactly ``per_forward`` × the BERT
+    forwards the runner counted there, every one in a replay; (3) both
+    workers alive and accepting, neither mapping libtorch; (4) a fast-lane
+    BERT trace joining a given ``traceparent``, its chain sock_read,
+    frame_validate, ring_wait, binary_decode, admission, queue, batch_form,
+    device (exec inside), respond; (5) ``kill -9`` of a worker with requests
+    in flight: each answered, ``tpuserve_acceptor_worker_up`` 0 then 1,
+    ``restarts_total`` 1, and after the respawn check 1's frames byte-equal;
+    a demoted model answers 503 ``cold_start`` on the fast lane, and the
+    loop lag over its restore's captures is printed; (6) ``/admin/perf``:
+    each stage of check 1's traffic with one row a model and the count of
+    requests each lane sent, loop lag, the dispatch thread in the stack
+    table, BERT's gauges with ``mfu_pct`` its own arithmetic against the
+    card's peak, ``cli perf`` rendering it; (7) ``/metrics`` with the host
+    planes' families against the manifest."""
+    import os
+    import platform
+
+    from pytorch_zappa_serverless_tpu_torch.ops import counters
+    from pytorch_zappa_serverless_tpu_torch.serving import wire
+    from pytorch_zappa_serverless_tpu_torch.serving.perfplane import (CHIP_PEAK_FLOPS,
+                                                                      hist_quantile)
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    cuda = torch.device(device).type == "cuda"
+    tensor = {"Content-Type": wire.TENSOR_CONTENT_TYPE}
+    rng = np.random.default_rng(20)
+    pngs = vision_pngs(8, seed=20)
+    bert = "/v1/models/bert_base:predict"
+    resnet = "/v1/models/resnet50:predict"
+    out: dict = {"machine": platform.machine(), "launches": 0, "forwards": 0, "p50": {},
+                 "p99": {}}
+    t0 = time.perf_counter()
+    with BackgroundServer(cfg, device=device) as srv:
+        port, server = srv.port, srv.server
+        sup = server.acceptors
+        fast = sup.ingest_port
+        out["spawn_s"] = list(sup.spawn_seconds)
+        cm_resnet = server.engine.model("resnet50")
+        pixels = [cm_resnet.servable.preprocess(png)["image"] for png in pngs]
+        ids = [rng.integers(1, bert_vocab - 1, int(n)).tolist()
+               for n in rng.integers(4, BERT["seq"] + 1, INGEST_SINGLES + 8 * INGEST_EIGHTS)]
+        items = {"bert_base": [{"input_ids": x} for x in ids],
+                 "resnet50": [pixels[i % len(pixels)] for i in range(len(ids))]}
+        frames = {name: [bytes(wire.pack(its[i:i + 1])) for i in range(INGEST_SINGLES)]
+                  + [bytes(wire.pack(its[INGEST_SINGLES + 8 * j: INGEST_SINGLES + 8 * j + 8],
+                                     flags=wire.FLAG_LIST)) for j in range(INGEST_EIGHTS)]
+                  for name, its in items.items()}
+        paths = {"bert_base": bert, "resnet50": resnet}
+
+        def send(p, name, frame, headers=None):
+            status, raw, h = http_b(p, paths[name], frame, {**tensor, **(headers or {})})
+            check(status == 200 and h.get("Content-Type") == wire.TENSOR_CONTENT_TYPE,
+                  f"{name} on port {p}: {status} {raw[:300]}")
+            check(h.get("X-Request-Id") and h.get("X-Trace-Id"), f"{name}: answer ids {h}")
+            return wire.unpack_response(raw)[1]
+
+        def fast_segment(fn):
+            """Fast-lane traffic alone, its int8_matmul launches and BERT
+            forwards counted: launches = per_forward x forwards, all in
+            replays."""
+            def forwards():
+                st = server.engine.runner.stats.get("bert_base")
+                return st.batches if st is not None else 0
+
+            reset_counts()
+            before = forwards()
+            res = fn()
+            counts, graphed = read_counts(), counters.graphed()
+            fwd = forwards() - before
+            check(not cuda or (counts["int8_matmul"] == per_forward * fwd > 0
+                               and graphed["int8_matmul"] == counts["int8_matmul"]),
+                  f"fast lane: int8_matmul {counts['int8_matmul']} launches "
+                  f"({graphed['int8_matmul']} in replays) for {fwd} BERT forwards")
+            out["launches"] += counts["int8_matmul"]
+            out["forwards"] += fwd
+            return res
+
+        def perf():
+            return http_h(port, "/admin/perf?top=50")[1]
+
+        lag = server.perf.loop_lag
+
+        def lag_max_over(fn):
+            """The loop lag's max over ``fn`` alone (the lifetime max kept)."""
+            saved = srv.call(lambda: lag.max_ms)
+            srv.call(setattr, lag, "max_ms", 0.0)
+            res = fn()
+            time.sleep(2 * lag.interval_s)
+            over = srv.call(lambda: lag.max_ms)
+            srv.call(setattr, lag, "max_ms", max(saved, over))
+            return res, over
+
+        # -- check 1: the fast lane against the main port's binary lane -------------
+        # The loop lag's max from the plane's start to here: the boot and the
+        # client's host work in this process (its preprocess of the PNGs).
+        out["pre_traffic_lag_max_ms"] = srv.call(lambda: lag.max_ms)
+        before = perf()["ingest"]
+        got, out["traffic_lag_max_ms"] = lag_max_over(lambda: fast_segment(
+            lambda: {n: [send(fast, n, f) for f in fs] for n, fs in frames.items()}))
+        want = {n: [send(port, n, f) for f in fs] for n, fs in frames.items()}
+        after = perf()["ingest"]
+        for name in frames:
+            check(json.dumps(got[name]) == json.dumps(want[name]),
+                  f"{name}: fast-lane answers differ from the main port's binary lane")
+        n = len(frames["bert_base"])
+        for name in frames:
+            for stage in set(FAST_STAGES) | set(MAIN_STAGES):
+                sent = n * ((stage in FAST_STAGES) + (stage in MAIN_STAGES))
+                delta = (after.get(name, {}).get(stage, {"count": 0})["count"]
+                         - before.get(name, {}).get(stage, {"count": 0})["count"])
+                check(delta == sent, f"/admin/perf {name} {stage}: {delta} rows for {sent} "
+                                     "requests")
+        out["stages"] = {name: {s: hist_quantile(after[name][s], 0.5)
+                                for s in after[name]} for name in frames}
+        oversize = (wire._HDR.pack(wire.MAGIC, wire.VERSION, 0, 1) + wire._BLK.pack(9, 2, 0)
+                    + wire._DIM.pack(60000) + wire._DIM.pack(60000))
+        errors = {}
+        for what, path, body, hdrs, status_want in (
+                ("oversize", resnet, oversize, tensor, 413),
+                ("truncated", resnet, frames["resnet50"][0][:-100], tensor, 400),
+                ("json", bert, json.dumps({"input_ids": ids[0]}).encode(),
+                 {"Content-Type": "application/json"}, 415)):
+            status, raw, h = http_b(fast, path, body, {**hdrs, "X-Request-Id": f"ing-{what}"})
+            body = json.loads(raw)
+            check(status == status_want and body["request_id"] == f"ing-{what}"
+                  == h["X-Request-Id"] and body["trace_id"] == h["X-Trace-Id"],
+                  f"fast lane {what}: {status} {body} {h}")
+            errors[what] = status
+        http_h(port, "/admin/faults", {"model": "bert_base", "latency_ms": INGEST_SLOW_MS})
+        try:
+            slow = threading.Thread(target=http_b, args=(fast, bert, frames["bert_base"][0],
+                                                         tensor))
+            slow.start()
+            time.sleep(0.05)
+            status, raw, h = http_b(fast, bert, frames["bert_base"][1],
+                                    {**tensor, "X-Deadline-MS": "1"})
+            slow.join(60)
+        finally:
+            http_h(port, "/admin/faults", {"clear": True})
+        body = json.loads(raw)
+        check(status == 504 and body["request_id"] == h["X-Request-Id"]
+              and body["trace_id"] == h["X-Trace-Id"], f"deadline: {status} {body} {h}")
+        errors["deadline"] = status
+        log(f"ingest check 1: fast-lane answers equal to the main port's binary lane "
+            f"(BERT int8 and ResNet-50 bf16, {INGEST_SINGLES} singles and {INGEST_EIGHTS} "
+            f"8-instance frames each); at the worker {errors}, each with both ids; loop lag "
+            f"max over the fast-lane traffic {out['traffic_lag_max_ms']:.3f} ms, before it "
+            f"{out['pre_traffic_lag_max_ms']:.3f} ms")
+        # -- check 2: the launches -----------------------------------------------
+        log(f"ingest check 2: int8_matmul {out['launches']} launches on the fast lane = "
+            f"{per_forward} x {out['forwards']} BERT forwards, every one in a replay")
+        # -- check 3: the workers ------------------------------------------------
+        check(sup.alive_workers() == INGEST_WORKERS, f"{sup.alive_workers()} workers alive")
+        accepts = [blk.snapshot()["accepts"] for blk in sup.stats_blocks]
+        check(all(a > 0 for a in accepts), f"requests reached only some workers: {accepts}")
+        for p in sup.workers:
+            with open(f"/proc/{p.pid}/maps") as f:
+                check("libtorch" not in f.read(), f"acceptor worker {p.pid} maps libtorch")
+        health = http_h(fast, "/healthz")[1]
+        check(health["torch_loaded"] is False, f"a worker loaded torch: {health}")
+        log(f"ingest check 3: {sup.alive_workers()} workers alive, accepts {accepts}, no "
+            f"worker maps libtorch")
+        # -- check 4: one trace from the worker's accept to the answer -------------
+        tid, sid = "20" * 16, "0123456789abcdef"
+        fast_segment(lambda: send(fast, "bert_base", frames["bert_base"][2],
+                                  {"traceparent": f"00-{tid}-{sid}-01"}))
+        tree = http_h(port, f"/admin/trace/{tid}")[1]["trace"]
+        check(tree["remote_parent"] == sid and tree["status"] == "ok", f"trace {tree}")
+        kids = {c["name"]: c for c in tree["tree"]["children"]}
+        chain = ["sock_read", "frame_validate", "ring_wait", "binary_decode", "admission",
+                 "queue", "batch_form", "device", "respond"]
+        check(all(s in kids for s in chain), f"the fast-lane trace lacks {set(chain) - set(kids)}")
+        starts = [kids[s]["start_ms"] for s in chain if s != "admission"]
+        check(starts == sorted(starts),
+              f"the chain out of order: {[(s, kids[s]['start_ms']) for s in chain]}")
+        check(find_span(kids["device"], "exec") is not None,
+              f"no exec under device: {kids['device']}")
+        out["trace"] = {s: kids[s]["duration_ms"] for s in chain}
+        log(f"ingest check 4: the traceparent joined; chain ms {out['trace']}")
+        # -- check 5: kill -9 of a worker, then a demoted model --------------------
+        http_h(port, "/admin/faults", {"model": "bert_base", "latency_ms": INGEST_SLOW_MS})
+        results: list = [None] * INGEST_INFLIGHT
+
+        def inflight(i):
+            try:
+                results[i] = http_b(fast, bert, frames["bert_base"][i], tensor, timeout=60)[0]
+            except Exception as e:  # noqa: BLE001 — the connection died with its worker
+                results[i] = type(e).__name__
+
+        threads = [threading.Thread(target=inflight, args=(i,)) for i in range(INGEST_INFLIGHT)]
+
+        def kill_and_respawn():
+            for th in threads:
+                th.start()
+            time.sleep(0.1)
+            os.kill(sup.workers[0].pid, 9)
+            t = time.perf_counter()
+            down = False
+            while time.perf_counter() - t < 10:
+                rows = srv.call(sup.telemetry_snapshot)["workers"]
+                down = down or not rows[0]["up"]
+                if down and rows[0]["up"]:
+                    break
+                time.sleep(0.01)
+            for th in threads:
+                th.join(60)
+            return t, down
+
+        try:
+            (t_kill, seen_down), out["respawn_lag_max_ms"] = lag_max_over(kill_and_respawn)
+        finally:
+            http_h(port, "/admin/faults", {"clear": True})
+        out["respawn_start_ms"] = sup.workers[0].start_ms
+        check(all(r is not None for r in results), f"in-flight requests unanswered: {results}")
+        check(seen_down and sup.restarts == 1, f"worker_up never 0 ({seen_down}) or restarts "
+                                               f"{sup.restarts}")
+        wait_until(lambda: sup.alive_workers() == INGEST_WORKERS and all(
+            r["up"] and r["heartbeat_age_s"] is not None
+            for r in srv.call(sup.telemetry_snapshot)["workers"]), 60, "the respawn to serve")
+        respawn_s = time.perf_counter() - t_kill
+        again = fast_segment(lambda: [send(fast, n, f) for n in ("bert_base", "resnet50")
+                                      for f in frames[n][:4]])
+        check(json.dumps(again) == json.dumps(got["bert_base"][:4] + got["resnet50"][:4]),
+              "after the respawn the fast lane answers other bytes")
+        _, prom_kill, _ = http_h(port, "/metrics?format=prometheus")
+        check("tpuserve_acceptor_restarts_total 1" in prom_kill
+              and 'tpuserve_acceptor_worker_up{worker="0"} 1' in prom_kill,
+              "restarts_total / worker_up after the respawn")
+        log(f"ingest check 5: kill -9 of worker 0 with {INGEST_INFLIGHT} requests in flight: "
+            f"answers {results}; worker_up 0 then 1, restarts_total 1, serving again "
+            f"{respawn_s:.3f} s after the kill; 8 frames byte-equal to check 1's; the "
+            f"respawn's start held the loop {out['respawn_start_ms']:.3f} ms, loop lag max "
+            f"over the kill and respawn {out['respawn_lag_max_ms']:.3f} ms")
+        status, o, _ = http_h(port, "/admin/models/resnet50", {"action": "demote", "to": "host"})
+        check(status == 200, f"demote: {status} {o}")
+        status, raw, h = http_b(fast, resnet, frames["resnet50"][0], tensor)
+        body = json.loads(raw)
+        check(status == 503 and body.get("cold_start") and int(h["Retry-After"]) >= 1,
+              f"a demoted model on the fast lane: {status} {body}")
+        ta = time.perf_counter()
+        _, out["restore_lag_max_ms"] = lag_max_over(lambda: wait_until(
+            lambda: server.lifecycle.state_of("resnet50") == "active", 120,
+            "the fast lane's activation of resnet50"))
+        out["restore_ms"] = (time.perf_counter() - ta) * 1e3
+        check(json.dumps(send(fast, "resnet50", frames["resnet50"][0]))
+              == json.dumps(got["resnet50"][0]), "resnet50 after its restore answers other bytes")
+        log(f"ingest check 5b: a demoted resnet50 answered the fast lane 503 cold_start "
+            f"(Retry-After {h['Retry-After']}); its activation (host tier, captures) "
+            f"{out['restore_ms']:.1f} ms; event-loop lag max over it "
+            f"{out['restore_lag_max_ms']:.3f} ms; answers byte-equal after")
+        # The client p50 and p99, fast lane against the main port's binary lane.
+        for name in frames:
+            for lane, p in (("fast", fast), ("main", port)):
+                times = []
+                for _ in range(reqs):
+                    t = time.perf_counter()
+                    status, _, _ = http_b(p, paths[name], frames[name][3], tensor)
+                    times.append((time.perf_counter() - t) * 1e3)
+                    check(status == 200, f"{name} {lane} p50 request: {status}")
+                out["p50"][f"{name} {lane}"] = statistics.median(times)
+                out["p99"][f"{name} {lane}"] = float(np.percentile(times, 99))
+        # -- check 6: /admin/perf ------------------------------------------------
+        r, out["generate_lag_max_ms"] = lag_max_over(lambda: sse(
+            port, "gpt2", {"input_ids": rng.integers(0, gpt2_vocab - 1, 12).tolist()}))
+        check(r["status"] == 200 and r["final"] and r["final"]["done"], f"gpt2 stream {r}")
+        time.sleep(3 * cfg.perf_loop_lag_interval_s)
+        snap = perf()
+        gen_row = snap["models"].get("gpt2:generate", {})
+        check("tokens_per_s" in gen_row and "ttft_p50_ms" in gen_row,
+              f"the :generate lane's gauges: {gen_row}")
+        lag_hist = snap["loop_lag"]["hist"]
+        check(lag_hist["count"] > 0, f"empty loop-lag histogram: {snap['loop_lag']}")
+        check(any(r["stack"].startswith("cuda-dispatch;") for r in snap["stacks"]["stacks"]),
+              f"the stack table names no dispatch thread: "
+              f"{[r['stack'][:40] for r in snap['stacks']['stacks']]}")
+        row = snap["models"].get("bert_base", {})
+        for key in ("samples_per_s", "step_ms", "device_util_pct"):
+            check(key in row, f"bert_base gauges lack {key}: {row}")
+        peak = CHIP_PEAK_FLOPS.get(torch.cuda.get_device_name(0)) if cuda else None
+        flops = cfg.model("bert_base").extra["flops_per_sample"]
+        if peak is not None:
+            mfu = 100.0 * flops * row["samples_per_s"] / peak
+            check(0 < row.get("mfu_pct", 0) <= 100
+                  and abs(row["mfu_pct"] - mfu) <= 0.011 + 0.005 * mfu,
+                  f"mfu_pct {row.get('mfu_pct')} against its own arithmetic {mfu}")
+        else:
+            check("mfu_pct" not in row, f"an MFU gauge with no peak: {row}")
+        out["gauges"] = row
+        out["lag"] = {"p50": hist_quantile(lag_hist, 0.5), "max": snap["loop_lag"]["max_ms"],
+                      "ticks": snap["loop_lag"]["ticks"]}
+        table = subprocess.run([sys.executable, "-m", "pytorch_zappa_serverless_tpu_torch.cli",
+                                "perf", "--url", f"http://127.0.0.1:{port}"],
+                               capture_output=True, text=True, timeout=60)
+        check(table.returncode == 0 and "loop lag:" in table.stdout
+              and "sock_read" in table.stdout, f"cli perf: {table.returncode} "
+                                               f"{table.stdout[:300]} {table.stderr[-300:]}")
+        out["gen_gauges"] = gen_row
+        log(f"ingest check 6a: the first :generate stream (its lane's graphs captured at "
+            f"first use): loop lag max over it {out['generate_lag_max_ms']:.3f} ms")
+        log(f"ingest check 6: /admin/perf: every stage of check 1 counted per model and lane; "
+            f"loop lag p50 {out['lag']['p50']} ms, max {out['lag']['max']} ms over "
+            f"{out['lag']['ticks']} ticks; bert_base {row}; gpt2:generate {gen_row}; peak "
+            f"{peak}; cli perf renders {len(table.stdout.splitlines())} lines")
+        # -- check 7: the exposition ---------------------------------------------
+        _, metrics, _ = http_h(port, "/metrics?format=prometheus")
+        out["spawn_s"] = list(sup.spawn_seconds)
+    check_metrics = check_metrics_tool()
+    problems = check_metrics.check(metrics, check_metrics.load_manifest())
+    check(not problems, f"/metrics against the manifest: {problems}")
+    missing = [f for f in HOST_FAMILIES if f"# TYPE {f} " not in metrics]
+    check(not missing or (not cuda and missing == ["tpuserve_perf_mfu_pct"]),
+          f"/metrics lacks {missing}")
+    log(f"ingest check 7: /metrics with the host planes' {len(HOST_FAMILIES)} families "
+        f"against the manifest")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_ingest(card: str) -> dict:
+    """Phase 20: the host ingest planes on the card."""
+    import platform
+
+    fresh_memory()
+    t0 = time.perf_counter()
+    slots, slot_bytes, shm = ring_geometry()
+    log(f"{card}: ingest: host {platform.machine()}, /dev/shm {shm}; rings "
+        f"{slots} x {slot_bytes} bytes, {INGEST_WORKERS} workers")
+    run = phase_ingest_path(ingest_config(slots=slots, slot_bytes=slot_bytes))
+    log(f"{card}: ingest client ms, {INGEST_REQS} sequential single requests a model and lane: "
+        + ", ".join(f"{k} p50 {run['p50'][k]:.3f} p99 {run['p99'][k]:.3f}" for k in run["p50"]))
+    for name, stages in run["stages"].items():
+        log(f"{card}: ingest stage p50 ms {name}: "
+            + ", ".join(f"{s} {v}" for s, v in stages.items()))
+    log(f"{card}: ingest: loop lag p50 {run['lag']['p50']} ms, max {run['lag']['max']} ms; "
+        f"worker spawn s {run['spawn_s']}; phase 20 in {time.perf_counter() - t0:.3f} s; "
+        f"int8_matmul {run['launches']} launches on the fast lane")
+    return run
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -6776,6 +7233,7 @@ def main(argv: list[str] | None = None) -> int:
                          "bucket-1 generate call of GPT-2 auto, int8 and bf16, and stamp the "
                          "fused kernels' phases")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     kern = phase_kernels()
@@ -6794,6 +7252,7 @@ def main(argv: list[str] | None = None) -> int:
     mobility = run_mobility(card)
     adapters = run_adapters(card, args.profile)
     tenancy = run_tenancy(card)
+    ingest = run_ingest(card)
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
         log(f"one forward's int8_matmul at M={m} (72 launches, the per-shape times summed): "
@@ -6818,7 +7277,8 @@ def main(argv: list[str] | None = None) -> int:
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "pytorch_zappa_serverless_tpu/ops/int8_matmul.py:107",
         "launches": (int8_launches + plane["int8_launches"] + mobility["int8_launches"]
-                     + adapters["auto_launches"] + tenancy["int8_launches"]),
+                     + adapters["auto_launches"] + tenancy["int8_launches"]
+                     + ingest["launches"]),
         "max_abs_err": kern["max_abs_err"],
         "ms": bert["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": bert["bound_ms"],
         "bound_by": bert["bound_by"], "library_ms": bert["library_ms"],
@@ -6846,6 +7306,7 @@ def main(argv: list[str] | None = None) -> int:
         "launches_mobility_path": mobility["int8_launches"],
         "launches_auto_path": adapters["auto_launches"],
         "launches_tenancy_path": tenancy["int8_launches"],
+        "launches_ingest_path": ingest["launches"],
         "spec_verify": {**verify, "timed_work": f"one speculative verify forward of GPT-2 small "
                                                 f"at M={SPEC_M}: 48 layer projections + the f32 "
                                                 f"lm head, the per-shape times summed"},
@@ -6906,6 +7367,8 @@ def main(argv: list[str] | None = None) -> int:
         log(f"generate {name}: a greedy segment replayed {row['replay_ms']:.4f} ms, eager "
             f"{row['eager_ms']:.4f} ms; lane cold start (its pool and every graph) "
             f"{generate['lane_cold_s'].get(name, 0.0):.3f} s")
+    log(f"{card}: chip_smoke took {time.perf_counter() - t_start:.1f} s in all (phase 20 "
+        f"{ingest['seconds']:.1f} s of it)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,13 +10,24 @@
   in the profile, SIGTERM drains gracefully (``/healthz`` and new work 503,
   in-flight work given the budget) before the server stops; a second
   SIGTERM skips the drain.
+  ``--ingest-workers N`` starts N acceptor worker processes on the binary
+  lane's ingest port (``ingest_port``, else the port + 1).
+- ``warm``  build every model and capture every bucket, print the build's
+  numbers as one JSON line, and exit.  The port has no compile cache: what
+  ``warm`` builds is not kept, so it measures a cold start and checks that
+  the profile builds; it warms nothing for the next process.
 - ``list-models``  print the registered model zoo.
-- ``models``, ``adapters``, ``prefix``, ``slo``, ``autoscale``  HTTP clients
-  of a running server's ``/admin/models``, ``/admin/adapters``,
-  ``/admin/prefix``, ``/admin/slo`` and ``/admin/autoscale``: each prints
-  its table (``--json`` the raw body)::
+- ``models``, ``adapters``, ``prefix``, ``slo``, ``autoscale``, ``perf``  HTTP
+  clients of a running server's ``/admin/models``, ``/admin/adapters``,
+  ``/admin/prefix``, ``/admin/slo``, ``/admin/autoscale`` and
+  ``/admin/perf``: each prints its table (``--json`` the raw body)::
 
       python -m pytorch_zappa_serverless_tpu_torch.cli slo --url http://127.0.0.1:8000
+- ``profile``  a ``torch.profiler`` window over a running server's live
+  traffic, written as a Chrome trace (``POST /debug/trace``).
+- ``tail``  print (``-f``: follow) the structured log file
+  (``TPUSERVE_LOG_FILE``) a line a record, filtered by ``--level``,
+  ``--grep`` and ``--trace``.
 """
 
 from __future__ import annotations
@@ -36,7 +47,28 @@ def cmd_serve(args) -> int:
         cfg.port = args.port
     if args.host:
         cfg.host = args.host
+    if args.ingest_workers is not None:
+        cfg.ingest_workers = args.ingest_workers
     run(cfg, device=args.platform)
+    return 0
+
+
+def cmd_warm(args) -> int:
+    """Build the profile's engine (every bucket captured), print the
+    reference's JSON keys, and exit."""
+    from .engine.loader import build_engine
+
+    cfg = load_config(args.config, args.profile)
+    engine = build_engine(cfg, args.platform, warmup=True)
+    try:
+        print(json.dumps({
+            "cold_start_seconds": round(engine.cold_start_seconds, 3),
+            "compile_seconds": round(engine.clock.total_seconds, 3),
+            "executables": len(engine.clock.entries),
+            "models": dict(engine.build_seconds),
+        }))
+    finally:
+        engine.shutdown()
     return 0
 
 
@@ -240,6 +272,65 @@ def format_autoscale_table(payload: dict) -> str:
 
 
 # The admin tables: subcommand -> (route, formatter, help).
+def format_perf_table(payload: dict) -> str:
+    """Render ``GET /admin/perf`` as the ``perf`` table: event-loop lag, each
+    model's rolling gauges, its ingest stages' p50/p99, then the top
+    collapsed stacks."""
+    from .serving.perfplane import INGEST_STAGES, hist_quantile
+
+    lines = []
+    lag = payload.get("loop_lag") or {}
+    hist = lag.get("hist") or {}
+    p50, p99 = hist_quantile(hist, 0.5), hist_quantile(hist, 0.99)
+    lines.append(f"loop lag: p50 {p50 if p50 is not None else '-'} ms  "
+                 f"p99 {p99 if p99 is not None else '-'} ms  "
+                 f"max {lag.get('max_ms', '-')} ms  ticks {lag.get('ticks', 0)}  "
+                 f"interval {lag.get('interval_s', '-')}s")
+
+    def table(cols, rows):
+        rows = [cols] + rows
+        widths = [max(len(r[i]) for r in rows) for i in range(len(cols))]
+        lines.append("")
+        lines.extend("  ".join(c.ljust(w) for c, w in zip(r, widths)).rstrip() for r in rows)
+
+    models = payload.get("models") or {}
+    if models:
+        def num(g, key, fmt="{:.2f}"):
+            v = g.get(key)
+            return fmt.format(v) if v is not None else "-"
+
+        table(("MODEL", "SAMPLES/S", "TOK/S", "STEP_MS", "UTIL%", "MFU%", "TTFT_P50",
+               "ITL_P50"),
+              [(name, num(g, "samples_per_s"), num(g, "tokens_per_s"),
+                num(g, "step_ms", "{:.3f}"), num(g, "device_util_pct", "{:.1f}"),
+                num(g, "mfu_pct"), num(g, "ttft_p50_ms"), num(g, "itl_p50_ms"))
+               for name, g in sorted(models.items())])
+    ingest = payload.get("ingest") or {}
+    if ingest:
+        rows = []
+        for model, stages in sorted(ingest.items()):
+            ordered = ([x for x in INGEST_STAGES if x in stages]
+                       + [x for x in stages if x not in INGEST_STAGES])
+            for stage in ordered:
+                snap = stages[stage]
+                q50, q99 = (hist_quantile(snap, q) for q in (0.5, 0.99))
+                rows.append((model, stage, f"{q50:.3f}" if q50 is not None else "-",
+                             f"{q99:.3f}" if q99 is not None else "-",
+                             str(snap.get("count", 0))))
+        table(("MODEL", "STAGE", "P50_MS", "P99_MS", "COUNT"), rows)
+    stacks = payload.get("stacks") or {}
+    if stacks.get("stacks"):
+        lines.append("")
+        lines.append(f"top stacks ({stacks.get('samples', 0)} samples @ "
+                     f"{stacks.get('hz', '-')} Hz):")
+        for row in stacks["stacks"][:10]:
+            stack = row["stack"]
+            if len(stack) > 100:
+                stack = "..." + stack[-97:]
+            lines.append(f"  {row['pct']:5.1f}%  {row['seconds']:8.2f}s  {stack}")
+    return "\n".join(lines)
+
+
 ADMIN_TABLES = {
     "models": ("/admin/models", format_models_table,
                "residency table of a running server (state, tier, HBM, family ladder)"),
@@ -251,7 +342,85 @@ ADMIN_TABLES = {
             "SLO, goodput and usage-ledger table of a running server"),
     "autoscale": ("/admin/autoscale", format_autoscale_table,
                   "autoscaler table of a running server (forecast, keep-warm, pre-warms)"),
+    "perf": ("/admin/perf", format_perf_table,
+             "perf-plane table of a running server (loop lag, gauges, ingest stages, "
+             "stacks)"),
 }
+
+
+def cmd_profile(args) -> int:
+    """A trace capture on a running server (``POST /debug/trace``): prints
+    the answer (the capture's directory and files)."""
+    import urllib.request
+
+    req = urllib.request.Request(args.url.rstrip("/") + "/debug/trace",
+                                 data=json.dumps({"seconds": args.seconds}).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=args.seconds + 30) as resp:
+        print(resp.read().decode())
+    return 0
+
+
+def cmd_tail(args) -> int:
+    """Print the structured log file (``TPUSERVE_LOG_FILE``) one line a
+    record, with level, substring and trace filters; ``-f`` follows it."""
+    import os
+    import time as _time
+
+    path = args.file or os.environ.get("TPUSERVE_LOG_FILE")
+    if not path:
+        print("no log file: pass a path or set TPUSERVE_LOG_FILE", file=sys.stderr)
+        return 2
+    levels = {"debug": 10, "info": 20, "warning": 30, "error": 40}
+    min_level = levels.get(args.level, 20)
+
+    def render(line: str):
+        line = line.strip()
+        if not line:
+            return
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            print(line)
+            return
+        if levels.get(str(rec.get("level", "info")), 20) < min_level:
+            return
+        if args.grep and args.grep not in line:
+            return
+        if args.trace and rec.get("trace_id") != args.trace:
+            return
+        raw_ts = rec.pop("ts", None)
+        try:
+            ts = _time.strftime("%H:%M:%S", _time.localtime(float(raw_ts)))
+        except (TypeError, ValueError):
+            # A foreign record (an ISO string, say): shown as it is.
+            ts = str(raw_ts) if raw_ts is not None else "--:--:--"
+        level = str(rec.pop("level", "info")).upper()
+        logger = rec.pop("logger", "-")
+        msg = rec.pop("msg", "")
+        rest = " ".join(f"{k}={json.dumps(v)}" for k, v in rec.items())
+        print(f"{ts} {level:<7} {logger:<18} {msg}" + (f"  {rest}" if rest else ""))
+
+    try:
+        f = open(os.path.expanduser(path))
+    except FileNotFoundError:
+        print(f"log file not found: {path} (the server writes it once TPUSERVE_LOG_FILE is "
+              "set)", file=sys.stderr)
+        return 2
+    with f:
+        if args.follow and not args.from_start:
+            f.seek(0, os.SEEK_END)
+        try:
+            while True:
+                line = f.readline()
+                if line:
+                    render(line)
+                elif args.follow:
+                    _time.sleep(0.25)
+                else:
+                    return 0
+        except KeyboardInterrupt:
+            return 0
 
 
 def cmd_admin_table(args) -> int:
@@ -260,6 +429,8 @@ def cmd_admin_table(args) -> int:
     import urllib.request
 
     route, fmt, _ = ADMIN_TABLES[args.cmd]
+    if getattr(args, "top", None) is not None:
+        route += f"?top={args.top}"
     with urllib.request.urlopen(args.url.rstrip("/") + route, timeout=10) as resp:
         payload = json.loads(resp.read().decode())
     print(json.dumps(payload, indent=2) if args.json else fmt(payload))
@@ -277,7 +448,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="device to serve on (default cuda)")
     sp.add_argument("--port", type=int, default=None)
     sp.add_argument("--host", default=None, help="bind address (0.0.0.0 for containers)")
+    sp.add_argument("--ingest-workers", type=int, default=None,
+                    help="SO_REUSEPORT acceptor worker processes on the binary lane's ingest "
+                         "port (0: the main port alone)")
     sp.set_defaults(fn=cmd_serve)
+    sp = sub.add_parser("warm", help="build every model and capture every bucket, print the "
+                                     "build's numbers, exit (no compile cache: nothing is "
+                                     "kept for the next process)")
+    sp.add_argument("--config", default=None, help="YAML/JSON config path")
+    sp.add_argument("--profile", default=None, help="named profile in the config")
+    sp.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
+                    help="device to build on (default cuda)")
+    sp.set_defaults(fn=cmd_warm)
     sp = sub.add_parser("list-models", help="print the registered model zoo")
     sp.set_defaults(fn=cmd_list_models)
     for name, (route, _, help_text) in ADMIN_TABLES.items():
@@ -285,7 +467,26 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--url", default="http://127.0.0.1:8000")
         sp.add_argument("--json", action="store_true",
                         help=f"raw {route} JSON instead of the table")
+        if name == "perf":
+            sp.add_argument("--top", type=int, default=20,
+                            help="stack-table depth (bounded by the server)")
         sp.set_defaults(fn=cmd_admin_table)
+    sp = sub.add_parser("profile", help="a torch.profiler trace of a running server's live "
+                                        "traffic (POST /debug/trace)")
+    sp.add_argument("--url", default="http://127.0.0.1:8000")
+    sp.add_argument("--seconds", type=float, default=2.0)
+    sp.set_defaults(fn=cmd_profile)
+    sp = sub.add_parser("tail", help="print or follow the structured log file")
+    sp.add_argument("file", nargs="?", default=None,
+                    help="log file (default: $TPUSERVE_LOG_FILE)")
+    sp.add_argument("-f", "--follow", action="store_true")
+    sp.add_argument("--from-start", action="store_true",
+                    help="with -f, print the existing lines before following")
+    sp.add_argument("--level", default="info", choices=["debug", "info", "warning", "error"])
+    sp.add_argument("--grep", default=None, help="only lines containing this substring")
+    sp.add_argument("--trace", default=None, metavar="TRACE_ID",
+                    help="only records stamped with this trace_id")
+    sp.set_defaults(fn=cmd_tail)
     return p
 
 

@@ -309,6 +309,29 @@ class ServeConfig:
     # A frame's byte cap, checked against its DECLARED sizes before any
     # allocation (413 past it); 0 -> the HTTP body cap (64 MiB).
     tensor_max_bytes: int = 0
+    # The perf plane (serving/perfplane.py; GET /admin/perf): ingest-stage
+    # histograms, the event-loop lag sampler, the thread-stack sampler and
+    # the rolling per-model gauges.  False starts no thread and no timer and
+    # writes no histogram.
+    perfplane: bool = True
+    # Lag probe cadence (also the gauges' sampling cadence).
+    perf_loop_lag_interval_s: float = 0.25
+    # Stack sampler rate in Hz (0: no stack sampling; lag and gauges stay).
+    perf_stack_hz: float = 7.0
+    # Collapsed-stack table bound (evicted weight folds into "other").
+    perf_stack_topk: int = 64
+    # Rolling window of the samples/s, tokens/s, step and MFU gauges.
+    perf_window_s: float = 30.0
+    # SO_REUSEPORT acceptor worker processes (serving/acceptors.py) on
+    # ingest_port (0: port + 1), speaking only the binary lane and feeding
+    # this process's batchers over shared-memory rings.  0: single-process.
+    ingest_workers: int = 0
+    ingest_port: int = 0
+    # Ring geometry: slots a ring and one slot's bytes (a request, or a
+    # batch of responses, must fit one slot; a larger request is 413 at the
+    # worker).  Two rings a worker live in /dev/shm: size them to fit it.
+    shm_ring_slots: int = 256
+    shm_ring_slot_bytes: int = 1 << 20
     models: list[ModelConfig] = field(default_factory=list)
 
     def model(self, name: str) -> ModelConfig:

@@ -18,7 +18,8 @@
   server's admission-time shedder.
 - Tracing: a request may carry its trace's root span; at dispatch the loop
   closes its ``queue`` span (enqueue → dispatch), records the head's
-  ``batch_form`` (head in hand → dispatch) and opens a ``device`` span a
+  ``batch_form`` (head in hand → dispatch; also into the perf plane's
+  per-model histogram) and opens a ``device`` span a
   member (the batch size and co-batched trace ids), under which the runner
   puts the dispatch thread's ``exec`` span.  Stage times are the
   ``perf_counter`` stamps the rings record.  A shed request's trace ends in
@@ -74,12 +75,15 @@ class _Req:
 class DynamicBatcher:
     def __init__(self, model: CompiledModel, runner: DeviceRunner, cfg: ModelConfig,
                  ring: LatencyRing | None = None,
-                 resilience: ModelResilience | None = None):
+                 resilience: ModelResilience | None = None, perf=None):
         self.model = model
         self.runner = runner
         self.coalesce_s = cfg.coalesce_ms / 1000.0
         self.max_concurrency = cfg.max_concurrency
         self.ring = ring or LatencyRing()
+        # The perf plane (serving/perfplane.py): the batch_form stage (head
+        # in hand → dispatch, the coalescing window paid) per model.
+        self.perf = perf
         # The server's per-model handle (retry policy, breaker, counters);
         # an inert one (no retry, no breaker) when built without a server.
         self.resilience = resilience or ModelResilience(name=cfg.name)
@@ -299,9 +303,13 @@ class DynamicBatcher:
             t_start = time.perf_counter()
             dev_spans = self._open_device_spans(batch, t_start, attempt)
             head_span = next((sp for sp in dev_spans if sp is not None), None)
-            if attempt == 0 and t_form0 is not None and batch[0].span is not None:
-                batch[0].span.child("batch_form", start=t_form0,
-                                    batch_size=len(batch)).end(end=t_start)
+            if attempt == 0 and t_form0 is not None:
+                if self.perf is not None:
+                    self.perf.note_stage(self.model.servable.name, "batch_form",
+                                         (t_start - t_form0) * 1000.0)
+                if batch[0].span is not None:
+                    batch[0].span.child("batch_form", start=t_form0,
+                                        batch_size=len(batch)).end(end=t_start)
             if attempt == 0:
                 adapters = {req.sample.get("_adapter") for req in batch
                             if isinstance(req.sample, dict)} - {None}

@@ -13,7 +13,9 @@ fault injection and recovery), and residency: each model's state, its
 activations and demotions by cause, activation times, cold-start
 fast-fails, the bytes on each tier and the checkpoint store's streams; and
 the request plane: the tracer's counters, the job journal's replay and
-dedupes, and the binary lane's requests.
+dedupes, and the binary lane's requests; and the host ingest planes: the
+perf plane's loop lag, ingest-stage histograms and rolling gauges, and the
+acceptor workers, their rings and the per-worker telemetry blocks.
 
 :meth:`MetricsHub.render_prometheus` writes the same numbers as text
 exposition 0.0.4 under the names, types and label sets of
@@ -169,17 +171,21 @@ class MetricsHub:
         self.lifecycle = None  # guarded-by: event-loop
         # The multi-tenant adapter manager (serving/adapters.py).
         self.adapters = None  # guarded-by: event-loop
-        # The request plane: the job queue (its journal's numbers), the
-        # tracer, and the binary lane's requests by model.
+        # The request plane: the job queue (its journal's numbers) and the
+        # tracer.
         self.jobs = None  # guarded-by: event-loop
         self.tracer = None  # guarded-by: event-loop
-        self.binary_requests: dict[str, int] | None = None  # guarded-by: event-loop
         # The tenancy and control planes: the variant hub
         # (serving/variants.py), the SLO hub and its usage ledger
         # (serving/slo.py) and the autoscaler (serving/autoscale.py).
         self.variants = None  # guarded-by: event-loop
         self.slo = None  # guarded-by: event-loop
         self.autoscale = None  # guarded-by: event-loop
+        # The host ingest planes: the perf plane (serving/perfplane.py) and
+        # () -> the fast path's snapshot (the binary lane's requests by
+        # model, the acceptor workers, rings, pump and telemetry).
+        self.perf = None  # guarded-by: event-loop
+        self.serverpath = None  # guarded-by: event-loop
 
     def ring(self, model: str) -> LatencyRing:
         if model not in self.models:
@@ -204,8 +210,8 @@ class MetricsHub:
             out["durability"] = dsnap
         if self.tracer is not None:
             out["tracing"] = self.tracer.snapshot()
-        if self.binary_requests is not None:
-            out["serverpath"] = {"binary_requests": dict(self.binary_requests)}
+        if self.serverpath is not None:
+            out["serverpath"] = self.serverpath()
         if self.variants is not None:
             out["variants"] = self.variants.snapshot()
         if self.slo is not None:
@@ -641,6 +647,92 @@ class MetricsHub:
                    "Pre-warm actions fired per (key, cause: predicted|phantom)",
                    [({"model": k, "cause": c}, n) for k, m in arows
                     for c, n in m["prewarms_by_cause"].items() if n])
+        if self.perf is not None:
+            # Event-loop lag, the stack sampler's census, the per-(model,
+            # stage) ingest histograms and the rolling gauges.
+            lag = self.perf.loop_lag
+            histogram("tpuserve_loop_lag_ms", "Event-loop callback lag: scheduled vs actual (ms)",
+                      [({}, *live(lag.hist))])
+            metric("tpuserve_loop_lag_max_ms", "gauge",
+                   "Worst event-loop lag observed this process (ms)",
+                   [({}, round(lag.max_ms, 3) if lag.ticks else None)])
+            samples = self.perf.stacks.snapshot(top=1)["samples"]
+            metric("tpuserve_stack_samples_total", "counter",
+                   "Thread-stack sampler wakeups this process lifetime",
+                   [({}, samples or None)])
+            histogram("tpuserve_ingest_ms",
+                      "Host-side ingest/egress stage wall time per (model, stage): the "
+                      "http-to-device gap decomposition",
+                      [({"model": m, "stage": st}, *live(h))
+                       for (m, st), h in list(self.perf.ingest.items())])
+            prow = self.perf.model_gauges().items()
+            for fam, key, text in (
+                    ("samples_per_s", "samples_per_s",
+                     "Rolling-window samples/s per model (perf plane)"),
+                    ("tokens_per_s", "tokens_per_s",
+                     "Rolling-window streamed tokens/s per generation lane"),
+                    ("step_ms", "step_ms", "Rolling-window mean device step time per model (ms)"),
+                    ("device_util_pct", "device_util_pct",
+                     "Rolling-window dispatch-lane occupancy per model (%)"),
+                    ("mfu_pct", "mfu_pct",
+                     "Rolling-window MFU per model (needs a flops_per_sample hint; absent "
+                     "otherwise)")):
+                metric(f"tpuserve_perf_{fam}", "gauge", text,
+                       [({"model": m}, r.get(key)) for m, r in prow])
+        if self.serverpath is not None:
+            # The acceptor workers, their rings (labelled by ring, so a stuck
+            # consumer shows as one ring at capacity), the per-worker stats
+            # blocks and the pump's ring-wait and occupancy histograms.
+            sp = self.serverpath()
+            metric("tpuserve_binary_lane_requests_total", "counter",
+                   "Requests decoded on the zero-copy binary tensor lane, per model",
+                   [({"model": m}, n) for m, n in sorted(sp["binary_requests"].items())])
+            metric("tpuserve_ingest_workers", "gauge",
+                   "Live SO_REUSEPORT acceptor worker processes (0 = single-process mode)",
+                   [({}, sp["ingest_workers"])])
+            metric("tpuserve_shm_ring_depth", "gauge",
+                   "Occupied slots per shared-memory ring between acceptors and the "
+                   "device-dispatch process",
+                   [({"ring": r}, d) for r, d in sorted(sp["ring_depth"].items())])
+            acc = sp.get("acceptor") or {}
+            rows = acc.get("workers") or []
+            metric("tpuserve_acceptor_accepts_total", "counter",
+                   "HTTP requests accepted per acceptor worker process",
+                   [({"worker": str(r["worker"])}, r.get("accepts")) for r in rows])
+            metric("tpuserve_acceptor_sheds_total", "counter",
+                   "Worker-local sheds per acceptor worker, by HTTP code",
+                   [({"worker": str(r["worker"]), "code": code}, r.get(f"shed_{code}"))
+                    for r in rows for code in ("400", "413", "415", "429", "504")
+                    if r.get(f"shed_{code}")])
+            metric("tpuserve_acceptor_responses_total", "counter",
+                   "Responses sent per acceptor worker, by outcome",
+                   [({"worker": str(r["worker"]), "outcome": oc}, r.get(f"responses_{oc}"))
+                    for r in rows for oc in ("ok", "err")])
+            metric("tpuserve_acceptor_bytes_total", "counter",
+                   "Bytes through each acceptor worker, by direction",
+                   [({"worker": str(r["worker"]), "direction": d}, r.get(f"bytes_{d}"))
+                    for r in rows for d in ("in", "out")])
+            metric("tpuserve_acceptor_worker_up", "gauge",
+                   "Acceptor worker liveness (0 = died, awaiting respawn)",
+                   [({"worker": str(r["worker"])}, 1 if r.get("up") else 0) for r in rows])
+            metric("tpuserve_acceptor_heartbeat_age_s", "gauge",
+                   "Seconds since each acceptor worker's liveness heartbeat",
+                   [({"worker": str(r["worker"])}, r.get("heartbeat_age_s")) for r in rows])
+            if rows:
+                metric("tpuserve_acceptor_restarts_total", "counter",
+                       "Acceptor worker deaths detected (each is respawned)",
+                       [({}, acc.get("restarts", 0))])
+            histogram("tpuserve_acceptor_inworker_ms",
+                      "In-worker time accept to ring push per acceptor worker (ms)",
+                      [({"worker": str(r["worker"])}, *snap(r.get("inworker_ms")))
+                       for r in rows])
+            histogram("tpuserve_acceptor_ring_wait_ms",
+                      "Ring wait worker-push to pump-pop across all workers (ms)",
+                      [({}, *snap(acc.get("ring_wait_ms")))])
+            histogram("tpuserve_shm_ring_occupancy_pct",
+                      "Ring occupancy (% of slots) sampled per busy pump cycle",
+                      [({"ring": name}, *snap(h))
+                       for name, h in sorted((acc.get("ring_occupancy_pct") or {}).items())])
         dsnap = self.jobs.durability_snapshot() if self.jobs is not None else None
         if dsnap is not None:
             metric("tpuserve_journal_records_appended_total", "counter",
@@ -661,10 +753,6 @@ class MetricsHub:
             metric("tpuserve_idempotent_dedupes_total", "counter",
                    "Submits answered with a prior job via Idempotency-Key",
                    [({}, dsnap["deduped_submits"])])
-        if self.binary_requests:
-            metric("tpuserve_binary_lane_requests_total", "counter",
-                   "Requests decoded on the zero-copy binary tensor lane, per model",
-                   [({"model": m}, n) for m, n in sorted(self.binary_requests.items())])
         if self.tracer is not None:
             tsnap = self.tracer.snapshot()
             metric("tpuserve_traces_finished_total", "counter",

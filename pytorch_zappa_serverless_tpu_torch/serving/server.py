@@ -158,9 +158,8 @@ import signal
 import threading
 import time
 import uuid
-from http import HTTPStatus
 from pathlib import Path
-from typing import Any, NamedTuple
+from typing import Any
 from urllib.parse import parse_qs
 
 import numpy as np
@@ -175,12 +174,19 @@ from .autoscale import AutoscalePlane
 from .batcher import DynamicBatcher, Overloaded
 from .durability import JobJournal
 from .generation import DraftGate, GenerationScheduler, PagedGenerationScheduler
+from .httpframe import MAX_BODY_BYTES, RawBody
+from .httpframe import HttpError as _HttpError
+from .httpframe import encode as _encode
+from .httpframe import head as _head
+from .httpframe import keep_alive as _keep_alive
+from .httpframe import read_request as _read_request
 from .jobs import JobQueue
 from .kvcache import KVPoolExhausted
 from .kvmigrate import (CAUSES, FORMAT_VERSION, MigrationError, MigrationNeedsPages,
                         PageIntegrityError, check_manifest, dtype_name, pack_page, unpack_page)
 from .lifecycle import ColdStart, LifecycleManager
 from .metrics import MetricsHub
+from .perfplane import PerfPlane, hist_quantile
 from .resilience import DeadlineExceeded, ResilienceHub, run_with_retry
 from .slo import SLOHub
 from .tracing import Tracer, new_request_id
@@ -189,7 +195,6 @@ from .watchdog import Watchdog
 
 log = get_logger("serving.server")
 
-MAX_BODY_BYTES = 64 * 1024 * 1024
 _PREDICT = re.compile(r"^/v1/models/([^:/]+):predict$")
 _SUBMIT = re.compile(r"^/v1/models/([^:/]+):submit$")
 _GENERATE = re.compile(r"^/v1/models/([^:/]+):generate$")
@@ -208,20 +213,6 @@ Response = tuple[int, Any, dict[str, str]]
 # How often a stream that waits for its next token checks that its client
 # is still connected.
 _GONE_POLL_S = 0.05
-
-
-class RawBody(NamedTuple):
-    """A response body sent as it is, under its own Content-Type (a binary
-    lane answer frame)."""
-
-    data: bytes
-    ctype: str
-
-
-class _HttpError(Exception):
-    def __init__(self, status: int, msg: str):
-        super().__init__(msg)
-        self.status = status
 
 
 class _ReqCtx:
@@ -329,37 +320,15 @@ def _error_retry(status: int, msg: str, retry_after_s: float, **extra) -> Respon
     return status, body, {"Retry-After": str(max(int(math.ceil(retry_after_s)), 1))}
 
 
-async def _read_request(reader: asyncio.StreamReader):
-    """(method, path, query, version, headers, body), or None at a clean EOF."""
-    line = await reader.readline()
-    if not line:
-        return None
-    parts = line.decode("latin-1").split()
-    if len(parts) != 3 or not parts[2].startswith("HTTP/"):
-        raise _HttpError(400, "malformed request line")
-    method, target, version = parts
-    headers: dict[str, str] = {}
-    while True:
-        h = await reader.readline()
-        if h in (b"\r\n", b"\n", b""):
-            break
-        key, sep, value = h.decode("latin-1").partition(":")
-        if not sep:
-            raise _HttpError(400, "malformed header line")
-        headers[key.strip().lower()] = value.strip()
-    if "transfer-encoding" in headers:
-        raise _HttpError(411, "send the body with a Content-Length")
-    try:
-        n = int(headers.get("content-length", "0"))
-    except ValueError:
-        raise _HttpError(400, "bad Content-Length") from None
-    if n < 0:
-        raise _HttpError(400, "bad Content-Length")
-    if n > MAX_BODY_BYTES:
-        raise _HttpError(413, f"body of {n} bytes exceeds {MAX_BODY_BYTES}")
-    body = await reader.readexactly(n) if n else b""
-    path, _, query = target.partition("?")
-    return method, path, query, version, headers, body
+def _substage(stage: str, t0: float, t1: float, **attrs) -> None:
+    """One ingest substage of the current work request: a per-(model,
+    stage) histogram row on the perf plane and a span on its trace, beside
+    (never inside) the admission → queue → device → respond chain."""
+    ctx = _request_ctx.get()
+    if ctx is None:
+        return
+    ctx.server.perf.note_stage(ctx.model, stage, (t1 - t0) * 1000.0)
+    ctx.span.child(stage, start=t0, **attrs).end(end=t1)
 
 
 def _unwrap_b64(payload: Any) -> Any:
@@ -399,12 +368,18 @@ def _decode_body(body: bytes, headers: dict[str, str],
     starts so.  The binary lane is decoded before this (``Server._payload``)."""
     ctype = _content_type(headers)
     if ctype == "application/json" or body[:1] in (b"{", b"["):
+        t0 = time.perf_counter()
         data = json.loads(body)
+        t1 = time.perf_counter()
+        _substage("json_decode", t0, t1)
         if extract is not None and isinstance(data, dict):
             for key in list(extract):
                 if key in data:
                     extract[key] = data.pop(key)
-        return _unwrap_b64(data)
+        if isinstance(data, dict) and "b64" in data:
+            data = _unwrap_b64(data)
+            _substage("b64_decode", t1, time.perf_counter())
+        return data
     return body
 
 
@@ -426,13 +401,6 @@ class EventStream:
     def __init__(self, events, cancel):
         self.events = events
         self.cancel = cancel
-
-
-def _head(status: int, framing: list[str], headers: dict[str, str], keep_alive: bool) -> bytes:
-    lines = [f"HTTP/1.1 {status} {HTTPStatus(status).phrase}", *framing,
-             f"Connection: {'keep-alive' if keep_alive else 'close'}",
-             *(f"{k}: {v}" for k, v in headers.items())]
-    return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
 
 
 def _sse_head(status: int, headers: dict[str, str], keep_alive: bool) -> bytes:
@@ -465,20 +433,6 @@ async def _next_or_gone(aw, reader: asyncio.StreamReader):
         raise
 
 
-def _encode(status: int, obj: Any, headers: dict[str, str], keep_alive: bool) -> bytes:
-    """A JSON body, a ``str`` as Prometheus text exposition 0.0.4, or a
-    :class:`RawBody` as it is."""
-    if isinstance(obj, RawBody):
-        data, ctype = obj.data, obj.ctype
-    elif isinstance(obj, str):
-        data, ctype = obj.encode(), "text/plain; version=0.0.4; charset=utf-8"
-    else:
-        data = json.dumps(obj, separators=(",", ":")).encode()
-        ctype = "application/json; charset=utf-8"
-    return _head(status, [f"Content-Type: {ctype}", f"Content-Length: {len(data)}"],
-                 headers, keep_alive) + data
-
-
 def _is_work(method: str, path: str) -> bool:
     """Work-bearing requests: what a drain refuses and counts in flight.
     Health, metrics, job polls and the admin routes keep answering."""
@@ -506,9 +460,18 @@ class Server:
                              flight_errors=cfg.trace_flight_errors,
                              max_spans=cfg.trace_max_spans)
         self.metrics.tracer = self.tracer
-        # Binary-lane requests decoded, by model (event loop only).
+        # The perf plane: ingest-stage histograms, the loop-lag and stack
+        # samplers, the rolling gauges (GET /admin/perf).  Always made;
+        # ``perfplane: false`` makes every record a no-op.
+        self.perf = PerfPlane(cfg)
+        self.metrics.perf = self.perf
+        # Binary-lane requests decoded, by model (event loop only), the
+        # answers' serialization scratch, and with ``ingest_workers`` the
+        # acceptor supervisor (serving/acceptors.py), made at start.
         self.binary_requests: dict[str, int] = {}  # guarded-by: event-loop
-        self.metrics.binary_requests = self.binary_requests
+        self.wire_pool = wire.BufferPool()
+        self.acceptors = None  # guarded-by: event-loop
+        self.metrics.serverpath = self._serverpath_snapshot
         # True while /admin/profile or /debug/trace holds the profiler.
         self._tracing = False  # guarded-by: event-loop
         self.resilience = ResilienceHub(cfg)
@@ -573,6 +536,7 @@ class Server:
             "/admin/streams": {"GET": self.handle_admin_streams},
             "/admin/slo": {"GET": self.handle_admin_slo},
             "/admin/autoscale": {"GET": self.handle_admin_autoscale},
+            "/admin/perf": {"GET": self.handle_admin_perf},
             "/admin/trace": {"GET": self.handle_trace_list},
             "/admin/profile": {"POST": self.handle_profile},
             "/debug/trace": {"POST": self.handle_debug_trace},
@@ -600,7 +564,7 @@ class Server:
         if not cm.servable.meta.get("async_only") and name not in self.batchers:
             self.batchers[name] = DynamicBatcher(
                 cm, self.engine.runner, cm.cfg, ring=self.metrics.ring(name),
-                resilience=self.resilience.model(name)).start()
+                resilience=self.resilience.model(name), perf=self.perf).start()
             if self.adapters.enabled:
                 # Co-batch evidence: each dispatch's adapter mix.
                 self.batchers[name].adapter_hook = self.adapters.note_batch
@@ -811,12 +775,37 @@ class Server:
                                      max_attempts=self.cfg.recover_max_attempts,
                                      backoff_s=self.cfg.recover_backoff_s).start()
             self.metrics.watchdog = self.watchdog
-        self._server = await asyncio.start_server(
-            self._handle_conn, host or self.cfg.host,
-            self.cfg.port if port is None else port)
-        return self._server.sockets[0].getsockname()[1]
+        # The perf plane's sources: lambdas that read the live engine and
+        # lanes at each tick (a rebuild swaps them).  Its lag timer is armed
+        # here, on the server's own loop.
+        self.perf.runner_stats = lambda: self.engine.runner.stats
+        self.perf.gen_snapshots = lambda: {
+            n: {"tokens_emitted": s.tokens_emitted, "segment_rounds": s.segment_rounds}
+            for n, s in self.schedulers.items()}
+        self.perf.flops_hint = self._flops_hint
+        self.perf.device_name = self._device_name
+        self.perf.start(asyncio.get_running_loop())
+        want = self.cfg.port if port is None else port
+        self._server = await asyncio.start_server(self._handle_conn, host or self.cfg.host, want)
+        bound = self._server.sockets[0].getsockname()[1]
+        if self.cfg.ingest_workers > 0:
+            from .acceptors import AcceptorSupervisor
+
+            # Workers that cannot serve fail the boot, with the reason.
+            self.acceptors = AcceptorSupervisor(self.cfg, pool=self.wire_pool)
+            try:
+                await self.acceptors.start(self, bound_port=bound if want else None)
+            except Exception:
+                self.acceptors = None
+                await self.stop()
+                raise
+        return bound
 
     async def stop(self):
+        if self.acceptors is not None:
+            await self.acceptors.stop()
+            self.acceptors = None
+        self.perf.stop()
         if self._server is not None:
             self._server.close()
             for w in list(self._conns):
@@ -847,8 +836,9 @@ class Server:
         self._handlers.add(asyncio.current_task())
         try:
             while True:
+                stamps: dict = {}
                 try:
-                    req = await _read_request(reader)
+                    req = await _read_request(reader, stamps=stamps)
                 except _HttpError as e:
                     status, obj, _ = _error(e.status, str(e))
                     writer.write(_encode(status, obj, {"X-Request-Id": new_request_id()},
@@ -859,15 +849,15 @@ class Server:
                     break
                 t_read = time.perf_counter()
                 method, path, query, version, headers, body = req
-                keep = (version == "HTTP/1.1"
-                        and headers.get("connection", "").lower() != "close")
+                keep = _keep_alive(version, headers)
                 work = _is_work(method, path)
-                # Every work request is traced; other routes echo (or mint)
-                # the request id only.
-                ctx = self._open_ctx(headers, path, t_read) if work else None
+                # Every work request is traced from its first byte; other
+                # routes echo (or mint) the request id only.
+                ctx = self._open_ctx(headers, path, stamps["t_head"]) if work else None
                 token = _request_ctx.set(ctx)
                 stoken = _request_state.set({} if work else None)
                 if ctx is not None:
+                    _substage("payload_read", stamps["t_head"], t_read, bytes=len(body))
                     # The demand journal: every work arrival, served, shed
                     # or drained, is demand the forecaster should see.
                     self.autoscale.note_arrival(ctx.model)
@@ -893,12 +883,28 @@ class Server:
                             keep = await self._write_stream(writer, reader, status, obj, extra,
                                                             keep)
                         else:
-                            writer.write(_encode(status, obj, extra, keep))
+                            t_enc = time.perf_counter()
+                            data = _encode(status, obj, extra, keep)
+                            st = _rstate()
+                            if st.get("serialize_at_write"):
+                                # A JSON answer's encode is its serialize stage.
+                                _substage("serialize", t_enc, time.perf_counter())
+                            writer.write(data)
                             await writer.drain()
+                            if "t_done" in st:
+                                # respond: the device's end → the answer written.
+                                t_sent = time.perf_counter()
+                                if st.get("respond_span") is not None:
+                                    st["respond_span"].end(end=t_sent)
+                                self.perf.note_stage(ctx.model, "respond",
+                                                     (t_sent - st["t_done"]) * 1000.0)
                     finally:
                         self._inflight -= int(work)
                 finally:
                     if ctx is not None:
+                        rsp = _rstate().get("respond_span")
+                        if rsp is not None:
+                            rsp.end()  # a write that failed
                         # Before close: close turns the root to error for
                         # every 4xx, and a client's mistake must not count.
                         self._observe_slo(ctx, status)
@@ -983,7 +989,7 @@ class Server:
             raise wire.FrameError("FLAG_META frames are response-only")
         if ctx is not None:
             ctx.binary = True
-            ctx.span.child("binary_decode", start=t0, blocks=len(items)).end()
+            _substage("binary_decode", t0, time.perf_counter(), blocks=len(items))
             self.note_binary_request(ctx.model)
         if flags & wire.FLAG_LIST or len(items) > 1:
             return {"instances": items}
@@ -995,6 +1001,9 @@ class Server:
         the last chunk.  A client that goes away (EOF on its side, or a
         failed write) cancels the stream and ends the connection; returns
         whether the connection stays open."""
+        ctx = _request_ctx.get()
+        model = ctx.model if ctx is not None else None
+        perf = self.perf
         try:
             writer.write(_sse_head(status, headers, keep))
             await writer.drain()
@@ -1002,8 +1011,16 @@ class Server:
                 if obj is _GONE:
                     stream.cancel()
                     return False
-                writer.write(_sse_chunk(obj))
+                # Per event, histograms only (a span a token would spend
+                # the trace's span budget): serialize is the encode,
+                # respond the socket write.
+                t0 = time.perf_counter()
+                chunk = _sse_chunk(obj)
+                t1 = time.perf_counter()
+                writer.write(chunk)
                 await writer.drain()
+                perf.note_stage(model, "serialize", (t1 - t0) * 1000.0)
+                perf.note_stage(model, "respond", (time.perf_counter() - t1) * 1000.0)
             writer.write(b"0\r\n\r\n")
             await writer.drain()
             return keep
@@ -1629,6 +1646,7 @@ class Server:
             payload = self._payload(body, headers, extract)
         except (ValueError, TypeError, _BinaryLaneDisabled) as e:
             return _payload_error(e)
+        t_val0 = time.perf_counter()
         if extract["objective"] is not None:
             # Selection happens at the family: an objective sent to a deploy
             # would be ignored in silence, so it is refused.
@@ -1670,10 +1688,14 @@ class Server:
                     batcher.check_capacity(len(instances))
                 except Overloaded as e:
                     return self._overloaded(e, batcher)
+                t_b64 = time.perf_counter()
+                n_b64 = sum(1 for p in instances if isinstance(p, dict) and "b64" in p)
                 try:
                     instances = [_unwrap_b64(p) for p in instances]
                 except (ValueError, TypeError) as e:
                     return _error(400, f"bad instance: {type(e).__name__}: {e}")
+                if n_b64:
+                    _substage("b64_decode", t_b64, time.perf_counter(), instances=n_b64)
             if deadline_ms is not None:
                 # Admission-time shedding: a queue-wait forecast past the
                 # deadline is refused now (429) rather than queued to die a 504.
@@ -1693,6 +1715,9 @@ class Server:
             if knobs:
                 return _error(400, f"model {name!r} ignores sampling knobs {knobs} on :predict "
                                    f"(greedy decode); send the request without them")
+            # validate: from the decoded payload to preprocess (deadline,
+            # tenant, instances and knob checks, the shed forecast).
+            _substage("validate", t_val0, time.perf_counter())
             try:
                 if meta.get("heavy_preprocess") or any(isinstance(p, bytes) for p in payloads):
                     # Image or audio decoding: off the event loop, the instances
@@ -1760,19 +1785,26 @@ class Server:
             heads = {"X-Queue-Ms": str(timing["queue_ms"]), "X-Device-Ms": str(timing["device_ms"])}
             self._served_variant(name, heads, out_meta)
             answer: Any
+            st = _rstate()
+            st["t_done"] = t_done
             if (ctx is not None and ctx.binary
                     and "application/json" not in headers.get("accept", "")):
                 # A binary answer: the meta block, then a block a prediction
                 # (structured predictions as JSON blocks), in one frame.
                 # ``Accept: application/json`` opts back into a JSON answer.
                 preds = result if instances is not None else [result]
+                t_ser = time.perf_counter()
                 answer = RawBody(bytes(wire.pack_response(out_meta, preds,
                                                           list_frame=instances is not None)),
                                  wire.TENSOR_CONTENT_TYPE)
+                _substage("serialize", t_ser, time.perf_counter())
             else:
+                # Encoded (and its serialize stage stamped) at the write.
                 answer = {**out_meta, "predictions": result}
-            if rsp is not None:
-                rsp.end()
+                st["serialize_at_write"] = True
+            # The respond span ends once the answer is written
+            # (_handle_conn).
+            st["respond_span"] = rsp
             if arec is not None:
                 self._adapter_served(name, arec, heads, timing)
             # The usage ledger: the device time this request spent, billed
@@ -2508,6 +2540,241 @@ class Server:
         key's fit, learned keep-warm window and planned action."""
         return 200, self.autoscale.snapshot(), {}
 
+    # -- admin: the perf plane -------------------------------------------------
+    async def handle_admin_perf(self, body: bytes, headers=None, query: str = "") -> Response:
+        """``GET /admin/perf?top=N``: event-loop lag (histogram, max), the
+        top-N collapsed thread stacks by wall time, each model's rolling
+        gauges (samples/s, tokens/s, step ms, dispatch-lane occupancy, MFU
+        where hinted; a ``:generate`` lane's TTFT and inter-token p50), and
+        the per-(model, stage) ingest histograms.  The ``perf`` CLI renders
+        it."""
+        try:
+            top = int(parse_qs(query).get("top", ["20"])[-1])
+        except (TypeError, ValueError):
+            return _error(400, "top must be an integer")
+        snap = self.perf.snapshot(top_stacks=max(top, 1))
+        for n, sched in self.schedulers.items():
+            row = snap["models"].setdefault(f"{n}:generate", {})
+            ttft = hist_quantile(sched.ttft_hist.snapshot(), 0.5)
+            itl = hist_quantile(sched.itl_hist.snapshot(), 0.5)
+            if ttft is not None:
+                row["ttft_p50_ms"] = ttft
+            if itl is not None:
+                row["itl_p50_ms"] = itl
+        return 200, snap, {}
+
+    def _flops_hint(self, name: str) -> float | None:
+        """A model's FLOPs a sample for the MFU gauge
+        (``ModelConfig.extra.flops_per_sample``); None omits the gauge."""
+        try:
+            v = self.cfg.model(name).extra.get("flops_per_sample")
+        except KeyError:
+            return None
+        try:
+            return float(v) if v else None
+        except (TypeError, ValueError):
+            return None
+
+    def _device_name(self) -> str | None:
+        """The card's name, the key of the perf plane's peak table (None off
+        CUDA)."""
+        dev = self.engine.device
+        return torch.cuda.get_device_name(dev) if dev.type == "cuda" else None
+
+    def _serverpath_snapshot(self) -> dict:
+        """The fast path's evidence for /metrics: live acceptor workers,
+        ring depths, binary-lane requests, the serialization pool, and with
+        workers the pump's counters and the acceptor telemetry."""
+        sup = self.acceptors
+        out = {"ingest_workers": sup.alive_workers() if sup is not None else 0,
+               "ring_depth": sup.ring_depths() if sup is not None else {},
+               "binary_requests": dict(self.binary_requests),
+               "wire_pool": self.wire_pool.snapshot()}
+        if sup is not None:
+            snap = sup.snapshot()
+            out["pump"] = {k: snap[k] for k in ("served", "resp_drops", "resp_oversize",
+                                                "resp_backlog", "degraded_reason",
+                                                "ingest_port", "spawn_seconds")}
+            out["acceptor"] = sup.telemetry_snapshot()
+        return out
+
+    async def serve_frame(self, name: str, body: bytes, deadline_raw: str, telem: dict | None,
+                          t_pop: float, cap: int) -> tuple[int, bytes, str]:
+        """One acceptor-lane request (serving/acceptors.py) through the
+        binary lane's admission, preprocess and batcher: ``(status, answer
+        frame or JSON error body, the trace's traceparent)``.
+
+        The reference's order: 404, quarantine 503, breaker 503, 413 or 400,
+        deadline, preprocess, ``submit_many``, then 504 or 429.  A
+        configured model that is not resident answers 503 ``cold_start``
+        (its activation starts; the pump never waits for it).  The trace is
+        anchored at the worker's accept (``telem``), joins the client's
+        ``traceparent``, and carries the worker's ``sock_read``,
+        ``frame_validate`` and ``ring_wait`` beside ``binary_decode``; every
+        path leaves through the autoscaler's arrival, the SLO observation
+        and (served) the usage ledger."""
+        t_accept = telem["t_accept"] if telem else t_pop
+        request_id = telem["request_id"] if telem and telem["request_id"] else new_request_id()
+        root = self.tracer.start("predict", model=name,
+                                 traceparent=(telem["traceparent"] or None) if telem else None,
+                                 start=t_accept, request_id=request_id, lane="binary",
+                                 ingest="acceptor")
+        trace_id = root.trace.trace_id
+        try:
+            self.autoscale.note_arrival(name)
+        except Exception:  # noqa: BLE001 — accounting never fails a request
+            log.exception("autoscale arrival failed")
+
+        def sub(stage, t0, t1, **attrs):
+            self.perf.note_stage(name, stage, (t1 - t0) * 1000.0)
+            root.child(stage, start=t0, **attrs).end(end=t1)
+
+        if telem is not None:
+            # Worker stamps: perf_counter is CLOCK_MONOTONIC, system-wide.
+            sub("sock_read", telem["t_accept"], telem["t_read"])
+            sub("frame_validate", telem["t_read"], telem["t_validate"])
+            sub("ring_wait", telem["t_push"], t_pop)
+        adm = root.child("admission", start=t_accept)
+
+        def finish(status: int):
+            adm.end()
+            self.tracer.finish(root.trace, "error" if status >= 400 else "ok")
+            try:
+                self.slo.observe(name, "predict", status,
+                                 (time.perf_counter() - t_accept) * 1000.0)
+            except Exception:  # noqa: BLE001
+                log.exception("slo observation failed")
+
+        def err(status: int, message: str, retry_after_s: float | None = None, **extra):
+            out = {"error": message, **extra, "request_id": request_id, "trace_id": trace_id}
+            if retry_after_s is not None:
+                out["retry_after_s"] = retry_after_s
+            root.annotate(http_status=status, error=message)
+            log_event(log, "request error", kind="predict", model=name, status=status,
+                      error=message, lane="acceptor", request_id=request_id, trace_id=trace_id)
+            finish(status)
+            return status, wire._json_bytes(out), root.traceparent
+
+        if self.draining:
+            return err(503, "server is draining; retry against another replica",
+                       self.cfg.drain_timeout_s or 1.0, draining=True)
+        batcher = self.batchers.get(name)
+        lc = self.lifecycle
+        if batcher is None and lc is not None and lc.knows(name) and name not in self.engine.models:
+            try:
+                await lc.ensure_active(name, cause="request", wait=False)
+            except ColdStart as e:
+                root.point("cold_start", estimated_warm_ms=round(e.estimated_warm_ms, 1))
+                return err(503, str(e), e.retry_after_s, cold_start=True,
+                           estimated_warm_ms=round(e.estimated_warm_ms, 1))
+            except Exception as e:
+                log.exception("activation failed for %s", name)
+                return err(503, f"model {name!r} activation failed: {type(e).__name__}: {e}",
+                           self.cfg.recover_backoff_s or 1.0, activation_failed=True)
+            batcher = self.batchers.get(name)
+        if batcher is None:
+            return err(404, f"unknown model {name!r}")
+        if lc is not None:
+            lc.enter(name)  # no demotion while the request is here
+        try:
+            return await self._serve_frame_admitted(name, batcher, body, deadline_raw, cap,
+                                                    root, adm, sub, finish, err)
+        finally:
+            if lc is not None:
+                lc.exit(name)
+
+    async def _serve_frame_admitted(self, name, batcher, body, deadline_raw, cap, root, adm, sub,
+                                    finish, err):
+        refused = self._unavailable(name)
+        if refused is not None:
+            status, obj, heads = refused
+            extra = {k: v for k, v in obj.items() if k != "error"}
+            return err(status, obj["error"], float(heads["Retry-After"]), **extra)
+        t0 = time.perf_counter()
+        try:
+            items, flags = wire.unpack(body, max_bytes=cap)
+            if flags & wire.FLAG_META:
+                raise wire.FrameError("FLAG_META frames are response-only")
+        except wire.FrameTooLarge as e:
+            return err(413, f"tensor frame too large: {e}")
+        except wire.FrameError as e:
+            return err(400, f"bad tensor frame: {e}")
+        t1 = time.perf_counter()
+        sub("binary_decode", t0, t1, blocks=len(items))
+        self.note_binary_request(name)
+        listy = bool(flags & wire.FLAG_LIST) or len(items) > 1
+        cm = batcher.model
+        mr = self.resilience.model(name)
+        try:
+            deadline_ms = self._deadline_ms({"x-deadline-ms": deadline_raw} if deadline_raw
+                                            else {}, None, cm.cfg)
+        except ValueError as e:
+            return err(400, str(e))
+        loop = asyncio.get_running_loop()
+        deadline = None
+        if deadline_ms is not None:
+            if deadline_ms <= 0:
+                mr.stats.deadline_admission += 1
+                return err(504, f"deadline_ms={deadline_ms:g} already expired at admission",
+                           stage="admission")
+            deadline = loop.time() + deadline_ms / 1000.0
+        meta = cm.servable.meta
+        sub("validate", t1, time.perf_counter())
+        try:
+            if meta.get("heavy_preprocess") or any(isinstance(p, bytes) for p in items):
+                per_input = await asyncio.gather(
+                    *[loop.run_in_executor(None, self._preprocess, cm, p) for p in items])
+            else:
+                per_input = [self._preprocess(cm, p) for p in items]
+        except Exception as e:
+            return err(400, f"preprocess failed: {type(e).__name__}: {e}")
+        widths = [len(x) if isinstance(x, list) else 1 for x in per_input]
+        samples = [x for s in per_input for x in (s if isinstance(s, list) else [s])]
+        seq_of = meta.get("seq_len_of")
+        adm.end()  # admission ends where the batcher queue begins
+        try:
+            futs = batcher.submit_many(samples, [seq_of(x) if seq_of else None for x in samples],
+                                       deadline=deadline, span=root)
+            remaining = max(deadline - loop.time(), 0.001) if deadline is not None else None
+            pairs = await asyncio.wait_for(asyncio.gather(*futs), remaining)
+        except Overloaded as e:
+            return err(429, str(e), e.retry_after_s)
+        except DeadlineExceeded as e:
+            return err(504, str(e), stage=e.stage)
+        except (asyncio.TimeoutError, TimeoutError):
+            mr.stats.deadline_await += 1
+            batcher.ring.record_error()
+            return err(504, f"deadline ({deadline_ms:g} ms) expired while awaiting the device",
+                       stage="await")
+        except Exception as e:
+            log.exception("acceptor-lane predict failed for %s", name)
+            return err(500, f"inference failed: {type(e).__name__}")
+        grouped, i = [], 0
+        for width in widths:
+            part = [r for r, _ in pairs[i: i + width]]
+            grouped.append(meta["merge_results"](part) if width > 1 else part[0])
+            i += width
+        t_done = max(t.pop("t_done") for _, t in pairs)
+        timing = {k: max(t[k] for _, t in pairs)
+                  for k in ("queue_ms", "device_ms", "total_ms", "batch_size")}
+        timing["samples"] = len(pairs)
+        rsp = root.child("respond", start=t_done)
+        t_ser = time.perf_counter()
+        frame = wire.pack([{"model": name, "timing": timing}] + grouped,
+                          flags=wire.FLAG_META | (wire.FLAG_LIST if listy else 0),
+                          pool=self.wire_pool)
+        out = bytes(frame)
+        self.wire_pool.release(frame)  # copied out: back in the same tick
+        sub("serialize", t_ser, time.perf_counter())
+        rsp.end()
+        self.perf.note_stage(name, "respond", (time.perf_counter() - t_done) * 1000.0)
+        try:
+            self.slo.usage.note_request(name, None, timing["device_ms"])
+        except Exception:  # noqa: BLE001
+            log.exception("usage accounting failed")
+        finish(200)
+        return 200, out, root.traceparent
+
     # -- admin: multi-tenant adapters ------------------------------------------
     async def handle_admin_adapters(self, body: bytes, headers=None, query: str = "") -> Response:
         """``GET /admin/adapters``: every tenant's adapter residency."""
@@ -2873,8 +3140,16 @@ class BackgroundServer:
 
     def __enter__(self):
         self._thread.start()
-        self.port = asyncio.run_coroutine_threadsafe(
-            self.server.start(self._host, self._want_port), self._loop).result(30)
+        try:
+            self.port = asyncio.run_coroutine_threadsafe(
+                self.server.start(self._host, self._want_port), self._loop).result(90)
+        except BaseException:
+            # A refused boot (Server.start stopped what it started) leaves
+            # no loop thread behind.
+            self._loop.call_soon_threadsafe(self._loop.stop)
+            self._thread.join(timeout=30)
+            self._loop.close()
+            raise
         return self
 
     def call(self, fn, *args, timeout: float = 60.0):

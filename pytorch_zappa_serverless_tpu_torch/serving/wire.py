@@ -159,15 +159,17 @@ def pack_response(meta: dict, predictions: list[Any], list_frame: bool) -> bytea
 
 # -- unpack -------------------------------------------------------------------
 
-def unpack(body: bytes | bytearray | memoryview, max_bytes: int = 0) -> tuple[list[Any], int]:
+def unpack(body: bytes | bytearray | memoryview, max_bytes: int = 0,
+           bf16_as_bits: bool = False) -> tuple[list[Any], int]:
     """Decode a frame into ``([block, ...], flags)``.
 
     Tensor blocks come back as read-only ``np.frombuffer`` views over
-    ``body`` (bfloat16: a fresh ``torch.bfloat16`` tensor); JSON blocks
-    decoded.  Every bound is checked against the *declared* sizes before any
-    allocation: truncated or oversized data, trailing bytes, unknown dtype
-    codes and dimension overflow raise :class:`FrameError` /
-    :class:`FrameTooLarge`.
+    ``body`` (bfloat16: a fresh ``torch.bfloat16`` tensor, or with
+    ``bf16_as_bits`` an int16 view of its bits, which needs no torch: the
+    acceptor workers validate frames so); JSON blocks decoded.  Every bound
+    is checked against the *declared* sizes before any allocation: truncated
+    or oversized data, trailing bytes, unknown dtype codes and dimension
+    overflow raise :class:`FrameError` / :class:`FrameTooLarge`.
     """
     mv = memoryview(body)
     if max_bytes and len(mv) > max_bytes:
@@ -223,6 +225,8 @@ def unpack(body: bytes | bytearray | memoryview, max_bytes: int = 0) -> tuple[li
                 items.append(json.loads(bytes(data)))
             except ValueError as e:
                 raise FrameError(f"block {i}: bad JSON block: {e}") from None
+        elif code == BF16_CODE and bf16_as_bits:
+            items.append(np.frombuffer(data, dtype=np.int16).reshape(dims))
         elif code == BF16_CODE:
             import torch
 

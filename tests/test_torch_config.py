@@ -47,7 +47,11 @@ ENV_VALUES = {"profile": "prod", "host": "0.0.0.0", "port": "9123",
               "brownout_exit_ticks": "5", "brownout_min_hold_s": "2.5",
               "slo_latency_objective_ms": "250", "slo_availability_target": "0.99",
               "slo_fast_window_s": "60", "slo_slow_window_s": "600",
-              "slo_fast_burn_alarm": "10", "slo_slow_burn_alarm": "3"}
+              "slo_fast_burn_alarm": "10", "slo_slow_burn_alarm": "3",
+              "perfplane": "false", "perf_loop_lag_interval_s": "0.1", "perf_stack_hz": "0",
+              "perf_stack_topk": "16", "perf_window_s": "10", "ingest_workers": "2",
+              "ingest_port": "9124", "shm_ring_slots": "32",
+              "shm_ring_slot_bytes": "2097152"}
 
 
 def _env(name):
@@ -334,3 +338,27 @@ def test_profile_loads_the_tenancy_and_control_plane_fields_as_the_reference(tmp
         assert getattr(got, field) == getattr(want, field), field
     assert (got.models[0].family, got.models[0].quality_rank,
             got.models[0].cost_hint_ms) == ("", 0, 0.0)
+
+
+HOST_PLANES = {"perfplane": False, "perf_loop_lag_interval_s": 0.1, "perf_stack_hz": 3.0,
+               "perf_stack_topk": 8, "perf_window_s": 12.5, "ingest_workers": 2,
+               "ingest_port": 18001, "shm_ring_slots": 32, "shm_ring_slot_bytes": 1 << 21}
+
+
+def test_profile_loads_the_perf_and_ingest_fields_as_the_reference(tmp_path):
+    """The 9 fields of the perf plane and the acceptor workers load to the
+    same values in both packages, and left out take the reference's
+    defaults; the refused fields stay as they were."""
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps({**HOST_PLANES, "models": []}))
+    got, want = PC.load_config(path), JC.load_config(path)
+    assert len(HOST_PLANES) == 9
+    for field, value in HOST_PLANES.items():
+        assert getattr(got, field) == getattr(want, field) == value, field
+    path.write_text(json.dumps({"models": []}))
+    got, want = PC.load_config(path), JC.load_config(path)
+    for field in HOST_PLANES:
+        assert getattr(got, field) == getattr(want, field), field
+    assert (got.perfplane, got.ingest_workers, got.shm_ring_slots,
+            got.shm_ring_slot_bytes) == (True, 0, 256, 1 << 20)
+    assert set(PC.REFUSED_FIELDS) == {"profiler_port"}

@@ -34,7 +34,8 @@ def test_importing_the_port_loads_no_jax():
                  "serving.resilience", "serving.watchdog", "serving.lifecycle",
                  "serving.ckptstore", "engine.streamio", "serving.wire", "serving.tracing",
                  "serving.durability", "utils.xplane", "tools.crashtest", "serving.kvmigrate",
-                 "ops.lora", "serving.adapters"):
+                 "ops.lora", "serving.adapters", "serving.perfplane", "serving.acceptors",
+                 "serving.acceptor_telemetry", "serving.httpframe"):
         assert f"pytorch_zappa_serverless_tpu_torch.{lane}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -82,6 +83,31 @@ def test_importing_the_port_loads_no_jax():
         "assert torch.equal(y[0], x[0]) and not torch.equal(y[1], x[1])\n"
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps(bad))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_acceptor_workers_closure_loads_no_torch():
+    """What an acceptor worker process imports (the acceptors module and
+    with it the wire, tracing, logging, telemetry and framing modules) loads
+    neither torch nor anything forbidden: a worker's crash takes no model
+    state with it, and its start costs no libtorch load."""
+    code = ("import json, sys\n"
+            "import pytorch_zappa_serverless_tpu_torch.serving.acceptors as A\n"
+            "import pytorch_zappa_serverless_tpu_torch.serving.acceptor_telemetry\n"
+            "import pytorch_zappa_serverless_tpu_torch.serving.httpframe\n"
+            "from pytorch_zappa_serverless_tpu_torch.serving import wire\n"
+            "import numpy as np\n"
+            "wire.unpack(bytes(wire.pack([np.ones(2, np.uint8), {'a': 1}])))\n"
+            "hdr = wire._HDR.pack(wire.MAGIC, wire.VERSION, 0, 1)\n"
+            "blk = wire._BLK.pack(wire.BF16_CODE, 1, 0) + wire._DIM.pack(2)\n"
+            "items, _ = wire.unpack(hdr + blk + bytes(4), bf16_as_bits=True)\n"
+            "assert items[0].dtype == np.int16\n"
+            f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {('torch',) + FORBIDDEN!r})\n"
+            "print(json.dumps(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)

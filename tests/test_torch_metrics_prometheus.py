@@ -295,3 +295,94 @@ def test_served_exposition_passes_check_metrics():
                    "tpuserve_faults_injected_total"):
         assert f"# TYPE {family} " in text, family
     assert {"resilience", "faults", "recovery", "models", "runner", "dispatch"} <= set(doc)
+
+
+HOST_FAMILIES = ("tpuserve_loop_lag_ms", "tpuserve_loop_lag_max_ms", "tpuserve_ingest_ms",
+                 "tpuserve_stack_samples_total", "tpuserve_perf_samples_per_s",
+                 "tpuserve_perf_tokens_per_s", "tpuserve_perf_step_ms",
+                 "tpuserve_perf_device_util_pct", "tpuserve_perf_mfu_pct",
+                 "tpuserve_ingest_workers", "tpuserve_shm_ring_depth",
+                 "tpuserve_shm_ring_occupancy_pct", "tpuserve_acceptor_accepts_total",
+                 "tpuserve_acceptor_sheds_total", "tpuserve_acceptor_responses_total",
+                 "tpuserve_acceptor_bytes_total", "tpuserve_acceptor_worker_up",
+                 "tpuserve_acceptor_heartbeat_age_s", "tpuserve_acceptor_restarts_total",
+                 "tpuserve_acceptor_inworker_ms", "tpuserve_acceptor_ring_wait_ms")
+
+
+def _host_planes(hub, perf_mod, cfg_cls, tele):
+    """The perf plane after injected lag, stages, stack samples and two
+    gauge samples, and the fast path's snapshot of one worker's stats block
+    and the pump's histograms, as the server wires them."""
+    now = [0.0]
+    perf = perf_mod.PerfPlane(cfg_cls())
+    perf.loop_lag = perf_mod.LoopLagSampler(interval_s=0.25, clock=lambda: now[0])
+    perf.loop_lag.arm()
+    for dt in (0.25, 0.31, 0.26):
+        now[0] += dt
+        perf.loop_lag.note()
+    for i, stage in enumerate(perf_mod.INGEST_STAGES):
+        perf.note_stage("bert_base", stage, 0.05 * (i + 1))
+    perf.stacks.sample_once(0.1)
+    stats = {"bert_base": SimpleNamespace(samples=0, batches=0, device_seconds=0.0)}
+    gens = {"gpt2": {"tokens_emitted": 0, "segment_rounds": 0}}
+    perf.runner_stats, perf.gen_snapshots = (lambda: stats), (lambda: gens)
+    perf.observe_models(now=0.0)
+    stats["bert_base"] = SimpleNamespace(samples=80, batches=40, device_seconds=0.5)
+    gens["gpt2"] = {"tokens_emitted": 96, "segment_rounds": 12}
+    perf.observe_models(now=4.0)
+    perf.flops_hint = lambda m: 22.3e9
+    perf.peak_flops = 989.4e12
+    hub.perf = perf
+    blk = tele.WorkerStatsBlock(create=True)
+    blk.inc("accepts", 5)
+    blk.inc("bytes_in", 4096)
+    blk.inc("bytes_out", 512)
+    blk.inc("responses_ok", 4)
+    blk.inc("responses_err")
+    blk.note_shed(413)
+    blk.observe_ms(0.3)
+    blk.heartbeat()
+    wait = tele.StatHist(tele.RING_WAIT_BUCKETS_MS)
+    wait.observe(0.8)
+    occ = tele.StatHist(tele.OCCUPANCY_BUCKETS_PCT)
+    occ.observe(12.5)
+    row = {"worker": 0, "up": True, **blk.snapshot()}
+    hub.serverpath = lambda: {
+        "ingest_workers": 1, "ring_depth": {"req:0": 1, "resp:0": 0},
+        "binary_requests": {"bert_base": 3}, "wire_pool": {"free": 0, "hits": 0, "misses": 0},
+        "acceptor": {"workers": [row], "restarts": 1, "ring_wait_ms": wait.snapshot(),
+                     "ring_occupancy_pct": {"req:0": occ.snapshot()}}}
+    blk.close()
+    blk.unlink()
+    return hub
+
+
+def test_host_plane_families_match_the_jax_hub_and_the_manifest():
+    """The perf plane's and the acceptors' families (``tpuserve_loop_lag_*``,
+    ``tpuserve_ingest_ms``, ``tpuserve_perf_*``, ``tpuserve_ingest_workers``,
+    ``tpuserve_shm_ring_*``, the nine ``tpuserve_acceptor_*``) render in the
+    port with the reference's types and label sets, every one present and
+    declared in the unedited manifest."""
+    from pytorch_zappa_serverless_tpu.serving import acceptor_telemetry as JT
+    from pytorch_zappa_serverless_tpu.serving import perfplane as JP
+    from pytorch_zappa_serverless_tpu_torch.serving import acceptor_telemetry as PT
+    from pytorch_zappa_serverless_tpu_torch.serving import perfplane as PP
+
+    mod = _check_metrics_mod()
+    port = _host_planes(MetricsHub(), PP, ServeConfig, PT).render_prometheus()
+    ref = _host_planes(JMetricsHub(), JP, JServeConfig, JT).render_prometheus()
+    assert mod.check(port, mod.load_manifest()) == []
+    ptypes, pseries = mod.parse_exposition(port)
+    rtypes, rseries = mod.parse_exposition(ref)
+    for family in HOST_FAMILIES:
+        assert family in ptypes, family
+        assert ptypes[family] == rtypes[family], family
+        assert pseries[family] == rseries[family], family
+    assert 'tpuserve_acceptor_sheds_total{code="413",worker="0"} 1' in port
+    assert "tpuserve_acceptor_restarts_total 1" in port
+    assert 'tpuserve_ingest_ms_count{model="bert_base",stage="ring_wait"} 1' in port
+    assert 'tpuserve_perf_samples_per_s{model="bert_base"} 20.0' in port
+    for name in ("loop_lag_max_ms", "perf_step_ms", "perf_mfu_pct", "shm_ring_depth"):
+        pl = sorted(ln for ln in port.splitlines() if ln.startswith(f"tpuserve_{name}"))
+        rl = sorted(ln for ln in ref.splitlines() if ln.startswith(f"tpuserve_{name}"))
+        assert pl == rl, name
