@@ -307,6 +307,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    the host planes' families against the manifest.  Printed: the client
    p50/p99 of each lane, the stage p50s, the loop lag, the workers' spawn
    seconds, the host's machine and ``/dev/shm``;
+21. the fleet router (``serving/fleet.py``) in front of ``cli serve``
+   replicas on the one card, the kernels built before any replica starts.
+   ``cli fleet --spawn 2`` with BERT-base int8 (1, 8) x 128 and GPT-2 small
+   int8 on the paged lane (16-token pages, 8 slots), seed weights, the
+   journal on.  (1) Both replicas healthy; 16 BERT predicts through the
+   router equal to the same requests sent to the replica directly, 4 GPT-2
+   streams equal to the same prompts sent to the other replica (its prefix
+   cache cold), exactly 72 ``int8_matmul`` launches a BERT forward on
+   the replicas' ``/metrics``; a routed request's trace on the replica under
+   the router's span; the router's and the direct client p50/p99 and
+   ``tpuserve_fleet_router_ms``.  (2) A partition of the replica the router
+   picks: answered by the peer in 2 attempts, quarantined, readmitted once
+   cleared; r0's forecast raised by a 20 ms replica rule, then
+   ``slow_replica`` on r1: every pick r1, the least forecast wait, its
+   answers late; a ``cold_start`` spill onto a replica whose
+   GPT-2 was unloaded activates it in the background while the router keeps
+   it healthy and its ``/healthz`` names the hold; drain stops routing and
+   terminates the replica, a restart and undrain restore it; the router's
+   Prometheus text against the manifest.  (3), (4) and (5) at once, each the
+   package's crash test (``tools/crashtest.py``): the fleet kill -9 test
+   (BERT-base int8 ``:submit`` jobs behind a 600 ms rule; predicts answered
+   in at most 2 attempts, the dead owner's job poll, quarantine, readmission
+   after a restart on its journal, every acknowledged job done and every
+   resubmit deduped), the variant
+   kill -9 test (ResNet-18 rungs at 64 px; family predicts answered
+   degraded by ``rn_lite``) and the disaggregated kill -9 test (three GPT-2
+   small int8 paged replicas, r0 prefill; the killed decode replica's stream
+   resumed on the third, its tokens equal to the undisturbed stream and to
+   the same prompt on one replica, else held under the margin rule).
+   Printed: boot seconds and device memory of each replica, the router's
+   overhead, partition-to-peer ms, quarantine and readmission seconds, the
+   cutover and kill-to-resume ms, each replica process's ``int8_matmul``
+   launches (summed into the kernels line), the phase's seconds;
 
 With ``--profile``, every path is also profiled eager against replayed:
 device-busy and wall time, the idle share, and the host's calls, where a
@@ -6631,7 +6664,15 @@ def ten_autoscale(srv, port: int, vocab: int) -> dict:
                       "probe_p50_ms": float(np.percentile(ok, 50)),
                       "probe_max_ms": max(ok), "probe_calls": len(ok)}
     # (c) starve: phantom predictions on the probe walk the plane down.
+    # The earlier checks' traffic is not periodic, so the plane may already
+    # have mispredicted and held reactive on its own: start from a plane
+    # out of any hold and count what the rule adds.
     srv.call(setattr, plane, "prewarm_margin_s", 0.25)
+    wait_until(lambda: not http_h(port, "/admin/autoscale")[1]["degraded"], TEN_HOLD_S + 10.0,
+               "the plane out of a reactive hold before starve")
+    pre = http_h(port, "/admin/autoscale")[1]
+    before = {**pre["counters"], "mispredict_streak": pre["mispredict_streak"]}
+    out["counters_before_starve"] = before
     faults.configure(model="gpt2_probe", kind="demand", mode="starve", fail_every_n=1)
     t0 = time.perf_counter()
     while True:
@@ -6642,10 +6683,11 @@ def ten_autoscale(srv, port: int, vocab: int) -> dict:
         time.sleep(0.1)
     out["degrade_s"] = time.perf_counter() - t0
     faults.clear("gpt2_probe")
-    check(snap["effective_mode"] == "reactive" and snap["counters"]["degradations"] == 1
-          and snap["counters"]["prewarm_misses"] >= TEN_MISPREDICT
+    added = {k: snap["counters"][k] - before[k] for k in ("degradations", "prewarm_misses")}
+    check(snap["effective_mode"] == "reactive" and added["degradations"] == 1
+          and added["prewarm_misses"] >= TEN_MISPREDICT - before["mispredict_streak"]
           and snap["models"]["gpt2_probe"]["prewarms_by_cause"].get("phantom", 0) >= 1,
-          f"the plane under starve: {snap['counters']}")
+          f"the plane under starve: {snap['counters']}, before it {before}")
     wait_until(lambda: not http_h(port, "/admin/autoscale")[1]["degraded"], TEN_HOLD_S + 10.0,
                "the plane's reactive hold to expire")
     # (d) spike: the arrivals happen, the journal never sees them.
@@ -6784,7 +6826,8 @@ def run_tenancy(card: str) -> dict:
         f"gpt2_probe beside it {pw['probe_p50_ms']:.3f} ms p50, {pw['probe_max_ms']:.3f} ms "
         f"max over {pw['probe_calls']} calls (the stall behind the capture "
         f"{pw['probe_max_ms'] - pw['probe_p50_ms']:.3f} ms); starve degraded the plane in "
-        f"{au['degrade_s']:.3f} s; counters {au['counters']}")
+        f"{au['degrade_s']:.3f} s (before it {au['counters_before_starve']}); counters "
+        f"{au['counters']}")
     log(f"{card}: phase 19 in {time.perf_counter() - t0:.3f} s; int8_matmul launches "
         f"{launches}, every one in a captured graph's warm-up or replay")
     return {"int8_launches": launches, "held": held}
@@ -7222,6 +7265,471 @@ def run_ingest(card: str) -> dict:
         f"int8_matmul {run['launches']} launches on the fast lane")
     return run
 
+
+# -- phase 21: the fleet router on the card ------------------------------------
+
+FLEET_POLL_S = 0.4          # the router's poll interval (2 missed polls quarantine)
+FLEET_PREDICTS = 16         # BERT predicts routed and direct, check 1
+FLEET_STREAMS = 4           # GPT-2 streams routed and direct, check 1
+FLEET_TIMING_REQS = 100     # sequential single predicts routed and direct, the overhead
+FLEET_NEW = 32              # new tokens a check-1 stream
+FLEET_JOBS = 6              # acknowledged :submit jobs at the kill, check 3
+FLEET_SLOW_MS = 600.0       # the latency of check 3's replica rule, and slow_replica's
+FLEET_RAISE_MS = 20.0       # the replica rule that raises r0's forecast, check 2
+FLEET_CONCURRENT = 8        # predicts under slow_replica, check 2
+FLEET_BOOT_S = 300.0
+
+
+def fleet_config(workdir: str, bert_arch: dict | None = None, gpt2_arch: dict | None = None,
+                 gpt2_extra: dict | None = None, bert_extra: dict | None = None) -> dict:
+    """The replicas' profile (JSON: no PyYAML on the card's machine):
+    ``bert_int8`` (BERT-base int8, (1, 8) x 128, warm at boot) and ``gpt2``
+    (GPT-2 small int8 on the paged lane, 16-token pages, 8 slots), the
+    journal on, seed weights at full width; the router's knobs beside."""
+    return {"host": "127.0.0.1", "port": 8000, "warmup_at_boot": True,
+            "journal_dir": f"{workdir}/journal", "journal_fsync": "always",
+            "job_max_backlog": 64, "drain_timeout_s": 10.0, "trace_dir": f"{workdir}/traces",
+            "fleet": {"poll_interval_s": FLEET_POLL_S, "connect_timeout_s": 1.0,
+                      "quarantine_after": 2, "failover_retries": 1, "breaker_threshold": 0.5,
+                      "breaker_min_samples": 4},
+            "models": [
+                {"name": "bert_int8", "builder": "bert_base", "dtype": "bfloat16",
+                 "batch_buckets": list(PLANE_BERT), "seq_buckets": [BERT["seq"]],
+                 "coalesce_ms": 0.0,
+                 "extra": {"params_dtype": "int8", **(bert_extra or {}),
+                           **({"arch": bert_arch} if bert_arch else {})}},
+                {"name": "gpt2", "dtype": "bfloat16", "batch_buckets": [1],
+                 "seq_buckets": [16, 64], "kv_cache": "paged", "kv_block_size": 16,
+                 "prefill_chunk_tokens": 64,
+                 "extra": {"params_dtype": "int8", "gen_slots": 8, "segment_tokens": 8,
+                           "max_new_tokens": FLEET_NEW, **(gpt2_extra or {}),
+                           **({"arch": gpt2_arch} if gpt2_arch else {})}}]}
+
+
+def _fleet_state(router: int, rid: str) -> dict:
+    _, fleet, _ = http_h(router, "/admin/fleet", timeout=10.0)
+    return fleet["replicas"].get(rid, {})
+
+
+def _wait_state(router: int, rid: str, want: set, timeout_s: float) -> float:
+    """Seconds until replica ``rid`` is in ``want`` on the router."""
+    t0 = time.monotonic()
+    last = None
+    while time.monotonic() - t0 < timeout_s:
+        try:
+            last = _fleet_state(router, rid).get("state")
+            if last in want:
+                return time.monotonic() - t0
+        except (OSError, ValueError, KeyError):
+            pass
+        time.sleep(0.02)
+    raise AssertionError(f"replica {rid} never reached {want} (last {last}) in {timeout_s} s")
+
+
+def _wait_up(port: int, timeout_s: float, proc=None) -> float:
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout_s:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"the process on :{port} exited with {proc.returncode}")
+        try:
+            if http_b(port, "/", None, method="GET", timeout=2.0)[0] == 200:
+                return time.monotonic() - t0
+        except OSError:
+            pass
+        time.sleep(0.1)
+    raise AssertionError(f"nothing answered on :{port} within {timeout_s} s")
+
+
+def _int8(port: int) -> int:
+    _, m, _ = http_h(port, "/metrics", headers={"Accept": "application/json"})
+    return int(m.get("kernels", {}).get("int8_matmul", 0))
+
+
+def _restart_replica(cfg_path: str, port: int, journal: str, log_path: str, platform: str):
+    """One ``cli serve`` on a replica's port and journal (a restart)."""
+    import os
+
+    env = {**os.environ, "TPUSERVE_PORT": str(port), "TPUSERVE_JOURNAL_DIR": journal}
+    with open(log_path, "ab") as logf:
+        return subprocess.Popen([sys.executable, "-m", "pytorch_zappa_serverless_tpu_torch.cli",
+                                 "serve", "--config", cfg_path, "--platform", platform],
+                                env=env, stdout=logf, stderr=logf)
+
+
+def phase_fleet_path(card: str, workdir: str, platform: str = "cuda", bert_vocab: int = 30522,
+                     gpt2_vocab: int = 50257, per_forward: int = 72, **cfg_kw) -> dict:
+    """Phase 21 checks 1-2 on one ``cli fleet --spawn 2`` router and its two
+    replicas.  (1) Routing: both replicas healthy; BERT predicts and GPT-2
+    streams through the router equal to the same requests sent to the
+    replica directly, the int8 launches of the predicts exactly their
+    forwards'; a routed request's trace on the replica under the router's
+    span; the router's Prometheus text against the manifest; the router's
+    overhead.  (2) Chaos: a partition fails over within one retry,
+    quarantines and readmits; under slow_replica the picks follow the least
+    forecast wait, with the forecasts made to differ; a cold_start spill
+    activates a cold GPT-2 in the background while the replica stays
+    routable; drain stops routing, undrain after a restart restores it."""
+    from pytorch_zappa_serverless_tpu_torch.tools import warm_probe
+    from pytorch_zappa_serverless_tpu_torch.tools.crashtest import _free_port, free_port_run
+
+    t_phase = time.perf_counter()
+    router = _free_port()
+    base_port = free_port_run(2, avoid=(router,))
+    cfg = fleet_config(workdir, **cfg_kw)
+    cfg["fleet"]["spawn_base_port"] = base_port
+    cfg_path = f"{workdir}/fleet.json"
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    ports = {"r0": base_port, "r1": base_port + 1}
+    journals = {rid: f"{workdir}/journal/replica-{i}" for i, rid in enumerate(ports)}
+    out: dict = {"launches": {}, "boot_s": {}}
+    restarted: list = []
+    t0 = time.monotonic()
+    with open(f"{workdir}/fleet.log", "ab") as logf:
+        fleet = subprocess.Popen([sys.executable, "-m", "pytorch_zappa_serverless_tpu_torch.cli",
+                                  "fleet", "--config", cfg_path, "--spawn", "2", "--port",
+                                  str(router), "--platform", platform],
+                                 stdout=logf, stderr=logf)
+    try:
+        for rid, port in ports.items():  # from the fleet's start
+            _wait_up(port, FLEET_BOOT_S, fleet)
+            out["boot_s"][rid] = round(time.monotonic() - t0, 3)
+        _wait_up(router, 60.0, fleet)
+        for rid in ports:
+            _wait_state(router, rid, {"healthy"}, 60.0)
+        out["fleet_ready_s"] = round(time.monotonic() - t0, 3)
+        mem = {}
+        for rid, port in ports.items():
+            _, snap, _ = http_h(port, "/admin/models")
+            mem[rid] = round(snap["hbm_bytes_total"] / 2**20, 1)
+        log(f"{card}: fleet: cli fleet --spawn 2 ready in {out['fleet_ready_s']} s; replica "
+            f"boot s {out['boot_s']}; device MiB (model and KV ledger) {mem}")
+        rng = np.random.default_rng(21)
+        # -- check 1: routing ------------------------------------------------
+        before = {rid: _int8(p) for rid, p in ports.items()}
+        bodies = [{"input_ids": [101, *rng.integers(min(1000, bert_vocab // 2), bert_vocab - 1,
+                                                    40).tolist(), 102]}
+                  for _ in range(FLEET_PREDICTS)]
+        for body in bodies:
+            st, routed, hdrs = http_h(router, "/v1/models/bert_int8:predict", body)
+            check(st == 200 and hdrs.get("X-Fleet-Attempts") == "1",
+                  f"routed predict: {st} {routed} {hdrs}")
+            st, direct, _ = http_h(ports[hdrs["X-Fleet-Replica"]],
+                                   "/v1/models/bert_int8:predict", body)
+            check(st == 200 and routed["predictions"] == direct["predictions"],
+                  f"routed predictions differ from direct: {routed} {direct}")
+        launched = sum(_int8(p) - before[rid] for rid, p in ports.items())
+        check(launched == per_forward * 2 * FLEET_PREDICTS,
+              f"int8_matmul {launched} launches for {2 * FLEET_PREDICTS} forwards, want "
+              f"{per_forward} each")
+        tp = "00-" + "5a" * 16 + "-" + "c3" * 8 + "-01"
+        st, _, hdrs = http_h(router, "/v1/models/bert_int8:predict", bodies[0],
+                             {"traceparent": tp})
+        check(hdrs.get("X-Trace-Id") == "5a" * 16, f"routed trace id {hdrs.get('X-Trace-Id')}")
+        st, tr, _ = http_h(ports[hdrs["X-Fleet-Replica"]], f"/admin/trace/{'5a' * 16}")
+        tree = tr.get("trace", {})
+        check(st == 200 and tree.get("remote_parent") not in (None, "c3" * 8)
+              and tree["tree"]["name"] == "predict" and tree["spans"] >= 4,
+              f"the replica's trace is not under the router's span: {st} {tree}")
+        gen_bodies = [{"input_ids": rng.integers(100, gpt2_vocab - 2, 12 + 3 * i).tolist(),
+                       "max_new_tokens": FLEET_NEW} for i in range(FLEET_STREAMS)]
+        for body in gen_bodies:
+            # Direct to the other replica: the same prompt again on the one
+            # that served it would hit its prefix cache and prefill by
+            # other chunks (a rounding apart at a near-tie).
+            routed = sse(router, "gpt2", body)
+            check(routed["status"] == 200 and routed["final"].get("done"),
+                  f"routed stream: {routed}")
+            other = "r1" if routed["headers"]["X-Fleet-Replica"] == "r0" else "r0"
+            direct = sse(ports[other], "gpt2", body)
+            check(routed["tokens"] == direct["tokens"] == routed["final"]["tokens"]
+                  == direct["final"]["tokens"],
+                  f"routed stream differs from direct: {routed['tokens']} {direct['tokens']}")
+        timing = {"routed": [], "direct": []}
+        for i in range(FLEET_TIMING_REQS):
+            for lane, port in (("routed", router), ("direct", ports["r0"])):
+                t = time.perf_counter()
+                st, _, _ = http_h(port, "/v1/models/bert_int8:predict",
+                                  bodies[i % len(bodies)])
+                timing[lane].append((time.perf_counter() - t) * 1e3)
+                check(st == 200, f"timing predict {lane}: {st}")
+        _, m, _ = http_h(router, "/metrics")
+        from pytorch_zappa_serverless_tpu_torch.serving.perfplane import hist_quantile
+
+        rms = m["fleet"]["router_ms"]["bert_int8"]
+        out["overhead"] = {lane: {"p50": float(np.percentile(v, 50)),
+                                  "p99": float(np.percentile(v, 99))}
+                           for lane, v in timing.items()}
+        out["router_ms"] = {"count": rms["count"], "mean": rms["sum"] / rms["count"],
+                            "p50": hist_quantile(rms, 0.5), "p99": hist_quantile(rms, 0.99)}
+        log(f"{card}: fleet: {FLEET_TIMING_REQS} sequential BERT int8 predicts (bucket 1) "
+            f"routed: client p50 {out['overhead']['routed']['p50']:.3f} ms, p99 "
+            f"{out['overhead']['routed']['p99']:.3f} ms; direct: p50 "
+            f"{out['overhead']['direct']['p50']:.3f} ms, p99 "
+            f"{out['overhead']['direct']['p99']:.3f} ms; tpuserve_fleet_router_ms over "
+            f"{rms['count']}: mean {out['router_ms']['mean']:.3f} ms, p50 "
+            f"{out['router_ms']['p50']} ms, p99 {out['router_ms']['p99']} ms (bucketed)")
+        # -- check 2: chaos ----------------------------------------------------
+        # Partition the replica the router picks now, so the next predict
+        # meets the partition first.
+        st, _, hdrs = http_h(router, "/v1/models/bert_int8:predict", bodies[0])
+        cut = hdrs["X-Fleet-Replica"]
+        peer = "r1" if cut == "r0" else "r0"
+        st, _, _ = http_h(router, "/admin/fleet/faults",
+                          {"replica": cut, "kind": "partition"})
+        check(st == 200, "partition fault refused")
+        t = time.monotonic()
+        st, body, hdrs = http_h(router, "/v1/models/bert_int8:predict", bodies[0])
+        first_peer_ms = (time.monotonic() - t) * 1e3
+        check(st == 200 and hdrs["X-Fleet-Replica"] == peer and hdrs["X-Fleet-Attempts"] == "2",
+              f"partitioned {cut}: {st} {hdrs}")
+        out["quarantine_s"] = round(_wait_state(router, cut, {"quarantined"}, 10.0), 3)
+        st, _, hdrs = http_h(router, "/v1/models/bert_int8:predict", bodies[1])
+        check(st == 200 and hdrs["X-Fleet-Attempts"] == "1" and hdrs["X-Fleet-Replica"] == peer,
+              f"quarantined {cut} still picked: {hdrs}")
+        http_h(router, "/admin/fleet/faults", {"clear": True})
+        out["readmit_s"] = round(_wait_state(router, cut, {"healthy"}, 10.0), 3)
+        _, fm, _ = http_h(router, "/admin/fleet")
+        check(fm["metrics"]["failovers"].get("connect", 0) >= 1, f"failovers {fm['metrics']}")
+        out["first_peer_ms"] = first_peer_ms
+        log(f"{card}: fleet: partition of {cut}: first answer from {peer} after "
+            f"{first_peer_ms:.3f} ms (2 attempts); quarantined after {out['quarantine_s']} s; "
+            f"readmitted {out['readmit_s']} s after the partition cleared (polls every "
+            f"{FLEET_POLL_S} s)")
+        # slow_replica: a router-side brownout that the replicas' forecasts
+        # do not see.  First r0's forecast is raised: a replica-side latency
+        # rule on r0 while more predicts than it has served go to it
+        # directly, so its p50 device time (an empty queue's forecast) is
+        # the rule's.  Then slow_replica on r1: the least forecast wait
+        # sends every pick to r1, where the id alone would pick r0, and
+        # r1's answers come FLEET_SLOW_MS late.
+        _, m0, _ = http_h(ports["r0"], "/metrics", headers={"Accept": "application/json"})
+        served = int(m0["models"]["bert_int8"]["requests"])
+        st, _, _ = http_h(ports["r0"], "/admin/faults",
+                          {"model": "bert_int8", "latency_ms": FLEET_RAISE_MS})
+        check(st == 200, "latency fault on r0 refused")
+        with ThreadPoolExecutor(8) as pool:
+            sts = list(pool.map(lambda b: http_h(ports["r0"], "/v1/models/bert_int8:predict",
+                                                 b)[0],
+                                [bodies[i % len(bodies)] for i in range(served + 16)]))
+        check(set(sts) == {200}, f"r0's slowed predicts: {sorted(set(sts))}")
+        http_h(ports["r0"], "/admin/faults", {"clear": True, "model": "bert_int8"})
+        deadline = time.monotonic() + 5
+        while True:
+            reps = http_h(router, "/admin/fleet")[1]["replicas"]
+            fc = {rid: reps[rid]["forecast"].get("bert_int8", 0.0) for rid in ports}
+            if fc["r0"] >= FLEET_RAISE_MS / 2 and fc["r0"] > 2 * fc["r1"]:
+                break
+            check(time.monotonic() < deadline, f"r0's forecast never rose on the router: {fc}")
+            time.sleep(0.05)
+        http_h(router, "/admin/fleet/faults",
+               {"replica": "r1", "kind": "slow_replica", "latency_ms": FLEET_SLOW_MS})
+        rows = []
+        for b in bodies[:FLEET_CONCURRENT]:
+            t = time.monotonic()
+            st, _, hdrs = http_h(router, "/v1/models/bert_int8:predict", b)
+            ms = (time.monotonic() - t) * 1e3
+            rows.append((hdrs.get("X-Fleet-Replica"), round(ms, 1)))
+            check(st == 200 and hdrs["X-Fleet-Replica"] == "r1" and ms >= FLEET_SLOW_MS,
+                  f"slow_replica r1 with r0's forecast {fc['r0']} ms against r1's "
+                  f"{fc['r1']} ms: {st} {rows}")
+        http_h(router, "/admin/fleet/faults", {"clear": True})
+        log(f"{card}: fleet: forecasts on the router r0 {fc['r0']} ms (raised by a "
+            f"{FLEET_RAISE_MS:.0f} ms rule over {served + 16} predicts), r1 {fc['r1']} ms; "
+            f"slow_replica r1 (+{FLEET_SLOW_MS:.0f} ms a forward): {FLEET_CONCURRENT} of "
+            f"{FLEET_CONCURRENT} picks went to r1, the least forecast wait; (replica, client "
+            f"ms) {rows}")
+        # The warm-up probe: a cold GPT-2 activated in the background on r1
+        # while the router watches it.
+        st, body, _ = http_h(ports["r1"], "/admin/models/gpt2", {"action": "unload"})
+        check(st == 200 and body["model"]["state"] == "cold", f"unload gpt2 on r1: {st} {body}")
+        http_h(router, "/admin/fleet", {"action": "quarantine", "replica": "r0"})
+        deadline = time.monotonic() + 5
+        while _fleet_state(router, "r1")["residency"]["gpt2"]["state"] != "cold":
+            check(time.monotonic() < deadline, "the router never saw r1's gpt2 cold")
+            time.sleep(0.05)
+        probe = warm_probe.spill_and_watch(f"http://127.0.0.1:{router}",
+                                           f"http://127.0.0.1:{ports['r1']}")
+        out["activation_ms"], out["probe_states"] = probe["activation_ms"], probe["states"]
+        log(f"{card}: fleet: warm-up probe: r1's cold gpt2 activated in the background by the "
+            f"spill in {probe['activation_ms']} ms; r1's states on the router across it "
+            f"{probe['states']} ({probe['reads']} reads, max consecutive poll failures "
+            f"{probe['max_consecutive_failures']}); /healthz named holds {probe['holds_named']}")
+        check(probe["spill"] == [503, "all_cold"] and probe["active"],
+              f"the cold spill and its activation: {probe}")
+        check(probe["states"] == ["healthy"], f"r1 left routing while it activated: {probe}")
+        check(probe["holds_named"] or probe["activation_ms"] < 1000.0,
+              "/healthz never named the hold during the activation")
+        http_h(router, "/admin/fleet", {"action": "readmit", "replica": "r0"})
+        out["launches"]["fleet_r0_before_drain"] = _int8(ports["r0"])
+        st, body, _ = http_h(router, "/admin/fleet",
+                             {"action": "drain", "replica": "r0", "timeout_s": 5.0})
+        check(st == 200 and body.get("terminated") is True, f"drain r0: {st} {body}")
+        deadline = time.monotonic() + 60
+        while True:  # the drained process exits; then its port is free again
+            try:
+                http_b(ports["r0"], "/", None, method="GET", timeout=1.0)
+            except OSError:
+                break
+            check(time.monotonic() < deadline, "the drained r0 never exited")
+            time.sleep(0.1)
+        r0b = _restart_replica(cfg_path, ports["r0"], journals["r0"],
+                               f"{workdir}/r0-restart.log", platform)
+        restarted.append(r0b)
+        for body in bodies[:3]:
+            st, _, hdrs = http_h(router, "/v1/models/bert_int8:predict", body)
+            check(st == 200 and hdrs["X-Fleet-Replica"] == "r1", f"drained r0 routed: {hdrs}")
+        out["boot_s"]["r0-restart"] = round(_wait_up(ports["r0"], FLEET_BOOT_S, r0b), 3)
+        st, body, _ = http_h(router, "/admin/fleet", {"action": "undrain",
+                                                             "replica": "r0"})
+        check(st == 200, f"undrain r0: {st} {body}")
+        _wait_state(router, "r0", {"healthy"}, 30.0)
+        log(f"{card}: fleet: drain of r0 stopped its routing and terminated it; restarted in "
+            f"{out['boot_s']['r0-restart']} s and undrained, r0 healthy again")
+        text = http_b(router, "/metrics?format=prometheus", None, method="GET")[1].decode()
+        mod = check_metrics_tool()
+        problems = mod.check(text, mod.load_manifest())
+        check(problems == [], f"router metrics against the manifest: {problems}")
+        fams = sorted({ln.split()[2] for ln in text.splitlines() if ln.startswith("# TYPE")})
+        out["families"] = len(fams)
+        out["launches"]["fleet_r0_restart"] = _int8(ports["r0"])
+        out["launches"]["fleet_r1"] = _int8(ports["r1"])
+        out["seconds"] = time.perf_counter() - t_phase
+        log(f"{card}: fleet: router Prometheus text manifest-clean, {len(fams)} families; "
+            f"int8_matmul launches by replica process {out['launches']}; boot s of every "
+            f"replica process {out['boot_s']}; checks 1-2 in {out['seconds']:.3f} s")
+    finally:
+        fleet.terminate()
+        try:
+            fleet.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            fleet.kill()
+            fleet.wait()
+        for proc in restarted:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+    return out
+
+
+def phase_fleet_chaos(card: str, workdir: str, platform: str = "cuda",
+                      disagg_extra: dict | None = None, engine_fn=None,
+                      bert_extra: dict | None = None) -> dict:
+    """Phase 21 checks 3-5, at once (their processes share the card): the
+    fleet kill -9 test (BERT-base int8 ``:submit`` jobs behind a 600 ms
+    latency rule), the variant kill -9 test (ResNet-18 rungs at 64 px) and
+    the disaggregated kill -9 test (three GPT-2 small int8 paged replicas,
+    r0 tagged prefill).  A disaggregated stream and the one resumed after
+    the kill are held byte for byte against the same prompt undisturbed on
+    one replica; where the card gives a differing token the margin rule
+    decides (``engine_fn`` builds the model to hold them against).
+    ``bert_extra`` narrows the fleet test's BERT (a CPU rehearsal)."""
+    from pytorch_zappa_serverless_tpu_torch.tools import crashtest
+
+    with ThreadPoolExecutor(3) as pool:
+        flt = pool.submit(crashtest.run_fleet_crashtest, f"{workdir}/fleetcrash",
+                          n_jobs=FLEET_JOBS, model="bert_int8", platform=platform,
+                          latency_ms=FLEET_SLOW_MS, model_extra=bert_extra)
+        var = pool.submit(crashtest.run_variant_crashtest, f"{workdir}/variants",
+                          n_jobs=5, platform=platform)
+        dis = pool.submit(crashtest.run_disagg_crashtest, f"{workdir}/disagg",
+                          platform=platform, model_extra=disagg_extra)
+        f, v, d = flt.result(), var.result(), dis.result()
+    check(f["lost"] == 0 and f["completed"] == FLEET_JOBS
+          and f["deduped_resubmits"] == FLEET_JOBS and f["backlog_at_kill"] >= 1, f"fleet: {f}")
+    check(f["failover_predicts_ok"] >= 1 and max(f["failover_attempts"]) <= 2
+          and f["quarantined_state"] == "quarantined" and f["readmitted_state"] == "healthy"
+          and sum(f["failovers"].values()) >= 1 and f["quarantines"].get(f["victim"], 0) >= 1,
+          f"fleet: {f}")
+    check(f["dead_owner_poll"] in (200, 503), f"fleet: {f}")
+    log(f"{card}: fleet kill -9: {f['victim']} killed with {f['backlog_at_kill']} of "
+        f"{FLEET_JOBS} BERT int8 jobs queued (acked by replica {f['acked_by_replica']}): "
+        f"4 predicts answered in {f['failover_attempts']} attempts, all within "
+        f"{f['first_failover_s']} s of the kill; quarantined {f['kill_to_quarantine_s']} s "
+        f"after the kill; a dead owner's job poll {f['dead_owner_poll']}; restarted on its "
+        f"journal in {f['restart_boot_s']} s, readmitted {f['restart_to_readmit_s']} s after "
+        f"the restart began; {f['completed']} jobs done, {f['deduped_resubmits']} resubmits "
+        f"deduped; failovers {f['failovers']}; boots {f['replica_boot_s']} s")
+    check(v["lost"] == 0 and v["completed"] == 5 and v["deduped_resubmits"] == 5,
+          f"variants: {v}")
+    check(v["degraded_predicts_ok"] >= 1 and set(v["served_variants"]) == {"rn_lite"}
+          and v["quarantined_state"] == "quarantined" and v["readmitted_state"] == "healthy",
+          f"variants: {v}")
+    log(f"{card}: fleet variants: kill -9 of the replica with rn_full warm ({v['backlog_at_kill']} "
+        f"jobs queued): family predicts served by {v['served_variants']}, "
+        f"{v['degraded_predicts_ok']} degraded, first after {v['first_degraded_serve_s']} s; "
+        f"quarantined after {v['kill_to_quarantine_s']} s, readmitted "
+        f"{v['restart_to_readmit_s']} s after the restart; boots {v['replica_boot_s']} s, "
+        f"restart {v['restart_boot_s']} s; 5 jobs done, 5 deduped")
+    check(d["decode_replica"] != "r0" and d["resumed_on"] not in ("r0", d["decode_replica"]),
+          f"disagg: {d}")
+    check(d["migrations"].get("prefill", 0) >= 2 and d["migrations"].get("failover", 0) >= 1
+          and d["failovers"].get("kv_failover", 0) >= 1, f"disagg: {d}")
+    check(d["tokens"] == d["reference"], "disagg: the resumed stream differs from the reference")
+    equal = d["reference"] == d["direct"]
+    if not equal:
+        log(f"{card}: fleet disagg: the moved streams differ from the same prompt on one "
+            f"replica; held under the margin rule: {d['reference']} vs {d['direct']}")
+        engine = engine_fn()
+        try:
+            from pytorch_zappa_serverless_tpu_torch.tools.crashtest import (DISAGG_MODEL,
+                                                                            DISAGG_PROMPT)
+
+            hold_streams(engine, "gpt2", [
+                {"tag": tag, "ids": DISAGG_PROMPT, "tokens": toks, "ended": False, "knobs": {}}
+                for tag, toks in (("moved", d["reference"]), ("direct", d["direct"]))],
+                DISAGG_MODEL["extra"]["gen_slots"],
+                (DISAGG_MODEL["prefill_chunk_tokens"], DISAGG_MODEL["kv_block_size"]))
+        finally:
+            engine.shutdown()
+    log(f"{card}: fleet disagg: prefill on r0, decode on {d['decode_replica']}, killed after 4 "
+        f"tokens, resumed on {d['resumed_on']}; tokens equal to the undisturbed stream through "
+        f"the router, and to the same prompt on one replica: {equal}; prefill-to-decode cutover "
+        f"{d['cutover_ms']} ms (first token to second; the median gap {d['token_gap_ms_median']} "
+        f"ms), kill to the next token {d['kill_to_resume_ms']} ms; migrations "
+        f"{d['migrations']}, failovers {d['failovers']}; the prefill replica's streams "
+        f"{d['prefill_streams']}; boots {d['replica_boot_s']} s")
+    return {"fleet": f, "variants": v, "disagg": d}
+
+
+def _launch_sum(launches: dict) -> int:
+    return sum(int(k.get("int8_matmul", 0)) if isinstance(k, dict) else int(k)
+               for k in launches.values())
+
+
+def run_fleet(card: str) -> dict:
+    """Phase 21: the fleet router on the card.  The kernels are built (phase
+    2) before any replica starts, so no replica's boot runs nvcc."""
+    import tempfile
+
+    from pytorch_zappa_serverless_tpu_torch.tools.crashtest import DISAGG_MODEL
+
+    fresh_memory()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tpuserve-fleet-") as tmp:
+        path = phase_fleet_path(card, tmp)
+
+        def engine_fn():
+            from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+            from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+
+            m = {**DISAGG_MODEL, "batch_buckets": tuple(DISAGG_MODEL["batch_buckets"]),
+                 "seq_buckets": tuple(DISAGG_MODEL["seq_buckets"])}
+            return build_engine(ServeConfig(models=[ModelConfig(**m)]), "cuda")
+
+        chaos = phase_fleet_chaos(card, tmp, engine_fn=engine_fn)
+    launches = {**{k: v for k, v in path["launches"].items()},
+                **{f"fleetcrash_{k}": v for k, v in chaos["fleet"]["launches"].items()},
+                **{f"variants_{k}": v for k, v in chaos["variants"]["launches"].items()},
+                **{f"disagg_{k}": v for k, v in chaos["disagg"]["launches"].items()}}
+    total = _launch_sum(launches)
+    secs = time.perf_counter() - t0
+    log(f"{card}: the fleet (phase 21) in {secs:.3f} s; int8_matmul launches of every "
+        f"replica process {launches}: {total} in all")
+    return {"launches": total, "by_process": launches, "seconds": secs, "path": path,
+            "chaos": chaos}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -7253,6 +7761,7 @@ def main(argv: list[str] | None = None) -> int:
     adapters = run_adapters(card, args.profile)
     tenancy = run_tenancy(card)
     ingest = run_ingest(card)
+    fleet = run_fleet(card)
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
         log(f"one forward's int8_matmul at M={m} (72 launches, the per-shape times summed): "
@@ -7278,7 +7787,7 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "pytorch_zappa_serverless_tpu/ops/int8_matmul.py:107",
         "launches": (int8_launches + plane["int8_launches"] + mobility["int8_launches"]
                      + adapters["auto_launches"] + tenancy["int8_launches"]
-                     + ingest["launches"]),
+                     + ingest["launches"] + fleet["launches"]),
         "max_abs_err": kern["max_abs_err"],
         "ms": bert["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": bert["bound_ms"],
         "bound_by": bert["bound_by"], "library_ms": bert["library_ms"],
@@ -7307,6 +7816,8 @@ def main(argv: list[str] | None = None) -> int:
         "launches_auto_path": adapters["auto_launches"],
         "launches_tenancy_path": tenancy["int8_launches"],
         "launches_ingest_path": ingest["launches"],
+        "launches_fleet_path": fleet["launches"],
+        "launches_fleet_by_process": fleet["by_process"],
         "spec_verify": {**verify, "timed_work": f"one speculative verify forward of GPT-2 small "
                                                 f"at M={SPEC_M}: 48 layer projections + the f32 "
                                                 f"lm head, the per-shape times summed"},
@@ -7368,7 +7879,7 @@ def main(argv: list[str] | None = None) -> int:
             f"{row['eager_ms']:.4f} ms; lane cold start (its pool and every graph) "
             f"{generate['lane_cold_s'].get(name, 0.0):.3f} s")
     log(f"{card}: chip_smoke took {time.perf_counter() - t_start:.1f} s in all (phase 20 "
-        f"{ingest['seconds']:.1f} s of it)")
+        f"{ingest['seconds']:.1f} s of it, phase 21 {fleet['seconds']:.1f} s)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

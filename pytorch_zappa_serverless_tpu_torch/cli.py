@@ -16,6 +16,13 @@
   numbers as one JSON line, and exit.  The port has no compile cache: what
   ``warm`` builds is not kept, so it measures a cold start and checks that
   the profile builds; it warms nothing for the next process.
+- ``fleet``  the fleet router (``serving/fleet.py``) in front of running
+  replicas (``--replicas url,url``) or ``--spawn N`` local ``cli serve``
+  ones, each on ``--platform`` (CUDA unless ``cpu``); ``--disagg`` with
+  ``--prefill-replicas`` serves ``:generate`` disaggregated::
+
+      python -m pytorch_zappa_serverless_tpu_torch.cli fleet \\
+          --config fleet.json --spawn 2 --port 8080
 - ``list-models``  print the registered model zoo.
 - ``models``, ``adapters``, ``prefix``, ``slo``, ``autoscale``, ``perf``  HTTP
   clients of a running server's ``/admin/models``, ``/admin/adapters``,
@@ -50,6 +57,105 @@ def cmd_serve(args) -> int:
     if args.ingest_workers is not None:
         cfg.ingest_workers = args.ingest_workers
     run(cfg, device=args.platform)
+    return 0
+
+
+def _urls(raw: str | None) -> list[str]:
+    return [u.strip() for u in (raw or "").split(",") if u.strip()]
+
+
+def cmd_fleet(args) -> int:
+    """Run the fleet router (``serving/fleet.py``) in front of N replicas:
+    running ones (``--replicas url,url``) or spawned here (``--spawn N``:
+    one ``cli serve`` subprocess a replica on ``spawn_base_port + i``, with
+    ``TPUSERVE_PORT`` and, under ``journal_dir``, a journal of its own).
+    Spawned replicas serve on ``--platform`` (CUDA unless ``cpu``); the
+    router itself touches no device."""
+    import os
+    import subprocess
+    from pathlib import Path
+
+    from .serving.fleet import run
+
+    cfg = load_config(args.config, args.profile)
+    fc = cfg.fleet
+    if args.port is not None:
+        fc.port = args.port
+    if args.host:
+        fc.host = args.host
+    if args.replicas:
+        fc.replicas = _urls(args.replicas)
+    if args.spawn is not None:
+        fc.spawn = args.spawn
+    if args.disagg:
+        fc.disagg = True
+    if args.prefill_replicas:
+        fc.prefill_replicas = _urls(args.prefill_replicas)
+    if fc.spawn and args.platform == "cuda":
+        from .engine.loader import resolve_device
+
+        resolve_device("cuda")  # raises without CUDA: no CPU replicas in its place
+    urls = [str(u) for u in fc.replicas]
+    spawned: dict[str, subprocess.Popen] = {}  # url -> process
+    next_replica = [0]  # the next spawned replica's index (scale-out too)
+
+    def spawn_replica() -> str:
+        """One ``cli serve`` subprocess on the next port: the boot-time
+        ``--spawn`` path and the router's scale-out hook."""
+        i = next_replica[0]
+        next_replica[0] += 1
+        port = fc.spawn_base_port + i
+        env = dict(os.environ)
+        env["TPUSERVE_PORT"] = str(port)
+        if cfg.journal_dir:
+            # Durability is a replica's own: each journal replays into the
+            # process that owns it.
+            env["TPUSERVE_JOURNAL_DIR"] = str(Path(cfg.journal_dir).expanduser()
+                                              / f"replica-{i}")
+        cmd = [sys.executable, "-m", "pytorch_zappa_serverless_tpu_torch.cli", "serve",
+               "--platform", args.platform]
+        if args.config:
+            cmd += ["--config", args.config]
+        if args.profile:
+            cmd += ["--profile", args.profile]
+        url = f"http://127.0.0.1:{port}"
+        spawned[url] = subprocess.Popen(cmd, env=env)
+        return url
+
+    for _ in range(fc.spawn):
+        urls.append(spawn_replica())
+    if not urls:
+        print("fleet: no replicas (configure fleet.replicas, pass --replicas, or --spawn N)",
+              file=sys.stderr)
+        return 2
+    fc.replicas = urls
+    router_ref: list = []
+
+    def signal_replica(replica_id: str, kill: bool) -> bool:
+        # Resolved through the live registry, so replicas the scale actuator
+        # spawned later are reachable too.
+        r = router_ref[0].registry.get(replica_id) if router_ref else None
+        proc = spawned.get(r.url) if r is not None else None
+        if proc is None or proc.poll() is not None:
+            return False
+        proc.kill() if kill else proc.terminate()
+        return True
+
+    try:
+        run(fc, kill_hook=lambda rid: signal_replica(rid, kill=True),
+            terminate_hook=lambda rid: signal_replica(rid, kill=False),
+            spawn_hook=spawn_replica if (fc.spawn or args.spawn is not None) else None,
+            on_router=router_ref.append)
+    finally:
+        for proc in spawned.values():
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in spawned.values():
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
     return 0
 
 
@@ -452,6 +558,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="SO_REUSEPORT acceptor worker processes on the binary lane's ingest "
                          "port (0: the main port alone)")
     sp.set_defaults(fn=cmd_serve)
+    sp = sub.add_parser("fleet", help="run the fleet router in front of N replicas")
+    sp.add_argument("--config", default=None, help="YAML/JSON config path")
+    sp.add_argument("--profile", default=None, help="named profile in the config")
+    sp.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
+                    help="device the spawned replicas serve on (default cuda)")
+    sp.add_argument("--port", type=int, default=None, help="router port")
+    sp.add_argument("--host", default=None, help="router bind address")
+    sp.add_argument("--replicas", default=None, help="comma-separated replica base URLs")
+    sp.add_argument("--spawn", type=int, default=None,
+                    help="spawn N local `cli serve` replicas")
+    sp.add_argument("--disagg", action="store_true",
+                    help="disaggregated prefill/decode with live KV migration and KV-aware "
+                         "failover")
+    sp.add_argument("--prefill-replicas", default=None,
+                    help="comma-separated replica URLs tagged prefill (disaggregated mode)")
+    sp.set_defaults(fn=cmd_fleet)
     sp = sub.add_parser("warm", help="build every model and capture every bucket, print the "
                                      "build's numbers, exit (no compile cache: nothing is "
                                      "kept for the next process)")

@@ -136,6 +136,76 @@ class ModelConfig:
 
 
 @dataclass
+class FleetConfig:
+    """The fleet router's profile (``cli fleet``; ``serving/fleet.py``): one
+    router in front of N replicas.
+
+    The router polls every replica's ``/healthz`` and ``/admin/models`` and
+    sends each request to a replica where its model is resident, least
+    forecast queue wait among them, spilling ``cold_start`` 503s to warm
+    peers and failing over around dead or partitioned replicas with at most
+    ``failover_retries`` extra attempts.  Fields and defaults are the JAX
+    package's.
+    """
+
+    host: str = "127.0.0.1"
+    port: int = 8080
+    # Replica base URLs ("http://host:port").  Empty with spawn 0: the fleet
+    # command refuses to start (a router with nothing behind it).
+    replicas: list = field(default_factory=list)
+    # Local replicas of `cli fleet --spawn N`: `cli serve` subprocesses on
+    # spawn_base_port + i, each with its own journal (journal_dir/replica-i).
+    spawn: int = 0
+    spawn_base_port: int = 8100
+    # Registry poll cadence: /healthz (liveness, drain flag, queue
+    # forecast) and /admin/models (residency, estimated_warm_ms).
+    poll_interval_s: float = 1.0
+    # Outbound timeouts: connect is short (a dead host fails fast into the
+    # failover path), total is one attempt's budget; a client X-Deadline-Ms
+    # tightens it per request.
+    connect_timeout_s: float = 2.0
+    request_timeout_s: float = 120.0
+    # Extra attempts against a DIFFERENT replica after the first choice
+    # fails (connect error, timeout, cold_start spill, 429/503 shed).
+    failover_retries: int = 1
+    failover_backoff_ms: float = 25.0
+    # Consecutive connect or poll failures before a replica leaves routing
+    # (a clean poll readmits it); the per-replica breaker takes
+    # request-level failures.
+    quarantine_after: int = 3
+    breaker_threshold: float = 0.5
+    breaker_window: int = 20
+    breaker_min_samples: int = 6
+    breaker_open_s: float = 5.0
+    # Bounded affinity maps: job id -> replica (polls route home) and
+    # Idempotency-Key -> replica (resubmits dedupe on the acking journal).
+    affinity_capacity: int = 8192
+    # Model of the /predict and /classify aliases; "" -> the replica's own
+    # default (its first configured model).
+    default_model: str = ""
+    # Disaggregated prefill/decode: prefill on a prefill-tagged replica,
+    # the stream's KV pages migrate to a decode replica at the first token.
+    # Needs paged lanes (ModelConfig.kv_cache="paged") on the replicas.
+    disagg: bool = False
+    # Replica URLs tagged prefill (also in ``replicas``); the rest decode.
+    # Empty: any two distinct routable replicas.
+    prefill_replicas: list = field(default_factory=list)
+    # KV-aware failover of disaggregated streams: the journaled pages and
+    # the emitted-token watermark resume a stream on a peer when its decode
+    # replica dies.
+    kv_failover: bool = True
+    stream_journal_capacity: int = 1024
+    # The replica scale actuator (POST /admin/fleet/scale): out while the
+    # fleet's mean queue-wait forecast exceeds scale_target_wait_ms, in
+    # under a quarter of it, one replica a step, within [min, max].
+    scale_target_wait_ms: float = 250.0
+    scale_min_replicas: int = 1
+    scale_max_replicas: int = 8
+    # One "auto" scale step every interval (needs a spawn hook); 0: manual.
+    autoscale_interval_s: float = 0.0
+
+
+@dataclass
 class ServeConfig:
     """Per-deploy profile."""
 
@@ -332,6 +402,9 @@ class ServeConfig:
     # worker).  Two rings a worker live in /dev/shm: size them to fit it.
     shm_ring_slots: int = 256
     shm_ring_slot_bytes: int = 1 << 20
+    # The fleet router's knobs (`cli fleet`; serving/fleet.py), beside the
+    # replica profile so one file describes the deployment.  File-only.
+    fleet: FleetConfig = field(default_factory=FleetConfig)
     models: list[ModelConfig] = field(default_factory=list)
 
     def model(self, name: str) -> ModelConfig:
@@ -345,10 +418,23 @@ _ENV_PREFIX = "TPUSERVE_"
 
 # Fields of the JAX package's ServeConfig the port refuses by name (a bare
 # TypeError would not say why), each with the reason.
+_MULTI_HOST = ("the port serves one process on one card; multi-chip and multi-host "
+               "serving come with parallel/ (ROADMAP Queue 1)")
 REFUSED_FIELDS = {
     "profiler_port": "jax.profiler's live trace server has no torch counterpart in the "
                      "port; capture with POST /admin/profile or POST /debug/trace "
                      "(ROADMAP Queue 1)",
+    "mesh": "a device mesh shards a model over several chips; " + _MULTI_HOST,
+    "coordinator_address": "the multi-host coordinator; " + _MULTI_HOST,
+    "num_processes": "the multi-host world size; " + _MULTI_HOST,
+    "process_id": "the multi-host rank; " + _MULTI_HOST,
+    "supervise_interval_s": "the multi-host supervisor's cadence; " + _MULTI_HOST,
+    "supervise_fail_threshold": "the multi-host supervisor's threshold; " + _MULTI_HOST,
+    "heartbeat_interval_s": "the multi-host heartbeat; " + _MULTI_HOST,
+    "exit_on_fatal": "the multi-host fatal-exit switch; " + _MULTI_HOST,
+    "compile_cache_dir": "the port keeps no persistent compile cache: kernels build per "
+                         "checkout and CUDA graphs are captured per process "
+                         "(ROADMAP Queue 3)",
 }
 
 
@@ -374,13 +460,13 @@ def apply_env_overrides(cfg: ServeConfig, environ: dict[str, str] | None = None)
 
     Each value is coerced by the type of the field's default, so a float
     field loaded from a file as an int still takes "7.5".  ``models`` is
-    file-only, and so are ``faults`` and ``slo``: structured config does not
-    go in an env var.
+    file-only, and so are ``faults``, ``slo`` and ``fleet``: structured
+    config does not go in an env var.
     """
     environ = os.environ if environ is None else environ
     for f in dataclasses.fields(ServeConfig):
         key = _ENV_PREFIX + f.name.upper()
-        if key not in environ or f.name in ("models", "faults", "slo"):
+        if key not in environ or f.name in ("models", "faults", "slo", "fleet"):
             continue
         target = (type(f.default) if f.default is not dataclasses.MISSING
                   else type(getattr(cfg, f.name)))
@@ -421,7 +507,11 @@ def load_config(path: str | Path | None = None,
                              "seq_buckets": tuple(m.get("seq_buckets", (128,))),
                              "adapter_targets": tuple(m.get("adapter_targets", ("q", "v")))})
               for m in data.pop("models", [])]
-    return apply_env_overrides(ServeConfig(models=models, **data))
+    fleet = data.pop("fleet", None)
+    cfg = ServeConfig(models=models, **data)
+    if fleet:
+        cfg.fleet = FleetConfig(**fleet)
+    return apply_env_overrides(cfg)
 
 
 def default_config() -> ServeConfig:

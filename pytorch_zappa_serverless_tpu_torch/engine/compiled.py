@@ -36,6 +36,7 @@ model's Python would issue.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import threading
@@ -60,6 +61,36 @@ log = get_logger("engine.compiled")
 # it is open; the dispatch thread issues all other device work, so a lock
 # on the one other source is enough, and captures keep the global mode.
 CAPTURE_LOCK = threading.Lock()
+
+# Long device work in progress, by thread: ident -> (label, monotonic start).
+# The dispatch thread marks a restore, a build or a capture here, so that
+# /healthz can say the thread is held by work that progresses instead of
+# waiting behind it (``DeviceRunner.held``).
+_HOLDS: dict[int, tuple[str, float]] = {}  # guarded-by: _HOLDS_LOCK
+_HOLDS_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def holding(label: str):
+    """Mark the current thread as held by ``label`` for the block; a nested
+    hold keeps the outer label and start."""
+    ident = threading.get_ident()
+    with _HOLDS_LOCK:
+        outer = ident in _HOLDS
+        if not outer:
+            _HOLDS[ident] = (label, time.monotonic())
+    try:
+        yield
+    finally:
+        if not outer:
+            with _HOLDS_LOCK:
+                _HOLDS.pop(ident, None)
+
+
+def held_by(ident: int | None) -> tuple[str, float] | None:
+    """The hold of thread ``ident``: (label, monotonic start), or None."""
+    with _HOLDS_LOCK:
+        return _HOLDS.get(ident)
 
 
 class Captured(NamedTuple):
@@ -97,21 +128,22 @@ def capture(fn: Callable[[], Any], device: torch.device, pool=None) -> Captured:
     into one graph of ``pool``.  The eager call counts its launches; the
     capture counts none (the counters are restored after it).  ``fn`` must
     not read the device on the host: such a read raises during capture."""
-    side = capture_stream(torch.device(device))
-    side.wait_stream(torch.cuda.current_stream(device))
-    warm = counters.snapshot()
-    with torch.cuda.stream(side):
-        fn()
-    counters.add_graphed(counters.delta(warm))
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    before = counters.snapshot()
-    try:
-        with CAPTURE_LOCK, torch.cuda.graph(graph, pool=pool, stream=side):
-            outputs = fn()
-    finally:
-        launches = counters.delta(before)
-        counters.restore(before)
+    with holding("capture"):
+        side = capture_stream(torch.device(device))
+        side.wait_stream(torch.cuda.current_stream(device))
+        warm = counters.snapshot()
+        with torch.cuda.stream(side):
+            fn()
+        counters.add_graphed(counters.delta(warm))
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = counters.snapshot()
+        try:
+            with CAPTURE_LOCK, torch.cuda.graph(graph, pool=pool, stream=side):
+                outputs = fn()
+        finally:
+            launches = counters.delta(before)
+            counters.restore(before)
     return Captured(graph, outputs, launches)
 
 

@@ -35,7 +35,7 @@ import torch
 
 from ..faults import FaultInjector
 from ..utils.logging import get_logger
-from .compiled import CompiledModel
+from .compiled import CompiledModel, held_by, holding
 
 log = get_logger("engine.runner")
 
@@ -154,6 +154,10 @@ class RunStats:
     # model's batches were served in.
     chunks: int = 0
     by_bucket: dict = field(default_factory=dict)
+
+
+# How often a held-aware probe that waits looks whether the thread is held.
+_HELD_POLL_S = 0.05
 
 
 class DeviceRunner:
@@ -323,6 +327,24 @@ class DeviceRunner:
         goes through the one thread that owns the device."""
         return self._pool.submit(fn, *args, **kwargs).result()
 
+    def run_held(self, label: str, fn, *args, **kwargs):
+        """:meth:`run_fn_sync` for long work (a restore, a build and its
+        captures): while ``fn`` runs, the dispatch thread is marked as held
+        by ``label``, so /healthz answers at once that it is (:meth:`held`)
+        instead of queueing its probe behind it."""
+        def held():
+            with holding(label):
+                return fn(*args, **kwargs)
+        return self._pool.submit(held).result()
+
+    def held(self) -> dict | None:
+        """What holds the dispatch thread now, ``{"by": label, "s":
+        seconds}``, or None: a restore, a build or a capture in progress."""
+        h = held_by(self._pool._thread.ident)
+        if h is None:
+            return None
+        return {"by": h[0], "s": round(time.monotonic() - h[1], 3)}
+
     # -- residency accounting -------------------------------------------------
     def track_model(self, name: str, nbytes: int) -> None:
         """Record ``name`` as device-resident with ``nbytes``: a model's
@@ -369,6 +391,11 @@ class DeviceRunner:
         verdict stands for ``cache_s``.  A timed-out future is kept: it
         resolves once the lane clears, which makes the next probe quick and
         truthful.
+
+        While :meth:`held` names long work on the thread (for less than
+        ``timeout_s``), the last verdict is answered at once instead of
+        waiting behind it: the thread is busy, not wedged.  Unmarked work,
+        or a hold older than ``timeout_s``, waits the probe out.
         """
         with self._lock:
             if self._closed:
@@ -386,8 +413,20 @@ class DeviceRunner:
                     return False
                 self._probe_future = fut
                 self.probe_dispatches += 1
+        deadline = time.monotonic() + timeout_s
         try:
-            verdict = bool(fut.result(timeout=timeout_s))
+            while True:
+                try:
+                    verdict = bool(fut.result(
+                        timeout=min(_HELD_POLL_S, max(deadline - time.monotonic(), 0.0))))
+                    break
+                except FuturesTimeout:
+                    if time.monotonic() >= deadline:
+                        raise
+                    hold = self.held()
+                    if hold is not None and hold["s"] < timeout_s:
+                        with self._probe_lock:
+                            return self._probe_verdict
         except FuturesTimeout:
             log.error("dispatch thread unresponsive for %.0f s", timeout_s)
             verdict = False

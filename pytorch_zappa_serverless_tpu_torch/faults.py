@@ -473,3 +473,110 @@ class FaultInjector:
         """Install rules from ``ServeConfig.faults`` ({model: rule kwargs})."""
         for model, rule in (faults or {}).items():
             self.configure(model=model, **rule)
+
+
+# -- fleet-level chaos (the router's POST /admin/fleet/faults) ---------------
+
+class ReplicaPartitioned(ConnectionError):
+    """An injected network partition: the router treats the replica as
+    unreachable (a connect-level failure: failover and quarantine), as if
+    the host had dropped off the network."""
+
+
+@dataclass
+class FleetFaultRule:
+    """One fleet-level rule, keyed by replica id (or ``*``).
+
+    ``partition`` makes every router-to-replica call (forwards and health
+    polls) raise :class:`ReplicaPartitioned`, the replica alive but
+    unreachable.  ``slow_replica`` delays every forward by ``latency_ms``
+    before it leaves the router (brownout, not blackout).  ``replica_kill``
+    fires the router's kill hook (SIGKILL of a spawned replica) on the next
+    forward.  ``count`` bounds the firings."""
+
+    replica: str = "*"
+    kind: str = "partition"  # partition | slow_replica | replica_kill
+    latency_ms: float = 0.0
+    count: int | None = None
+    fired: int = field(default=0)
+
+    def public(self) -> dict:
+        return {"replica": self.replica, "kind": self.kind,
+                "latency_ms": self.latency_ms, "count": self.count,
+                "fired": self.fired}
+
+
+class FleetFaultInjector:
+    """The router's chaos hook, confined to its event loop.
+
+    ``check(replica_id)`` answers the injected forward latency in seconds and
+    raises :class:`ReplicaPartitioned` for a partitioned replica;
+    ``should_kill`` takes one kill firing for the router's kill hook.  The
+    validation messages are the JAX package's."""
+
+    _KINDS = ("partition", "slow_replica", "replica_kill")
+
+    def __init__(self):
+        self._rules: list[FleetFaultRule] = []  # guarded-by: event-loop
+        self.injected = {"partition": 0, "slow_replica": 0, "replica_kill": 0}  # guarded-by: event-loop
+
+    def configure(self, replica: str = "*", kind: str = "partition", latency_ms: float = 0.0,
+                  count: int | None = None) -> FleetFaultRule:
+        if kind not in self._KINDS:
+            raise ValueError(f"kind must be one of {self._KINDS}, got {kind!r}")
+        if latency_ms < 0:
+            raise ValueError("latency_ms must be >= 0")
+        if count is not None and int(count) < 1:
+            raise ValueError("count must be >= 1 when set")
+        rule = FleetFaultRule(replica=replica, kind=kind, latency_ms=float(latency_ms),
+                              count=int(count) if count is not None else None)
+        # One rule per (replica, kind): configuring again replaces it.
+        self._rules = [r for r in self._rules
+                       if not (r.replica == rule.replica and r.kind == rule.kind)]
+        self._rules.append(rule)
+        return rule
+
+    def clear(self, replica: str | None = None):
+        if replica is None:
+            self._rules = []
+        else:
+            self._rules = [r for r in self._rules if r.replica != replica]
+
+    def snapshot(self) -> dict:
+        return {"rules": [r.public() for r in self._rules], "injected": dict(self.injected)}
+
+    def _match(self, replica_id: str, kind: str) -> FleetFaultRule | None:
+        for r in self._rules:
+            if r.kind == kind and r.replica in ("*", replica_id):
+                if r.count is not None and r.fired >= r.count:
+                    continue
+                return r
+        return None
+
+    def check(self, replica_id: str, poll: bool = False) -> float:
+        """The partition gate and the forward latency, before every
+        router-to-replica call.  A health poll (``poll=True``) honours a
+        partition (a partitioned replica looks dead to the prober too) but
+        not the slow-replica latency, which targets the request path."""
+        rule = self._match(replica_id, "partition")
+        if rule is not None:
+            rule.fired += 1
+            self.injected["partition"] += 1
+            raise ReplicaPartitioned(f"injected partition: replica {replica_id!r} unreachable")
+        if poll:
+            return 0.0
+        rule = self._match(replica_id, "slow_replica")
+        if rule is not None:
+            rule.fired += 1
+            self.injected["slow_replica"] += 1
+            return rule.latency_ms / 1000.0
+        return 0.0
+
+    def should_kill(self, replica_id: str) -> bool:
+        """Take one replica_kill firing for this replica, if one is armed."""
+        rule = self._match(replica_id, "replica_kill")
+        if rule is None:
+            return False
+        rule.fired += 1
+        self.injected["replica_kill"] += 1
+        return True

@@ -45,6 +45,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any
 
+from ..utils.aio import cancel_and_wait
 from ..utils.logging import get_logger, log_event
 from .metrics import Histogram
 
@@ -175,13 +176,8 @@ class AdapterManager:
         return self
 
     async def stop(self):
-        if self._task is not None:
-            self._task.cancel()
-            try:
-                await self._task
-            except asyncio.CancelledError:
-                pass
-            self._task = None
+        await cancel_and_wait(self._task)
+        self._task = None
 
     @property
     def enabled(self) -> bool:

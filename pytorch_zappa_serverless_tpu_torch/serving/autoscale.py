@@ -47,6 +47,7 @@ import bisect
 import time
 from typing import Callable
 
+from ..utils.aio import cancel_and_wait
 from ..utils.logging import get_logger, log_event
 from .slo import RollingWindow
 
@@ -267,13 +268,8 @@ class AutoscalePlane:
         return self
 
     async def stop(self):
-        if self._task is not None:
-            self._task.cancel()
-            try:
-                await self._task
-            except asyncio.CancelledError:
-                pass
-            self._task = None
+        await cancel_and_wait(self._task)
+        self._task = None
 
     async def _loop(self):
         while True:

@@ -42,6 +42,7 @@ from ..config import ModelConfig
 from ..engine.compiled import CompiledModel
 from ..engine.runner import DeviceRunner
 from ..faults import is_transient
+from ..utils.aio import cancel_and_wait
 from ..utils.logging import get_logger, log_event
 from .metrics import LatencyRing
 from .resilience import DeadlineExceeded, ModelResilience
@@ -107,13 +108,8 @@ class DynamicBatcher:
 
     async def stop(self):
         self._stopped = True
-        if self._task is not None:
-            self._task.cancel()
-            try:
-                await self._task
-            except asyncio.CancelledError:
-                pass
-            self._task = None
+        await cancel_and_wait(self._task)
+        self._task = None
         pending = [self._carry] if self._carry is not None else []
         self._carry = None
         while not self._queue.empty():

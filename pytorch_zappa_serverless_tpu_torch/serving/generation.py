@@ -55,6 +55,7 @@ from typing import Any
 import numpy as np
 
 from ..engine.genkernels import PagedKernels, SlotKernels, unpack
+from ..utils.aio import cancel_and_wait
 from ..utils.logging import get_logger, log_event
 from .kvcache import TRASH_BLOCK, BlockManager, KVPoolExhausted
 from .kvmigrate import (MigrationError, MigrationNeedsPages, MigrationStats, PageIntegrityError,
@@ -406,13 +407,8 @@ class GenerationScheduler(_Lane):
 
     async def stop(self):
         self._stopped = True
-        if self._task is not None:
-            self._task.cancel()
-            try:
-                await self._task
-            except asyncio.CancelledError:
-                pass
-            self._task = None
+        await cancel_and_wait(self._task)
+        self._task = None
         for req in list(self._active.values()) + list(self._pending):
             req.finish(error="generation scheduler shut down")
         self._active.clear()
@@ -978,13 +974,8 @@ class PagedGenerationScheduler(_Lane):
 
     async def stop(self):
         self._stopped = True
-        if self._task is not None:
-            self._task.cancel()
-            try:
-                await self._task
-            except asyncio.CancelledError:
-                pass
-            self._task = None
+        await cancel_and_wait(self._task)
+        self._task = None
         for req in (list(self._active.values()) + [j.req for j in self._prefilling]
                     + list(self._pending) + [rec["req"] for rec in self._swapped]
                     + list(self._detached)):

@@ -27,6 +27,7 @@ import uuid
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+from ..utils.aio import cancel_and_wait
 from ..utils.logging import get_logger, log_event
 
 log = get_logger("serving.jobs")
@@ -279,10 +280,7 @@ class JobQueue:
         for task in tasks:
             task.cancel()
         for task in tasks:
-            try:
-                await task
-            except asyncio.CancelledError:
-                pass
+            await cancel_and_wait(task)
         # Jobs still queued OR mid-run will never finish in this lifecycle
         # (worker cancellation aborts the in-flight _run_job): fail them
         # loudly so pollers see a terminal status, not an eternal

@@ -36,10 +36,11 @@ Where the port differs from the reference, and why:
   loop's executor while other models serve.  Here a capture synchronizes
   the device, empties the allocator's cache and refuses other threads'
   CUDA calls, so restores, builds and captures run on the runner's
-  dispatch thread (``runner.run_fn_sync``); the activation's executor
-  thread does the host work around them (seed init and quantization, the
-  stream's reads, the store's writes).  The one other thread that touches
-  the card, a stream placing weights during a build, holds
+  dispatch thread (``runner.run_held``, which marks the thread as held, so
+  /healthz answers during them and names the hold); the activation's
+  executor thread does the host work around them (seed init and
+  quantization, the stream's reads, the store's writes).  The one other
+  thread that touches the card, a stream placing weights during a build, holds
   ``engine.compiled.CAPTURE_LOCK`` for each tensor, as every capture does.
 
 Mechanisms, as in the reference: single-flight activation (N concurrent
@@ -64,6 +65,7 @@ from typing import Any, Callable
 import torch
 
 from ..config import ServeConfig
+from ..utils.aio import cancel_and_wait
 from ..utils.logging import get_logger, log_event
 from .metrics import Histogram
 
@@ -206,13 +208,8 @@ class LifecycleManager:
         return self
 
     async def stop(self):
-        if self._task is not None:
-            self._task.cancel()
-            try:
-                await self._task
-            except asyncio.CancelledError:
-                pass
-            self._task = None
+        await cancel_and_wait(self._task)
+        self._task = None
 
     @property
     def names(self):
@@ -426,7 +423,7 @@ class LifecycleManager:
         runner.faults.on_activation(name)
         phases: dict[str, Any] = {"tier": from_tier}
         if from_tier == "host" and host_cm is not None:
-            t = runner.run_fn_sync(host_cm.device_restore)
+            t = runner.run_held(f"restore {name}", host_cm.device_restore)
             phases.update(load_ms=t["h2d_ms"], compile_ms=t["capture_ms"])
             self._set_phases(name, phases)
             return host_cm
@@ -435,7 +432,7 @@ class LifecycleManager:
         if from_tier == "disk" and host_cm is not None and store is not None:
             try:
                 params, stats = store.load(name, place_fn=streamio.device_placer(engine.device))
-                t = runner.run_fn_sync(host_cm.disk_restore, lambda: params)
+                t = runner.run_held(f"restore {name}", host_cm.disk_restore, lambda: params)
                 del params
                 phases.update(load_ms=stats.load_ms, compile_ms=t["capture_ms"], streamed=True,
                               chunks_streamed=stats.chunks_streamed)
@@ -474,14 +471,14 @@ class LifecycleManager:
         servable = build_servable(mc)
         phases["load_ms"] = (time.perf_counter() - t0) * 1000.0
         t1 = time.perf_counter()
-        cm = runner.run_fn_sync(build_model, mc, engine.clock, engine.device,
-                                warmup=self.cfg.warmup_at_boot, servable=servable)
+        cm = runner.run_held(f"build {name}", build_model, mc, engine.clock, engine.device,
+                             warmup=self.cfg.warmup_at_boot, servable=servable)
         phases["compile_ms"] = (time.perf_counter() - t1) * 1000.0
         if stream_th is not None:
             stream_th.join()
             status, payload, stream_ms, chunks = stream_box[0]
             if status == "ok":
-                runner.run_fn_sync(cm.copy_in_place, flatten_tree(payload))
+                runner.run_held(f"build {name}", cm.copy_in_place, flatten_tree(payload))
                 # The stream overlapped the build, so load_ms + compile_ms
                 # can exceed the activation's wall time.
                 phases.update(load_ms=stream_ms, streamed=True, chunks_streamed=chunks)
@@ -496,7 +493,8 @@ class LifecycleManager:
             # Write-once staging: the first cold build seeds the store, so
             # every later activation of this model streams.
             try:
-                store.put(name, runner.run_fn_sync(cm.host_state), fingerprint=ckpt_fp)
+                store.put(name, runner.run_held(f"build {name}", cm.host_state),
+                          fingerprint=ckpt_fp)
             except Exception:
                 log.exception("seeding the checkpoint store for %s failed; streaming stays "
                               "off for this model", name)

@@ -1107,7 +1107,12 @@ class Server:
         return self.engine.runner.probe(self.cfg.dispatch_probe_timeout_s)
 
     async def handle_healthz(self, body: bytes, headers=None, query: str = "") -> Response:
+        # A restore, build or capture on the dispatch thread answers the
+        # last verdict at once with the hold named: the thread is busy, not
+        # wedged, and a poll timing out behind it would quarantine a replica
+        # that is warming up for the router.
         alive = await asyncio.get_running_loop().run_in_executor(None, self._probe)
+        held = self.engine.runner.held()
         gen_fatal = {n: s.fatal for n, s in self.schedulers.items() if s.fatal}
         quarantined = sorted(self.resilience.quarantined)
         ok = alive and not gen_fatal and not self.draining and not quarantined
@@ -1118,6 +1123,8 @@ class Server:
             # balancer stops routing here.
             "draining": self.draining,
             "quarantined": quarantined,
+            # What holds the dispatch thread now ({"by", "s"}), if anything.
+            **({"dispatch_held": held} if held is not None else {}),
             **({"recovery": self.watchdog.snapshot()} if self.watchdog is not None else {}),
             "generation": {n: {"active": s.active, "pending": s.depth,
                                **({"fatal": s.fatal} if s.fatal else {})}

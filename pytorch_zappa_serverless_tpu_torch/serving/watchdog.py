@@ -34,6 +34,7 @@ from __future__ import annotations
 import asyncio
 import time
 
+from ..utils.aio import cancel_and_wait
 from ..utils.logging import get_logger, log_event
 
 log = get_logger("serving.watchdog")
@@ -74,13 +75,8 @@ class Watchdog:
         return self
 
     async def stop(self):
-        if self._task is not None:
-            self._task.cancel()
-            try:
-                await self._task
-            except asyncio.CancelledError:
-                pass
-            self._task = None
+        await cancel_and_wait(self._task)
+        self._task = None
 
     # -- detection -----------------------------------------------------------
     def _fatal_open_models(self) -> list[str]:

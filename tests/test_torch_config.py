@@ -18,7 +18,7 @@ from pytorch_zappa_serverless_tpu_torch.utils.registry import list_models
 
 # Structured fields are file-only in both packages.
 SHARED = [f.name for f in dataclasses.fields(PC.ServeConfig)
-          if f.name not in ("models", "faults", "slo")]
+          if f.name not in ("models", "faults", "slo", "fleet")]
 # One value per field, as an operator would write it in the environment.
 ENV_VALUES = {"profile": "prod", "host": "0.0.0.0", "port": "9123",
               "warmup_at_boot": "false", "priority_dispatch": "0",
@@ -140,6 +140,7 @@ def test_default_config_is_the_reference_dev_profile_filtered_by_the_port_regist
             assert getattr(g, name) == getattr(w, name), (g.name, name)
     for name in SHARED:
         assert getattr(got, name) == getattr(want, name), name
+    assert dataclasses.asdict(got.fleet) == dataclasses.asdict(want.fleet)
     assert got.model("gpt2").extra["params_dtype"] == "bfloat16"
     assert got.model("sd15").extra["variant"] == "tiny"
 
@@ -361,4 +362,7 @@ def test_profile_loads_the_perf_and_ingest_fields_as_the_reference(tmp_path):
         assert getattr(got, field) == getattr(want, field), field
     assert (got.perfplane, got.ingest_workers, got.shm_ring_slots,
             got.shm_ring_slot_bytes) == (True, 0, 256, 1 << 20)
-    assert set(PC.REFUSED_FIELDS) == {"profiler_port"}
+    assert set(PC.REFUSED_FIELDS) == {
+        "profiler_port", "mesh", "coordinator_address", "num_processes", "process_id",
+        "supervise_interval_s", "supervise_fail_threshold", "heartbeat_interval_s",
+        "exit_on_fatal", "compile_cache_dir"}

@@ -35,7 +35,8 @@ def test_importing_the_port_loads_no_jax():
                  "serving.ckptstore", "engine.streamio", "serving.wire", "serving.tracing",
                  "serving.durability", "utils.xplane", "tools.crashtest", "serving.kvmigrate",
                  "ops.lora", "serving.adapters", "serving.perfplane", "serving.acceptors",
-                 "serving.acceptor_telemetry", "serving.httpframe"):
+                 "serving.acceptor_telemetry", "serving.httpframe", "serving.fleet",
+                 "serving.httpclient"):
         assert f"pytorch_zappa_serverless_tpu_torch.{lane}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -113,6 +114,36 @@ def test_the_acceptor_workers_closure_loads_no_torch():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_router_loads_no_aiohttp_and_its_client_no_torch():
+    """The fleet router (``serving/fleet.py``) serves and calls on the
+    standard library: importing it, and starting and stopping a router,
+    loads no aiohttp (the card's machine has none) and nothing forbidden;
+    the HTTP client's closure, like the framing's, loads no torch."""
+    code = ("import json, sys\n"
+            "import pytorch_zappa_serverless_tpu_torch.serving.httpclient as C\n"
+            "import pytorch_zappa_serverless_tpu_torch.serving.httpframe\n"
+            "before = sorted(n for n in sys.modules if n.split('.')[0] == 'torch')\n"
+            "import asyncio\n"
+            "from pytorch_zappa_serverless_tpu_torch.config import FleetConfig\n"
+            "from pytorch_zappa_serverless_tpu_torch.serving.fleet import FleetRouter\n"
+            "async def go():\n"
+            "    r = FleetRouter(FleetConfig(poll_interval_s=0.0))\n"
+            "    port = await r.start('127.0.0.1', 0)\n"
+            "    pool = C.ClientPool()\n"
+            "    async with await pool.request('GET', f'http://127.0.0.1:{port}/healthz',\n"
+            "                                  timeout=C.ClientTimeout(5, 1)) as resp:\n"
+            "        assert resp.status == 503 and (await resp.json())['fleet_ok'] is False\n"
+            "    await pool.close(); await r.stop()\n"
+            "asyncio.run(go())\n"
+            f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {('aiohttp',) + FORBIDDEN!r})\n"
+            "print(json.dumps([before, bad]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [[], []]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],

@@ -39,7 +39,10 @@ and slot from device scalars; and a stream's tokens are the same in any
 slot.  An adapter slot written in place under a captured bucket graph
 serves the tenant at the next replay with no capture, and zeroed gives the
 base's bytes back; the regime-routed lane's shared leaves have one address
-on the card, after the move and after a host-tier restore.
+on the card, after the move and after a host-tier restore.  A fleet router
+(``cli fleet --spawn 2``) in front of two replica processes on the card
+answers as the replica it routed to, and the replicas' ``int8_matmul``
+counts move by exactly the bucket graph's launches a routed forward.
 """
 
 import numpy as np
@@ -1441,3 +1444,97 @@ def test_auto_shared_leaves_have_one_address(cuda_device):
         assert all(_same(run(cm.forward, b), want) for b, want in zip(batches, first))
     finally:
         eng.shutdown()
+
+
+def _fleet(tmp_path, n: int = 2):
+    """``cli fleet --spawn n`` with a tiny BERT on the int8 lane, on the
+    card: (router port, replica ports, the process); the fleet tears its
+    replicas down when it ends."""
+    import json
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    from pytorch_zappa_serverless_tpu_torch.tools.crashtest import _free_port, free_port_run
+
+    router = _free_port()
+    base = free_port_run(n, avoid=(router,))
+    cfg = {"warmup_at_boot": True, "fleet": {"poll_interval_s": 0.2, "spawn_base_port": base},
+           "models": [{"name": "bert_int8", "builder": "bert_base", "dtype": "bfloat16",
+                       "batch_buckets": [1], "seq_buckets": [16], "coalesce_ms": 0.0,
+                       "extra": {"params_dtype": "int8", "quantize_min_size": 1024,
+                                 "arch": {"num_layers": 2, "num_heads": 2, "head_dim": 64,
+                                          "mlp_dim": 512, "vocab_size": 512}}}]}
+    path = tmp_path / "fleet.json"
+    path.write_text(json.dumps(cfg))
+    proc = subprocess.Popen([sys.executable, "-m", "pytorch_zappa_serverless_tpu_torch.cli",
+                             "fleet", "--config", str(path), "--spawn", str(n), "--port",
+                             str(router)], stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    deadline = time.monotonic() + 240
+    while time.monotonic() < deadline:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{router}/admin/fleet",
+                                        timeout=2) as r:
+                reps = json.loads(r.read())["replicas"]
+            if len(reps) == n and all(v["state"] == "healthy" for v in reps.values()):
+                return router, [base + i for i in range(n)], proc
+        except OSError:
+            pass
+        time.sleep(0.25)
+    proc.kill()
+    raise AssertionError("the fleet never came up healthy")
+
+
+def _post(port: int, path: str, body: dict):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read()), dict(r.headers)
+
+
+def _int8_launches(port: int) -> int:
+    import json
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+        return int(json.loads(r.read())["kernels"].get("int8_matmul", 0))
+
+
+@pytest.mark.cuda
+def test_fleet_router_answers_as_the_replica_on_the_card(cuda_device, tmp_path):
+    """A router in front of two replica processes on the card answers each
+    predict as the replica it routed to answers the same request."""
+    router, ports, proc = _fleet(tmp_path)
+    try:
+        rng = np.random.default_rng(18)
+        for _ in range(6):
+            body = {"input_ids": rng.integers(1, 511, 12).tolist()}
+            routed, hdrs = _post(router, "/v1/models/bert_int8:predict", body)
+            direct, _ = _post(ports[int(hdrs["X-Fleet-Replica"][1:])],
+                              "/v1/models/bert_int8:predict", body)
+            assert routed["predictions"] == direct["predictions"]
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+
+
+@pytest.mark.cuda
+def test_fleet_replicas_launch_exactly_their_replays(cuda_device, tmp_path):
+    """Each routed forward is one replay of the bucket graph: the replicas'
+    ``int8_matmul`` counts move by exactly the graph's launches per request
+    (12: q, k, v, out, fc1 and fc2 of 2 layers)."""
+    router, ports, proc = _fleet(tmp_path)
+    try:
+        before = sum(_int8_launches(p) for p in ports)
+        n = 8
+        for i in range(n):
+            _post(router, "/v1/models/bert_int8:predict", {"input_ids": [5 + i, 6, 7]})
+        after = sum(_int8_launches(p) for p in ports)
+        assert after - before == n * 12, (before, after)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
