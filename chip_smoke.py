@@ -32,7 +32,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    projection routed through the plain version (eagerly), on the same
    weights and batch;
 6. SD-1.5 path: ``build_engine`` with full-width SD-1.5 at 512x512, 20 DDIM
-   steps in chunks of 4 (seed weights), the server, two ``:submit`` jobs
+   steps in chunks of 4 (seed weights, from phase 22a's staged tree), the
+   server, two ``:submit`` jobs
    polled on ``/v1/jobs/{id}`` to valid 512x512 PNGs, ``:predict`` → 405,
    ``/v1/models``, ``/healthz``, ``/metrics``; the flash kernel's launch
    count must be ten per UNet call; each chunk's replayed graph against the
@@ -187,7 +188,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    a second capture meanwhile answers 409, and ResNet-50 restored from the
    host tier while the profile is open captures and answers byte-equal;
    ``/metrics`` with exemplars against the manifest.  (4) The kill -9 test
-   (``tools/crashtest.py``) with SD-1.5 at 512x512, 20 steps: four
+   (``tools/crashtest.py``) with SD-1.5 at 512x512, 20 steps (booted from
+   phase 22a's staged tree): four
    journaled jobs, a SIGKILL with a backlog, the restart: none lost, every
    resubmit deduped, a recovered job's PNG byte-equal to the same payload
    run fresh (boot seconds, ``replay_ms``, job seconds and flash launches
@@ -201,7 +203,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    small bf16 from the same seed, k = 4), as ``gpt2_plain`` without
    speculation, and as ``gpt2_swap`` on a pool of 12 pages of 16 and the
    trash page.  (1) The same 8 SSE streams (4 greedy, 4 sampled) with
-   speculation on and off, twice each: greedy streams under the margin rule
+   speculation on and off: greedy streams under the margin rule
    at the verify's 40 rows, sampled ones replayed tick by tick (the
    rejection sampling of ``speculative_verify_core`` on the target's and
    the draft's teacher-forced logits with the lane's draws, every verdict
@@ -340,6 +342,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    overhead, partition-to-peer ms, quarantine and readmission seconds, the
    cutover and kill-to-resume ms, each replica process's ``int8_matmul``
    launches (summed into the kernels line), the phase's seconds;
+22. the deploy path, in two parts.  22a runs right after phase 3:
+   ``cli deploy`` in a subprocess with a JSON config of BERT-base int8 and
+   SD-1.5 (the file set; its ``config.json`` loads back equal); a
+   full-width diffusers-layout SD-1.5 directory written from
+   ``init_sd15_params(0)`` by ``tests/sd_diffusers.py`` through the port's
+   safetensors writer; ``cli stage`` in a subprocess of BERT-base int8 (1,
+   8) x 128 with its labels as a list and SD-1.5 512², 20 steps, from that
+   directory: the staged SD-1.5 tree byte-equal to the seeded one, the
+   staged BERT tree the port's seeded float tree with no ``kernel_q``, the
+   seconds and bytes of each.  Phases 6 and 16 then boot SD-1.5 from that
+   staged tree (the seeded tree's bytes) rather than drawing the seeded
+   init again.  22b runs last: an engine built from the staged
+   ``config.json``: phase 4's BERT bodies answered byte-equal to phase 4's
+   answers (phase 4 serves seeded weights), phase 6's first job's PNG
+   byte-equal to phase 6's, exactly 72 ``int8_matmul`` launches a BERT
+   forward and 10 ``flash_attention`` a UNet call (both in the kernels
+   line); the phase's seconds, and every phase's at the end;
 
 With ``--profile``, every path is also profiled eager against replayed:
 device-busy and wall time, the idle share, and the host's calls, where a
@@ -360,6 +379,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import base64
+import dataclasses
 import gc
 import importlib.util
 import io
@@ -369,6 +389,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -1027,12 +1048,12 @@ SD_JOBS = [{"prompt": "a photograph of an astronaut riding a horse", "seed": 1},
             "negative_prompt": "blurry", "guidance_scale": 5.0}]
 
 
-def sd_config(variant: str | None = None, **extra):
+def sd_config(variant: str | None = None, checkpoint: str | None = None, **extra):
     from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
 
     extra = {**SD, **({"variant": variant} if variant else {}), **extra}
-    return ServeConfig(models=[ModelConfig(name="sd15", dtype="bfloat16",
-                                           batch_buckets=(1,), extra=extra)])
+    return ServeConfig(models=[ModelConfig(name="sd15", dtype="bfloat16", batch_buckets=(1,),
+                                           checkpoint=checkpoint, extra=extra)])
 
 
 def read_png(data: bytes) -> np.ndarray:
@@ -1393,6 +1414,7 @@ def run_bert(profile: bool) -> int:
     try:
         log_memory("bert", engine)
         check_answers(run)
+        DEPLOY_REF["bert"] = [(p, b, out["predictions"]) for p, b, out in run["answers"]]
         per_fwd = 6 * BERT["layers"]
         launches = run["launches"]["int8_matmul"]
         check(launches > 0, "int8_matmul was not launched on the main path")
@@ -1422,16 +1444,18 @@ def run_bert(profile: bool) -> int:
     return launches
 
 
-def run_sd(profile: bool) -> int:
-    """The SD-1.5 path, its checks and parity; returns flash_attention's
-    launches."""
+def run_sd(profile: bool, checkpoint: str | None = None) -> int:
+    """The SD-1.5 path, its checks and parity, with the weights of
+    ``checkpoint`` (phase 22a's staged tree, the seeded tree's bytes) or the
+    seed; returns flash_attention's launches."""
     t0 = time.perf_counter()
     fresh_memory()
-    run = phase_sd_path(sd_config())
+    run = phase_sd_path(sd_config(checkpoint=checkpoint))
     engine = run["engine"]
     try:
         log_memory("sd15", engine)
         images = check_sd(run)
+        DEPLOY_REF.update(sd_body=SD_JOBS[0], sd_png=run["jobs"][0]["result"]["image_b64"])
         counts = run["counts"]
         launches, calls = counts["flash_attention"], counts["unet_calls"]
         check(calls > 0 and launches > 0, f"the SD path ran no UNet or no kernel: {counts}")
@@ -2857,7 +2881,7 @@ GEN_STREAMS = 16
 # Timed bursts a GPT-2 lane serves after one that wakes the server: the
 # first is held against the fixed route, all give the spread of the
 # served figures.
-GEN_BURSTS = 5
+GEN_BURSTS = 2
 GEN_SAMPLED = {"temperature": 0.8, "top_k": 40, "top_p": 0.95}
 GEN_WHISPER = {"gen_slots": 4, "streams": 4}
 # Streams of a lane whose teacher-forced steps are also run at the lane's
@@ -5189,7 +5213,8 @@ def phase_plane_path(cfg, device: str = "cuda", bert_vocab: int = 30522,
     return out
 
 
-def phase_plane_crash(card: str, workdir: str, jobs: int = PLANE_SD_JOBS) -> dict:
+def phase_plane_crash(card: str, workdir: str, jobs: int = PLANE_SD_JOBS,
+                      checkpoint: str | None = None) -> dict:
     """Phase 16 check 4: the port's kill -9 harness on the card with SD-1.5
     txt2img at 512x512, 20 steps: ``jobs`` journaled submits, a SIGKILL with
     a backlog, the restart; no acknowledged job lost, every resubmit
@@ -5200,7 +5225,7 @@ def phase_plane_crash(card: str, workdir: str, jobs: int = PLANE_SD_JOBS) -> dic
     t0 = time.perf_counter()
     out = crashtest.run_crashtest(workdir, n_jobs=jobs, model="sd15", platform="cuda",
                                   latency_ms=PLANE_SD_LATENCY_MS, boot_timeout_s=400.0,
-                                  finish_timeout_s=400.0)
+                                  finish_timeout_s=400.0, checkpoint=checkpoint)
     check(out["lost"] == 0 and out["completed"] == jobs, f"kill -9: {out}")
     check(out["backlog_at_kill"] >= 1 and out["recovered_jobs"] >= 1
           and out["recovered_jobs"] + out["restored_done"] == jobs, f"kill -9 replay: {out}")
@@ -5225,9 +5250,10 @@ def phase_plane_crash(card: str, workdir: str, jobs: int = PLANE_SD_JOBS) -> dic
     return out
 
 
-def run_plane(card: str) -> dict:
+def run_plane(card: str, sd_checkpoint: str | None = None) -> dict:
     """Phase 16: the request plane (checks 1-4; check 5 ran on phase 6's
-    engine)."""
+    engine); check 4's SD-1.5 servers boot from ``sd_checkpoint`` (phase
+    22a's staged tree) when given."""
     import tempfile
 
     fresh_memory()
@@ -5236,7 +5262,7 @@ def run_plane(card: str) -> dict:
         run = phase_plane_path(plane_config(tmp + "/traces"))
         check(run["counts"]["flash_attention"] == 0, f"flash on the plane path: {run['counts']}")
         fresh_memory()
-        crash = phase_plane_crash(card, tmp + "/crash")
+        crash = phase_plane_crash(card, tmp + "/crash", checkpoint=sd_checkpoint)
     log(f"{card}: request plane (phase 16) in {time.perf_counter() - t0:.3f} s: serving "
         f"checks {run['seconds']:.3f} s, kill -9 {crash['seconds']:.3f} s; SD job seconds "
         f"with prepare and finalize captured {SD_EDGES.get('captured', 0.0):.4f}, eager "
@@ -5316,7 +5342,7 @@ def mob_bodies(n: int, vocab: int, seed: int = 17, max_prompt: int = 120) -> lis
 def phase_mobility_path(cfg, device: str = "cuda", vocab: int = 50257) -> dict:
     """Serve phase 17's deployment and drive it over HTTP: (1) the same
     burst of ``MOB_SPEC_STREAMS`` SSE streams on ``gpt2`` (speculation on)
-    and ``gpt2_plain`` (off), twice each, then ``MOB_MISMATCH_STREAMS`` of
+    and ``gpt2_plain`` (off), one each, then ``MOB_MISMATCH_STREAMS`` of
     them with the ``spec_mismatch`` fault; (2) the swap lane's prompts one at
     a time (unpressured), then all at once (they must swap), then all at
     once with a ``migration`` drop on every swap (they must evict); (3) the
@@ -5355,9 +5381,9 @@ def phase_mobility_path(cfg, device: str = "cuda", vocab: int = 50257) -> dict:
         before = {n: s.kernels.graphs.expected_launches() for n, s in scheds.items()}
         reset_counts()
         spec0 = dict(spec.gen_snapshot()["spec"])
-        # (1) Speculation on against off, twice each, in turn.
+        # (1) Speculation on against off, one burst each.
         runs: dict = {"gpt2": [], "gpt2_plain": []}
-        for name in ("gpt2", "gpt2_plain", "gpt2", "gpt2_plain"):
+        for name in ("gpt2", "gpt2_plain"):
             # The first burst on is held tick by tick: its ticks recorded.
             with SpecTicks(spec) as rec:
                 res, wall = gen_burst(srv.port, name, bodies)
@@ -5509,16 +5535,14 @@ def check_mobility(run: dict, vocab: int = 50257, layers: int = 12) -> dict:
     held_off = hold_streams(engine, "gpt2_plain", streams_off, MOB["gen_slots"], paged)
     div = diverge_undecided(held_on["refs"], held_on["err_max"],
                             [streams_on[i] for i in greedy], [streams_off[i] for i in greedy])
-    again = [r["tokens"] for r in on[1][0]] == [r["tokens"] for r in on[0][0]]
     tps = {name: [stream_stats(res, wall)["tok_per_s"] for res, wall in runs]
            for name, runs in run["spec_runs"].items()}
     rate = st["accepted"] / max(st["proposed"], 1)
     log(f"speculation (gpt2 int8 target, gpt2_draft bf16, k={MOB['spec_k']}): {st['proposed']} "
         f"proposed, {st['accepted']} accepted (rate {rate:.4f}), {st['fallback_ticks']} fallback "
-        f"ticks over two bursts of {len(bodies)} streams; tokens/s on {tps['gpt2']}, off "
+        f"ticks over a burst of {len(bodies)} streams; tokens/s on {tps['gpt2']}, off "
         f"{tps['gpt2_plain']}; greedy on == off on {div['equal']} of {len(greedy)} streams, "
-        f"parted at undecided positions {div['parted']}; the second burst on the same as the "
-        f"first: {again}")
+        f"parted at undecided positions {div['parted']}")
     # The spec_mismatch burst: every proposal derailed, the same rules.
     mm = run["mismatch"]
     check(mm["injected"] > 0 and mm["stats"]["proposed"] > 0
@@ -7730,6 +7754,202 @@ def run_fleet(card: str) -> dict:
             "chaos": chaos}
 
 
+# -- phase 22: the deploy path -------------------------------------------------
+
+# What phases 4 and 6 served, for phase 22 to hold the staged engine to: the
+# BERT bodies with their predictions (buckets (1,128) and (8,128)), and the
+# first SD-1.5 job's body with its PNG.
+DEPLOY_REF: dict = {}
+
+
+def load_sd_diffusers():
+    """``tests/sd_diffusers.py``: the inverse of the SD-1.5 converters (a
+    param tree → a diffusers-layout directory), shared with tier-1."""
+    spec = importlib.util.spec_from_file_location("sd_diffusers", "tests/sd_diffusers.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def same_tree_bytes(got: dict, want: dict) -> tuple[bool, str]:
+    """Every leaf of the two trees of the same dtype, shape and bytes;
+    returns (equal, the first leaf that is not)."""
+    from pytorch_zappa_serverless_tpu_torch.engine import weights as W
+
+    got, want = W.flatten_tree(got), W.flatten_tree(want)
+    if sorted(got) != sorted(want):
+        return False, f"keys {sorted(set(got) ^ set(want))[:5]}"
+    for k, w in want.items():
+        g = np.asarray(got[k])
+        w = np.asarray(w)
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(
+                g.reshape(-1).view(np.uint8), w.reshape(-1).view(np.uint8)):
+            return False, k
+    return True, ""
+
+
+def deploy_models(checkpoint: str | None = None, bert_arch: dict | None = None,
+                  sd_variant: str | None = None, **sd_extra) -> list[dict]:
+    """BERT-base int8 (1, 8) x 128 with its labels as a list, and SD-1.5 at
+    phase 6's settings (``checkpoint``: a diffusers directory), as a JSON
+    config's models: phases 4 and 6 serve the same two."""
+    bert = serve_config(arch=bert_arch).models[0]
+    sd = sd_config(sd_variant, **sd_extra).models[0]
+    bert_extra = {**bert.extra, "labels": ["label_0", "label_1"]}
+    return [{"name": "bert_base", "dtype": bert.dtype, "seq_buckets": list(bert.seq_buckets),
+             "batch_buckets": list(bert.batch_buckets), "extra": bert_extra},
+            {"name": "sd15", "dtype": sd.dtype, "batch_buckets": list(sd.batch_buckets),
+             "checkpoint": checkpoint, "extra": sd.extra}]
+
+
+def cli_run(args: list[str], what: str, timeout: float = 600.0) -> subprocess.CompletedProcess:
+    proc = subprocess.run([sys.executable, "-m", "pytorch_zappa_serverless_tpu_torch.cli", *args],
+                          capture_output=True, text=True, timeout=timeout)
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    return proc
+
+
+def serve_deploy_refs(engine, cfg, ref: dict) -> dict:
+    """Phase 4's BERT bodies and phase 6's first job on ``engine``; returns
+    the predictions, the job and the counts just after."""
+    from pytorch_zappa_serverless_tpu_torch.serving.server import BackgroundServer
+
+    with BackgroundServer(cfg, engine) as srv:
+        preds = []
+        for path, body, _ in ref["bert"]:
+            status, out = http(srv.port, path, body)
+            check(status == 200, f"{path}: status {status}: {out}")
+            preds.append(out["predictions"])
+        status, out = http(srv.port, "/v1/models/sd15:submit", ref["sd_body"])
+        check(status == 202, f":submit: status {status}: {out}")
+        job_id, deadline = out["job"]["id"], time.monotonic() + 600
+        while True:
+            status, out = http(srv.port, f"/v1/jobs/{job_id}")
+            check(status == 200, f"/v1/jobs/{job_id}: status {status}: {out}")
+            if out["job"]["status"] in ("done", "error"):
+                break
+            check(time.monotonic() < deadline, f"job {job_id} still {out['job']['status']}")
+            time.sleep(0.05)
+        counts = read_counts()  # just after the path
+    return {"preds": preds, "job": out["job"], "counts": counts}
+
+
+def phase_stage(card: str, workdir: str, platform: str = "cuda", bert_arch: dict | None = None,
+                sd_variant: str | None = None, **sd_extra) -> dict:
+    """Phase 22a, right after the kernels: ``cli deploy`` and ``cli stage`` in
+    subprocesses, a diffusers-layout SD-1.5 directory written from the
+    seeded tree, and the staged trees against the seeded ones.  Returns the
+    staged ``config.json`` path, SD-1.5's staged checkpoint (phases 6 and 16
+    boot from it) and the numbers.  The diffusers directory is removed once
+    staged."""
+    import shutil
+    from pathlib import Path
+
+    from pytorch_zappa_serverless_tpu_torch.config import load_config
+    from pytorch_zappa_serverless_tpu_torch.engine import weights as W
+    from pytorch_zappa_serverless_tpu_torch.models import bert as B
+    from pytorch_zappa_serverless_tpu_torch.models import sd15 as S
+
+    root = Path(workdir)
+    t0 = time.perf_counter()
+    # (1) cli deploy: the file set, and config.json loads back equal.
+    cfg_path = root / "deploy_in.json"
+    cfg_path.write_text(json.dumps({"profile": "h100", "models": deploy_models(
+        bert_arch=bert_arch, sd_variant=sd_variant, **sd_extra)}))
+    cli_run(["deploy", "--config", str(cfg_path), "--out", str(root / "deploy")], "cli deploy")
+    files = sorted(p.name for p in (root / "deploy").iterdir())
+    check(files == ["Dockerfile", "config.json", "deploy.json", "service.yaml", "undeploy.sh",
+                    "warmpool.sh"], f"cli deploy wrote {files}")
+    check(load_config(root / "deploy" / "config.json") == load_config(cfg_path),
+          "cli deploy: config.json does not load back equal")
+    # (2) a diffusers directory of the seeded tree, through the port's writer.
+    t1 = time.perf_counter()
+    seeded = S.init_sd15_params(0, S.TINY if sd_variant == "tiny" else S.FULL)
+    load_sd_diffusers().write_diffusers_dir(seeded, root / "diffusers")
+    ckpt_bytes = sum(f.stat().st_size for f in (root / "diffusers").rglob("*") if f.is_file())
+    write_s = time.perf_counter() - t1
+    # (3) cli stage.
+    stage_in = root / "stage_in.json"
+    stage_in.write_text(json.dumps({"profile": "h100", "models": deploy_models(
+        str(root / "diffusers"), bert_arch, sd_variant, **sd_extra)}))
+    out = root / "staged"
+    t1 = time.perf_counter()
+    cli_run(["stage", "--config", str(stage_in), "--out", str(out), "--mount-root",
+             str(out / "assets"), "--platform", platform], "cli stage")
+    stage_s = time.perf_counter() - t1
+    shutil.rmtree(root / "diffusers")
+    summary = json.loads((out / "stage.json").read_text())
+    for name, info in summary["models"].items():
+        log(f"{card}: staged {name}: {info['params_bytes']} bytes, {info['param_count']} "
+            f"params, {info['seconds']} s (source {info['source']})")
+    bert_mc, sd_mc = load_config(out / "config.json").models
+    check(bert_mc.extra["labels"] == ["label_0", "label_1"]
+          and bert_mc.extra["params_dtype"] == "int8", f"staged BERT extra {bert_mc.extra}")
+    ok, where = same_tree_bytes(W.load_native(sd_mc.checkpoint), seeded)
+    check(ok, f"the staged SD-1.5 tree differs from init_sd15_params(0) at {where}")
+    del seeded
+    bert_tree = W.load_native(bert_mc.checkpoint)
+    check(not any(k.endswith("kernel_q") for k in W.flatten_tree(bert_tree)),
+          "the staged BERT tree holds kernel_q")
+    ok, where = same_tree_bytes(bert_tree, B.bert_tree(
+        dataclasses.replace(bert_mc, checkpoint=None))[0])
+    check(ok, f"the staged BERT tree differs from the port's seeded float tree at {where}")
+    secs = time.perf_counter() - t0
+    log(f"{card}: deploy path, staging (phase 22a) in {secs:.3f} s: the diffusers directory "
+        f"(the seeded init and {ckpt_bytes} bytes) written in {write_s:.3f} s, cli stage "
+        f"{stage_s:.3f} s ({summary['total_bytes']} bytes staged); the staged SD-1.5 tree "
+        f"byte-equal to init_sd15_params(0), the staged BERT tree to the port's seeded float "
+        f"tree, no kernel_q")
+    return {"config": str(out / "config.json"), "sd_checkpoint": sd_mc.checkpoint,
+            "seconds": secs, "stage_seconds": stage_s, "write_seconds": write_s,
+            "summary": summary}
+
+
+def phase_deploy_path(card: str, staged: dict, device: str = "cuda",
+                      per_forward: int = 6 * BERT["layers"]) -> dict:
+    """Phase 22b, last: an engine built from the staged ``config.json`` (phase
+    22a) serving phase 4's BERT bodies and phase 6's first job, against what
+    those phases served (``DEPLOY_REF``), and the kernels' launches."""
+    from pytorch_zappa_serverless_tpu_torch.config import load_config
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+
+    ref = DEPLOY_REF
+    check({"bert", "sd_body", "sd_png"} <= set(ref), f"phases 4 and 6 left {sorted(ref)}")
+    t0 = time.perf_counter()
+    staged_cfg = load_config(staged["config"])
+    reset_counts()
+    engine = build_engine(staged_cfg, device)
+    build_s = time.perf_counter() - t0
+    try:
+        served = serve_deploy_refs(engine, staged_cfg, ref)
+        for (path, body, want), got in zip(ref["bert"], served["preds"]):
+            check(got == want, f"staged BERT {path} {json.dumps(body)[:60]}: {got} != phase 4's "
+                               f"{want}")
+        job = served["job"]
+        check(job["status"] == "done", f"staged SD-1.5 job: {job}")
+        check(job["result"]["image_b64"] == ref["sd_png"],
+              "the staged SD-1.5 PNG differs from phase 6's for the same body")
+        counts = served["counts"]
+        bert_fwd = (sum(e["model"] == "bert_base" for e in engine.clock.entries)
+                    + engine.runner.stats["bert_base"].batches)
+        calls = counts["unet_calls"]
+        if per_forward:
+            exact_counts(counts, {"int8_matmul": per_forward * bert_fwd,
+                                  "flash_attention": 10 * calls, "unet_calls": calls},
+                         "the staged engine")
+            check(calls > 0 and bert_fwd > 0, f"the staged engine ran {counts}")
+    finally:
+        engine.shutdown()
+    secs = time.perf_counter() - t0
+    log(f"{card}: deploy path, the staged engine (phase 22b) in {secs:.3f} s (built in "
+        f"{build_s:.3f} s); {bert_fwd} BERT forwards x {per_forward} int8_matmul, {calls} UNet "
+        f"calls x 10 flash_attention: {counts}; BERT answers equal to phase 4's "
+        f"({len(served['preds'])} bodies), the PNG equal to phase 6's; phase 22 "
+        f"{staged['seconds'] + secs:.3f} s with 22a")
+    return {"seconds": staged["seconds"] + secs, "int8_launches": counts["int8_matmul"],
+            "flash_launches": counts["flash_attention"], "counts": counts}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--profile", action="store_true",
@@ -7742,26 +7962,43 @@ def main(argv: list[str] | None = None) -> int:
                          "fused kernels' phases")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
-    card = phase_device()
-    phase_build()
-    kern = phase_kernels()
-    flash = phase_flash()
-    int8_launches = run_bert(args.profile)
-    flash_launches = run_sd(args.profile)
-    gpt2_launches = run_gpt2(args.profile)
-    fused = run_fused(args.profile)
-    vision = run_vision(args.profile)
-    whisper = run_whisper(args.profile)
-    vit_embed = run_vit_embed(args.profile)
-    generate = run_generate(args.profile)
-    failure = run_failure(card)
-    residency = run_residency(card)
-    plane = run_plane(card)
-    mobility = run_mobility(card)
-    adapters = run_adapters(card, args.profile)
-    tenancy = run_tenancy(card)
-    ingest = run_ingest(card)
-    fleet = run_fleet(card)
+    seconds: dict[str, float] = {}
+
+    def timed(tag: str, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            seconds[tag] = round(time.perf_counter() - t0, 1)
+
+    card = timed("1 device", phase_device)
+    timed("2 build", phase_build)
+    kern = timed("3 kernels", phase_kernels)
+    flash = timed("3 flash", phase_flash)
+    # Phase 22a stages first: phases 6 and 16 boot SD-1.5 from its staged
+    # tree (the seeded tree's bytes, checked there) instead of drawing the
+    # seeded init again; phase 22b runs last.
+    stage_dir = tempfile.TemporaryDirectory(prefix="tpuserve-deploy-")
+    staged = timed("22a stage", phase_stage, card, stage_dir.name)
+    int8_launches = timed("4-5 bert", run_bert, args.profile)
+    flash_launches = timed("6-7 sd", run_sd, args.profile, staged["sd_checkpoint"])
+    gpt2_launches = timed("8 gpt2", run_gpt2, args.profile)
+    fused = timed("9 fused", run_fused, args.profile)
+    vision = timed("10 vision", run_vision, args.profile)
+    whisper = timed("11 whisper", run_whisper, args.profile)
+    vit_embed = timed("12 vit_embed", run_vit_embed, args.profile)
+    generate = timed("13 generate", run_generate, args.profile)
+    failure = timed("14 failure", run_failure, card)
+    residency = timed("15 residency", run_residency, card)
+    plane = timed("16 plane", run_plane, card, staged["sd_checkpoint"])
+    mobility = timed("17 mobility", run_mobility, card)
+    adapters = timed("18 adapters", run_adapters, card, args.profile)
+    tenancy = timed("19 tenancy", run_tenancy, card)
+    ingest = timed("20 ingest", run_ingest, card)
+    fleet = timed("21 fleet", run_fleet, card)
+    fresh_memory()
+    deploy = timed("22b deploy", phase_deploy_path, card, staged)
+    stage_dir.cleanup()
     for m in MAIN_M:
         fwd = per_forward(kern["timings"], m)
         log(f"one forward's int8_matmul at M={m} (72 launches, the per-shape times summed): "
@@ -7787,7 +8024,7 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "pytorch_zappa_serverless_tpu/ops/int8_matmul.py:107",
         "launches": (int8_launches + plane["int8_launches"] + mobility["int8_launches"]
                      + adapters["auto_launches"] + tenancy["int8_launches"]
-                     + ingest["launches"] + fleet["launches"]),
+                     + ingest["launches"] + fleet["launches"] + deploy["int8_launches"]),
         "max_abs_err": kern["max_abs_err"],
         "ms": bert["ms"], "plain_ms": fwd["plain_ms"], "bound_ms": bert["bound_ms"],
         "bound_by": bert["bound_by"], "library_ms": bert["library_ms"],
@@ -7818,6 +8055,7 @@ def main(argv: list[str] | None = None) -> int:
         "launches_ingest_path": ingest["launches"],
         "launches_fleet_path": fleet["launches"],
         "launches_fleet_by_process": fleet["by_process"],
+        "launches_deploy_path": deploy["int8_launches"],
         "spec_verify": {**verify, "timed_work": f"one speculative verify forward of GPT-2 small "
                                                 f"at M={SPEC_M}: 48 layer projections + the f32 "
                                                 f"lm head, the per-shape times summed"},
@@ -7825,9 +8063,10 @@ def main(argv: list[str] | None = None) -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "pytorch_zappa_serverless_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "pytorch_zappa_serverless_tpu/ops/flash_attention.py:57",
-        "launches": flash_launches + plane["flash_launches"],
+        "launches": flash_launches + plane["flash_launches"] + deploy["flash_launches"],
         "max_abs_err": flash["max_abs_err"],
         "launches_plane_path": plane["flash_launches"],
+        "launches_deploy_path": deploy["flash_launches"],
         "ms": unet["ms"], "plain_ms": unet["plain_ms"], "bound_ms": unet["bound_ms"],
         "bound_by": unet["bound_by"], "library_ms": unet["library_ms"],
         "bound_detail": unet["bound_detail"],
@@ -7878,8 +8117,8 @@ def main(argv: list[str] | None = None) -> int:
         log(f"generate {name}: a greedy segment replayed {row['replay_ms']:.4f} ms, eager "
             f"{row['eager_ms']:.4f} ms; lane cold start (its pool and every graph) "
             f"{generate['lane_cold_s'].get(name, 0.0):.3f} s")
-    log(f"{card}: chip_smoke took {time.perf_counter() - t_start:.1f} s in all (phase 20 "
-        f"{ingest['seconds']:.1f} s of it, phase 21 {fleet['seconds']:.1f} s)")
+    log(f"{card}: chip_smoke took {time.perf_counter() - t_start:.1f} s in all; seconds by "
+        f"phase {seconds}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,17 @@
 
       python -m pytorch_zappa_serverless_tpu_torch.cli fleet \\
           --config fleet.json --spawn 2 --port 8080
+- ``stage``  convert every configured checkpoint once (a diffusers SD-1.5
+  directory included) into ``--out``'s asset tree, with the
+  ``config.json`` that points into it under ``--mount-root``; prints the
+  summary (``stage.json``).  Nothing runs on a GPU::
+
+      python -m pytorch_zappa_serverless_tpu_torch.cli stage \\
+          --config profile.json --out stage_out --mount-root /srv/assets
+- ``deploy``  render the server image and the H100 pool around a profile
+  (``Dockerfile``, ``config.json``, ``warmpool.sh``, ``undeploy.sh``,
+  ``deploy.json``, and ``service.yaml`` for ``--target cloudrun``) into
+  ``--out``, offline; prints the summary.
 - ``list-models``  print the registered model zoo.
 - ``models``, ``adapters``, ``prefix``, ``slo``, ``autoscale``, ``perf``  HTTP
   clients of a running server's ``/admin/models``, ``/admin/adapters``,
@@ -175,6 +186,26 @@ def cmd_warm(args) -> int:
         }))
     finally:
         engine.shutdown()
+    return 0
+
+
+def cmd_stage(args) -> int:
+    """Stage the profile's models (``deploy/stage.py``); ``--platform`` is
+    the reference's flag: staging builds on the CPU and the meta device
+    whatever it names."""
+    from .deploy.stage import stage_assets
+
+    cfg = load_config(args.config, args.profile)
+    print(json.dumps(stage_assets(cfg, out_dir=args.out, mount_root=args.mount_root),
+                     indent=2))
+    return 0
+
+
+def cmd_deploy(args) -> int:
+    from .deploy.render import render_deploy
+
+    cfg = load_config(args.config, args.profile)
+    print(json.dumps(render_deploy(cfg, target=args.target, out_dir=args.out), indent=2))
     return 0
 
 
@@ -582,6 +613,22 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
                     help="device to build on (default cuda)")
     sp.set_defaults(fn=cmd_warm)
+    sp = sub.add_parser("stage", help="build the deployable asset tree (convert "
+                                      "checkpoints, copy assets)")
+    sp.add_argument("--config", default=None, help="YAML/JSON config path")
+    sp.add_argument("--profile", default=None, help="named profile in the config")
+    sp.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
+                    help="the reference's flag; staging places nothing on a device")
+    sp.add_argument("--out", default="stage_out")
+    sp.add_argument("--mount-root", default="/srv/assets",
+                    help="path where the asset tree is mounted on serving hosts")
+    sp.set_defaults(fn=cmd_stage)
+    sp = sub.add_parser("deploy", help="render deploy artifacts")
+    sp.add_argument("--config", default=None, help="YAML/JSON config path")
+    sp.add_argument("--profile", default=None, help="named profile in the config")
+    sp.add_argument("--target", default="cloudrun", choices=["cloudrun", "local"])
+    sp.add_argument("--out", default="deploy_out")
+    sp.set_defaults(fn=cmd_deploy)
     sp = sub.add_parser("list-models", help="print the registered model zoo")
     sp.set_defaults(fn=cmd_list_models)
     for name, (route, _, help_text) in ADMIN_TABLES.items():

@@ -4,7 +4,8 @@ The port's own copy of the JAX package's ``ModelConfig`` and ``ServeConfig``,
 cut to the fields the port reads; names and defaults are the
 same, so a profile written for the JAX package loads here as long as it uses
 only these fields.  A file is JSON, or YAML (``yaml`` is imported only when a
-YAML file is loaded), optionally with named profiles.  ``TPUSERVE_<FIELD>``
+YAML file is loaded), optionally with named profiles; :func:`dump_config`
+writes one as JSON.  ``TPUSERVE_<FIELD>``
 environment variables override the top-level fields after the file is read
 (:func:`apply_env_overrides`), and with no file the dev profile
 (:func:`default_config`) serves every model the port has.
@@ -512,6 +513,18 @@ def load_config(path: str | Path | None = None,
     if fleet:
         cfg.fleet = FleetConfig(**fleet)
     return apply_env_overrides(cfg)
+
+
+def dump_config(cfg: ServeConfig) -> str:
+    """The profiles-style document :func:`load_config` reads back
+    (``load_config(path) == cfg``), as JSON: what ``deploy`` renders and
+    ``stage`` writes as ``config.json`` (JSON needs no PyYAML on the
+    serving host, and :func:`load_config` reads a ``.json`` file as JSON).  Tuples become
+    lists, which the loader turns back into the fields' tuples; no field of
+    ``REFUSED_FIELDS`` exists here to be written."""
+    d = dataclasses.asdict(cfg)
+    profile = d.pop("profile")
+    return json.dumps({"default_profile": profile, "profiles": {profile: d}}, indent=2) + "\n"
 
 
 def default_config() -> ServeConfig:

@@ -5,10 +5,13 @@ flax names; dense kernels ``[in, out]``, conv kernels HWIO), which is what
 that package's servables hold and what the family converters build from a
 torchvision or Hugging Face state dict (``convert_resnet``,
 ``convert_efficientnet``, ``convert_bert``, ``convert_gpt2``, ``convert_vit``,
-``convert_whisper``, copies of that package's own).  :func:`params_from_jax` turns such a tree into the port's
-``state_dict``, so a checkpoint, a seed-initialised tree and the JAX
-servable's own params all load through one path, and the parity tests feed
-both packages the same bytes.
+``convert_whisper``, and SD-1.5's ``convert_clip_text``, ``convert_sd_unet``,
+``convert_sd_vae`` and ``convert_sd15``, copies of that package's own).
+:func:`params_from_jax` turns such a tree into the port's ``state_dict``, so
+a checkpoint, a seed-initialised tree and the JAX servable's own params all
+load through one path, and the parity tests feed both packages the same
+bytes.  Safetensors files, staged trees included, are read and written by
+:mod:`.tensorfile`, without the ``safetensors`` package.
 """
 
 from __future__ import annotations
@@ -20,14 +23,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import tensorfile
+
 
 def load_state_dict(path: str | Path) -> dict[str, np.ndarray]:
-    """Read a torch ``.pt``/``.pth`` or ``.safetensors`` file into numpy."""
+    """Read a torch ``.pt``/``.pth``/``.bin`` or ``.safetensors`` file into
+    numpy; bf16 tensors of either kind come back as float32."""
     path = Path(path).expanduser()
     if path.suffix == ".safetensors":
-        from safetensors.numpy import load_file
-
-        return dict(load_file(str(path)))
+        return tensorfile.load(path)
     sd = torch.load(str(path), map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
@@ -360,6 +364,305 @@ def convert_whisper(sd: Mapping[str, np.ndarray]) -> dict[str, Any]:
     return params
 
 
+def convert_clip_text(sd: Mapping[str, np.ndarray]) -> dict[str, Any]:
+    """HF-format CLIPTextModel state_dict → params for models.clip_text."""
+    params: dict[str, Any] = {}
+    attn_map = {"q_proj": "q", "k_proj": "k", "v_proj": "v", "out_proj": "out"}
+    for key, w in sd.items():
+        parts = key.split(".")
+        if parts[0] == "text_model":
+            parts = parts[1:]
+        if parts[-1] == "position_ids":  # non-weight buffer
+            continue
+        if parts[0] == "embeddings":
+            if parts[1] == "token_embedding":
+                _set(params, ("token_embedding",), w)
+            elif parts[1] == "position_embedding":
+                _set(params, ("pos_embedding",), w)
+            else:
+                raise KeyError(f"unrecognized clip key: {key}")
+        elif parts[0] == "encoder":
+            layer = f"layer{parts[2]}"
+            sub, tail = parts[3], parts[4:]
+            if sub == "self_attn":
+                _set(params, (layer, attn_map[tail[0]],
+                              "kernel" if tail[1] == "weight" else "bias"),
+                     linear_kernel(w) if tail[1] == "weight" else w)
+            elif sub in ("layer_norm1", "layer_norm2"):
+                _set(params, (layer, "ln1" if sub.endswith("1") else "ln2",
+                              _BERT_LN[tail[0]]), w)
+            elif sub == "mlp":
+                _set(params, (layer, tail[0], "kernel" if tail[1] == "weight" else "bias"),
+                     linear_kernel(w) if tail[1] == "weight" else w)
+            else:
+                raise KeyError(f"unrecognized clip key: {key}")
+        elif parts[0] == "final_layer_norm":
+            _set(params, ("final_ln", _BERT_LN[parts[1]]), w)
+        else:
+            raise KeyError(f"unrecognized clip key: {key}")
+    return params
+
+
+def _conv_or_linear(w: np.ndarray) -> np.ndarray:
+    """1x1-conv weights appear as either conv [O,I,1,1] or linear [O,I]
+    across diffusers versions; both land on our HWIO 1x1 conv kernel."""
+    if w.ndim == 2:
+        return linear_kernel(w)[None, None]
+    return conv_kernel(w)
+
+
+_SD_RES = {"norm1": ("norm1",), "conv1": ("conv1",), "time_emb_proj": ("time_emb",),
+           "norm2": ("norm2",), "conv2": ("conv2",), "conv_shortcut": ("shortcut",)}
+
+_SD_TX = {  # transformer_blocks.0.<torch> → our attn param path
+    ("norm1",): ("ln1",), ("norm2",): ("ln2",), ("norm3",): ("ln3",),
+    ("attn1", "to_q"): ("self_q",), ("attn1", "to_k"): ("self_k",),
+    ("attn1", "to_v"): ("self_v",), ("attn1", "to_out", "0"): ("self_out",),
+    ("attn2", "to_q"): ("cross_q",), ("attn2", "to_k"): ("cross_k",),
+    ("attn2", "to_v"): ("cross_v",), ("attn2", "to_out", "0"): ("cross_out",),
+    ("ff", "net", "0", "proj"): ("ff1",), ("ff", "net", "2"): ("ff2",),
+}
+
+
+def _sd_set(params, path, parts, w):
+    """Route one leaf by kind: conv (4d kernel), norm/linear weight, bias."""
+    leaf = parts[-1]
+    kind = parts[-2] if len(parts) > 1 else ""
+    is_norm = (kind.startswith(("norm", "ln", "group_norm"))
+               or path[-1].startswith(("norm", "ln")))
+    if leaf == "bias":
+        _set(params, path + ("bias",), w)
+    elif is_norm:
+        _set(params, path + (_BERT_LN[leaf],), w)
+    elif w.ndim == 4:
+        _set(params, path + ("kernel",), conv_kernel(w))
+    else:
+        _set(params, path + ("kernel",), linear_kernel(w))
+
+
+def _convert_sd_resnet(params, block_path, rest, w):
+    name = rest[0]
+    _sd_set(params, block_path + _SD_RES[name], rest, w)
+
+
+def _convert_sd_transformer(params, attn_path, rest, w):
+    if rest[0] in ("norm", "group_norm"):
+        _set(params, attn_path + ("norm", _BERT_LN[rest[1]]), w)
+    elif rest[0] in ("proj_in", "proj_out"):
+        if rest[1] == "weight":
+            _set(params, attn_path + (rest[0], "kernel"), _conv_or_linear(w))
+        else:
+            _set(params, attn_path + (rest[0], "bias"), w)
+    elif rest[0] == "transformer_blocks":
+        tail = tuple(rest[2:-1])
+        ours = _SD_TX[tail]
+        leaf = rest[-1]
+        if leaf == "bias":
+            _set(params, attn_path + ("block",) + ours + ("bias",), w)
+        elif tail[0].startswith("norm"):
+            _set(params, attn_path + ("block",) + ours + (_BERT_LN[leaf],), w)
+        else:
+            _set(params, attn_path + ("block",) + ours + ("kernel",), linear_kernel(w))
+    else:
+        raise KeyError(f"unrecognized transformer key tail: {rest}")
+
+
+def convert_sd_unet(sd: Mapping[str, np.ndarray]) -> dict[str, Any]:
+    """diffusers UNet2DConditionModel state_dict → params for models.sd_unet."""
+    params: dict[str, Any] = {}
+    for key, w in sd.items():
+        parts = key.split(".")
+        p0 = parts[0]
+        if p0 == "time_embedding":
+            which = "time_mlp1" if parts[1] == "linear_1" else "time_mlp2"
+            _set(params, (which, "kernel" if parts[2] == "weight" else "bias"),
+                 linear_kernel(w) if parts[2] == "weight" else w)
+        elif p0 in ("conv_in", "conv_out"):
+            _set(params, (p0, "kernel" if parts[1] == "weight" else "bias"),
+                 conv_kernel(w) if parts[1] == "weight" else w)
+        elif p0 == "conv_norm_out":
+            _set(params, ("norm_out", _BERT_LN[parts[1]]), w)
+        elif p0 in ("down_blocks", "up_blocks"):
+            b = int(parts[1])
+            block = ("down" if p0 == "down_blocks" else "up") + str(b)
+            sub, rest = parts[2], parts[3:]
+            if sub == "resnets":
+                _convert_sd_resnet(params, (block, f"res{rest[0]}"), rest[1:], w)
+            elif sub == "attentions":
+                _convert_sd_transformer(params, (block, f"attn{rest[0]}"), rest[1:], w)
+            elif sub == "downsamplers":  # downsamplers.0.conv.{weight,bias}
+                _set(params, (block, "down", "kernel" if rest[2] == "weight" else "bias"),
+                     conv_kernel(w) if rest[2] == "weight" else w)
+            elif sub == "upsamplers":  # upsamplers.0.conv.{weight,bias}
+                _set(params, (block, "up", "kernel" if rest[2] == "weight" else "bias"),
+                     conv_kernel(w) if rest[2] == "weight" else w)
+            else:
+                raise KeyError(f"unrecognized unet key: {key}")
+        elif p0 == "mid_block":
+            sub, rest = parts[1], parts[2:]
+            if sub == "resnets":
+                _convert_sd_resnet(params, ("mid", f"res{rest[0]}"), rest[1:], w)
+            elif sub == "attentions":
+                _convert_sd_transformer(params, ("mid", "attn"), rest[1:], w)
+            else:
+                raise KeyError(f"unrecognized unet key: {key}")
+        else:
+            raise KeyError(f"unrecognized unet key: {key}")
+    return params
+
+
+_VAE_ATTN = {  # new diffusers naming and the legacy one
+    "to_q": "q", "to_k": "k", "to_v": "v", "query": "q", "key": "k", "value": "v",
+}
+
+
+def convert_sd_vae(sd: Mapping[str, np.ndarray]) -> dict[str, Any]:
+    """diffusers AutoencoderKL state_dict → decoder params for models.sd_vae.
+
+    Encoder-side keys (``encoder.*``, ``quant_conv``) are skipped — txt2img
+    never encodes pixels.
+    """
+    params: dict[str, Any] = {}
+
+    def linear_leaf(path, leaf, w):
+        if leaf == "bias":
+            _set(params, path + ("bias",), w)
+        else:
+            if w.ndim == 4:  # very old checkpoints store 1x1 convs
+                w = w[:, :, 0, 0]
+            _set(params, path + ("kernel",), linear_kernel(w))
+
+    for key, w in sd.items():
+        parts = key.split(".")
+        if parts[0] in ("encoder", "quant_conv"):
+            continue
+        if parts[0] == "post_quant_conv":
+            _set(params, ("post_quant", "kernel" if parts[1] == "weight" else "bias"),
+                 conv_kernel(w) if parts[1] == "weight" else w)
+            continue
+        assert parts[0] == "decoder", f"unrecognized vae key: {key}"
+        parts = parts[1:]
+        p0 = parts[0]
+        if p0 in ("conv_in", "conv_out"):
+            _set(params, (p0, "kernel" if parts[1] == "weight" else "bias"),
+                 conv_kernel(w) if parts[1] == "weight" else w)
+        elif p0 == "conv_norm_out":
+            _set(params, ("norm_out", _BERT_LN[parts[1]]), w)
+        elif p0 == "mid_block":
+            sub, rest = parts[1], parts[2:]
+            if sub == "resnets":
+                _convert_sd_resnet(params, ("mid", f"res{rest[0]}"), rest[1:], w)
+            else:  # attentions.0
+                rest = rest[1:]
+                if rest[0] in ("group_norm", "norm"):
+                    _set(params, ("mid", "attn", "norm", _BERT_LN[rest[1]]), w)
+                elif rest[0] in _VAE_ATTN:
+                    linear_leaf(("mid", "attn", _VAE_ATTN[rest[0]]), rest[1], w)
+                elif rest[0] in ("to_out", "proj_attn"):
+                    leaf = rest[2] if rest[0] == "to_out" else rest[1]
+                    linear_leaf(("mid", "attn", "out"), leaf, w)
+                else:
+                    raise KeyError(f"unrecognized vae key: {key}")
+        elif p0 == "up_blocks":
+            block = f"up{parts[1]}"
+            sub, rest = parts[2], parts[3:]
+            if sub == "resnets":
+                _convert_sd_resnet(params, (block, f"res{rest[0]}"), rest[1:], w)
+            elif sub == "upsamplers":  # upsamplers.0.conv.{weight,bias}
+                _set(params, (block, "up", "kernel" if rest[2] == "weight" else "bias"),
+                     conv_kernel(w) if rest[2] == "weight" else w)
+            else:
+                raise KeyError(f"unrecognized vae key: {key}")
+        else:
+            raise KeyError(f"unrecognized vae key: {key}")
+    return params
+
+
+def convert_sd15(path: str | Path) -> dict[str, Any]:
+    """A diffusers-layout SD-1.5 checkpoint directory → full pipeline params.
+
+    Expects ``text_encoder/``, ``unet/``, ``vae/`` subdirectories each holding
+    a ``*.safetensors`` or ``*.bin`` model file (the HF hub layout).  A single
+    flat file with ``text_encoder.``/``unet.``/``vae.`` key prefixes also
+    works (our own re-export format).
+    """
+    path = Path(path).expanduser()
+    if path.is_dir():
+        def load_part(name):
+            part = path / name
+            files = sorted(part.glob("*.safetensors")) or sorted(part.glob("*.bin"))
+            if not files:
+                raise FileNotFoundError(f"no model file under {part}")
+            return load_state_dict(files[0])
+
+        return {"clip": convert_clip_text(load_part("text_encoder")),
+                "unet": convert_sd_unet(load_part("unet")),
+                "vae": convert_sd_vae(load_part("vae"))}
+    sd = load_state_dict(path)
+    split = {"text_encoder": {}, "unet": {}, "vae": {}}
+    for key, w in sd.items():
+        prefix, rest = key.split(".", 1)
+        if prefix in split:
+            split[prefix][rest] = w
+    return {"clip": convert_clip_text(split["text_encoder"]),
+            "unet": convert_sd_unet(split["unet"]),
+            "vae": convert_sd_vae(split["vae"])}
+
+
+def assert_tree_shapes_match(converted, reference, path=""):
+    """Raise with a per-leaf report if two param pytrees disagree in structure/shape."""
+    if isinstance(reference, Mapping):
+        missing = set(reference) - set(converted)
+        extra = set(converted) - set(reference)
+        if missing or extra:
+            raise ValueError(f"at {path or '<root>'}: missing={sorted(missing)} extra={sorted(extra)}")
+        for k in reference:
+            assert_tree_shapes_match(converted[k], reference[k], f"{path}/{k}")
+    else:
+        if tuple(np.shape(converted)) != tuple(np.shape(reference)):
+            raise ValueError(
+                f"at {path}: shape {np.shape(converted)} != expected {np.shape(reference)}")
+
+
+class _Draw:
+    """A draw's shape alone: the init's scaling keeps it, and ``astype``
+    makes a zero-stride array of that shape and dtype."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+    def __mul__(self, other):
+        return self
+
+    __truediv__ = __mul__
+
+    def astype(self, dtype):
+        return np.broadcast_to(np.zeros((), dtype), self.shape)
+
+
+class ShapeDraws:
+    """Stands in for ``np.random.default_rng(seed)`` in a seeded init
+    function (``rng=ShapeDraws()``), which then returns the family's tree
+    with every drawn leaf a zero-stride array: its shapes and dtypes, what
+    :func:`assert_tree_shapes_match` reads, at no cost in draws or memory."""
+
+    def standard_normal(self, shape):
+        return _Draw(shape)
+
+
+def meta_tree(tree: Mapping[str, Any]) -> dict[str, Any]:
+    """The tree with each leaf a tensor on the ``meta`` device of its shape
+    and dtype: :func:`params_from_jax` of it is a ``state_dict`` that loads
+    into a module built on ``meta`` with every key and shape checked and no
+    byte copied."""
+    def leaf(value):
+        value = np.asarray(value)
+        return torch.empty(value.shape, dtype=torch.from_numpy(np.empty(0, value.dtype)).dtype,
+                           device="meta")
+
+    return {k: meta_tree(v) if isinstance(v, Mapping) else leaf(v) for k, v in tree.items()}
+
+
 # A staged checkpoint: the param tree already converted to the JAX package's
 # layout, in one safetensors file with the tree keys joined by "/" (what that
 # package's ``tpuserve stage`` writes), so loading it runs no converter.
@@ -397,19 +700,15 @@ def unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict[str, Any]:
 
 
 def save_native(params: Mapping[str, Any], path: str | Path) -> None:
-    """Stage a param tree (JAX layout, numpy leaves) as ``*.tpu.safetensors``."""
-    from safetensors.numpy import save_file
-
+    """Stage a param tree (JAX layout, numpy leaves) as ``*.tpu.safetensors``
+    (through :mod:`.tensorfile`, not the ``safetensors`` package)."""
     if not is_native(path):
         raise ValueError(f"staged params path must end with {NATIVE_SUFFIX}: {path}")
-    save_file({k: np.ascontiguousarray(v) for k, v in flatten_tree(params).items()},
-              str(path))
+    tensorfile.save(flatten_tree(params), path)
 
 
 def load_native(path: str | Path) -> dict[str, Any]:
-    from safetensors.numpy import load_file
-
-    return unflatten_tree(load_file(str(Path(path).expanduser())))
+    return unflatten_tree(tensorfile.load(path))
 
 
 def import_params(checkpoint: str | Path, converter) -> dict[str, Any]:
@@ -466,7 +765,7 @@ def _leaf_tensor(value) -> torch.Tensor:
     """A tree leaf as a CPU tensor: a tensor (a stream's, bf16 included) as
     it is, anything else through numpy."""
     if isinstance(value, torch.Tensor):
-        return value.detach().cpu()
+        return value.detach() if value.is_meta else value.detach().cpu()
     return torch.from_numpy(np.asarray(value))
 
 

@@ -228,6 +228,27 @@ def _fallback_tokenize(text: str, vocab_size: int) -> list[int]:
     return ids
 
 
+def meta_model(cfg, quantized: bool = False) -> BertClassifier:
+    """The classifier on the meta device (its weights arrive with
+    ``load_state_dict``); ``extra.arch`` overrides the architecture (tiny
+    variants for tests)."""
+    arch = {k: int(v) for k, v in dict(cfg.extra.get("arch", {})).items()}
+    with torch.device("meta"):
+        return BertClassifier(num_labels=int(cfg.extra.get("num_labels", 2)),
+                              dtype=resolve_dtype(cfg.dtype), quantized=quantized, **arch)
+
+
+def bert_tree(cfg) -> tuple[dict, BertClassifier]:
+    """The float tree the builder loads (a checkpoint, else the seeded init)
+    and the float classifier on meta it fits."""
+    from ..engine import weights as W
+
+    model = meta_model(cfg)
+    if cfg.checkpoint:
+        return W.import_params(cfg.checkpoint, W.convert_bert), model
+    return init_params(model), model
+
+
 def make_bert_servable(name: str, cfg):
     from ..engine import weights as W
     from ..engine.servable import Servable
@@ -235,17 +256,9 @@ def make_bert_servable(name: str, cfg):
     num_labels = int(cfg.extra.get("num_labels", 2))
     labels = cfg.extra.get("labels") or [f"label_{i}" for i in range(num_labels)]
     max_seq = max(cfg.seq_buckets)
-    # extra.arch overrides architecture hyperparams (tiny variants for tests).
-    arch = {k: int(v) for k, v in dict(cfg.extra.get("arch", {})).items()}
     int8 = str(cfg.extra.get("params_dtype", "")) == "int8"
-    # Built on the meta device; the weights arrive with load_state_dict below.
-    with torch.device("meta"):
-        model = BertClassifier(num_labels=num_labels, dtype=resolve_dtype(cfg.dtype),
-                               quantized=int8, **arch)
-    if cfg.checkpoint:
-        params = W.import_params(cfg.checkpoint, W.convert_bert)
-    else:
-        params = init_params(model)
+    params, _ = bert_tree(cfg)
+    model = meta_model(cfg, quantized=int8)
     if int8:
         # W8A16 lane: encoder projection kernels -> int8 + per-column scale
         # (the JAX package's rewrite, byte for byte); everything outside
@@ -334,7 +347,9 @@ def make_bert_servable(name: str, cfg):
               "num_labels": num_labels})
 
 
-from ..utils.registry import register_model  # noqa: E402
+from ..utils.registry import register_model, register_tree  # noqa: E402
+
+register_tree("bert_base", "bert_embed")(bert_tree)
 
 
 @register_model("bert_base", latency_class="latency")

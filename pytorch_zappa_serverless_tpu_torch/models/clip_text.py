@@ -75,10 +75,10 @@ def encode_text(params: dict, ids: torch.Tensor, cfg: CLIPTextConfig = VIT_L14,
     return _ln(params["final_ln"], x)
 
 
-def init_clip_text_params(seed: int = 0, cfg: CLIPTextConfig = VIT_L14) -> dict:
+def init_clip_text_params(seed: int = 0, cfg: CLIPTextConfig = VIT_L14, rng=None) -> dict:
     """Seed-initialised weights in the JAX package's layout, byte for byte
     the JAX function's (the same ``default_rng`` draws in the same order)."""
-    g = np.random.default_rng(seed)
+    g = np.random.default_rng(seed) if rng is None else rng
 
     def dense(i, o):
         return {"kernel": (g.standard_normal((i, o)) * 0.02).astype(np.float32),

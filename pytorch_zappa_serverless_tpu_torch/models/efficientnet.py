@@ -116,15 +116,20 @@ class EfficientNet(nn.Module):
 EfficientNetB0 = partial(EfficientNet, width_coefficient=1.0, depth_coefficient=1.0)
 
 
-from ..utils.registry import register_model  # noqa: E402
+from ..engine.weights import convert_efficientnet  # noqa: E402
+from ..utils.registry import register_model, register_tree  # noqa: E402
+from .bert import resolve_dtype  # noqa: E402
+from .vision_common import classifier_tree_fn, make_image_classifier  # noqa: E402
+
+
+def _module(cfg) -> EfficientNet:
+    return EfficientNetB0(dtype=resolve_dtype(cfg.dtype))
+
+
+register_tree("efficientnet_b0")(
+    classifier_tree_fn("efficientnet_b0", _module, convert_efficientnet))
 
 
 @register_model("efficientnet_b0", latency_class="latency")
 def build_efficientnet_b0(cfg):
-    from ..engine.weights import convert_efficientnet
-    from .bert import resolve_dtype
-    from .vision_common import make_image_classifier
-
-    return make_image_classifier("efficientnet_b0",
-                                 EfficientNetB0(dtype=resolve_dtype(cfg.dtype)), cfg,
-                                 convert_efficientnet)
+    return make_image_classifier("efficientnet_b0", _module(cfg), cfg, convert_efficientnet)

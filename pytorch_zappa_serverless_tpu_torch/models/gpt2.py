@@ -552,11 +552,11 @@ def verify_paged(params: dict, cache_k, cache_v, table, toks, pos, cfg: GPT2Conf
 # Weights: seed init (no checkpoint is shipped) and the int8 rewrite
 # ---------------------------------------------------------------------------
 
-def init_gpt2_params(seed: int = 0, cfg: GPT2Config = SMALL) -> dict:
+def init_gpt2_params(seed: int = 0, cfg: GPT2Config = SMALL, rng=None) -> dict:
     """A seed-initialised numpy tree in the JAX package's layout: the bytes
     of its ``init_gpt2_params`` (the same ``default_rng`` draws in the same
     order)."""
-    g = np.random.default_rng(seed)
+    g = np.random.default_rng(seed) if rng is None else rng
 
     def dense(i, o):
         return {"kernel": (g.standard_normal((i, o)) * 0.02).astype(np.float32),
@@ -646,6 +646,22 @@ def _int8_only(tree: dict, layers: int) -> dict:
     return out
 
 
+def gpt2_params(cfg_model) -> tuple[dict, GPT2Config]:
+    """The float tree the builder loads (a checkpoint, its config read off
+    its shapes, else the seeded init of SMALL) and its config, with
+    ``extra.arch``'s overrides."""
+    from ..engine import weights as W
+
+    arch = {k: int(v) for k, v in dict(cfg_model.extra.get("arch", {})).items()}
+    if cfg_model.checkpoint:
+        params = W.import_params(cfg_model.checkpoint, W.convert_gpt2)
+        return params, dataclasses.replace(config_from_params(params), **arch)
+    cfg = dataclasses.replace(SMALL, **arch) if arch else SMALL
+    if cfg.vocab_size <= cfg.eos_id and "eos_id" not in arch:
+        cfg = dataclasses.replace(cfg, eos_id=cfg.vocab_size - 1)
+    return init_gpt2_params(0, cfg), cfg
+
+
 def make_gpt2_servable(name: str, cfg_model):
     from ..engine import weights as W
     from ..engine.servable import Servable
@@ -653,7 +669,6 @@ def make_gpt2_servable(name: str, cfg_model):
 
     dtype = resolve_dtype(cfg_model.dtype)
     max_new = int(cfg_model.extra.get("max_new_tokens", 32))
-    arch = {k: int(v) for k, v in dict(cfg_model.extra.get("arch", {})).items()}
     max_seq = max(cfg_model.seq_buckets)
     params_dtype = str(cfg_model.extra.get("params_dtype", ""))
     routed = params_dtype == "auto"
@@ -663,14 +678,7 @@ def make_gpt2_servable(name: str, cfg_model):
     # H100 (ROADMAP Queue 3).
     crossover = int(cfg_model.extra.get("int8_crossover_batch", 64))
 
-    if cfg_model.checkpoint:
-        params = W.import_params(cfg_model.checkpoint, W.convert_gpt2)
-        cfg = dataclasses.replace(config_from_params(params), **arch)
-    else:
-        cfg = dataclasses.replace(SMALL, **arch) if arch else SMALL
-        if cfg.vocab_size <= cfg.eos_id and "eos_id" not in arch:
-            cfg = dataclasses.replace(cfg, eos_id=cfg.vocab_size - 1)
-        params = init_gpt2_params(0, cfg)
+    params, cfg = gpt2_params(cfg_model)
     if max_seq + max_new > cfg.max_positions:
         raise ValueError(
             f"{name}: max(seq_buckets) + max_new_tokens = {max_seq} + {max_new} exceeds the "
@@ -973,7 +981,15 @@ def make_gpt2_servable(name: str, cfg_model):
                     bucket_axes=("batch", "seq"), meta=meta)
 
 
-from ..utils.registry import register_model  # noqa: E402
+from ..utils.registry import register_model, register_tree  # noqa: E402
+
+
+@register_tree("gpt2")
+def gpt2_tree(cfg_model) -> tuple[dict, dict]:
+    from ..engine.weights import ShapeDraws
+
+    params, cfg = gpt2_params(cfg_model)
+    return params, init_gpt2_params(0, cfg, rng=ShapeDraws())
 
 
 @register_model("gpt2", latency_class="latency")

@@ -14,6 +14,7 @@ through ``permute`` with no copy.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Sequence
 
 import torch
@@ -112,16 +113,22 @@ def ResNet50(**kw) -> ResNet:
     return ResNet((3, 4, 6, 3), Bottleneck, **kw)
 
 
+from ..engine.weights import convert_resnet  # noqa: E402
+from ..utils.registry import register_model, register_tree  # noqa: E402
+from .bert import resolve_dtype  # noqa: E402
+from .vision_common import classifier_tree_fn, make_image_classifier  # noqa: E402
+
+
+def _module(builder, cfg) -> ResNet:
+    return builder(dtype=resolve_dtype(cfg.dtype))
+
+
 def _build(name: str, builder, cfg):
-    from ..engine.weights import convert_resnet
-    from .bert import resolve_dtype
-    from .vision_common import make_image_classifier
-
-    return make_image_classifier(name, builder(dtype=resolve_dtype(cfg.dtype)), cfg,
-                                 convert_resnet)
+    return make_image_classifier(name, _module(builder, cfg), cfg, convert_resnet)
 
 
-from ..utils.registry import register_model  # noqa: E402
+for _name, _builder in (("resnet18", ResNet18), ("resnet50", ResNet50)):
+    register_tree(_name)(classifier_tree_fn(_name, partial(_module, _builder), convert_resnet))
 
 
 @register_model("resnet18", latency_class="latency")

@@ -151,7 +151,8 @@ def txt2img(params: dict, inputs: dict, schedule: dict, cfg: SD15Config = FULL,
 
 
 # ---------------------------------------------------------------------------
-# Tokenization (offline; no tokenizer file is served yet)
+# Tokenization: a CLIP ``tokenizer.json`` through the ``tokenizers`` library
+# when ``extra.tokenizer`` names one, else the offline stub
 # ---------------------------------------------------------------------------
 
 def _fallback_tokenize(text: str, cfg: CLIPTextConfig) -> list[int]:
@@ -164,11 +165,30 @@ def _fallback_tokenize(text: str, cfg: CLIPTextConfig) -> list[int]:
     return ids
 
 
-def make_prompt_ids(text: str, cfg: CLIPTextConfig) -> np.ndarray:
-    """[BOS] + ids + [EOS], padded with EOS to ``max_len`` (CLIP's padding)."""
-    ids = [cfg.bot_id] + _fallback_tokenize(text, cfg)[: cfg.max_len - 2] + [cfg.eot_id]
+def make_prompt_ids(text: str, cfg: CLIPTextConfig, tokenizer=None) -> np.ndarray:
+    """[BOS] + ids + [EOS], padded with EOS to ``max_len`` (CLIP's padding).
+    A ``tokenizers.Tokenizer``'s BOS and EOS are stripped first (a CLIP
+    tokenizer.json's post-processor adds them), so the wrap is applied once
+    either way."""
+    if tokenizer is not None:
+        ids = [i for i in tokenizer.encode(text).ids if i not in (cfg.bot_id, cfg.eot_id)]
+    else:
+        ids = _fallback_tokenize(text, cfg)
+    ids = [cfg.bot_id] + ids[: cfg.max_len - 2] + [cfg.eot_id]
     ids = ids + [cfg.eot_id] * (cfg.max_len - len(ids))
     return np.asarray(ids, np.int32)
+
+
+def load_tokenizer(name: str, path: str):
+    """``tokenizers.Tokenizer.from_file(path)``; the package is imported
+    only here, and its absence is an error that names it."""
+    try:
+        from tokenizers import Tokenizer
+    except ImportError as e:
+        raise ImportError(f"{name}: extra.tokenizer {path!r} needs the `tokenizers` package, "
+                          f"which is not installed; leave extra.tokenizer unset to serve the "
+                          f"offline tokenizer") from e
+    return Tokenizer.from_file(str(path))
 
 
 # ---------------------------------------------------------------------------
@@ -200,10 +220,28 @@ def _png_b64(arr: np.ndarray) -> str:
 # Servable
 # ---------------------------------------------------------------------------
 
-def init_sd15_params(seed: int = 0, cfg: SD15Config = FULL) -> dict:
-    return {"clip": init_clip_text_params(seed, cfg.clip),
-            "unet": init_unet_params(seed + 1, cfg.unet),
-            "vae": init_vae_params(seed + 2, cfg.vae)}
+def init_sd15_params(seed: int = 0, cfg: SD15Config = FULL, rng=None) -> dict:
+    return {"clip": init_clip_text_params(seed, cfg.clip, rng),
+            "unet": init_unet_params(seed + 1, cfg.unet, rng),
+            "vae": init_vae_params(seed + 2, cfg.vae, rng)}
+
+
+def sd15_config(cfg_model) -> SD15Config:
+    return TINY if cfg_model.extra.get("variant") == "tiny" else FULL
+
+
+def sd15_params(cfg_model, cfg: SD15Config) -> dict:
+    """The tree the builder loads: a staged tree or a stream as it is, a
+    diffusers directory or a flat prefixed file through ``convert_sd15``,
+    else the seeded init."""
+    from ..engine import weights as W
+
+    ckpt = cfg_model.checkpoint
+    if not ckpt:
+        return init_sd15_params(0, cfg)
+    if W.is_native(ckpt) or W.is_stream(ckpt):
+        return W.import_params(ckpt, None)
+    return W.convert_sd15(ckpt)
 
 
 def _held_in(key: str, value: torch.Tensor, sd: dict, dtype: torch.dtype) -> torch.Tensor:
@@ -211,10 +249,12 @@ def _held_in(key: str, value: torch.Tensor, sd: dict, dtype: torch.dtype) -> tor
     and dense weights and biases, and the CLIP embeddings, to the compute
     dtype at every use, so holding them in that dtype gives the same values;
     norm scales and biases (1-D, read in f32) and the UNet's time MLP (run
-    in f32) stay f32.  Conv weights are held ``channels_last``."""
+    in f32) are held in f32.  Conv weights are held ``channels_last``."""
     sibling = sd.get(key.rsplit(".", 1)[0] + ".weight") if key.endswith(".bias") else value
     if sibling is not None and sibling.ndim >= 2 and not key.startswith("unet.time_mlp"):
         value = value.to(dtype)
+    elif value.is_floating_point():
+        value = value.float()  # an f16 checkpoint's norms and time MLP, read in f32
     if value.ndim == 4:
         value = value.contiguous(memory_format=torch.channels_last)
     return value
@@ -225,13 +265,8 @@ def make_sd15_servable(name: str, cfg_model, cfg: SD15Config | None = None):
     from ..engine.weights import ParamTree, params_from_jax
     from .bert import resolve_dtype
 
-    if cfg_model.checkpoint or cfg_model.extra.get("tokenizer"):
-        raise ValueError(f"{name}: checkpoints and tokenizer files are not served by "
-                         f"the port's sd15 yet (the diffusers converters are not "
-                         f"ported); it serves seed-initialised weights and the "
-                         f"offline tokenizer")
     if cfg is None:
-        cfg = TINY if cfg_model.extra.get("variant") == "tiny" else FULL
+        cfg = sd15_config(cfg_model)
     dtype = resolve_dtype(cfg_model.dtype)
     height = int(cfg_model.extra.get("height", 512))
     width = int(cfg_model.extra.get("width", 512))
@@ -239,7 +274,9 @@ def make_sd15_servable(name: str, cfg_model, cfg: SD15Config | None = None):
     default_guidance = float(cfg_model.extra.get("guidance_scale", 7.5))
     lh, lw = height // 8, width // 8
 
-    sd = params_from_jax(init_sd15_params(0, cfg))
+    tok_path = cfg_model.extra.get("tokenizer")
+    tokenizer = load_tokenizer(name, tok_path) if tok_path else None
+    sd = params_from_jax(sd15_params(cfg_model, cfg))
     module = ParamTree({k: _held_in(k, v, sd, dtype) for k, v in sd.items()})
     module.eval()
     schedule = ddim_schedule(num_steps, cfg)
@@ -288,8 +325,9 @@ def make_sd15_servable(name: str, cfg_model, cfg: SD15Config | None = None):
         seed = int(payload.get("seed", 0))
         latents = np.random.default_rng(seed).standard_normal((lh, lw, 4)).astype(np.float32)
         return {
-            "cond_ids": make_prompt_ids(str(payload["prompt"]), cfg.clip),
-            "uncond_ids": make_prompt_ids(str(payload.get("negative_prompt", "")), cfg.clip),
+            "cond_ids": make_prompt_ids(str(payload["prompt"]), cfg.clip, tokenizer),
+            "uncond_ids": make_prompt_ids(str(payload.get("negative_prompt", "")), cfg.clip,
+                                          tokenizer),
             "latents": latents,
             "guidance": np.float32(payload.get("guidance_scale", default_guidance)),
         }
@@ -313,7 +351,15 @@ def make_sd15_servable(name: str, cfg_model, cfg: SD15Config | None = None):
                     bucket_axes=("batch",), meta=meta)
 
 
-from ..utils.registry import register_model  # noqa: E402
+from ..utils.registry import register_model, register_tree  # noqa: E402
+
+
+@register_tree("sd15")
+def sd15_tree(cfg_model) -> tuple[dict, dict]:
+    from ..engine.weights import ShapeDraws
+
+    cfg = sd15_config(cfg_model)
+    return sd15_params(cfg_model, cfg), init_sd15_params(0, cfg, rng=ShapeDraws())
 
 
 @register_model("sd15", latency_class="throughput")

@@ -215,10 +215,10 @@ def unet_apply(params: dict, latents: torch.Tensor, t: torch.Tensor, context: to
 counters.register(unet_apply, "calls")
 
 
-def init_unet_params(seed: int = 0, cfg: UNetConfig = SD15_UNET) -> dict:
+def init_unet_params(seed: int = 0, cfg: UNetConfig = SD15_UNET, rng=None) -> dict:
     """Seed-initialised weights in the JAX package's layout, byte for byte
     the JAX function's (the same ``default_rng`` draws in the same order)."""
-    g = np.random.default_rng(seed)
+    g = np.random.default_rng(seed) if rng is None else rng
 
     def conv(i, o, k=3):
         fan_in = i * k * k

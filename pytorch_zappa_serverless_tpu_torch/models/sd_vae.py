@@ -87,10 +87,10 @@ def vae_decode(params: dict, latents: torch.Tensor, cfg: VAEConfig = SD15_VAE,
     return torch.clamp(x / 2.0 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
 
 
-def init_vae_params(seed: int = 0, cfg: VAEConfig = SD15_VAE) -> dict:
+def init_vae_params(seed: int = 0, cfg: VAEConfig = SD15_VAE, rng=None) -> dict:
     """Seed-initialised weights in the JAX package's layout, byte for byte
     the JAX function's (the same ``default_rng`` draws in the same order)."""
-    g = np.random.default_rng(seed)
+    g = np.random.default_rng(seed) if rng is None else rng
 
     def conv(i, o, k=3):
         fan_in = i * k * k

@@ -36,6 +36,32 @@ def topk_first_index(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.T
 IMAGE_SIZE = 224
 
 
+def image_tree(name: str, module: nn.Module, cfg: ModelConfig, convert_fn: Callable | None,
+               init_fn: Callable = init_params) -> dict:
+    """The float tree a classifier loads: a checkpoint through
+    ``convert_fn`` (a staged or stream file as it is), else
+    ``init_fn(module)`` from a seed (a module on meta will do)."""
+    from ..engine import weights as W
+
+    if not cfg.checkpoint:
+        return init_fn(module)
+    if convert_fn is None and not W.is_native(cfg.checkpoint):
+        raise ValueError(f"{name}: no checkpoint converter available")
+    return W.import_params(cfg.checkpoint, convert_fn)
+
+
+def classifier_tree_fn(name: str, make_module: Callable[[ModelConfig], nn.Module],
+                 convert_fn: Callable | None, init_fn: Callable = init_params) -> Callable:
+    """A family's tree function (``utils.registry.register_tree``): its
+    module built on meta by ``make_module(cfg)``, and :func:`image_tree` of
+    it."""
+    def tree_fn(cfg: ModelConfig) -> tuple[dict, nn.Module]:
+        with torch.device("meta"):
+            module = make_module(cfg)
+        return image_tree(name, module, cfg, convert_fn, init_fn), module
+    return tree_fn
+
+
 def make_image_classifier(name: str, module: nn.Module, cfg: ModelConfig,
                           convert_fn: Callable | None, init_fn: Callable = init_params,
                           resize_to: int = 256, num_classes: int = 1000,
@@ -51,13 +77,8 @@ def make_image_classifier(name: str, module: nn.Module, cfg: ModelConfig,
 
     image_size = int(cfg.extra.get("image_size", IMAGE_SIZE))
     resize_to = int(cfg.extra.get("resize_to", resize_to))
-    if cfg.checkpoint:
-        if convert_fn is None and not W.is_native(cfg.checkpoint):
-            raise ValueError(f"{name}: no checkpoint converter available")
-        params = W.import_params(cfg.checkpoint, convert_fn)
-    else:
-        params = init_fn(module)
-    module.load_state_dict(W.params_from_jax(params), assign=True)
+    module.load_state_dict(W.params_from_jax(image_tree(name, module, cfg, convert_fn, init_fn)),
+                           assign=True)
     # Conv weights in channels_last, the activations' layout: cuDNN then
     # takes them as they lie, with no per-call layout copy.
     module.to(memory_format=torch.channels_last).eval()

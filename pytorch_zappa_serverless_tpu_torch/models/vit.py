@@ -112,21 +112,27 @@ def init_params(model: ViTClassifier, seed: int = 0) -> dict:
     return tree
 
 
-def make_vit_servable(name: str, cfg):
-    from ..engine.weights import convert_vit
-    from .vision_common import IMAGE_SIZE, make_image_classifier
+from ..engine.weights import convert_vit  # noqa: E402
+from ..utils.registry import register_model, register_tree  # noqa: E402
+from .vision_common import IMAGE_SIZE, classifier_tree_fn, make_image_classifier  # noqa: E402
 
-    num_labels = int(cfg.extra.get("num_labels", 1000))
+
+def _module(cfg) -> ViTClassifier:
     arch = {k: int(v) for k, v in dict(cfg.extra.get("arch", {})).items()}
+    return ViTClassifier(image_size=int(cfg.extra.get("image_size", IMAGE_SIZE)),
+                         num_labels=int(cfg.extra.get("num_labels", 1000)),
+                         dtype=resolve_dtype(cfg.dtype), **arch)
+
+
+def make_vit_servable(name: str, cfg):
     image_size = int(cfg.extra.get("image_size", IMAGE_SIZE))
-    module = ViTClassifier(image_size=image_size, num_labels=num_labels,
-                           dtype=resolve_dtype(cfg.dtype), **arch)
-    return make_image_classifier(name, module, cfg, convert_vit, init_fn=init_params,
-                                 resize_to=int(image_size * 256 / 224), num_classes=num_labels,
+    return make_image_classifier(name, _module(cfg), cfg, convert_vit, init_fn=init_params,
+                                 resize_to=int(image_size * 256 / 224),
+                                 num_classes=int(cfg.extra.get("num_labels", 1000)),
                                  norm_mean=(0.5, 0.5, 0.5), norm_std=(0.5, 0.5, 0.5))
 
 
-from ..utils.registry import register_model  # noqa: E402
+register_tree("vit_b16")(classifier_tree_fn("vit_b16", _module, convert_vit, init_params))
 
 
 @register_model("vit_b16", latency_class="latency")

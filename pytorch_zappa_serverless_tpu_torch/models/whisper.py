@@ -350,11 +350,11 @@ def _sinusoids(length: int, channels: int) -> np.ndarray:
     return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
 
 
-def init_whisper_params(seed: int = 0, cfg: WhisperConfig = TINY) -> dict:
+def init_whisper_params(seed: int = 0, cfg: WhisperConfig = TINY, rng=None) -> dict:
     """A seed-initialised numpy tree in the JAX package's layout: the bytes
     of its ``init_whisper_params`` (the same ``default_rng`` draws in the
     same order)."""
-    g = np.random.default_rng(seed)
+    g = np.random.default_rng(seed) if rng is None else rng
 
     def dense(i, o, bias=True):
         p = {"kernel": (g.standard_normal((i, o)) * 0.02).astype(np.float32)}
@@ -459,14 +459,12 @@ def decode_audio_payload(payload) -> np.ndarray:
         return resample(x, w.getframerate())
 
 
-def make_whisper_servable(name: str, cfg_model):
+def whisper_params(cfg_model) -> tuple[dict, WhisperConfig]:
+    """The float tree the builder loads (a checkpoint, its config read off
+    its shapes, else the seeded init of TINY) and its config, with
+    ``extra.arch``'s overrides."""
     from ..engine import weights as W
-    from ..engine.servable import Servable
-    from ..ops.logmel import N_FRAMES, chunk_waveform, log_mel_spectrogram
-    from .bert import resolve_dtype
 
-    dtype = resolve_dtype(cfg_model.dtype)
-    max_new = int(cfg_model.extra.get("max_new_tokens", 64))
     arch = {k: int(v) for k, v in dict(cfg_model.extra.get("arch", {})).items()}
     if cfg_model.checkpoint:
         params = W.import_params(cfg_model.checkpoint, W.convert_whisper)
@@ -478,6 +476,18 @@ def make_whisper_servable(name: str, cfg_model):
         cfg = dataclasses.replace(cfg, eot_id=cfg.vocab_size - 2, sot_id=cfg.vocab_size - 1)
     if not cfg_model.checkpoint:
         params = init_whisper_params(0, cfg)
+    return params, cfg
+
+
+def make_whisper_servable(name: str, cfg_model):
+    from ..engine import weights as W
+    from ..engine.servable import Servable
+    from ..ops.logmel import N_FRAMES, chunk_waveform, log_mel_spectrogram
+    from .bert import resolve_dtype
+
+    dtype = resolve_dtype(cfg_model.dtype)
+    max_new = int(cfg_model.extra.get("max_new_tokens", 64))
+    params, cfg = whisper_params(cfg_model)
     if str(cfg_model.extra.get("params_dtype", "")) == "int8":
         params = quantize_whisper(params, cfg.decoder_layers,
                                   int(cfg_model.extra.get("quantize_min_size", 1 << 16)))
@@ -585,7 +595,15 @@ def make_whisper_servable(name: str, cfg_model):
                     bucket_axes=("batch",), meta=meta)
 
 
-from ..utils.registry import register_model  # noqa: E402
+from ..utils.registry import register_model, register_tree  # noqa: E402
+
+
+@register_tree("whisper_tiny")
+def whisper_tree(cfg_model) -> tuple[dict, dict]:
+    from ..engine.weights import ShapeDraws
+
+    params, cfg = whisper_params(cfg_model)
+    return params, init_whisper_params(0, cfg, rng=ShapeDraws())
 
 
 @register_model("whisper_tiny", latency_class="latency")

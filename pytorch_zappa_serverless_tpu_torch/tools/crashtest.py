@@ -164,14 +164,16 @@ def payloads_for(model: str, n: int) -> list[dict]:
 
 
 def write_config(path: Path, port: int, workdir: Path, model: str,
-                 latency_ms: float) -> None:
+                 latency_ms: float, checkpoint: str | None = None) -> None:
     """Two profiles on one journal: ``boot`` with the latency rule, so a
     backlog forms, and ``restart`` without it.  JSON: the card's machine
-    has no PyYAML."""
+    has no PyYAML.  ``checkpoint`` (e.g. a staged tree) replaces the
+    model's seeded weights."""
+    entry = {**MODELS[model], **({"checkpoint": checkpoint} if checkpoint else {})}
     base = {"host": "127.0.0.1", "port": port, "warmup_at_boot": True,
             "journal_dir": str(workdir / "journal"), "journal_fsync": "always",
             "job_max_backlog": 64, "trace_dir": str(workdir / "traces"),
-            "models": [MODELS[model]]}
+            "models": [entry]}
     path.write_text(json.dumps({
         "default_profile": "boot",
         "profiles": {"boot": {**base, "faults": {model: {"latency_ms": latency_ms}}},
@@ -218,7 +220,8 @@ def _wait_done(base: str, ids: dict[str, str], timeout_s: float) -> dict[str, di
 
 def run_crashtest(workdir: str | Path, n_jobs: int = 6, model: str = "resnet18",
                   platform: str = "cuda", latency_ms: float = 600.0,
-                  boot_timeout_s: float = 300.0, finish_timeout_s: float = 120.0) -> dict:
+                  boot_timeout_s: float = 300.0, finish_timeout_s: float = 120.0,
+                  checkpoint: str | None = None) -> dict:
     """Run the kill -9 scenario; returns the evidence dict.  Raises
     AssertionError on any acknowledged job lost or run twice, and
     RuntimeError for ``platform="cuda"`` without CUDA (the servers would
@@ -228,7 +231,7 @@ def run_crashtest(workdir: str | Path, n_jobs: int = 6, model: str = "resnet18",
     workdir.mkdir(parents=True, exist_ok=True)
     port = _free_port()
     cfg_path = workdir / "crashtest.json"
-    write_config(cfg_path, port, workdir, model, latency_ms)
+    write_config(cfg_path, port, workdir, model, latency_ms, checkpoint)
     base = f"http://127.0.0.1:{port}"
     payloads = payloads_for(model, n_jobs)
     out: dict = {"n_jobs": n_jobs, "model": model, "platform": platform}

@@ -1,6 +1,8 @@
 """The port stands alone: it imports torch, never JAX, flax, ``ml_dtypes``, the
-JAX package or ``transformers`` (the card's machine has none), and its entry
-points run on CUDA unless the caller asks for the CPU."""
+JAX package or ``transformers`` (the card's machine has none), nor
+``safetensors``, which staging, the native format and the diffusers
+converters never load; and its entry points run on CUDA unless the caller
+asks for the CPU."""
 
 import ast
 import json
@@ -36,7 +38,8 @@ def test_importing_the_port_loads_no_jax():
                  "serving.durability", "utils.xplane", "tools.crashtest", "serving.kvmigrate",
                  "ops.lora", "serving.adapters", "serving.perfplane", "serving.acceptors",
                  "serving.acceptor_telemetry", "serving.httpframe", "serving.fleet",
-                 "serving.httpclient"):
+                 "serving.httpclient", "deploy", "deploy.stage", "deploy.render",
+                 "engine.tensorfile"):
         assert f"pytorch_zappa_serverless_tpu_torch.{lane}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -82,7 +85,24 @@ def test_importing_the_port_loads_no_jax():
         "x = torch.ones(2, 8, dtype=torch.bfloat16)\n"
         "y = lora.lora_apply(x, x, dev['layer0']['q'], torch.tensor([0, 1]))\n"
         "assert torch.equal(y[0], x[0]) and not torch.equal(y[1], x[1])\n"
-        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        # A stage of a SD-1.5 diffusers directory, its render and the
+        # staged tree's load (deploy/ and the native format) load nothing
+        # forbidden, and not the safetensors package.
+        "import numpy as np\n"
+        "from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, load_config\n"
+        "from pytorch_zappa_serverless_tpu_torch.deploy.render import render_deploy\n"
+        "from pytorch_zappa_serverless_tpu_torch.deploy.stage import stage_assets\n"
+        "from pytorch_zappa_serverless_tpu_torch.models import sd15\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('sd_diffusers', 'tests/sd_diffusers.py')\n"
+        "D = importlib.util.module_from_spec(spec); spec.loader.exec_module(D)\n"
+        "d = tempfile.mkdtemp()\n"
+        "D.write_diffusers_dir(sd15.init_sd15_params(0, sd15.TINY), d + '/ckpt')\n"
+        "mc = ModelConfig(name='sd15', checkpoint=d + '/ckpt', extra={'variant': 'tiny'})\n"
+        "stage_assets(ServeConfig(models=[mc]), d + '/out', d + '/out/assets')\n"
+        "render_deploy(load_config(d + '/out/config.json'), 'cloudrun', d + '/deploy')\n"
+        "sd15.make_sd15_servable('sd15', load_config(d + '/out/config.json').models[0])\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN + ('safetensors',)!r})\n"
         "print(json.dumps(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

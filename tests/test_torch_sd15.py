@@ -16,6 +16,7 @@ rounds either way).
 import asyncio
 import base64
 import io
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -215,10 +216,19 @@ def test_png_writer_decodes_with_pil():
         np.asarray(Image.open(io.BytesIO(base64.b64decode(result["image_b64"])))), pixels)
 
 
-def test_build_refuses_checkpoint_and_tokenizer():
-    for kw in ({"checkpoint": "unet.safetensors"}, {"extra": {"tokenizer": "tok.json"}}):
-        with pytest.raises(ValueError, match="not served by the port"):
-            PS.make_sd15_servable("sd15", ModelConfig(name="sd15", **kw))
+def test_build_refuses_checkpoint_and_tokenizer(tmp_path, monkeypatch):
+    """Checkpoints and tokenizer files are served (tests/test_torch_sd_convert.py);
+    the build refuses a diffusers directory missing a part, and a tokenizer
+    file on a machine without ``tokenizers``, with an error naming the
+    package rather than a fall back to the offline tokenizer."""
+    (tmp_path / "text_encoder").mkdir()
+    with pytest.raises(FileNotFoundError, match="no model file under"):
+        PS.make_sd15_servable("sd15", ModelConfig(name="sd15", checkpoint=str(tmp_path),
+                                                  extra={"variant": "tiny"}))
+    monkeypatch.setitem(sys.modules, "tokenizers", None)
+    with pytest.raises(ImportError, match="`tokenizers` package"):
+        PS.make_sd15_servable("sd15", ModelConfig(name="sd15", extra={
+            "variant": "tiny", "tokenizer": str(tmp_path / "tok.json")}))
 
 
 def test_weights_held_in_the_compute_dtype():
