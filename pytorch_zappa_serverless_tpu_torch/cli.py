@@ -11,7 +11,11 @@
   in-flight work given the budget) before the server stops; a second
   SIGTERM skips the drain.
   ``--ingest-workers N`` starts N acceptor worker processes on the binary
-  lane's ingest port (``ingest_port``, else the port + 1).
+  lane's ingest port (``ingest_port``, else the port + 1).  With a
+  ``mesh`` it serves the whole mesh: it spawns the host's other ranks
+  (``--local-rank i`` on ``cuda:i``), serves HTTP and leads them, and reaps
+  them on exit; with ``num_processes > 1`` each host runs it with its own
+  ``process_id``.
 - ``warm``  build every model and capture every bucket, print the build's
   numbers as one JSON line, and exit.  The port has no compile cache: what
   ``warm`` builds is not kept, so it measures a cold start and checks that
@@ -52,13 +56,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import subprocess
 import sys
+import threading
+import time
 
 from .config import load_config
 
 
 def cmd_serve(args) -> int:
-    from .serving.server import run
+    from .engine.loader import in_world
+    from .serving.server import follow, run
 
     cfg = load_config(args.config, args.profile)
     if args.port is not None:
@@ -67,8 +76,84 @@ def cmd_serve(args) -> int:
         cfg.host = args.host
     if args.ingest_workers is not None:
         cfg.ingest_workers = args.ingest_workers
-    run(cfg, device=args.platform)
+    if not in_world(cfg):
+        run(cfg, device=args.platform)
+        return 0
+    if args.local_rank:
+        # A rank this host's local rank 0 spawned: mirror the leader until it
+        # shuts down, and exit with the parent.
+        _exit_with_parent()
+        follow(cfg, device=args.platform, local_rank=args.local_rank)
+        return 0
+    ranks = _spawn_local_ranks(cfg, args)
+    try:
+        if cfg.process_id == 0:
+            run(cfg, device=args.platform)  # rank 0: HTTP and the lead
+        else:
+            follow(cfg, device=args.platform)  # another host's local rank 0
+    finally:
+        _reap(ranks)
     return 0
+
+
+def _spawn_local_ranks(cfg, args) -> list[subprocess.Popen]:
+    """This host's other ranks of the world, ``cli serve --local-rank i``
+    processes on ``cuda:i``.  The mesh is checked against the host's devices
+    first (too few is the reference's ValueError, before anything starts),
+    and a one-host world with no coordinator rendezvouses on a loopback
+    port, which the ranks are given."""
+    from .engine.loader import resolve_device
+    from .parallel import mesh as M
+
+    _, local_ranks = M.world_layout(cfg.mesh, cfg.num_processes)
+    if args.platform == "cuda":
+        resolve_device("cuda")
+        if cfg.mesh:
+            M.check_devices(cfg.mesh, M.device_pool("cuda", cfg.num_processes))
+    if not cfg.coordinator_address:
+        if cfg.num_processes > 1:
+            raise ValueError("a multi-host world needs coordinator_address")
+        cfg.coordinator_address = f"127.0.0.1:{M.free_port()}"
+    env = dict(os.environ, TPUSERVE_COORDINATOR_ADDRESS=cfg.coordinator_address)
+    cmd = [sys.executable, "-m", "pytorch_zappa_serverless_tpu_torch.cli", "serve",
+           "--platform", args.platform]
+    if args.config:
+        cmd += ["--config", args.config]
+    if args.profile:
+        cmd += ["--profile", args.profile]
+    return [subprocess.Popen(cmd + ["--local-rank", str(i)], env=env)
+            for i in range(1, local_ranks)]
+
+
+def _reap(procs: list[subprocess.Popen], grace_s: float = 30.0) -> None:
+    """Wait for spawned ranks (the leader's shutdown released them), then
+    terminate and kill what is left: no rank outlives its leader."""
+    deadline = time.monotonic() + grace_s
+    for proc in procs:
+        try:
+            proc.wait(timeout=max(deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            proc.terminate()
+    for proc in procs:
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _exit_with_parent(poll_s: float = 1.0) -> None:
+    """A spawned rank exits when the process that spawned it is gone (it
+    would otherwise hold its GPU and the rendezvous port)."""
+    parent = os.getppid()
+
+    def watch():
+        while True:
+            time.sleep(poll_s)
+            if os.getppid() != parent:
+                os._exit(1)
+
+    threading.Thread(target=watch, name="parent-watch", daemon=True).start()
 
 
 def _urls(raw: str | None) -> list[str]:
@@ -82,8 +167,6 @@ def cmd_fleet(args) -> int:
     ``TPUSERVE_PORT`` and, under ``journal_dir``, a journal of its own).
     Spawned replicas serve on ``--platform`` (CUDA unless ``cpu``); the
     router itself touches no device."""
-    import os
-    import subprocess
     from pathlib import Path
 
     from .serving.fleet import run
@@ -501,7 +584,6 @@ def cmd_profile(args) -> int:
 def cmd_tail(args) -> int:
     """Print the structured log file (``TPUSERVE_LOG_FILE``) one line a
     record, with level, substring and trace filters; ``-f`` follows it."""
-    import os
     import time as _time
 
     path = args.file or os.environ.get("TPUSERVE_LOG_FILE")
@@ -588,6 +670,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--ingest-workers", type=int, default=None,
                     help="SO_REUSEPORT acceptor worker processes on the binary lane's ingest "
                          "port (0: the main port alone)")
+    sp.add_argument("--local-rank", type=int, default=0,
+                    help="this host's rank of a mesh world (local rank 0 spawns the others)")
     sp.set_defaults(fn=cmd_serve)
     sp = sub.add_parser("fleet", help="run the fleet router in front of N replicas")
     sp.add_argument("--config", default=None, help="YAML/JSON config path")

@@ -229,6 +229,34 @@ class ServeConfig:
     # lane before it calls the lane wedged.  Must sit above the longest
     # legitimate occupancy (a lazy capture, a long job chunk).
     dispatch_probe_timeout_s: float = 300.0
+    # Device mesh for multi-GPU serving, e.g. {"data": 4, "model": 2}: a
+    # world of prod(mesh) ranks, one process a GPU (parallel/mesh.py); rank
+    # 0 serves HTTP and leads, the others mirror it (parallel/lockstep.py).
+    # Empty -> one process on one device.
+    mesh: dict[str, int] = field(default_factory=dict)
+    # Multi-host bootstrap: coordinator_address ("host:port" of process 0's
+    # rank 0) with num_processes > 1 joins one world of every host's ranks
+    # (each host runs the SAME profile, its own process_id); rank
+    # process_id x local ranks + local rank.  Empty on one host: a loopback
+    # port.
+    coordinator_address: str = ""
+    num_processes: int = 1
+    process_id: int = 0
+    # Supervisor: probe the device every interval; after fail_threshold
+    # consecutive failures rebuild the engine (one host), or, in a lockstep
+    # world, log and keep /healthz failing.  0 -> off.
+    supervise_interval_s: float = 0.0
+    supervise_fail_threshold: int = 3
+    # Lockstep leader only: broadcast a no-op heartbeat to the followers
+    # every interval, so an idle follower never waits inside a header
+    # broadcast longer than this; it must stay below the process group's
+    # timeout (parallel.mesh.COLLECTIVE_TIMEOUT_S, checked at boot).  0 -> off.
+    heartbeat_interval_s: float = 0.0
+    # Lockstep worlds only: when a generation lane goes fatal (the ranks
+    # diverged; the lane cannot recover in place), signal this process so
+    # that its shutdown leads OP_SHUTDOWN and a process supervisor restarts
+    # the WORLD instead of serving 503s forever.  One process ignores it.
+    exit_on_fatal: bool = True
     # -- request resilience: every knob defaults to off (0) ------------------
     # Deadline when neither the client nor ModelConfig.deadline_ms sets one
     # (0 -> none), and the cap on a client's deadline (0 -> no cap).
@@ -419,20 +447,10 @@ _ENV_PREFIX = "TPUSERVE_"
 
 # Fields of the JAX package's ServeConfig the port refuses by name (a bare
 # TypeError would not say why), each with the reason.
-_MULTI_HOST = ("the port serves one process on one card; multi-chip and multi-host "
-               "serving come with parallel/ (ROADMAP Queue 1)")
 REFUSED_FIELDS = {
     "profiler_port": "jax.profiler's live trace server has no torch counterpart in the "
                      "port; capture with POST /admin/profile or POST /debug/trace "
                      "(ROADMAP Queue 1)",
-    "mesh": "a device mesh shards a model over several chips; " + _MULTI_HOST,
-    "coordinator_address": "the multi-host coordinator; " + _MULTI_HOST,
-    "num_processes": "the multi-host world size; " + _MULTI_HOST,
-    "process_id": "the multi-host rank; " + _MULTI_HOST,
-    "supervise_interval_s": "the multi-host supervisor's cadence; " + _MULTI_HOST,
-    "supervise_fail_threshold": "the multi-host supervisor's threshold; " + _MULTI_HOST,
-    "heartbeat_interval_s": "the multi-host heartbeat; " + _MULTI_HOST,
-    "exit_on_fatal": "the multi-host fatal-exit switch; " + _MULTI_HOST,
     "compile_cache_dir": "the port keeps no persistent compile cache: kernels build per "
                          "checkout and CUDA graphs are captured per process "
                          "(ROADMAP Queue 3)",
@@ -460,7 +478,8 @@ def apply_env_overrides(cfg: ServeConfig, environ: dict[str, str] | None = None)
     (``TPUSERVE_PORT=9123``), in place, and return ``cfg``.
 
     Each value is coerced by the type of the field's default, so a float
-    field loaded from a file as an int still takes "7.5".  ``models`` is
+    field loaded from a file as an int still takes "7.5"; ``mesh`` takes
+    JSON (``TPUSERVE_MESH='{"data": 4, "model": 2}'``).  ``models`` is
     file-only, and so are ``faults``, ``slo`` and ``fleet``: structured
     config does not go in an env var.
     """
@@ -468,6 +487,17 @@ def apply_env_overrides(cfg: ServeConfig, environ: dict[str, str] | None = None)
     for f in dataclasses.fields(ServeConfig):
         key = _ENV_PREFIX + f.name.upper()
         if key not in environ or f.name in ("models", "faults", "slo", "fleet"):
+            continue
+        if f.name == "mesh":
+            try:
+                mesh = json.loads(environ[key])
+                if not isinstance(mesh, dict):
+                    raise TypeError(f"expected JSON object, got {type(mesh).__name__}")
+                cfg.mesh = {str(k): int(v) for k, v in mesh.items()}
+            except (ValueError, TypeError) as e:
+                raise ValueError(
+                    f'{key} must be a JSON object like {{"data": 4, "model": 2}}: {e}'
+                ) from None
             continue
         target = (type(f.default) if f.default is not dataclasses.MISSING
                   else type(getattr(cfg, f.name)))

@@ -32,6 +32,13 @@ model's Python would issue.
   replay) and a restore captures every bucket again, on the dispatch thread,
   before the model serves.  :meth:`~CompiledModel.copy_in_place` is the
   other way to change weights: values copied under the captured addresses.
+- On a mesh (``parallel/mesh.py``) the weights shard by the family's TP
+  rules (``meta["tp_rules"]``) and the models run their collectives; a
+  bucket whose rows divide the ``data`` axis runs this rank's rows and
+  all-gathers the outputs, any other bucket replicates (buckets are never
+  padded up for the mesh).  The collectives are captured in the bucket
+  graphs with the kernels.  Rank 0 of a lockstep world announces each
+  collated batch to the followers before it runs (``lockstep``).
 """
 
 from __future__ import annotations
@@ -94,12 +101,14 @@ def held_by(ident: int | None) -> tuple[str, float] | None:
 
 
 class Captured(NamedTuple):
-    """A captured CUDA graph, its static outputs, and the counted launches
-    (``ops.counters``) each replay runs."""
+    """A captured CUDA graph, its static outputs, the counted launches
+    (``ops.counters``) each replay runs, and the collectives captured in it
+    (on a mesh: the TP all-reduces and gathers, the DP gather)."""
 
     graph: torch.cuda.CUDAGraph
     outputs: Any
     launches: dict[str, int]
+    collectives: dict[str, int] = {}
 
     def replay(self):
         """Launch the graph on the current stream; returns the static outputs,
@@ -137,14 +146,16 @@ def capture(fn: Callable[[], Any], device: torch.device, pool=None) -> Captured:
         counters.add_graphed(counters.delta(warm))
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = counters.snapshot()
+        before, coll = counters.snapshot(), counters.collectives()
         try:
             with CAPTURE_LOCK, torch.cuda.graph(graph, pool=pool, stream=side):
                 outputs = fn()
         finally:
             launches = counters.delta(before)
             counters.restore(before)
-    return Captured(graph, outputs, launches)
+    held = {k: n - coll.get(k, 0) for k, n in counters.collectives().items()
+            if n - coll.get(k, 0)}
+    return Captured(graph, outputs, launches, held)
 
 
 def _source(v) -> torch.Tensor:
@@ -299,7 +310,7 @@ class CompiledModel:
     its captured graphs."""
 
     def __init__(self, servable: Servable, cfg: ModelConfig, device: torch.device,
-                 clock: CompileClock | None = None):
+                 clock: CompileClock | None = None, mesh=None):
         from ..utils.registry import LATENCY_CLASSES, get_latency_class
 
         self.servable = servable
@@ -312,7 +323,22 @@ class CompiledModel:
             raise ValueError(f"{cfg.name}: latency_class must be one of "
                              f"{LATENCY_CLASSES}, got {lc!r}")
         self.latency_class = lc
+        self.mesh = mesh
         params_dtype = cfg.extra.get("params_dtype")
+        if mesh is not None and str(params_dtype) in ("auto", "int8"):
+            # The TP rules match float kernels: quantized ones would silently
+            # replicate, and the W8A16 kernel is single-device.  Fail at boot,
+            # not with a wrong-but-running config.
+            half = "the int8 half is" if str(params_dtype) == "auto" else "quantized kernels are"
+            raise ValueError(
+                f"{cfg.name}: params_dtype={params_dtype} cannot be served on a mesh ({half} "
+                f"invisible to the TP rules and the W8A16 kernel is single-device); drop the "
+                f"mesh for this model or use params_dtype=bfloat16")
+        if mesh is not None and "adapters" in servable.meta:
+            # The TP rules cannot see the stacked low-rank factors: they would
+            # replicate while the base kernels shard, wrong at the delta add.
+            raise ValueError(f"{cfg.name}: adapter_slots cannot be served on a mesh; drop "
+                             f"the mesh for this model or its adapters")
         if str(params_dtype) == "auto":
             # The regime-routed lane (models/gpt2.py) holds a bf16 and an int8
             # tree and each program reads one: the at-rest cast must not
@@ -335,6 +361,16 @@ class CompiledModel:
             from ..models.bert import resolve_dtype
 
             cast_params_at_rest(servable.module, resolve_dtype(params_dtype))
+        # The shards of the model axis a rank holds of each sharded leaf (the
+        # :generate pools take the width of its heads), 1 off a mesh.
+        self.tp_size = 1
+        if mesh is not None:
+            from ..parallel.mesh import check_heads, shard_params
+
+            check_heads(cfg.name, servable.meta.get("tp_heads"), mesh)
+            matched = shard_params(mesh, servable.module, servable.meta.get("tp_rules", ()))
+            self.tp_size = max((mesh.shape[a] for spec in matched.values() for a in spec if a),
+                               default=1)
         servable.module.to(self.device)
         if servable.bucket_axes == ("batch",):
             self.buckets = sorted((int(b),) for b in cfg.batch_buckets)
@@ -361,6 +397,9 @@ class CompiledModel:
         # the census beside the buckets'.
         self.lane_graphs: list = []
         self._chunk_rows = self._device_chunk_rows()
+        # Rank 0 of a lockstep world: its ``LockstepDriver``, to which
+        # run_batch announces each collated batch (``Engine.enable_lockstep_lead``).
+        self.lockstep = None
 
     def _device_chunk_rows(self) -> list[dict[str, torch.Tensor]]:
         """One device copy of each chunk's schedule rows (their order is the
@@ -394,6 +433,28 @@ class CompiledModel:
         """Device → host; ``.cpu()`` waits for the device."""
         return {k: v.cpu().numpy() for k, v in out.items()}
 
+    def _split(self, batch: dict[str, Any]) -> tuple[dict[str, Any], bool]:
+        """(the rows this rank runs, whether they are a DP split): on a mesh
+        a batch whose rows divide the ``data`` axis splits over it, any
+        other replicates; off a mesh every row runs here."""
+        if self.mesh is None:
+            return batch, False
+        from ..parallel.mesh import batch_sharding
+
+        rows = batch_sharding(self.mesh, min((np.shape(v)[0] for v in batch.values()),
+                                             default=0))
+        if rows is None:
+            return batch, False
+        return {k: v[rows] for k, v in batch.items()}, True
+
+    def _gathered(self, out: dict[str, torch.Tensor], split: bool) -> dict[str, torch.Tensor]:
+        """A DP split's outputs all-gathered over ``data`` (every rank gets
+        every row, in rank order: the batch's order)."""
+        if not split:
+            return out
+        data = self.mesh.axis("data")
+        return {k: data.all_gather(v, 0) for k, v in out.items()}
+
     def _bucket_of(self, batch: dict[str, np.ndarray]) -> tuple[int, ...]:
         for b in self.buckets:
             if all(np.shape(batch[k]) == tuple(shape)
@@ -416,8 +477,10 @@ class CompiledModel:
     def forward_eager(self, batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         """One collated bucket batch through ``apply_fn`` eagerly, back on the
         host: the CPU's path, and on CUDA what a replay is held against."""
+        local, split = self._split(batch)
         with torch.inference_mode():
-            return self._fetch(self._apply(self._place(batch), self._variant(batch)))
+            return self._fetch(self._gathered(self._apply(self._place(local),
+                                                          self._variant(batch)), split))
 
     def forward(self, batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
         """One collated bucket batch through the model, back on the host: on
@@ -426,13 +489,14 @@ class CompiledModel:
             return self.forward_eager(batch)
         variant = self._variant(batch)
         key = (self._bucket_of(batch), variant)
+        local, split = self._split(batch)
         with torch.inference_mode():
-            graph = self._graphs.get(key) or self._capture(key, self._bucket_fn(variant), batch,
-                                                           record=True)
-            return self._fetch(graph.run(batch))
+            graph = self._graphs.get(key) or self._capture(
+                key, self._bucket_fn(variant, split), local, record=True)
+            return self._fetch(graph.run(local))
 
-    def _bucket_fn(self, variant):
-        return lambda inputs: self._apply(inputs, variant)
+    def _bucket_fn(self, variant, split: bool = False):
+        return lambda inputs: self._gathered(self._apply(inputs, variant), split)
 
     def _capture(self, key: tuple, fn, example, record: bool) -> BucketGraph:
         """Capture ``key``'s graph (its eager warm-up run included); with
@@ -455,6 +519,13 @@ class CompiledModel:
         return graph
 
     @property
+    def graph_collectives(self) -> dict[str, dict[str, int]]:
+        """The collectives captured in each bucket graph, by its label (empty
+        dicts off a mesh)."""
+        return {_label(k): g.captured.collectives for k, g in self._graphs.items()
+                if g.captured is not None}
+
+    @property
     def graphs(self) -> list[str]:
         """The captured graphs' keys, in words, the lanes' after the buckets'."""
         return ([_label(k) for k in list(self._graphs)]
@@ -471,8 +542,10 @@ class CompiledModel:
         dummy = self._zeros(bucket)
         if self.graphed:
             variant = self.servable.meta.get("default_variant")
+            local, split = self._split(dummy)
             with torch.inference_mode():
-                self._capture((bucket, variant), self._bucket_fn(variant), dummy, record=True)
+                self._capture((bucket, variant), self._bucket_fn(variant, split), local,
+                              record=True)
             self._warmed.add(bucket)
             return
         _, secs = timed(lambda: self.forward(dummy))
@@ -484,8 +557,8 @@ class CompiledModel:
     def warmup(self):
         """First dispatch of every bucket, ahead of traffic: through the
         chunked path for a servable that declares one (the path its jobs
-        take), else one forward."""
-        chunked = "chunked" in self.servable.meta
+        take; on a mesh they run whole), else one forward."""
+        chunked = "chunked" in self.servable.meta and self.mesh is None
         self._warming = True
         try:
             for b in self.buckets:
@@ -832,6 +905,10 @@ class CompiledModel:
         spec = self.servable.input_spec(bucket)
         collate = self.servable.meta.get("collate") or default_collate
         batch = collate(samples, bucket, spec)
+        if self.lockstep is not None:
+            # Rank 0 of a lockstep world: the followers run this batch too
+            # (the contract check raises before any broadcast).
+            self.lockstep.lead(self, bucket, batch)
         first_dispatch = bucket not in self._warmed
         t0 = time.perf_counter()
         out = self.forward(batch)  # on CUDA: captures a new bucket or variant itself

@@ -159,13 +159,15 @@ class LaneGraphs:
 
 class _PoolKernels:
     """What both lanes' kernel sets share: the pool pair, its lazy
-    allocation and in-place reset, and the ``torn`` flag."""
+    allocation and in-place reset, and the ``torn`` flag.  On a mesh the
+    pool holds the width this rank's heads take (``cm.tp_size`` shards of
+    the last dim)."""
 
     def __init__(self, cm, shape: tuple[int, ...], dtype: torch.dtype,
                  graphed: bool | None):
         self.cm = cm
         self.graphs = LaneGraphs(cm, graphed)
-        self.shape = tuple(int(d) for d in shape)
+        self.shape = (*(int(d) for d in shape[:-1]), int(shape[-1]) // cm.tp_size)
         self.dtype = dtype
         self.cache_k: torch.Tensor | None = None
         self.cache_v: torch.Tensor | None = None

@@ -254,10 +254,12 @@ class DeviceRunner:
         with the lane released between slices: a queued latency dispatch
         runs after at most one chunk instead of the whole program.  The
         state stays on the device between chunks.  A model without the
-        contract runs as one :meth:`run`.
+        contract runs as one :meth:`run`, and so does one on a mesh or in a
+        lockstep world: the followers mirror whole ``run_batch`` dispatches,
+        and a slice would interleave with their collectives.
         """
         ch = model.servable.meta.get("chunked")
-        if ch is None:
+        if ch is None or model.mesh is not None or model.lockstep is not None:
             return await self.run(model, samples, seq, span=span)
         name = model.servable.name
         lane = model.latency_class
@@ -326,6 +328,13 @@ class DeviceRunner:
         caller: device work outside a batch (model build, warmup) still
         goes through the one thread that owns the device."""
         return self._pool.submit(fn, *args, **kwargs).result()
+
+    def run_fn_within(self, timeout_s: float, fn, *args):
+        """:meth:`run_fn_sync` that gives up after ``timeout_s`` (a
+        ``TimeoutError``): shutdown-path device work, such as the lockstep
+        leader's shutdown broadcast, that must not hang behind a wedged
+        dispatch."""
+        return self._pool.submit(fn, *args).result(timeout=timeout_s)
 
     def run_held(self, label: str, fn, *args, **kwargs):
         """:meth:`run_fn_sync` for long work (a restore, a build and its

@@ -848,8 +848,14 @@ class ParamTree(nn.Module):
             node.register_buffer(leaf, value)
 
     def tree(self) -> dict[str, Any]:
+        """The nested dict; a node a mesh made row-parallel
+        (``parallel.mesh.shard_params``) carries its axis group under
+        ``tp_reduce``."""
         def walk(m: nn.Module) -> dict[str, Any]:
-            return {**m._buffers, **{k: walk(c) for k, c in m._modules.items()}}
+            node = {**m._buffers, **{k: walk(c) for k, c in m._modules.items()}}
+            if getattr(m, "tp_reduce", None) is not None:
+                node["tp_reduce"] = m.tp_reduce
+            return node
 
         return walk(self)
 

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8_matmul import dense_maybe_int8, int8_matmul, quantize_tree
+from ..parallel.mesh import BERT_TP_RULES
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -49,18 +50,33 @@ def resolve_dtype(name: str) -> torch.dtype:
 class Dense(nn.Module):
     """``nn.Dense`` of the JAX package: f32 ``weight [out, in]`` at rest; the
     input, weight and bias are cast to ``dtype`` and the bias is added after
-    the product."""
+    the product.
 
-    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
+    On a mesh (``parallel.mesh.shard_params``) a row-parallel layer holds
+    its slice of the input features and all-reduces the product over
+    ``tp_reduce`` before the bias (added once, not once a rank); a
+    column-parallel one holds its slice of the outputs, which a head
+    (``gather_output``) all-gathers over ``tp_cols``."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
+                 gather_output: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features),
                                    requires_grad=False)
         self.bias = nn.Parameter(torch.empty(out_features), requires_grad=False)
         self.dtype = dtype
+        self.gather_output = gather_output
+        self.tp_reduce = self.tp_cols = None
 
     def forward(self, x):
         x = x.to(self.dtype)
-        return F.linear(x, self.weight.to(self.dtype)) + self.bias.to(self.dtype)
+        y = F.linear(x, self.weight.to(self.dtype))
+        if self.tp_reduce is not None:
+            y = self.tp_reduce.all_reduce(y)
+        y = y + self.bias.to(self.dtype)
+        if self.gather_output and self.tp_cols is not None:
+            y = self.tp_cols.all_gather(y, dim=-1)
+        return y
 
 
 class Int8Dense(nn.Module):
@@ -104,7 +120,8 @@ class BertSelfAttention(nn.Module):
 
     def forward(self, x, mask_bias):
         B, S, _ = x.shape
-        q, k, v = (m(x).view(B, S, self.num_heads, self.head_dim).transpose(1, 2)
+        # -1: the heads this rank holds (all of them, or heads / model on a mesh).
+        q, k, v = (m(x).view(B, S, -1, self.head_dim).transpose(1, 2)
                    for m in (self.query, self.key, self.value))
         scores = (q @ k.transpose(-1, -2)) / math.sqrt(self.head_dim)
         probs = (scores.float() + mask_bias).softmax(-1).to(self.dtype)
@@ -141,6 +158,7 @@ class BertClassifier(nn.Module):
         d = num_heads * head_dim
         self.shapes = {"vocab_size": vocab_size, "max_position": max_position,
                        "type_vocab_size": type_vocab_size, "num_layers": num_layers,
+                       "num_heads": num_heads,
                        "d": d, "mlp_dim": mlp_dim, "num_labels": num_labels}
         self.dtype = dtype
         self.word_embeddings = nn.Embedding(vocab_size, d)
@@ -344,7 +362,8 @@ def make_bert_servable(name: str, cfg):
         preprocess=preprocess, postprocess=postprocess,
         bucket_axes=("batch", "seq"),
         meta={"seq_len_of": lambda s: int(s["input_ids"].shape[0]),
-              "num_labels": num_labels})
+              "num_labels": num_labels, "tp_rules": BERT_TP_RULES,
+              "tp_heads": model.shapes["num_heads"]})
 
 
 from ..utils.registry import register_model, register_tree  # noqa: E402

@@ -41,7 +41,12 @@ def _ln(p, x, eps=1e-5):
 
 
 def _dense(p, x):
-    return F.linear(x, p["weight"].to(x.dtype), p["bias"].to(x.dtype))
+    """The product, then the bias (as the JAX package's ``x @ W + b``); a
+    row-parallel layer on a mesh sums its partial products in between."""
+    y = F.linear(x, p["weight"].to(x.dtype))
+    if "tp_reduce" in p:
+        y = p["tp_reduce"].all_reduce(y)
+    return y + p["bias"].to(x.dtype)
 
 
 def _quick_gelu(x):
@@ -65,10 +70,11 @@ def encode_text(params: dict, ids: torch.Tensor, cfg: CLIPTextConfig = VIT_L14,
         q = _dense(p["q"], h) * scale
         k = _dense(p["k"], h)
         v = _dense(p["v"], h)
-        q, k, v = (z.reshape(B, T, cfg.heads, cfg.head_dim).transpose(1, 2) for z in (q, k, v))
+        # -1: the heads this rank holds (heads / model on a mesh).
+        q, k, v = (z.reshape(B, T, -1, cfg.head_dim).transpose(1, 2) for z in (q, k, v))
         scores = (q @ k.transpose(-1, -2)).float() + causal
         probs = scores.softmax(-1).to(dtype)
-        attn = (probs @ v).transpose(1, 2).reshape(B, T, cfg.width)
+        attn = (probs @ v).transpose(1, 2).reshape(B, T, -1)
         x = x + _dense(p["out"], attn)
         h = _ln(p["ln2"], x)
         x = x + _dense(p["fc2"], _quick_gelu(_dense(p["fc1"], h)))

@@ -101,7 +101,7 @@ class EfficientNet(nn.Module):
                 self.blocks.append(name)
         self.top_conv = Conv(rf(_OUT_CH[-1]), hidden_dim, 1, dtype=dtype)
         self.top_bn = FrozenBatchNorm(hidden_dim, _EPS, dtype)
-        self.classifier = Dense(hidden_dim, num_classes, torch.float32)
+        self.classifier = Dense(hidden_dim, num_classes, torch.float32, gather_output=True)
 
     def forward(self, x):
         """x: NHWC float (normalized) → f32 logits [N, classes]."""

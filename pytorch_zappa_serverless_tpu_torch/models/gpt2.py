@@ -55,6 +55,7 @@ from ..ops.int8_matmul import (dense_maybe_int8, int8_matmul, pad_weights, quant
 from ..ops.lora import lora_apply
 from ..ops.paged_attention import gather_kv, scatter_kv
 from ..ops.sampling import ALL_ON, Gates, apply_repetition_penalty, choose, gates_of
+from ..parallel.mesh import GPT2_TP_RULES
 
 # The int8 product every quantized projection and the lm head go through; a
 # check may set it to ``int8_matmul_reference`` to hold the served model
@@ -113,9 +114,18 @@ def _dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     return dense_maybe_int8(p, x, matmul=int8_mm)
 
 
-def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
-    B, T, D = x.shape
-    return x.view(B, T, heads, D // heads)
+def _split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """[B, T, D] → [B, T, H, head_dim]: H is the heads this rank holds (all
+    of them, or heads / model on a mesh, whose D is the local width)."""
+    B, T, _ = x.shape
+    return x.view(B, T, -1, head_dim)
+
+
+def _kv_width(params: dict, cfg: GPT2Config) -> int:
+    """The width of a layer's K/V as this rank holds them: d_model, or
+    d_model / model when the K projection is column-parallel on a mesh."""
+    k = params["layer0"].get("k")
+    return int(k["kernel"].shape[-1]) if k is not None and "kernel" in k else cfg.d_model
 
 
 def _attn(q, k, v, mask_bias):
@@ -150,7 +160,7 @@ def _layer(p: dict, x, mask_bias, cfg: GPT2Config, write_kv, lora=None, lora_idx
         k_, v_ = ad("k", _dense(p["k"], h), h), ad("v", _dense(p["v"], h), h)
         q_ = ad("q", _dense(p["q"], h), h)
     k_heads, v_heads = write_kv(k_, v_)
-    ao = _attn(_split_heads(q_, cfg.heads), k_heads, v_heads, mask_bias)
+    ao = _attn(_split_heads(q_, cfg.head_dim), k_heads, v_heads, mask_bias)
     x = x + ad("out", _dense(p["out"], ao), ao)
     h = _ln(p["ln2"], x, cfg.ln_eps)
     h2 = F.gelu(ad("fc1", _dense(p["fc1"], h), h), approximate="tanh")
@@ -209,13 +219,13 @@ def prefill(params: dict, tokens: torch.Tensor, lengths: torch.Tensor, total: in
     causal = pos[None, :, None] >= pos[None, None, :]
     real = pos[None, None, :] < lengths.long()[:, None, None]
     mask_bias = torch.where(causal & real, 0.0, _NEG).float()[:, None]
-    cache_k = torch.zeros((cfg.layers, B, total, cfg.d_model), dtype=dtype, device=dev)
+    cache_k = torch.zeros((cfg.layers, B, total, _kv_width(params, cfg)), dtype=dtype, device=dev)
     cache_v = torch.zeros_like(cache_k)
     for i in range(cfg.layers):
         def write_kv(k, v, i=i):
             cache_k[i, :, :P] = k
             cache_v[i, :, :P] = v
-            return _split_heads(k, cfg.heads), _split_heads(v, cfg.heads)
+            return _split_heads(k, cfg.head_dim), _split_heads(v, cfg.head_dim)
 
         x = _layer(params[f"layer{i}"], x, mask_bias, cfg, write_kv,
                    _lora_of(params, i, adapter_idx), adapter_idx)
@@ -253,7 +263,7 @@ def decode_step(params: dict, cache_k, cache_v, tok, wpos, cfg: GPT2Config,
         def write_kv(k, v):
             cache_k[i, rows, w] = k[:, 0]
             cache_v[i, rows, w] = v[:, 0]
-            return _split_heads(cache_k[i], cfg.heads), _split_heads(cache_v[i], cfg.heads)
+            return _split_heads(cache_k[i], cfg.head_dim), _split_heads(cache_v[i], cfg.head_dim)
         return write_kv
 
     return _step_logits(params, tok, w, cache_k.shape[2], writer, cfg, dtype, adapter_idx)
@@ -397,18 +407,18 @@ def _paged_write(cache, layer: int, table, wpos, values, block_size: int):
     return scatter_kv(cache[layer], table, wpos, values, block_size)
 
 
-def _paged_view(cache, layer: int, table, heads: int):
+def _paged_view(cache, layer: int, table, head_dim: int):
     """One layer's virtual cache [S, MB*BS, D], head-split for attention."""
-    return _split_heads(gather_kv(cache[layer], table), heads)
+    return _split_heads(gather_kv(cache[layer], table), head_dim)
 
 
-def _paged_writer(cache_k, cache_v, table, wpos, block_size: int, heads: int):
+def _paged_writer(cache_k, cache_v, table, wpos, block_size: int, head_dim: int):
     def writer(i):
         def write_kv(k, v):
             _paged_write(cache_k, i, table, wpos, k, block_size)
             _paged_write(cache_v, i, table, wpos, v, block_size)
-            return (_paged_view(cache_k, i, table, heads),
-                    _paged_view(cache_v, i, table, heads))
+            return (_paged_view(cache_k, i, table, head_dim),
+                    _paged_view(cache_v, i, table, head_dim))
         return write_kv
     return writer
 
@@ -438,7 +448,7 @@ def prefill_chunk_logits(params: dict, tokens, start, lengths, cache_k, cache_v,
     keep = ((kpos[None, None, :] <= pos[:, :, None])
             & (kpos[None, None, :] < lengths.long()[:, None, None]))
     mask_bias = torch.where(keep, 0.0, _NEG).float()[:, None]
-    writer = _paged_writer(cache_k, cache_v, table, wpos, block_size, cfg.heads)
+    writer = _paged_writer(cache_k, cache_v, table, wpos, block_size, cfg.head_dim)
     for i in range(cfg.layers):
         x = _layer(params[f"layer{i}"], x, mask_bias, cfg, writer(i),
                    _lora_of(params, i, adapter_idx), adapter_idx)
@@ -473,7 +483,7 @@ def decode_segment_paged(params: dict, cache_k, cache_v, table, tok, pos, step, 
 
     def logits_at(tok, wpos):
         w = wpos.long()
-        writer = _paged_writer(cache_k, cache_v, table, w[:, None], block_size, cfg.heads)
+        writer = _paged_writer(cache_k, cache_v, table, w[:, None], block_size, cfg.head_dim)
         return _step_logits(params, tok, w, VT, writer, cfg, dtype, adapter_idx)
 
     emits, tok, pos, step, finished = _segment_loop(
@@ -505,7 +515,7 @@ def propose_paged(params: dict, cache_k, cache_v, table, prev, tok, pos, step, f
     props, logits_k = [], []
     for j in range(k + 1):
         w = p.clamp(max=VT - 1).long()
-        writer = _paged_writer(cache_k, cache_v, table, w[:, None], block_size, cfg.heads)
+        writer = _paged_writer(cache_k, cache_v, table, w[:, None], block_size, cfg.head_dim)
         logits = _step_logits(params, cur, w, VT, writer, cfg, dtype)
         if j == 0:
             nxt = tok
@@ -540,7 +550,7 @@ def verify_paged(params: dict, cache_k, cache_v, table, toks, pos, cfg: GPT2Conf
     x = _embed(params, toks, wp, cfg, dtype)
     kpos = torch.arange(VT, device=dev)
     mask_bias = torch.where(kpos[None, None, :] <= wp[:, :, None], 0.0, _NEG).float()[:, None]
-    writer = _paged_writer(cache_k, cache_v, table, wp, block_size, cfg.heads)
+    writer = _paged_writer(cache_k, cache_v, table, wp, block_size, cfg.head_dim)
     for i in range(cfg.layers):
         x = _layer(params[f"layer{i}"], x, mask_bias, cfg, writer(i))
     x = _ln(params["ln_f"], x, cfg.ln_eps)
@@ -967,6 +977,8 @@ def make_gpt2_servable(name: str, cfg_model):
             # What warm-up captures: a request that sets no knob.
             "default_variant": Gates(default_temperature > 0.0, False, False),
             "config": cfg, "dtype": dtype,
+            # On a mesh: the Megatron rules, whole heads a rank.
+            "tp_rules": GPT2_TP_RULES, "tp_heads": cfg.heads,
             # Which tree a program reads (the routed lane's regime): what a
             # check composes the fixed route from.
             "pre_tree": pre_tree, "dec_tree": dec_tree}

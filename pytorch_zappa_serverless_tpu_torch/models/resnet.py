@@ -92,7 +92,7 @@ class ResNet(nn.Module):
                 self.add_module(name, block(in_features, filters, stride, dtype))
                 self.blocks.append(name)
                 in_features = filters * block.expansion
-        self.fc = Dense(in_features, num_classes, torch.float32)
+        self.fc = Dense(in_features, num_classes, torch.float32, gather_output=True)
 
     def forward(self, x):
         """x: NHWC float (normalized) → f32 logits [N, classes]."""

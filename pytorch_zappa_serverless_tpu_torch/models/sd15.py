@@ -31,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel.mesh import CLIP_TP_RULES
 from .clip_text import VIT_L14, CLIPTextConfig, encode_text, init_clip_text_params
 from .sd_unet import SD15_UNET, UNetConfig, init_unet_params, unet_apply
 from .sd_vae import SD15_VAE, VAEConfig, init_vae_params, vae_decode
@@ -281,8 +282,19 @@ def make_sd15_servable(name: str, cfg_model, cfg: SD15Config | None = None):
     module.eval()
     schedule = ddim_schedule(num_steps, cfg)
 
+    on_device: dict = {}  # device -> the schedule's rows there
+
     def apply_fn(m, inputs):
-        return txt2img(m.tree(), inputs, schedule, cfg, dtype)
+        # The whole job in one call (a mesh runs it so, not chunked).  Its
+        # schedule goes to the device at the first call, eager, so that a
+        # captured call copies nothing from the host.
+        dev = inputs["latents"].device
+        rows = on_device.get(dev)
+        if rows is None:
+            rows = on_device[dev] = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32,
+                                                        device=dev)
+                                     for k, v in schedule.items()}
+        return txt2img(m.tree(), inputs, rows, cfg, dtype)
 
     # The job lane's chunked contract (engine.runner.run_chunked): prepare
     # (CLIP encode) → chunks of ``chunk_steps`` DDIM steps → finalize (VAE
@@ -342,8 +354,13 @@ def make_sd15_servable(name: str, cfg_model, cfg: SD15Config | None = None):
         pixels = result.pop("pixels")
         return {**result, "image_b64": _png_b64(pixels), "format": "png"}
 
+    # On a mesh the CLIP conditioning tower shards Megatron-style; the rules
+    # are anchored under "clip/", so the UNet's and VAE's attention (q/k/v
+    # names too, but not under clip/layer{i}/) never match and replicate.
     meta = {"num_steps": num_steps, "async_only": True, "finalize": finalize,
-            "config": cfg, "dtype": dtype}
+            "config": cfg, "dtype": dtype,
+            "tp_rules": [("clip/" + pat, spec) for pat, spec in CLIP_TP_RULES],
+            "tp_heads": cfg.clip.heads}
     if chunked is not None:
         meta["chunked"] = chunked
     return Servable(name=name, apply_fn=apply_fn, module=module, input_spec=input_spec,

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..engine.servable import Servable
+from ..parallel.mesh import CNN_HEAD_TP_RULES
 from ..ops.preprocessing import (IMAGENET_MEAN, IMAGENET_STD, normalize_on_device,
                                  preprocess_image_bytes_uint8)
 from ..utils.labels import load_labels
@@ -66,13 +67,16 @@ def make_image_classifier(name: str, module: nn.Module, cfg: ModelConfig,
                           convert_fn: Callable | None, init_fn: Callable = init_params,
                           resize_to: int = 256, num_classes: int = 1000,
                           norm_mean=IMAGENET_MEAN,
-                          norm_std=IMAGENET_STD) -> Servable:
+                          norm_std=IMAGENET_STD, tp_rules=None,
+                          tp_heads: int | None = None) -> Servable:
     """module: an ``nn.Module`` taking normalized NHWC floats → f32 logits
     over ``num_classes``, with its weights still to load (a checkpoint
     through ``convert_fn``, or ``init_fn(module)`` from a seed).  The
     keyword arguments are the family's input and head (ImageNet's for the
     CNNs; ViT passes its own); ``cfg.extra`` overrides the input size, the
-    resize, the normalization and ``topk``."""
+    resize, the normalization and ``topk``.  On a mesh the head shards by
+    ``CNN_HEAD_TP_RULES`` unless the family passes its ``tp_rules`` (and its
+    attention heads, ``tp_heads``)."""
     from ..engine import weights as W
 
     image_size = int(cfg.extra.get("image_size", IMAGE_SIZE))
@@ -120,4 +124,7 @@ def make_image_classifier(name: str, module: nn.Module, cfg: ModelConfig,
 
     return Servable(name=name, apply_fn=apply_fn, module=module, input_spec=input_spec,
                     preprocess=preprocess, postprocess=postprocess,
-                    bucket_axes=("batch",), meta={"num_classes": num_classes})
+                    bucket_axes=("batch",),
+                    meta={"num_classes": num_classes,
+                          "tp_rules": CNN_HEAD_TP_RULES if tp_rules is None else tp_rules,
+                          "tp_heads": tp_heads})

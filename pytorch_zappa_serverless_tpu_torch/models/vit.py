@@ -64,7 +64,7 @@ class ViTClassifier(nn.Module):
         for name in self.layers:
             self.add_module(name, ViTLayer(num_heads, head_dim, mlp_dim, dtype, ln_eps))
         self.final_ln = nn.LayerNorm(d, eps=ln_eps)
-        self.classifier = Dense(d, num_labels, torch.float32)
+        self.classifier = Dense(d, num_labels, torch.float32, gather_output=True)
 
     def forward(self, x):
         """x: normalized NHWC floats → f32 logits [B, num_labels]."""
@@ -113,6 +113,7 @@ def init_params(model: ViTClassifier, seed: int = 0) -> dict:
 
 
 from ..engine.weights import convert_vit  # noqa: E402
+from ..parallel.mesh import BERT_TP_RULES, CNN_HEAD_TP_RULES  # noqa: E402
 from ..utils.registry import register_model, register_tree  # noqa: E402
 from .vision_common import IMAGE_SIZE, classifier_tree_fn, make_image_classifier  # noqa: E402
 
@@ -129,7 +130,10 @@ def make_vit_servable(name: str, cfg):
     return make_image_classifier(name, _module(cfg), cfg, convert_vit, init_fn=init_params,
                                  resize_to=int(image_size * 256 / 224),
                                  num_classes=int(cfg.extra.get("num_labels", 1000)),
-                                 norm_mean=(0.5, 0.5, 0.5), norm_std=(0.5, 0.5, 0.5))
+                                 norm_mean=(0.5, 0.5, 0.5), norm_std=(0.5, 0.5, 0.5),
+                                 tp_rules=[*BERT_TP_RULES, *CNN_HEAD_TP_RULES],
+                                 tp_heads=int(dict(cfg.extra.get("arch", {})).get("num_heads",
+                                                                                  12)))
 
 
 register_tree("vit_b16")(classifier_tree_fn("vit_b16", _module, convert_vit, init_params))

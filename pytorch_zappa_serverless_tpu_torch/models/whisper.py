@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from ..ops.int8_matmul import (dense_maybe_int8, int8_matmul, pad_weights, quantize_per_channel,
                                quantize_tree)
 from ..ops.sampling import ALL_ON, Gates, choose
+from ..parallel.mesh import WHISPER_TP_RULES
 
 # The int8 product every quantized projection and the lm head go through; a
 # check may set it to ``int8_matmul_reference`` to hold the served model
@@ -118,12 +119,15 @@ def _logits_tied(dec: dict, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ dec["embed_tokens"].float().t()
 
 
-def _attn(q, k, v, heads: int, mask_bias=None) -> torch.Tensor:
+def _attn(q, k, v, head_dim: int, mask_bias=None) -> torch.Tensor:
     """q [B, Tq, D], k/v [B, Tk, D] (projected) → [B, Tq, D]: products in the
-    working dtype, scores and softmax in f32, P cast back before P·V."""
+    working dtype, scores and softmax in f32, P cast back before P·V.  D is
+    the width this rank holds (d_model / model on a mesh): the heads are
+    D / ``head_dim``."""
     B, Tq, D = q.shape
     Tk = k.shape[1]
-    hd = D // heads
+    hd = head_dim
+    heads = D // hd
     scores = torch.einsum("bqhd,bkhd->bhqk", q.reshape(B, Tq, heads, hd),
                           k.reshape(B, Tk, heads, hd)).float()
     if mask_bias is not None:
@@ -132,10 +136,11 @@ def _attn(q, k, v, heads: int, mask_bias=None) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.reshape(B, Tk, heads, hd)).reshape(B, Tq, D)
 
 
-def _self_attn_block(p: dict, x, heads: int, scale: float, mask_bias=None):
+def _self_attn_block(p: dict, x, head_dim: int, scale: float, mask_bias=None):
     h = _ln(p["self_ln"], x)
     q = _dense(p["q"], h) * scale
-    return x + _dense(p["out"], _attn(q, _dense(p["k"], h), _dense(p["v"], h), heads, mask_bias))
+    return x + _dense(p["out"], _attn(q, _dense(p["k"], h), _dense(p["v"], h), head_dim,
+                                      mask_bias))
 
 
 def _ffn_block(p: dict, x):
@@ -160,7 +165,7 @@ def encode(params: dict, mel: torch.Tensor, cfg: WhisperConfig = TINY,
     scale = cfg.head_dim ** -0.5
     for i in range(cfg.encoder_layers):
         p = enc[f"layer{i}"]
-        x = _ffn_block(p, _self_attn_block(p, x, cfg.heads, scale))
+        x = _ffn_block(p, _self_attn_block(p, x, cfg.head_dim, scale))
     return _ln(enc["final_ln"], x).to(dtype)
 
 
@@ -171,15 +176,22 @@ def _cross_kv(params: dict, enc_out: torch.Tensor, cfg: WhisperConfig) -> list:
             for i in range(cfg.decoder_layers)]
 
 
+def _kv_width(params: dict, cfg: WhisperConfig) -> int:
+    """The width of a decoder layer's K/V as this rank holds them: d_model,
+    or d_model / model when K is column-parallel on a mesh."""
+    k = params["decoder"]["layer0"].get("k")
+    return int(k["kernel"].shape[-1]) if k is not None and "kernel" in k else cfg.d_model
+
+
 def _embed(dec: dict, tok: torch.Tensor, pos, dtype) -> torch.Tensor:
     """Token plus position embedding, rows gathered before the cast."""
     return dec["embed_tokens"][tok.long()].to(dtype) + dec["pos_embed"][pos].to(dtype)
 
 
-def _cross_block(p: dict, x, cross_kv, heads: int, scale: float):
+def _cross_block(p: dict, x, cross_kv, head_dim: int, scale: float):
     h = _ln(p["cross_ln"], x)
     ck, cv = cross_kv
-    return x + _dense(p["cout"], _attn(_dense(p["cq"], h) * scale, ck, cv, heads))
+    return x + _dense(p["cout"], _attn(_dense(p["cq"], h) * scale, ck, cv, head_dim))
 
 
 def _decoder_step(params: dict, cfg: WhisperConfig, dtype, cross, tok, pos,
@@ -200,8 +212,8 @@ def _decoder_step(params: dict, cfg: WhisperConfig, dtype, cross, tok, pos,
         q = _dense(p["q"], h) * scale
         cache_k[i][at] = _dense(p["k"], h)[:, 0]
         cache_v[i][at] = _dense(p["v"], h)[:, 0]
-        x = x + _dense(p["out"], _attn(q, cache_k[i], cache_v[i], cfg.heads, mask_bias))
-        x = _ffn_block(p, _cross_block(p, x, cross[i], cfg.heads, scale))
+        x = x + _dense(p["out"], _attn(q, cache_k[i], cache_v[i], cfg.head_dim, mask_bias))
+        x = _ffn_block(p, _cross_block(p, x, cross[i], cfg.head_dim, scale))
     x = _ln(dec["final_ln"], x)
     return _logits_tied(dec, x[:, 0])
 
@@ -219,7 +231,7 @@ def prefill_decoder(params: dict, cross, prompt: torch.Tensor, total: int,
     x = _embed(dec, prompt, pos[None], dtype)
     mask = torch.where(pos[:, None] >= pos[None, :], 0.0, _NEG).float()[None, None]
     L = cfg.decoder_layers
-    cache_k = torch.zeros((L, B, total, cfg.d_model), dtype=dtype, device=dev)
+    cache_k = torch.zeros((L, B, total, _kv_width(params, cfg)), dtype=dtype, device=dev)
     cache_v = torch.zeros_like(cache_k)
     for i in range(L):
         p = dec[f"layer{i}"]
@@ -228,8 +240,8 @@ def prefill_decoder(params: dict, cross, prompt: torch.Tensor, total: int,
         k, v = _dense(p["k"], h), _dense(p["v"], h)
         cache_k[i, :, :P] = k
         cache_v[i, :, :P] = v
-        x = x + _dense(p["out"], _attn(q, k, v, cfg.heads, mask))
-        x = _ffn_block(p, _cross_block(p, x, cross[i], cfg.heads, scale))
+        x = x + _dense(p["out"], _attn(q, k, v, cfg.head_dim, mask))
+        x = _ffn_block(p, _cross_block(p, x, cross[i], cfg.head_dim, scale))
     x = _ln(dec["final_ln"], x)
     return _logits_tied(dec, x[:, -1]), cache_k, cache_v
 
@@ -330,7 +342,7 @@ def decode_forced(params: dict, enc_out: torch.Tensor, tokens: torch.Tensor,
     decoder step a position (scoring and parity)."""
     B, T = tokens.shape
     cross = _cross_kv(params, enc_out, cfg)
-    cache_k = torch.zeros((cfg.decoder_layers, B, T, cfg.d_model), dtype=dtype,
+    cache_k = torch.zeros((cfg.decoder_layers, B, T, _kv_width(params, cfg)), dtype=dtype,
                           device=tokens.device)
     cache_v = torch.zeros_like(cache_k)
     return torch.stack([_decoder_step(params, cfg, dtype, cross, tokens[:, t], t, cache_k,
@@ -589,7 +601,9 @@ def make_whisper_servable(name: str, cfg_model):
             # The WAV decode, resample and log-mel of every body run off the
             # event loop.
             "heavy_preprocess": True,
-            "config": cfg, "dtype": dtype, "prompt_ids": prompt_ids}
+            "config": cfg, "dtype": dtype, "prompt_ids": prompt_ids,
+            # On a mesh: Megatron on both towers, whole heads a rank.
+            "tp_rules": WHISPER_TP_RULES, "tp_heads": cfg.heads}
     return Servable(name=name, apply_fn=apply_fn, module=module, input_spec=input_spec,
                     preprocess=preprocess, postprocess=postprocess,
                     bucket_axes=("batch",), meta=meta)

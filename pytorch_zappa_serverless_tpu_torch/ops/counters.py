@@ -64,6 +64,22 @@ def graphed() -> dict[str, int]:
     return {name: _GRAPHED.get(name, 0) for name in _REGISTRY}
 
 
+# Collectives issued (``parallel.mesh.all_reduce`` / ``all_gather``), by
+# name: calls from Python, a capture's included.  Kept apart from the
+# kernels' registry: a collective is not a kernel of the port, and a
+# captured graph reports the ones it holds (``Captured.collectives``).
+_COLLECTIVES: dict[str, int] = {}
+
+
+def note_collective(name: str) -> None:
+    _COLLECTIVES[name] = _COLLECTIVES.get(name, 0) + 1
+
+
+def collectives() -> dict[str, int]:
+    """The collectives issued so far, by name."""
+    return dict(_COLLECTIVES)
+
+
 def reset() -> None:
     """Every count, and the graphs' ledger, to 0."""
     restore(dict.fromkeys(_REGISTRY, 0))

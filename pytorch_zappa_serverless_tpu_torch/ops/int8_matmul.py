@@ -232,10 +232,14 @@ def dense_maybe_int8(p: dict, x: torch.Tensor, matmul=int8_matmul) -> torch.Tens
     float params carry ``kernel`` [K, N].  Leading dims of ``x`` flatten to
     M.  The int8 product comes back in x.dtype and the bias is added in
     x.dtype, as in the JAX package.  ``matmul`` lets a caller hold the
-    kernel against :func:`int8_matmul_reference` on the same layer.
+    kernel against :func:`int8_matmul_reference` on the same layer.  A
+    row-parallel node on a mesh (``tp_reduce``, its axis group) all-reduces
+    the product before the bias.
     """
     if "kernel_q" not in p:
         y = x @ p["kernel"].to(x.dtype)
+        if "tp_reduce" in p:
+            y = p["tp_reduce"].all_reduce(y)
         return y + p["bias"].to(x.dtype) if "bias" in p else y
     lead = x.shape[:-1]
     y = matmul(x.reshape(-1, x.shape[-1]).contiguous(), p["kernel_q"], p["scale"])

@@ -243,6 +243,10 @@ class AdapterManager:
         if meta is None:
             raise RuntimeError(f"model {base!r} has no adapter slot pool; set adapter_slots "
                                f"in its ModelConfig")
+        if getattr(cm, "lockstep", None) is not None:
+            # A slot write on rank 0 alone would diverge the ranks' weights.
+            raise RuntimeError(f"model {base!r} serves a lockstep world; adapters are "
+                               f"single-host only")
         pool = self._pools.get(base)
         if pool is None or pool.cm is not cm:
             if pool is not None:

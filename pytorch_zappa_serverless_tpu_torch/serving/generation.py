@@ -1,7 +1,6 @@
 """Continuous batching and token streaming for the generative models.
 
-The port of the JAX package's ``serving/generation.py`` (single host; no
-lockstep).  The fixed-batch lane
+The port of the JAX package's ``serving/generation.py``.  The fixed-batch lane
 (``:predict``) runs one whole ``generate`` call a batch: nothing streams
 until it ends, and a batch's members are fixed at admission.  These lanes
 serve ``:generate`` instead, with every device program at static shapes
@@ -42,6 +41,13 @@ Concurrency: every device call runs on the engine's one dispatch thread
 through ``runner.run_fn``; each scheduler is one asyncio task, and request
 state is touched only from it.  Clients talk to it through asyncio queues
 and futures.
+
+Lockstep worlds (``parallel/lockstep.py``): rank 0's slot pool leads each
+admission (one a broadcast) and each segment to the followers, which replay
+the same programs on pools of their own; a failure after a broadcast is
+fatal for the lane (the ranks diverged), and with ``exit_on_fatal`` the
+process signals itself so that its shutdown leads ``OP_SHUTDOWN``.  The
+paged pool serves one process only (the server falls back to the slot pool).
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from typing import Any
 import numpy as np
 
 from ..engine.genkernels import PagedKernels, SlotKernels, unpack
+from ..parallel.lockstep import LockstepContractError
 from ..utils.aio import cancel_and_wait
 from ..utils.logging import get_logger, log_event
 from .kvcache import TRASH_BLOCK, BlockManager, KVPoolExhausted
@@ -240,11 +247,15 @@ class _Lane:
 class GenerationScheduler(_Lane):
     """Slot-pool continuous-batching loop for one generative model."""
 
-    def __init__(self, cm, runner, mc, ring=None):
+    def __init__(self, cm, runner, mc, ring=None, lockstep=None, exit_on_fatal: bool = False):
         meta = cm.servable.meta["continuous"]
         self.cm = cm
         self.runner = runner
         self.ring = ring
+        # Rank 0 of a lockstep world: every admission and segment is
+        # broadcast to the follower loops first.
+        self.lockstep = lockstep
+        self._exit_on_fatal = exit_on_fatal
         self.name = cm.servable.name
         self.slots: int = meta["slots"]
         self.total: int = meta["total"]
@@ -329,6 +340,8 @@ class GenerationScheduler(_Lane):
             k: np.concatenate([p[k] for p in payloads] + [payloads[0][k]] * (Bp - B), axis=0)
             for k in payloads[0]
         }
+        if self.lockstep is not None:  # a group of one (the loop groups by slot)
+            self.lockstep.lead_gen_admit(self.name, group[0][1], bucket, batched)
         self._ensure_cache()
         first = self._prefill(batched)
         self.prefill_dispatches += 1
@@ -341,9 +354,12 @@ class GenerationScheduler(_Lane):
         """One decode segment over the whole pool (dispatch thread): the
         carries go in, the emits [S, seg] and the new carries come back in
         one fetch; the pool stays on the device."""
-        out = self._segment({"tok": self._tok, "pos": self._pos, "step": self._step,
-                             "fin": self._finished, "temp": self._temp, "seed": self._seed,
-                             "topk": self._topk, "topp": self._topp})
+        carries = {"tok": self._tok, "pos": self._pos, "step": self._step,
+                   "fin": self._finished, "temp": self._temp, "seed": self._seed,
+                   "topk": self._topk, "topp": self._topp}
+        if self.lockstep is not None:
+            self.lockstep.lead_gen_segment(self.name, carries)
+        out = self._segment(carries)
         emits, self._tok, self._pos, self._step, self._finished = unpack(out, self.seg)
         self.device_rounds += 1
         self.segment_rounds += 1
@@ -396,8 +412,12 @@ class GenerationScheduler(_Lane):
                             "itl_ms": self.itl_hist.snapshot()}}
 
     def warm(self):
-        """Capture the lane's first graphs ahead of traffic (dispatch thread)."""
-        self.kernels.warm()
+        """Capture the lane's first graphs ahead of traffic (dispatch
+        thread).  A lockstep lane captures at first use instead, where every
+        rank captures the same graph at the same point (a capture's eager
+        warm-up run holds collectives)."""
+        if self.lockstep is None:
+            self.kernels.warm()
 
     def start(self):
         if self._task is None:
@@ -436,8 +456,12 @@ class GenerationScheduler(_Lane):
                     self._free.append(slot)
                     req.finish(error=f"{type(e).__name__}: {e}")
                     continue
-                groups.setdefault(bucket, []).append((req, slot, payload))
-            group_list = list(groups.items())
+                # A lockstep leader broadcasts one admission at a time: a
+                # group a slot.
+                key = bucket if self.lockstep is None else (bucket, slot)
+                groups.setdefault(key, []).append((req, slot, payload))
+            group_list = [(key if self.lockstep is None else key[0], g)
+                          for key, g in groups.items()]
             for gi, (bucket, group) in enumerate(group_list):
                 t0 = time.perf_counter()
                 try:
@@ -451,10 +475,24 @@ class GenerationScheduler(_Lane):
                         # decoding garbage until reuse.
                         self._finished[slot] = True
                         req.finish(error=f"{type(e).__name__}: {e}")
+                    if isinstance(e, LockstepContractError):
+                        # Raised on the leader BEFORE any broadcast: the
+                        # followers and the pool are untouched, so only these
+                        # requests fail, even in a lockstep world.
+                        continue
                     # Requests in groups this round hasn't reached were popped
                     # from _pending but never entered _active: re-queue them,
                     # or a pool reset would orphan them.
                     remaining = [r for _, g in group_list[gi + 1:] for r, _, _ in g]
+                    if self.lockstep is not None:
+                        # After a broadcast: the followers ran (or wedged in)
+                        # a prefill the leader never completed, and the next
+                        # broadcast would pair against diverged state.
+                        for r in reversed(remaining):
+                            self._pending.appendleft(r)
+                        self._go_fatal("generation admission failed in a lockstep world; "
+                                       "restart every rank")
+                        return
                     if self._cache_deleted():
                         # The fault tore the pool: fail the in-flight streams
                         # like a segment fault, reset the pool, and re-admit
@@ -490,9 +528,38 @@ class GenerationScheduler(_Lane):
                 log.exception("segment failed for %s", self.name)
                 for slot, req in list(self._active.items()):
                     req.finish(error=f"{type(e).__name__}: {e}")
+                if self.lockstep is not None:
+                    # A reset pool here and the followers' mirrored pools
+                    # would differ: the recovery unit is the world.
+                    self._go_fatal("generation lane failed in a lockstep world; restart "
+                                   "every rank")
+                    return
                 self._reset_pool()
                 continue
             self._distribute(emits)
+
+    def _go_fatal(self, msg: str):
+        """Stop this lane for good (the lockstep ranks diverged)."""
+        self._stopped = True
+        self.fatal = msg
+        for req in list(self._pending) + list(self._active.values()):
+            req.finish(error=msg)
+        self._pending.clear()
+        self._active.clear()
+        log.error("generation lane stopped: %s", msg)
+        if self.lockstep is not None and self._exit_on_fatal:
+            # A fatal lane cannot heal in place: the recovery unit is the
+            # world.  SIGINT, not SIGTERM: the server's SIGTERM drains first
+            # (drain_timeout_s) and a diverged world has nothing to drain;
+            # SIGINT stops at once, and the engine's shutdown leads
+            # OP_SHUTDOWN (bounded, if the lane is wedged), so the followers
+            # exit and a process supervisor restarts the world together.
+            import os
+            import signal
+
+            log.critical("lockstep generation fatal: sending SIGINT so that the process "
+                         "supervisor restarts the world")
+            os.kill(os.getpid(), signal.SIGINT)
 
     def _cache_deleted(self) -> bool:
         """True when a pool-writing dispatch faulted part-way."""

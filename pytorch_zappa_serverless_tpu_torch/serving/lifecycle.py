@@ -533,6 +533,11 @@ class LifecycleManager:
         res = self._models.get(name)
         if res is None:
             return False
+        engine = self.server.engine
+        if getattr(engine, "mesh", None) is not None or getattr(engine, "lockstep", None):
+            # A world's models never tier: a demotion or a restore on one rank
+            # could not be mirrored, nor the shards placed again.
+            return False
         async with res.lock:
             if res.pinned:
                 return False

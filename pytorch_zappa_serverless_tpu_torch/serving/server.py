@@ -167,6 +167,7 @@ import torch
 
 from ..config import ServeConfig
 from ..engine.loader import Engine, build_engine
+from ..utils.aio import cancel_and_wait
 from ..utils.logging import current_trace_id, get_logger, log_event
 from . import wire
 from .adapters import AdapterCold, AdapterManager, UnknownAdapter
@@ -478,6 +479,11 @@ class Server:
         self.metrics.resilience = self.resilience
         self.metrics.faults = engine.runner.faults
         self.watchdog: Watchdog | None = None  # guarded-by: event-loop
+        # The reference's supervisor (supervise_interval_s) and a lockstep
+        # leader's heartbeat (heartbeat_interval_s), made at start.
+        self._supervisor: asyncio.Task | None = None  # guarded-by: event-loop
+        self._heartbeat: asyncio.Task | None = None  # guarded-by: event-loop
+        self.supervise_failures = 0  # guarded-by: event-loop
         self._inflight = 0  # guarded-by: event-loop
         self._drain_task: asyncio.Task | None = None  # guarded-by: event-loop
         self._rebuild_lock = asyncio.Lock()
@@ -550,6 +556,11 @@ class Server:
     def rebuilding(self) -> bool:
         return self._rebuild_lock.locked()
 
+    @property
+    def _lockstep(self):
+        """The engine's ``LockstepDriver`` in a world of ranks, else None."""
+        return getattr(self.engine, "lockstep", None)
+
     def _start_lanes(self):
         """The batchers and ``:generate`` lanes of every model the engine
         holds."""
@@ -573,16 +584,29 @@ class Server:
                 # its graphs captured at first use, as the JAX lanes compile;
                 # kv_cache "paged" is the paged scheduler, which refuses a
                 # servable without the paged contract (a config error fails
-                # the boot), with the speculative draft's gate.
+                # the boot), with the speculative draft's gate.  A lockstep
+                # leader's lane leads its admissions and segments to the
+                # followers, whose protocol mirrors the slot pool only.
                 ring = self.metrics.ring(f"{name}:generate")
-                if cm.cfg.kv_cache == "paged":
+                lockstep = self._lockstep
+                if lockstep is not None and not lockstep.lead_enabled:
+                    # Ranks that each drive their own dispatches: the lane's
+                    # host-controlled loop cannot be mirrored, and a clean
+                    # 405 on :generate beats a collective deadlock.
+                    log_event(log, "generation lane disabled (world, no lead)", model=name)
+                    return
+                if cm.cfg.kv_cache == "paged" and lockstep is not None:
+                    log_event(log, "paged kv_cache ignored on a lockstep world; serving the "
+                                   "slot pool", model=name)
+                if cm.cfg.kv_cache == "paged" and lockstep is None:
                     self.schedulers[name] = PagedGenerationScheduler(
                         cm, self.engine.runner, cm.cfg, ring=ring,
                         draft=self._draft_gate(cm.cfg),
                         usage_hook=self._gen_usage_hook(name)).start()
                 else:
                     self.schedulers[name] = GenerationScheduler(
-                        cm, self.engine.runner, cm.cfg, ring=ring).start()
+                        cm, self.engine.runner, cm.cfg, ring=ring, lockstep=lockstep,
+                        exit_on_fatal=self.cfg.exit_on_fatal).start()
 
     async def _stop_lanes(self):
         for b in self.batchers.values():
@@ -724,6 +748,11 @@ class Server:
             # a refused rule fails the boot.
             self.engine.runner.faults.apply_config(self.cfg.faults)
             log_event(log, "fault rules installed from config", models=sorted(self.cfg.faults))
+        if self._lockstep is not None and self.engine.mesh_rank() == 0:
+            # This server is rank 0 of a world: every dispatch is broadcast to
+            # the follower loops (cli serve routes the other ranks into
+            # engine.lockstep.follow() instead of serving).
+            self.engine.enable_lockstep_lead()
         self._start_lanes()
         if self.cfg.ckpt_store_dir:
             from .ckptstore import CheckpointStore
@@ -775,6 +804,13 @@ class Server:
                                      max_attempts=self.cfg.recover_max_attempts,
                                      backoff_s=self.cfg.recover_backoff_s).start()
             self.metrics.watchdog = self.watchdog
+        if self.cfg.supervise_interval_s > 0:
+            self._supervisor = asyncio.get_running_loop().create_task(
+                self._supervise(), name="supervisor")
+        if (self.cfg.heartbeat_interval_s > 0 and self._lockstep is not None
+                and self._lockstep.lead_enabled):
+            self._heartbeat = asyncio.get_running_loop().create_task(
+                self._heartbeat_loop(), name="lockstep-heartbeat")
         # The perf plane's sources: lambdas that read the live engine and
         # lanes at each tick (a rebuild swaps them).  Its lag timer is armed
         # here, on the server's own loop.
@@ -819,6 +855,9 @@ class Server:
             self._server = None
         if self.watchdog is not None:
             await self.watchdog.stop()
+        for attr in ("_supervisor", "_heartbeat"):
+            await cancel_and_wait(getattr(self, attr))
+            setattr(self, attr, None)
         await self.autoscale.stop()
         if self.lifecycle is not None:
             await self.lifecycle.stop()
@@ -1106,6 +1145,47 @@ class Server:
         an executor)."""
         return self.engine.runner.probe(self.cfg.dispatch_probe_timeout_s)
 
+    async def _heartbeat_loop(self):
+        """The lockstep leader's liveness tick.  It rides the dispatch thread
+        like every lead, so it serializes with real traffic and never falls
+        inside another broadcast pair.  A failing tick means the world is
+        already broken (a follower died mid-collective): it is logged, and
+        the probe and the followers' own exit paths drive the restart."""
+        while True:
+            await asyncio.sleep(self.cfg.heartbeat_interval_s)
+            try:
+                await self.engine.runner.run_fn(self.engine.lockstep.lead_heartbeat)
+            except Exception:
+                log.exception("lockstep heartbeat failed")
+
+    async def _supervise(self):
+        """The reference's supervisor: probe the device every
+        ``supervise_interval_s``; after ``supervise_fail_threshold``
+        consecutive failures rebuild the engine.  A lockstep world cannot be
+        rebuilt on one rank: there it logs, and /healthz (the same probe)
+        keeps answering 503 until every rank is restarted.  The watchdog
+        (``watchdog_interval_s``) is the port's fuller recovery path beside
+        it; both rebuild through :meth:`rebuild_engine`, one at a time."""
+        loop = asyncio.get_running_loop()
+        while True:
+            await asyncio.sleep(self.cfg.supervise_interval_s)
+            alive = await loop.run_in_executor(None, self._probe)
+            self.supervise_failures = 0 if alive else self.supervise_failures + 1
+            if self.supervise_failures < self.cfg.supervise_fail_threshold:
+                continue
+            self.supervise_failures = 0
+            if self._lockstep is not None:
+                log.error("device probe failed %d consecutive times in a lockstep world; "
+                          "restart every rank", self.cfg.supervise_fail_threshold)
+                continue
+            log.error("device probe failed %d consecutive times; rebuilding the engine",
+                      self.cfg.supervise_fail_threshold)
+            try:
+                await self.rebuild_engine(cause="supervisor")
+            except Exception:
+                # The device is still wedged: the next interval retries.
+                log.exception("engine rebuild failed; will retry")
+
     async def handle_healthz(self, body: bytes, headers=None, query: str = "") -> Response:
         # A restore, build or capture on the dispatch thread answers the
         # last verdict at once with the hold named: the thread is busy, not
@@ -1145,6 +1225,12 @@ class Server:
             # Burn-rate state: the alarmed keys and the worst burn of each
             # window.  An alarm is evidence, not ill health: no flip.
             "slo": self.slo.health_summary(),
+            # A world's rank, backend, mesh and the leads broadcast so far.
+            **({"world": self.engine.world_snapshot()}
+               if self._lockstep is not None else {}),
+            **({"supervisor": {"interval_s": self.cfg.supervise_interval_s,
+                               "failures": self.supervise_failures}}
+               if self._supervisor is not None else {}),
         }, {}
 
     async def handle_metrics(self, body: bytes, headers=None, query: str = "") -> Response:
@@ -2359,6 +2445,12 @@ class Server:
         reload overlapping a recovery waits its turn.
         """
         async with self._rebuild_lock:
+            if self._lockstep is not None:
+                # One rank cannot rebuild a world: the followers' loops hold
+                # the old engine's programs, and the process group cannot be
+                # joined twice.  Refusing beats a silent collective deadlock.
+                raise RuntimeError("engine rebuild is for one process only; in a lockstep "
+                                   "world restart every rank instead")
             old = self.engine
             await self._stop_lanes()
             loop = asyncio.get_running_loop()
@@ -3175,6 +3267,17 @@ class BackgroundServer:
             self._loop.call_soon_threadsafe(self._loop.stop)
             self._thread.join(timeout=30)
             self._loop.close()
+
+
+def follow(cfg: ServeConfig, device=None, local_rank: int = 0) -> None:
+    """A follower rank of a world: build the same engine (joining the world
+    as ``local_rank``) and mirror rank 0's dispatches on the dispatch thread
+    until it leads the shutdown or is lost (``parallel/lockstep.py``)."""
+    engine = build_engine(cfg, device, local_rank=local_rank)
+    try:
+        engine.runner.run_fn_sync(engine.lockstep.follow)
+    finally:
+        engine.shutdown()
 
 
 def run(cfg: ServeConfig, device=None) -> None:

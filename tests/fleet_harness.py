@@ -43,7 +43,8 @@ class FakeReplica:
 
     def __init__(self, model="m", mode="ok", state="active", warm_ms=750.0, forecast_ms=0.0,
                  retry_after="3", wait_ms=None, activate_delay_s=0.0, stream="ok",
-                 tokens=(7, 9, 11), slo=None, metrics_models=None, submit="ok"):
+                 tokens=(7, 9, 11), slo=None, metrics_models=None, submit="ok",
+                 activate_gate=None):
         self.model = model
         self.mode = mode
         self.state = state
@@ -52,6 +53,9 @@ class FakeReplica:
         self.retry_after = retry_after
         self.wait_ms = wait_ms
         self.activate_delay_s = activate_delay_s
+        # A threading.Event an activation waits on (up to 10 s) before it
+        # answers: a scenario holds the activation open until it sets it.
+        self.activate_gate = activate_gate
         self.stream = stream
         self.submit = submit
         self.tokens = list(tokens)
@@ -140,9 +144,11 @@ class FakeReplica:
             if req.get("action") == "activate":
                 with self._lock:
                     self.activations.append(path.rsplit("/", 1)[1])
+                if self.activate_gate is not None:
+                    self.activate_gate.wait(10.0)
                 if self.activate_delay_s:
                     time.sleep(self.activate_delay_s)
-                else:
+                elif self.activate_gate is None:
                     self.state = "active"
             return self._reply(h, 200, {"action": req.get("action")})
         if method == "POST" and path == "/admin/drain":

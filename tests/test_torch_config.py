@@ -51,7 +51,11 @@ ENV_VALUES = {"profile": "prod", "host": "0.0.0.0", "port": "9123",
               "perfplane": "false", "perf_loop_lag_interval_s": "0.1", "perf_stack_hz": "0",
               "perf_stack_topk": "16", "perf_window_s": "10", "ingest_workers": "2",
               "ingest_port": "9124", "shm_ring_slots": "32",
-              "shm_ring_slot_bytes": "2097152"}
+              "shm_ring_slot_bytes": "2097152", "mesh": '{"data": 4, "model": 2}',
+              "coordinator_address": "10.0.0.1:8476", "num_processes": "2",
+              "process_id": "1", "supervise_interval_s": "5",
+              "supervise_fail_threshold": "4", "heartbeat_interval_s": "30",
+              "exit_on_fatal": "false"}
 
 
 def _env(name):
@@ -116,15 +120,14 @@ def test_structured_fields_are_file_only():
 
 
 def test_bad_mesh_raises_in_the_reference_and_the_port_has_no_mesh():
-    """The reference reads ``TPUSERVE_MESH`` as a JSON object and raises on
-    anything else; the port has no mesh field yet, so the variable names no
-    field of it and is not read."""
+    """Both packages read ``TPUSERVE_MESH`` as a JSON object and raise on
+    anything else (the port serves the mesh since parallel/ landed)."""
     environ = {"TPUSERVE_MESH": "[4, 2]"}
     with pytest.raises(ValueError, match="JSON object"):
         JC.apply_env_overrides(JC.ServeConfig(), environ)
-    assert "mesh" not in SHARED
-    got = PC.apply_env_overrides(PC.ServeConfig(), environ)
-    assert not hasattr(got, "mesh")
+    assert "mesh" in SHARED
+    with pytest.raises(ValueError, match="JSON object"):
+        PC.apply_env_overrides(PC.ServeConfig(), environ)
 
 
 def test_default_config_is_the_reference_dev_profile_filtered_by_the_port_registry():
@@ -362,7 +365,39 @@ def test_profile_loads_the_perf_and_ingest_fields_as_the_reference(tmp_path):
         assert getattr(got, field) == getattr(want, field), field
     assert (got.perfplane, got.ingest_workers, got.shm_ring_slots,
             got.shm_ring_slot_bytes) == (True, 0, 256, 1 << 20)
-    assert set(PC.REFUSED_FIELDS) == {
-        "profiler_port", "mesh", "coordinator_address", "num_processes", "process_id",
-        "supervise_interval_s", "supervise_fail_threshold", "heartbeat_interval_s",
-        "exit_on_fatal", "compile_cache_dir"}
+    assert set(PC.REFUSED_FIELDS) == {"profiler_port", "compile_cache_dir"}
+
+
+# -- the mesh and multi-host fields (parallel/) --------------------------------
+
+WORLD_FIELDS = ("mesh", "coordinator_address", "num_processes", "process_id",
+                "supervise_interval_s", "supervise_fail_threshold", "heartbeat_interval_s",
+                "exit_on_fatal")
+
+
+@pytest.mark.parametrize("field", WORLD_FIELDS)
+def test_world_field_has_the_reference_default(field):
+    got, want = PC.ServeConfig(), JC.ServeConfig()
+    assert getattr(got, field) == getattr(want, field), field
+    assert type(getattr(got, field)) is type(getattr(want, field))
+    assert field not in PC.REFUSED_FIELDS
+
+
+@pytest.mark.parametrize("raw,want", [('{"data": 4, "model": 2}', {"data": 4, "model": 2}),
+                                      ('{"model": "2"}', {"model": 2}), ("{}", {})])
+def test_mesh_env_is_a_json_object_in_both_packages(raw, want):
+    environ = {"TPUSERVE_MESH": raw}
+    assert PC.apply_env_overrides(PC.ServeConfig(), environ).mesh == want
+    assert JC.apply_env_overrides(JC.ServeConfig(), environ).mesh == want
+
+
+def test_world_fields_load_from_a_profile_as_the_reference(tmp_path):
+    path = tmp_path / "cfg.json"
+    body = {"mesh": {"data": 2, "model": 2}, "coordinator_address": "10.0.0.1:8476",
+            "num_processes": 2, "process_id": 1, "supervise_interval_s": 5.0,
+            "supervise_fail_threshold": 2, "heartbeat_interval_s": 30.0,
+            "exit_on_fatal": False}
+    path.write_text(json.dumps({**body, "models": []}))
+    got, want = PC.load_config(path), JC.load_config(path)
+    for field, value in body.items():
+        assert getattr(got, field) == getattr(want, field) == value, field

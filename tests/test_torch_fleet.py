@@ -24,6 +24,7 @@ package's, on the CPU.
 
 import importlib.util
 import json
+import threading
 import time
 from pathlib import Path
 
@@ -297,12 +298,16 @@ def scn_spills_cold_start_and_triggers_background_activation(kind):
 
 
 def scn_cold_spill_background_activation_is_single_flight(kind):
+    # The activation stays open until the three spills have landed (no
+    # sleep to outrun): the second and third find it in flight.
+    gate = threading.Event()
     cold = FakeReplica(mode="cold", state="active", warm_ms=9000.0, forecast_ms=0.0,
-                       activate_delay_s=0.4)
+                       activate_gate=gate)
     warm = FakeReplica(forecast_ms=40.0)
     with RouterHarness(kind, [cold, warm]) as h:
         for _ in range(3):
             assert h.req("POST", "/v1/models/m:predict", b"{}").status == 200
+        gate.set()
         assert h.router.metrics.spills_total == {"m": 3}
         assert _wait(lambda: not h.router._activation_flight.running(f"{h.rid_of(cold)}:m"))
         assert cold.activations == ["m"]  # one request, not three

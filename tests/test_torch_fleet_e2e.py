@@ -270,20 +270,21 @@ def test_each_refused_field_is_refused_by_name_with_its_reason(tmp_path, field):
     assert repr(field) in msg and PC.REFUSED_FIELDS[field] in msg
     queue = "Queue 3" if field == "compile_cache_dir" else "Queue 1"
     assert queue in PC.REFUSED_FIELDS[field]
-    if field not in ("profiler_port", "compile_cache_dir"):
-        assert "parallel/" in PC.REFUSED_FIELDS[field]
+    # parallel/ serves the mesh and multi-host fields: none is refused for it.
+    assert "parallel/" not in PC.REFUSED_FIELDS[field]
+    assert field in ("profiler_port", "compile_cache_dir")
 
 
 def test_refused_fields_and_the_fleet_block_cover_the_reference_config(tmp_path):
     """Every field of the JAX package's ServeConfig is served or refused by
-    name: 75 of its 85 served, the ten others refused."""
+    name: 83 of its 85 served, the two others refused."""
     import dataclasses
 
     from pytorch_zappa_serverless_tpu import config as JC
 
     ref = {f.name for f in dataclasses.fields(JC.ServeConfig)}
     port = {f.name for f in dataclasses.fields(PC.ServeConfig)}
-    assert len(ref) == 85 and len(ref & port) == 75
+    assert len(ref) == 85 and len(ref & port) == 83
     assert ref - port == set(PC.REFUSED_FIELDS)
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps({"fleet": {"poll_interval_s": 0.4, "spawn": 2,

@@ -39,7 +39,8 @@ def test_importing_the_port_loads_no_jax():
                  "ops.lora", "serving.adapters", "serving.perfplane", "serving.acceptors",
                  "serving.acceptor_telemetry", "serving.httpframe", "serving.fleet",
                  "serving.httpclient", "deploy", "deploy.stage", "deploy.render",
-                 "engine.tensorfile"):
+                 "engine.tensorfile", "parallel", "parallel.mesh", "parallel.lockstep",
+                 "parallel.ring_attention"):
         assert f"pytorch_zappa_serverless_tpu_torch.{lane}" in mods
     code = (
         "import importlib, json, sys\n"

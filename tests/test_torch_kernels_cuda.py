@@ -42,7 +42,10 @@ base's bytes back; the regime-routed lane's shared leaves have one address
 on the card, after the move and after a host-tier restore.  A fleet router
 (``cli fleet --spawn 2``) in front of two replica processes on the card
 answers as the replica it routed to, and the replicas' ``int8_matmul``
-counts move by exactly the bucket graph's launches a routed forward.
+counts move by exactly the bucket graph's launches a routed forward.  A
+mesh of one (a world of one rank over NCCL) captures its collectives in its
+bucket graphs and replays as its eager forward and the meshless model, byte
+for byte.
 """
 
 import numpy as np
@@ -1538,3 +1541,47 @@ def test_fleet_replicas_launch_exactly_their_replays(cuda_device, tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=60)
+
+
+# -- the mesh of one (parallel/mesh.py) ------------------------------------------
+
+@pytest.mark.cuda
+def test_mesh_of_one_graphs_hold_their_collectives_and_replay_as_eager(cuda_device):
+    """A world of one over NCCL: every bucket graph captures the TP
+    all-reduces (two a layer) and the DP gather, and its replay equals the
+    eager forward and the meshless model's byte for byte (a sum over one
+    rank and a gather of one are copies)."""
+    import torch.distributed as dist
+
+    from pytorch_zappa_serverless_tpu_torch.config import ModelConfig, ServeConfig
+    from pytorch_zappa_serverless_tpu_torch.engine.loader import build_engine
+
+    mc = ModelConfig(name="bert_base", dtype="bfloat16", batch_buckets=(1, 4),
+                     seq_buckets=(16,), extra={"arch": {"num_layers": 2, "num_heads": 4,
+                                                        "head_dim": 16, "mlp_dim": 128}})
+    assert not dist.is_initialized()
+    meshed = build_engine(ServeConfig(mesh={"data": 1, "model": 1}, models=[mc]), "cuda")
+    plain = build_engine(ServeConfig(models=[mc]), "cuda")
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        assert meshed.world_snapshot()["nccl"]
+        cm, base = meshed.model("bert_base"), plain.model("bert_base")
+        assert cm.tp_size == 1 and base.mesh is None
+        held = cm.graph_collectives
+        assert len(held) == 2 and all(c == {"all_reduce": 4, "all_gather": 1}
+                                      for c in held.values()), held
+        assert all(c == {} for c in base.graph_collectives.values())
+        rng = np.random.default_rng(9)
+        for b in (1, 4):
+            batch = {"input_ids": rng.integers(0, 30522, (b, 16)).astype(np.int32),
+                     "attention_mask": np.ones((b, 16), np.int32),
+                     "token_type_ids": np.zeros((b, 16), np.int32)}
+            batch["attention_mask"][:, 12:] = 0
+            replay = meshed.runner.run_fn_sync(cm.forward, batch)["probs"]
+            eager = meshed.runner.run_fn_sync(cm.forward_eager, batch)["probs"]
+            want = plain.runner.run_fn_sync(base.forward, batch)["probs"]
+            assert replay.tobytes() == eager.tobytes() == want.tobytes()
+    finally:
+        meshed.shutdown()
+        plain.shutdown()
+        dist.destroy_process_group()
