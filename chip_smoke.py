@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero.  The
+first line says which of ``safetensors``, ``tokenizers``, ``yaml`` and
+``aiohttp`` import on this machine (the port needs none of them).
 
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the port's hand-written kernels from ``ops/csrc/``, one
@@ -30,7 +32,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    and exactly 72 ``int8_matmul`` launches a replay;
 5. BERT parity: the served int8 forward against the same model with every
    projection routed through the plain version (eagerly), on the same
-   weights and batch;
+   weights and batch; and the bench's operation count of the (8, 128)
+   forward (``benchmark.count_flops``: ``int8_matmul`` launching and adding
+   its tally) against the same forward counted with the plain version on
+   the ``meta`` device, within ``BENCH_FLOPS_RTOL``;
 6. SD-1.5 path: ``build_engine`` with full-width SD-1.5 at 512x512, 20 DDIM
    steps in chunks of 4 (seed weights, from phase 22a's staged tree), the
    server, two ``:submit`` jobs
@@ -76,7 +81,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    byte, two batches in turn; per-bucket device ms replayed and eager beside
    the FLOP bound; the served bf16 top-k against an fp32 eager run (TF32 off)
    within ``VISION_PROB_TOL``, top-1 agreeing on every decided row and on at
-   least ``VISION_TOP1_MIN`` of 8; with ``--profile``, served ResNet-50 at
+   least ``VISION_TOP1_MIN`` of 8; the bench's measurement of ResNet-50 at
+   bucket 8 (``benchmark.bench_compiled``, 24 trials), its entry printed,
+   its p50 within ``BENCH_STEP_RTOL`` of one replay's device ms; with
+   ``--profile``, served ResNet-50 at
    bucket 32 and EfficientNet-B0 at bucket 8 eager against replayed;
 11. Whisper path: ``build_engine`` with full-width Whisper-tiny (seed
    weights, buckets 1 and 4, 64 new tokens) twice, ``whisper_tiny`` on the
@@ -418,6 +426,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from pytorch_zappa_serverless_tpu_torch.utils.cudatime import device_ms
+
 # Data-sheet peaks of the H100 SXM at its full 700 W power limit (dense).
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
@@ -461,6 +471,30 @@ def check(cond: bool, msg: str) -> None:
 
 
 # -- phase 1: device ---------------------------------------------------------
+
+OPTIONAL_PACKAGES = ("safetensors", "tokenizers", "yaml", "aiohttp")
+
+
+def phase_packages() -> dict:
+    """Which packages the port may use where present, but never needs, import
+    on this machine: tried in a child process, so this one loads none of
+    them.  The first line the script prints."""
+    code = ("import importlib, json\n"
+            "out = {}\n"
+            f"for name in {OPTIONAL_PACKAGES!r}:\n"
+            "    try:\n"
+            "        importlib.import_module(name)\n"
+            "        out[name] = True\n"
+            "    except Exception:\n"
+            "        out[name] = False\n"
+            "print(json.dumps(out))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    found = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else {
+        "error": proc.stderr.strip()[-200:]}
+    log(f"packages that import here: {json.dumps(found)}")
+    return found
+
 
 def phase_device() -> str:
     """Check for the card; returns its name and power limit as nvidia-smi
@@ -1057,6 +1091,56 @@ def phase_parity(engine, instances: list[dict], seq: int = BERT["seq"]) -> dict:
     return {"max_abs_prob_err": err, "dense_modules": len(dense)}
 
 
+# The bench's operation count of a forward with int8_matmul launching (its
+# tally from its shapes) against the same forward counted with the plain
+# version: relative tolerance.
+BENCH_FLOPS_RTOL = 0.01
+
+
+def phase_bert_flops(engine, instances: list[dict], seq: int = BERT["seq"]) -> dict:
+    """The bench's operation count (``benchmark.count_flops``) of one eager
+    forward of the (8, 128) bucket, where ``int8_matmul`` launches and adds
+    its tally, against the same forward with every projection routed to the
+    plain version on a ``meta`` copy of the module, which
+    ``torch.utils.flop_counter`` counts alone."""
+    import copy
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pytorch_zappa_serverless_tpu_torch import benchmark as B
+    from pytorch_zappa_serverless_tpu_torch.models.bert import Int8Dense
+    from pytorch_zappa_serverless_tpu_torch.ops import int8_matmul as I
+
+    t0 = time.perf_counter()
+    cm = engine.model("bert_base")
+    bucket, batch = collate(cm, instances, seq)
+    launched = I.int8_matmul.launches
+    kernel = B.count_flops(engine, lambda: cm.forward_eager(batch))
+    launched = I.int8_matmul.launches - launched
+    check(launched == 6 * BERT["layers"], f"the counted forward launched int8_matmul "
+                                          f"{launched} times, not {6 * BERT['layers']}")
+
+    def plain_count():
+        module = copy.deepcopy(cm.servable.module).to("meta")
+        for m in module.modules():
+            if isinstance(m, Int8Dense):
+                m.matmul = I.int8_matmul_reference
+        inputs = {k: torch.from_numpy(v).to("meta") for k, v in batch.items()}
+        with torch.inference_mode(), FlopCounterMode(display=False) as fc:
+            cm.servable.apply_fn(module, inputs)
+        return fc.get_total_flops()
+
+    plain = engine.runner.run_fn_sync(plain_count)
+    rel = abs(kernel - plain) / plain
+    log(f"bench operation count of bert_base {bucket}: {kernel / 1e9:.3f} GFLOP with "
+        f"int8_matmul launching ({launched} launches tallied), plain version on meta "
+        f"{plain / 1e9:.3f} GFLOP (rel {rel:.2e}, tolerance {BENCH_FLOPS_RTOL}); "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(rel <= BENCH_FLOPS_RTOL, f"bench operation count {kernel} != plain {plain} "
+                                   f"within {BENCH_FLOPS_RTOL}")
+    return {"kernel": kernel, "plain": plain}
+
+
 # -- phase 6: the SD-1.5 path ---------------------------------------------------
 
 SD = {"height": 512, "width": 512, "num_steps": 20, "chunk_steps": 4}
@@ -1453,6 +1537,7 @@ def run_bert(profile: bool) -> int:
             f"(device p50 {ring['device_ms']['p50']} ms)")
         parity = phase_parity(engine, instances)
         check(parity["dense_modules"] == per_fwd, f"{parity['dense_modules']} Int8Dense")
+        phase_bert_flops(engine, instances)
         if profile:
             phase_profile(engine, instances[:1])
             phase_profile(engine, instances)
@@ -1714,29 +1799,6 @@ FUSED_STEPS = 32
 # bf16 the other way moves the f32 sum by ~1e-4 at these widths.  The planted
 # fault reads 7x to 34x this limit at GPT-2 small.
 FUSED_TOL = (1e-3, 2 ** -7)
-
-
-def device_ms(fn, reps: int = 15) -> float:
-    """Median device time of ``fn``'s launches by CUDA events: a spin kernel
-    holds the stream while the host queues them, so the host's time per
-    launch (Python checks, ctypes) leaves no gaps between them."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    cycles = int(3 * host_s * 2e9) + 2_000_000  # ~3x the host's time at ~2 GHz
-    times = []
-    for _ in range(reps):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
 
 
 def attn_bytes(S: int, D: int, T: int, wbytes: int) -> int:
@@ -2273,6 +2335,33 @@ def phase_vision_timing(engine, size: int) -> dict:
     return rows
 
 
+# The bench's step p50 against one replay's device ms of the same graph:
+# relative tolerance, and the bench's trials and replays a trial.
+BENCH_STEP_RTOL = 0.15
+BENCH_TRIALS, BENCH_REPLAYS = 24, 10
+
+
+def phase_vision_bench(engine, size: int) -> dict:
+    """The bench's measurement (``benchmark.bench_compiled``) of ``resnet50``
+    at bucket 8 on this engine, its entry printed, against
+    ``replay_device_ms`` of the same captured graph."""
+    from pytorch_zappa_serverless_tpu_torch import benchmark as B
+
+    t0 = time.perf_counter()
+    entry = B.bench_compiled(engine, "resnet50", B._image_inputs(8, size), BENCH_REPLAYS,
+                             BENCH_TRIALS)
+    replay = replay_device_ms(engine, engine.model("resnet50"), (8,))
+    log(f"bench resnet50 (8,) on phase 10's engine: {json.dumps(entry)}")
+    rel = abs(entry["p50_ms"] - replay) / replay
+    log(f"bench p50 {entry['p50_ms']} ms against one replay's device ms {replay:.4f} "
+        f"(rel {rel:.3f}, tolerance {BENCH_STEP_RTOL}); {time.perf_counter() - t0:.2f} s")
+    check(entry["step_trials"] == BENCH_TRIALS and entry["clock"] == "cuda_events",
+          f"bench entry: {entry}")
+    check(rel <= BENCH_STEP_RTOL, f"bench p50 {entry['p50_ms']} ms is not within "
+                                  f"{BENCH_STEP_RTOL} of the replay's {replay:.4f} ms")
+    return entry
+
+
 def phase_vision_parity(engine, pngs: list[bytes], names=None) -> dict:
     """The served bf16 top-k (a replay at bucket 8) against an fp32 eager run
     of the same seeded weights on the card, TF32 off, for each model (of
@@ -2366,6 +2455,7 @@ def run_vision(profile: bool) -> dict:
             for b in cm.buckets:
                 phase_replay(engine, name, vision_batches(cm, run["pngs"], b[0]), {})
         timing = phase_vision_timing(engine, run["size"])
+        phase_vision_bench(engine, run["size"])
         parity = phase_vision_parity(engine, run["pngs"])
         if profile:
             phase_vision_profile(engine, run["pngs"])
@@ -7345,7 +7435,7 @@ FLEET_BOOT_S = 300.0
 
 def fleet_config(workdir: str, bert_arch: dict | None = None, gpt2_arch: dict | None = None,
                  gpt2_extra: dict | None = None, bert_extra: dict | None = None) -> dict:
-    """The replicas' profile (JSON: no PyYAML on the card's machine):
+    """The replicas' profile (JSON, which the port reads without PyYAML):
     ``bert_int8`` (BERT-base int8, (1, 8) x 128, warm at boot) and ``gpt2``
     (GPT-2 small int8 on the paged lane, 16-token pages, 8 slots), the
     journal on, seed weights at full width; the router's knobs beside."""
@@ -8342,6 +8432,7 @@ def main(argv: list[str] | None = None) -> int:
         finally:
             seconds[tag] = round(time.perf_counter() - t0, 1)
 
+    phase_packages()
     card = timed("1 device", phase_device)
     # Phase 22a stages first, in a process of its own beside phases 2-12
     # (host work only): phase 6 and phase 16 then boot SD-1.5 from its

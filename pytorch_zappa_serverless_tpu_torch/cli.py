@@ -39,6 +39,13 @@
   ``deploy.json``, and ``service.yaml`` for ``--target cloudrun``) into
   ``--out``, offline; prints the summary.
 - ``list-models``  print the registered model zoo.
+- ``bench``  the port's bench (``benchmark.py``): every section in a
+  process of its own, then the ResNet-50 b8 flagship; the compact JSON line
+  last (``--all``: one line per section before it), the whole record in
+  ``build/bench/BENCH_FULL.json`` (``BENCH_FULL_PATH``).  Exits non-zero
+  when a section recorded an error::
+
+      python -m pytorch_zappa_serverless_tpu_torch.cli bench --all
 - ``models``, ``adapters``, ``prefix``, ``slo``, ``autoscale``, ``perf``  HTTP
   clients of a running server's ``/admin/models``, ``/admin/adapters``,
   ``/admin/prefix``, ``/admin/slo``, ``/admin/autoscale`` and
@@ -290,6 +297,12 @@ def cmd_deploy(args) -> int:
     cfg = load_config(args.config, args.profile)
     print(json.dumps(render_deploy(cfg, target=args.target, out_dir=args.out), indent=2))
     return 0
+
+
+def cmd_bench(args) -> int:
+    from .benchmark import main as bench_main
+
+    return bench_main(all_lines=args.all, device=args.platform)
 
 
 def cmd_list_models(args) -> int:
@@ -715,6 +728,12 @@ def build_parser() -> argparse.ArgumentParser:
     sp.set_defaults(fn=cmd_deploy)
     sp = sub.add_parser("list-models", help="print the registered model zoo")
     sp.set_defaults(fn=cmd_list_models)
+    sp = sub.add_parser("bench", help="emit the BASELINE metric JSON line")
+    sp.add_argument("--all", action="store_true",
+                    help="also print one JSON line per BASELINE config")
+    sp.add_argument("--platform", default="cuda", choices=["cuda", "cpu"],
+                    help="device to bench on (default cuda)")
+    sp.set_defaults(fn=cmd_bench)
     for name, (route, _, help_text) in ADMIN_TABLES.items():
         sp = sub.add_parser(name, help=help_text)
         sp.add_argument("--url", default="http://127.0.0.1:8000")

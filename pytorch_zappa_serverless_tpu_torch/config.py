@@ -450,7 +450,7 @@ _ENV_PREFIX = "TPUSERVE_"
 REFUSED_FIELDS = {
     "profiler_port": "jax.profiler's live trace server has no torch counterpart in the "
                      "port; capture with POST /admin/profile or POST /debug/trace "
-                     "(ROADMAP Queue 1)",
+                     "(ROADMAP Queue 3)",
     "compile_cache_dir": "the port keeps no persistent compile cache: kernels build per "
                          "checkout and CUDA graphs are captured per process "
                          "(ROADMAP Queue 3)",

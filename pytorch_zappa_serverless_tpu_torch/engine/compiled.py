@@ -487,13 +487,20 @@ class CompiledModel:
         CUDA a replay of the bucket's graph (captured now if it is new)."""
         if not self.graphed:
             return self.forward_eager(batch)
+        local, _ = self._split(batch)
+        with torch.inference_mode():
+            return self._fetch(self.bucket_graph(batch).run(local))
+
+    def bucket_graph(self, batch: dict[str, np.ndarray]) -> BucketGraph:
+        """The captured graph a :meth:`forward` of ``batch`` replays (its
+        bucket's, of the servable's variant where it has variants), captured
+        now if it is new."""
         variant = self._variant(batch)
         key = (self._bucket_of(batch), variant)
         local, split = self._split(batch)
         with torch.inference_mode():
-            graph = self._graphs.get(key) or self._capture(
+            return self._graphs.get(key) or self._capture(
                 key, self._bucket_fn(variant, split), local, record=True)
-            return self._fetch(graph.run(local))
 
     def _bucket_fn(self, variant, split: bool = False):
         return lambda inputs: self._gathered(self._apply(inputs, variant), split)
@@ -605,18 +612,12 @@ class CompiledModel:
         (SD-1.5: the CLIP encode).  Returns (bucket, device state); the
         state (latents + conditioning) stays on the device between chunk
         dispatches.  On CUDA a replay of the bucket's prepare graph (captured
-        now if it is new); the state is copied out of the graph's pool, so
-        that every job keeps its own."""
+        now if it is new)."""
         if not self.graphed:
             return self.chunk_prepare_eager(samples)
         bucket, batch = self._collate_chunked(samples)
-        prepare = self.servable.meta["chunked"]["prepare"]
-        key = ("prepare", bucket)
         with torch.inference_mode():
-            graph = self._graphs.get(key) or self._capture(
-                key, lambda inputs: prepare(self.servable.module.tree(), inputs), batch,
-                record=not self._warming)
-            state = {k: v.clone() for k, v in graph.run(batch).items()}
+            state = self._prepare_replay(bucket, batch)
         self._sync()
         return bucket, state
 
@@ -648,6 +649,45 @@ class CompiledModel:
         self._sync()
         return state
 
+    def chunk_finalize(self, state, samples: Sequence[dict]):
+        """The chunked ``finalize`` (SD-1.5: the VAE decode), the fetch and
+        each sample's postprocess (run_batch's tail; the PNG encode is the
+        job worker's, off this thread).  On CUDA a replay of the finalize
+        graph of this state's shapes (captured now if it is new)."""
+        if not self.graphed:
+            return self.chunk_finalize_eager(state, samples)
+        with torch.inference_mode():
+            out = self._fetch(self._finalize_replay(state))
+        return [self.servable.postprocess(out, i) for i in range(len(samples))]
+
+    def queue_job(self, samples: Sequence[dict]) -> dict[str, torch.Tensor]:
+        """One job of ``samples`` on CUDA as the job lane runs it (prepare,
+        each chunk in order, finalize: the replays and copies of
+        :meth:`chunk_prepare`, :meth:`chunk_step` and :meth:`chunk_finalize`),
+        queued with no host wait and no fetch.  Returns the finalize graph's
+        static outputs.  What a device timing of one job replays."""
+        if not self.graphed:
+            raise RuntimeError(f"{self.servable.name}: queue_job replays CUDA graphs")
+        bucket, batch = self._collate_chunked(samples)
+        chunk = self.servable.meta["chunked"]["chunk"]
+        with torch.inference_mode():
+            state = self._prepare_replay(bucket, batch)
+            for rows in self._chunk_rows:
+                state = self._chunk_replay(chunk, state, rows)
+            return self._finalize_replay(state)
+
+    # The chunked graphs' keys: prepare by bucket, a chunk by its state's
+    # and rows' shapes, finalize by the state's.
+    def _prepare_replay(self, bucket: tuple[int, ...], batch: dict) -> dict:
+        """The prepare graph's replay on a collated host batch; the state is
+        copied out of the graph's pool, so that every job keeps its own."""
+        prepare = self.servable.meta["chunked"]["prepare"]
+        key = ("prepare", bucket)
+        graph = self._graphs.get(key) or self._capture(
+            key, lambda inputs: prepare(self.servable.module.tree(), inputs), batch,
+            record=not self._warming)
+        return {k: v.clone() for k, v in graph.run(batch).items()}
+
     def _chunk_replay(self, chunk, state: dict, rows: dict) -> dict:
         values = {**{f"state.{k}": v for k, v in state.items()},
                   **{f"rows.{k}": v for k, v in rows.items()}}
@@ -667,21 +707,14 @@ class CompiledModel:
         return {k: state[k] if v is graph.inputs.get(f"state.{k}") else v.clone()
                 for k, v in out.items()}
 
-    def chunk_finalize(self, state, samples: Sequence[dict]):
-        """The chunked ``finalize`` (SD-1.5: the VAE decode), the fetch and
-        each sample's postprocess (run_batch's tail; the PNG encode is the
-        job worker's, off this thread).  On CUDA a replay of the finalize
-        graph of this state's shapes (captured now if it is new)."""
-        if not self.graphed:
-            return self.chunk_finalize_eager(state, samples)
+    def _finalize_replay(self, state: dict) -> dict:
+        """The finalize graph's replay; its static outputs."""
         finalize = self.servable.meta["chunked"]["finalize"]
         key = ("finalize", tuple(sorted((k, tuple(v.shape)) for k, v in state.items())))
-        with torch.inference_mode():
-            graph = self._graphs.get(key) or self._capture(
-                key, lambda inputs: finalize(self.servable.module.tree(), inputs), state,
-                record=not self._warming)
-            out = self._fetch(graph.run(state))
-        return [self.servable.postprocess(out, i) for i in range(len(samples))]
+        graph = self._graphs.get(key) or self._capture(
+            key, lambda inputs: finalize(self.servable.module.tree(), inputs), state,
+            record=not self._warming)
+        return graph.run(state)
 
     def chunk_finalize_eager(self, state, samples: Sequence[dict]):
         """:meth:`chunk_finalize` eagerly: the CPU's path, and on CUDA what

@@ -12,6 +12,13 @@ graph's :func:`delta` after it, :func:`restore`\\ s the snapshot, and
 launches the captured graphs account for (each capture's eager warm-up run
 and each replay): a path whose counts exceed it launched a kernel outside
 any graph.
+
+Each wrapper also adds its launch's floating-point operations, from its
+shapes, to a tally (:func:`add_flops`, read by :func:`flops`): a
+hand-written kernel is opaque to ``torch.utils.flop_counter``, which counts
+the aten ops around it.  The tally grows where a wrapper launches its
+kernel from Python (an eager call, or a capture's calls); a replay adds
+nothing to it.  ``benchmark.py`` reads it across one eager call.
 """
 
 from __future__ import annotations
@@ -80,7 +87,21 @@ def collectives() -> dict[str, int]:
     return dict(_COLLECTIVES)
 
 
+# Floating-point operations of the kernels' launches from Python, by name.
+_FLOPS: dict[str, int] = {}
+
+
+def add_flops(name: str, n: int) -> None:
+    _FLOPS[name] = _FLOPS.get(name, 0) + int(n)
+
+
+def flops() -> dict[str, int]:
+    """The kernels' launched operations so far, by name."""
+    return dict(_FLOPS)
+
+
 def reset() -> None:
-    """Every count, and the graphs' ledger, to 0."""
+    """Every count, the graphs' ledger and the operations' tally, to 0."""
     restore(dict.fromkeys(_REGISTRY, 0))
     _GRAPHED.clear()
+    _FLOPS.clear()

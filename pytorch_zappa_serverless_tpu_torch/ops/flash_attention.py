@@ -135,7 +135,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed: {launch_error(rc)} "
                            f"(B={B}, Tq={Tq}, Tk={Tk}, H={H}, D={D})")
     flash_attention.launches += 1
+    counters.add_flops("flash_attention", flash_attention_flops(B, Tq, Tk, H, D))
     return out
+
+
+def flash_attention_flops(b: int, tq: int, tk: int, h: int, d: int) -> int:
+    """Operations of one call, as ``torch.utils.flop_counter`` counts the
+    plain version's two batched products: Q·Kᵀ and P·V, 2·B·H·Tq·Tk·D each
+    (a causal call's skipped blocks included, as the plain version
+    computes them)."""
+    return 4 * b * h * tq * tk * d
 
 
 # Launches of the CUDA kernel in this process (the plain version on CPU

@@ -440,7 +440,15 @@ def _attn(x, ln_scale, ln_bias, wqkv, bqkv, sqkv, wout, bout, sout, cache_k, cac
         raise RuntimeError(f"{name} kernel launch failed: {launch_error(rc)} (S={S}, D={D}, "
                            f"T={T}, heads={heads}, plan={p})")
     (fused_attn_step_int8 if int8 else fused_attn_step).launches += 1
+    counters.add_flops(name, fused_attn_flops(S, D, T))
     return x_out, cache_k, cache_v
+
+
+def fused_attn_flops(s: int, d: int, t: int) -> int:
+    """Operations of one attention block: the QKV and out projections
+    (2·S·D·3D + 2·S·D·D) and the scores and P·V over T positions
+    (2·S·T·D each)."""
+    return 8 * s * d * d + 4 * s * t * d
 
 
 def fused_attn_step(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, cache_k, cache_v, pos,
@@ -496,7 +504,13 @@ def _mlp(x, ln_scale, ln_bias, w1, b1, s1, w2, b2, s2, eps: float, approx_gelu: 
         raise RuntimeError(f"{name} kernel launch failed: {launch_error(rc)} (S={S}, D={D}, "
                            f"F={Fd}, plan={p})")
     (fused_mlp_step_int8 if int8 else fused_mlp_step).launches += 1
+    counters.add_flops(name, fused_mlp_flops(S, D, Fd))
     return x_out
+
+
+def fused_mlp_flops(s: int, d: int, f: int) -> int:
+    """Operations of one MLP block: fc1 and fc2, 2·S·D·F each."""
+    return 4 * s * d * f
 
 
 def fused_mlp_step(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5,

@@ -216,7 +216,14 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, *,
         raise RuntimeError(f"int8_matmul kernel launch failed: {launch_error(rc)} "
                            f"(M={M}, K={K}, N={N}, plan {tuple(p)})")
     int8_matmul.launches += 1
+    counters.add_flops("int8_matmul", int8_matmul_flops(M, K, N))
     return y
+
+
+def int8_matmul_flops(m: int, k: int, n: int) -> int:
+    """Operations of one product, as ``torch.utils.flop_counter`` counts the
+    plain version's: 2·M·K·N (the scale and the cast are not counted)."""
+    return 2 * m * k * n
 
 
 # Launches of the CUDA kernel in this process (the plain version on CPU

@@ -2,7 +2,7 @@
 sends to its replicas.
 
 Standard library only, like its server half (``httpframe.py``): the
-router's machine has no aiohttp, and this module's import closure loads no
+router depends on no aiohttp, and this module's import closure loads no
 torch.  One :class:`ClientPool` keeps a pool of keep-alive connections per
 ``host:port``.  A request has two timeouts with the meaning of
 ``aiohttp.ClientTimeout(total, sock_connect)``: ``connect`` bounds the TCP

@@ -166,8 +166,8 @@ def payloads_for(model: str, n: int) -> list[dict]:
 def write_config(path: Path, port: int, workdir: Path, model: str,
                  latency_ms: float, checkpoint: str | None = None) -> None:
     """Two profiles on one journal: ``boot`` with the latency rule, so a
-    backlog forms, and ``restart`` without it.  JSON: the card's machine
-    has no PyYAML.  ``checkpoint`` (e.g. a staged tree) replaces the
+    backlog forms, and ``restart`` without it.  JSON, which the port reads
+    without PyYAML.  ``checkpoint`` (e.g. a staged tree) replaces the
     model's seeded weights."""
     entry = {**MODELS[model], **({"checkpoint": checkpoint} if checkpoint else {})}
     base = {"host": "127.0.0.1", "port": port, "warmup_at_boot": True,
@@ -328,8 +328,8 @@ def _need_platform(platform: str) -> None:
 
 
 def _fleet_config(path: Path, workdir: Path, models: list[dict], **profile) -> None:
-    """One ``replica`` profile for the replicas and the router (JSON: the
-    card's machine has no PyYAML); each replica's port and journal come from
+    """One ``replica`` profile for the replicas and the router (JSON, which
+    the port reads without PyYAML); each replica's port and journal come from
     its environment."""
     path.write_text(json.dumps({"default_profile": "replica", "profiles": {"replica": {
         "host": "127.0.0.1", "port": 8000, "warmup_at_boot": True,

@@ -60,6 +60,7 @@ import torch
 
 from ..ops import _build
 from ..ops import fused_decode as FD
+from ..utils.cudatime import device_ms
 
 SOURCE = "fused_decode.cu"
 S, D, T, F, HEADS, LAYERS = 8, 768, 96, 3072, 12, 12
@@ -405,23 +406,6 @@ def race_rows(libs: dict, names: list[str], launches: int) -> list[dict]:
                              "shape": {"S": s, "D": d, "heads": h, "T": t},
                              "launches": launches, "differ": differ})
     return rows
-
-
-def device_ms(fn, reps: int = 15) -> float:
-    """Median device time of ``fn``'s launches, queued behind a spin kernel
-    so that the host's time per call leaves no gaps (as chip_smoke.py)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(30_000_000)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
 
 
 def stamp_rows(lib, kind: str, ops: list[dict], x: torch.Tensor, names, reps: int) -> list:

@@ -11,7 +11,8 @@ client p50, p90 and mean a model, and the server's own recent ``queue_ms``,
 It uses only ``config``, ``serving.server.BackgroundServer`` and
 ``/metrics``, so it runs unchanged on earlier commits of the port: copy it
 into another checkout's ``tools/`` and run both, alternating, on one card
-to compare two commits::
+to compare two commits (its client, :func:`post` and :func:`stream`, is
+also the served sections' of ``benchmark.py``)::
 
     python -m pytorch_zappa_serverless_tpu_torch.tools.served_latency --requests 300
 
@@ -28,6 +29,7 @@ import json
 import statistics
 import sys
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -37,15 +39,53 @@ def _pct(xs: list[float], q: float) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
-def _post(port: int, path: str, body: bytes, ctype: str) -> float:
+def post(port: int, path: str, body: bytes, ctype: str,
+         timeout: float = 120.0) -> tuple[int, bytes, float]:
+    """One POST to the local server: (status, body, client ms).  An error
+    status answers like any other (a 429 is a result, not an exception)."""
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method="POST",
                                  headers={"Content-Type": ctype})
     t = time.perf_counter()
-    with urllib.request.urlopen(req, timeout=120) as r:
-        r.read()
-        if r.status != 200:
-            raise RuntimeError(f"{path}: {r.status}")
-    return (time.perf_counter() - t) * 1e3
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, data = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, data = e.code, e.read()
+    return status, data, (time.perf_counter() - t) * 1e3
+
+
+def stream(port: int, path: str, body: dict, timeout: float = 600.0) -> dict:
+    """One ``:generate`` stream: the JSON body posted and the SSE events read
+    as they come.  Returns the status, each token's client seconds since the
+    send (``times``), the tokens, and the final event (``final``)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    toks, times, final = [], [], None
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            for line in r:
+                if not line.startswith(b"data: "):
+                    continue
+                ev = json.loads(line[6:])
+                if "token" in ev:
+                    toks.append(ev["token"])
+                    times.append(time.perf_counter() - t0)
+                else:
+                    final = ev
+            status = r.status
+    except urllib.error.HTTPError as e:
+        return {"status": e.code, "body": e.read().decode(errors="replace")}
+    return {"status": status, "tokens": toks, "times": times, "final": final,
+            "wall": time.perf_counter() - t0}
+
+
+def _post(port: int, path: str, body: bytes, ctype: str) -> float:
+    status, _, ms = post(port, path, body, ctype)
+    if status != 200:
+        raise RuntimeError(f"{path}: {status}")
+    return ms
 
 
 def tracer_us(n: int = 5000) -> float | None:

@@ -1,7 +1,7 @@
 """Live migration between two servers: a ``:generate`` stream moves mid-decode.
 
 Boots two ``cli serve`` processes with the same paged GPT-2 deploy (JSON
-configs: the card's machine has no PyYAML), then drives the export and
+configs, which the port reads without PyYAML), then drives the export and
 import routes as a router would, on the card unless ``--platform cpu``
 (with ``--arch``, a narrow float32 GPT-2) asks for the CPU::
 

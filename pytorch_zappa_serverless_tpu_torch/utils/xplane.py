@@ -130,3 +130,17 @@ def top_ops(prof, top: int = 15) -> dict:
             "device_compute_ms": round(sum(compute.values()) / 1e3, 4),
             "copy_ms": round(sum(copies.values()) / 1e3, 4),
             "memset_ms": round(sum(memsets.values()) / 1e3, 4)}
+
+
+def device_compute_ms(prof, iters: int) -> float | None:
+    """Device compute ms an iteration of a finished window that ran
+    ``iters`` iterations: the device events' compute time (copies and
+    memsets apart), divided by ``iters``.  None where the window holds no
+    device event (the CPU, or a profiler that saw no kernel)."""
+    from torch.autograd import DeviceType
+
+    if not any(e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               for e in prof.key_averages()):
+        return None
+    compute = op_time_breakdown(prof)[0]
+    return round(sum(compute.values()) / 1e3 / max(int(iters), 1), 4)

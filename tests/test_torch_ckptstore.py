@@ -217,9 +217,13 @@ def test_persistent_tear_names_the_chunk(tmp_path):
 def test_slow_mode_injects_per_chunk_latency(tmp_path):
     store = CheckpointStore(tmp_path / "s", chunk_bytes=1 << 20)
     store.put("m", _tree(0))  # one chunk
-    t0 = time.perf_counter()
-    store.load("m")
-    clean_s = time.perf_counter() - t0
+    store.load("m")  # warm: the chunk read once, as the slow load will find it
+    clean = []
+    for _ in range(3):  # the clean load under the slow load's conditions
+        t0 = time.perf_counter()
+        store.load("m")
+        clean.append(time.perf_counter() - t0)
+    clean_s = min(clean)
     store.faults = _ckpt_faults(mode="slow", latency_ms=80.0)
     t0 = time.perf_counter()
     got, _ = store.load("m")

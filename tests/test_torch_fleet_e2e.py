@@ -268,8 +268,8 @@ def test_each_refused_field_is_refused_by_name_with_its_reason(tmp_path, field):
         PC.load_config(path)
     msg = str(e.value)
     assert repr(field) in msg and PC.REFUSED_FIELDS[field] in msg
-    queue = "Queue 3" if field == "compile_cache_dir" else "Queue 1"
-    assert queue in PC.REFUSED_FIELDS[field]
+    # Both are stated differences of the port (ROADMAP Queue 3).
+    assert "Queue 3" in PC.REFUSED_FIELDS[field]
     # parallel/ serves the mesh and multi-host fields: none is refused for it.
     assert "parallel/" not in PC.REFUSED_FIELDS[field]
     assert field in ("profiler_port", "compile_cache_dir")

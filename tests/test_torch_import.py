@@ -40,7 +40,7 @@ def test_importing_the_port_loads_no_jax():
                  "serving.acceptor_telemetry", "serving.httpframe", "serving.fleet",
                  "serving.httpclient", "deploy", "deploy.stage", "deploy.render",
                  "engine.tensorfile", "parallel", "parallel.mesh", "parallel.lockstep",
-                 "parallel.ring_attention"):
+                 "parallel.ring_attention", "benchmark", "utils.cudatime"):
         assert f"pytorch_zappa_serverless_tpu_torch.{lane}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -140,7 +140,7 @@ def test_the_acceptor_workers_closure_loads_no_torch():
 def test_the_router_loads_no_aiohttp_and_its_client_no_torch():
     """The fleet router (``serving/fleet.py``) serves and calls on the
     standard library: importing it, and starting and stopping a router,
-    loads no aiohttp (the card's machine has none) and nothing forbidden;
+    loads no aiohttp (the port depends on none) and nothing forbidden;
     the HTTP client's closure, like the framing's, loads no torch."""
     code = ("import json, sys\n"
             "import pytorch_zappa_serverless_tpu_torch.serving.httpclient as C\n"

@@ -1151,6 +1151,43 @@ def _sd_tiny():
 
 
 @pytest.mark.cuda
+def test_sd_queue_job_replays_the_job_lanes_graphs(cuda_device):
+    """``queue_job`` (what the bench times of a job) replays the graphs the
+    job lane captured and no other: its outputs equal a job through
+    ``chunk_prepare``, ``chunk_step`` and ``chunk_finalize`` byte for byte,
+    with the same launches and no new capture."""
+    from pytorch_zappa_serverless_tpu_torch.ops import counters
+
+    eng = _sd_tiny()
+    try:
+        cm = eng.model("sd15")
+        ch = cm.servable.meta["chunked"]
+        samples = [cm.servable.preprocess({"prompt": "a red fox", "seed": 3})]
+
+        def lane():
+            before = counters.snapshot()
+            _, state = cm.chunk_prepare(samples)
+            for rows in ch["chunk_rows"]:
+                state = cm.chunk_step(state, rows)
+            return cm.chunk_finalize(state, samples)[0]["pixels"], counters.delta(before)
+
+        def queued():
+            graphs, before = cm.graphs, counters.snapshot()
+            out = cm.queue_job(samples)
+            launches = counters.delta(before)
+            assert cm.graphs == graphs
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+            return cm.servable.postprocess(host, 0)["pixels"], launches
+
+        want, want_launches = eng.runner.run_fn_sync(lane)
+        got, launches = eng.runner.run_fn_sync(queued)
+        assert np.array_equal(got, want)
+        assert launches == want_launches and launches["flash_attention"] > 0
+    finally:
+        eng.shutdown()
+
+
+@pytest.mark.cuda
 def test_sd_prepare_and_finalize_graphs_replay_as_eager(cuda_device):
     """SD-1.5's prepare (the CLIP encode) and finalize (the VAE decode) are
     captured a bucket at warm-up: each replay equals its eager run byte for
