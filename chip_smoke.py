@@ -196,8 +196,9 @@ first line says which of ``safetensors``, ``tokenizers``, ``yaml`` and
    a second capture meanwhile answers 409, and ResNet-50 restored from the
    host tier while the profile is open captures and answers byte-equal;
    ``/metrics`` with exemplars against the manifest.  (4) The kill -9 test
-   (``tools/crashtest.py``) with SD-1.5 at 512x512, 20 steps (booted from
-   phase 22a's staged tree): four
+   (``tools/crashtest.py``; its servers are processes of their own, so it
+   runs in a thread beside (1)-(3)) with SD-1.5 at 512x512, 20 steps (booted
+   from phase 22a's staged tree): four
    journaled jobs, a SIGKILL with a backlog, the restart: none lost, every
    resubmit deduped, a recovered job's PNG byte-equal to the same payload
    run fresh (boot seconds, ``replay_ms``, job seconds and flash launches
@@ -223,7 +224,8 @@ first line says which of ``safetensors``, ``tokenizers``, ``yaml`` and
    alone, then together: they swap to host (``pressure`` migrations, no
    eviction) and each equals its run alone byte for byte; with a
    ``migration`` drop on every swap they evict instead and still finish.
-   (3) Two ``cli serve`` processes (``tools/streammove.py``): a stream moved
+   (3) Two ``cli serve`` processes (``tools/streammove.py``; in a thread
+   beside the in-process checks, its dedup stream held after them): a stream moved
    mid-decode by snapshot, cutover, import, commit and attach, byte-equal to
    the source's control with no token lost or repeated; moved again with its
    prompt pages deduped; a corrupt page caught and fetched again; a drop
@@ -2095,7 +2097,10 @@ def run_fused(profile: bool, cfg=None, device: str = "cuda") -> dict:
 # JAX package's dev-profile buckets.
 VISION = {"resnet50": (1, 4, 8, 32), "resnet18": (1, 8), "efficientnet_b0": (1, 8)}
 VISION_SIZE = 224
-VISION_SERVED = 60  # sequential single-image requests for the served p50
+VISION_SERVED = 30  # sequential single-image requests for the served p50 (a reading)
+# Trials of an eager forward's device time (a reading beside the replay's;
+# device_ms's default is 15): vision, ViT and bert_embed buckets.
+EAGER_TRIALS = 5
 # bf16 served top-k against an fp32 eager run (TF32 off) of the same weights,
 # on the fp32 top-k indices: |ln p_bf16 - ln p_fp32| <= 2·VISION_TAU·sigma,
 # sigma the fp32 logits' standard deviation.  bf16 rounds every conv output,
@@ -2320,7 +2325,7 @@ def phase_vision_timing(engine, size: int) -> dict:
                     cm._apply(g.inputs, None)
 
             replay_ms = engine.runner.run_fn_sync(device_ms, graph.captured.replay)
-            eager_ms = engine.runner.run_fn_sync(device_ms, eager)
+            eager_ms = engine.runner.run_fn_sync(device_ms, eager, EAGER_TRIALS)
             f = flops * bucket[0]
             flop_ms = 1e3 * f / PEAK_BF16_FLOPS
             bytes_ms = 1e3 * cm.param_nbytes() / PEAK_BYTES_PER_S
@@ -2471,7 +2476,10 @@ def run_vision(profile: bool) -> dict:
 # ``whisper_tiny`` on the int8 lane and ``whisper_bf16`` (the same builder)
 # with f32 weights at rest.
 WHISPER = {"batch_buckets": (1, 4), "max_new_tokens": 64}
-WHISPER_SERVED = 20  # sequential single 3 s WAVs for the served p50
+WHISPER_SERVED = 10  # sequential single 3 s WAVs for the served p50 (a reading)
+# Trials of a whole eager generate call's or segment's device time (a
+# reading; each trial waits behind a spin of three times its host time).
+EAGER_CALL_TRIALS = 1
 # The int8 lane's teacher-forced logits, kernel vs plain route: relative max
 # error, GPT2_LOGIT_RTOL's reasons (one bf16 ulp a projection, carried on by
 # the layers after it).
@@ -2713,7 +2721,7 @@ def phase_whisper_timing(engine) -> dict:
             def timings(g=graph):
                 with torch.inference_mode():
                     enc = capture(encoder, engine.device)
-                return (device_ms(g.captured.replay), device_ms(eager, reps=3),
+                return (device_ms(g.captured.replay), device_ms(eager, reps=EAGER_CALL_TRIALS),
                         device_ms(enc.replay))
 
             replay_ms, eager_ms, enc_ms = engine.runner.run_fn_sync(timings)
@@ -2936,7 +2944,7 @@ def phase_vit_embed_timing(engine) -> dict:
                     cm._apply(g.inputs, None)
 
             replay_ms = engine.runner.run_fn_sync(device_ms, graph.captured.replay)
-            eager_ms = engine.runner.run_fn_sync(device_ms, eager)
+            eager_ms = engine.runner.run_fn_sync(device_ms, eager, EAGER_TRIALS)
             rows[(name, bucket)] = {"replay_ms": replay_ms, "eager_ms": eager_ms}
             log(f"{name} bucket {bucket}: device ms replayed {replay_ms:.4f}, eager "
                 f"{eager_ms:.4f}; {1e3 * bucket[0] / replay_ms:.1f} inputs/s")
@@ -4134,7 +4142,7 @@ def phase_gen_timing(engine, scheds: dict | None = None) -> dict:
                     m["segment"](tree, k.cache_k, k.cache_v, *c, gates=greedy)
 
         def timings(g=g, eager=eager):
-            return device_ms(g.captured.replay), device_ms(eager, reps=3)
+            return device_ms(g.captured.replay), device_ms(eager, reps=EAGER_CALL_TRIALS)
 
         replay_ms, eager_ms = engine.runner.run_fn_sync(timings)
         seg = meta["segment_tokens"]
@@ -5010,7 +5018,7 @@ def run_residency(card: str) -> dict:
 PLANE_BERT = (1, 8)        # BERT-base int8 batch buckets, at seq 128
 PLANE_VISION = (1, 8)      # ResNet-50 bf16 batch buckets, at 224x224
 PLANE_GEN = {"gen_slots": 8, "segment_tokens": 8, "max_new_tokens": 16}
-PLANE_REQS = 40            # sequential requests a lane for the client p50
+PLANE_REQS = 20            # sequential requests a lane for the client p50 (a reading)
 PLANE_TRACED = 16          # sequential traceparent-joined BERT requests, check 2
 PLANE_PROFILE_S = 1.0
 PLANE_SD_JOBS = 4          # the kill -9 test's journaled SD-1.5 jobs
@@ -5365,11 +5373,14 @@ def run_plane(card: str, sd_checkpoint: str | None = None) -> dict:
 
     fresh_memory()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="tpuserve-plane-") as tmp:
+    with tempfile.TemporaryDirectory(prefix="tpuserve-plane-") as tmp, \
+            ThreadPoolExecutor(1) as ex:
+        # Check 4's servers are processes of their own: the test runs in a
+        # thread beside checks 1-3 in this process.
+        crashing = ex.submit(phase_plane_crash, card, tmp + "/crash", checkpoint=sd_checkpoint)
         run = phase_plane_path(plane_config(tmp + "/traces"))
         check(run["counts"]["flash_attention"] == 0, f"flash on the plane path: {run['counts']}")
-        fresh_memory()
-        crash = phase_plane_crash(card, tmp + "/crash", checkpoint=sd_checkpoint)
+        crash = crashing.result()
     log(f"{card}: request plane (phase 16) in {time.perf_counter() - t0:.3f} s: serving "
         f"checks {run['seconds']:.3f} s, kill -9 {crash['seconds']:.3f} s; SD job seconds "
         f"with prepare and finalize captured {SD_EDGES.get('captured', 0.0):.4f}, eager "
@@ -5751,7 +5762,9 @@ def phase_mobility_move(card: str, workdir: str, engine, platform: str = "cuda",
     is caught by the importer and fetched again; a drop answers 503 with
     Retry-After, and an abort resumes the stream in place.  No token is
     lost or repeated: the source streams up to the watermark and ends with
-    the migrated event, the attach streams the rest."""
+    the migrated event, the attach streams the rest.  With ``engine`` None
+    the dedup stream's hold is left to the caller (``out["dedup_held"]``,
+    :func:`hold_mobility_dedup`)."""
     from pytorch_zappa_serverless_tpu_torch.tools import streammove
 
     t0 = time.perf_counter()
@@ -5773,13 +5786,13 @@ def phase_mobility_move(card: str, workdir: str, engine, platform: str = "cuda",
           f"fresh: {out['fresh']['dedup_pages']} pages deduped, tokens equal "
           f"{out['fresh']['tokens'] == ctl['fresh']}")
     check(out["dedup"]["dedup_pages"] >= 1, f"dedup: {out['dedup']['dedup_pages']} pages deduped")
-    dedup_equal = out["dedup"]["tokens"] == ctl["dedup"]
-    if not dedup_equal:
-        hold_streams(engine, "gpt2_plain", [{
-            "tag": "dedup", "ids": out["bodies"]["dedup"]["input_ids"],
-            "tokens": out["dedup"]["tokens"],
-            "ended": len(out["dedup"]["tokens"]) < model["extra"]["max_new_tokens"],
-            "knobs": {}}], MOB["gen_slots"], (MOB["chunk"], MOB["block_size"]))
+    out["dedup_held"] = out["dedup"]["tokens"] != ctl["dedup"]
+    out["dedup_stream"] = {
+        "tag": "dedup", "ids": out["bodies"]["dedup"]["input_ids"],
+        "tokens": out["dedup"]["tokens"],
+        "ended": len(out["dedup"]["tokens"]) < model["extra"]["max_new_tokens"], "knobs": {}}
+    if out["dedup_held"] and engine is not None:
+        hold_mobility_dedup(engine, out)
     check(out["corrupt"]["attempts"] == 2 and out["corrupt"]["tokens"] == ctl["corrupt"],
           f"corrupt: {out['corrupt']['attempts']} import attempts, tokens equal "
           f"{out['corrupt']['tokens'] == ctl['corrupt']}")
@@ -5812,8 +5825,17 @@ def phase_mobility_move(card: str, workdir: str, engine, platform: str = "cuda",
     return out
 
 
+def hold_mobility_dedup(engine, move: dict) -> None:
+    """Check 3's dedup stream, where it is not byte-equal to its control,
+    held under the margin rule on phase 17's in-process engine."""
+    hold_streams(engine, "gpt2_plain", [move["dedup_stream"]], MOB["gen_slots"],
+                 (MOB["chunk"], MOB["block_size"]))
+
+
 def run_mobility(card: str) -> dict:
-    """Phase 17: stream mobility and speculation on the paged lane."""
+    """Phase 17: stream mobility and speculation on the paged lane.  Check 3
+    (two ``cli serve`` processes of its own) runs in a thread beside the
+    in-process checks; its dedup stream is held here after both."""
     import tempfile
 
     fresh_memory()
@@ -5822,11 +5844,15 @@ def run_mobility(card: str) -> dict:
     engine = run["engine"]
     try:
         log_memory("mobility", engine)
-        checked = check_mobility(run)
-        check(run["counts"]["flash_attention"] == 0, f"flash on the mobility path: "
-                                                     f"{run['counts']}")
-        with tempfile.TemporaryDirectory(prefix="tpuserve-move-") as tmp:
-            move = phase_mobility_move(card, tmp, engine)
+        with tempfile.TemporaryDirectory(prefix="tpuserve-move-") as tmp, \
+                ThreadPoolExecutor(1) as ex:
+            moving = ex.submit(phase_mobility_move, card, tmp, None)
+            checked = check_mobility(run)
+            check(run["counts"]["flash_attention"] == 0, f"flash on the mobility path: "
+                                                         f"{run['counts']}")
+            move = moving.result()
+        if move["dedup_held"]:
+            hold_mobility_dedup(engine, move)
     finally:
         engine.shutdown()
     launches = run["counts"]["int8_matmul"] + move["int8_launches"]
@@ -6993,7 +7019,7 @@ def run_tenancy(card: str) -> dict:
 INGEST_WORKERS = 2
 INGEST_SINGLES = 24        # sequential single frames a model and lane, check 1
 INGEST_EIGHTS = 4          # sequential 8-instance frames a model and lane, check 1
-INGEST_REQS = 40           # sequential single requests a model and lane, the client p50
+INGEST_REQS = 20           # sequential single requests a model and lane, the client p50
 INGEST_INFLIGHT = 4        # requests in flight at the kill -9, check 5
 INGEST_SLOW_MS = 400       # the injected dispatch latency of checks 1 and 5
 # Ring geometry: an 8-instance 224x224x3 uint8 frame is 1,204,224 bytes, past
@@ -7424,7 +7450,7 @@ def run_ingest(card: str) -> dict:
 FLEET_POLL_S = 0.4          # the router's poll interval (2 missed polls quarantine)
 FLEET_PREDICTS = 16         # BERT predicts routed and direct, check 1
 FLEET_STREAMS = 4           # GPT-2 streams routed and direct, check 1
-FLEET_TIMING_REQS = 100     # sequential single predicts routed and direct, the overhead
+FLEET_TIMING_REQS = 50      # sequential single predicts routed and direct, the overhead
 FLEET_NEW = 32              # new tokens a check-1 stream
 FLEET_JOBS = 6              # acknowledged :submit jobs at the kill, check 3
 FLEET_SLOW_MS = 600.0       # the latency of check 3's replica rule, and slow_replica's

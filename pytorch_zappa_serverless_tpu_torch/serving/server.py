@@ -3260,6 +3260,11 @@ class BackgroundServer:
             return await out if asyncio.iscoroutine(out) else out
         return asyncio.run_coroutine_threadsafe(run(), self._loop).result(timeout)
 
+    async def run_on_loop(self, coro):
+        """Await ``coro`` run on the server's loop from another event loop
+        (a client's), without blocking that loop."""
+        return await asyncio.wrap_future(asyncio.run_coroutine_threadsafe(coro, self._loop))
+
     def __exit__(self, *exc):
         try:
             asyncio.run_coroutine_threadsafe(self.server.stop(), self._loop).result(30)

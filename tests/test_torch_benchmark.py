@@ -27,8 +27,8 @@ from pytorch_zappa_serverless_tpu_torch import benchmark as B
 ROOT = Path(__file__).resolve().parents[1]
 
 # Keys of the JAX record the port does not carry: its TPU target, the
-# compile-cache boot pair and the relay's TTFT estimate.
-DROPPED = {"target_ms", "meets_target", "warm_boot_s", "speedup", "ttft_est_tpu_vm_ms"}
+# compile-cache boot pair and warm-cache tier, and the relay's figures.
+DROPPED = set(B.DROPPED)
 
 GPT2_ARCH = {"vocab_size": 512, "d_model": 128, "layers": 2, "heads": 2, "ffn_dim": 256,
              "max_positions": 128, "eos_id": 511}
@@ -105,12 +105,19 @@ def test_batched_throughput_matches_the_reference(JB):
         assert B._batched_throughput(lane, per) == JB._batched_throughput(lane, per)
 
 
+# The core sections (the plane sections' line is held in
+# tests/test_torch_bench_wiring.py).
+CORE = [s for s in B._COMPACT_KEYS if s in B.SECTIONS and s != "mixed_path"]
+
+
 def _section_entries(scale: float = 1.0, pad: int = 0) -> dict:
-    """One entry a section, carrying every compact key of either package
-    (``pad`` long extra strings make the line outgrow its budget)."""
-    keys = sorted({k for ks in JB_KEYS().values() for k in ks} | {"e2e_p50_ms", "batch"})
+    """One entry a core section, carrying every compact key of either
+    package's core sections (``pad`` long extra strings make the line
+    outgrow its budget)."""
+    keys = sorted({k for name, ks in JB_KEYS().items() if name in CORE for k in ks}
+                  | {"e2e_p50_ms", "batch"})
     out = {}
-    for i, name in enumerate(list(B._COMPACT_KEYS) + ["unlisted"]):
+    for i, name in enumerate(CORE + ["unlisted"]):
         entry = {k: round(scale * (i + 1) * (j + 1.5), 3) for j, k in enumerate(keys)}
         entry["meets_target"] = bool(i % 2)
         if pad:
@@ -175,14 +182,15 @@ def test_compact_summary_and_its_trimming_match_the_reference(JB, stage):
 
 
 def test_compact_keys_are_the_references_but_the_dropped_and_unported():
+    """Every section of the reference's compact line, none left unported;
+    each entry the reference's less the dropped keys."""
     from pytorch_zappa_serverless_tpu import benchmark as jb
 
-    plane = {"mixed_path", "trace_path", "serverpath", "lifecycle", "generation_v2",
-             "replay", "autoscale", "disagg"}
-    assert set(B._COMPACT_KEYS) == set(jb._COMPACT_KEYS) - plane
+    assert set(B._COMPACT_KEYS) == set(jb._COMPACT_KEYS)
     for name, keys in B._COMPACT_KEYS.items():
         assert keys == tuple(k for k in jb._COMPACT_KEYS[name] if k not in DROPPED)
-    assert set(B.SECTIONS) == set(B._COMPACT_KEYS)
+    assert set(B.SECTIONS) <= set(B._COMPACT_KEYS)
+    assert set(B._COMPACT_KEYS) <= set(B.SECTIONS) | {n for _, n in B.PLANE_SECTIONS}
 
 
 # -- (b) the sections' inputs are the reference's --------------------------------
@@ -288,7 +296,9 @@ def _check_cold_start(entry: dict) -> None:
 
 # cold_start runs in the command line's test below, through the same
 # run_section in a process of its own: its two boots are processes anyway.
-@pytest.mark.parametrize("name", [s for s in B.SECTIONS if s != "cold_start"])
+# mixed_path, a plane section, runs narrow in tests/test_torch_bench_serving.py.
+@pytest.mark.parametrize("name", [s for s in B.SECTIONS if s not in ("cold_start",
+                                                                     "mixed_path")])
 def test_section_runs_at_narrow_widths_on_the_cpu(tiny, monkeypatch, name):
     if name in SHORT_TRIALS:
         monkeypatch.setattr(B, "_LATENCY_TRIALS", SHORT_TRIALS[name])

@@ -40,7 +40,8 @@ def test_importing_the_port_loads_no_jax():
                  "serving.acceptor_telemetry", "serving.httpframe", "serving.fleet",
                  "serving.httpclient", "deploy", "deploy.stage", "deploy.render",
                  "engine.tensorfile", "parallel", "parallel.mesh", "parallel.lockstep",
-                 "parallel.ring_attention", "benchmark", "utils.cudatime"):
+                 "parallel.ring_attention", "benchmark", "utils.cudatime", "tools.replay",
+                 "tools.tracedump"):
         assert f"pytorch_zappa_serverless_tpu_torch.{lane}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -165,6 +166,38 @@ def test_the_router_loads_no_aiohttp_and_its_client_no_torch():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == [[], []]
+
+
+def test_the_bench_and_its_tools_load_no_root_tool_and_no_aiohttp():
+    """The bench's plane sections and the port's ``tools/replay.py`` and
+    ``tools/tracedump.py`` load neither the root ``tools/`` scripts (the
+    reference's ``replay.py``, ``crashtest.py``, ``tracedump.py``) nor aiohttp:
+    importing them, synthesizing a trace, summarizing it, attributing a
+    trace's stages and naming the sections load nothing from the root tools
+    directory."""
+    code = ("import json, sys, importlib\n"
+            "from pathlib import Path\n"
+            "import pytorch_zappa_serverless_tpu_torch.benchmark as B\n"
+            "from pytorch_zappa_serverless_tpu_torch.tools import replay as R, tracedump as T\n"
+            "from pytorch_zappa_serverless_tpu_torch.tools import crashtest\n"
+            "tr = R.synth_trace('bursty', 3.0, 8.0, ['a', 'b'], seed=7)\n"
+            "R.summarize([{'status': 200, 'latency_ms': 1.0} for _ in tr], 3.0, 500.0)\n"
+            "T.stage_attribution({'tree': {'name': 'r', 'duration_ms': 2.0, 'children': []}})\n"
+            "B.sections_to_run(); R.default_payload()\n"
+            "tools = Path('tools').resolve()\n"
+            "root = sorted(n for n, m in sys.modules.items() if getattr(m, '__file__', None)\n"
+            "              and Path(m.__file__).resolve().parent == tools)\n"
+            f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {('aiohttp',) + FORBIDDEN!r})\n"
+            "print(json.dumps([root, bad]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [[], []]
+    for path in (PORT / "benchmark.py", *sorted((PORT / "tools").glob("*.py"))):
+        text = path.read_text()
+        for name in ("replay", "crashtest", "tracedump"):
+            assert f'"tools" / "{name}.py"' not in text and f"tools/{name}.py\")" not in text
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
